@@ -1,0 +1,62 @@
+"""Scene binding: add a whole tet mesh (nodes, masses, energies) to a Solver.
+
+A port of ``admm_elastic_tpu/binding.py`` ``add_tetmesh`` (reference
+samples/utils/AddMeshes.hpp:97-177): rubber-density lumped masses,
+zero-mass validation, node append, energy family by flag. Self-collision
+is not ported yet, so a mesh must carry NOSELFCOLLISION.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from admm_elastic_tpu_torch.geometry.mesh import TetMesh
+from admm_elastic_tpu_torch.materials import Lame
+from admm_elastic_tpu_torch.solver import Solver
+
+# Mesh flags bitmask (AddMeshes.hpp:57-62).
+NOSELFCOLLISION = 1 << 1
+LINEAR = 1 << 2
+NEOHOOKEAN = 1 << 3
+STVK = 1 << 4
+SPLINE = 1 << 5  # Xu-spline material family
+
+_FLAG_TO_MODEL = {
+    LINEAR: "linear",
+    NEOHOOKEAN: "neohookean",
+    STVK: "stvk",
+    SPLINE: "spline_nh",
+}
+
+RUBBER_DENSITY = 1522.0  # kg/m^3 (AddMeshes.hpp:105)
+
+
+def add_tetmesh(solver: Solver, mesh: TetMesh, lame: Lame | None = None, verbose: bool = True,
+                density: float = RUBBER_DENSITY):
+    """Append a tet mesh to the solver; returns its vertex offset."""
+    if not (mesh.flags & NOSELFCOLLISION):
+        raise NotImplementedError(
+            "self-collision is not ported yet: set NOSELFCOLLISION in mesh.flags "
+            "(ROADMAP Queue 1 item 10)")
+    if lame is None:
+        lame = Lame.rubber()
+    prev_verts = solver._n_verts
+    masses = mesh.weighted_masses(density)
+    if np.any(masses <= 0.0):
+        raise RuntimeError("TetMesh Error: Zero mass")
+    solver.add_nodes(mesh.vertices, masses)
+
+    model = "linear"
+    for flag, m in _FLAG_TO_MODEL.items():
+        if mesh.flags & flag:
+            model = m
+    solver.add_tet_energies(mesh.vertices, mesh.tets, lame, model=model,
+                            vertex_offset=prev_verts,
+                            lattice_dims=mesh.lattice_dims,
+                            lattice_wrap=mesh.lattice_wrap)
+    if verbose:
+        print(
+            f"Added mesh:\n\tmass: {masses.sum()}kg\n\tvertices: {len(mesh.vertices)}"
+            f"\n\ttets: {len(mesh.tets)}\n\t(total) verts: {solver._n_verts}"
+        )
+    return prev_verts

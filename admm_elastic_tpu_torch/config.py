@@ -1,0 +1,88 @@
+"""Solver settings (the ``linsolver=0`` slice of the JAX package's config).
+
+The fields and defaults are those of ``admm_elastic_tpu.config.Settings``
+so that one settings object reads the same in both packages. Only the
+prefactored direct solve (``linsolver=LDLT``, ``direct_mode="inv"``) runs
+in this package; the solver raises ``NotImplementedError`` for the rest.
+
+``dtype=None`` means float32 here. The JAX package follows
+``jax_enable_x64`` instead; this package changes no global default.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+# Linear solver ids (reference: src/Solver.hpp:47, `-ls <int>`)
+LDLT = 0  # prefactored direct solve (no collisions allowed)
+NCMCGS = 1  # nodal-constrained multicolor Gauss-Seidel
+UZAWACG = 2  # Uzawa saddle-point CG
+PCG = 3  # matrix-free Jacobi-preconditioned CG
+ALPCG = 4  # augmented-Lagrangian PCG hard contact
+
+
+@dataclasses.dataclass
+class Settings:
+    """Simulation settings; defaults match the reference (src/Solver.hpp:48-49)."""
+
+    timestep_s: float = 1.0 / 24.0  # -dt
+    verbose: int = 1  # -v
+    admm_iters: int = 10  # -it
+    gravity: float = -9.8  # -g
+    linsolver: int = LDLT  # -ls; only LDLT runs in this package
+    constraint_w: float = -1.0  # -ck (-1 = auto)
+
+    # None -> float32; np.float32/np.float64 or torch.float32/torch.float64.
+    dtype: Optional[object] = None
+    gs_max_iters: int = 30
+    gs_tol: float = 1e-10
+    gs_omega: float = 1.9
+    uzawa_max_iters: int = 20
+    uzawa_tol: float = 1e-10
+    uzawa_inner: str = "auto"
+    uzawa_dense_max_verts: int = 8192
+    # Above this vertex count the JAX package serves linsolver=0 through
+    # ELL-PCG; this package has no PCG yet and raises instead.
+    direct_max_verts: int = 12000
+    uzawa_inner_tol: float = 1e-8
+    uzawa_inner_iters: int = 200
+    pcg_max_iters: int = 200
+    pcg_tol: float = 1e-10
+    pcg_precond: str = "jacobi"
+    # "inv" = the Jacobi-equilibrated inverse applied as one GEMM per solve.
+    direct_mode: str = "inv"
+    # Newton iterations of the hyperelastic prox (src/TetEnergyTerm.cpp:133).
+    prox_newton_iters: int = 8
+    aa_window: int = 0
+    aa_safeguard: float = 1.0
+    log_inner: bool = False
+    log_inner_iters: int = 0
+    unroll_admm: bool = False
+    # Iterative-refinement passes after each direct solve (see
+    # Solver._refine_eff: unpinned float32 systems take at least one).
+    refine_passes: int = 0
+
+
+_DTYPES = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+}
+
+
+def resolve_dtype(settings: Settings) -> torch.dtype:
+    """The torch dtype the settings ask for: float32 unless stated."""
+    d = settings.dtype
+    if d is None:
+        return torch.float32
+    if isinstance(d, torch.dtype):
+        if d not in (torch.float32, torch.float64):
+            raise ValueError(f"unsupported dtype {d}")
+        return d
+    nd = np.dtype(d)
+    if nd not in _DTYPES:
+        raise ValueError(f"unsupported dtype {nd}")
+    return _DTYPES[nd]

@@ -1,0 +1,1 @@
+"""geometry of the PyTorch port (see the package docstring)."""

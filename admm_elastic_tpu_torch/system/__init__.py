@@ -1,0 +1,1 @@
+"""system of the PyTorch port (see the package docstring)."""
