@@ -1,16 +1,17 @@
-"""Scene binding: add a whole tet mesh (nodes, masses, energies) to a Solver.
+"""Scene binding: add a whole mesh (nodes, masses, energies) to a Solver.
 
-A port of ``admm_elastic_tpu/binding.py`` ``add_tetmesh`` (reference
-samples/utils/AddMeshes.hpp:97-177): rubber-density lumped masses,
-zero-mass validation, node append, energy family by flag. Self-collision
-is not ported yet, so a mesh must carry NOSELFCOLLISION.
+A port of ``admm_elastic_tpu/binding.py`` ``add_tetmesh`` and ``add_trimesh``
+(reference samples/utils/AddMeshes.hpp:97-235): lumped masses, zero-mass
+validation, node append, tet energy family by flag (linear, neo-Hookean, StVK,
+Xu spline). Self-collision is not ported yet, so a tet mesh must carry
+NOSELFCOLLISION.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from admm_elastic_tpu_torch.geometry.mesh import TetMesh
+from admm_elastic_tpu_torch.geometry.mesh import TetMesh, TriangleMesh
 from admm_elastic_tpu_torch.materials import Lame
 from admm_elastic_tpu_torch.solver import Solver
 
@@ -58,5 +59,25 @@ def add_tetmesh(solver: Solver, mesh: TetMesh, lame: Lame | None = None, verbose
         print(
             f"Added mesh:\n\tmass: {masses.sum()}kg\n\tvertices: {len(mesh.vertices)}"
             f"\n\ttets: {len(mesh.tets)}\n\t(total) verts: {solver._n_verts}"
+        )
+    return prev_verts
+
+
+def add_trimesh(solver: Solver, mesh: TriangleMesh, lame: Lame | None = None,
+                verbose: bool = True, density: float = 1.0):
+    """Append a triangle (cloth) mesh (AddMeshes.hpp:186-235); returns its
+    vertex offset."""
+    if lame is None:
+        lame = Lame.rubber()
+    prev_verts = solver._n_verts
+    masses = mesh.weighted_masses(density)
+    if np.any(masses <= 0.0):
+        raise RuntimeError("TriMesh Error: Zero mass")
+    solver.add_nodes(mesh.vertices, masses)
+    solver.add_tri_energies(mesh.vertices, mesh.faces, lame, vertex_offset=prev_verts)
+    if verbose:
+        print(
+            f"Added mesh:\n\tmass: {masses.sum()}kg\n\tvertices: {len(mesh.vertices)}"
+            f"\n\ttris: {len(mesh.faces)}\n\t(total) verts: {solver._n_verts}"
         )
     return prev_verts

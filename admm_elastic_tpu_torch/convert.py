@@ -11,10 +11,15 @@ both packages can step from the same arrays (``Solver.load_arrays``).
      "tets": [{"inds", "Dlocal", "vol", "weight", "mu", "lam", "kappa",
                "st_dl", "st_par", "st_dead", "stencil": meta tuple,
                "model": str, "n_live": int}, ...],
+     "tris": [{"inds", "Dlocal", "area", "weight", "mu", "lam", "limit_min",
+               "limit_max", "st_dl", "st_dead", "stencil": meta tuple,
+               "n_live": int}, ...]  (optional),
      "pins": None or {"idx", "target", "active", "weight"}}
 
 ``direct_from_numpy`` reads ``mat``, ``scale`` and the optional
 ``pin_idx``, ``pin_cols``, ``pin_vals``, ``pin_diag``.
+``wind_force_from_numpy`` reads a WindForce's ``tris``, ``direction`` and,
+for the colored order, ``color_tris`` and ``color_mask``.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from admm_elastic_tpu_torch.forces import WindForce
+from admm_elastic_tpu_torch.forces import wind_force_from_numpy as _wind_force
 from admm_elastic_tpu_torch.ops.prox import check_model
 from admm_elastic_tpu_torch.solvers.direct import DirectData
-from admm_elastic_tpu_torch.system.elements import PinBatch, TetBatch
+from admm_elastic_tpu_torch.system.elements import PinBatch, TetBatch, TriBatch
 from admm_elastic_tpu_torch.system.system import SimState, System
 
 
@@ -67,6 +74,21 @@ def tet_batch_from_numpy(d: dict, *, device, dtype: torch.dtype) -> TetBatch:
     )
 
 
+def tri_batch_from_numpy(d: dict, *, device, dtype: torch.dtype) -> TriBatch:
+    base, g0, g1, pats = d["stencil"]
+    fields = {f: _f(d[f], device, dtype) for f in (
+        "Dlocal", "area", "weight", "mu", "lam", "limit_min", "limit_max", "st_dl",
+        "st_dead")}
+    return TriBatch(
+        inds=_i(d["inds"], device, torch.int32),
+        stencil=(int(base), int(g0), int(g1),
+                 tuple(tuple(int(v) for v in r) for r in pats)),
+        model="linear",
+        n_live=d.get("n_live"),
+        **fields,
+    )
+
+
 def system_from_numpy(d: dict, *, device, dtype: torch.dtype) -> System:
     pins = None
     if d.get("pins") is not None:
@@ -80,6 +102,8 @@ def system_from_numpy(d: dict, *, device, dtype: torch.dtype) -> System:
     return System(
         masses=_f(d["masses"], device, dtype),
         tets=tuple(tet_batch_from_numpy(t, device=device, dtype=dtype) for t in d["tets"]),
+        tris=tuple(tri_batch_from_numpy(t, device=device, dtype=dtype)
+                   for t in d.get("tris", ())),
         pins=pins,
         dt=float(d["dt"]),
     )
@@ -101,3 +125,8 @@ def direct_from_numpy(d: dict, *, device, dtype: torch.dtype) -> DirectData:
 def state_from_numpy(x, v, *, device, dtype: torch.dtype) -> SimState:
     return SimState(x=_f(np.reshape(x, (-1, 3)), device, dtype),
                     v=_f(np.reshape(v, (-1, 3)), device, dtype))
+
+
+def wind_force_from_numpy(d: dict, *, device, dtype: torch.dtype) -> WindForce:
+    return _wind_force(d["tris"], d["direction"], d.get("color_tris"), d.get("color_mask"),
+                       device=device, dtype=dtype, alpha_n=float(d.get("alpha_n", 1000.0)))

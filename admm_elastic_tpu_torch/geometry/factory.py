@@ -1,11 +1,11 @@
-"""Tet-block beams (numpy): a copy of ``make_tet_blocks`` from
-``admm_elastic_tpu.geometry.factory`` (mcl::factory::make_tet_blocks)."""
+"""Shape factories (numpy): a copy of ``make_plane``, ``make_tet_blocks`` and
+``make_xform`` from ``admm_elastic_tpu.geometry.factory`` (mcl::factory)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from admm_elastic_tpu_torch.geometry.mesh import TetMesh
+from admm_elastic_tpu_torch.geometry.mesh import TetMesh, TriangleMesh
 
 # The 5-tet decomposition of a cube (alternating parity to share faces).
 _CUBE_TETS_EVEN = [
@@ -22,6 +22,23 @@ _CUBE_TETS_ODD = [
     (2, 4, 6, 7),
     (1, 2, 7, 4),
 ]
+
+
+def make_plane(nx: int, ny: int, size: float = 1.0) -> TriangleMesh:
+    """A [-size, size]^2 planar grid in the xy-plane with nx x ny cells."""
+    xs = np.linspace(-size, size, nx + 1)
+    ys = np.linspace(-size, size, ny + 1)
+    verts = np.array([[x, y, 0.0] for y in ys for x in xs])
+    faces = []
+    for j in range(ny):
+        for i in range(nx):
+            v0 = j * (nx + 1) + i
+            v1 = v0 + 1
+            v2 = v0 + (nx + 1)
+            v3 = v2 + 1
+            faces.append([v0, v1, v3])
+            faces.append([v0, v3, v2])
+    return TriangleMesh(vertices=verts, faces=np.asarray(faces, dtype=np.int64))
 
 
 def make_tet_blocks(nx: int, ny: int, nz: int, cell: float = 1.0) -> TetMesh:
@@ -65,3 +82,19 @@ def make_tet_blocks(nx: int, ny: int, nz: int, cell: float = 1.0) -> TetMesh:
     # Structured-grid tag: the solver verifies it against the tets and
     # then takes the flat-stencil D / D^T path (ops/stencil.py).
     return TetMesh(vertices=verts, tets=tets, lattice_dims=(nx, ny, nz))
+
+
+def make_xform(trans=(0, 0, 0), rot_deg: float = 0.0, rot_axis=(1, 0, 0),
+               scale=(1, 1, 1)) -> np.ndarray:
+    """4x4 homogeneous transform T @ R @ S (mcl::XForm equivalent)."""
+    axis = np.asarray(rot_axis, dtype=np.float64)
+    axis = axis / max(np.linalg.norm(axis), 1e-30)
+    a = np.deg2rad(rot_deg)
+    c, s = np.cos(a), np.sin(a)
+    x, y, z = axis
+    K = np.array([[0, -z, y], [z, 0, -x], [-y, x, 0]])
+    R3 = np.eye(3) * c + s * K + (1 - c) * np.outer(axis, axis)
+    M = np.eye(4)
+    M[:3, :3] = R3 @ np.diag(scale)
+    M[:3, 3] = trans
+    return M

@@ -1,7 +1,7 @@
-"""Host tet mesh container and mesh utilities (numpy).
+"""Host tet and triangle mesh containers and mesh utilities (numpy).
 
-A copy of the tet part of ``admm_elastic_tpu.geometry.mesh``: surface
-faces, volumes and lumped masses.
+A copy of the tet and triangle parts of ``admm_elastic_tpu.geometry.mesh``:
+surface faces, volumes, areas and lumped masses.
 """
 
 from __future__ import annotations
@@ -43,6 +43,20 @@ def lumped_masses_tet(verts: np.ndarray, tets: np.ndarray, density: float) -> np
     return m
 
 
+def tri_areas(verts: np.ndarray, tris: np.ndarray) -> np.ndarray:
+    x3 = verts[tris]
+    n = np.cross(x3[:, 1] - x3[:, 0], x3[:, 2] - x3[:, 0])
+    return 0.5 * np.linalg.norm(n, axis=-1)
+
+
+def lumped_masses_tri(verts: np.ndarray, tris: np.ndarray, density: float) -> np.ndarray:
+    """Per-vertex lumped masses: density * area/3 to each triangle vertex."""
+    areas = tri_areas(verts, tris)
+    m = np.zeros((verts.shape[0],))
+    np.add.at(m, np.asarray(tris).reshape(-1), np.repeat(density * areas / 3.0, 3))
+    return m
+
+
 @dataclasses.dataclass
 class TetMesh:
     """Host tet mesh (mcl::TetMesh equivalent)."""
@@ -66,3 +80,19 @@ class TetMesh:
 
     def weighted_masses(self, density: float) -> np.ndarray:
         return lumped_masses_tet(self.vertices, self.tets, density)
+
+
+@dataclasses.dataclass
+class TriangleMesh:
+    """Host triangle mesh (mcl::TriangleMesh equivalent)."""
+
+    vertices: np.ndarray  # [V, 3]
+    faces: np.ndarray  # [F, 3]
+    flags: int = 0
+
+    def weighted_masses(self, density: float) -> np.ndarray:
+        return lumped_masses_tri(self.vertices, self.faces, density)
+
+    def apply_xform(self, M: np.ndarray):
+        v = self.vertices
+        self.vertices = (v @ M[:3, :3].T) + M[:3, 3]

@@ -1,10 +1,12 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
-The sources compile into one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds):
+The sources have a plain C interface (no PyTorch headers, so a build takes
+seconds). Each translation unit of ``UNITS`` compiles to an object file, all
+of them started together; the per-lane kernels are built once per precision:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/libadmm_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -Xptxas -v [-DADMM_REAL=float -DADMM_SFX=f32] -c csrc/<unit>.cu -o <unit>.o
+    nvcc -shared -o build/kernels/libadmm_kernels_<hash>.so *.o
 
 The library lands in ``build/kernels/`` at the root of the checkout and is
 named by a hash of the sources and flags, so a changed source rebuilds on
@@ -20,13 +22,21 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_PRECISIONS = (("f32", "float"), ("f64", "double"))
+# (source, precision suffix or None): stencil.cu holds both precisions itself.
+UNITS = tuple([("stencil.cu", None)]
+              + [(src, sfx) for src in ("local_step.cu", "prox.cu", "tri_local_step.cu")
+                 for sfx, _ in _PRECISIONS])
 
 _lock = threading.Lock()
 _lib = None
@@ -34,8 +44,14 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dix, u, mu, lam, kappa, k, z, uo, n, n_iters, sweeps, stream
-    "admm_local_step": [_P] * 8 + [_I, _I, _I, _P],
+    # dix, u, mu, lam, kappa, k, z, uo, n, model, n_iters, sweeps, stream
+    "admm_local_step": [_P] * 8 + [_I, _I, _I, _I, _P],
+    # zi, mu, lam, kappa, k, out, n, model, n_iters, sweeps, stream
+    "admm_prox_tet_hyper": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # zi, out, n, sweeps, stream
+    "admm_prox_tet_linear": [_P, _P, _I, _I, _P],
+    # dix, u, limit_min, limit_max, z, uo, n, stream
+    "admm_tri_local_step": [_P] * 6 + [_I, _P],
     # x, dl, par, dead, out, base, n_vblock, cells, geom, stream
     "admm_tet_dx": [_P] * 5 + [_I, _I, _I, _P, _P],
     # z, u, w, dl, par, out, n_verts, base, n_vblock, cells, geom, stream
@@ -53,32 +69,58 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
-
-
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(UNITS)).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless a library of the same hash exists; returns
-    its path. The ptxas report (registers, spills) goes to a .log beside it."""
+    """Compile the units of csrc/ in parallel and link them, unless a library
+    of the same hash exists; returns its path. The build time of each unit and
+    its ptxas report (registers, spills) go to a .log beside the library."""
     so = BUILD_DIR / f"libadmm_kernels_{_digest()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    t0 = time.perf_counter()
+    procs = []
+    for src, sfx in UNITS:
+        obj = BUILD_DIR / f"{tag}.{Path(src).stem}{'_' + sfx if sfx else ''}.o"
+        defs = []
+        if sfx:
+            defs = [f"-DADMM_REAL={dict(_PRECISIONS)[sfx]}", f"-DADMM_SFX={sfx}"]
+        cmd = [nvcc, *NVCC_FLAGS, *defs, "-c", str(CSRC / src), "-o", str(obj)]
+        procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {obj.name}: rc {proc.returncode}, done {time.perf_counter() - t0:.1f} s "
+                   f"after start\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{obj.name}:\n{out[-3000:]}")
+    objs = [str(obj) for obj, _ in procs]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
+                                  capture_output=True, text=True)
+            log.append(f"== link: rc {link.returncode}\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append(f"link:\n{link.stderr[-3000:]}")
+        so.with_suffix(".log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return so
 
 
@@ -89,7 +131,7 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             for name, args in _SIGNATURES.items():
-                for suffix in ("f32", "f64"):
+                for suffix, _ in _PRECISIONS:
                     fn = getattr(lib, f"{name}_{suffix}")
                     fn.argtypes = args
                     fn.restype = ctypes.c_int
@@ -101,3 +143,24 @@ def check(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {rc}")
+
+
+def cuda_args(name: str, lead, fields) -> str:
+    """Check what a kernel is handed and return its precision suffix.
+
+    lead must be a float32 / float64 CUDA tensor; every (field name, tensor,
+    shape) of fields must be contiguous, of that shape, on lead's device and
+    in lead's dtype: the kernels take raw pointers.
+    """
+    if lead.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {lead.device}")
+    if lead.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: unsupported dtype {lead.dtype}")
+    for fname, t, shape in fields:
+        if t.device != lead.device or t.dtype != lead.dtype:
+            raise ValueError(f"{name}: {fname} is {t.device}/{t.dtype}, "
+                             f"expected {lead.device}/{lead.dtype}")
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name}: {fname} has shape {tuple(t.shape)} "
+                             f"(contiguous={t.is_contiguous()}), expected {tuple(shape)}")
+    return "f32" if lead.dtype == torch.float32 else "f64"

@@ -27,27 +27,12 @@ def _geom(meta):
     return base, cells, n_vblock, (ctypes.c_int * 48)(*flat)
 
 
-def _cuda_args(name, lead, fields):
-    if lead.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {lead.device}")
-    if lead.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"{name}: unsupported dtype {lead.dtype}")
-    for fname, t, shape in fields:
-        if t.device != lead.device or t.dtype != lead.dtype:
-            raise ValueError(f"{name}: {fname} is {t.device}/{t.dtype}, "
-                             f"expected {lead.device}/{lead.dtype}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: {fname} has shape {tuple(t.shape)} "
-                             f"(contiguous={t.is_contiguous()}), expected {shape}")
-    return "f32" if lead.dtype == torch.float32 else "f64"
-
-
 def tet_Dx_rows(x: torch.Tensor, b) -> torch.Tensor:
     """D x for one stencil tet family: x [N, 3] -> rows [9, 5*cells]."""
     if x.device.type == "cpu":
         return stencil_mod.tet_Dx_rows_plain(x, b)
     base, cells, n_vblock, geom = _geom(b.stencil)
-    sfx = _cuda_args("tet_Dx_rows", x, (
+    sfx = _build.cuda_args("tet_Dx_rows", x, (
         ("x", x, (x.shape[0], 3)), ("st_dl", b.st_dl, (5, 4, 3, cells)),
         ("st_par", b.st_par, (cells,)), ("st_dead", b.st_dead, (cells,))))
     if base + n_vblock > x.shape[0]:
@@ -70,7 +55,7 @@ def tet_rhs_rows(z: torch.Tensor, u: torch.Tensor, b, n_verts: int) -> torch.Ten
         return stencil_mod.tet_rhs_rows_plain(z, u, b, n_verts)
     base, cells, n_vblock, geom = _geom(b.stencil)
     t = 5 * cells
-    sfx = _cuda_args("tet_rhs_rows", z, (
+    sfx = _build.cuda_args("tet_rhs_rows", z, (
         ("z", z, (9, t)), ("u", u, (9, t)), ("weight", b.weight, (t,)),
         ("st_dl", b.st_dl, (5, 4, 3, cells)), ("st_par", b.st_par, (cells,))))
     if base + n_vblock > n_verts:

@@ -13,15 +13,17 @@ TET_SPLINE_STVK = "spline_stvk"
 TET_SPLINE_COROT = "spline_corot"
 
 
+TET_MODELS = (TET_LINEAR, TET_NEOHOOKEAN, TET_STVK, TET_SPLINE_NH, TET_SPLINE_STVK,
+              TET_SPLINE_COROT)
+
+# Spline kinds of materials.spline_fgh (SPLINE_NEOHOOKEAN, _STVK, _COROTATED).
+SPLINE_KIND = {TET_SPLINE_NH: 0, TET_SPLINE_STVK: 1, TET_SPLINE_COROT: 2}
+
+
 def check_model(model: str) -> None:
-    """Raise for a tet model this package does not run yet."""
-    if model == TET_NEOHOOKEAN:
-        return
-    if model in (TET_LINEAR, TET_STVK, TET_SPLINE_NH, TET_SPLINE_STVK, TET_SPLINE_COROT):
-        raise NotImplementedError(
-            f"tet model {model!r} is not ported yet; only 'neohookean' runs "
-            "(ROADMAP Queue 1 item 5)")
-    raise ValueError(f"unknown hyperelastic model {model!r}")
+    """Raise for a name that is not one of the six tet models."""
+    if model not in TET_MODELS:
+        raise ValueError(f"unknown hyperelastic model {model!r}")
 
 
 def prox_pin(zi: torch.Tensor, target: torch.Tensor, active: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Structure-of-arrays 3x3 algebra and the signed SVD, in PyTorch.
 
-A port of ``admm_elastic_tpu/ops/soa.py:23-283``. Matrices are 9-tuples
-of same-shape tensors in row-major entry order, vectors 3-tuples. Every
-function performs the same operations in the same order as its JAX
-counterpart: these are the plain versions of the body of kernel A
-(``csrc/local_step.cu``), which repeats them line for line.
+A port of ``admm_elastic_tpu/ops/soa.py:23-376``. Matrices are 9-tuples
+of same-shape tensors in row-major entry order, vectors 3-tuples; a 3x2
+cloth deformation gradient is a 6-tuple (F00, F01, F10, F11, F20, F21).
+Every function performs the same operations in the same order as its JAX
+counterpart: these are the plain versions of the bodies of kernels A, D
+and F (``csrc/local_step.cu``) and E (``csrc/tri_local_step.cu``), which
+repeat them line for line.
 
 Two JAX semantics that PyTorch does not share are written out:
 ``torch.sign(nan)`` is 0 where ``jnp.sign(nan)`` is NaN (``_sign``), and
@@ -238,3 +240,112 @@ def solve3x3_sym_soa(h6, g):
         (B * g[0] + D * g[1] + E * g[2]) * inv,
         (C * g[0] + E * g[1] + F * g[2]) * inv,
     ), det
+
+
+# --- prox bodies on tuples ---------------------------------------------------------
+
+def prox_tet_linear_tuple(f, sweeps: int = 8):
+    """Linear-tet prox 1/2 (U V^T + F) on a 9-tuple (plain version of kernel F
+    and of the linear variant of kernel A)."""
+    U, _, V = signed_svd3_soa(f, sweeps=sweeps)
+    proj = matmul33_nt(U, V)
+    return tuple(0.5 * (p + z) for p, z in zip(proj, f))
+
+
+def polar_rotation_3x2_tuple(f):
+    """Closest orthonormal-column 3x2 to F on a 6-tuple, from the 2x2
+    eigen-decomposition of F^T F with its fallbacks."""
+    f00, f01, f10, f11, f20, f21 = f
+    dtype = f00.dtype
+    eps = torch.tensor(1e-12 if dtype == torch.float64 else 1e-7, dtype=dtype,
+                       device=f00.device)
+
+    # G = F^T F (2x2 SPD)
+    a = f00 * f00 + f10 * f10 + f20 * f20
+    b = f00 * f01 + f10 * f11 + f20 * f21
+    c = f01 * f01 + f11 * f11 + f21 * f21
+
+    tr = a + c
+    disc = torch.sqrt(torch.clamp((a - c) * (a - c) + 4.0 * b * b, min=0.0))
+    l1 = 0.5 * (tr + disc)
+    l2 = 0.5 * (tr - disc)
+
+    v1x, v1y = b, l1 - a
+    ax_, ay_ = l1 - c, b
+    use_alt = v1x * v1x + v1y * v1y < ax_ * ax_ + ay_ * ay_
+    v1x = torch.where(use_alt, ax_, v1x)
+    v1y = torch.where(use_alt, ay_, v1y)
+    n1 = torch.sqrt(v1x * v1x + v1y * v1y)
+    ok = n1 > eps
+    inv = 1.0 / torch.maximum(n1, eps)
+    v1x = torch.where(ok, v1x * inv, 1.0)
+    v1y = torch.where(ok, v1y * inv, 0.0)
+    v2x, v2y = -v1y, v1x
+    s1 = torch.sqrt(torch.clamp(l1, min=0.0))
+    s2 = torch.sqrt(torch.clamp(l2, min=0.0))
+
+    # U columns = F V / s with orthonormalization fallbacks.
+    u1 = (f00 * v1x + f01 * v1y, f10 * v1x + f11 * v1y, f20 * v1x + f21 * v1y)
+    u2 = (f00 * v2x + f01 * v2y, f10 * v2x + f11 * v2y, f20 * v2x + f21 * v2y)
+    inv1 = 1.0 / torch.maximum(s1, eps)
+    inv2 = 1.0 / torch.maximum(s2, eps)
+    u1 = tuple(x * inv1 for x in u1)
+    u2 = tuple(x * inv2 for x in u2)
+
+    nu1 = torch.sqrt(dot3(u1, u1))
+    ok1 = nu1 > eps
+    iu1 = 1.0 / torch.maximum(nu1, eps)
+    ex = (torch.ones_like(nu1), torch.zeros_like(nu1), torch.zeros_like(nu1))
+    u1 = tuple(torch.where(ok1, x * iu1, e) for x, e in zip(u1, ex))
+
+    proj = dot3(u2, u1)
+    u2 = tuple(x - proj * y for x, y in zip(u2, u1))
+    nu2 = torch.sqrt(dot3(u2, u2))
+    ok2 = nu2 > eps
+    iu2 = 1.0 / torch.maximum(nu2, eps)
+    big0 = torch.abs(u1[0]) > 0.9
+    ref = (torch.where(big0, 0.0, 1.0).to(dtype), torch.where(big0, 1.0, 0.0).to(dtype),
+           torch.zeros_like(nu2))
+    alt = cross3(u1, ref)
+    altn = torch.sqrt(torch.maximum(dot3(alt, alt), eps * eps))
+    alt = tuple(x / altn for x in alt)
+    u2 = tuple(torch.where(ok2, x * iu2, y) for x, y in zip(u2, alt))
+
+    # P = U V^T (3x2): P_rc = u1_r * v1_c + u2_r * v2_c.
+    return (
+        u1[0] * v1x + u2[0] * v2x, u1[0] * v1y + u2[0] * v2y,
+        u1[1] * v1x + u2[1] * v2x, u1[1] * v1y + u2[1] * v2y,
+        u1[2] * v1x + u2[2] * v2x, u1[2] * v1y + u2[2] * v2y,
+    )
+
+
+def prox_tri_tuple(f, limit_min, limit_max):
+    """Cloth prox 1/2 (P + F) with hard strain limiting of the column norms
+    on a 6-tuple (src/TriEnergyTerm.cpp:73-101)."""
+    p = polar_rotation_3x2_tuple(f)
+    z = tuple(0.5 * (pi + fi) for pi, fi in zip(p, f))
+    z00, z01, z10, z11, z20, z21 = z
+
+    check = (limit_min > 0.0) | (limit_max < 99.0)
+    n0 = torch.sqrt(z00 * z00 + z10 * z10 + z20 * z20)
+    n1 = torch.sqrt(z01 * z01 + z11 * z11 + z21 * z21)
+
+    def clamp(n):
+        safe = torch.clamp(n, min=1e-30)
+        s = torch.ones_like(n)
+        s = torch.where(n < limit_min, limit_min / safe, s)
+        s = torch.where(n > limit_max, limit_max / safe, s)
+        return torch.where(check, s, torch.ones_like(s))
+
+    s0 = clamp(n0)
+    s1 = clamp(n1)
+    return (z00 * s0, z01 * s1, z10 * s0, z11 * s1, z20 * s0, z21 * s1)
+
+
+def local_step_tri_plain(dix, u, limit_min, limit_max):
+    """Fused cloth local step on rows [6, T] (plain version of kernel E):
+    v = D x + u, z = prox(v), u' = v - z. Returns (z, u')."""
+    v = dix + u
+    z = torch.stack(prox_tri_tuple(tuple(v[i] for i in range(6)), limit_min, limit_max),
+                    dim=0)
+    return z, v - z

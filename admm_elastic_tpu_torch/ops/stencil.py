@@ -1,8 +1,9 @@
-"""Flat-stencil D / D^T for make_tet_blocks lattices: host plan and the
-plain PyTorch versions of kernels B and C.
+"""Flat-stencil D / D^T for make_tet_blocks lattices and regular cloth
+sheets: host plans, the plain PyTorch versions of kernels B and C, and the
+sheet's D x / D^T.
 
-A port of the non-wrap tet part of ``admm_elastic_tpu/ops/stencil.py``
-(:87-321). Elements of a lattice family are reordered slot-major over a
+A port of the non-wrap tet part (:87-321) and the triangle-sheet part
+(:324-487) of ``admm_elastic_tpu/ops/stencil.py``. Elements of a lattice family are reordered slot-major over a
 cell grid embedded at vertex pitch: element t = slot * cells + p, with
 p = ci*Y*Z + cj*Z + ck. A cell's cube corner (di, dj, dk) is then the
 vertex at the constant flat offset di*Y*Z + dj*Z + dk, so D x reads the
@@ -14,6 +15,12 @@ weight, volume and Dlocal 0; D x injects an identity F there.
 ``tet_Dx_rows_plain`` and ``tet_rhs_rows_plain`` are the plain versions
 that ``ops/cuda_stencil.py`` uses for CPU tensors; the tests and
 ``chip_smoke.py`` hold the CUDA kernels to them.
+
+A sheet triangulates a vertex grid with a constant corner pattern per slot
+(no parity). The JAX package computes its D x and D^T in jnp, outside any
+Pallas kernel, so ``tri_Dx_rows`` and ``tri_Dt_rows`` are plain PyTorch on
+every device: stacked slices, pads and adds in the jnp code's summation
+order, no ``index_add_`` and no atomics, so D^T is bitwise repeatable.
 """
 
 from __future__ import annotations
@@ -242,3 +249,164 @@ def tet_rhs_rows_plain(z: torch.Tensor, u: torch.Tensor, b, n_verts: int) -> tor
     """D^T W^2 (z - u) -> [N, 3] (plain version of kernel C)."""
     w2 = (b.weight * b.weight)[None, :]
     return tet_Dt_rows_plain(w2 * (z - u), b, n_verts)
+
+
+# ---------------------------------------------------------------------------
+# Triangle sheet stencil (cloth grids)
+# ---------------------------------------------------------------------------
+#
+# The grid is detected with no factory hint: the fast-axis pitch G1 is
+# inferred from the first triangles' index differences and every candidate is
+# verified against all T index rows, so a false positive is impossible (the
+# checks are the addressing equivalence).
+
+# meta: (base, G0, G1, pats): vertex grid [G0, G1] with vid = slow * G1 + fast;
+# pats an S x 3 tuple of corner ids ds * 2 + df in (slow, fast) axes. The flat
+# layout embeds cells at vertex pitch p = cs * G1 + cf whatever the original
+# enumeration order.
+TriStencilMeta = Tuple[int, int, int, tuple]
+
+_CORNERS2 = ((0, 0), (0, 1), (1, 0), (1, 1))  # (ds, df), id = ds*2 + df
+
+
+def _check_tri_grid(inds: np.ndarray, v: int, g1: int, base: int):
+    g0 = v // g1
+    if g0 < 2 or g1 < 2:
+        return None
+    slow, fast = inds // g1, inds % g1
+    cs, cf = slow.min(axis=1), fast.min(axis=1)
+    ds, df = slow - cs[:, None], fast - cf[:, None]
+    if not ((ds >= 0) & (ds <= 1) & (df >= 0) & (df <= 1)).all():
+        return None
+    n_s, n_f = g0 - 1, g1 - 1
+    t = inds.shape[0]
+    if t % (n_s * n_f):
+        return None
+    s_cnt = t // (n_s * n_f)
+    if not 1 <= s_cnt <= 8:
+        return None
+    cell = np.arange(t) // s_cnt
+    slot = np.arange(t) % s_cnt
+    if (cs == cell // n_f).all() and (cf == cell % n_f).all():
+        pass  # slow-major enumeration
+    elif (cf == cell // n_s).all() and (cs == cell % n_s).all():
+        pass  # fast-major enumeration
+    else:
+        return None
+    corner = ds * 2 + df  # [T, 3] in (slow, fast) axes
+    pats = []
+    for s in range(s_cnt):
+        rows = corner[slot == s]
+        if rows.shape[0] == 0 or not (rows == rows[0]).all():
+            return None
+        pats.append(tuple(int(x) for x in rows[0]))
+    return (int(base), g0, g1, tuple(pats))
+
+
+def verify_tri_grid(inds: np.ndarray, base: int = 0,
+                    n_local_verts: Optional[int] = None) -> Optional[TriStencilMeta]:
+    """Detect a regular-sheet triangulation from LOCAL inds [T, 3] alone.
+
+    Tries the fast-axis pitches implied by the first triangles' index
+    differences (the grid pitch or its +-1 neighbours show up there in every
+    standard sheet triangulation) and fully verifies each candidate; returns
+    the meta or None."""
+    inds = np.asarray(inds)
+    if inds.ndim != 2 or inds.shape[1] != 3 or inds.shape[0] < 2:
+        return None
+    v = int(n_local_verts if n_local_verts is not None else inds.max() + 1)
+    head = inds[: min(4, inds.shape[0])]
+    diffs = np.abs(head[:, :, None] - head[:, None, :]).reshape(-1)
+    cands = set()
+    for d in diffs[diffs > 0]:
+        for g in (int(d) - 1, int(d), int(d) + 1):
+            if 2 <= g <= v // 2 and v % g == 0:
+                cands.add(g)
+    for g1 in sorted(cands):
+        meta = _check_tri_grid(inds, v, g1, base)
+        if meta is not None:
+            return meta
+    return None
+
+
+def tri_flat_plan(inds: np.ndarray, meta: TriStencilMeta) -> FlatPlan:
+    """Flat plan for a sheet: slot-major over cells at vertex pitch G1.
+
+    The original element order (slow- or fast-major cell enumeration) is
+    recovered from the index array itself, so src is exact either way.
+    """
+    base, g0, g1, pats = meta
+    s_cnt = len(pats)
+    n_s, n_f = g0 - 1, g1 - 1
+    inds = np.asarray(inds)
+    slow, fast = inds // g1, inds % g1
+    cs, cf = slow.min(axis=1), fast.min(axis=1)
+    # Original element t sits at embedded cell p and slot t % s_cnt.
+    p_orig = cs * g1 + cf  # [T]
+    slot_orig = np.arange(inds.shape[0]) % s_cnt
+    cells = g0 * g1
+    src = np.full((s_cnt * cells,), -1, np.int64)
+    src[slot_orig * cells + p_orig] = np.arange(inds.shape[0])
+    a, bb = np.meshgrid(np.arange(g0), np.arange(g1), indexing="ij")
+    live = (a < n_s) & (bb < n_f)
+    return FlatPlan(src=src, dead=~live.reshape(-1),
+                    par=np.ones((cells,), np.float64),
+                    n_slots=s_cnt, arity=3, cols=2)
+
+
+def _tri_geom(meta: TriStencilMeta):
+    base, g0, g1, pats = meta
+    cells = g0 * g1
+    offs = tuple(ds * g1 + df for (ds, df) in _CORNERS2)
+    return base, cells, offs, pats
+
+
+def tri_Dx_rows(x: torch.Tensor, b) -> torch.Tensor:
+    """Flat-stencil D x for a sheet -> SoA rows [6, T_cap].
+
+    Dead lanes receive the identity 3x2 F (rows 0 and 3 = 1). One stacked
+    product over (slot, corner, row, column), then the corner sum in the jnp
+    code's order ((j0 + j1) + j2)."""
+    base, cells, offs, pats = _tri_geom(b.stencil)
+    s_cnt = len(pats)
+    maxd = max(offs)
+    xT = x[base:base + cells].T  # [3, cells]
+    xp = torch.nn.functional.pad(xT, (0, maxd))
+    xc = [xp[:, d:d + cells] for d in offs]
+    xsel = torch.stack([xc[pats[s][j]] for s in range(s_cnt) for j in range(3)],
+                       dim=0).reshape(s_cnt, 3, 3, 1, cells)  # [S, j, r, 1, cells]
+    terms = xsel * b.st_dl[:, :, None, :, :]  # [S, j, r, c, cells]
+    per_slot = terms[:, 0] + terms[:, 1] + terms[:, 2]  # [S, r, c, cells]
+    rows = per_slot.permute(1, 2, 0, 3).contiguous()  # [r, c, S, cells]
+    rows[0, 0] += b.st_dead
+    rows[1, 1] += b.st_dead
+    return rows.reshape(6, -1)
+
+
+def tri_Dt_rows(G_rows: torch.Tensor, b, n_verts: int) -> torch.Tensor:
+    """Flat-stencil D^T G from SoA rows [6, T_cap] -> [N, 3].
+
+    The jnp code's order: per (slot, corner) the column sum (c0 + c1), the
+    corner accumulators filled slot by slot and corner by corner, then the
+    four shifted blocks added in `offs` order. Pads and adds only."""
+    base, cells, offs, pats = _tri_geom(b.stencil)
+    s_cnt = len(pats)
+    maxd = max(offs)
+    g = G_rows.reshape(3, 2, s_cnt, cells).permute(2, 0, 1, 3)  # [S, r, c, cells]
+    terms = g[:, None] * b.st_dl[:, :, None, :, :]  # [S, j, r, c, cells]
+    contrib = terms[:, :, :, 0] + terms[:, :, :, 1]  # [S, j, r, cells]
+    acc = [None] * 4
+    for s in range(s_cnt):
+        for j in range(3):
+            cid = pats[s][j]
+            acc[cid] = contrib[s, j] if acc[cid] is None else acc[cid] + contrib[s, j]
+    out = None
+    for cid, d in enumerate(offs):
+        if acc[cid] is None:
+            continue
+        blk = torch.nn.functional.pad(acc[cid], (d, maxd - d))
+        out = blk if out is None else out + blk
+    outT = out[:, :cells].T
+    if base == 0 and cells == n_verts:
+        return outT
+    return torch.nn.functional.pad(outT, (0, 0, base, n_verts - base - cells))

@@ -2,18 +2,20 @@
 
 A port of the ``linsolver=0`` / ``direct_mode="inv"`` path of
 ``admm_elastic_tpu/solver.py``, with the same API (``add_nodes``,
-``add_tet_energies``, ``set_pins``, ``initialize``, ``step``, ``run``,
-``x`` / ``v``). One timestep (src/Solver.cpp:35-109):
+``add_tet_energies``, ``add_tri_energies``, ``add_explicit_force``,
+``set_pins``, ``initialize``, ``step``, ``run``, ``x`` / ``v``). One
+timestep (src/Solver.cpp:35-109):
 
-    v_y += dt g;  x_bar = x + dt v;  z = 0;  u = 0;  x' = x_bar
+    v <- explicit forces(x, v);  v_y += dt g;  x_bar = x + dt v
+    z = 0;  u = 0;  x' = x_bar
     repeat admm_iters:
-        local:  z, u <- prox(D x' + u)                 kernels B, A
-        global: b = M x_bar + dt^2 D^T W^2 (z - u)     kernel C
+        local:  z, u <- prox(D x' + u)                 kernels B, A (tets), E (cloth)
+        global: b = M x_bar + dt^2 D^T W^2 (z - u)     kernel C (tets)
                 x' = A^-1 b (GEMM) + pin-row polish
     v = (x' - x) / dt;  x = x'
 
-Every tensor lives on the ``device`` given to the constructor; nothing
-falls back to another device. ``run(n)`` is a Python loop over ``step``.
+Every tensor lives on the solver's ``device``, the CUDA card unless the
+caller asks for ``"cpu"``; nothing falls back to another device. ``run(n)`` is a Python loop over ``step``.
 What this slice does not run raises NotImplementedError naming the
 ROADMAP item that ports it.
 """
@@ -85,7 +87,9 @@ def _check_settings(s: Settings) -> None:
 class Solver:
     """Scene container and time-stepping loop (reference admm::Solver)."""
 
-    def __init__(self, settings: Optional[Settings] = None, *, device):
+    def __init__(self, settings: Optional[Settings] = None, *, device="cuda"):
+        """device: "cuda" (the default; raises where there is no CUDA device)
+        or "cpu", which runs the kernels' plain PyTorch versions."""
         self.device = _resolve_device(device)
         self.m_settings = settings if settings is not None else Settings()
         self.initialized = False
@@ -93,6 +97,8 @@ class Solver:
         self._m_stage: List[np.ndarray] = []
         self._n_verts = 0
         self._tet_specs: List[Tuple] = []
+        self._tri_specs: List[Tuple] = []
+        self.ext_forces: List = []
         self._pins: Dict[int, np.ndarray] = {}
         self.system: Optional[sysm.System] = None
         self.state: Optional[sysm.SimState] = None
@@ -122,6 +128,16 @@ class Solver:
         self._tet_specs.append((np.asarray(verts, dtype=np.float64),
                                 np.asarray(tets, dtype=np.int64), lame, model,
                                 vertex_offset, kappa, lattice_dims, lattice_wrap))
+
+    def add_tri_energies(self, verts, tris, lame: Lame, vertex_offset: int = 0):
+        """Register a triangle (cloth) family (src/TriEnergyTerm.hpp:31-46)."""
+        self._tri_specs.append((np.asarray(verts, dtype=np.float64),
+                                np.asarray(tris, dtype=np.int64), lame, vertex_offset))
+
+    def add_explicit_force(self, f):
+        """Register an explicit force (forces.ExplicitForce), applied to v
+        before every step's prediction."""
+        self.ext_forces.append(f)
 
     def add_obstacle(self, obj):
         raise NotImplementedError(
@@ -239,9 +255,6 @@ class Solver:
                 f"{n} vertices exceed direct_max_verts={s.direct_max_verts}; the "
                 "JAX package then serves linsolver=0 through ELL-PCG, which is "
                 "not ported yet (ROADMAP Queue 1 item 6)")
-        if not self._tet_specs:
-            raise NotImplementedError(
-                "a scene without tet families is not supported by this slice")
         self._n_verts = n
         dtype = cfg.resolve_dtype(s)
         self._dtype = dtype
@@ -253,6 +266,10 @@ class Solver:
                                lattice_wrap=wrapf)
             for (v, t, lame, model, off, kap, dims, wrapf) in self._tet_specs
         )
+        tris = tuple(
+            el.build_tri_batch(v, t, lame, device=dev, dtype=dtype, vertex_offset=off)
+            for (v, t, lame, off) in self._tri_specs
+        )
         pins_batch = None
         if self._pins:
             idxs = np.array(sorted(self._pins.keys()), dtype=np.int64)
@@ -261,6 +278,7 @@ class Solver:
         system = sysm.System(
             masses=torch.as_tensor(m_np).to(dev, dtype),
             tets=tets,
+            tris=tris,
             pins=pins_batch,
             dt=float(s.timestep_s),
         )
@@ -277,7 +295,8 @@ class Solver:
         )
         self.load_arrays(system, solve_data, state)
         if s.verbose >= 1:
-            n_terms = sum(b.n_real for b in tets) + (pins_batch.n if pins_batch else 0)
+            n_terms = (sum(b.n_real for b in tets) + sum(b.n_real for b in tris)
+                       + (pins_batch.n if pins_batch else 0))
             print(f"{n} nodes, {n_terms} energy terms")
         return True
 
@@ -321,9 +340,13 @@ class Solver:
         system = self.system
         dt = system.dt
         x0 = state.x
+        # Explicit forces, then the gravity kick (src/Solver.cpp:53-59).
+        v = state.v
+        for f in self.ext_forces:
+            v = f.project(dt, x0, v, system.masses)
         kick = (torch.tensor(dt, dtype=self._dtype, device=self.device)
                 * torch.tensor(s.gravity, dtype=self._dtype, device=self.device))
-        v = state.v.clone()
+        v = v.clone()
         v[:, 1] += kick
         x_bar = x0 + dt * v
         M_xbar = system.masses[:, None] * x_bar

@@ -23,7 +23,7 @@ def _coo_entries(system) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """COO (rows, cols, vals) of dt^2 * D^T W^2 D in single-component form."""
     rows, cols, vals = [], [], []
     dt2 = system.dt * system.dt
-    for b in system.tets:
+    for b in list(system.tets) + list(system.tris):
         inds = b.inds.cpu().numpy()  # [T, k]
         Dl = _np64(b.Dlocal)  # [T, k, c]
         w2 = _np64(b.weight) ** 2  # [T]

@@ -1,31 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc and
-PyTorch built for CUDA. JAX is not needed: the reference trajectory comes
-from tests/data/torch_port_golden_beam.npz (written by
+PyTorch built for CUDA. JAX is not needed: the reference trajectories come
+from tests/data/torch_port_golden_*.npz (written by
 tests/make_torch_golden.py). Phases, each of which exits non-zero on
 failure:
 
 1. environment: GPU name and power limit, torch / CUDA / nvcc / Triton
    versions, TF32 flags (set off: the direct solve needs full FP32);
-2. build the kernels of admm_elastic_tpu_torch/csrc with nvcc;
-3. each kernel (A local step, B D x, C rhs) against its plain PyTorch
-   version on the card at the bench shapes (7,680 lanes, 1,536 cells,
-   1,476 vertices): float64 within 1e-10, float32 within the bounds below,
-   all outputs finite, kernel C bitwise repeatable;
-4. the slice: the bench scene (40x5x5 neo-Hookean beam, -x face pinned,
-   float32, linsolver=0 "inv", 10 ADMM iterations, dt 1/24) built through
-   binding.add_tetmesh -> set_pins -> initialize on cuda and stepped 8
-   times; launch counts of all three kernels > 0; steps 1 and 8 within
-   1e-4 and 2e-3 of the JAX golden (relative to max |x|); bench.py's
-   sanity checks; the 8 steps run twice from one state bitwise equal;
-5. timing: ADMM iterations/s over a rollout of at least 2 s, the step's
-   phases, and each kernel's time against its plain version (CUDA events);
-6. with --profile only: torch.profiler over 5 steps (device busy time,
-   idle share, device operations per ADMM iteration, time by kernel).
+   Solver() with no device lands on the card;
+2. build the kernels of admm_elastic_tpu_torch/csrc with nvcc (one process
+   per translation unit, all started together);
+3. each kernel against its plain PyTorch version on the card, float64 and
+   float32, at the shapes of the paths, on main-path inputs and on a stress
+   recipe, all outputs finite: A (the tet local step, once per model), D and
+   F (the tet prox on [T,3,3]) at 7,680 lanes, every lane held (see
+   LANE_TOL), B (D x) and C (rhs) at 1,536 cells and 1,476 vertices, E (the
+   cloth local step) at 3,362 lanes; C and E bitwise repeatable;
+4. the paths, each built through the normal entry points on cuda (float32,
+   linsolver=0 "inv", 10 ADMM iterations, dt 1/24), stepped 8 times with the
+   launch counts set to 0 just before and read just after, steps 1 and 8
+   within 1e-4 and 2e-3 of the JAX golden (relative to max |x|), pins held,
+   and the 8 steps run twice from one state bitwise equal:
+   - "beam" and "materials": the 40x5x5 bench beam, neo-Hookean and then
+     linear, stvk, spline_nh (mesh flags of binding.add_tetmesh) and
+     spline_stvk, spline_corot (Solver.add_tet_energies) (kernel A per model,
+     B, C), with bench.py's sanity checks, then TetBatch.prox on [T,3,3] of
+     the stepped state (kernel D, or F for the linear beam), held to the rows
+     entry with u = 0;
+   - "cloth": the 40x40 sheets cloth_limit40 (strain limits, gravity) and
+     cloth_wind40 (colored wind, no gravity) (kernel E);
+5. timing: ADMM iterations/s of each path over a rollout of at least 2 s
+   (every path twice, the second time in the reverse order), the
+   phases of the beam and cloth steps, and each kernel's time against its
+   plain version (CUDA events) beside its bound: the larger of the bytes it
+   must move over 3.35 TB/s and the operations the function needs on the
+   same inputs over 67 TFLOP/s (the tet kernels: a count per lane taken from
+   the CUDA body times the Newton and line-search trips these inputs take;
+   B, C, E: the plain version's operations, counted as it runs);
+6. with --profile only: torch.profiler over 5 steps of the beam and of the
+   cloth step (device busy time, idle share, device operations per ADMM
+   iteration, time by kernel), and over 20 launches of each kernel (device
+   time per launch, free of the host's enqueue time).
 
 The last lines are the GPU line, one JSON line of kernels, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -40,33 +59,103 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_golden_beam.npz")
+DATA = os.path.join(HERE, "tests", "data")
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 # Kernel-versus-plain bounds, on max |kernel - plain| <= tol * max(1, max |plain|)
 # for B and C. float32: FMA contraction in the kernels versus separate
-# rounding in the plain ops, over sums of at most 8 x 4 terms.
+# rounding in the plain ops, over sums of at most 8 x 4 terms. The same bound,
+# absolute (|z| ~ 1), holds E, which has no iteration: one sqrt / division
+# chain behind the products.
 F64_TOL = 1e-10
 F32_TOL_STENCIL = 1e-5
-# Kernel A, absolute on z and u' (|z| ~ 1): float64 allclose(rtol=atol=1e-10)
-# on main-path inputs. float32: median 1e-6, 99th percentile 2e-4, max 5e-2
-# -- a last-ulp difference can flip the Newton backtracking accept test on
-# the few lanes whose objective is flat to float32 precision
-# (tests/test_torch_local_step.py states the same bounds against JAX).
-# The stress recipe (inverted and x3-stretched F) holds float64 to the
-# same flip-tolerant form with a 99th percentile of 1e-10.
-A_MAX, A_P99_F32, A_MEDIAN_F32 = 5e-2, 2e-4, 1e-6
+F32_TOL_DIRECT = 2e-5
+# The tet kernels (A, D, F), absolute on z and u' (|z| ~ 1), per lane and in
+# the whole. float64 on main-path inputs: allclose(rtol=atol=1e-10), every
+# lane. Elsewhere a lane is held to LANE_TOL and the whole to a 99th
+# percentile (and, with a Newton loop, a median of 1e-6): in float32 a
+# last-ulp difference can flip the Newton backtracking accept test on the few
+# lanes whose objective is flat to float32 precision, seen as 2.4e-4 on
+# main-path inputs and 6.4e-3 on the stress recipe (inverted and x3-stretched
+# F); the kernels without a Newton loop (F and the linear variant of A) were
+# seen at 1.5e-6.
+# A lane over LANE_TOL is not waved through under a wider bound. The one
+# known cause is a stall of the signed SVD: its Jacobi rotation takes
+# t = sign(theta) / (...), and sign(0) = 0 skips the rotation of a pair whose
+# two diagonal entries are bitwise equal (as the JAX package's does), which
+# leaves that lane's SVD unconverged; it happens on about one float32 lane in
+# 10^4-10^5, in the kernel or in the plain version (their roundings differ),
+# seen as 4.6e-2 on one of 7,680 lanes. A stall is a bitwise coincidence, so
+# it does not survive a change of the input in the fifth digit, and a fault
+# of the kernel does: every lane over LANE_TOL goes through the kernel and
+# the plain version once more with its F scaled entry by entry by
+# 1 + 1e-5 * N(0, 1) and has to hold LANE_TOL then; more than
+# MAX_RERUN_LANES such lanes in one comparison fail it.
+LANE_TOL = {("f64", "stress"): 1e-8, ("f32", "main"): 2e-3, ("f32", "stress"): 2e-2,
+            ("f32", "linear"): 1e-4}
+A_P99_F32, A_MEDIAN_F32 = 2e-4, 1e-6
+MAX_RERUN_LANES = 4
 STEP1_TOL, STEP8_TOL = 1e-4, 2e-3
 TARGET_S = 2.0
 DEVICE = "cuda"
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate
+# and float32 rate outside the tensor cores, an FMA counted as two operations.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
+NH = "neohookean"
+# Models that binding.add_tetmesh reaches by a mesh flag, and those that only
+# Solver.add_tet_energies(model=...) reaches (with kappa = the bulk modulus).
+BEAM_FLAGS = {NH: "NEOHOOKEAN", "linear": "LINEAR", "stvk": "STVK", "spline_nh": "SPLINE"}
+BEAM_MODELS = ("linear", "stvk", "spline_nh", "spline_stvk", "spline_corot")
+TET_MODELS = (NH,) + BEAM_MODELS
+HYPER_MODELS = tuple(m for m in TET_MODELS if m != "linear")
+
+_CSRC = "admm_elastic_tpu_torch/csrc/"
+_PALLAS = "admm_elastic_tpu/ops/"
+# kernel name (without the [model]) -> (source, the TPU kernel's pallas_call)
 REPLACES = {
-    "local_step_tet_hyper": ("admm_elastic_tpu_torch/csrc/local_step.cu",
-                             "admm_elastic_tpu/ops/pallas_kernels.py:220"),
-    "tet_Dx_rows": ("admm_elastic_tpu_torch/csrc/stencil.cu",
-                    "admm_elastic_tpu/ops/pallas_stencil.py:164"),
-    "tet_rhs_rows": ("admm_elastic_tpu_torch/csrc/stencil.cu",
-                     "admm_elastic_tpu/ops/pallas_stencil.py:193"),
+    "local_step_tet_hyper": (_CSRC + "local_step.cu", _PALLAS + "pallas_kernels.py:220"),
+    "tet_Dx_rows": (_CSRC + "stencil.cu", _PALLAS + "pallas_stencil.py:164"),
+    "tet_rhs_rows": (_CSRC + "stencil.cu", _PALLAS + "pallas_stencil.py:193"),
+    "prox_tet_hyper": (_CSRC + "prox.cu", _PALLAS + "pallas_kernels.py:141"),
+    "local_step_tri": (_CSRC + "tri_local_step.cu", _PALLAS + "pallas_kernels.py:286"),
+    "prox_tet_linear": (_CSRC + "prox.cu", _PALLAS + "pallas_kernels.py:322"),
+}
+
+
+def cloth_sheet(nx, ny):
+    """The cloth sheet of benchmarks/matrix.py:76-98: an xz-plane grid of
+    nx x ny cells of pitch (1, nx/ny), two triangles per cell, masses
+    area-lumped at 1522 kg/m^3, the -x edge pinned. Returns vertices [V,3],
+    triangles [T,3], masses [V] and the pinned vertex ids (numpy only;
+    tests/make_torch_golden.py builds the JAX scene from the same arrays)."""
+    verts = np.array([[i, 0.0, j * nx / ny] for i in range(nx + 1) for j in range(ny + 1)],
+                     dtype=np.float64)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    tris = []
+    for i in range(nx):
+        for j in range(ny):
+            tris.append([vid(i, j), vid(i + 1, j), vid(i, j + 1)])
+            tris.append([vid(i + 1, j), vid(i + 1, j + 1), vid(i, j + 1)])
+    tris = np.asarray(tris)
+    masses = np.zeros(len(verts))
+    for t in tris:
+        p = verts[t]
+        area = 0.5 * np.linalg.norm(np.cross(p[1] - p[0], p[2] - p[0]))
+        masses[t] += 1522.0 * area / 3.0
+    pins = np.where(verts[:, 0] < 1e-9)[0]
+    return verts, tris, masses, pins
+
+
+# The cloth cells of benchmarks/matrix.py:279-281, with linsolver=0 as
+# benchmarks/crossval.py:43-44 runs cloth: golden file suffix -> parameters.
+CLOTH_SCENES = {
+    "cloth_limit40": dict(nx=40, ny=40, limits=(0.95, 1.05), wind=None, gravity=-9.8),
+    "cloth_wind40": dict(nx=40, ny=40, limits=None, wind=(0.05, 0.1, 0.02), gravity=0.0),
 }
 
 
@@ -90,11 +179,20 @@ def run_cmd(cmd):
     return proc.stdout.strip()
 
 
+def golden(name):
+    return np.load(os.path.join(DATA, f"torch_port_golden_{name}.npz"))
+
+
+def beam_golden_name(model):
+    return "beam" if model == NH else f"beam_{model}"
+
+
 # --- phase 1: environment ----------------------------------------------------
 
 def environment(torch):
     gpu = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader"]).splitlines()[0]
+    from admm_elastic_tpu_torch import Solver
     from admm_elastic_tpu_torch.ops import _build
 
     nvcc = run_cmd([_build._nvcc(), "--version"]).splitlines()[-1]
@@ -106,6 +204,7 @@ def environment(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    need(Solver().device.type == "cuda", "Solver() did not land on the card")
     env = dict(gpu=gpu, python=sys.version.split()[0], torch=torch.__version__,
                cuda=torch.version.cuda, nvcc=nvcc, triton=triton_v,
                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -127,7 +226,8 @@ def build():
     secs = time.perf_counter() - t0
     so = _build.build()
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             if ln.startswith("==") or "registers" in ln or "Compiling entry" in ln
+             or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)]
     log(f"build {secs:.1f} s -> {so.name}")
     for ln in ptxas:
         log(f"  ptxas {ln}")
@@ -136,24 +236,100 @@ def build():
 
 # --- shared scene helpers ----------------------------------------------------------
 
-def bench_mesh():
-    from admm_elastic_tpu_torch import binding
+def beam_mesh(model):
     from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
 
-    g = np.load(GOLDEN)
-    mesh = make_tet_blocks(*[int(d) for d in g["dims"]])
-    mesh.flags = binding.NOSELFCOLLISION | binding.NEOHOOKEAN
-    return mesh, g
+    g = golden(beam_golden_name(model))
+    return make_tet_blocks(*[int(d) for d in g["dims"]]), g
 
 
-def bench_batch(torch, dtype):
+def beam_kappa(model):
+    """The spline stabiliser of a beam family: the bulk modulus where the model
+    goes through Solver.add_tet_energies, 0 behind a mesh flag."""
+    from admm_elastic_tpu_torch.materials import Lame
+
+    return 0.0 if model in BEAM_FLAGS else Lame.soft_rubber().bulk_modulus()
+
+
+def beam_batch(torch, dtype, model=NH):
     from admm_elastic_tpu_torch.materials import Lame
     from admm_elastic_tpu_torch.system import elements as el
 
-    mesh, _ = bench_mesh()
-    b = el.build_tet_batch(mesh.vertices, mesh.tets, Lame.soft_rubber(), "neohookean",
-                           device=DEVICE, dtype=dtype, lattice_dims=mesh.lattice_dims)
+    mesh, _ = beam_mesh(model)
+    b = el.build_tet_batch(mesh.vertices, mesh.tets, Lame.soft_rubber(), model,
+                           device=DEVICE, dtype=dtype, kappa=beam_kappa(model),
+                           lattice_dims=mesh.lattice_dims)
     return mesh, b
+
+
+def cloth_batch(torch, dtype):
+    """The strain-limited 40x40 sheet as one TriBatch on the card."""
+    from admm_elastic_tpu_torch.materials import Lame
+    from admm_elastic_tpu_torch.system import elements as el
+
+    p = CLOTH_SCENES["cloth_limit40"]
+    verts, tris, _, _ = cloth_sheet(p["nx"], p["ny"])
+    lame = Lame.from_youngs_poisson(10000000, 0.399)
+    lame.limit_min, lame.limit_max = p["limits"]
+    return verts, el.build_tri_batch(verts, tris, lame, device=DEVICE, dtype=dtype)
+
+
+def settings_of(g, gravity):
+    from admm_elastic_tpu_torch import Settings
+
+    return Settings(verbose=0, admm_iters=int(g["admm_iters"]), linsolver=0, gravity=gravity,
+                    timestep_s=float(g["dt"]), dtype=np.float32, direct_mode="inv")
+
+
+def make_solver(model=NH, device=None):
+    """The bench beam with one of the six tet models, through the normal entry
+    points, on the card unless a device is named; returns (solver, mesh,
+    golden, pins)."""
+    from admm_elastic_tpu_torch import Lame, Solver, binding
+
+    mesh, g = beam_mesh(model)
+    solver = Solver(device=device or DEVICE)
+    lame = Lame.soft_rubber()
+    if model in BEAM_FLAGS:
+        mesh.flags = binding.NOSELFCOLLISION | getattr(binding, BEAM_FLAGS[model])
+        binding.add_tetmesh(solver, mesh, lame, verbose=False)
+    else:
+        solver.add_nodes(mesh.vertices, mesh.weighted_masses(binding.RUBBER_DENSITY))
+        solver.add_tet_energies(mesh.vertices, mesh.tets, lame, model=model,
+                                kappa=beam_kappa(model), lattice_dims=mesh.lattice_dims)
+    pins = [int(i) for i in np.where(mesh.vertices[:, 0] < 1e-9)[0]]
+    need(pins == [int(i) for i in g["pins"]], "pinned set differs from the golden's")
+    solver.set_pins(pins)
+    need(solver.initialize(settings_of(g, float(g["gravity"]))), "initialize failed")
+    need(solver.system.tets[0].model == model, "the beam got another model")
+    return solver, mesh, g, pins
+
+
+def make_cloth_solver(name, device=None):
+    """One of CLOTH_SCENES through the normal entry points, on the card unless
+    a device is named; returns (solver, golden, pins)."""
+    import torch
+
+    from admm_elastic_tpu_torch import Lame, Solver
+    from admm_elastic_tpu_torch.forces import make_wind_force
+
+    device = device or DEVICE
+    p, g = CLOTH_SCENES[name], golden(name)
+    verts, tris, masses, pin_ids = cloth_sheet(p["nx"], p["ny"])
+    pins = [int(i) for i in pin_ids]
+    need(pins == [int(i) for i in g["pins"]], "pinned set differs from the golden's")
+    solver = Solver(device=device)
+    solver.add_nodes(verts, masses)
+    lame = Lame.from_youngs_poisson(10000000, 0.399)
+    if p["limits"] is not None:
+        lame.limit_min, lame.limit_max = p["limits"]
+    solver.add_tri_energies(verts, tris, lame)
+    solver.set_pins(pins)
+    if p["wind"] is not None:
+        solver.add_explicit_force(make_wind_force(tris, direction=p["wind"], colored=True,
+                                                  device=device, dtype=torch.float32))
+    need(solver.initialize(settings_of(g, p["gravity"])), "initialize failed")
+    return solver, g, pins
 
 
 def events_ms(torch, fn, reps):
@@ -175,21 +351,93 @@ def stencil_err(torch, got, want):
     return err, err / scale
 
 
+def stress_f(rng, t):
+    """tests/test_pallas.py's _random_f: near-identity F [t,3,3], every 5th
+    inverted, every 7th stretched x3."""
+    f = np.eye(3)[None] + 0.4 * rng.standard_normal((t, 3, 3))
+    f[::5] *= -1.0
+    f[1::7] *= 3.0
+    return f
+
+
+def stress_kappa(b, model):
+    """kappa of the stress recipe: k / 1000 for the spline models. The cubic
+    compression term is unbounded below, and on the x3-stretched lanes a kappa
+    above ~k / 100 outgrows the quadratic and the Newton iterates run away."""
+    return 1e-3 * b.bulk if model.startswith("spline") else b.kappa
+
+
 # --- phase 3: kernels against their plain versions --------------------------------
 
+def tet_errs(torch, got, want, name, label, rerun=None):
+    """Kernel A, D or F against plain (see LANE_TOL). got and want are lists
+    of tensors with the lanes on the last axis; rerun(lanes) gives (kernel,
+    plain) outputs of those lanes on perturbed inputs."""
+    for g in got:
+        need(bool(torch.isfinite(g).all()), f"{label} {name}: non-finite output")
+    e = torch.cat([(g - w).abs().reshape(-1, g.shape[-1]) for g, w in zip(got, want)])
+    scale = torch.cat([w.abs().reshape(-1, w.shape[-1]) for w in want])
+    linear = "[linear]" in label
+    which = "stress" if "stress" in label else "main"
+    e_np = e.double().cpu().numpy()
+    out = dict(max=float(e_np.max()), p99=float(np.quantile(e_np, 0.99)),
+               median=float(np.median(e_np)))
+    if name == "f64" and which == "main":
+        need(bool((e <= F64_TOL + F64_TOL * scale).all()),
+             f"{label} f64: {out} exceeds allclose(1e-10)")
+        return out
+    lane_tol = LANE_TOL[name, "linear" if linear and name == "f32" else which]
+    lane_err = e.max(dim=0).values
+    over = torch.nonzero(lane_err > lane_tol).flatten()
+    out.update(lane_tol=lane_tol, lanes_over=over.tolist(),
+               max_within=float(lane_err[lane_err <= lane_tol].max()))
+    need(len(over) <= MAX_RERUN_LANES, f"{label} {name}: {len(over)} lanes over {lane_tol}: {out}")
+    if len(over):
+        need(rerun is not None, f"{label} {name}: lanes over {lane_tol}: {out}")
+        got2, want2 = rerun(over)
+        out["rerun_max"] = max((g - w).abs().max().item() for g, w in zip(got2, want2))
+        log(f"{label} {name}: lanes {out['lanes_over']} at "
+            f"{[float(lane_err[i]) for i in over]}; perturbed, {out['rerun_max']:.3e}")
+        need(out["rerun_max"] <= lane_tol,
+             f"{label} {name}: lanes over {lane_tol} stay over it on perturbed inputs: {out}")
+    if name == "f64":
+        need(out["p99"] < F64_TOL, f"{label} f64: {out}")
+    elif linear:
+        need(out["p99"] < F32_TOL_DIRECT, f"{label} f32: {out}")
+    else:
+        need(out["p99"] < A_P99_F32 and out["median"] < A_MEDIAN_F32, f"{label} f32: {out}")
+    return out
+
+
+def direct_errs(torch, got, want, name, label):
+    """Kernel E (no iteration) against plain: absolute."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        need(bool(torch.isfinite(g).all()), f"{label} {name}: non-finite output")
+        worst = max(worst, (g - w).abs().max().item())
+    tol = F64_TOL if name == "f64" else F32_TOL_DIRECT
+    need(worst <= tol, f"{label} {name}: max abs err {worst:.3e} > {tol}")
+    return dict(max=worst)
+
+
 def kernel_checks(torch):
-    from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil
+    from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_prox, cuda_stencil,
+                                            cuda_tri_local_step)
     from admm_elastic_tpu_torch.ops import stencil as st
-    from admm_elastic_tpu_torch.ops.hyper_soa import local_step_plain
+    from admm_elastic_tpu_torch.ops.hyper_soa import local_step_plain, prox_plain
+    from admm_elastic_tpu_torch.ops.soa import local_step_tri_plain
 
     rng = np.random.default_rng(0)
     res = {}
     for dtype, name in ((torch.float64, "f64"), (torch.float32, "f32")):
-        mesh, b = bench_batch(torch, dtype)
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=DEVICE, dtype=dtype)
+
+        out = res[name] = {}
+        mesh, b = beam_batch(torch, dtype)
         n = mesh.vertices.shape[0]
         t = b.n
-        x_np = mesh.vertices + 0.05 * rng.standard_normal(mesh.vertices.shape)
-        x = torch.as_tensor(x_np, device=DEVICE, dtype=dtype)
+        x = dev(mesh.vertices + 0.05 * rng.standard_normal(mesh.vertices.shape))
 
         # B: D x
         got = cuda_stencil.tet_Dx_rows(x, b)
@@ -198,25 +446,10 @@ def kernel_checks(torch):
         eb, rb = stencil_err(torch, got, want)
         tol = F64_TOL if name == "f64" else F32_TOL_STENCIL
         need(rb <= tol, f"B {name}: rel err {rb:.3e} > {tol}")
-
-        # A on main-path inputs: D x of a perturbed beam, small u.
-        u = torch.as_tensor(0.05 * rng.standard_normal((9, t)), device=DEVICE, dtype=dtype)
-        args = (got, u, b.mu, b.lam, b.kappa, b.bulk)
-        za, ua = cuda_local_step.local_step_tet_hyper(*args)
-        zp, up = local_step_plain(*args)
-        a_main = local_step_errs(torch, (za, ua), (zp, up), name, "main-path")
-        # A on the stress recipe (tests/test_pallas.py _random_f).
-        f = np.eye(3)[None] + 0.4 * rng.standard_normal((t, 3, 3))
-        f[::5] *= -1.0
-        f[1::7] *= 3.0
-        dix = torch.as_tensor(f.reshape(t, 9).T.copy(), device=DEVICE, dtype=dtype)
-        args_s = (dix, torch.zeros_like(dix), b.mu, b.lam, b.kappa, b.bulk)
-        a_stress = local_step_errs(torch, cuda_local_step.local_step_tet_hyper(*args_s),
-                                   local_step_plain(*args_s), name, "stress")
+        out["tet_Dx_rows"] = dict(max_abs_err=eb, rel_err=rb)
 
         # C: D^T W^2 (z - u), twice bitwise equal
-        z = torch.as_tensor(rng.standard_normal((9, t)), device=DEVICE, dtype=dtype)
-        uu = torch.as_tensor(rng.standard_normal((9, t)), device=DEVICE, dtype=dtype)
+        z, uu = dev(rng.standard_normal((9, t))), dev(rng.standard_normal((9, t)))
         c1 = cuda_stencil.tet_rhs_rows(z, uu, b, n)
         c2 = cuda_stencil.tet_rhs_rows(z, uu, b, n)
         cp = st.tet_rhs_rows_plain(z, uu, b, n)
@@ -224,102 +457,212 @@ def kernel_checks(torch):
         need(bool(torch.equal(c1, c2)), f"C {name}: two runs differ")
         ec, rc = stencil_err(torch, c1, cp)
         need(rc <= tol, f"C {name}: rel err {rc:.3e} > {tol}")
+        out["tet_rhs_rows"] = dict(max_abs_err=ec, rel_err=rc, bitwise_repeat=True)
 
-        res[name] = dict(
-            tet_Dx_rows=dict(max_abs_err=eb, rel_err=rb),
-            local_step_tet_hyper=dict(main=a_main, stress=a_stress,
-                                      max_abs_err=max(a_main["max"], a_stress["max"])),
-            tet_rhs_rows=dict(max_abs_err=ec, rel_err=rc, bitwise_repeat=True),
-        )
-        log(f"kernels {name} " + json.dumps(res[name]))
+        # A, D and F at 7,680 lanes, per model: main-path inputs (D x of a
+        # perturbed beam, small u) and the stress recipe.
+        u = dev(0.05 * rng.standard_normal((9, t)))
+        f_np = stress_f(rng, t)
+        f_rows, f_33 = dev(f_np.reshape(t, 9).T), dev(f_np)
+        dix_33 = got.T.reshape(t, 3, 3).contiguous()
+        def jitter(f):
+            return f * dev(1.0 + 1e-5 * rng.standard_normal(tuple(f.shape)))
+
+        for model in TET_MODELS:
+            _, bm = beam_batch(torch, dtype, model)
+
+            def rows_pair(args, model=model):
+                return (cuda_local_step.local_step_tet_hyper(*args, model=model),
+                        local_step_plain(*args, model=model))
+
+            def rows_rerun(args):
+                return lambda lanes: rows_pair(
+                    (jitter(args[0][:, lanes]), args[1][:, lanes]) + tuple(
+                        a[lanes] for a in args[2:]))
+
+            def prox_pair(zi, params, model=model):
+                if model == "linear":
+                    k_out = cuda_prox.prox_tet_linear(zi)
+                else:
+                    k_out = cuda_prox.prox_tet_hyper(zi, model, *params)
+                need(k_out.shape == zi.shape, "D / F: wrong output shape")
+                return ([k_out.reshape(-1, 9).T],
+                        [prox_plain(zi, model, *params).reshape(-1, 9).T])
+
+            def prox_rerun(zi, params):
+                return lambda lanes: prox_pair(jitter(zi[lanes]),
+                                               tuple(a[lanes] for a in params))
+
+            main = (got, u, bm.mu, bm.lam, bm.kappa, bm.bulk)
+            stress = (f_rows, torch.zeros_like(f_rows), bm.mu, bm.lam, stress_kappa(bm, model),
+                      bm.bulk)
+            a, d = {}, {}
+            for which, args, zi in (("main", main, dix_33), ("stress", stress, f_33)):
+                a[which] = tet_errs(torch, *rows_pair(args), name, f"A[{model}] {which}-path",
+                                    rerun=rows_rerun(args))
+                d[which] = tet_errs(torch, *prox_pair(zi, args[2:]), name,
+                                    f"{'F' if model == 'linear' else 'D'}[{model}] {which}-path",
+                                    rerun=prox_rerun(zi, args[2:]))
+            out[f"local_step_tet_hyper[{model}]"] = dict(
+                a, max_abs_err=max(a["main"]["max"], a["stress"]["max"]))
+            key = "prox_tet_linear" if model == "linear" else f"prox_tet_hyper[{model}]"
+            out[key] = dict(d, max_abs_err=max(d["main"]["max"], d["stress"]["max"]))
+
+        # E at 3,362 lanes: D x of a perturbed limited sheet with a small u,
+        # then a stress recipe (0.3 noise on the identity, limits on about
+        # half the lanes, the rest state / a collapsed column / a zero F /
+        # equal column norms with a cross term in lanes 0-3); twice bitwise.
+        verts, tb = cloth_batch(torch, dtype)
+        tt = tb.n
+        xs = dev(verts + 0.02 * rng.standard_normal(verts.shape))
+        main = (st.tri_Dx_rows(xs, tb), dev(0.02 * rng.standard_normal((6, tt))),
+                tb.limit_min, tb.limit_max)
+        ident = np.asarray([1.0, 0.0, 0.0, 1.0, 0.0, 0.0])
+        rows = rng.standard_normal((6, tt)) * 0.3 + ident[:, None]
+        rows[:, :4] = np.array([[1.0, 0.0, 0.0, 1.0, 0.0, 0.0], [1.2, 0.0, 0.3, 0.0, -0.1, 0.0],
+                                [0.0] * 6, [1.0, 0.5, 0.5, 1.0, 0.0, 0.0]]).T
+        us = 0.05 * rng.standard_normal((6, tt))
+        us[:, :4] = 0.0
+        lm = np.where(rng.random(tt) < 0.5, 0.95, -100.0)
+        stress = (dev(rows), dev(us), dev(lm), dev(np.where(lm > 0, 1.05, 100.0)))
+        e = {}
+        for which, args in (("main", main), ("stress", stress)):
+            k1 = cuda_tri_local_step.local_step_tri(*args)
+            k2 = cuda_tri_local_step.local_step_tri(*args)
+            need(all(bool(torch.equal(p, q)) for p, q in zip(k1, k2)),
+                 f"E {name} {which}: two runs differ")
+            e[which] = direct_errs(torch, k1, local_step_tri_plain(*args), name,
+                                   f"E {which}-path")
+        out["local_step_tri"] = dict(e, bitwise_repeat=True,
+                                     max_abs_err=max(e["main"]["max"], e["stress"]["max"]))
+        log(f"kernels {name} " + json.dumps(
+            {k: v["max_abs_err"] for k, v in out.items()}))
     return res
 
 
-def local_step_errs(torch, got, want, name, which):
-    errs = []
-    for g, w in zip(got, want):
-        need(bool(torch.isfinite(g).all()), f"A {name} {which}: non-finite output")
-        errs.append((g - w).abs().flatten())
-    e = torch.cat(errs).double().cpu().numpy()
-    scale = torch.cat([w.abs().flatten() for w in want]).double().cpu().numpy()
-    out = dict(max=float(e.max()), p99=float(np.quantile(e, 0.99)),
-               median=float(np.median(e)),
-               lanes_over_1e_4=int((e > 1e-4).sum()))
-    if name == "f64" and which == "main-path":
-        need(bool((e <= F64_TOL + F64_TOL * scale).all()),
-             f"A f64 main-path: {out} exceeds allclose(1e-10)")
-    elif name == "f64":
-        need(out["max"] < A_MAX and out["p99"] < F64_TOL, f"A f64 {which}: {out}")
-    else:
-        need(out["max"] < A_MAX and out["p99"] < A_P99_F32 and out["median"] < A_MEDIAN_F32,
-             f"A f32 {which}: {out}")
-    return out
+# --- phase 4: the paths ------------------------------------------------------------------
+
+def _wrappers():
+    from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_prox, cuda_stencil,
+                                            cuda_tri_local_step)
+
+    return dict(local_step_tet_hyper=cuda_local_step.local_step_tet_hyper,
+                tet_Dx_rows=cuda_stencil.tet_Dx_rows, tet_rhs_rows=cuda_stencil.tet_rhs_rows,
+                prox_tet_hyper=cuda_prox.prox_tet_hyper, prox_tet_linear=cuda_prox.prox_tet_linear,
+                local_step_tri=cuda_tri_local_step.local_step_tri)
 
 
-# --- phase 4: the slice ------------------------------------------------------------------
-
-def counters():
-    from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil
-
-    return {"local_step_tet_hyper": cuda_local_step.local_step_tet_hyper,
-            "tet_Dx_rows": cuda_stencil.tet_Dx_rows,
-            "tet_rhs_rows": cuda_stencil.tet_rhs_rows}
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
-def make_solver(torch):
-    from admm_elastic_tpu_torch import Lame, Settings, Solver, binding
-
-    mesh, g = bench_mesh()
-    solver = Solver(device=DEVICE)
-    binding.add_tetmesh(solver, mesh, Lame.soft_rubber(), verbose=False)
-    pins = [int(i) for i in np.where(mesh.vertices[:, 0] < 1e-9)[0]]
-    need(pins == [int(i) for i in g["pins"]], "pinned set differs from the golden's")
-    solver.set_pins(pins)
-    settings = Settings(verbose=0, admm_iters=int(g["admm_iters"]), linsolver=0,
-                        gravity=float(g["gravity"]), timestep_s=float(g["dt"]),
-                        dtype=np.float32, direct_mode="inv")
-    need(solver.initialize(settings), "initialize failed")
-    return solver, mesh, g, pins
+def read_counts(model=None):
+    """Launch counts by kernel name; A and D under the tet model of the path."""
+    by_model = ("local_step_tet_hyper", "prox_tet_hyper")
+    return {f"{name}[{model}]" if name in by_model else name: fn.launches
+            for name, fn in _wrappers().items()}
 
 
-def slice_run(torch):
+def rel_err(x, ref):
+    return float(np.abs(x - ref).max() / max(np.abs(ref).max(), 1e-9))
+
+
+def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=None):
+    """Step the solver 8 times with the launch counts set to 0 just before and
+    read just after (after_steps, the element-level prox of the materials
+    path, runs inside that window); check the kernels' counts, steps 1 and 8
+    against the golden, the pins, and that the 8 steps repeat bitwise."""
     from admm_elastic_tpu_torch.system.system import SimState
 
-    solver, mesh, g, pins = make_solver(torch)
+    x0 = solver.x
     state0 = SimState(x=solver.state.x.clone(), v=solver.state.v.clone())
-    cnt = counters()
-    for fn in cnt.values():
-        fn.launches = 0
+    reset_counts()
     solver.step()
     x1 = solver.x
     solver.run(7)
     x8_t = solver.state.x.clone()
-    launches = {k: fn.launches for k, fn in cnt.items()}
-    log("main-path launches " + json.dumps(launches))
-    for k, v in launches.items():
-        need(v > 0, f"kernel {k} was not launched on the main path")
+    extra = after_steps(solver) if after_steps is not None else {}
+    launches = {k: v for k, v in read_counts(model).items() if v}
+    log(f"{label} launches " + json.dumps(launches))
+    for k in kernels:
+        need(launches.get(k, 0) > 0, f"{label}: kernel {k} was not launched")
     x8 = x8_t.cpu().numpy()
 
     errs = {}
     for step, x in ((1, x1), (8, x8)):
         ref = g[f"x{step}"]
-        need(x.shape == ref.shape and np.isfinite(x).all(), f"step {step}: bad state")
-        errs[step] = float(np.abs(x - ref).max() / max(np.abs(ref).max(), 1e-9))
-    log(f"vs JAX golden: step1 {errs[1]:.3e} (bound {STEP1_TOL}), "
+        need(x.shape == ref.shape and np.isfinite(x).all(), f"{label} step {step}: bad state")
+        errs[step] = rel_err(x, ref)
+    log(f"{label} vs JAX golden: step1 {errs[1]:.3e} (bound {STEP1_TOL}), "
         f"step8 {errs[8]:.3e} (bound {STEP8_TOL})")
-    need(errs[1] < STEP1_TOL and errs[8] < STEP8_TOL, f"trajectory off the golden: {errs}")
-
-    # bench.py's sanity checks (bench.py:101-106)
-    x0 = mesh.vertices
+    need(errs[1] < STEP1_TOL and errs[8] < STEP8_TOL,
+         f"{label}: trajectory off the golden: {errs}")
     pin_dev = float(np.abs(x8[pins] - x0[pins]).max())
-    need(pin_dev < 1e-3, f"pins not held: {pin_dev}")
-    need(-60.0 < x8[:, 1].min() < x0[:, 1].min(), "no sag?")
+    need(pin_dev < 1e-3, f"{label}: pins not held: {pin_dev}")
 
     solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
     solver.run(8)
-    need(bool(torch.equal(solver.state.x, x8_t)), "8-step rollout not bitwise repeatable")
-    return solver, dict(launches=launches, rel_err_step1=errs[1], rel_err_step8=errs[8],
-                        pin_dev=pin_dev, min_y=float(x8[:, 1].min()), bitwise_repeat=True)
+    need(bool(torch.equal(solver.state.x, x8_t)), f"{label}: 8-step rollout not bitwise repeatable")
+    return x0, x8, dict(launches=launches, rel_err_step1=errs[1], rel_err_step8=errs[8],
+                        pin_dev=pin_dev, bitwise_repeat=True, **extra)
+
+
+def check_sag(label, x0, x8):
+    """bench.py's sanity check (bench.py:101-106): the beam sags, and not through the floor."""
+    need(-60.0 < x8[:, 1].min() < x0[:, 1].min(), f"{label}: no sag?")
+    return dict(min_y=float(x8[:, 1].min()))
+
+
+def cloth_path(torch, name):
+    solver, g, pins = make_cloth_solver(name)
+    x0, x8, res = drive_path(torch, name, solver, g, pins, ["local_step_tri"])
+    moved = float(np.abs(x8 - x0).max())
+    if CLOTH_SCENES[name]["gravity"] < 0.0:
+        need(x8[:, 1].min() < -1e-3, f"{name}: the sheet did not sag")
+    need(moved > 1e-4, f"{name}: the sheet did not move")
+    res.update(moved=moved, min_y=float(x8[:, 1].min()))
+    return solver, res
+
+
+def element_prox(torch, model):
+    """TetBatch.prox on [T,3,3] of the stepped state: kernel D (F for the
+    linear model), held to the rows entry (kernel A with u = 0)."""
+    from admm_elastic_tpu_torch.system import system as sysm
+
+    def run(solver):
+        b = solver.system.tets[0]
+        rows = sysm.Dx(solver.system, solver.state.x)[0]
+        zi = rows.T.reshape(-1, 3, 3).contiguous()
+        z33 = b.prox(zi)
+        need(tuple(z33.shape) == (b.n, 3, 3) and bool(torch.isfinite(z33).all()),
+             f"{model}: bad element-level prox")
+        return dict(_rows=rows, _z33=z33)
+
+    return run
+
+
+def path_label(model):
+    return "beam" if model == NH else f"beam[{model}]"
+
+
+def beam_path(torch, model):
+    """The bench beam with one tet model: 8 steps (kernels B, A[model], C),
+    then the element-level prox (kernel D[model], or F)."""
+    solver, _, g, pins = make_solver(model)
+    label = path_label(model)
+    dkey = "prox_tet_linear" if model == "linear" else f"prox_tet_hyper[{model}]"
+    x0, x8, res = drive_path(
+        torch, label, solver, g, pins,
+        ["tet_Dx_rows", f"local_step_tet_hyper[{model}]", "tet_rhs_rows", dkey],
+        after_steps=element_prox(torch, model), model=model)
+    res.update(check_sag(label, x0, x8))
+    rows, z33 = res.pop("_rows"), res.pop("_z33")
+    zr = solver.system.tets[0].prox(rows)  # kernel A with u = 0, outside the counted window
+    res["prox_vs_rows_entry"] = tet_errs(torch, [z33.reshape(-1, 9).T], [zr], "f32",
+                                         f"{label} [T,3,3] against rows")
+    res["prox_vs_rows_entry"]["bitwise"] = bool(torch.equal(z33.reshape(-1, 9).T, zr))
+    return solver, res
 
 
 # --- phase 5: timing ---------------------------------------------------------------------
@@ -340,7 +683,7 @@ def rollout_rate(solver):
 
 
 def step_phases(torch, solver):
-    """Mean ms of each phase of one ADMM iteration, isolated (CUDA events)."""
+    """Mean ms of each phase of one ADMM iteration of the beam, isolated (CUDA events)."""
     from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil
     from admm_elastic_tpu_torch.solvers import direct
     from admm_elastic_tpu_torch.system import system as sysm
@@ -373,44 +716,233 @@ def step_phases(torch, solver):
     }
 
 
-def kernel_times(torch):
-    """Each kernel against its plain version at bench shapes, float32."""
-    from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil
+def cloth_phases(torch, solver):
+    """The same for one ADMM iteration of the cloth step, and the wind force
+    where the scene has one (once per step, not per iteration)."""
+    from admm_elastic_tpu_torch.ops import cuda_tri_local_step
     from admm_elastic_tpu_torch.ops import stencil as st
-    from admm_elastic_tpu_torch.ops.hyper_soa import local_step_plain
+    from admm_elastic_tpu_torch.solvers import direct
+    from admm_elastic_tpu_torch.system import system as sysm
 
-    mesh, b = bench_batch(torch, torch.float32)
-    n = mesh.vertices.shape[0]
-    rng = np.random.default_rng(1)
-    x = torch.as_tensor(mesh.vertices + 0.05 * rng.standard_normal(mesh.vertices.shape),
-                        device=DEVICE, dtype=torch.float32)
-    dix = cuda_stencil.tet_Dx_rows(x, b)
-    u = torch.as_tensor(0.05 * rng.standard_normal((9, b.n)), device=DEVICE,
-                        dtype=torch.float32)
-    a_args = (dix, u, b.mu, b.lam, b.kappa, b.bulk)
-    out = {}
-    # plain, kernel, kernel, plain: the two readings of each show the drift
-    pairs = {
-        "local_step_tet_hyper": (lambda: cuda_local_step.local_step_tet_hyper(*a_args),
-                                 lambda: local_step_plain(*a_args), 200, 5),
-        "tet_Dx_rows": (lambda: cuda_stencil.tet_Dx_rows(x, b),
-                        lambda: st.tet_Dx_rows_plain(x, b), 500, 50),
-        "tet_rhs_rows": (lambda: cuda_stencil.tet_rhs_rows(dix, u, b, n),
-                         lambda: st.tet_rhs_rows_plain(dix, u, b, n), 500, 50),
+    system, data = solver.system, solver._solve_data
+    b0 = system.tris[0]
+    x, v = solver.state.x, solver.state.v
+    z = sysm.zeros_like_Dx(system, x.dtype, x.device)
+    u = [torch.zeros_like(zi) for zi in z]
+    dix = st.tri_Dx_rows(x, b0)
+    z[0], u[0] = cuda_tri_local_step.local_step_tri(dix, u[0], b0.limit_min, b0.limit_max)
+    b = sysm.rhs(system, system.masses[:, None] * x, z, u)
+    xs = direct.solve(data, b)
+    reps = 200
+    out = {
+        "tri_Dx_rows (plain PyTorch)": events_ms(torch, lambda: st.tri_Dx_rows(x, b0), reps),
+        "local step (kernel E)": events_ms(torch, lambda: cuda_tri_local_step.local_step_tri(
+            dix, u[0], b0.limit_min, b0.limit_max), reps),
+        "tri_Dt_rows (plain PyTorch)": events_ms(
+            torch, lambda: st.tri_Dt_rows(z[0], b0, system.n_verts), reps),
+        "local step, whole (D x + E + pins)": events_ms(
+            torch, lambda: sysm.local_step(system, x, z, u), reps),
+        "rhs, whole (D^T + pins + M x_bar)": events_ms(
+            torch, lambda: sysm.rhs(system, x, z, u), reps),
+        "direct.solve (GEMM)": events_ms(torch, lambda: direct.solve(data, b), reps),
+        "direct.polish": events_ms(torch, lambda: direct.polish(data, xs, b), reps),
+        "ADMM iteration": events_ms(torch, lambda: solver._apply_Ainv(
+            sysm.rhs(system, x, *sysm.local_step(system, x, z, u))), reps),
     }
-    for name, (kern, plain, rk, rp) in pairs.items():
-        p1 = events_ms(torch, plain, rp)
-        k1 = events_ms(torch, kern, rk)
-        k2 = events_ms(torch, kern, rk)
-        p2 = events_ms(torch, plain, rp)
-        out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), readings=[p1, k1, k2, p2])
+    for i, f in enumerate(solver.ext_forces):
+        out[f"wind force {i} (once per step)"] = events_ms(
+            torch, lambda f=f: f.project(system.dt, x, v, system.masses), reps)
     return out
 
 
-def profile_step(torch, solver, gpu, n_steps=5):
+def plain_flops(torch, fn):
+    """Arithmetic operations fn() performs, counted as it runs: one per
+    output element of every add / sub / mul / div / neg / sqrt / log / abs /
+    max / min / clamp / reciprocal / sign (selects, compares and copies count
+    nothing). For B, C and E, whose plain versions do their kernels'
+    arithmetic and no more; the tet kernels are counted by tet_operations."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    arith = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "log", "abs", "maximum",
+             "minimum", "clamp", "clamp_min", "clamp_max", "reciprocal", "sign", "sgn"}
+
+    class Count(TorchDispatchMode):
+        flops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func.overloadpacket.__name__.rstrip("_") in arith
+                    and isinstance(out, torch.Tensor)):
+                self.flops += out.numel()
+            return out
+
+    with Count() as mode:
+        fn()
+    return mode.flops
+
+
+# Arithmetic operations of one lane of the tet kernels, counted by hand from
+# csrc/prox_body.cuh with common subexpressions taken once and terms that a
+# model makes zero left out (the plain versions compute f, g and h of a spline
+# where one is used, and run every trip of both Newton loops on every lane,
+# so their count says nothing of what the function needs). Every + - * /
+# sqrt log abs max min sign counts one, which keeps the bound a lower one.
+#   signed_svd3: F^T F 30; 8 sweeps x 3 rotations x 54 (theta 5, t 7, c and s
+#   5, the two diagonal entries 13, the two off-diagonals 6, V 18); S 6; F V
+#   45; U with its fallbacks 70; the two determinants and flips 32.
+OPS_SVD = 30 + 8 * 3 * 54 + 6 + 45 + 70 + 32
+OPS_LINEAR = 9 * 7  # 1/2 (U V^T + F)
+OPS_COMPOSE = 4 + 3 * 18  # the collapse test, |s3|, U diag(s) V^T
+OPS_DUAL = 18  # the rows entry: v = D x + u and u' = v - z
+# psi, its gradient and its Hessian per model (Energy<T, MODEL>).
+OPS_ENERGY = {NH: (17, 19, 29), "stvk": (21, 26, 35), "spline_nh": (32, 28, 51),
+              "spline_stvk": (66, 72, 101), "spline_corot": (54, 57, 42)}
+OPS_VALUE = 14  # prox_value around psi: the quadratic, the clamps
+OPS_GRADIENT = 17  # around grad: k (s - s0), the active set, |g|^2
+OPS_SEARCH = 85  # around hess: active set, damping, the 3x3 solve, |step|^2
+OPS_CANDIDATE = 10  # s - t d clamped, t / 2
+
+
+def tet_operations(model, lanes, rows, trips):
+    """Operations the tet prox needs on `lanes` lanes whose Newton solve took
+    `trips` (ops/hyper_soa.newton_soa: counted on this run's inputs)."""
+    fixed = OPS_SVD + (OPS_DUAL if rows else 0)
+    if model == "linear":
+        return lanes * (fixed + OPS_LINEAR)
+    psi, grad, hess = OPS_ENERGY[model]
+    value = OPS_VALUE + psi
+    return (lanes * (fixed + OPS_COMPOSE) + trips["gradients"] * (OPS_GRADIENT + grad)
+            + trips["searches"] * (OPS_SEARCH + hess + value)
+            + trips["candidates"] * (OPS_CANDIDATE + value))
+
+
+def measure(torch, kern, plain, reads, reps_kernel, reps_plain, operations=None):
+    """A kernel against its plain version (CUDA events; plain, kernel, kernel,
+    plain: the two readings of each show the drift) and its bound: the bytes
+    of `reads` and of the kernel's outputs, each moved once, over the card's
+    memory rate, against `operations` (the plain version's where none are
+    given) over its float32 rate."""
+    p1 = events_ms(torch, plain, reps_plain)
+    k1 = events_ms(torch, kern, reps_kernel)
+    k2 = events_ms(torch, kern, reps_kernel)
+    p2 = events_ms(torch, plain, reps_plain)
+    outs = kern()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    n_bytes = sum(t.numel() * t.element_size() for t in list(reads) + list(outs))
+    flops = plain_flops(torch, plain) if operations is None else operations
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), readings=[p1, k1, k2, p2],
+                bytes=n_bytes, operations=flops, bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None)
+
+
+def kernel_cases(torch):
+    """Every kernel at the shapes of the paths, float32, on main-path inputs:
+    name -> (kernel call, plain call, tensors read, kernel reps, plain reps[,
+    operations])."""
+    from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_prox, cuda_stencil,
+                                            cuda_tri_local_step)
+    from admm_elastic_tpu_torch.ops import stencil as st
+    from admm_elastic_tpu_torch.ops.hyper_soa import (local_step_plain, prox_plain,
+                                                      prox_tet_hyper_tuple)
+    from admm_elastic_tpu_torch.ops.soa import local_step_tri_plain
+
+    f32 = torch.float32
+    mesh, b = beam_batch(torch, f32)
+    n = mesh.vertices.shape[0]
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(mesh.vertices + 0.05 * rng.standard_normal(mesh.vertices.shape),
+                        device=DEVICE, dtype=f32)
+    dix = cuda_stencil.tet_Dx_rows(x, b)
+    u = torch.as_tensor(0.05 * rng.standard_normal((9, b.n)), device=DEVICE, dtype=f32)
+    zi = dix.T.reshape(-1, 3, 3).contiguous()
+    base, cells, n_vblock = b.stencil[0], b.st_par.shape[0], b.stencil[1] * b.stencil[2] * b.stencil[3]
+    need(cells * 5 == b.n, "stencil cells and lanes disagree")
+    cases = {
+        "tet_Dx_rows": (
+            lambda: cuda_stencil.tet_Dx_rows(x, b), lambda: st.tet_Dx_rows_plain(x, b),
+            [x[base:base + n_vblock], b.st_dl, b.st_par, b.st_dead], 500, 50),
+        "tet_rhs_rows": (
+            lambda: cuda_stencil.tet_rhs_rows(dix, u, b, n),
+            lambda: st.tet_rhs_rows_plain(dix, u, b, n),
+            [dix, u, b.weight, b.st_dl, b.st_par], 500, 50),
+    }
+
+    def tet_cases(model, bm):
+        args = (dix, u, bm.mu, bm.lam, bm.kappa, bm.bulk)
+        params = [] if model == "linear" else [bm.mu, bm.lam, bm.kappa, bm.bulk]
+        # The Newton trips of these inputs: A's prox sees D x + u, D's sees D x.
+        trips = {}
+        for rows, f in ((True, dix + u), (False, dix)):
+            trips[rows] = {}
+            if model != "linear":
+                prox_tet_hyper_tuple(tuple(f), model, *args[2:], trips=trips[rows])
+        ops = {rows: tet_operations(model, b.n, rows, trips[rows]) for rows in trips}
+        log(f"trips {model}: " + json.dumps({"rows": trips[True], "[T,3,3]": trips[False]}))
+        cases[f"local_step_tet_hyper[{model}]"] = (
+            lambda: cuda_local_step.local_step_tet_hyper(*args, model=model),
+            lambda: local_step_plain(*args, model=model), [dix, u] + params, 200, 3, ops[True])
+        if model == "linear":
+            cases["prox_tet_linear"] = (
+                lambda: cuda_prox.prox_tet_linear(zi),
+                lambda: prox_plain(zi, model, None, None, None, None), [zi], 200, 3, ops[False])
+        else:
+            cases[f"prox_tet_hyper[{model}]"] = (
+                lambda: cuda_prox.prox_tet_hyper(zi, model, *args[2:]),
+                lambda: prox_plain(zi, model, *args[2:]), [zi] + params, 200, 3, ops[False])
+
+    for model in TET_MODELS:
+        tet_cases(model, beam_batch(torch, f32, model)[1])
+    verts, tb = cloth_batch(torch, f32)
+    xs = torch.as_tensor(verts + 0.02 * rng.standard_normal(verts.shape), device=DEVICE,
+                         dtype=f32)
+    e_args = (st.tri_Dx_rows(xs, tb),
+              torch.as_tensor(0.02 * rng.standard_normal((6, tb.n)), device=DEVICE, dtype=f32),
+              tb.limit_min, tb.limit_max)
+    cases["local_step_tri"] = (
+        lambda: cuda_tri_local_step.local_step_tri(*e_args),
+        lambda: local_step_tri_plain(*e_args), list(e_args), 500, 50)
+    return cases
+
+
+def kernel_times(torch, cases):
+    """Every kernel against its plain version and its bound. No single PyTorch
+    call computes any of these functions (a batched torch.linalg.svd is not
+    the signed SVD plus the Newton solve), so library_ms is null throughout."""
+    return {name: measure(torch, *case) for name, case in cases.items()}
+
+
+def profile_kernels(torch, cases, gpu, reps=20):
+    """torch.profiler over `reps` launches of each kernel: device time per
+    launch, without the host's enqueue time that CUDA events include.
+    Writes kernel_profile.json into OUT_DIR."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, (kern, *_rest) in cases.items():
+        kern()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                kern()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        need(len(us) >= reps, f"profiler saw {len(us)} device events for {name}")
+        out[name] = dict(device_us=sum(us) / reps, device_ops_per_call=len(us) / reps)
+        log(f"device time {name}: {out[name]['device_us']:.2f} us per call "
+            f"({out[name]['device_ops_per_call']:.1f} device ops) [{gpu}]")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "kernel_profile.json"), "w") as f:
+        json.dump(dict(gpu=gpu, kernels=out), f, indent=1)
+    return out
+
+
+def profile_step(torch, solver, gpu, tag, n_steps=5):
     """torch.profiler over n_steps of the rollout: device busy time, idle
     share, device operations per ADMM iteration and time by kernel name.
-    Writes chiprun_out/step_profile.json and the Chrome trace beside it."""
+    Writes step_profile_<tag>.json and the Chrome trace into OUT_DIR."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -428,14 +960,15 @@ def profile_step(torch, solver, gpu, n_steps=5):
         cnt_us[1] += e.time_range.elapsed_us()
     busy_us = sum(v[1] for v in by_name.values())
     iters = n_steps * solver.m_settings.admm_iters
-    res = dict(gpu=gpu, steps=n_steps, admm_iters=iters, wall_us=wall_us, busy_us=busy_us,
-               idle_share=1.0 - busy_us / wall_us, device_ops_per_admm_iter=len(events) / iters,
+    res = dict(gpu=gpu, path=tag, steps=n_steps, admm_iters=iters, wall_us=wall_us,
+               busy_us=busy_us, idle_share=1.0 - busy_us / wall_us,
+               device_ops_per_admm_iter=len(events) / iters,
                by_name=dict(sorted(by_name.items(), key=lambda kv: -kv[1][1])))
     os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "step_trace.json"))
-    with open(os.path.join(OUT_DIR, "step_profile.json"), "w") as f:
+    prof.export_chrome_trace(os.path.join(OUT_DIR, f"step_trace_{tag}.json"))
+    with open(os.path.join(OUT_DIR, f"step_profile_{tag}.json"), "w") as f:
         json.dump(res, f, indent=1)
-    log(f"profile {n_steps} steps: wall {wall_us:.1f} us, device busy {busy_us:.1f} us, "
+    log(f"profile {tag}, {n_steps} steps: wall {wall_us:.1f} us, device busy {busy_us:.1f} us, "
         f"idle share {res['idle_share']:.3f}, {res['device_ops_per_admm_iter']:.1f} device "
         f"ops per ADMM iteration [{gpu}]")
     for name, (cnt, us) in list(res["by_name"].items())[:12]:
@@ -450,50 +983,90 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 5 steps with torch.profiler (chiprun_out/step_profile.json)")
+                    help="also trace 5 steps of the beam and the cloth step with "
+                         "torch.profiler (step_profile_*.json in the output directory)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU",
               file=sys.stderr)
         return 2
-    if not os.path.exists(GOLDEN):
-        print(f"chip_smoke: missing {GOLDEN}; run from a checkout of the repository",
+    if not os.path.exists(os.path.join(DATA, "torch_port_golden_beam.npz")):
+        print(f"chip_smoke: no goldens under {DATA}; run from a checkout of the repository",
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     try:
         env = environment(torch)
+        gpu = env["gpu"]
         built = build()
         checks = kernel_checks(torch)
-        solver, slice_res = slice_run(torch)
-        rate = rollout_rate(solver)
-        log(f"rollout {rate['rollout_steps']} steps in {rate['wall_s']:.3f} s: "
-            f"{rate['admm_iters_per_s']:.1f} ADMM iters/s, {rate['step_ms']:.3f} ms/step "
-            f"[{env['gpu']}]")
-        phases = step_phases(torch, solver)
-        for k, v in phases.items():
-            log(f"phase {k}: {v * 1e3:.1f} us [{env['gpu']}]")
-        times = kernel_times(torch)
+
+        paths, rates, solvers = {}, {}, {}
+        solvers["beam"], paths["beam"] = beam_path(torch, NH)
+        for name in CLOTH_SCENES:
+            solvers[name], paths[name] = cloth_path(torch, name)
+        for model in BEAM_MODELS:
+            label = path_label(model)
+            solvers[label], paths[label] = beam_path(torch, model)
+        # Every path once in this order and once more in the reverse order:
+        # the step is bound by the host, whose speed drifts within a run, so
+        # two readings apart in time tell a path's rate from its place in line.
+        for again, order in ((False, list(solvers)), (True, list(reversed(solvers)))):
+            for label in order:
+                r = rollout_rate(solvers[label])
+                if again:
+                    rates[label]["again"] = r
+                else:
+                    rates[label] = r
+                log(f"rollout {label}{' (again, reverse order)' if again else ''}: "
+                    f"{r['rollout_steps']} steps in {r['wall_s']:.3f} s: "
+                    f"{r['admm_iters_per_s']:.1f} ADMM iters/s, {r['step_ms']:.3f} ms/step [{gpu}]")
+        phases = {"beam": step_phases(torch, solvers["beam"])}
+        phases.update({n: cloth_phases(torch, solvers[n]) for n in CLOTH_SCENES})
+        for label, ph in phases.items():
+            for k, v in ph.items():
+                log(f"phase {label}: {k}: {v * 1e3:.1f} us [{gpu}]")
+        cases = kernel_cases(torch)
+        times = kernel_times(torch, cases)
         for k, v in times.items():
-            log(f"time {k}: kernel {v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us "
-                f"[{env['gpu']}]")
+            log(f"time {k}: kernel {v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, "
+                f"bound {v['bound_ms'] * 1e3:.3f} us by {v['bound_by']} "
+                f"({v['bytes']} B, {v['operations']} operations) [{gpu}]")
+        profiles = {}
         if args.profile:
-            profile_step(torch, solver, env["gpu"])
+            for tag in ("beam", "cloth_limit40", "cloth_wind40"):
+                profiles[tag] = profile_step(torch, solvers[tag], gpu, tag)
+            profiles["kernels"] = profile_kernels(torch, cases, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
+    # Launches of the path that runs each kernel: B and C on the neo-Hookean
+    # beam, E on the strain-limited sheet, A, D and F on their model's beam.
     kernels = []
-    for name, (src, rep) in REPLACES.items():
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                            launches=slice_res["launches"][name],
+    for name in times:
+        base, _, model = name.partition("[")
+        model = model.rstrip("]")
+        path = ("cloth_limit40" if base == "local_step_tri" else
+                "beam[linear]" if base == "prox_tet_linear" else path_label(model or NH))
+        src, rep = REPLACES[base]
+        t = times[name]
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep, path=path,
+                            launches=paths[path]["launches"].get(name, 0),
                             max_abs_err=checks["f32"][name]["max_abs_err"],
-                            ms=times[name]["ms"], plain_ms=times[name]["plain_ms"]))
+                            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(env=env, build=built, checks=checks, slice=slice_res, rollout=rate,
-                       phases_ms=phases, kernel_times=times, kernels=kernels), f, indent=1)
-    log(env["gpu"])
+        json.dump(dict(env=env, build=built, checks=checks, paths=paths, rollouts=rates,
+                       phases_ms=phases, kernel_times=times, profiles=profiles,
+                       kernels=kernels), f, indent=1)
+    for k in kernels:
+        if k["launches"] <= 0:
+            print(f"chip_smoke: FAIL: kernel {k['name']} has no launch on {k['path']}",
+                  file=sys.stderr)
+            return 1
+    log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -138,7 +138,7 @@ def _jax_arrays(s):
         "inds", "Dlocal", "vol", "weight", "mu", "lam", "kappa", "st_dl", "st_par",
         "st_dead")}, stencil=b.stencil, model=b.model, n_live=b.n_live) for b in sysj.tets]
     pins = {f: np.asarray(getattr(sysj.pins, f)) for f in ("idx", "target", "active", "weight")}
-    system = dict(masses=np.asarray(sysj.masses), dt=sysj.dt, tets=tets, pins=pins)
+    system = dict(masses=np.asarray(sysj.masses), dt=sysj.dt, tets=tets, pins=pins)  # no "tris"
     direct = {f: np.asarray(getattr(d, f)) for f in (
         "mat", "scale", "pin_idx", "pin_cols", "pin_vals", "pin_diag")}
     return system, direct, np.asarray(s.state.x), np.asarray(s.state.v)
@@ -196,9 +196,9 @@ UNSUPPORTED = {
     "wrap_lattice": lambda: _init_with(mesh=TetMesh(
         vertices=_beam().vertices, tets=_beam().tets, flags=_beam().flags,
         lattice_dims=(4, 2, 2), lattice_wrap=True)),
-    "model_linear": lambda: _init_with(mesh=_beam(binding.NOSELFCOLLISION | binding.LINEAR)),
-    "model_stvk": lambda: _init_with(mesh=_beam(binding.NOSELFCOLLISION | binding.STVK)),
-    "model_spline": lambda: _init_with(mesh=_beam(binding.NOSELFCOLLISION | binding.SPLINE)),
+    "linsolver_uzawa": lambda: _init_with(dict(linsolver=2)),
+    "linsolver_alpcg": lambda: _init_with(dict(linsolver=4)),
+    "log_inner": lambda: _init_with(dict(log_inner=True)),
     "self_collision": lambda: binding.add_tetmesh(Solver(device="cpu"),
                                                   _beam(binding.NEOHOOKEAN), verbose=False),
 }
@@ -226,3 +226,19 @@ def test_cuda_solver_raises_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Solver(device="cuda")
+
+
+def test_default_device_is_the_card_and_never_the_cpu():
+    """Solver() asks for "cuda": without a CUDA device it raises and builds no
+    CPU solver; the CPU is taken only when asked for."""
+    import inspect
+
+    assert inspect.signature(Solver.__init__).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert Solver().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Solver()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Solver(Settings(verbose=0))
+    assert Solver(device="cpu").device.type == "cpu"
