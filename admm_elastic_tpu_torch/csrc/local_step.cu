@@ -26,12 +26,27 @@
 // t < T; no host-side padding. Dead stencil lanes arrive as identity F with
 // u = 0 and leave as z = I, u' = 0, finite.
 //
-// What bounds it on Hopper: arithmetic and registers, not bytes. A lane
-// reads 22 values and writes 18 (160 B in float) but runs a few thousand
-// flops and ~150 transcendental calls (log, sqrt, div) in the Newton loop.
-// Everything stays in registers; the Newton and backtracking loops are kept
-// rolled so the body compiles in seconds and does not spill. At the bench
-// size T = 7,680, which is only ~58 lanes per SM, the block is 64 threads.
+// What bounds it on Hopper: neither bytes (160 B a lane in float) nor the
+// card's arithmetic rate, but the length of one lane's dependent chain. At
+// the bench size T = 7,680 the whole kernel is one wave with a warp or two
+// per SM, so it takes as long as its slowest warp: the 8-sweep Jacobi SVD
+// (24 rotations, each two divisions and two square roots deep), then per
+// Newton trip the gradient, Hessian, 3x3 solve and f0, and the line search's
+// candidates, each with a log, built without fast math. What the design does
+// about it (prox_body.cuh, prox_hyper): a lane leaves the Newton loop on the
+// trip that finds it converged, skips the search when the gradient already
+// says so, and leaves the search at the first accept; none of these changes
+// a bit of the result. What was tried and not kept: a group of 4 or 8
+// threads of one warp per lane that try the candidates side by side, a
+// ballot picking the first below f0. On the H100 at the bench size 4 threads
+// read 3-11 % faster than one on four of the five models (by model and
+// input), 12 % slower for StVK, 8 threads no better than 4: most trips
+// accept candidate 0, so a trip's length is its serial part, and some lane
+// of the beam needs all 8 trips whatever the warps hold. That did not pay for twenty more
+// instantiations and up to 148 registers, so a lane is one thread, in
+// 64-thread blocks. The SVD stays sequential: its sweep count is the
+// reference's. Everything stays in registers; the Newton and search loops
+// are kept rolled so the body compiles in seconds and does not spill.
 //
 // Built once per precision (-DADMM_REAL=float -DADMM_SFX=f32, or double /
 // f64), without --use_fast_math (it flushes denormals and approximates log,

@@ -16,9 +16,11 @@
 // lanes cover one contiguous span of 288 values, so every fetched sector is
 // used, though each single load strides by 9 values.
 //
-// What bounds them on Hopper: D, like A, arithmetic (a few thousand flops
-// per lane against 88 B in float); F is lighter (the 8 Jacobi sweeps, ~700
-// flops per lane against 72 B) and is still bounded by operations.
+// What bounds them on Hopper: D, like A, the length of a lane's dependent
+// chain (see local_step.cu), and it shares A's remedy through prox_hyper:
+// both loops left as soon as the result is fixed. F is the 8 Jacobi sweeps
+// alone (~1,500 operations per lane against 72 B in float), bounded by that
+// chain too.
 //
 // Built once per precision, as local_step.cu.
 

@@ -8,9 +8,13 @@
 // It repeats admm_elastic_tpu_torch/ops/soa.py, ops/hyper_soa.py and
 // materials.py line for line, in the same order: x ** 2 and x ** 3 are
 // products, never pow; every literal is T(...); max / min go through the
-// NaN-propagating maxp / minp of common.cuh. The Newton and backtracking
-// loops stay rolled (#pragma unroll 1) so that the many instantiations
-// (models x float / double x entries) compile in seconds without spills.
+// NaN-propagating maxp / minp of common.cuh. Where the plain version runs
+// every lane through every Newton trip and every line-search candidate, the
+// body leaves each loop as soon as the result is fixed (prox_hyper): the
+// operations that reach the result, and so its bits, stay the same. The
+// Newton and search loops stay rolled (#pragma unroll 1) so that the many
+// instantiations (models x float / double x entries) compile in seconds
+// without spills.
 #pragma once
 
 #include "common.cuh"
@@ -337,6 +341,17 @@ __device__ __forceinline__ T prox_value(const T* s, const T* s0, const Mat<T>& m
 }
 
 // ops/hyper_soa.py prox_tet_hyper_tuple on one lane: f (row-major 3x3) -> z.
+//
+// The plain version runs n_iters trips of 8 candidates on every lane; this
+// gives the same result bit for bit in less:
+// - a lane leaves the Newton loop after the trip that finds it converged: it
+//   keeps s then, so every later trip would recompute the same gradient,
+//   Hessian and candidates and find it converged again;
+// - with |g|^2 < tol^2 the lane is converged whatever the search finds, so
+//   the search is skipped;
+// - `take = !accepted & (fc < best_f)` with best_f = f0 until the first
+//   accept picks the first candidate j with fc_j < f0 (NaN compares false in
+//   both), so the search is left there.
 template <typename T, int MODEL>
 __device__ void prox_hyper(const T* f, const Mat<T>& m, int n_iters, int sweeps, T* z) {
   T U[9], S[3], V[9];
@@ -370,6 +385,8 @@ __device__ void prox_hyper(const T* f, const Mat<T>& m, int n_iters, int sweeps,
       fr[i] = pinned[i] ? T(0) : T(1);
       g[i] = g[i] * fr[i];
     }
+    const T gnorm2 = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
+    if (gnorm2 < tol2) break;  // converged whatever the search would find
     const T h11 = h6[0] * fr[0] * fr[0] + (pinned[0] ? T(1) : T(0));
     const T h22 = h6[1] * fr[1] * fr[1] + (pinned[1] ? T(1) : T(0));
     const T h33 = h6[2] * fr[2] * fr[2] + (pinned[2] ? T(1) : T(0));
@@ -404,10 +421,9 @@ __device__ void prox_hyper(const T* f, const Mat<T>& m, int n_iters, int sweeps,
       dir[2] = g[2];
     }
 
+    // The line search: the first of the 8 candidates below f0, or s.
     const T f0 = prox_value<T, MODEL>(s, s0, m);
     T best[3] = {s[0], s[1], s[2]};
-    T best_f = f0;
-    bool accepted = false;
     T t = T(1);
 #pragma unroll 1
     for (int bt = 0; bt < 8; ++bt) {
@@ -415,25 +431,19 @@ __device__ void prox_hyper(const T* f, const Mat<T>& m, int n_iters, int sweeps,
 #pragma unroll
       for (int i = 0; i < 3; ++i) cand[i] = maxp(s[i] - t * dir[i], floor_);
       const T fc = prox_value<T, MODEL>(cand, s0, m);
-      const bool take = (!accepted) & (fc < best_f);
-      if (take) {
-        best[0] = cand[0];
-        best[1] = cand[1];
-        best[2] = cand[2];
-        best_f = fc;
+      if (fc < f0) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) best[i] = cand[i];
+        break;
       }
-      accepted = accepted | take;
       t = t * T(0.5);
     }
-    const T gnorm2 = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
     const T e0 = best[0] - s[0], e1 = best[1] - s[1], e2 = best[2] - s[2];
     const T step2 = e0 * e0 + e1 * e1 + e2 * e2;
-    const bool converged = (gnorm2 < tol2) | (step2 < tol2);
-    if (!converged) {
-      s[0] = best[0];
-      s[1] = best[1];
-      s[2] = best[2];
-    }
+    if (step2 < tol2) break;  // converged: s stays
+    s[0] = best[0];
+    s[1] = best[1];
+    s[2] = best[2];
   }
 
   // z = U diag(s) V^T

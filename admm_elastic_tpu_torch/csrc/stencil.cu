@@ -15,24 +15,47 @@
 // ints come in a struct by value: offs[8], pe[20], po[20] (per slot s and
 // corner j, the cube-corner id on even and on odd cells).
 //
-// What bounds them on Hopper: at the bench size (1,536 cells, 1,476
-// vertices) each is a few hundred KB of traffic and runs in a few
-// microseconds, so launch latency, not bandwidth, bounds them. They are
-// written simple: one thread per cell (B) or per vertex (C), 64-thread
-// blocks so that the 24 blocks spread over 24 SMs. At larger lattices both
-// stream at memory bandwidth: B reads x through L1/L2 at 8 shifts of the
-// same stream; C re-reads each cell's z and u once per corner it feeds,
-// which an SMEM-tiled version could cut (later work).
-//
-// B reads x at p + d only where p + d < n_vblock, 0 elsewhere: the TPU
+// B: one thread per cell, one independent round of loads, 64-thread blocks.
+// At the bench size (1,536 cells) it moves a few hundred KB; what bounds it
+// on Hopper is the latency of that one round plus the launch, not bandwidth.
+// It reads x at p + d only where p + d < n_vblock, 0 elsewhere: the TPU
 // kernel reads rolled-in finite padding there, and an unchecked read past
 // the family could bring a NaN that survives dl = 0 (NaN * 0 = NaN).
 //
-// C is written in gather form: thread q sums, for each corner id in 0..7,
-// the contributions of cell p = q - offs[cid] (when 0 <= p < cells) for the
+// C is a gather: vertex q sums, for each corner id in 0..7, the
+// contributions of cell p = q - offs[cid] (when 0 <= p < cells) for the
 // (slot, corner) pairs whose parity-selected corner id is cid, in slot-major
 // order, and writes its vertex once. No atomics: D^T is deterministic run
-// to run, which bitwise checkpoint replay needs.
+// to run, which bitwise checkpoint replay needs. Which pairs feed which
+// corner id depends on pe / po alone, so the host builds that match table
+// once (ops/cuda_stencil.rhs_match_table) and the kernels walk its entries.
+// The sums use the non-contracting __fmul_rn / __fadd_rn (mul_rn, add_rn
+// below): both branches then round exactly as the plain version's separate
+// PyTorch operations do, whatever the compiler would fuse, and are bitwise
+// equal to each other.
+//
+// What bounds C on Hopper is latency, not bytes (under 1 MB at the bench
+// size): a vertex needs ~20-32 (cell, slot, corner) contributions of 31
+// loads each. The two branches, chosen by the wrapper from the shapes alone:
+// - tiled (tet_rhs_tiled_kernel), where the halo fits: a block owns a tile
+//   of `tile` consecutive vertices. Phase 1, a thread per (cell, slot) over
+//   the cells [q0 - max(offs), q0 + tile) that can feed the tile: one round
+//   of 31 independent, coalesced loads, w^2 (z - u) and the 4 corner
+//   contributions once per tet (not once per corner fed), stored to shared
+//   memory as [slot][corner][component] rows x cell columns. Phase 2, a
+//   thread per (corner id, vertex): that corner id's entries come from
+//   shared memory (consecutive threads on consecutive banks) and are added
+//   in the table's order. Phase 3, a thread per (vertex, component), adds
+//   the 8 corner-id sums in turn. The dependent chain is one round of global
+//   loads, then at most a corner id's entries, then 8 adds.
+// - wide (tet_rhs_wide_kernel), for cross-sections whose halo
+//   max(offs) = Y*Z + Z + 1 leaves no room for a tile in a block's shared
+//   memory: a thread per vertex loads each contribution's operands itself,
+//   one dependent round per contribution. Slow at the bench size (a chain
+//   of tens of round trips on 24 SMs), it streams at sizes where many
+//   warps are resident.
+// On an H100 at the bench size, f32, the tiled branch takes 2.8 us of device
+// time at a tile of 32, the wide branch 17.8, an empty launch 0.9.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,6 +67,22 @@ struct Geom {
   int pe[20];
   int po[20];
 };
+
+// C's match table: corner id cid owns ent[start[cid] .. start[cid + 1]), in
+// slot-major order; an entry is (slot * 4 + corner) | kind << 8 with kind
+// BOTH (pe == po == cid: the contribution as it is), EVEN (pe == cid only:
+// times par) or ODD (po == cid only: times 1 - par). At most 40 entries.
+enum MatchKind { BOTH = 0, EVEN = 1, ODD = 2 };
+struct Match {
+  int offs[8];
+  int start[9];
+  int ent[40];
+};
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 template <typename T>
 __global__ void __launch_bounds__(64) tet_dx_kernel(
@@ -90,59 +129,162 @@ __global__ void __launch_bounds__(64) tet_dx_kernel(
   }
 }
 
+// g = w^2 (z - u) of tet (slot s, cell p), 19 independent loads.
 template <typename T>
-__global__ void __launch_bounds__(64) tet_rhs_kernel(
+__device__ __forceinline__ void rhs_g(const T* __restrict__ z, const T* __restrict__ u,
+                                      const T* __restrict__ w, int cells, int s, int p, T g[9]) {
+  const int64_t row = (int64_t)5 * cells;
+  const int64_t t = (int64_t)s * cells + p;
+  const T wt = w[t];
+  T zz[9], uu[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    zz[k] = z[k * row + t];
+    uu[k] = u[k * row + t];
+  }
+  const T w2 = mul_rn(wt, wt);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) g[k] = mul_rn(w2, zz[k] - uu[k]);
+}
+
+// One corner's contribution to D^T W^2 (z - u): out[r] = sum_c g[3r + c] *
+// d[c], c = 0, 1, 2 in turn.
+template <typename T>
+__device__ __forceinline__ void rhs_corner(const T g[9], T d0, T d1, T d2, T out[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    T cr = mul_rn(g[3 * r], d0);
+    cr = add_rn(cr, mul_rn(g[3 * r + 1], d1));
+    out[r] = add_rn(cr, mul_rn(g[3 * r + 2], d2));
+  }
+}
+
+// acc (+)= the entry's share of one contribution, for one component.
+template <typename T>
+__device__ __forceinline__ T rhs_add(bool first, T acc, int kind, T pr, T inv, T c) {
+  const T v = kind == BOTH ? c : mul_rn(kind == EVEN ? pr : inv, c);
+  return first ? v : add_rn(acc, v);
+}
+
+// Threads of a tiled block: one per (slot, cell column) of phase 1 where that
+// is at most this many (375 at the bench shape with a tile of 32: phase 1 is
+// then a single round of loads), else this many looping over the columns.
+constexpr int kRhsMaxBlock = 640;
+
+// Tiled branch. Block b owns output vertices [b * tile, (b + 1) * tile);
+// q0 = b * tile - base is the first of them in the family's block. Shared
+// memory, width = tile + halo cell columns, halo = max(offs), col = p -
+// (q0 - halo): 60 rows of contributions sm[(sj * 3 + r) * width + col], one
+// row of parities par[p], then the tile's 8 corner-id sums acc[(cid * tile +
+// vertex) * 3 + r].
+template <typename T>
+__global__ void __launch_bounds__(kRhsMaxBlock) tet_rhs_tiled_kernel(
     const T* __restrict__ z, const T* __restrict__ u, const T* __restrict__ w,
     const T* __restrict__ dl, const T* __restrict__ par, T* __restrict__ out, int n_verts,
-    int base, int n_vblock, int cells, Geom g) {
+    int base, int n_vblock, int cells, int tile, int halo, Match m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int width = tile + halo;
+  T* sm_par = sm + 60 * width;
+  T* sm_acc = sm_par + width;
+  const int q0 = blockIdx.x * tile - base;
+  const int p0 = q0 - halo;
+
+  // Phase 1: a thread per (slot, cell column); one round of loads where the
+  // block has a thread for each.
+  for (int idx = threadIdx.x; idx < 5 * width; idx += blockDim.x) {
+    const int s = idx / width, col = idx - s * width;
+    const int p = p0 + col;
+    if (p < 0 || p >= cells) continue;
+    T d[12], g[9];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) d[k] = dl[((int64_t)s * 12 + k) * cells + p];
+    if (s == 0) sm_par[col] = par[p];
+    rhs_g(z, u, w, cells, s, p, g);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      T c[3];
+      rhs_corner(g, d[3 * j], d[3 * j + 1], d[3 * j + 2], c);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) sm[((s * 4 + j) * 3 + r) * width + col] = c[r];
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: a thread per (corner id, vertex) sums that corner id's entries
+  // in the table's order; with tile a multiple of 32 a warp shares its cid.
+  for (int idx = threadIdx.x; idx < 8 * tile; idx += blockDim.x) {
+    const int cid = idx / tile, v = idx - cid * tile;
+    const int p = q0 + v - m.offs[cid];
+    const int e0 = m.start[cid], e1 = m.start[cid + 1];
+    if (p < 0 || p >= cells) continue;
+    const int col = p - p0;
+    const T pr = sm_par[col];
+    const T inv = T(1) - pr;
+    T acc[3] = {T(0), T(0), T(0)};
+#pragma unroll 2
+    for (int e = e0; e < e1; ++e) {
+      const int sj = m.ent[e] & 0xff, kind = m.ent[e] >> 8;
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        acc[r] = rhs_add(e == e0, acc[r], kind, pr, inv, sm[(sj * 3 + r) * width + col]);
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r) sm_acc[idx * 3 + r] = acc[r];
+  }
+  __syncthreads();
+
+  // Phase 3: a thread per (vertex, component) adds the corner ids' sums in
+  // turn and writes its value once; consecutive threads, consecutive addresses.
+  for (int idx = threadIdx.x; idx < 3 * tile; idx += blockDim.x) {
+    const int v = idx / 3;
+    const int q = q0 + v;
+    if (q + base >= n_verts) break;
+    T total = T(0);
+    if (q >= 0 && q < n_vblock) {
+#pragma unroll
+      for (int cid = 0; cid < 8; ++cid) {
+        const int p = q - m.offs[cid];
+        if (p < 0 || p >= cells || m.start[cid] == m.start[cid + 1]) continue;
+        total = add_rn(total, sm_acc[cid * tile * 3 + idx]);
+      }
+    }
+    out[(int64_t)(blockIdx.x * tile) * 3 + idx] = total;
+  }
+}
+
+// Wide branch: a thread per output vertex, every operand from global memory.
+template <typename T>
+__global__ void __launch_bounds__(64) tet_rhs_wide_kernel(
+    const T* __restrict__ z, const T* __restrict__ u, const T* __restrict__ w,
+    const T* __restrict__ dl, const T* __restrict__ par, T* __restrict__ out, int n_verts,
+    int base, int n_vblock, int cells, Match m) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_verts) return;
   const int q = i - base;
   T total[3] = {T(0), T(0), T(0)};
   if (q >= 0 && q < n_vblock) {
-    const int64_t row = (int64_t)5 * cells;
 #pragma unroll 1
     for (int cid = 0; cid < 8; ++cid) {
-      const int p = q - g.offs[cid];
-      if (p < 0 || p >= cells) continue;
+      const int p = q - m.offs[cid];
+      const int e0 = m.start[cid], e1 = m.start[cid + 1];
+      if (p < 0 || p >= cells || e0 == e1) continue;
       const T pr = par[p];
       const T inv = T(1) - pr;
-      T acc[3];
-      bool any = false;
+      T acc[3] = {T(0), T(0), T(0)};
 #pragma unroll 1
-      for (int s = 0; s < 5; ++s) {
-        const int64_t t = (int64_t)s * cells + p;
-        const T w2 = w[t] * w[t];
-#pragma unroll 1
-        for (int j = 0; j < 4; ++j) {
-          const int he = g.pe[s * 4 + j], ho = g.po[s * 4 + j];
-          if (he != cid && ho != cid) continue;
-          T contrib[3];
+      for (int e = e0; e < e1; ++e) {
+        const int sj = m.ent[e] & 0xff, kind = m.ent[e] >> 8;
+        const T* d = dl + (int64_t)sj * 3 * cells + p;
+        const T d0 = d[0], d1 = d[cells], d2 = d[(int64_t)2 * cells];
+        T g[9], c[3];
+        rhs_g(z, u, w, cells, sj >> 2, p, g);
+        rhs_corner(g, d0, d1, d2, c);
 #pragma unroll
-          for (int r = 0; r < 3; ++r) {
-            T cr = T(0);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-              const int64_t k = (r * 3 + c) * row + t;
-              const T gv = w2 * (z[k] - u[k]);
-              const T term = gv * dl[((int64_t)(s * 4 + j) * 3 + c) * cells + p];
-              cr = (c == 0) ? term : cr + term;
-            }
-            contrib[r] = cr;
-          }
-          const T f = (he == ho) ? T(1) : (he == cid ? pr : inv);
-#pragma unroll
-          for (int r = 0; r < 3; ++r) {
-            const T v = (he == ho) ? contrib[r] : f * contrib[r];
-            acc[r] = any ? acc[r] + v : v;
-          }
-          any = true;
-        }
+        for (int r = 0; r < 3; ++r) acc[r] = rhs_add(e == e0, acc[r], kind, pr, inv, c[r]);
       }
-      if (any) {
 #pragma unroll
-        for (int r = 0; r < 3; ++r) total[r] = total[r] + acc[r];
-      }
+      for (int r = 0; r < 3; ++r) total[r] = add_rn(total[r], acc[r]);
     }
   }
 #pragma unroll
@@ -157,6 +299,14 @@ Geom make_geom(const int* geom) {
   return g;
 }
 
+Match make_match(const int* match) {
+  Match m;
+  for (int i = 0; i < 8; ++i) m.offs[i] = match[i];
+  for (int i = 0; i < 9; ++i) m.start[i] = match[8 + i];
+  for (int i = 0; i < 40; ++i) m.ent[i] = match[17 + i];
+  return m;
+}
+
 template <typename T>
 int launch_dx(const T* x, const T* dl, const T* par, const T* dead, T* out, int base,
               int n_vblock, int cells, const int* geom, void* stream) {
@@ -167,15 +317,39 @@ int launch_dx(const T* x, const T* dl, const T* par, const T* dead, T* out, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// tile > 0: the tiled branch with that tile (at most 256 vertices) and halo
+// = max(offs); tile == 0: the wide branch. Above 48 KB the tile's shared
+// memory has to be granted to the kernel first.
 template <typename T>
 int launch_rhs(const T* z, const T* u, const T* w, const T* dl, const T* par, T* out,
-               int n_verts, int base, int n_vblock, int cells, const int* geom, void* stream) {
+               int n_verts, int base, int n_vblock, int cells, const int* match, int tile,
+               int halo, void* stream) {
   if (n_verts <= 0) return 0;
-  const int block = 64;
-  tet_rhs_kernel<T><<<(n_verts + block - 1) / block, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      z, u, w, dl, par, out, n_verts, base, n_vblock, cells, make_geom(geom));
+  const Match m = make_match(match);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile == 0) {
+    const int block = 64;
+    tet_rhs_wide_kernel<T><<<(n_verts + block - 1) / block, block, 0, st>>>(
+        z, u, w, dl, par, out, n_verts, base, n_vblock, cells, m);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (tile < 0 || tile > 256 || halo < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = ((size_t)61 * (tile + halo) + 24 * tile) * sizeof(T);
+  if (bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        tet_rhs_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const int items = 5 * (tile + halo);
+  const int block = items < kRhsMaxBlock ? (items + 31) / 32 * 32 : kRhsMaxBlock;
+  tet_rhs_tiled_kernel<T><<<(n_verts + tile - 1) / tile, block, bytes, st>>>(
+      z, u, w, dl, par, out, n_verts, base, n_vblock, cells, tile, halo, m);
   return static_cast<int>(cudaGetLastError());
 }
+
+// A kernel that does nothing: its device time is the floor under every
+// launch on this card (chip_smoke.py prints it beside the kernels' times).
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -192,16 +366,24 @@ extern "C" int admm_tet_dx_f64(const double* x, const double* dl, const double* 
   return launch_dx<double>(x, dl, par, dead, out, base, n_vblock, cells, geom, stream);
 }
 
+// match: host int[57] = offs[8], start[9], ent[40] (struct Match).
 extern "C" int admm_tet_rhs_f32(const float* z, const float* u, const float* w,
                                 const float* dl, const float* par, float* out, int n_verts,
-                                int base, int n_vblock, int cells, const int* geom,
-                                void* stream) {
-  return launch_rhs<float>(z, u, w, dl, par, out, n_verts, base, n_vblock, cells, geom, stream);
+                                int base, int n_vblock, int cells, const int* match, int tile,
+                                int halo, void* stream) {
+  return launch_rhs<float>(z, u, w, dl, par, out, n_verts, base, n_vblock, cells, match, tile,
+                           halo, stream);
 }
 
 extern "C" int admm_tet_rhs_f64(const double* z, const double* u, const double* w,
                                 const double* dl, const double* par, double* out,
                                 int n_verts, int base, int n_vblock, int cells,
-                                const int* geom, void* stream) {
-  return launch_rhs<double>(z, u, w, dl, par, out, n_verts, base, n_vblock, cells, geom, stream);
+                                const int* match, int tile, int halo, void* stream) {
+  return launch_rhs<double>(z, u, w, dl, par, out, n_verts, base, n_vblock, cells, match, tile,
+                            halo, stream);
+}
+
+extern "C" int admm_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

@@ -54,8 +54,8 @@ _SIGNATURES = {
     "admm_tri_local_step": [_P] * 6 + [_I, _P],
     # x, dl, par, dead, out, base, n_vblock, cells, geom, stream
     "admm_tet_dx": [_P] * 5 + [_I, _I, _I, _P, _P],
-    # z, u, w, dl, par, out, n_verts, base, n_vblock, cells, geom, stream
-    "admm_tet_rhs": [_P] * 6 + [_I, _I, _I, _I, _P, _P],
+    # z, u, w, dl, par, out, n_verts, base, n_vblock, cells, match, tile, halo, stream
+    "admm_tet_rhs": [_P] * 6 + [_I, _I, _I, _I, _P, _I, _I, _P],
 }
 
 
@@ -135,6 +135,8 @@ def library() -> ctypes.CDLL:
                     fn = getattr(lib, f"{name}_{suffix}")
                     fn.argtypes = args
                     fn.restype = ctypes.c_int
+            lib.admm_empty_launch.argtypes = [_P]
+            lib.admm_empty_launch.restype = ctypes.c_int
             _lib = lib
         return _lib
 

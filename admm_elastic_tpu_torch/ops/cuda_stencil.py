@@ -6,6 +6,12 @@ Dispatch is by the tensors' device: CPU tensors take the plain versions in
 ``ops/stencil.py``; CUDA tensors launch the kernels, and a build or launch
 failure raises. ``tet_Dx_rows.launches`` and ``tet_rhs_rows.launches``
 count kernel launches.
+
+Kernel C has two branches (see the header of ``csrc/stencil.cu``): "tiled",
+a block per tile of ``RHS_TILE`` vertices with the contributions of the cells
+that feed it staged in shared memory, and "wide", a thread per vertex reading
+global memory, for cross-sections whose halo does not fit. ``rhs_plan``
+chooses between them from the shapes alone.
 """
 
 from __future__ import annotations
@@ -18,20 +24,76 @@ import torch
 from admm_elastic_tpu_torch.ops import _build
 from admm_elastic_tpu_torch.ops import stencil as stencil_mod
 
+RHS_TILE = 32  # vertices per block of the tiled branch (at most 256; a multiple of 32)
+# Shared memory one block may use on Hopper (227 KB of the SM's 256 KB).
+MAX_SHARED_BYTES = 232448
+BOTH, EVEN, ODD = 0, 1, 2  # enum MatchKind of csrc/stencil.cu
+
+
+def rhs_match_table(pe, po):
+    """Per corner id 0..7, the (slot * 4 + corner, kind) pairs that feed it,
+    in slot-major order: BOTH where the pair's corner id is the same on even
+    and odd cells, else EVEN under its even-cell id and ODD under its
+    odd-cell id."""
+    table = [[] for _ in range(8)]
+    for s in range(5):
+        for j in range(4):
+            he, ho = pe[s][j], po[s][j]
+            if he == ho:
+                table[he].append((s * 4 + j, BOTH))
+            else:
+                table[he].append((s * 4 + j, EVEN))
+                table[ho].append((s * 4 + j, ODD))
+    return table
+
+
+def rhs_plan(halo: int, itemsize: int, branch: str | None = None, tile: int | None = None):
+    """(branch, tile, shared bytes) of kernel C for a family whose largest
+    corner offset is ``halo``: "tiled" where 61 rows (60 of contributions, one
+    of parities) of tile + halo cell columns and the tile's 8 x 3 partial sums
+    fit in a block's shared memory, else "wide" (tile 0, no shared memory).
+    ``branch`` forces one of them; "tiled" raises where it does not fit."""
+    tile = RHS_TILE if tile is None else int(tile)
+    if not 1 <= tile <= 256:
+        raise ValueError(f"tet_rhs_rows: tile {tile} outside 1..256")
+    if branch not in (None, "tiled", "wide"):
+        raise ValueError(f"tet_rhs_rows: unknown branch {branch!r}")
+    n_bytes = (61 * (tile + halo) + 24 * tile) * itemsize
+    fits = n_bytes <= MAX_SHARED_BYTES
+    if branch == "tiled" and not fits:
+        raise ValueError(f"tet_rhs_rows: the tiled branch needs {n_bytes} B of shared memory "
+                         f"(tile {tile}, halo {halo}), a block has {MAX_SHARED_BYTES}")
+    if branch == "wide" or not fits:
+        return "wide", 0, 0
+    return "tiled", tile, n_bytes
+
+
+def rhs_plan_of(b, itemsize: int, branch: str | None = None, tile: int | None = None):
+    """rhs_plan for the stencil tet family ``b``."""
+    return rhs_plan(_geom(b.stencil)[3], itemsize, branch, tile)
+
 
 @functools.lru_cache(maxsize=64)
 def _geom(meta):
-    """(base, cells, n_vblock, int[48] offs/pe/po) of a stencil meta."""
+    """(base, cells, n_vblock, halo, int[48] offs/pe/po for B, int[57]
+    offs/start/ent for C) of a stencil meta."""
     base, cells, n_vblock, offs, pe, po = stencil_mod._tet_geom(meta)
     flat = list(offs) + [v for row in pe for v in row] + [v for row in po for v in row]
-    return base, cells, n_vblock, (ctypes.c_int * 48)(*flat)
+    table = rhs_match_table(pe, po)
+    start = [0]
+    for row in table:
+        start.append(start[-1] + len(row))
+    ent = [sj | kind << 8 for row in table for sj, kind in row]
+    match = list(offs) + start + ent + [0] * (40 - len(ent))
+    return (base, cells, n_vblock, max(offs), (ctypes.c_int * 48)(*flat),
+            (ctypes.c_int * 57)(*match))
 
 
 def tet_Dx_rows(x: torch.Tensor, b) -> torch.Tensor:
     """D x for one stencil tet family: x [N, 3] -> rows [9, 5*cells]."""
     if x.device.type == "cpu":
         return stencil_mod.tet_Dx_rows_plain(x, b)
-    base, cells, n_vblock, geom = _geom(b.stencil)
+    base, cells, n_vblock, _, geom, _ = _geom(b.stencil)
     sfx = _build.cuda_args("tet_Dx_rows", x, (
         ("x", x, (x.shape[0], 3)), ("st_dl", b.st_dl, (5, 4, 3, cells)),
         ("st_par", b.st_par, (cells,)), ("st_dead", b.st_dead, (cells,))))
@@ -48,12 +110,16 @@ def tet_Dx_rows(x: torch.Tensor, b) -> torch.Tensor:
     return out
 
 
-def tet_rhs_rows(z: torch.Tensor, u: torch.Tensor, b, n_verts: int) -> torch.Tensor:
+def tet_rhs_rows(z: torch.Tensor, u: torch.Tensor, b, n_verts: int,
+                 branch: str | None = None, tile: int | None = None) -> torch.Tensor:
     """D^T W^2 (z - u) for one stencil tet family -> [N, 3], zero outside
-    the family's vertex block."""
+    the family's vertex block. ``branch`` ("tiled" or "wide") and ``tile``
+    override ``rhs_plan``'s choice, for tests and timing; the two branches
+    give bitwise the same result."""
+    base, cells, n_vblock, halo, _, match = _geom(b.stencil)
+    _, tile, _ = rhs_plan_of(b, z.element_size(), branch, tile)
     if z.device.type == "cpu":
         return stencil_mod.tet_rhs_rows_plain(z, u, b, n_verts)
-    base, cells, n_vblock, geom = _geom(b.stencil)
     t = 5 * cells
     sfx = _build.cuda_args("tet_rhs_rows", z, (
         ("z", z, (9, t)), ("u", u, (9, t)), ("weight", b.weight, (t,)),
@@ -64,11 +130,19 @@ def tet_rhs_rows(z: torch.Tensor, u: torch.Tensor, b, n_verts: int) -> torch.Ten
     fn = getattr(_build.library(), f"admm_tet_rhs_{sfx}")
     with torch.cuda.device(z.device):
         rc = fn(z.data_ptr(), u.data_ptr(), b.weight.data_ptr(), b.st_dl.data_ptr(),
-                b.st_par.data_ptr(), out.data_ptr(), n_verts, base, n_vblock, cells, geom,
-                torch.cuda.current_stream(z.device).cuda_stream)
+                b.st_par.data_ptr(), out.data_ptr(), n_verts, base, n_vblock, cells, match,
+                tile, halo, torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(rc, "tet_rhs_rows")
     tet_rhs_rows.launches += 1
     return out
+
+
+def empty_launch(device) -> None:
+    """Launch the kernel that does nothing, through the same route as the
+    others: its device time is the floor under any launch on the card."""
+    with torch.cuda.device(device):
+        rc = _build.library().admm_empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    _build.check(rc, "empty_launch")
 
 
 tet_Dx_rows.launches = 0

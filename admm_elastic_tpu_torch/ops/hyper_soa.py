@@ -143,7 +143,9 @@ def newton_soa(value, grad, hess, s, n_iters: int, n_backtrack: int = 8,
     converged), ``searches`` (those of them whose gradient is not already
     below tol, so that a line search has to run) and ``candidates`` (line-search
     candidates up to and with the first accepted one, all n_backtrack where
-    none is)."""
+    none is). If it holds a list under ``lanes``, each trip appends its
+    per-lane masks (live, search, tried), from which a caller can tell how
+    many trips and candidates the slowest lane of a warp needs."""
     live = None
     for _ in range(n_iters):
         g = grad(s)
@@ -195,6 +197,8 @@ def newton_soa(value, grad, hess, s, n_iters: int, n_backtrack: int = 8,
             for key, n in (("gradients", live.sum()), ("searches", search.sum()),
                            ("candidates", (tried * search).sum())):
                 trips[key] = trips.get(key, 0) + int(n)
+            if "lanes" in trips:
+                trips["lanes"].append((live, search, tried))
             live = live & ~converged
     return s
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--kernels-only]
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA. JAX is not needed: the reference trajectories come
@@ -16,10 +16,13 @@ failure:
    per translation unit, all started together);
 3. each kernel against its plain PyTorch version on the card, float64 and
    float32, at the shapes of the paths, on main-path inputs and on a stress
-   recipe, all outputs finite: A (the tet local step, once per model), D and
-   F (the tet prox on [T,3,3]) at 7,680 lanes, every lane held (see
-   LANE_TOL), B (D x) and C (rhs) at 1,536 cells and 1,476 vertices, E (the
-   cloth local step) at 3,362 lanes; C and E bitwise repeatable;
+   recipe, all outputs finite: A (the tet local step, once per model, and at
+   a ragged lane count), D and F (the tet prox on [T,3,3]) at 7,680 lanes,
+   every lane held (see LANE_TOL), B (D x)
+   and C (rhs, its tiled and its wide branch, bitwise equal to each other)
+   at 1,536 cells and 1,476 vertices, C's wide branch on a 2x40x40 lattice
+   whose halo fits no tile, E (the cloth local step) at 3,362 lanes; C and E
+   bitwise repeatable;
 4. the paths, each built through the normal entry points on cuda (float32,
    linsolver=0 "inv", 10 ADMM iterations, dt 1/24), stepped 8 times with the
    launch counts set to 0 just before and read just after, steps 1 and 8
@@ -40,11 +43,17 @@ failure:
    must move over 3.35 TB/s and the operations the function needs on the
    same inputs over 67 TFLOP/s (the tet kernels: a count per lane taken from
    the CUDA body times the Newton and line-search trips these inputs take;
-   B, C, E: the plain version's operations, counted as it runs);
+   B, C, E: the plain version's operations, counted as it runs); C's two
+   branches in turns (wide, tiled, tiled, wide) within this one run;
 6. with --profile only: torch.profiler over 5 steps of the beam and of the
    cloth step (device busy time, idle share, device operations per ADMM
-   iteration, time by kernel), and over 20 launches of each kernel (device
-   time per launch, free of the host's enqueue time).
+   iteration, time by kernel), and over 20 launches of each kernel, of C's
+   branches in turns and of an empty kernel (device time per launch, free of
+   the host's enqueue time; the empty kernel's is the floor under any launch).
+
+With --kernels-only the run stops after phases 1-3 and the per-kernel device
+times of phase 6: the short first run of a changed kernel. It prints the GPU
+line but no result line.
 
 The last lines are the GPU line, one JSON line of kernels, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -420,6 +429,45 @@ def direct_errs(torch, got, want, name, label):
     return dict(max=worst)
 
 
+WIDE_DIMS = (2, 40, 40)  # cells: a halo of 41 * 41 + 41 + 1 columns fits no tile
+
+
+def wide_rhs_check(torch, dtype, name, tol):
+    """Kernel C on a lattice whose halo forces the wide branch, at a vertex
+    offset and with vertices past the family's block, against plain. Its
+    inputs come from a generator of their own: the stream behind the other
+    checks' inputs stays as it is."""
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+    from admm_elastic_tpu_torch.materials import Lame
+    from admm_elastic_tpu_torch.ops import cuda_stencil
+    from admm_elastic_tpu_torch.ops import stencil as st
+    from admm_elastic_tpu_torch.system import elements as el
+
+    mesh = make_tet_blocks(*WIDE_DIMS)
+    off = 5
+    b = el.build_tet_batch(mesh.vertices, mesh.tets, Lame.soft_rubber(), NH, device=DEVICE,
+                           dtype=dtype, vertex_offset=off, lattice_dims=mesh.lattice_dims)
+    n = off + len(mesh.vertices) + 3
+    rng = np.random.default_rng(2)
+    z, u = (torch.as_tensor(rng.standard_normal((9, b.n)), device=DEVICE, dtype=dtype)
+            for _ in range(2))
+    plan = cuda_stencil.rhs_plan_of(b, z.element_size())
+    need(plan[0] == "wide", f"C {name}: {WIDE_DIMS} cells planned as {plan}")
+    try:
+        cuda_stencil.tet_rhs_rows(z, u, b, n, branch="tiled")
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure(f"C {name}: the tiled branch took a halo that does not fit")
+    c1 = cuda_stencil.tet_rhs_rows(z, u, b, n)
+    need(bool(torch.isfinite(c1).all()), f"C {name} wide shape: non-finite output")
+    need(bool(torch.equal(c1, cuda_stencil.tet_rhs_rows(z, u, b, n))),
+         f"C {name} wide shape: two runs differ")
+    err, rel = stencil_err(torch, c1, st.tet_rhs_rows_plain(z, u, b, n))
+    need(rel <= tol, f"C {name} wide shape: rel err {rel:.3e} > {tol}")
+    return dict(cells=list(WIDE_DIMS), n_verts=n, plan=list(plan), max_abs_err=err, rel_err=rel)
+
+
 def kernel_checks(torch):
     from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_prox, cuda_stencil,
                                             cuda_tri_local_step)
@@ -448,16 +496,27 @@ def kernel_checks(torch):
         need(rb <= tol, f"B {name}: rel err {rb:.3e} > {tol}")
         out["tet_Dx_rows"] = dict(max_abs_err=eb, rel_err=rb)
 
-        # C: D^T W^2 (z - u), twice bitwise equal
+        # C: D^T W^2 (z - u). Both branches against plain, each twice bitwise
+        # equal, bitwise equal to each other and to the wrapper's own choice.
         z, uu = dev(rng.standard_normal((9, t))), dev(rng.standard_normal((9, t)))
-        c1 = cuda_stencil.tet_rhs_rows(z, uu, b, n)
-        c2 = cuda_stencil.tet_rhs_rows(z, uu, b, n)
         cp = st.tet_rhs_rows_plain(z, uu, b, n)
-        need(bool(torch.isfinite(c1).all()), f"C {name}: non-finite output")
-        need(bool(torch.equal(c1, c2)), f"C {name}: two runs differ")
-        ec, rc = stencil_err(torch, c1, cp)
-        need(rc <= tol, f"C {name}: rel err {rc:.3e} > {tol}")
-        out["tet_rhs_rows"] = dict(max_abs_err=ec, rel_err=rc, bitwise_repeat=True)
+        c_out, ec, rc = {}, 0.0, 0.0
+        for branch in ("tiled", "wide"):
+            c1 = cuda_stencil.tet_rhs_rows(z, uu, b, n, branch=branch)
+            c2 = cuda_stencil.tet_rhs_rows(z, uu, b, n, branch=branch)
+            need(bool(torch.isfinite(c1).all()), f"C {name} {branch}: non-finite output")
+            need(bool(torch.equal(c1, c2)), f"C {name} {branch}: two runs differ")
+            e1, r1 = stencil_err(torch, c1, cp)
+            need(r1 <= tol, f"C {name} {branch}: rel err {r1:.3e} > {tol}")
+            c_out[branch], ec, rc = c1, max(ec, e1), max(rc, r1)
+        need(bool(torch.equal(c_out["tiled"], c_out["wide"])), f"C {name}: the branches differ")
+        plan = cuda_stencil.rhs_plan_of(b, z.element_size())
+        need(plan[0] == "tiled" and bool(torch.equal(
+            cuda_stencil.tet_rhs_rows(z, uu, b, n), c_out["tiled"])),
+            f"C {name}: the wrapper chose {plan} at the bench shape")
+        out["tet_rhs_rows"] = dict(max_abs_err=ec, rel_err=rc, bitwise_repeat=True,
+                                   branches_bitwise_equal=True, plan=list(plan),
+                                   wide_shape=wide_rhs_check(torch, dtype, name, tol))
 
         # A, D and F at 7,680 lanes, per model: main-path inputs (D x of a
         # perturbed beam, small u) and the stress recipe.
@@ -496,17 +555,20 @@ def kernel_checks(torch):
             main = (got, u, bm.mu, bm.lam, bm.kappa, bm.bulk)
             stress = (f_rows, torch.zeros_like(f_rows), bm.mu, bm.lam, stress_kappa(bm, model),
                       bm.bulk)
+            # A lane count that does not fill its last block (64 lanes).
+            ragged = tuple(a[..., :t - 3].contiguous() for a in main)
             a, d = {}, {}
-            for which, args, zi in (("main", main, dix_33), ("stress", stress, f_33)):
+            for which, args, zi in (("main", main, dix_33), ("stress", stress, f_33),
+                                    ("ragged main", ragged, dix_33[:t - 3].contiguous())):
                 a[which] = tet_errs(torch, *rows_pair(args), name, f"A[{model}] {which}-path",
                                     rerun=rows_rerun(args))
                 d[which] = tet_errs(torch, *prox_pair(zi, args[2:]), name,
                                     f"{'F' if model == 'linear' else 'D'}[{model}] {which}-path",
                                     rerun=prox_rerun(zi, args[2:]))
             out[f"local_step_tet_hyper[{model}]"] = dict(
-                a, max_abs_err=max(a["main"]["max"], a["stress"]["max"]))
+                a, max_abs_err=max(a[w]["max"] for w in d))
             key = "prox_tet_linear" if model == "linear" else f"prox_tet_hyper[{model}]"
-            out[key] = dict(d, max_abs_err=max(d["main"]["max"], d["stress"]["max"]))
+            out[key] = dict(d, max_abs_err=max(v["max"] for v in d.values()))
 
         # E at 3,362 lanes: D x of a perturbed limited sheet with a small u,
         # then a stress recipe (0.3 noise on the identity, limits on about
@@ -616,6 +678,7 @@ def check_sag(label, x0, x8):
 
 def cloth_path(torch, name):
     solver, g, pins = make_cloth_solver(name)
+    log(f"{name}: no tet family, tet_rhs_rows is not on this path")
     x0, x8, res = drive_path(torch, name, solver, g, pins, ["local_step_tri"])
     moved = float(np.abs(x8 - x0).max())
     if CLOTH_SCENES[name]["gravity"] < 0.0:
@@ -651,12 +714,17 @@ def beam_path(torch, model):
     then the element-level prox (kernel D[model], or F)."""
     solver, _, g, pins = make_solver(model)
     label = path_label(model)
+    from admm_elastic_tpu_torch.ops import cuda_stencil
+
+    plan = cuda_stencil.rhs_plan_of(solver.system.tets[0], 4)
+    log(f"{label}: tet_rhs_rows takes the {plan[0]} branch (tile {plan[1]}, {plan[2]} B shared)")
+    need(plan[0] == "tiled", f"{label}: kernel C planned as {plan} on the bench beam")
     dkey = "prox_tet_linear" if model == "linear" else f"prox_tet_hyper[{model}]"
     x0, x8, res = drive_path(
         torch, label, solver, g, pins,
         ["tet_Dx_rows", f"local_step_tet_hyper[{model}]", "tet_rhs_rows", dkey],
         after_steps=element_prox(torch, model), model=model)
-    res.update(check_sag(label, x0, x8))
+    res.update(check_sag(label, x0, x8), rhs_plan=list(plan))
     rows, z33 = res.pop("_rows"), res.pop("_z33")
     zr = solver.system.tets[0].prox(rows)  # kernel A with u = 0, outside the counted window
     res["prox_vs_rows_entry"] = tet_errs(torch, [z33.reshape(-1, 9).T], [zr], "f32",
@@ -816,6 +884,36 @@ def tet_operations(model, lanes, rows, trips):
             + trips["candidates"] * (OPS_CANDIDATE + value))
 
 
+def warp_chains(torch, model, lanes):
+    """What the slowest thread of a warp runs, from the plain version's
+    per-trip masks (newton_soa(trips={"lanes": []})): a warp of 32 lanes takes
+    a Newton trip while any of its lanes is live, a search while any searches,
+    and as many candidates as its slowest lane. The mean and the largest
+    number of trips and of candidates over the warps, and the operations of a
+    warp's chain as a share of the full chain (8 trips of 8 candidates, which
+    every lane of the plain version runs), mean and largest."""
+    def by_warp(m):
+        a = torch.stack(m).cpu()
+        need(a.shape[1] % 32 == 0, "lanes do not fill whole warps")
+        return a.reshape(a.shape[0], -1, 32)
+
+    live, search, tried = (by_warp([m[i] for m in lanes]) for i in range(3))
+    psi, grad, hess = OPS_ENERGY[model]
+    value = OPS_VALUE + psi
+    fixed = OPS_SVD + OPS_DUAL + OPS_COMPOSE
+    per_trip = (OPS_GRADIENT + grad, OPS_SEARCH + hess + value, OPS_CANDIDATE + value)
+    full = fixed + len(lanes) * (per_trip[0] + per_trip[1] + 8 * per_trip[2])
+    trips = live.any(dim=2).sum(dim=0).double()
+    searches = search.any(dim=2).sum(dim=0).double()
+    cands = (tried.double() * search).amax(dim=2).sum(dim=0)
+    chain = (fixed + trips * per_trip[0] + searches * per_trip[1] + cands * per_trip[2]) / full
+    return dict(full_chain_operations=full,
+                trips_mean=float(trips.mean()), trips_max=float(trips.max()),
+                warps_at_max_trips=int((trips == trips.max()).sum()),
+                candidates_mean=float(cands.mean()), candidates_max=float(cands.max()),
+                chain_mean=float(chain.mean()), chain_max=float(chain.max()))
+
+
 def measure(torch, kern, plain, reads, reps_kernel, reps_plain, operations=None):
     """A kernel against its plain version (CUDA events; plain, kernel, kernel,
     plain: the two readings of each show the drift) and its bound: the bytes
@@ -839,7 +937,8 @@ def measure(torch, kern, plain, reads, reps_kernel, reps_plain, operations=None)
 def kernel_cases(torch):
     """Every kernel at the shapes of the paths, float32, on main-path inputs:
     name -> (kernel call, plain call, tensors read, kernel reps, plain reps[,
-    operations])."""
+    operations]); kernel C's two branches, [(label, call)]; and the warps'
+    chains of A by model (warp_chains)."""
     from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_prox, cuda_stencil,
                                             cuda_tri_local_step)
     from admm_elastic_tpu_torch.ops import stencil as st
@@ -867,6 +966,9 @@ def kernel_cases(torch):
             lambda: st.tet_rhs_rows_plain(dix, u, b, n),
             [dix, u, b.weight, b.st_dl, b.st_par], 500, 50),
     }
+    c_branches = [(branch, lambda branch=branch: cuda_stencil.tet_rhs_rows(
+        dix, u, b, n, branch=branch)) for branch in ("wide", "tiled")]
+    chains = {}
 
     def tet_cases(model, bm):
         args = (dix, u, bm.mu, bm.lam, bm.kappa, bm.bulk)
@@ -874,11 +976,15 @@ def kernel_cases(torch):
         # The Newton trips of these inputs: A's prox sees D x + u, D's sees D x.
         trips = {}
         for rows, f in ((True, dix + u), (False, dix)):
-            trips[rows] = {}
+            trips[rows] = {"lanes": []} if rows else {}
             if model != "linear":
                 prox_tet_hyper_tuple(tuple(f), model, *args[2:], trips=trips[rows])
+        masks = trips[True].pop("lanes")
         ops = {rows: tet_operations(model, b.n, rows, trips[rows]) for rows in trips}
         log(f"trips {model}: " + json.dumps({"rows": trips[True], "[T,3,3]": trips[False]}))
+        if model != "linear":
+            chains[model] = warp_chains(torch, model, masks)
+            log(f"warp chains {model} (rows): " + json.dumps(chains[model]))
         cases[f"local_step_tet_hyper[{model}]"] = (
             lambda: cuda_local_step.local_step_tet_hyper(*args, model=model),
             lambda: local_step_plain(*args, model=model), [dix, u] + params, 200, 3, ops[True])
@@ -902,7 +1008,7 @@ def kernel_cases(torch):
     cases["local_step_tri"] = (
         lambda: cuda_tri_local_step.local_step_tri(*e_args),
         lambda: local_step_tri_plain(*e_args), list(e_args), 500, 50)
-    return cases
+    return cases, c_branches, chains
 
 
 def kernel_times(torch, cases):
@@ -912,15 +1018,27 @@ def kernel_times(torch, cases):
     return {name: measure(torch, *case) for name, case in cases.items()}
 
 
-def profile_kernels(torch, cases, gpu, reps=20):
-    """torch.profiler over `reps` launches of each kernel: device time per
-    launch, without the host's enqueue time that CUDA events include.
-    Writes kernel_profile.json into OUT_DIR."""
+def in_turns(calls, read):
+    """read(call) for each of [(label, call)] in their order and then in the
+    reverse order (kernel C: wide, tiled, tiled, wide), so that a drift within
+    the run shows: label -> [first reading, second reading]."""
+    got = {label: [] for label, _ in calls}
+    for label, call in calls + calls[::-1]:
+        got[label].append(read(call))
+    return got
+
+
+def profile_kernels(torch, cases, c_branches, gpu, reps=20):
+    """torch.profiler over `reps` launches of each kernel, of kernel C's two
+    branches (in turns) and of the empty kernel: device time per launch, without the
+    host's enqueue time that CUDA events include. The empty kernel's is the
+    floor under any launch. Writes kernel_profile.json into OUT_DIR."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
-    for name, (kern, *_rest) in cases.items():
+    from admm_elastic_tpu_torch.ops import cuda_stencil
+
+    def device_us(kern, name):
         kern()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -930,13 +1048,25 @@ def profile_kernels(torch, cases, gpu, reps=20):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA]
         need(len(us) >= reps, f"profiler saw {len(us)} device events for {name}")
-        out[name] = dict(device_us=sum(us) / reps, device_ops_per_call=len(us) / reps)
-        log(f"device time {name}: {out[name]['device_us']:.2f} us per call "
-            f"({out[name]['device_ops_per_call']:.1f} device ops) [{gpu}]")
+        return sum(us) / reps, len(us) / reps
+
+    out = {}
+    for name, (kern, *_rest) in cases.items():
+        us, ops = device_us(kern, name)
+        out[name] = dict(device_us=us, device_ops_per_call=ops)
+        log(f"device time {name}: {us:.2f} us per call ({ops:.1f} device ops) [{gpu}]")
+    floor = [device_us(lambda: cuda_stencil.empty_launch(DEVICE), "the empty kernel")[0]
+             for _ in range(2)]
+    log(f"device time of an empty kernel (the launch floor): {floor[0]:.2f}, {floor[1]:.2f} us "
+        f"[{gpu}]")
+    by_branch = in_turns(c_branches, lambda call: device_us(call, "a branch of C")[0])
+    for label, (first, second) in by_branch.items():
+        log(f"device time tet_rhs_rows {label}: {first:.2f}, {second:.2f} us per call [{gpu}]")
     os.makedirs(OUT_DIR, exist_ok=True)
+    res = dict(gpu=gpu, kernels=out, launch_floor_us=floor, rhs_branches_us=by_branch)
     with open(os.path.join(OUT_DIR, "kernel_profile.json"), "w") as f:
-        json.dump(dict(gpu=gpu, kernels=out), f, indent=1)
-    return out
+        json.dump(res, f, indent=1)
+    return res
 
 
 def profile_step(torch, solver, gpu, tag, n_steps=5):
@@ -985,6 +1115,9 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also trace 5 steps of the beam and the cloth step with "
                          "torch.profiler (step_profile_*.json in the output directory)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the build, the kernels' checks against plain and their "
+                         "device times: the short first run of a changed kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU",
@@ -1000,6 +1133,11 @@ def main():
         gpu = env["gpu"]
         built = build()
         checks = kernel_checks(torch)
+        if args.kernels_only:
+            cases, c_branches, _ = kernel_cases(torch)
+            profile_kernels(torch, cases, c_branches, gpu)
+            log(gpu)
+            return 0
 
         paths, rates, solvers = {}, {}, {}
         solvers["beam"], paths["beam"] = beam_path(torch, NH)
@@ -1026,17 +1164,21 @@ def main():
         for label, ph in phases.items():
             for k, v in ph.items():
                 log(f"phase {label}: {k}: {v * 1e3:.1f} us [{gpu}]")
-        cases = kernel_cases(torch)
+        cases, c_branches, chains = kernel_cases(torch)
         times = kernel_times(torch, cases)
         for k, v in times.items():
             log(f"time {k}: kernel {v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, "
                 f"bound {v['bound_ms'] * 1e3:.3f} us by {v['bound_by']} "
                 f"({v['bytes']} B, {v['operations']} operations) [{gpu}]")
+        by_branch = in_turns(c_branches, lambda call: events_ms(torch, call, 200))
+        for label, (first, second) in by_branch.items():
+            log(f"time tet_rhs_rows {label}: {first * 1e3:.1f}, {second * 1e3:.1f} us "
+                f"(CUDA events, in turns) [{gpu}]")
         profiles = {}
         if args.profile:
             for tag in ("beam", "cloth_limit40", "cloth_wind40"):
                 profiles[tag] = profile_step(torch, solvers[tag], gpu, tag)
-            profiles["kernels"] = profile_kernels(torch, cases, gpu)
+            profiles["kernels"] = profile_kernels(torch, cases, c_branches, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1059,7 +1201,8 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(env=env, build=built, checks=checks, paths=paths, rollouts=rates,
-                       phases_ms=phases, kernel_times=times, profiles=profiles,
+                       phases_ms=phases, kernel_times=times, rhs_branches_ms=by_branch,
+                       warp_chains=chains, profiles=profiles,
                        kernels=kernels), f, indent=1)
     for k in kernels:
         if k["launches"] <= 0:

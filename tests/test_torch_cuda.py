@@ -29,6 +29,11 @@ torch.set_num_threads(1)
 # Kernel A in float32: the flip-tolerant bounds of test_torch_local_step.py.
 A_F32_MAX, A_F32_P99 = 5e-2, 2e-4
 STENCIL_SCENES = [((5, 4, 3), 0), ((4, 2, 2), 11)]
+# (cells, vertex offset, vertices past the family's block): the two scenes,
+# one with n_verts above the block, and one whose halo (41 * 41 + 41 + 1 cell
+# columns) fits no tile of kernel C, so that only its wide branch runs.
+STENCIL_CASES = [(d, o, 0) for d, o in STENCIL_SCENES] + [((4, 2, 2), 11, 7), ((2, 40, 40), 5, 3)]
+LANE_COUNTS = [1, 7, 31, 33, 130]  # none fills a block of 16, 32 or 64 lanes
 # Trajectory bounds relative to max |x|, after 1 and 8 steps.
 TRAJ_BOUNDS = {np.float32: (1e-4, 2e-3), np.float64: (1e-9, 1e-9)}
 
@@ -113,7 +118,19 @@ def test_local_step_kernel_other_models_match_plain(cuda_device, model, dtype, p
 
 
 @pytest.mark.parametrize("model", TET_MODELS)
-@pytest.mark.parametrize("t", [1, 7, 130])
+@pytest.mark.parametrize("t", LANE_COUNTS)
+@pytest.mark.parametrize("dtype,p99", [(np.float64, 1e-10), (np.float32, A_F32_P99)])
+def test_local_step_kernel_ragged_lane_counts(cuda_device, model, t, dtype, p99):
+    """Kernel A at lane counts that leave a block part empty."""
+    arrs = [torch.as_tensor(a, device=cuda_device)
+            for a in local_step_inputs(t, t, dtype, model)]
+    got = cuda_local_step.local_step_tet_hyper(*arrs, model=model)
+    assert got[0].shape == (9, t) and got[1].shape == (9, t)
+    _assert_flip_tolerant(got, local_step_plain(*arrs, model=model), p99)
+
+
+@pytest.mark.parametrize("model", TET_MODELS)
+@pytest.mark.parametrize("t", LANE_COUNTS)
 @pytest.mark.parametrize("dtype,p99", [(np.float64, 1e-10), (np.float32, A_F32_P99)])
 def test_prox_kernels_match_plain(cuda_device, model, t, dtype, p99):
     """Kernel D for the hyperelastic models, F for the linear one."""
@@ -141,24 +158,41 @@ def test_tri_local_step_kernel_matches_plain(cuda_device, t, dtype, tol):
         assert (g - w).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("dims,off", STENCIL_SCENES)
+@pytest.mark.parametrize("dims,off,past", STENCIL_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-def test_stencil_kernels_match_plain(cuda_device, dims, off, dtype, tol):
+def test_stencil_kernels_match_plain(cuda_device, dims, off, past, dtype, tol):
+    """Kernel B, and kernel C by the wrapper's own choice and by each branch
+    the shape can take: against plain, against each other, twice bitwise."""
     mesh = make_tet_blocks(*dims)
     b = el.build_tet_batch(mesh.vertices, mesh.tets, Lame.soft_rubber(), "neohookean",
                            device=cuda_device, dtype=dtype, vertex_offset=off,
                            lattice_dims=mesh.lattice_dims)
-    n = off + len(mesh.vertices)
+    n = off + len(mesh.vertices) + past
     rng = np.random.default_rng(8)
     x = torch.as_tensor(rng.standard_normal((n, 3)), device=cuda_device, dtype=dtype)
     z, u = (torch.as_tensor(rng.standard_normal((9, b.n)), device=cuda_device, dtype=dtype)
             for _ in range(2))
-    for got, want in ((cuda_stencil.tet_Dx_rows(x, b), st.tet_Dx_rows_plain(x, b)),
-                      (cuda_stencil.tet_rhs_rows(z, u, b, n), st.tet_rhs_rows_plain(z, u, b, n))):
+
+    def close(got, want):
         scale = max(1.0, want.abs().max().item())
-        assert (got - want).abs().max().item() <= tol * scale
-    assert torch.equal(cuda_stencil.tet_rhs_rows(z, u, b, n),
-                       cuda_stencil.tet_rhs_rows(z, u, b, n))
+        return torch.isfinite(got).all() and (got - want).abs().max().item() <= tol * scale
+
+    assert close(cuda_stencil.tet_Dx_rows(x, b), st.tet_Dx_rows_plain(x, b))
+    want = st.tet_rhs_rows_plain(z, u, b, n)
+    chosen = cuda_stencil.tet_rhs_rows(z, u, b, n)
+    assert close(chosen, want)
+    plan = cuda_stencil.rhs_plan_of(b, z.element_size())
+    assert plan[0] == ("wide" if dims == (2, 40, 40) else "tiled")
+    for kw in (dict(branch="wide"), dict(branch="tiled"), dict(branch="tiled", tile=7)):
+        if kw["branch"] == "tiled" and plan[0] == "wide":
+            with pytest.raises(ValueError, match="shared memory"):
+                cuda_stencil.tet_rhs_rows(z, u, b, n, **kw)
+            continue
+        got = cuda_stencil.tet_rhs_rows(z, u, b, n, **kw)
+        assert torch.equal(got, chosen)  # the branches agree bit for bit
+        assert torch.equal(got, cuda_stencil.tet_rhs_rows(z, u, b, n, **kw))
+    if past:
+        assert torch.equal(chosen[n - past:], torch.zeros_like(chosen[n - past:]))
 
 
 def _run_steps(s, dtype, steps, **settings):
