@@ -48,12 +48,73 @@
 // reference's. Everything stays in registers; the Newton and search loops
 // are kept rolled so the body compiles in seconds and does not spill.
 //
+// Two entries. The rows entry (admm_local_step_*) takes D x as rows [9, T]:
+// the counterpart of the TPU kernel by signature, behind TetBatch.prox(rows)
+// and whatever has its D x from elsewhere. The stencil entry
+// (admm_local_step_stencil_*) is the one the ADMM step launches for a lattice
+// family: it takes x, and lane t = slot * cells + p computes its own nine
+// values of D x with tet_dx_lane of stencil_body.cuh (kernel B's body) where
+// the rows entry loads them, then runs the same tet_lane_prox. On an H100 a
+// D x launch of its own cannot get under the launch floor (0.87 us for an
+// empty kernel, four times B's bound); it took 1.9-2.9 us of device time and
+// some 20 us of host enqueue in a host-bound step, and wrote rows that the
+// very next launch read back. Inside this launch it is one more round of
+// independent loads of values that sit in L1 / L2 (x is 17.7 KB at the bench
+// size), whose temporaries are dead before the SVD starts: 0.1-0.6 us by
+// model on top of the rows entry's 8.5-18.5 us. B's sums are __fmul_rn /
+// __fadd_rn, so the nine values are B's bit for bit, and v = D x + u adds two
+// values neither of which is a product the compiler could contract: the two
+// entries give the same bits.
+//
 // Built once per precision (-DADMM_REAL=float -DADMM_SFX=f32, or double /
 // f64), without --use_fast_math (it flushes denormals and approximates log,
 // sqrt and division); FMA contraction stays on, which the stated float32
 // tolerances allow for.
 
 #include "prox_body.cuh"
+#include "stencil_body.cuh"
+
+namespace {
+
+// One thread per lane t < n = 5 * cells of a lattice family; u, z, uo are SoA
+// rows [9, n]. A warp's lanes share the slot and have consecutive cells
+// (cells is a multiple of 128), so every load is coalesced.
+// The second launch bound says that one block per SM is enough: without it
+// ptxas holds every variant to 128 registers for the sake of occupancy, and
+// the float64 spline_nh variant then spills 8 bytes; with it the float64
+// variants take 114-142 registers, the float32 ones 72-80, and none spills.
+// At the bench size the grid is one block or less per SM anyway.
+template <typename T, int MODEL>
+__global__ void __launch_bounds__(64, 1) tet_local_step_stencil_kernel(
+    const T* __restrict__ x, const T* __restrict__ dl, const T* __restrict__ par,
+    const T* __restrict__ dead, const T* __restrict__ u, const T* __restrict__ mu,
+    const T* __restrict__ lam, const T* __restrict__ kappa, const T* __restrict__ k,
+    T* __restrict__ z, T* __restrict__ uo, int base, int n_vblock, int cells, int n,
+    int n_iters, int sweeps, const __grid_constant__ Geom g) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const int s = t / cells, p = t - s * cells;
+  T v[9];
+  tet_dx_lane(x, dl, par, dead, base, n_vblock, cells, s, p, g, v);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) v[i] = v[i] + u[(int64_t)i * n + t];
+  tet_lane_prox<T, MODEL, true>(v, mu, lam, kappa, k, z, uo, n, t, n_iters, sweeps);
+}
+
+template <typename T, int MODEL>
+int launch_stencil(const T* x, const T* dl, const T* par, const T* dead, const T* u,
+                   const T* mu, const T* lam, const T* kappa, const T* k, T* z, T* uo, int base,
+                   int n_vblock, int cells, int n_iters, int sweeps, const Geom& g,
+                   void* stream) {
+  const int block = 64;
+  const int grid = (5 * cells + block - 1) / block;
+  tet_local_step_stencil_kernel<T, MODEL><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, dl, par, dead, u, mu, lam, kappa, k, z, uo, base, n_vblock, cells, 5 * cells, n_iters,
+      sweeps, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 #define ADMM_CAT2(a, b) a##_##b
 #define ADMM_CAT(a, b) ADMM_CAT2(a, b)
@@ -66,4 +127,28 @@ extern "C" int ADMM_CAT(admm_local_step, ADMM_SFX)(
     int n_iters, int sweeps, void* stream) {
   return dispatch_tet_prox<ADMM_REAL, true>(model, dix, u, mu, lam, kappa, k, z, uo, n, n_iters,
                                             sweeps, stream);
+}
+
+// The stencil entry. geom: host int[48], see make_geom of stencil_body.cuh.
+extern "C" int ADMM_CAT(admm_local_step_stencil, ADMM_SFX)(
+    const ADMM_REAL* x, const ADMM_REAL* dl, const ADMM_REAL* par, const ADMM_REAL* dead,
+    const ADMM_REAL* u, const ADMM_REAL* mu, const ADMM_REAL* lam, const ADMM_REAL* kappa,
+    const ADMM_REAL* k, ADMM_REAL* z, ADMM_REAL* uo, int base, int n_vblock, int cells,
+    const int* geom, int model, int n_iters, int sweeps, void* stream) {
+  if (cells <= 0) return 0;
+  const Geom g = make_geom(geom);
+#define ADMM_STENCIL_CASE(M)                                                                   \
+  case M:                                                                                      \
+    return launch_stencil<ADMM_REAL, M>(x, dl, par, dead, u, mu, lam, kappa, k, z, uo, base,   \
+                                        n_vblock, cells, n_iters, sweeps, g, stream);
+  switch (model) {
+    ADMM_STENCIL_CASE(NH)
+    ADMM_STENCIL_CASE(STVK)
+    ADMM_STENCIL_CASE(SPLINE_NH)
+    ADMM_STENCIL_CASE(SPLINE_STVK)
+    ADMM_STENCIL_CASE(SPLINE_COROT)
+    ADMM_STENCIL_CASE(LINEAR)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ADMM_STENCIL_CASE
 }

@@ -1,9 +1,10 @@
 // The per-lane tet prox bodies shared by kernel A (local_step.cu) and kernels
 // D and F (prox.cu): the signed 3x3 SVD, the energies of the five
 // hyperelastic models with their gradients and Hessians in principal
-// stretches, the projected Newton solve, the linear prox, and the one kernel
-// template that loads a lane (SoA rows or [T,3,3]), runs the model's prox and
-// stores z (and the dual u' = v - z for the rows entry).
+// stretches, the projected Newton solve, the linear prox, the per-lane
+// function that runs the model's prox on a lane's v and stores z (and the
+// dual u' = v - z), and the kernel template that loads a lane from SoA rows
+// or [T,3,3] and calls it.
 //
 // It repeats admm_elastic_tpu_torch/ops/soa.py, ops/hyper_soa.py and
 // materials.py line for line, in the same order: x ** 2 and x ** 3 are
@@ -469,25 +470,19 @@ __device__ void prox_linear(const T* f, int sweeps, T* z) {
     }
 }
 
-// One thread per lane t < n. ROWS: in, u, z, uo are SoA rows [9, n] (thread t
-// reads column t of each row: a warp reads 32 neighbouring values per row,
-// coalesced) and the dual u' = v - z is written. Otherwise in and z are
-// [n, 3, 3] row-major (lane t owns in[9t .. 9t+8]; a warp's 32 lanes cover
-// one contiguous 288-value span), u and uo are not read. The ragged edge is
-// the bounds check; nothing is padded on the host.
+// The prox of lane t on v (row-major 3x3, in registers) and its stores. ROWS:
+// z and uo are SoA rows [9, n] and the dual u' = v - z is written; otherwise
+// z is [n, 3, 3] row-major and uo is not touched. Every entry that has a
+// lane's v ends here: the rows and [T,3,3] entries below, and the entry of
+// local_step.cu that computes D x itself.
 template <typename T, int MODEL, bool ROWS>
-__global__ void __launch_bounds__(64) tet_prox_kernel(
-    const T* __restrict__ in, const T* __restrict__ u, const T* __restrict__ mu,
-    const T* __restrict__ lam, const T* __restrict__ kappa, const T* __restrict__ k,
-    T* __restrict__ z, T* __restrict__ uo, int n, int n_iters, int sweeps) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  T v[9], zz[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    if constexpr (ROWS) v[i] = in[(int64_t)i * n + t] + u[(int64_t)i * n + t];
-    else v[i] = in[(int64_t)9 * t + i];
-  }
+__device__ __forceinline__ void tet_lane_prox(const T* v, const T* __restrict__ mu,
+                                              const T* __restrict__ lam,
+                                              const T* __restrict__ kappa,
+                                              const T* __restrict__ k, T* __restrict__ z,
+                                              T* __restrict__ uo, int n, int t, int n_iters,
+                                              int sweeps) {
+  T zz[9];
   if constexpr (MODEL == LINEAR) {
     prox_linear(v, sweeps, zz);
   } else {
@@ -503,6 +498,28 @@ __global__ void __launch_bounds__(64) tet_prox_kernel(
       z[(int64_t)9 * t + i] = zz[i];
     }
   }
+}
+
+// One thread per lane t < n. ROWS: in, u, z, uo are SoA rows [9, n] (thread t
+// reads column t of each row: a warp reads 32 neighbouring values per row,
+// coalesced) and the dual u' = v - z is written. Otherwise in and z are
+// [n, 3, 3] row-major (lane t owns in[9t .. 9t+8]; a warp's 32 lanes cover
+// one contiguous 288-value span), u and uo are not read. The ragged edge is
+// the bounds check; nothing is padded on the host.
+template <typename T, int MODEL, bool ROWS>
+__global__ void __launch_bounds__(64) tet_prox_kernel(
+    const T* __restrict__ in, const T* __restrict__ u, const T* __restrict__ mu,
+    const T* __restrict__ lam, const T* __restrict__ kappa, const T* __restrict__ k,
+    T* __restrict__ z, T* __restrict__ uo, int n, int n_iters, int sweeps) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  T v[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    if constexpr (ROWS) v[i] = in[(int64_t)i * n + t] + u[(int64_t)i * n + t];
+    else v[i] = in[(int64_t)9 * t + i];
+  }
+  tet_lane_prox<T, MODEL, ROWS>(v, mu, lam, kappa, k, z, uo, n, t, n_iters, sweeps);
 }
 
 // 64-thread blocks: at the 7,680 lanes of the bench beam that is 120 blocks

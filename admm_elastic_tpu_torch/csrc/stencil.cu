@@ -12,15 +12,22 @@
 // embedded at vertex pitch, so corner (di, dj, dk) of cell p is vertex
 // base + p + offs[di*4 + dj*2 + dk]. dl is [5 slots][4 corners][3 cols]
 // [cells]; par is 1 on even cells; dead is 1 on dead cells. The geometry
-// ints come in a struct by value: offs[8], pe[20], po[20] (per slot s and
-// corner j, the cube-corner id on even and on odd cells).
+// ints come in a struct by value (Geom of stencil_body.cuh): offs[8], pe[20],
+// po[20] (per slot s and corner j, the cube-corner id on even and on odd
+// cells).
 //
-// B: one thread per cell, one independent round of loads, 64-thread blocks.
-// At the bench size (1,536 cells) it moves a few hundred KB; what bounds it
-// on Hopper is the latency of that one round plus the launch, not bandwidth.
-// It reads x at p + d only where p + d < n_vblock, 0 elsewhere: the TPU
-// kernel reads rolled-in finite padding there, and an unchecked read past
-// the family could bring a NaN that survives dl = 0 (NaN * 0 = NaN).
+// B: one thread per lane (slot, cell), 64-thread blocks; the lane's nine
+// values come from tet_dx_lane of stencil_body.cuh, the same per-lane body
+// that the tet local step inlines (local_step.cu), so the rows written here
+// and the values that step computes for itself cannot drift apart. The ADMM
+// step does not launch B any more: it is the kernel behind system.Dx, which
+// A_mv (the refinement pass of an unpinned float32 system) and the
+// element-level prox call. At the bench size (7,680 lanes) it moves a few
+// hundred KB; what bounds it on Hopper is the latency of one round of loads
+// plus the launch, not bandwidth. It reads x at p + d only where
+// p + d < n_vblock, 0 elsewhere: the TPU kernel reads rolled-in finite
+// padding there, and an unchecked read past the family could bring a NaN
+// that survives dl = 0 (NaN * 0 = NaN).
 //
 // C is a gather: vertex q sums, for each corner id in 0..7, the
 // contributions of cell p = q - offs[cid] (when 0 <= p < cells) for the
@@ -29,10 +36,10 @@
 // to run, which bitwise checkpoint replay needs. Which pairs feed which
 // corner id depends on pe / po alone, so the host builds that match table
 // once (ops/cuda_stencil.rhs_match_table) and the kernels walk its entries.
-// The sums use the non-contracting __fmul_rn / __fadd_rn (mul_rn, add_rn
-// below): both branches then round exactly as the plain version's separate
-// PyTorch operations do, whatever the compiler would fuse, and are bitwise
-// equal to each other.
+// The sums use the non-contracting __fmul_rn / __fadd_rn (mul_rn, add_rn of
+// stencil_body.cuh): both branches then round exactly as the plain version's
+// separate PyTorch operations do, whatever the compiler would fuse, and are
+// bitwise equal to each other.
 //
 // What bounds C on Hopper is latency, not bytes (under 1 MB at the bench
 // size): a vertex needs ~20-32 (cell, slot, corner) contributions of 31
@@ -57,16 +64,9 @@
 // On an H100 at the bench size, f32, the tiled branch takes 2.8 us of device
 // time at a tile of 32, the wide branch 17.8, an empty launch 0.9.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "stencil_body.cuh"
 
 namespace {
-
-struct Geom {
-  int offs[8];
-  int pe[20];
-  int po[20];
-};
 
 // C's match table: corner id cid owns ent[start[cid] .. start[cid + 1]), in
 // slot-major order; an entry is (slot * 4 + corner) | kind << 8 with kind
@@ -79,54 +79,19 @@ struct Match {
   int ent[40];
 };
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-
 template <typename T>
 __global__ void __launch_bounds__(64) tet_dx_kernel(
     const T* __restrict__ x, const T* __restrict__ dl, const T* __restrict__ par,
     const T* __restrict__ dead, T* __restrict__ out, int base, int n_vblock, int cells,
-    Geom g) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= cells) return;
-  // The 8 corner positions of this cell (0 past the vertex block).
-  T xc[8][3];
+    const __grid_constant__ Geom g) {
+  const int n = 5 * cells;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const int s = t / cells, p = t - s * cells;
+  T dix[9];
+  tet_dx_lane(x, dl, par, dead, base, n_vblock, cells, s, p, g, dix);
 #pragma unroll
-  for (int cid = 0; cid < 8; ++cid) {
-    const int q = p + g.offs[cid];
-    const bool in = q < n_vblock;
-    const int64_t v = (int64_t)(base + (in ? q : 0)) * 3;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) xc[cid][r] = in ? x[v + r] : T(0);
-  }
-  const T pr = par[p];
-  const T inv = T(1) - pr;
-  const T dd = dead[p];
-  const int64_t row = (int64_t)5 * cells;
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    T xs[4][3];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = g.pe[s * 4 + j], o = g.po[s * 4 + j];
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-        xs[j][r] = (e == o) ? xc[e][r] : pr * xc[e][r] + inv * xc[o][r];
-    }
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        T acc = xs[0][r] * dl[((int64_t)(s * 4 + 0) * 3 + c) * cells + p];
-#pragma unroll
-        for (int j = 1; j < 4; ++j) acc = acc + xs[j][r] * dl[((int64_t)(s * 4 + j) * 3 + c) * cells + p];
-        if (r == c) acc = acc + dd;
-        out[(r * 3 + c) * row + (int64_t)s * cells + p] = acc;
-      }
-    }
-  }
+  for (int i = 0; i < 9; ++i) out[(int64_t)i * n + t] = dix[i];
 }
 
 // g = w^2 (z - u) of tet (slot s, cell p), 19 independent loads.
@@ -291,14 +256,6 @@ __global__ void __launch_bounds__(64) tet_rhs_wide_kernel(
   for (int r = 0; r < 3; ++r) out[(int64_t)i * 3 + r] = total[r];
 }
 
-Geom make_geom(const int* geom) {
-  Geom g;
-  for (int i = 0; i < 8; ++i) g.offs[i] = geom[i];
-  for (int i = 0; i < 20; ++i) g.pe[i] = geom[8 + i];
-  for (int i = 0; i < 20; ++i) g.po[i] = geom[28 + i];
-  return g;
-}
-
 Match make_match(const int* match) {
   Match m;
   for (int i = 0; i < 8; ++i) m.offs[i] = match[i];
@@ -312,7 +269,7 @@ int launch_dx(const T* x, const T* dl, const T* par, const T* dead, T* out, int 
               int n_vblock, int cells, const int* geom, void* stream) {
   if (cells <= 0) return 0;
   const int block = 64;
-  tet_dx_kernel<T><<<(cells + block - 1) / block, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  tet_dx_kernel<T><<<(5 * cells + block - 1) / block, block, 0, static_cast<cudaStream_t>(stream)>>>(
       x, dl, par, dead, out, base, n_vblock, cells, make_geom(geom));
   return static_cast<int>(cudaGetLastError());
 }
@@ -353,7 +310,7 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// geom: host int[48] = offs[8], pe[20], po[20] (row-major [slot][corner]).
+// geom: host int[48], see make_geom of stencil_body.cuh.
 extern "C" int admm_tet_dx_f32(const float* x, const float* dl, const float* par,
                                const float* dead, float* out, int base, int n_vblock,
                                int cells, const int* geom, void* stream) {

@@ -28,10 +28,23 @@
 // the cloth size T = 3,362 neither matters beside the launch itself. One
 // thread per lane, everything in registers, no shared memory.
 //
+// Two entries over one per-lane body (tri_lane_step). The rows entry
+// (admm_tri_local_step_*) takes D x as rows [6, T], the TPU kernel's
+// signature. The stencil entry (admm_tri_local_step_stencil_*) is what the
+// ADMM step launches for a regular sheet: it takes x, and lane t = slot *
+// cells + p computes its own six values of D x with tri_dx_lane of
+// stencil_body.cuh: three corners of x, the lane's six Dlocal values, the
+// corner sum ((j0 + j1) + j2) in __fmul_rn / __fadd_rn, so the six values have
+// the bits of ops/stencil.tri_Dx_rows and the two entries give the same
+// result. Since launches are what this size pays for, that takes the sheet's
+// D x (about ten small PyTorch launches an iteration: pad, stack, product,
+// adds, a permuting copy) and its rows in global memory out of the step.
+//
 // Built once per precision (-DADMM_REAL=float -DADMM_SFX=f32, or double /
 // f64), without --use_fast_math.
 
 #include "common.cuh"
+#include "stencil_body.cuh"
 
 namespace {
 
@@ -117,15 +130,14 @@ __device__ __forceinline__ T limit_scale(T n, T lo, T hi, bool check) {
   return check ? s : T(1);
 }
 
+// v (3x2 row-major, in registers) of lane t -> z and u' = v - z, stored to
+// rows [6, n]. Both entries end here.
 template <typename T>
-__global__ void __launch_bounds__(64) tri_local_step_kernel(
-    const T* __restrict__ dix, const T* __restrict__ u, const T* __restrict__ limit_min,
-    const T* __restrict__ limit_max, T* __restrict__ z, T* __restrict__ uo, int n) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  T v[6], p[6], zz[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) v[i] = dix[(int64_t)i * n + t] + u[(int64_t)i * n + t];
+__device__ __forceinline__ void tri_lane_step(const T* v, const T* __restrict__ limit_min,
+                                              const T* __restrict__ limit_max,
+                                              T* __restrict__ z, T* __restrict__ uo, int n,
+                                              int t) {
+  T p[6], zz[6];
   polar_rotation_3x2(v, p);
 #pragma unroll
   for (int i = 0; i < 6; ++i) zz[i] = T(0.5) * (p[i] + v[i]);
@@ -148,6 +160,37 @@ __global__ void __launch_bounds__(64) tri_local_step_kernel(
   }
 }
 
+// The rows entry: D x comes as rows [6, n].
+template <typename T>
+__global__ void __launch_bounds__(64) tri_local_step_kernel(
+    const T* __restrict__ dix, const T* __restrict__ u, const T* __restrict__ limit_min,
+    const T* __restrict__ limit_max, T* __restrict__ z, T* __restrict__ uo, int n) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  T v[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) v[i] = dix[(int64_t)i * n + t] + u[(int64_t)i * n + t];
+  tri_lane_step(v, limit_min, limit_max, z, uo, n, t);
+}
+
+// The stencil entry: lane t = slot * cells + p of a regular sheet computes
+// its own D x from x (tri_dx_lane), n = n_slots * cells.
+template <typename T>
+__global__ void __launch_bounds__(64) tri_local_step_stencil_kernel(
+    const T* __restrict__ x, const T* __restrict__ dl, const T* __restrict__ dead,
+    const T* __restrict__ u, const T* __restrict__ limit_min, const T* __restrict__ limit_max,
+    T* __restrict__ z, T* __restrict__ uo, int base, int cells, int n,
+    const __grid_constant__ TriGeom g) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const int s = t / cells, p = t - s * cells;
+  T v[6];
+  tri_dx_lane(x, dl, dead, base, cells, s, p, g, v);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) v[i] = v[i] + u[(int64_t)i * n + t];
+  tri_lane_step(v, limit_min, limit_max, z, uo, n, t);
+}
+
 }  // namespace
 
 #define ADMM_CAT2(a, b) a##_##b
@@ -161,5 +204,21 @@ extern "C" int ADMM_CAT(admm_tri_local_step, ADMM_SFX)(
   const int grid = (n + block - 1) / block;
   tri_local_step_kernel<ADMM_REAL><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       dix, u, limit_min, limit_max, z, uo, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// geom: host int[28], see make_tri_geom of stencil_body.cuh; 1 <= n_slots <= 8.
+extern "C" int ADMM_CAT(admm_tri_local_step_stencil, ADMM_SFX)(
+    const ADMM_REAL* x, const ADMM_REAL* dl, const ADMM_REAL* dead, const ADMM_REAL* u,
+    const ADMM_REAL* limit_min, const ADMM_REAL* limit_max, ADMM_REAL* z, ADMM_REAL* uo,
+    int base, int cells, int n_slots, const int* geom, void* stream) {
+  if (cells <= 0) return 0;
+  if (n_slots < 1 || n_slots > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = n_slots * cells;
+  const int block = 64;
+  const int grid = (n + block - 1) / block;
+  tri_local_step_stencil_kernel<ADMM_REAL>
+      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+          x, dl, dead, u, limit_min, limit_max, z, uo, base, cells, n, make_tri_geom(geom));
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,12 +46,17 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # dix, u, mu, lam, kappa, k, z, uo, n, model, n_iters, sweeps, stream
     "admm_local_step": [_P] * 8 + [_I, _I, _I, _I, _P],
+    # x, dl, par, dead, u, mu, lam, kappa, k, z, uo, base, n_vblock, cells, geom, model,
+    # n_iters, sweeps, stream
+    "admm_local_step_stencil": [_P] * 11 + [_I, _I, _I, _P, _I, _I, _I, _P],
     # zi, mu, lam, kappa, k, out, n, model, n_iters, sweeps, stream
     "admm_prox_tet_hyper": [_P] * 6 + [_I, _I, _I, _I, _P],
     # zi, out, n, sweeps, stream
     "admm_prox_tet_linear": [_P, _P, _I, _I, _P],
     # dix, u, limit_min, limit_max, z, uo, n, stream
     "admm_tri_local_step": [_P] * 6 + [_I, _P],
+    # x, dl, dead, u, limit_min, limit_max, z, uo, base, cells, n_slots, geom, stream
+    "admm_tri_local_step_stencil": [_P] * 8 + [_I, _I, _I, _P, _P],
     # x, dl, par, dead, out, base, n_vblock, cells, geom, stream
     "admm_tet_dx": [_P] * 5 + [_I, _I, _I, _P, _P],
     # z, u, w, dl, par, out, n_verts, base, n_vblock, cells, match, tile, halo, stream

@@ -1,12 +1,20 @@
-"""Wrapper of kernel A (``csrc/local_step.cu``): the fused tet local step for
+"""Wrappers of kernel A (``csrc/local_step.cu``): the fused tet local step for
 each of the six tet models, replacing
 ``pallas_kernels.local_step_tet_hyper_pallas`` (and, for the linear model,
 the fused jnp path the JAX package leaves to XLA).
 
-Dispatch is by the tensors' device: CPU tensors take the plain version
-(``ops/hyper_soa.local_step_plain``); CUDA tensors launch the kernel, and
-a build or launch failure raises. ``local_step_tet_hyper.launches``
-counts kernel launches.
+Two entries. ``local_step_tet_hyper`` takes D x as rows [9, T], as the TPU
+kernel does. ``local_step_tet_stencil`` takes x and a lattice family: each
+lane computes its own D x (kernel B's per-lane body, ``csrc/stencil_body.cuh``)
+inside the local step's launch, so the ADMM step launches no D x kernel and
+keeps no D x rows; it gives bit for bit what ``cuda_stencil.tet_Dx_rows``
+followed by ``local_step_tet_hyper`` gives.
+
+Dispatch is by the tensors' device: CPU tensors take the plain versions
+(``ops/hyper_soa.local_step_plain``, after ``ops/stencil.tet_Dx_rows_plain``
+for the stencil entry); CUDA tensors launch the kernel, and a build or launch
+failure raises. ``local_step_tet_hyper.launches`` and
+``local_step_tet_stencil.launches`` count kernel launches.
 
 A hyperelastic lane is solved by one thread, which leaves the Newton loop
 and the line search as soon as the result is fixed (``csrc/prox_body.cuh``):
@@ -17,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from admm_elastic_tpu_torch.ops import _build
+from admm_elastic_tpu_torch.ops import _build, cuda_stencil
+from admm_elastic_tpu_torch.ops import stencil as stencil_mod
 from admm_elastic_tpu_torch.ops.hyper_soa import local_step_plain
 from admm_elastic_tpu_torch.ops.prox import (TET_LINEAR, TET_NEOHOOKEAN, TET_SPLINE_COROT,
                                              TET_SPLINE_NH, TET_SPLINE_STVK, TET_STVK,
@@ -53,4 +62,35 @@ def local_step_tet_hyper(dix, u, mu, lam, kappa, k, n_iters: int = 8,
     return z, uo
 
 
+def local_step_tet_stencil(x, u, b, n_iters: int = 8):
+    """v = D x + u, z = prox_model(v), u' = v - z for the stencil tet family
+    ``b``: x [N, 3], u rows [9, 5*cells] -> (z, u')."""
+    check_model(b.model)
+    base, cells, n_vblock, _, geom, _ = cuda_stencil.geom_of(b.stencil)
+    if base + n_vblock > x.shape[0]:
+        raise ValueError("local_step_tet_stencil: family vertex block lies outside x")
+    if x.device.type == "cpu":
+        return local_step_plain(stencil_mod.tet_Dx_rows_plain(x, b), u, b.mu, b.lam, b.kappa,
+                                b.bulk, n_iters=n_iters, model=b.model)
+    n = 5 * cells
+    sfx = _build.cuda_args("local_step_tet_stencil", x, (
+        ("x", x, (x.shape[0], 3)), ("st_dl", b.st_dl, (5, 4, 3, cells)),
+        ("st_par", b.st_par, (cells,)), ("st_dead", b.st_dead, (cells,)), ("u", u, (9, n)),
+        ("mu", b.mu, (n,)), ("lam", b.lam, (n,)), ("kappa", b.kappa, (n,)),
+        ("bulk", b.bulk, (n,))))
+    fn = getattr(_build.library(), f"admm_local_step_stencil_{sfx}")
+    z = torch.empty_like(u)
+    uo = torch.empty_like(u)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), b.st_dl.data_ptr(), b.st_par.data_ptr(), b.st_dead.data_ptr(),
+                u.data_ptr(), b.mu.data_ptr(), b.lam.data_ptr(), b.kappa.data_ptr(),
+                b.bulk.data_ptr(), z.data_ptr(), uo.data_ptr(), base, n_vblock, cells, geom,
+                MODEL_IDS[b.model], int(n_iters), SWEEPS,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "local_step_tet_stencil")
+    local_step_tet_stencil.launches += 1
+    return z, uo
+
+
 local_step_tet_hyper.launches = 0
+local_step_tet_stencil.launches = 0

@@ -70,11 +70,11 @@ def rhs_plan(halo: int, itemsize: int, branch: str | None = None, tile: int | No
 
 def rhs_plan_of(b, itemsize: int, branch: str | None = None, tile: int | None = None):
     """rhs_plan for the stencil tet family ``b``."""
-    return rhs_plan(_geom(b.stencil)[3], itemsize, branch, tile)
+    return rhs_plan(geom_of(b.stencil)[3], itemsize, branch, tile)
 
 
 @functools.lru_cache(maxsize=64)
-def _geom(meta):
+def geom_of(meta):
     """(base, cells, n_vblock, halo, int[48] offs/pe/po for B, int[57]
     offs/start/ent for C) of a stencil meta."""
     base, cells, n_vblock, offs, pe, po = stencil_mod._tet_geom(meta)
@@ -93,7 +93,7 @@ def tet_Dx_rows(x: torch.Tensor, b) -> torch.Tensor:
     """D x for one stencil tet family: x [N, 3] -> rows [9, 5*cells]."""
     if x.device.type == "cpu":
         return stencil_mod.tet_Dx_rows_plain(x, b)
-    base, cells, n_vblock, _, geom, _ = _geom(b.stencil)
+    base, cells, n_vblock, _, geom, _ = geom_of(b.stencil)
     sfx = _build.cuda_args("tet_Dx_rows", x, (
         ("x", x, (x.shape[0], 3)), ("st_dl", b.st_dl, (5, 4, 3, cells)),
         ("st_par", b.st_par, (cells,)), ("st_dead", b.st_dead, (cells,))))
@@ -116,7 +116,7 @@ def tet_rhs_rows(z: torch.Tensor, u: torch.Tensor, b, n_verts: int,
     the family's vertex block. ``branch`` ("tiled" or "wide") and ``tile``
     override ``rhs_plan``'s choice, for tests and timing; the two branches
     give bitwise the same result."""
-    base, cells, n_vblock, halo, _, match = _geom(b.stencil)
+    base, cells, n_vblock, halo, _, match = geom_of(b.stencil)
     _, tile, _ = rhs_plan_of(b, z.element_size(), branch, tile)
     if z.device.type == "cpu":
         return stencil_mod.tet_rhs_rows_plain(z, u, b, n_verts)

@@ -1,17 +1,29 @@
-"""Wrapper of kernel E (``csrc/tri_local_step.cu``): the fused cloth local
+"""Wrappers of kernel E (``csrc/tri_local_step.cu``): the fused cloth local
 step, replacing ``pallas_kernels.local_step_tri_pallas``.
 
-Dispatch is by the tensors' device: CPU tensors take the plain version
-(``ops/soa.local_step_tri_plain``); CUDA tensors launch the kernel, and a
-build or launch failure raises. ``local_step_tri.launches`` counts kernel
-launches.
+Two entries. ``local_step_tri`` takes D x as rows [6, T], as the TPU kernel
+does. ``local_step_tri_stencil`` takes x and a regular sheet: each lane
+computes its own D x (``csrc/stencil_body.cuh``) inside the local step's
+launch, so the ADMM step runs no ``ops/stencil.tri_Dx_rows`` and keeps no D x
+rows; it gives bit for bit what ``tri_Dx_rows`` followed by ``local_step_tri``
+gives.
+
+Dispatch is by the tensors' device: CPU tensors take the plain versions
+(``ops/soa.local_step_tri_plain``, after ``tri_Dx_rows`` for the stencil
+entry); CUDA tensors launch the kernel, and a build or launch failure raises.
+``local_step_tri.launches`` and ``local_step_tri_stencil.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from admm_elastic_tpu_torch.ops import _build
+from admm_elastic_tpu_torch.ops import stencil as stencil_mod
 from admm_elastic_tpu_torch.ops.soa import local_step_tri_plain
 
 
@@ -35,4 +47,39 @@ def local_step_tri(dix, u, limit_min, limit_max):
     return z, uo
 
 
+@functools.lru_cache(maxsize=64)
+def tri_geom_of(meta):
+    """(base, cells, slots, int[28] offs / pats for the kernel) of a sheet's
+    stencil meta."""
+    base, cells, offs, pats = stencil_mod._tri_geom(meta)
+    flat = list(offs) + [v for row in pats for v in row]
+    return base, cells, len(pats), (ctypes.c_int * 28)(*(flat + [0] * (28 - len(flat))))
+
+
+def local_step_tri_stencil(x, u, b):
+    """v = D x + u, z = prox_tri(v), u' = v - z for the regular sheet ``b``:
+    x [N, 3], u rows [6, slots*cells] -> (z, u')."""
+    base, cells, slots, geom = tri_geom_of(b.stencil)
+    if base + cells > x.shape[0]:
+        raise ValueError("local_step_tri_stencil: family vertex block lies outside x")
+    if x.device.type == "cpu":
+        return local_step_tri_plain(stencil_mod.tri_Dx_rows(x, b), u, b.limit_min, b.limit_max)
+    n = slots * cells
+    sfx = _build.cuda_args("local_step_tri_stencil", x, (
+        ("x", x, (x.shape[0], 3)), ("st_dl", b.st_dl, (slots, 3, 2, cells)),
+        ("st_dead", b.st_dead, (cells,)), ("u", u, (6, n)),
+        ("limit_min", b.limit_min, (n,)), ("limit_max", b.limit_max, (n,))))
+    fn = getattr(_build.library(), f"admm_tri_local_step_stencil_{sfx}")
+    z = torch.empty_like(u)
+    uo = torch.empty_like(u)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), b.st_dl.data_ptr(), b.st_dead.data_ptr(), u.data_ptr(),
+                b.limit_min.data_ptr(), b.limit_max.data_ptr(), z.data_ptr(), uo.data_ptr(),
+                base, cells, slots, geom, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "local_step_tri_stencil")
+    local_step_tri_stencil.launches += 1
+    return z, uo
+
+
 local_step_tri.launches = 0
+local_step_tri_stencil.launches = 0

@@ -83,6 +83,11 @@ class TetBatch:
             dix_rows, u_rows, self.mu, self.lam, self.kappa, self.bulk,
             n_iters=n_newton_iters, model=self.model)
 
+    def local_step_x(self, x, u_rows, n_newton_iters: int = 8):
+        """z = prox(D x + u), u' = D x + u - z from x [N, 3] (kernel A's stencil
+        entry: each lane computes its own D x, kernel B's arithmetic)."""
+        return cuda_local_step.local_step_tet_stencil(x, u_rows, self, n_newton_iters)
+
 
 @dataclasses.dataclass
 class TriBatch:
@@ -121,6 +126,12 @@ class TriBatch:
         del n_newton_iters
         return cuda_tri_local_step.local_step_tri(dix_rows, u_rows, self.limit_min,
                                                   self.limit_max)
+
+    def local_step_x(self, x, u_rows, n_newton_iters: int = 8):
+        """The cloth local step from x [N, 3] (kernel E's stencil entry: each
+        lane computes its own D x): (z, u')."""
+        del n_newton_iters
+        return cuda_tri_local_step.local_step_tri_stencil(x, u_rows, self)
 
 
 @dataclasses.dataclass

@@ -4,8 +4,9 @@ A port of ``admm_elastic_tpu/system/system.py``: flat-stencil tet families
 (any of the six models), flat-stencil cloth sheets, and pins as spring
 energies. The per-family iterates come in the order tets, tris, pins.
 
-  local step: z, u <- prox(D x + u)           (tets: kernels B then A;
-                                               sheets: tri_Dx_rows then kernel E)
+  local step: z, u <- prox(D x + u)           (tets: kernel A, sheets: kernel
+                                               E, each lane computing its own
+                                               D x; pins by gather)
   rhs:        b = M x_bar + dt^2 D^T W^2 (z - u)  (tets: kernel C; sheets:
                                                tri_Dt_rows; pins by copy)
   A x = M x + dt^2 D^T W^2 D x                (the same with z = D x, u = 0)
@@ -75,14 +76,13 @@ def zeros_like_Dx(system: System, dtype, device):
 
 def local_step(system: System, x, z_list, u_list, n_newton_iters: int = 8):
     """z_i = prox(D_i x + u_i); u_i += D_i x - z_i (src/EnergyTerm.hpp:130-140)."""
-    dix_list = Dx(system, x)
     new_z, new_u = [], []
-    for b, dix, u in zip(tuple(system.tets) + tuple(system.tris), dix_list, u_list):
-        zi, ui = b.local_step_rows(dix, u, n_newton_iters)
+    for b, u in zip(tuple(system.tets) + tuple(system.tris), u_list):
+        zi, ui = b.local_step_x(x, u, n_newton_iters)
         new_z.append(zi)
         new_u.append(ui)
     if system.pins is not None:
-        dix, u = dix_list[-1], u_list[-1]
+        dix, u = red.pin_Dx(x, system.pins.idx), u_list[-1]
         zi = system.pins.prox(dix + u)
         new_z.append(zi)
         new_u.append(u + dix - zi)

@@ -16,13 +16,17 @@ failure:
    per translation unit, all started together);
 3. each kernel against its plain PyTorch version on the card, float64 and
    float32, at the shapes of the paths, on main-path inputs and on a stress
-   recipe, all outputs finite: A (the tet local step, once per model, and at
-   a ragged lane count), D and F (the tet prox on [T,3,3]) at 7,680 lanes,
-   every lane held (see LANE_TOL), B (D x)
+   recipe, all outputs finite: A (the tet local step's rows entry, once per
+   model, and at a ragged lane count), D and F (the tet prox on [T,3,3]) at
+   7,680 lanes, every lane held (see LANE_TOL), B (D x, exact)
    and C (rhs, its tiled and its wide branch, bitwise equal to each other)
    at 1,536 cells and 1,476 vertices, C's wide branch on a 2x40x40 lattice
-   whose halo fits no tile, E (the cloth local step) at 3,362 lanes; C and E
-   bitwise repeatable;
+   whose halo fits no tile, E (the cloth local step's rows entry) at 3,362
+   lanes; C and E bitwise repeatable; then the stencil entries of A (per
+   model) and E (with and without limits, and as the second sheet of a
+   system), in which each lane computes its own D x: bitwise equal to the
+   two-launch route (B or tri_Dx_rows, then the rows entry) and within the
+   rows entries' bounds of the plain composition;
 4. the paths, each built through the normal entry points on cuda (float32,
    linsolver=0 "inv", 10 ADMM iterations, dt 1/24), stepped 8 times with the
    launch counts set to 0 just before and read just after, steps 1 and 8
@@ -30,12 +34,20 @@ failure:
    and the 8 steps run twice from one state bitwise equal:
    - "beam" and "materials": the 40x5x5 bench beam, neo-Hookean and then
      linear, stvk, spline_nh (mesh flags of binding.add_tetmesh) and
-     spline_stvk, spline_corot (Solver.add_tet_energies) (kernel A per model,
-     B, C), with bench.py's sanity checks, then TetBatch.prox on [T,3,3] of
-     the stepped state (kernel D, or F for the linear beam), held to the rows
-     entry with u = 0;
+     spline_stvk, spline_corot (Solver.add_tet_energies): the steps launch
+     kernel A's stencil entry (which does kernel B's work) and C 80 times and
+     B not at all, with bench.py's sanity checks; then system.Dx (B
+     standalone) and TetBatch.prox on its rows (A's rows entry, held bitwise
+     to the stencil entry) and on [T,3,3] (kernel D, or F for the linear
+     beam), held to the rows entry;
    - "cloth": the 40x40 sheets cloth_limit40 (strain limits, gravity) and
-     cloth_wind40 (colored wind, no gravity) (kernel E);
+     cloth_wind40 (colored wind, no gravity): the steps launch kernel E's
+     stencil entry 80 times and call tri_Dx_rows not at all; then E's rows
+     entry on system.Dx's rows, held bitwise to the stencil entry;
+   - "beam_free": the bench beam without pins, 2 steps of free fall against
+     its own golden: the float32 system takes one refinement pass per ADMM
+     iteration, so every iteration applies A through system.A_mv, the
+     standalone B and C once more (B 20, C 40 launches);
 5. timing: ADMM iterations/s of each path over a rollout of at least 2 s
    (every path twice, the second time in the reverse order), the
    phases of the beam and cloth steps, and each kernel's time against its
@@ -43,20 +55,26 @@ failure:
    must move over 3.35 TB/s and the operations the function needs on the
    same inputs over 67 TFLOP/s (the tet kernels: a count per lane taken from
    the CUDA body times the Newton and line-search trips these inputs take;
-   B, C, E: the plain version's operations, counted as it runs); C's two
-   branches in turns (wide, tiled, tiled, wide) within this one run;
+   B, C, E: the plain version's operations, counted as it runs; a stencil
+   entry: its own bytes, x and the stencil fields in place of D x rows, and
+   D x's operations on top); C's two branches in turns (wide, tiled, tiled,
+   wide) within this one run;
 6. with --profile only: torch.profiler over 5 steps of the beam and of the
    cloth step (device busy time, idle share, device operations per ADMM
    iteration, time by kernel), and over 20 launches of each kernel, of C's
-   branches in turns and of an empty kernel (device time per launch, free of
-   the host's enqueue time; the empty kernel's is the floor under any launch).
+   branches in turns, of each local step's rows entry and stencil entry in
+   turns (the difference is what D x costs inside the launch) and of an empty
+   kernel (device time per launch, free of the host's enqueue time; the empty
+   kernel's is the floor under any launch).
 
 With --kernels-only the run stops after phases 1-3 and the per-kernel device
 times of phase 6: the short first run of a changed kernel. It prints the GPU
 line but no result line.
 
-The last lines are the GPU line, one JSON line of kernels, and
-{"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+The last lines are the GPU line, one JSON line of kernels (a row per TPU
+kernel with the numbers of the entry its path launches; "entries" lists every
+entry that does the kernel's work), and {"ok": true, "device": {...}}. Details
+go to chip_smoke.json in the output directory (OUT_DIR).
 """
 
 import json
@@ -131,6 +149,12 @@ REPLACES = {
     "local_step_tri": (_CSRC + "tri_local_step.cu", _PALLAS + "pallas_kernels.py:286"),
     "prox_tet_linear": (_CSRC + "prox.cu", _PALLAS + "pallas_kernels.py:322"),
 }
+# The entry of each kernel that an ADMM step launches, where that is not the
+# wrapper the kernel is named after: the local steps' stencil entries, in
+# which each lane computes its own D x (csrc/stencil_body.cuh).
+STENCIL_ENTRY = {"local_step_tet_hyper": "local_step_tet_stencil",
+                 "local_step_tri": "local_step_tri_stencil"}
+FREE_BEAM = "beam_free"  # the bench beam without pins: golden name and path label
 
 
 def cloth_sheet(nx, ny):
@@ -236,7 +260,8 @@ def build():
     so = _build.build()
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
              if ln.startswith("==") or "registers" in ln or "Compiling entry" in ln
-             or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)]
+             or ("spill" in ln and "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+                 not in ln)]
     log(f"build {secs:.1f} s -> {so.name}")
     for ln in ptxas:
         log(f"  ptxas {ln}")
@@ -271,16 +296,19 @@ def beam_batch(torch, dtype, model=NH):
     return mesh, b
 
 
-def cloth_batch(torch, dtype):
-    """The strain-limited 40x40 sheet as one TriBatch on the card."""
+def cloth_batch(torch, dtype, limits=True, vertex_offset=0):
+    """The 40x40 sheet as one TriBatch on the card, strain-limited unless told
+    otherwise."""
     from admm_elastic_tpu_torch.materials import Lame
     from admm_elastic_tpu_torch.system import elements as el
 
     p = CLOTH_SCENES["cloth_limit40"]
     verts, tris, _, _ = cloth_sheet(p["nx"], p["ny"])
     lame = Lame.from_youngs_poisson(10000000, 0.399)
-    lame.limit_min, lame.limit_max = p["limits"]
-    return verts, el.build_tri_batch(verts, tris, lame, device=DEVICE, dtype=dtype)
+    if limits:
+        lame.limit_min, lame.limit_max = p["limits"]
+    return verts, el.build_tri_batch(verts, tris, lame, device=DEVICE, dtype=dtype,
+                                     vertex_offset=vertex_offset)
 
 
 def settings_of(g, gravity):
@@ -290,13 +318,18 @@ def settings_of(g, gravity):
                     timestep_s=float(g["dt"]), dtype=np.float32, direct_mode="inv")
 
 
-def make_solver(model=NH, device=None):
+def make_solver(model=NH, device=None, pinned=True):
     """The bench beam with one of the six tet models, through the normal entry
     points, on the card unless a device is named; returns (solver, mesh,
-    golden, pins)."""
+    golden, pins). Without pins (neo-Hookean only, golden FREE_BEAM) the
+    float32 system takes one refinement pass per ADMM iteration, which applies
+    A through system.A_mv."""
     from admm_elastic_tpu_torch import Lame, Solver, binding
 
     mesh, g = beam_mesh(model)
+    if not pinned:
+        need(model == NH, "the unpinned beam is neo-Hookean")
+        g = golden(FREE_BEAM)
     solver = Solver(device=device or DEVICE)
     lame = Lame.soft_rubber()
     if model in BEAM_FLAGS:
@@ -306,11 +339,13 @@ def make_solver(model=NH, device=None):
         solver.add_nodes(mesh.vertices, mesh.weighted_masses(binding.RUBBER_DENSITY))
         solver.add_tet_energies(mesh.vertices, mesh.tets, lame, model=model,
                                 kappa=beam_kappa(model), lattice_dims=mesh.lattice_dims)
-    pins = [int(i) for i in np.where(mesh.vertices[:, 0] < 1e-9)[0]]
+    pins = [int(i) for i in np.where(mesh.vertices[:, 0] < 1e-9)[0]] if pinned else []
     need(pins == [int(i) for i in g["pins"]], "pinned set differs from the golden's")
-    solver.set_pins(pins)
+    if pinned:
+        solver.set_pins(pins)
     need(solver.initialize(settings_of(g, float(g["gravity"]))), "initialize failed")
     need(solver.system.tets[0].model == model, "the beam got another model")
+    need(solver._refine_eff == (0 if pinned else 1), "unexpected refinement passes")
     return solver, mesh, g, pins
 
 
@@ -494,7 +529,8 @@ def kernel_checks(torch):
         eb, rb = stencil_err(torch, got, want)
         tol = F64_TOL if name == "f64" else F32_TOL_STENCIL
         need(rb <= tol, f"B {name}: rel err {rb:.3e} > {tol}")
-        out["tet_Dx_rows"] = dict(max_abs_err=eb, rel_err=rb)
+        need(bool(torch.equal(got, want)), f"B {name}: not exact against plain")
+        out["tet_Dx_rows"] = dict(max_abs_err=eb, rel_err=rb, exact=True)
 
         # C: D^T W^2 (z - u). Both branches against plain, each twice bitwise
         # equal, bitwise equal to each other and to the wrapper's own choice.
@@ -601,6 +637,103 @@ def kernel_checks(torch):
             {k: v["max_abs_err"] for k, v in out.items()}))
     return res
 
+STRESS_X_NOISE = 0.3  # of the lattice pitch: F = I + ~0.4 N(0, 1), some tets inverted
+
+
+def stencil_entry_checks(torch, res):
+    """The stencil entries of kernels A and E (each lane computes its own D x)
+    at the shapes of the paths, float64 and float32, from a generator of their
+    own: bitwise equal to the two-launch route (kernel B, or tri_Dx_rows, then
+    the rows entry), twice bitwise, and against the plain composition under
+    the bounds the rows entries have (see LANE_TOL; a lane over its bound is
+    rerun through the rows entry, whose bits the stencil entry's are). Inputs:
+    the perturbed beam with a small u ("main") and the beam perturbed by
+    STRESS_X_NOISE of its pitch ("stress", kappa as stress_kappa); the 40x40
+    sheet with and without limits, and the same sheet as the second family of
+    a system of two, at a vertex offset."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil, cuda_tri_local_step
+    from admm_elastic_tpu_torch.ops import stencil as st
+    from admm_elastic_tpu_torch.ops.hyper_soa import local_step_plain
+    from admm_elastic_tpu_torch.ops.soa import local_step_tri_plain
+
+    rng = np.random.default_rng(3)
+    for dtype, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=DEVICE, dtype=dtype)
+
+        out = res[name]
+        mesh, _ = beam_mesh(NH)
+        noise = rng.standard_normal(mesh.vertices.shape)
+        xs = {"main": dev(mesh.vertices + 0.05 * noise),
+              "stress": dev(mesh.vertices + STRESS_X_NOISE * noise)}
+        _, b0 = beam_batch(torch, dtype)
+        dixs = {which: cuda_stencil.tet_Dx_rows(x, b0) for which, x in xs.items()}
+        for which, x in xs.items():
+            need(bool(torch.equal(dixs[which], st.tet_Dx_rows_plain(x, b0))),
+                 f"B {name} {which}-path: not exact against plain")
+        for model in TET_MODELS:
+            _, bm = beam_batch(torch, dtype, model)
+            u = {"main": dev(0.05 * rng.standard_normal((9, bm.n))),
+                 "stress": torch.zeros((9, bm.n), device=DEVICE, dtype=dtype)}
+            e = {}
+            for which, x in xs.items():
+                b = bm if which == "main" else dataclasses.replace(
+                    bm, kappa=stress_kappa(bm, model))
+                label = f"A[{model}] stencil entry {which}-path"
+                dix = dixs[which]
+                params = (b.mu, b.lam, b.kappa, b.bulk)
+                k1 = cuda_local_step.local_step_tet_stencil(x, u[which], b)
+                k2 = cuda_local_step.local_step_tet_stencil(x, u[which], b)
+                two = cuda_local_step.local_step_tet_hyper(dix, u[which], *params, model=model)
+                for a, b2, c in zip(k1, k2, two):
+                    need(bool(torch.equal(a, b2)), f"{label} {name}: two runs differ")
+                    need(bool(torch.equal(a, c)),
+                         f"{label} {name}: differs from B followed by the rows entry")
+
+                def rerun(lanes, dix=dix, uu=u[which], params=params, model=model):
+                    args = (dix[:, lanes] * dev(1.0 + 1e-5 * rng.standard_normal(
+                        (9, len(lanes)))), uu[:, lanes]) + tuple(a[lanes] for a in params)
+                    return (cuda_local_step.local_step_tet_hyper(*args, model=model),
+                            local_step_plain(*args, model=model))
+
+                e[which] = tet_errs(torch, k1, local_step_plain(dix, u[which], *params,
+                                                                 model=model),
+                                    name, label, rerun=rerun)
+            out[f"local_step_tet_stencil[{model}]"] = dict(
+                e, bitwise_two_launch=True, bitwise_repeat=True,
+                max_abs_err=max(v["max"] for v in e.values()))
+
+        # Sheets: one family at base 0 with and without limits, then two
+        # families in one x, the second at a vertex offset.
+        verts, _ = cloth_batch(torch, dtype)
+        nv = len(verts)
+        x2 = dev(np.concatenate([verts, verts + np.array([45.0, 0.0, 0.0])])
+                 + 0.02 * rng.standard_normal((2 * nv, 3)))
+        e = {}
+        for label, limits, off in (("limits", True, 0), ("free", False, 0),
+                                   ("second sheet", True, nv)):
+            _, tb = cloth_batch(torch, dtype, limits=limits, vertex_offset=off)
+            need(tb.stencil[0] == off, "the sheet's base is not its vertex offset")
+            x = x2 if off else x2[:nv].contiguous()
+            u = dev(0.02 * rng.standard_normal((6, tb.n)))
+            dix = st.tri_Dx_rows(x, tb)
+            k1 = cuda_tri_local_step.local_step_tri_stencil(x, u, tb)
+            k2 = cuda_tri_local_step.local_step_tri_stencil(x, u, tb)
+            two = cuda_tri_local_step.local_step_tri(dix, u, tb.limit_min, tb.limit_max)
+            for a, b2, c in zip(k1, k2, two):
+                need(bool(torch.equal(a, b2)), f"E stencil entry {label} {name}: two runs differ")
+                need(bool(torch.equal(a, c)), f"E stencil entry {label} {name}: differs from "
+                                              "tri_Dx_rows followed by the rows entry")
+            e[label] = direct_errs(torch, k1, local_step_tri_plain(
+                dix, u, tb.limit_min, tb.limit_max), name, f"E stencil entry {label}")
+        out["local_step_tri_stencil"] = dict(e, bitwise_two_launch=True, bitwise_repeat=True,
+                                             max_abs_err=max(v["max"] for v in e.values()))
+        log(f"stencil entries {name} " + json.dumps(
+            {k: v["max_abs_err"] for k, v in out.items() if "stencil" in k}))
+    return res
+
 
 # --- phase 4: the paths ------------------------------------------------------------------
 
@@ -609,9 +742,11 @@ def _wrappers():
                                             cuda_tri_local_step)
 
     return dict(local_step_tet_hyper=cuda_local_step.local_step_tet_hyper,
+                local_step_tet_stencil=cuda_local_step.local_step_tet_stencil,
                 tet_Dx_rows=cuda_stencil.tet_Dx_rows, tet_rhs_rows=cuda_stencil.tet_rhs_rows,
                 prox_tet_hyper=cuda_prox.prox_tet_hyper, prox_tet_linear=cuda_prox.prox_tet_linear,
-                local_step_tri=cuda_tri_local_step.local_step_tri)
+                local_step_tri=cuda_tri_local_step.local_step_tri,
+                local_step_tri_stencil=cuda_tri_local_step.local_step_tri_stencil)
 
 
 def reset_counts():
@@ -621,7 +756,7 @@ def reset_counts():
 
 def read_counts(model=None):
     """Launch counts by kernel name; A and D under the tet model of the path."""
-    by_model = ("local_step_tet_hyper", "prox_tet_hyper")
+    by_model = ("local_step_tet_hyper", "local_step_tet_stencil", "prox_tet_hyper")
     return {f"{name}[{model}]" if name in by_model else name: fn.launches
             for name, fn in _wrappers().items()}
 
@@ -630,44 +765,79 @@ def rel_err(x, ref):
     return float(np.abs(x - ref).max() / max(np.abs(ref).max(), 1e-9))
 
 
-def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=None):
-    """Step the solver 8 times with the launch counts set to 0 just before and
-    read just after (after_steps, the element-level prox of the materials
-    path, runs inside that window); check the kernels' counts, steps 1 and 8
-    against the golden, the pins, and that the 8 steps repeat bitwise."""
+class count_calls:
+    """Count the calls of module.name while the block runs (for a plain
+    PyTorch function, which has no launch counter of its own)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=None,
+               step_counts=None):
+    """Step the solver to the golden's last step (8, or 2) with the launch
+    counts set to 0 just before and read just after (after_steps, the
+    element-level entries held against the step's, runs inside that window);
+    check the kernels' counts, the counts of the steps alone (step_counts:
+    name -> exact count, 0 for a kernel the step must not launch), the first
+    and the last step against the golden, the pins, and that the rollout
+    repeats bitwise."""
+    from admm_elastic_tpu_torch.ops import stencil as st
     from admm_elastic_tpu_torch.system.system import SimState
 
+    first, last = (int(k) for k in g["steps"])
     x0 = solver.x
     state0 = SimState(x=solver.state.x.clone(), v=solver.state.v.clone())
     reset_counts()
-    solver.step()
-    x1 = solver.x
-    solver.run(7)
-    x8_t = solver.state.x.clone()
+    with count_calls(st, "tri_Dx_rows") as plain_dx:
+        solver.run(first)
+        x_first = solver.x
+        solver.run(last - first)
+    x_last_t = solver.state.x.clone()
+    stepping = dict(read_counts(model), tri_Dx_rows=plain_dx.calls)
+    for k, want in (step_counts or {}).items():
+        need(stepping.get(k) == want,
+             f"{label}: {last} steps launched {k} {stepping.get(k)} times, expected {want}")
     extra = after_steps(solver) if after_steps is not None else {}
     launches = {k: v for k, v in read_counts(model).items() if v}
-    log(f"{label} launches " + json.dumps(launches))
+    log(f"{label} launches " + json.dumps(launches) + "; by the steps alone "
+        + json.dumps({k: v for k, v in stepping.items() if v or k in (step_counts or {})}))
     for k in kernels:
         need(launches.get(k, 0) > 0, f"{label}: kernel {k} was not launched")
-    x8 = x8_t.cpu().numpy()
+    x_last = x_last_t.cpu().numpy()
 
     errs = {}
-    for step, x in ((1, x1), (8, x8)):
+    for step, x in ((first, x_first), (last, x_last)):
         ref = g[f"x{step}"]
         need(x.shape == ref.shape and np.isfinite(x).all(), f"{label} step {step}: bad state")
         errs[step] = rel_err(x, ref)
-    log(f"{label} vs JAX golden: step1 {errs[1]:.3e} (bound {STEP1_TOL}), "
-        f"step8 {errs[8]:.3e} (bound {STEP8_TOL})")
-    need(errs[1] < STEP1_TOL and errs[8] < STEP8_TOL,
+    log(f"{label} vs JAX golden: step {first} {errs[first]:.3e} (bound {STEP1_TOL}), "
+        f"step {last} {errs[last]:.3e} (bound {STEP8_TOL})")
+    need(errs[first] < STEP1_TOL and errs[last] < STEP8_TOL,
          f"{label}: trajectory off the golden: {errs}")
-    pin_dev = float(np.abs(x8[pins] - x0[pins]).max())
+    pin_dev = float(np.abs(x_last[pins] - x0[pins]).max()) if pins else 0.0
     need(pin_dev < 1e-3, f"{label}: pins not held: {pin_dev}")
 
     solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
-    solver.run(8)
-    need(bool(torch.equal(solver.state.x, x8_t)), f"{label}: 8-step rollout not bitwise repeatable")
-    return x0, x8, dict(launches=launches, rel_err_step1=errs[1], rel_err_step8=errs[8],
-                        pin_dev=pin_dev, bitwise_repeat=True, **extra)
+    solver.run(last)
+    need(bool(torch.equal(solver.state.x, x_last_t)),
+         f"{label}: {last}-step rollout not bitwise repeatable")
+    return x0, x_last, dict(launches=launches, launches_by_steps=stepping, steps=[first, last],
+                            rel_err_step1=errs[first], rel_err_last=errs[last],
+                            pin_dev=pin_dev, bitwise_repeat=True, **extra)
 
 
 def check_sag(label, x0, x8):
@@ -676,10 +846,37 @@ def check_sag(label, x0, x8):
     return dict(min_y=float(x8[:, 1].min()))
 
 
+def sheet_rows_entry(torch):
+    """After the steps of a cloth path: the sheet's D x as rows (plain
+    PyTorch, as system.Dx gives it) through kernel E's rows entry with u = 0."""
+    from admm_elastic_tpu_torch.system import system as sysm
+
+    def run(solver):
+        b = solver.system.tris[0]
+        rows = sysm.Dx(solver.system, solver.state.x)[0]
+        by_rows = b.local_step_rows(rows, torch.zeros_like(rows))
+        need(all(bool(torch.isfinite(t).all()) for t in by_rows), "bad rows-entry cloth step")
+        return dict(_by_rows=by_rows)
+
+    return run
+
+
 def cloth_path(torch, name):
     solver, g, pins = make_cloth_solver(name)
     log(f"{name}: no tet family, tet_rhs_rows is not on this path")
-    x0, x8, res = drive_path(torch, name, solver, g, pins, ["local_step_tri"])
+    iters = int(g["steps"][-1]) * int(g["admm_iters"])
+    x0, x8, res = drive_path(
+        torch, name, solver, g, pins, ["local_step_tri_stencil", "local_step_tri"],
+        after_steps=sheet_rows_entry(torch),
+        step_counts={"local_step_tri_stencil": iters, "local_step_tri": 0, "tri_Dx_rows": 0})
+    log(f"{name}: the steps launch the sheet's stencil entry {iters} times and tri_Dx_rows "
+        "not at all")
+    # Outside the counted window: the stencil entry on the same stepped state.
+    b = solver.system.tris[0]
+    by_x = b.local_step_x(solver.state.x, torch.zeros_like(res["_by_rows"][0]))
+    need(all(bool(torch.equal(p, q)) for p, q in zip(res.pop("_by_rows"), by_x)),
+         f"{name}: the rows entry and the stencil entry differ on the stepped state")
+    res["rows_entry_bitwise"] = True
     moved = float(np.abs(x8 - x0).max())
     if CLOTH_SCENES[name]["gravity"] < 0.0:
         need(x8[:, 1].min() < -1e-3, f"{name}: the sheet did not sag")
@@ -689,8 +886,9 @@ def cloth_path(torch, name):
 
 
 def element_prox(torch, model):
-    """TetBatch.prox on [T,3,3] of the stepped state: kernel D (F for the
-    linear model), held to the rows entry (kernel A with u = 0)."""
+    """After the steps of a beam path: D x as rows (the standalone kernel B,
+    through system.Dx), TetBatch.prox on [T,3,3] of it (kernel D, or F for the
+    linear model) and on the rows (kernel A's rows entry with u = 0)."""
     from admm_elastic_tpu_torch.system import system as sysm
 
     def run(solver):
@@ -700,7 +898,7 @@ def element_prox(torch, model):
         z33 = b.prox(zi)
         need(tuple(z33.shape) == (b.n, 3, 3) and bool(torch.isfinite(z33).all()),
              f"{model}: bad element-level prox")
-        return dict(_rows=rows, _z33=z33)
+        return dict(_zr=b.prox(rows), _z33=z33)
 
     return run
 
@@ -710,8 +908,9 @@ def path_label(model):
 
 
 def beam_path(torch, model):
-    """The bench beam with one tet model: 8 steps (kernels B, A[model], C),
-    then the element-level prox (kernel D[model], or F)."""
+    """The bench beam with one tet model: 8 steps (kernel A[model] through its
+    stencil entry, which does kernel B's work, and C), then the element-level
+    entries (B standalone, A's rows entry, D[model] or F)."""
     solver, _, g, pins = make_solver(model)
     label = path_label(model)
     from admm_elastic_tpu_torch.ops import cuda_stencil
@@ -720,16 +919,49 @@ def beam_path(torch, model):
     log(f"{label}: tet_rhs_rows takes the {plan[0]} branch (tile {plan[1]}, {plan[2]} B shared)")
     need(plan[0] == "tiled", f"{label}: kernel C planned as {plan} on the bench beam")
     dkey = "prox_tet_linear" if model == "linear" else f"prox_tet_hyper[{model}]"
+    iters = int(g["steps"][-1]) * int(g["admm_iters"])
     x0, x8, res = drive_path(
         torch, label, solver, g, pins,
-        ["tet_Dx_rows", f"local_step_tet_hyper[{model}]", "tet_rhs_rows", dkey],
-        after_steps=element_prox(torch, model), model=model)
+        [f"local_step_tet_stencil[{model}]", f"local_step_tet_hyper[{model}]", "tet_Dx_rows",
+         "tet_rhs_rows", dkey],
+        after_steps=element_prox(torch, model), model=model,
+        step_counts={f"local_step_tet_stencil[{model}]": iters, "tet_rhs_rows": iters,
+                     "tet_Dx_rows": 0, f"local_step_tet_hyper[{model}]": 0})
+    log(f"{label}: the steps launch the stencil entry {iters} times and tet_Dx_rows not at all")
     res.update(check_sag(label, x0, x8), rhs_plan=list(plan))
-    rows, z33 = res.pop("_rows"), res.pop("_z33")
-    zr = solver.system.tets[0].prox(rows)  # kernel A with u = 0, outside the counted window
+    zr, z33 = res.pop("_zr"), res.pop("_z33")
+    # Outside the counted window: the stencil entry on the same stepped state.
+    zx = solver.system.tets[0].local_step_x(solver.state.x, torch.zeros_like(zr))[0]
+    need(bool(torch.equal(zr, zx)),
+         f"{label}: the rows entry and the stencil entry differ on the stepped state")
+    res["rows_entry_bitwise"] = True
     res["prox_vs_rows_entry"] = tet_errs(torch, [z33.reshape(-1, 9).T], [zr], "f32",
                                          f"{label} [T,3,3] against rows")
     res["prox_vs_rows_entry"]["bitwise"] = bool(torch.equal(z33.reshape(-1, 9).T, zr))
+    return solver, res
+
+
+def free_beam_path(torch):
+    """The bench beam without pins, 2 steps of free fall: the float32 system
+    takes one refinement pass per ADMM iteration, so every iteration applies A
+    through system.A_mv, the standalone kernel B and kernel C once more."""
+    solver, mesh, g, pins = make_solver(NH, pinned=False)
+    iters = int(g["steps"][-1]) * int(g["admm_iters"])
+    x0, x2, res = drive_path(
+        torch, FREE_BEAM, solver, g, pins,
+        [f"local_step_tet_stencil[{NH}]", "tet_Dx_rows", "tet_rhs_rows"], model=NH,
+        step_counts={f"local_step_tet_stencil[{NH}]": iters, "tet_Dx_rows": iters,
+                     "tet_rhs_rows": 2 * iters})
+    # Free fall: every vertex drops alike, by symplectic Euler's
+    # g dt^2 n (n + 1) / 2, and the beam keeps its shape.
+    drop = x2 - x0
+    n_steps = int(g["steps"][-1])
+    want = float(g["gravity"]) * float(g["dt"]) ** 2 * n_steps * (n_steps + 1) / 2
+    spread = float(np.abs(drop - drop.mean(axis=0)).max())
+    need(abs(float(drop[:, 1].mean()) - want) < 1e-4 and spread < 1e-3,
+         f"{FREE_BEAM}: not a free fall: mean drop {drop[:, 1].mean()} against {want}, "
+         f"spread {spread}")
+    res.update(drop_y=float(drop[:, 1].mean()), spread=spread)
     return solver, res
 
 
@@ -750,6 +982,21 @@ def rollout_rate(solver):
                 step_ms=wall / n_steps * 1e3)
 
 
+def two_launch_local_step(system, x, u):
+    """The local step as it ran before D x moved into its launch (system.Dx,
+    then each family's rows entry, then the pins): timed beside
+    system.local_step within one run, it is used by no path."""
+    from admm_elastic_tpu_torch.system import system as sysm
+
+    dix = sysm.Dx(system, x)
+    out = [b.local_step_rows(d, ui)
+           for b, d, ui in zip(tuple(system.tets) + tuple(system.tris), dix, u)]
+    if system.pins is not None:
+        zi = system.pins.prox(dix[-1] + u[-1])
+        out.append((zi, u[-1] + dix[-1] - zi))
+    return out
+
+
 def step_phases(torch, solver):
     """Mean ms of each phase of one ADMM iteration of the beam, isolated (CUDA events)."""
     from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil
@@ -768,13 +1015,19 @@ def step_phases(torch, solver):
     xs = direct.solve(data, b)
     reps = 200
     return {
-        "Dx (kernel B)": events_ms(torch, lambda: cuda_stencil.tet_Dx_rows(x, b0), reps),
-        "local step (kernel A)": events_ms(torch, lambda: cuda_local_step.local_step_tet_hyper(
-            dix, u[0], b0.mu, b0.lam, b0.kappa, b0.bulk), reps),
+        "Dx (kernel B, standalone: not in the step)": events_ms(
+            torch, lambda: cuda_stencil.tet_Dx_rows(x, b0), reps),
+        "local step, rows entry (kernel A; not in the step)": events_ms(
+            torch, lambda: cuda_local_step.local_step_tet_hyper(
+                dix, u[0], b0.mu, b0.lam, b0.kappa, b0.bulk), reps),
+        "local step, stencil entry (kernel A computing D x)": events_ms(
+            torch, lambda: cuda_local_step.local_step_tet_stencil(x, u[0], b0), reps),
         "rhs D^T W^2 (kernel C)": events_ms(
             torch, lambda: cuda_stencil.tet_rhs_rows(z[0], u[0], b0, system.n_verts), reps),
-        "local step, whole (B + A + pins)": events_ms(
+        "local step, whole (stencil entry + pins)": events_ms(
             torch, lambda: sysm.local_step(system, x, z, u), reps),
+        "local step by two launches (B + rows entry + pins; not in the step)": events_ms(
+            torch, lambda: two_launch_local_step(system, x, u), reps),
         "rhs, whole (C + pins + M x_bar)": events_ms(
             torch, lambda: sysm.rhs(system, x, z, u), reps),
         "direct.solve (GEMM)": events_ms(torch, lambda: direct.solve(data, b), reps),
@@ -803,13 +1056,19 @@ def cloth_phases(torch, solver):
     xs = direct.solve(data, b)
     reps = 200
     out = {
-        "tri_Dx_rows (plain PyTorch)": events_ms(torch, lambda: st.tri_Dx_rows(x, b0), reps),
-        "local step (kernel E)": events_ms(torch, lambda: cuda_tri_local_step.local_step_tri(
-            dix, u[0], b0.limit_min, b0.limit_max), reps),
+        "tri_Dx_rows (plain PyTorch; not in the step)": events_ms(
+            torch, lambda: st.tri_Dx_rows(x, b0), reps),
+        "local step, rows entry (kernel E; not in the step)": events_ms(
+            torch, lambda: cuda_tri_local_step.local_step_tri(
+                dix, u[0], b0.limit_min, b0.limit_max), reps),
+        "local step, stencil entry (kernel E computing D x)": events_ms(
+            torch, lambda: cuda_tri_local_step.local_step_tri_stencil(x, u[0], b0), reps),
         "tri_Dt_rows (plain PyTorch)": events_ms(
             torch, lambda: st.tri_Dt_rows(z[0], b0, system.n_verts), reps),
-        "local step, whole (D x + E + pins)": events_ms(
+        "local step, whole (stencil entry + pins)": events_ms(
             torch, lambda: sysm.local_step(system, x, z, u), reps),
+        "local step by tri_Dx_rows + rows entry + pins (not in the step)": events_ms(
+            torch, lambda: two_launch_local_step(system, x, u), reps),
         "rhs, whole (D^T + pins + M x_bar)": events_ms(
             torch, lambda: sysm.rhs(system, x, z, u), reps),
         "direct.solve (GEMM)": events_ms(torch, lambda: direct.solve(data, b), reps),
@@ -937,8 +1196,12 @@ def measure(torch, kern, plain, reads, reps_kernel, reps_plain, operations=None)
 def kernel_cases(torch):
     """Every kernel at the shapes of the paths, float32, on main-path inputs:
     name -> (kernel call, plain call, tensors read, kernel reps, plain reps[,
-    operations]); kernel C's two branches, [(label, call)]; and the warps'
-    chains of A by model (warp_chains)."""
+    operations]); kernel C's two branches, [(label, call)]; the warps' chains
+    of A by model (warp_chains); and, per local step, its rows entry (D x given)
+    and its stencil entry (D x computed by the lane) on the same inputs,
+    [(label, call)], to be timed in turns: the difference is what D x costs
+    inside the launch. A stencil entry's bytes are its own: x, the stencil
+    fields, u and the lane parameters in, z and u' out, no D x rows."""
     from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_prox, cuda_stencil,
                                             cuda_tri_local_step)
     from admm_elastic_tpu_torch.ops import stencil as st
@@ -968,7 +1231,8 @@ def kernel_cases(torch):
     }
     c_branches = [(branch, lambda branch=branch: cuda_stencil.tet_rhs_rows(
         dix, u, b, n, branch=branch)) for branch in ("wide", "tiled")]
-    chains = {}
+    chains, pairs = {}, {}
+    dx_ops = plain_flops(torch, lambda: st.tet_Dx_rows_plain(x, b))
 
     def tet_cases(model, bm):
         args = (dix, u, bm.mu, bm.lam, bm.kappa, bm.bulk)
@@ -988,6 +1252,14 @@ def kernel_cases(torch):
         cases[f"local_step_tet_hyper[{model}]"] = (
             lambda: cuda_local_step.local_step_tet_hyper(*args, model=model),
             lambda: local_step_plain(*args, model=model), [dix, u] + params, 200, 3, ops[True])
+        cases[f"local_step_tet_stencil[{model}]"] = (
+            lambda: cuda_local_step.local_step_tet_stencil(x, u, bm),
+            lambda: local_step_plain(st.tet_Dx_rows_plain(x, bm), *args[1:], model=model),
+            [x[base:base + n_vblock], bm.st_dl, bm.st_par, bm.st_dead, u] + params, 200, 3,
+            ops[True] + dx_ops)
+        pairs[f"local_step_tet[{model}]"] = [
+            ("rows entry", cases[f"local_step_tet_hyper[{model}]"][0]),
+            ("stencil entry", cases[f"local_step_tet_stencil[{model}]"][0])]
         if model == "linear":
             cases["prox_tet_linear"] = (
                 lambda: cuda_prox.prox_tet_linear(zi),
@@ -1008,7 +1280,13 @@ def kernel_cases(torch):
     cases["local_step_tri"] = (
         lambda: cuda_tri_local_step.local_step_tri(*e_args),
         lambda: local_step_tri_plain(*e_args), list(e_args), 500, 50)
-    return cases, c_branches, chains
+    cases["local_step_tri_stencil"] = (
+        lambda: cuda_tri_local_step.local_step_tri_stencil(xs, e_args[1], tb),
+        lambda: local_step_tri_plain(st.tri_Dx_rows(xs, tb), *e_args[1:]),
+        [xs, tb.st_dl, tb.st_dead] + list(e_args[1:]), 500, 50)
+    pairs["local_step_tri"] = [("rows entry", cases["local_step_tri"][0]),
+                               ("stencil entry", cases["local_step_tri_stencil"][0])]
+    return cases, c_branches, chains, pairs
 
 
 def kernel_times(torch, cases):
@@ -1028,9 +1306,10 @@ def in_turns(calls, read):
     return got
 
 
-def profile_kernels(torch, cases, c_branches, gpu, reps=20):
+def profile_kernels(torch, cases, c_branches, pairs, gpu, reps=20):
     """torch.profiler over `reps` launches of each kernel, of kernel C's two
-    branches (in turns) and of the empty kernel: device time per launch, without the
+    branches (in turns), of each local step's rows entry and stencil entry (in
+    turns) and of the empty kernel: device time per launch, without the
     host's enqueue time that CUDA events include. The empty kernel's is the
     floor under any launch. Writes kernel_profile.json into OUT_DIR."""
     from torch.autograd import DeviceType
@@ -1039,16 +1318,21 @@ def profile_kernels(torch, cases, c_branches, gpu, reps=20):
     from admm_elastic_tpu_torch.ops import cuda_stencil
 
     def device_us(kern, name):
-        kern()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                kern()
+        # The profiler now and then returns a window with events missing: such
+        # a window is taken again, and three short windows in a row fail the run.
+        for _ in range(3):
+            kern()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
-        need(len(us) >= reps, f"profiler saw {len(us)} device events for {name}")
-        return sum(us) / reps, len(us) / reps
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    kern()
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+            if len(us) >= reps:
+                return sum(us) / reps, len(us) / reps
+            log(f"profiler saw {len(us)} device events for {name}; the window is taken again")
+        raise SmokeFailure(f"profiler saw {len(us)} device events for {name}, three times")
 
     out = {}
     for name, (kern, *_rest) in cases.items():
@@ -1062,8 +1346,16 @@ def profile_kernels(torch, cases, c_branches, gpu, reps=20):
     by_branch = in_turns(c_branches, lambda call: device_us(call, "a branch of C")[0])
     for label, (first, second) in by_branch.items():
         log(f"device time tet_rhs_rows {label}: {first:.2f}, {second:.2f} us per call [{gpu}]")
+    by_entry = {}
+    for name, calls in pairs.items():
+        by_entry[name] = in_turns(calls, lambda call: device_us(call, f"an entry of {name}")[0])
+        rows, fused = by_entry[name]["rows entry"], by_entry[name]["stencil entry"]
+        log(f"device time {name}: rows entry {rows[0]:.2f}, {rows[1]:.2f}, stencil entry "
+            f"{fused[0]:.2f}, {fused[1]:.2f} us per call: D x inside the launch costs "
+            f"{min(fused) - min(rows):.2f} us [{gpu}]")
     os.makedirs(OUT_DIR, exist_ok=True)
-    res = dict(gpu=gpu, kernels=out, launch_floor_us=floor, rhs_branches_us=by_branch)
+    res = dict(gpu=gpu, kernels=out, launch_floor_us=floor, rhs_branches_us=by_branch,
+               entries_us=by_entry)
     with open(os.path.join(OUT_DIR, "kernel_profile.json"), "w") as f:
         json.dump(res, f, indent=1)
     return res
@@ -1132,10 +1424,10 @@ def main():
         env = environment(torch)
         gpu = env["gpu"]
         built = build()
-        checks = kernel_checks(torch)
+        checks = stencil_entry_checks(torch, kernel_checks(torch))
         if args.kernels_only:
-            cases, c_branches, _ = kernel_cases(torch)
-            profile_kernels(torch, cases, c_branches, gpu)
+            cases, c_branches, _, pairs = kernel_cases(torch)
+            profile_kernels(torch, cases, c_branches, pairs, gpu)
             log(gpu)
             return 0
 
@@ -1143,6 +1435,7 @@ def main():
         solvers["beam"], paths["beam"] = beam_path(torch, NH)
         for name in CLOTH_SCENES:
             solvers[name], paths[name] = cloth_path(torch, name)
+        _, paths[FREE_BEAM] = free_beam_path(torch)
         for model in BEAM_MODELS:
             label = path_label(model)
             solvers[label], paths[label] = beam_path(torch, model)
@@ -1164,7 +1457,7 @@ def main():
         for label, ph in phases.items():
             for k, v in ph.items():
                 log(f"phase {label}: {k}: {v * 1e3:.1f} us [{gpu}]")
-        cases, c_branches, chains = kernel_cases(torch)
+        cases, c_branches, chains, pairs = kernel_cases(torch)
         times = kernel_times(torch, cases)
         for k, v in times.items():
             log(f"time {k}: kernel {v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, "
@@ -1178,26 +1471,41 @@ def main():
         if args.profile:
             for tag in ("beam", "cloth_limit40", "cloth_wind40"):
                 profiles[tag] = profile_step(torch, solvers[tag], gpu, tag)
-            profiles["kernels"] = profile_kernels(torch, cases, c_branches, gpu)
+            profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
-    # Launches of the path that runs each kernel: B and C on the neo-Hookean
-    # beam, E on the strain-limited sheet, A, D and F on their model's beam.
+    # One row per TPU kernel (A and D per model). Its numbers are those of the
+    # entry named under "entry", on the path that launches it: C on the
+    # neo-Hookean beam, A, D and F on their model's beam, E on the
+    # strain-limited sheet, B standalone on the unpinned beam. A, B and E list
+    # every entry that does their work under "entries": the stencil entry that
+    # the steps launch and the rows entry (A, E), the standalone kernel and
+    # the neo-Hookean stencil entry (B).
+    def entry(name, path):
+        t = times[name]
+        return dict(entry=name, path=path, launches=paths[path]["launches"].get(name, 0),
+                    max_abs_err=checks["f32"][name]["max_abs_err"], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"])
+
     kernels = []
     for name in times:
         base, _, model = name.partition("[")
-        model = model.rstrip("]")
+        if base in STENCIL_ENTRY.values():
+            continue
         path = ("cloth_limit40" if base == "local_step_tri" else
-                "beam[linear]" if base == "prox_tet_linear" else path_label(model or NH))
+                "beam[linear]" if base == "prox_tet_linear" else
+                FREE_BEAM if base == "tet_Dx_rows" else path_label(model.rstrip("]") or NH))
+        entries = [entry(name, path)]
+        if base in STENCIL_ENTRY:
+            entries.insert(0, entry(STENCIL_ENTRY[base] + name[len(base):], path))
+        elif base == "tet_Dx_rows":
+            entries.append(entry(f"{STENCIL_ENTRY['local_step_tet_hyper']}[{NH}]", "beam"))
         src, rep = REPLACES[base]
-        t = times[name]
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep, path=path,
-                            launches=paths[path]["launches"].get(name, 0),
-                            max_abs_err=checks["f32"][name]["max_abs_err"],
-                            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+        kernels.append(dict(entries[0], name=name, route="cuda", source=src, replaces=rep,
+                            entries=entries))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(env=env, build=built, checks=checks, paths=paths, rollouts=rates,
@@ -1205,10 +1513,11 @@ def main():
                        warp_chains=chains, profiles=profiles,
                        kernels=kernels), f, indent=1)
     for k in kernels:
-        if k["launches"] <= 0:
-            print(f"chip_smoke: FAIL: kernel {k['name']} has no launch on {k['path']}",
-                  file=sys.stderr)
-            return 1
+        for e in k["entries"]:
+            if e["launches"] <= 0:
+                print(f"chip_smoke: FAIL: kernel {k['name']}: {e['entry']} has no launch on "
+                      f"{e['path']}", file=sys.stderr)
+                return 1
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

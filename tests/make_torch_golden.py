@@ -3,14 +3,19 @@ runs of the port's full-size scenes, against which chip_smoke.py and the
 port's tests check admm_elastic_tpu_torch where no JAX is installed.
 
 All scenes: float32, linsolver=0, direct_mode="inv", 10 ADMM iterations per
-step, dt = 1/24; positions after steps 1 and 8. The SVD runs the Jacobi SoA
-path (set_svd_impl("jacobi")), the same body as the port's kernels.
+step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD
+runs the Jacobi SoA path (set_svd_impl("jacobi")), the same body as the port's
+kernels.
 
 - beam (bench.py:23-24,78-94): the 40x5x5 make_tet_blocks beam, soft rubber,
   -x face pinned, gravity -9.8; neo-Hookean in torch_port_golden_beam.npz and
   linear, stvk, spline_nh (mesh flags of binding.add_tetmesh), spline_stvk and
   spline_corot (Solver.add_tet_energies with kappa = the bulk modulus) in
-  torch_port_golden_beam_<model>.npz;
+  torch_port_golden_beam_<model>.npz; the neo-Hookean beam with no pins, in
+  free fall for two steps, in torch_port_golden_beam_free.npz: an unpinned
+  float32 system takes one iterative-refinement pass per ADMM iteration
+  (Solver._refine_eff), the only place where a step applies A (D x and
+  D^T W^2 on their own);
 - cloth (benchmarks/matrix.py:76-119,279-281, geometry from
   chip_smoke.cloth_sheet): the 40x40 sheet, Lame.from_youngs_poisson(1e7,
   0.399), -x edge pinned; strain limits (0.95, 1.05) under gravity in
@@ -19,7 +24,7 @@ path (set_svd_impl("jacobi")), the same body as the port's kernels.
 
 Run from the repository root (all files, or only the named ones):
 
-    JAX_PLATFORMS=cpu python tests/make_torch_golden.py [beam beam_stvk cloth_wind40 ...]
+    JAX_PLATFORMS=cpu python tests/make_torch_golden.py [beam beam_free cloth_wind40 ...]
 """
 
 import os
@@ -42,6 +47,7 @@ ADMM_ITERS = 10
 DT = 1.0 / 24.0
 GRAVITY = -9.8
 STEPS = (1, 8)
+FREE_STEPS = (1, 2)  # of beam_free
 DATA = os.path.join(ROOT, "tests", "data")
 
 
@@ -50,11 +56,11 @@ def _settings(gravity):
                     timestep_s=DT, dtype=np.float32, direct_mode="inv")
 
 
-def _rollout(solver):
-    traj = {}
-    for step in range(1, max(STEPS) + 1):
+def _rollout(solver, steps=STEPS):
+    traj = {"steps": np.asarray(steps)}
+    for step in range(1, max(steps) + 1):
         solver.step()
-        if step in STEPS:
+        if step in steps:
             traj[f"x{step}"] = np.asarray(solver.x, np.float32)
     return traj
 
@@ -62,11 +68,11 @@ def _rollout(solver):
 def _save(name, **arrays):
     os.makedirs(DATA, exist_ok=True)
     out = os.path.join(DATA, f"torch_port_golden_{name}.npz")
-    np.savez_compressed(out, admm_iters=ADMM_ITERS, dt=DT, steps=np.asarray(STEPS), **arrays)
+    np.savez_compressed(out, admm_iters=ADMM_ITERS, dt=DT, **arrays)
     print(f"wrote {out}")
 
 
-def beam(model):
+def beam(model, pinned=True):
     mesh = make_tet_blocks(*DIMS)
     solver = Solver()
     lame = Lame.soft_rubber()
@@ -77,13 +83,18 @@ def beam(model):
         solver.add_nodes(mesh.vertices, mesh.weighted_masses(binding.RUBBER_DENSITY))
         solver.add_tet_energies(mesh.vertices, mesh.tets, lame, model=model,
                                 kappa=lame.bulk_modulus(), lattice_dims=mesh.lattice_dims)
-    pins = np.where(mesh.vertices[:, 0] < 1e-9)[0]
-    solver.set_pins([int(i) for i in pins])
+    pins = np.where(mesh.vertices[:, 0] < 1e-9)[0] if pinned else np.zeros((0,), np.int64)
+    if pinned:
+        solver.set_pins([int(i) for i in pins])
     assert solver.initialize(_settings(GRAVITY))
     assert solver.system.tets[0].model == model
-    name = "beam" if model == "neohookean" else f"beam_{model}"
+    if pinned:
+        name, steps = "beam" if model == "neohookean" else f"beam_{model}", STEPS
+    else:
+        assert model == "neohookean" and solver._refine_eff == 1
+        name, steps = "beam_free", FREE_STEPS
     _save(name, dims=np.asarray(DIMS), gravity=GRAVITY, mu=lame.mu, lam=lame.lam, pins=pins,
-          model=model, x0=mesh.vertices.astype(np.float32), **_rollout(solver))
+          model=model, x0=mesh.vertices.astype(np.float32), **_rollout(solver, steps))
 
 
 def cloth(name):
@@ -108,7 +119,8 @@ def cloth(name):
 
 def main(argv):
     prox.set_svd_impl("jacobi")
-    writers = {"beam": lambda: beam("neohookean")}
+    writers = {"beam": lambda: beam("neohookean"),
+               "beam_free": lambda: beam("neohookean", pinned=False)}
     writers.update({f"beam_{m}": (lambda m=m: beam(m)) for m in BEAM_MODELS})
     writers.update({n: (lambda n=n: cloth(n)) for n in CLOTH_SCENES})
     names = argv or list(writers)

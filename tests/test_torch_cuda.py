@@ -1,4 +1,5 @@
-"""Kernels A (every model), B, C, D, E and F and the beam and cloth steps on a
+"""Kernels A (every model), B, C, D, E and F, the stencil entries of A and E
+(each lane computing its own D x) and the beam and cloth steps on a
 CUDA card, against the port's own plain versions and CPU path. This file
 imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -178,6 +179,8 @@ def test_stencil_kernels_match_plain(cuda_device, dims, off, past, dtype, tol):
         return torch.isfinite(got).all() and (got - want).abs().max().item() <= tol * scale
 
     assert close(cuda_stencil.tet_Dx_rows(x, b), st.tet_Dx_rows_plain(x, b))
+    # B sums with __fmul_rn / __fadd_rn in the plain version's order: exact.
+    assert torch.equal(cuda_stencil.tet_Dx_rows(x, b), st.tet_Dx_rows_plain(x, b))
     want = st.tet_rhs_rows_plain(z, u, b, n)
     chosen = cuda_stencil.tet_rhs_rows(z, u, b, n)
     assert close(chosen, want)
@@ -195,6 +198,88 @@ def test_stencil_kernels_match_plain(cuda_device, dims, off, past, dtype, tol):
         assert torch.equal(chosen[n - past:], torch.zeros_like(chosen[n - past:]))
 
 
+# Lattices of the stencil entry: 640 lanes at a vertex offset with vertices
+# past the block, 5,120 lanes, and the bench beam's 7,680.
+FUSED_LATTICES = [((4, 2, 2), 11, 7), ((5, 4, 3), 0, 0), ((40, 5, 5), 0, 0)]
+
+
+@pytest.mark.parametrize("dims,off,past", FUSED_LATTICES)
+@pytest.mark.parametrize("model", TET_MODELS)
+@pytest.mark.parametrize("dtype,p99", [(torch.float64, 1e-10), (torch.float32, A_F32_P99)])
+def test_tet_stencil_entry_on_the_card(cuda_device, dims, off, past, model, dtype, p99):
+    """Kernel A's stencil entry: bit for bit kernel B followed by the rows
+    entry, twice the same, and within the rows entry's bounds of the plain
+    composition."""
+    mesh = make_tet_blocks(*dims)
+    lame = Lame.soft_rubber()
+    kappa = 1e-3 * lame.bulk_modulus() if model.startswith("spline") else 0.0
+    b = el.build_tet_batch(mesh.vertices, mesh.tets, lame, model, device=cuda_device,
+                           dtype=dtype, vertex_offset=off, kappa=kappa,
+                           lattice_dims=mesh.lattice_dims)
+    rng = np.random.default_rng(9)
+    x_np = np.concatenate([rng.standard_normal((off, 3)),
+                           mesh.vertices + 0.1 * rng.standard_normal(mesh.vertices.shape),
+                           rng.standard_normal((past, 3))])
+    x = torch.as_tensor(x_np, device=cuda_device, dtype=dtype)
+    u = torch.as_tensor(0.05 * rng.standard_normal((9, b.n)), device=cuda_device, dtype=dtype)
+    before = cuda_local_step.local_step_tet_stencil.launches
+    got = cuda_local_step.local_step_tet_stencil(x, u, b)
+    assert cuda_local_step.local_step_tet_stencil.launches == before + 1
+    dix = cuda_stencil.tet_Dx_rows(x, b)
+    two = cuda_local_step.local_step_tet_hyper(dix, u, b.mu, b.lam, b.kappa, b.bulk, model=model)
+    again = b.local_step_x(x, u)
+    for g, t, a in zip(got, two, again):
+        assert g.shape == (9, b.n) and torch.equal(g, t) and torch.equal(g, a)
+    _assert_flip_tolerant(got, local_step_plain(st.tet_Dx_rows_plain(x, b), u, b.mu, b.lam,
+                                                b.kappa, b.bulk, model=model), p99)
+    with pytest.raises(ValueError, match="outside x"):
+        cuda_local_step.local_step_tet_stencil(x[:off + len(mesh.vertices) - 1].contiguous(),
+                                               u, b)
+
+
+def _sheets(device, dtype, limits):
+    """(verts, TriBatch) of the 40x40 bench sheet (3,362 lanes, a last block
+    part empty) and of a 6x6 make_plane sheet at vertex offset 7 (98 lanes)."""
+    lame = Lame.from_youngs_poisson(10000000, 0.399)
+    if limits:
+        lame.limit_min, lame.limit_max = 0.95, 1.05
+    nx = 40
+    verts = np.array([[i, 0.0, j] for i in range(nx + 1) for j in range(nx + 1)], np.float64)
+    tris = np.asarray([t for i in range(nx) for j in range(nx) for t in (
+        [i * (nx + 1) + j, (i + 1) * (nx + 1) + j, i * (nx + 1) + j + 1],
+        [(i + 1) * (nx + 1) + j, (i + 1) * (nx + 1) + j + 1, i * (nx + 1) + j + 1])])
+    plane = make_plane(6, 6, size=2.0)
+    return [(verts, 0, el.build_tri_batch(verts, tris, lame, device=device, dtype=dtype)),
+            (plane.vertices, 7, el.build_tri_batch(plane.vertices, plane.faces, lame,
+                                                   device=device, dtype=dtype, vertex_offset=7))]
+
+
+@pytest.mark.parametrize("limits", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
+def test_sheet_stencil_entry_on_the_card(cuda_device, limits, dtype, tol):
+    """Kernel E's stencil entry: bit for bit tri_Dx_rows followed by the rows
+    entry, twice the same, and within the rows entry's bound of plain."""
+    rng = np.random.default_rng(10)
+    for verts, off, b in _sheets(cuda_device, dtype, limits):
+        x_np = np.concatenate([rng.standard_normal((off, 3)),
+                               verts + 0.03 * rng.standard_normal(verts.shape),
+                               rng.standard_normal((3, 3))])
+        x = torch.as_tensor(x_np, device=cuda_device, dtype=dtype)
+        u = torch.as_tensor(0.03 * rng.standard_normal((6, b.n)), device=cuda_device, dtype=dtype)
+        before = cuda_tri_local_step.local_step_tri_stencil.launches
+        got = cuda_tri_local_step.local_step_tri_stencil(x, u, b)
+        assert cuda_tri_local_step.local_step_tri_stencil.launches == before + 1
+        dix = st.tri_Dx_rows(x, b)
+        two = cuda_tri_local_step.local_step_tri(dix, u, b.limit_min, b.limit_max)
+        want = local_step_tri_plain(dix, u, b.limit_min, b.limit_max)
+        for g, t, a, w in zip(got, two, b.local_step_x(x, u), want):
+            assert g.shape == (6, b.n) and torch.isfinite(g).all()
+            assert torch.equal(g, t) and torch.equal(g, a)
+            assert (g - w).abs().max().item() <= tol
+        with pytest.raises(ValueError, match="outside x"):
+            cuda_tri_local_step.local_step_tri_stencil(x[:off + len(verts) - 1].contiguous(), u, b)
+
+
 def _run_steps(s, dtype, steps, **settings):
     assert s.initialize(Settings(verbose=0, admm_iters=10, linsolver=0, direct_mode="inv",
                                  dtype=dtype, **settings))
@@ -206,14 +291,16 @@ def _run_steps(s, dtype, steps, **settings):
     return out
 
 
-def _beam_positions(device, dtype, model="neohookean", steps=(1, 8)):
-    """The 4x2x2 pinned beam through the port's Solver; x after each step count."""
+def _beam_positions(device, dtype, model="neohookean", steps=(1, 8), pinned=True):
+    """The 4x2x2 beam, pinned at its -x face unless told otherwise, through
+    the port's Solver; x after each step count."""
     mesh = make_tet_blocks(4, 2, 2)
     s = Solver(device=device)
     s.add_nodes(mesh.vertices, mesh.weighted_masses(binding.RUBBER_DENSITY))
     s.add_tet_energies(mesh.vertices, mesh.tets, Lame.soft_rubber(), model=model,
                        lattice_dims=mesh.lattice_dims)
-    s.set_pins([int(i) for i in np.where(mesh.vertices[:, 0] < 1e-9)[0]])
+    if pinned:
+        s.set_pins([int(i) for i in np.where(mesh.vertices[:, 0] < 1e-9)[0]])
     return _run_steps(s, dtype, steps)
 
 
@@ -246,9 +333,21 @@ def test_card_matches_cpu_port(cuda_device, dtype, model):
                        _beam_positions("cpu", dtype, model), dtype)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_card_unpinned_beam_matches_cpu_port(cuda_device, dtype):
+    """Without pins a float32 system takes a refinement pass per ADMM
+    iteration: A_mv, the standalone kernel B and kernel C once more."""
+    before = cuda_stencil.tet_Dx_rows.launches
+    _assert_traj_close(_beam_positions(cuda_device, dtype, pinned=False),
+                       _beam_positions("cpu", dtype, pinned=False), dtype)
+    by_a_mv = cuda_stencil.tet_Dx_rows.launches - before
+    assert by_a_mv == (80 if dtype == np.float32 else 0)
+
+
 @pytest.mark.parametrize("wind", [False, True])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_card_sheet_matches_cpu_port(cuda_device, dtype, wind):
+    before = cuda_tri_local_step.local_step_tri_stencil.launches
     _assert_traj_close(_sheet_positions(cuda_device, dtype, wind),
                        _sheet_positions("cpu", dtype, wind), dtype)
-    assert cuda_tri_local_step.local_step_tri.launches > 0
+    assert cuda_tri_local_step.local_step_tri_stencil.launches == before + 80

@@ -8,7 +8,10 @@ beam's):
   (1,681 vertices, 3,200 triangles, 3,362 lanes);
 - torch_port_golden_beam_{linear,stvk,spline_nh,spline_stvk,spline_corot}.npz:
   the 40x5x5 beam of bench.py with each of the other tet models (mesh flags of
-  binding.add_tetmesh, or Solver.add_tet_energies for the last two).
+  binding.add_tetmesh, or Solver.add_tet_energies for the last two);
+- torch_port_golden_beam_free.npz: the neo-Hookean beam without pins, two
+  steps of free fall; the float32 system takes one refinement pass per ADMM
+  iteration, which applies A through system.A_mv (kernels B and C).
 
 The scenes come from chip_smoke.py's own make_solver and make_cloth_solver,
 on the CPU. Bounds relative to max |x|: 1e-4 after one step, 2e-3 after
@@ -52,3 +55,19 @@ def test_beam_golden(model):
     solver, _, g, _ = chip_smoke.make_solver(model, device="cpu")
     assert solver.system.tets[0].model == model and solver.system.tets[0].n == 7680
     _check(solver, g)
+
+
+def test_free_beam_golden():
+    solver, _, g, pins = chip_smoke.make_solver(device="cpu", pinned=False)
+    assert pins == [] and solver.system.pins is None and solver._refine_eff == 1
+    assert int(g["admm_iters"]) == 10 and tuple(g["steps"]) == (1, 2)
+    solver.step()
+    x1 = solver.x
+    solver.step()
+    x2 = solver.x
+    assert np.isfinite(x2).all()
+    assert _rel(x1, g["x1"]) < chip_smoke.STEP1_TOL, _rel(x1, g["x1"])
+    assert _rel(x2, g["x2"]) < chip_smoke.STEP8_TOL, _rel(x2, g["x2"])
+    # free fall by symplectic Euler: g dt^2 n (n + 1) / 2 after n steps
+    drop = (x2 - g["x0"])[:, 1]
+    assert np.abs(drop - float(g["gravity"]) * float(g["dt"]) ** 2 * 3).max() < 1e-4
