@@ -2,13 +2,15 @@
 
 The JAX package beside it is the reference. This package imports torch
 and numpy only, never jax. It runs the prefactored direct path
-(``linsolver=0`` with ``direct_mode="inv"``, float32 or float64) for
-make_tet_blocks lattices of any of the six tet models and for regular
-cloth sheets with strain limits and wind, on ``device="cuda"`` (the
-default: hand-written Hopper kernels in ``csrc/`` for D x, the local steps,
-the rhs and the element-level prox) or ``device="cpu"`` (the kernels' plain
-PyTorch versions). Everything else raises NotImplementedError naming the
-ROADMAP item that ports it.
+(``linsolver=0`` with ``direct_mode`` "inv" or "cho", float32 or float64)
+for tet meshes of any of the six tet models (make_tet_blocks lattices as a
+flat stencil, any other mesh, such as one from ``geometry/io.load_elenode``,
+by gather) and for triangle (cloth) meshes with strain limits and wind, on
+``device="cuda"`` (the default: hand-written Hopper kernels in ``csrc/`` for
+D x, the local steps, the rhs and the element-level prox, and each timestep
+replayed as one captured CUDA graph) or ``device="cpu"`` (the kernels' plain
+PyTorch versions, stepped eagerly). Everything else raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from admm_elastic_tpu_torch.config import Settings

@@ -3,8 +3,11 @@
 A port of ``admm_elastic_tpu/binding.py`` ``add_tetmesh`` and ``add_trimesh``
 (reference samples/utils/AddMeshes.hpp:97-235): lumped masses, zero-mass
 validation, node append, tet energy family by flag (linear, neo-Hookean, StVK,
-Xu spline). Self-collision is not ported yet, so a tet mesh must carry
-NOSELFCOLLISION.
+Xu spline). A tet mesh with ``lattice_dims`` (make_tet_blocks) runs as a flat
+stencil; any other (a mesh from ``geometry/io.load_elenode``, or a lattice
+whose ``lattice_dims`` is None) runs as a gather family, as does a triangle
+mesh that is no regular sheet (``system/elements.py``). Self-collision is not
+ported yet, so a tet mesh must carry NOSELFCOLLISION.
 """
 
 from __future__ import annotations

@@ -16,8 +16,11 @@ both packages can step from the same arrays (``Solver.load_arrays``).
                "n_live": int}, ...]  (optional),
      "pins": None or {"idx", "target", "active", "weight"}}
 
-``direct_from_numpy`` reads ``mat``, ``scale`` and the optional
-``pin_idx``, ``pin_cols``, ``pin_vals``, ``pin_diag``.
+A gather family (no stencil) has ``stencil`` None, no ``st_*`` fields (or
+None) and its ``gather_idx`` table in their place.
+``direct_from_numpy`` reads ``mat``, ``scale``, the optional ``mode``
+("inv" unless given) and the optional ``pin_idx``, ``pin_cols``,
+``pin_vals``, ``pin_diag``.
 ``wind_force_from_numpy`` reads a WindForce's ``tris``, ``direction`` and,
 for the colored order, ``color_tris`` and ``color_mask``.
 """
@@ -52,10 +55,19 @@ def _meta(meta):
             tuple(tuple(int(v) for v in r) for r in po), bool(wrap))
 
 
+def _layout(d: dict, fields, device, dtype) -> dict:
+    """The stencil fields of a stencil family, or the gather table of a gather
+    family."""
+    if d.get("stencil") is None:
+        return dict(gather_idx=_i(d["gather_idx"], device, torch.int32))
+    return {f: _f(d[f], device, dtype) for f in fields}
+
+
 def tet_batch_from_numpy(d: dict, *, device, dtype: torch.dtype) -> TetBatch:
     check_model(d["model"])
     mu = _f(d["mu"], device, dtype)
     lam = _f(d["lam"], device, dtype)
+    stencil = None if d.get("stencil") is None else _meta(d["stencil"])
     return TetBatch(
         inds=_i(d["inds"], device, torch.int32),
         Dlocal=_f(d["Dlocal"], device, dtype),
@@ -65,27 +77,27 @@ def tet_batch_from_numpy(d: dict, *, device, dtype: torch.dtype) -> TetBatch:
         lam=lam,
         kappa=_f(d["kappa"], device, dtype),
         bulk=lam + (2.0 / 3.0) * mu,
-        st_dl=_f(d["st_dl"], device, dtype),
-        st_par=_f(d["st_par"], device, dtype),
-        st_dead=_f(d["st_dead"], device, dtype),
-        stencil=_meta(d["stencil"]),
+        stencil=stencil,
         model=d["model"],
         n_live=d.get("n_live"),
+        **_layout(d, ("st_dl", "st_par", "st_dead"), device, dtype),
     )
 
 
 def tri_batch_from_numpy(d: dict, *, device, dtype: torch.dtype) -> TriBatch:
-    base, g0, g1, pats = d["stencil"]
+    stencil = None
+    if d.get("stencil") is not None:
+        base, g0, g1, pats = d["stencil"]
+        stencil = (int(base), int(g0), int(g1), tuple(tuple(int(v) for v in r) for r in pats))
     fields = {f: _f(d[f], device, dtype) for f in (
-        "Dlocal", "area", "weight", "mu", "lam", "limit_min", "limit_max", "st_dl",
-        "st_dead")}
+        "Dlocal", "area", "weight", "mu", "lam", "limit_min", "limit_max")}
     return TriBatch(
         inds=_i(d["inds"], device, torch.int32),
-        stencil=(int(base), int(g0), int(g1),
-                 tuple(tuple(int(v) for v in r) for r in pats)),
+        stencil=stencil,
         model="linear",
         n_live=d.get("n_live"),
         **fields,
+        **_layout(d, ("st_dl", "st_dead"), device, dtype),
     )
 
 
@@ -119,7 +131,8 @@ def direct_from_numpy(d: dict, *, device, dtype: torch.dtype) -> DirectData:
             pin_diag=_f(d["pin_diag"], device, dtype),
         )
     return DirectData(mat=_f(d["mat"], device, dtype),
-                      scale=_f(np.reshape(d["scale"], (-1, 1)), device, dtype), **kw)
+                      scale=_f(np.reshape(d["scale"], (-1, 1)), device, dtype),
+                      mode=str(d.get("mode", "inv")), **kw)
 
 
 def state_from_numpy(x, v, *, device, dtype: torch.dtype) -> SimState:

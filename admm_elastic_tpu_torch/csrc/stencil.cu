@@ -276,7 +276,9 @@ int launch_dx(const T* x, const T* dl, const T* par, const T* dead, T* out, int 
 
 // tile > 0: the tiled branch with that tile (at most 256 vertices) and halo
 // = max(offs); tile == 0: the wide branch. Above 48 KB the tile's shared
-// memory has to be granted to the kernel first.
+// memory has to be granted to the kernel first: once per precision and
+// size, so that a launch captured into a CUDA graph (after an uncaptured
+// one of the same size) sets no attribute.
 template <typename T>
 int launch_rhs(const T* z, const T* u, const T* w, const T* dl, const T* par, T* out,
                int n_verts, int base, int n_vblock, int cells, const int* match, int tile,
@@ -292,10 +294,12 @@ int launch_rhs(const T* z, const T* u, const T* w, const T* dl, const T* par, T*
   }
   if (tile < 0 || tile > 256 || halo < 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = ((size_t)61 * (tile + halo) + 24 * tile) * sizeof(T);
-  if (bytes > 48 * 1024) {
+  static size_t granted = 48 * 1024;  // one per precision
+  if (bytes > granted) {
     const cudaError_t rc = cudaFuncSetAttribute(
         tet_rhs_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (rc != cudaSuccess) return static_cast<int>(rc);
+    granted = bytes;
   }
   const int items = 5 * (tile + halo);
   const int block = items < kRhsMaxBlock ? (items + 31) / 32 * 32 : kRhsMaxBlock;

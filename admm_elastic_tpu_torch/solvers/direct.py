@@ -1,12 +1,19 @@
-"""Prefactored direct solve, "inv" mode (``admm_elastic_tpu/solvers/direct.py``).
+"""Prefactored direct solve (``admm_elastic_tpu/solvers/direct.py``).
 
-A is component-decoupled, so ``prepare`` inverts the N x N single-component
-matrix once on the host in float64, after Jacobi equilibration
-B = S A S, S = diag(A)^(-1/2). Each solve is then one [N,N] @ [N,3] GEMM,
-x = S (B^-1 (S b)), through ``torch.matmul``: a plain large matrix product,
-which the JAX package also left outside Pallas. In float32 on CUDA it must
-run in full FP32, so ``solve`` raises if TF32 or a lower matmul precision
-is enabled. The TPU's bf16x3 precision tier is not carried over.
+A is component-decoupled, so ``prepare`` factors the N x N single-component
+matrix once on the host in float64, in one of two modes:
+
+- "inv": the inverse after Jacobi equilibration B = S A S,
+  S = diag(A)^(-1/2). Each solve is one [N,N] @ [N,3] GEMM,
+  x = S (B^-1 (S b)), through ``torch.matmul``: a plain large matrix
+  product, which the JAX package also left outside Pallas. In float32 on
+  CUDA it must run in full FP32, so ``solve`` raises if TF32 or a lower
+  matmul precision is enabled. The TPU's bf16x3 precision tier is not
+  carried over.
+- "cho": the Cholesky factor L (``np.linalg.cholesky``). Each solve is two
+  triangular solves, L y = b and L^T x = y, through
+  ``torch.linalg.solve_triangular`` (the JAX package's
+  ``jax.scipy.linalg.solve_triangular``, also outside Pallas).
 
 ``polish`` runs two Jacobi sweeps on the pin rows, restoring hard-pin
 accuracy that the float32 inverse loses on those stiff rows.
@@ -23,8 +30,8 @@ import torch
 
 @dataclasses.dataclass
 class DirectData:
-    mat: torch.Tensor  # [N, N] (S A S)^-1
-    scale: torch.Tensor  # [N, 1] S = diag(A)^(-1/2)
+    mat: torch.Tensor  # [N, N] (S A S)^-1 ("inv") or the Cholesky factor L ("cho")
+    scale: torch.Tensor  # [N, 1] S = diag(A)^(-1/2) ("inv"; ones for "cho")
     pin_idx: Optional[torch.Tensor] = None  # i64 [P]
     pin_cols: Optional[torch.Tensor] = None  # i64 [P, K] off-diagonal columns
     pin_vals: Optional[torch.Tensor] = None  # [P, K]
@@ -35,10 +42,8 @@ class DirectData:
 def prepare(A_dense: np.ndarray, *, device, dtype: torch.dtype, mode: str = "inv",
             pin_rows=None) -> DirectData:
     """One-time factorization (host, float64)."""
-    if mode != "inv":
-        raise NotImplementedError(
-            f"direct_mode={mode!r} is not ported yet; only 'inv' runs "
-            "(ROADMAP Queue 1 item 5)")
+    if mode not in ("inv", "cho"):
+        raise ValueError(f"direct.prepare: unknown mode {mode!r}")
     pin_kw = {}
     if pin_rows is not None:
         pin_idx, pin_cols, pin_vals, pin_diag = pin_rows
@@ -48,6 +53,11 @@ def prepare(A_dense: np.ndarray, *, device, dtype: torch.dtype, mode: str = "inv
             pin_vals=torch.as_tensor(np.asarray(pin_vals, np.float64)).to(device, dtype),
             pin_diag=torch.as_tensor(np.asarray(pin_diag, np.float64)).to(device, dtype),
         )
+    if mode == "cho":
+        L = np.linalg.cholesky(A_dense)
+        return DirectData(mat=torch.as_tensor(L).to(device, dtype),
+                          scale=torch.ones((L.shape[0], 1), dtype=dtype, device=device),
+                          mode="cho", **pin_kw)
     d = np.sqrt(np.diag(A_dense))
     s = 1.0 / d
     B = A_dense * s[:, None] * s[None, :]
@@ -73,6 +83,9 @@ def _check_fp32_matmul(t: torch.Tensor) -> None:
 def solve(data: DirectData, b: torch.Tensor) -> torch.Tensor:
     """x = A^-1 b for b [N, 3]."""
     _check_fp32_matmul(b)
+    if data.mode == "cho":
+        y = torch.linalg.solve_triangular(data.mat, b, upper=False)
+        return torch.linalg.solve_triangular(data.mat.mT, y, upper=True)
     return data.scale * torch.matmul(data.mat, data.scale * b)
 
 

@@ -1,15 +1,19 @@
 """The assembled simulation system and its matrix-free operators.
 
-A port of ``admm_elastic_tpu/system/system.py``: flat-stencil tet families
-(any of the six models), flat-stencil cloth sheets, and pins as spring
-energies. The per-family iterates come in the order tets, tris, pins.
+A port of ``admm_elastic_tpu/system/system.py:58-197``: tet families (any
+of the six models) and cloth families, each a flat stencil or a gather family
+(``system/elements.py``; the two may be mixed in one system), and pins as
+spring energies. The per-family iterates come in the order tets, tris, pins.
 
-  local step: z, u <- prox(D x + u)           (tets: kernel A, sheets: kernel
-                                               E, each lane computing its own
-                                               D x; pins by gather)
-  rhs:        b = M x_bar + dt^2 D^T W^2 (z - u)  (tets: kernel C; sheets:
-                                               tri_Dt_rows; pins by copy)
-  A x = M x + dt^2 D^T W^2 D x                (the same with z = D x, u = 0)
+  local step: z, u <- prox(D x + u)    stencil tets / sheets: kernel A / E's
+                                       stencil entry, each lane computing its
+                                       own D x; gather families: D x by
+                                       gather, then A / E's rows entry; pins
+                                       by gather
+  rhs: b = M x_bar + dt^2 D^T W^2 (z - u)   stencil tets: kernel C; sheets:
+                                       tri_Dt_rows; gather families: the
+                                       gather-table D^T; pins by copy
+  A x = M x + dt^2 D^T W^2 D x         the same with z = D x, u = 0
 
 z and u of a tet family are SoA rows [9, T], of a sheet rows [6, T], of the
 pins [P, 3].
@@ -58,8 +62,10 @@ class SimState:
 def Dx(system: System, x):
     """D x as a list of per-family iterates: tet rows [9, T], sheet rows
     [6, T], then pins [P, 3]."""
-    out = [cuda_stencil.tet_Dx_rows(x, b) for b in system.tets]
-    out += [stencil_mod.tri_Dx_rows(x, b) for b in system.tris]
+    out = [cuda_stencil.tet_Dx_rows(x, b) if b.stencil is not None else b.Dx_rows(x)
+           for b in system.tets]
+    out += [stencil_mod.tri_Dx_rows(x, b) if b.stencil is not None else b.Dx_rows(x)
+            for b in system.tris]
     if system.pins is not None:
         out.append(red.pin_Dx(x, system.pins.idx))
     return out
@@ -92,12 +98,20 @@ def local_step(system: System, x, z_list, u_list, n_newton_iters: int = 8):
 def _elastic(system: System, z_list, u_list):
     """sum_f D_f^T W_f^2 (z_f - u_f) -> [N, 3] (no dt^2 factor)."""
     n = system.n_verts
-    parts = [cuda_stencil.tet_rhs_rows(z, u, b, n)
-             for b, z, u in zip(system.tets, z_list, u_list)]
+    parts = []
+    for b, z, u in zip(system.tets, z_list, u_list):
+        if b.stencil is not None:
+            parts.append(cuda_stencil.tet_rhs_rows(z, u, b, n))
+        else:
+            w2 = (b.weight * b.weight)[None, :]
+            parts.append(red.tet_Dt_rows(w2 * (z - u), b.Dlocal, b.gather_idx))
     k = len(system.tets)
     for b, z, u in zip(system.tris, z_list[k:], u_list[k:]):
         w2 = (b.weight * b.weight)[None, :]
-        parts.append(stencil_mod.tri_Dt_rows(w2 * (z - u), b, n))
+        if b.stencil is not None:
+            parts.append(stencil_mod.tri_Dt_rows(w2 * (z - u), b, n))
+        else:
+            parts.append(red.tri_Dt_rows(w2 * (z - u), b.Dlocal, b.gather_idx))
     if system.pins is not None:
         w2 = (system.pins.weight * system.pins.weight)[:, None]
         parts.append(red.pin_Dt(w2 * (z_list[-1] - u_list[-1]), system.pins.idx, n))

@@ -26,12 +26,19 @@ failure:
    model) and E (with and without limits, and as the second sheet of a
    system), in which each lane computes its own D x: bitwise equal to the
    two-launch route (B or tri_Dx_rows, then the rows entry) and within the
-   rows entries' bounds of the plain composition;
-4. the paths, each built through the normal entry points on cuda (float32,
-   linsolver=0 "inv", 10 ADMM iterations, dt 1/24), stepped 8 times with the
-   launch counts set to 0 just before and read just after, steps 1 and 8
-   within 1e-4 and 2e-3 of the JAX golden (relative to max |x|), pins held,
-   and the 8 steps run twice from one state bitwise equal:
+   rows entries' bounds of the plain composition; the rows entries of A and
+   E at the gather paths' shapes, on gathered D x;
+4. the paths, each built through the normal entry points on cuda (float32
+   unless named, linsolver=0, 10 ADMM iterations, dt 1/24), Solver.run(n)
+   replaying the captured step, in one window with the wrappers' counts set
+   to 0 just before and read just after: captured (run(0): the wrappers count
+   their calls in the warm-up step and the capture), then stepped 8 times,
+   the kernels of the replays counted on the device by torch.profiler
+   (device_launches: a replay runs no wrapper); steps 1 and 8 within 1e-4
+   and 2e-3 of the JAX golden (relative to max |x|; the displacement after
+   each within DISP_TOL), pins held, the 8 steps run twice from one state
+   bitwise equal, and the eager loop (Solver._run_eager) from the same state
+   bitwise equal to the graph (or within GRAPH_EAGER_TOL):
    - "beam" and "materials": the 40x5x5 bench beam, neo-Hookean and then
      linear, stvk, spline_nh (mesh flags of binding.add_tetmesh) and
      spline_stvk, spline_corot (Solver.add_tet_energies): the steps launch
@@ -48,8 +55,20 @@ failure:
      its own golden: the float32 system takes one refinement pass per ADMM
      iteration, so every iteration applies A through system.A_mv, the
      standalone B and C once more (B 20, C 40 launches);
-5. timing: ADMM iterations/s of each path over a rollout of at least 2 s
-   (every path twice, the second time in the reverse order), the
+   - GATHER_SCENES: beam_gather (the bench beam without lattice_dims),
+     bunny_nh and bunny_linear (data/bunny_1124 through load_elenode; again
+     in float64, bunny_nh_f64 and bunny_linear_f64) launch A's rows entry 80
+     times and no stencil entry, C or B;
+     cloth_gather_limit40 (the renumbered sheet, also held to the grid
+     sheet's golden) E's rows entry 80 times; beam_cho (direct_mode "cho")
+     what the lattice beam launches;
+   then the captured step's invalidation checks on the bench beam (set_pins,
+   the setters, admm_iters, gravity, initialize) and the one-tet goldens of
+   tests/test_lineartet.py through the graph;
+5. timing (host_timing, on solvers of its own, runs before phase 4 and
+   before any profiler window, so that no profiler state can slow the host):
+   the beam, cloth_limit40 and beam_gather through the graph and through the
+   eager loop in turns, ADMM iterations/s over rollouts of at least 2 s, the
    phases of the beam and cloth steps, and each kernel's time against its
    plain version (CUDA events) beside its bound: the larger of the bytes it
    must move over 3.35 TB/s and the operations the function needs on the
@@ -58,10 +77,12 @@ failure:
    B, C, E: the plain version's operations, counted as it runs; a stencil
    entry: its own bytes, x and the stencil fields in place of D x rows, and
    D x's operations on top); C's two branches in turns (wide, tiled, tiled,
-   wide) within this one run;
-6. with --profile only: torch.profiler over 5 steps of the beam and of the
-   cloth step (device busy time, idle share, device operations per ADMM
-   iteration, time by kernel), and over 20 launches of each kernel, of C's
+   wide) within this one run; after phase 4 every path's rollout through
+   the graph, twice, the second time in the reverse order;
+6. with --profile only: torch.profiler over 5 steps of the beam, the cloth
+   steps and beam_gather, graph replays and eager loop (device busy time,
+   idle share, device operations per ADMM iteration, time by kernel), and,
+   before phase 4, over 20 launches of each kernel, of C's
    branches in turns, of each local step's rows entry and stencil entry in
    turns (the difference is what D x costs inside the launch) and of an empty
    kernel (device time per launch, free of the host's enqueue time; the empty
@@ -72,13 +93,17 @@ times of phase 6: the short first run of a changed kernel. It prints the GPU
 line but no result line.
 
 The last lines are the GPU line, one JSON line of kernels (a row per TPU
-kernel with the numbers of the entry its path launches; "entries" lists every
-entry that does the kernel's work), and {"ok": true, "device": {...}}. Details
+kernel with the numbers of the entry its path launches: "launches" those of
+the path's replays, counted on the device, and of its eager calls after them,
+"wrapper_calls" the wrapper's count over the path's window; "entries"
+lists every entry that does the kernel's work), and {"ok": true, "device":
+{...}}. Details
 go to chip_smoke.json in the output directory (OUT_DIR).
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -123,6 +148,21 @@ LANE_TOL = {("f64", "stress"): 1e-8, ("f32", "main"): 2e-3, ("f32", "stress"): 2
 A_P99_F32, A_MEDIAN_F32 = 2e-4, 1e-6
 MAX_RERUN_LANES = 4
 STEP1_TOL, STEP8_TOL = 1e-4, 2e-3
+# The displacement x - x0 after the first and the last step against the
+# golden's, relative to its largest entry (disp_err), by the golden's
+# precision. The bunny moves 9.5e-6 m in one step and 1.5e-5 m in 8 at a max
+# |x| of 0.06 m, so STEP1_TOL and STEP8_TOL on x cannot tell a still solver
+# (disp_err 1) from one that moves. Readings of tests/bunny_disp_control.py
+# (the port on the CPU against the JAX goldens, step 1 / step 8; a planted
+# fault scales kernel A's correction z - v by 1 + eps): float32 sound 2.9e-2 /
+# 6.3e-2 (bunny_nh), 2.1e-2 / 2.2e-2 (bunny_linear), eps = 0.1 from 0.117 /
+# 0.166 up; float64 sound 1.2e-11 to 2.1e-11, eps = 0.01 from 1.6e-2 up.
+# float32 cannot hold the bunny's elastic response closer than a tenth: the
+# float64 golden of bunny_nh is 0.19 / 0.31 off the float32 one.
+DISP_TOL = {"float32": 0.1, "float64": 1e-6}
+# A graph rollout against the eager loop over the same steps, where the two
+# are not bitwise equal: relative to max |x| (see graph_vs_eager).
+GRAPH_EAGER_TOL = 1e-6
 TARGET_S = 2.0
 DEVICE = "cuda"
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate
@@ -189,6 +229,48 @@ def cloth_sheet(nx, ny):
 CLOTH_SCENES = {
     "cloth_limit40": dict(nx=40, ny=40, limits=(0.95, 1.05), wind=None, gravity=-9.8),
     "cloth_wind40": dict(nx=40, ny=40, limits=None, wind=(0.05, 0.1, 0.02), gravity=0.0),
+}
+
+
+BUNNY = os.path.join(HERE, "data", "bunny_1124")  # the reference's .node / .ele, verbatim
+BUNNY_PIN_BAND = 0.015  # the feet: y < y_min + band (benchmarks/crossval.py:173-182)
+RENUMBER_SEED = 0
+
+
+def renumbered_sheet(nx, ny):
+    """cloth_sheet(nx, ny) with its vertex ids renumbered by a fixed
+    permutation from np.random.default_rng(RENUMBER_SEED): vertex i of the
+    grid is vertex perm[i] here, so x_grid = x[perm]. Positions, masses,
+    pins and triangles move with it, and the triangle list is no regular
+    sheet any more. Returns vertices, triangles, masses, pinned ids (sorted)
+    and perm."""
+    verts, tris, masses, pins = cloth_sheet(nx, ny)
+    perm = np.random.default_rng(RENUMBER_SEED).permutation(len(verts))
+    v2, m2 = np.empty_like(verts), np.empty_like(masses)
+    v2[perm], m2[perm] = verts, masses
+    return v2, perm[tris], m2, np.sort(perm[pins]), perm
+
+
+def bunny_pins(verts):
+    return np.where(verts[:, 1] < verts[:, 1].min() + BUNNY_PIN_BAND)[0]
+
+
+# The paths on the gather D / D^T and on the Cholesky solve, float32 unless
+# named, linsolver=0, 10 ADMM iterations, dt 1/24, gravity -9.8: golden file
+# suffix -> scene. "beam" is the 40x5x5 bench beam (its lattice_dims dropped
+# where lattice is False, so that it takes the gather path in both packages),
+# "bunny" the reference's bunny_1124 through load_elenode, "sheet" the
+# cloth_limit40 sheet renumbered by renumbered_sheet. The bunny moves so
+# little (see DISP_TOL) that float32 rounding blurs its displacement; its
+# float64 runs hold the elastic response itself.
+GATHER_SCENES = {
+    "beam_gather": dict(mesh="beam", model=NH, lattice=False, direct_mode="inv"),
+    "bunny_nh": dict(mesh="bunny", model=NH, direct_mode="inv"),
+    "bunny_linear": dict(mesh="bunny", model="linear", direct_mode="inv"),
+    "bunny_nh_f64": dict(mesh="bunny", model=NH, direct_mode="inv", dtype=np.float64),
+    "bunny_linear_f64": dict(mesh="bunny", model="linear", direct_mode="inv", dtype=np.float64),
+    "cloth_gather_limit40": dict(mesh="sheet", direct_mode="inv"),
+    "beam_cho": dict(mesh="beam", model=NH, lattice=True, direct_mode="cho"),
 }
 
 
@@ -311,11 +393,11 @@ def cloth_batch(torch, dtype, limits=True, vertex_offset=0):
                                      vertex_offset=vertex_offset)
 
 
-def settings_of(g, gravity):
+def settings_of(g, gravity, direct_mode="inv", dtype=np.float32):
     from admm_elastic_tpu_torch import Settings
 
     return Settings(verbose=0, admm_iters=int(g["admm_iters"]), linsolver=0, gravity=gravity,
-                    timestep_s=float(g["dt"]), dtype=np.float32, direct_mode="inv")
+                    timestep_s=float(g["dt"]), dtype=dtype, direct_mode=direct_mode)
 
 
 def make_solver(model=NH, device=None, pinned=True):
@@ -373,6 +455,47 @@ def make_cloth_solver(name, device=None):
         solver.add_explicit_force(make_wind_force(tris, direction=p["wind"], colored=True,
                                                   device=device, dtype=torch.float32))
     need(solver.initialize(settings_of(g, p["gravity"])), "initialize failed")
+    return solver, g, pins
+
+
+def make_gather_solver(name, device=None):
+    """One of GATHER_SCENES through the normal entry points (a mesh file
+    through geometry.io.load_elenode and binding.add_tetmesh, a triangle list
+    through Solver.add_tri_energies), on the card unless a device is named;
+    returns (solver, golden, pins)."""
+    from admm_elastic_tpu_torch import Lame, Solver, binding
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+    from admm_elastic_tpu_torch.geometry.io import load_elenode
+
+    p, g = GATHER_SCENES[name], golden(name)
+    solver = Solver(device=device or DEVICE)
+    if p["mesh"] == "sheet":
+        c = CLOTH_SCENES["cloth_limit40"]
+        verts, tris, masses, pins, _ = renumbered_sheet(c["nx"], c["ny"])
+        solver.add_nodes(verts, masses)
+        lame = Lame.from_youngs_poisson(10000000, 0.399)
+        lame.limit_min, lame.limit_max = c["limits"]
+        solver.add_tri_energies(verts, tris, lame)
+    else:
+        if p["mesh"] == "beam":
+            mesh = make_tet_blocks(*[int(d) for d in g["dims"]])
+            if not p["lattice"]:
+                mesh.lattice_dims = None
+            pins = np.where(mesh.vertices[:, 0] < 1e-9)[0]
+        else:
+            mesh = load_elenode(BUNNY)
+            pins = bunny_pins(mesh.vertices)
+        mesh.flags = binding.NOSELFCOLLISION | getattr(binding, BEAM_FLAGS[p["model"]])
+        binding.add_tetmesh(solver, mesh, Lame.soft_rubber(), verbose=False)
+    pins = [int(i) for i in pins]
+    need(pins == [int(i) for i in g["pins"]], f"{name}: pinned set differs from the golden's")
+    solver.set_pins(pins)
+    need(solver.initialize(settings_of(g, float(g["gravity"]), p["direct_mode"],
+                                       p.get("dtype", np.float32))), "initialize failed")
+    fams = solver.system.tets + solver.system.tris
+    need(len(fams) == 1 and (fams[0].stencil is not None) == (p.get("lattice") is True),
+         f"{name}: the family took the wrong layout")
+    need(solver._solve_data.mode == p["direct_mode"], f"{name}: wrong direct mode")
     return solver, g, pins
 
 
@@ -735,6 +858,91 @@ def stencil_entry_checks(torch, res):
     return res
 
 
+def gather_batches(torch, dtype):
+    """The gather families of GATHER_SCENES on the card, built as the paths
+    build them: scene -> (rest vertices, batch with its gather table, the
+    noise scale of a perturbed pose, a twentieth of the mean edge)."""
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+    from admm_elastic_tpu_torch.geometry.io import load_elenode
+    from admm_elastic_tpu_torch.materials import Lame
+    from admm_elastic_tpu_torch.ops import reduction as red
+    from admm_elastic_tpu_torch.system import elements as el
+
+    out = {}
+    for scene, p in GATHER_SCENES.items():
+        if p.get("lattice") or "dtype" in p:  # a float64 bunny: the float32 one's shapes
+            continue
+        if p["mesh"] == "sheet":
+            c = CLOTH_SCENES["cloth_limit40"]
+            verts, elems, _, _, _ = renumbered_sheet(c["nx"], c["ny"])
+            lame = Lame.from_youngs_poisson(10000000, 0.399)
+            lame.limit_min, lame.limit_max = c["limits"]
+            b = el.build_tri_batch(verts, elems, lame, device=DEVICE, dtype=dtype)
+        else:
+            mesh = make_tet_blocks(40, 5, 5) if p["mesh"] == "beam" else load_elenode(BUNNY)
+            verts, elems = mesh.vertices, mesh.tets
+            b = el.build_tet_batch(verts, elems, Lame.soft_rubber(), p["model"], device=DEVICE,
+                                   dtype=dtype)
+        need(b.stencil is None, f"{scene}: not a gather family")
+        table = red.build_gather_table(b.inds.cpu().numpy(), len(verts))
+        b.gather_idx = torch.as_tensor(table, device=DEVICE)
+        edge = np.linalg.norm(verts[elems[:, 1]] - verts[elems[:, 0]], axis=1).mean()
+        out[scene] = (verts, b, 0.05 * edge)
+    return out
+
+
+def gather_key(scene, b):
+    """The name of the rows entry that a gather scene's steps launch."""
+    if GATHER_SCENES[scene]["mesh"] == "sheet":
+        return "local_step_tri"
+    return f"local_step_tet_hyper[{b.model}]"
+
+
+def gather_entry_checks(torch, res):
+    """Kernel A's rows entry (neo-Hookean on the beam and the bunny, linear on
+    the bunny) and E's (the renumbered sheet) at the shapes of the gather
+    paths, float64 and float32, on D x gathered from a perturbed rest pose
+    with a small u, against their plain versions (bounds of tet_errs and
+    direct_errs), from a generator of their own."""
+    from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_tri_local_step
+    from admm_elastic_tpu_torch.ops.hyper_soa import local_step_plain
+    from admm_elastic_tpu_torch.ops.soa import local_step_tri_plain
+
+    rng = np.random.default_rng(4)
+    for dtype, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=DEVICE, dtype=dtype)
+
+        out = res[name]
+        for scene, (verts, b, noise) in gather_batches(torch, dtype).items():
+            x = dev(verts + noise * rng.standard_normal(verts.shape))
+            dix = b.Dx_rows(x)
+            key = gather_key(scene, b)
+            if key == "local_step_tri":
+                u = dev(0.02 * rng.standard_normal((6, b.n)))
+                args = (dix, u, b.limit_min, b.limit_max)
+                e = direct_errs(torch, cuda_tri_local_step.local_step_tri(*args),
+                                local_step_tri_plain(*args), name, f"E@{scene}")
+                out[f"{key}@{scene}"] = dict(e, max_abs_err=e["max"])
+                continue
+            u = dev(0.05 * rng.standard_normal((9, b.n)))
+            args = (dix, u, b.mu, b.lam, b.kappa, b.bulk)
+
+            def rerun(lanes, args=args, model=b.model):
+                a = (args[0][:, lanes] * dev(1.0 + 1e-5 * rng.standard_normal(
+                    (9, len(lanes)))), args[1][:, lanes]) + tuple(t[lanes] for t in args[2:])
+                return (cuda_local_step.local_step_tet_hyper(*a, model=model),
+                        local_step_plain(*a, model=model))
+
+            e = tet_errs(torch, cuda_local_step.local_step_tet_hyper(*args, model=b.model),
+                         local_step_plain(*args, model=b.model), name,
+                         f"A[{b.model}]@{scene} main-path", rerun=rerun)
+            out[f"{key}@{scene}"] = dict(e, max_abs_err=e["max"])
+        log(f"gather rows entries {name} " + json.dumps(
+            {k: v["max_abs_err"] for k, v in out.items() if "@" in k}))
+    return res
+
+
 # --- phase 4: the paths ------------------------------------------------------------------
 
 def _wrappers():
@@ -755,14 +963,104 @@ def reset_counts():
 
 
 def read_counts(model=None):
-    """Launch counts by kernel name; A and D under the tet model of the path."""
+    """The wrappers' counts by kernel name; A and D under the tet model of the
+    path. A wrapper counts each call of its launch: in the warm-up step and in
+    the capture of a captured step, and in any eager call; a replay of the
+    captured step launches its kernels without them."""
     by_model = ("local_step_tet_hyper", "local_step_tet_stencil", "prox_tet_hyper")
     return {f"{name}[{model}]" if name in by_model else name: fn.launches
             for name, fn in _wrappers().items()}
 
 
+# The port's kernels as torch.profiler names them ("void (anonymous
+# namespace)::tet_prox_kernel<float, 0, true>(...)", csrc/*.cu), with their
+# template arguments.
+_KERNEL_SYMBOL = re.compile(
+    r"\b(tet_prox_kernel|tet_local_step_stencil_kernel|tet_dx_kernel|tet_rhs_tiled_kernel|"
+    r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel)<([^>]*)>")
+
+
+def wrapper_of_symbol(symbol):
+    """The name (A and D with [model]) of the wrapper that launches the kernel
+    a profiler event names, or None for a kernel that is not the port's."""
+    from admm_elastic_tpu_torch.ops.cuda_local_step import MODEL_IDS
+
+    m = _KERNEL_SYMBOL.search(symbol)
+    if m is None:
+        return None
+    kernel, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+    if kernel.startswith("tet_rhs"):
+        return "tet_rhs_rows"
+    plain = dict(tet_dx_kernel="tet_Dx_rows", tri_local_step_kernel="local_step_tri",
+                 tri_local_step_stencil_kernel="local_step_tri_stencil")
+    if kernel in plain:
+        return plain[kernel]
+    model = {i: name for name, i in MODEL_IDS.items()}[int(args[1])]
+    if kernel == "tet_local_step_stencil_kernel":
+        return f"local_step_tet_stencil[{model}]"
+    if args[2] == "true":  # ROWS: the local step's rows entry
+        return f"local_step_tet_hyper[{model}]"
+    return "prox_tet_linear" if model == "linear" else f"prox_tet_hyper[{model}]"
+
+
+def port_kernel_counts(events):
+    """The port's kernels among a profiler window's device events, counted
+    by name (wrapper_of_symbol)."""
+    from torch.autograd import DeviceType
+
+    counts = {}
+    for e in events:
+        name = wrapper_of_symbol(e.name) if e.device_type == DeviceType.CUDA else None
+        if name is not None:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def device_launches(torch, fn, model=None):
+    """Run fn() and count the port's kernels that ran on the device in it, by
+    name. On the card from torch.profiler's kernel records, which see inside
+    a graph replay, where no wrapper runs; off the card (a rehearsal whose
+    wrappers count their calls) from the wrappers' counts, A and D under
+    [model]."""
+    if DEVICE != "cuda":
+        before = read_counts(model)
+        fn()
+        return {k: v - before[k] for k, v in read_counts(model).items() if v != before[k]}
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return port_kernel_counts(prof.events())
+
+
+def counted_window(torch, label, fn, expect, reset=None, model=None):
+    """device_launches of fn(), held to expect (name -> exact count, 0 for a
+    kernel fn must not launch). The profiler now and then drops events of a
+    window, so a window short of expect is taken again (reset() first, where
+    fn must start from the same state), three times at most."""
+    for attempt in range(3):
+        if reset is not None:
+            reset()
+        counts = device_launches(torch, fn, model)
+        off = {k: counts.get(k, 0) for k, want in expect.items() if counts.get(k, 0) != want}
+        if not off:
+            return counts
+        log(f"{label}: a window counted {off}, expected {expect}"
+            + ("; it is taken again" if attempt < 2 else ""))
+    raise SmokeFailure(f"{label}: launched {off}, expected {expect}, three times")
+
+
 def rel_err(x, ref):
     return float(np.abs(x - ref).max() / max(np.abs(ref).max(), 1e-9))
+
+
+def disp_err(x, g, step):
+    """DISP_TOL's measure for x after the golden's step `step`, and its bound."""
+    x0 = g["x0"].astype(np.float64)
+    ref = g[f"x{step}"]
+    return rel_err(x - x0, ref - x0), DISP_TOL[ref.dtype.name]
 
 
 class count_calls:
@@ -786,58 +1084,113 @@ class count_calls:
         setattr(self.module, self.name, self.fn)
 
 
+def graph_vs_eager(torch, label, solver, state0, n_steps, x_graph):
+    """The captured step against the eager loop (Solver._run_eager) over
+    n_steps from state0: bitwise equal, or within GRAPH_EAGER_TOL of max |x|.
+    Leaves the eager state in the solver."""
+    from admm_elastic_tpu_torch.system.system import SimState
+
+    solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
+    solver._run_eager(n_steps)
+    x_eager = solver.state.x
+    bitwise = bool(torch.equal(x_eager, x_graph))
+    rel = rel_err(x_graph.cpu().double().numpy(), x_eager.cpu().double().numpy())
+    need(bitwise or rel <= GRAPH_EAGER_TOL,
+         f"{label}: the graph rollout is {rel:.3e} off the eager loop (bound {GRAPH_EAGER_TOL})")
+    return dict(bitwise=bitwise, rel_err=rel)
+
+
 def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=None,
                step_counts=None):
-    """Step the solver to the golden's last step (8, or 2) with the launch
-    counts set to 0 just before and read just after (after_steps, the
-    element-level entries held against the step's, runs inside that window);
-    check the kernels' counts, the counts of the steps alone (step_counts:
-    name -> exact count, 0 for a kernel the step must not launch), the first
-    and the last step against the golden, the pins, and that the rollout
-    repeats bitwise."""
+    """Drive a path in one window, with the wrappers' counts set to 0 just
+    before and read just after: run(0) (a warm-up step and the capture, the
+    wrappers' calls), the replays to the golden's last step (8, or 2),
+    counted on the device by name (counted_window, from the same state at
+    each retake), then after_steps (the element-level entries held against
+    the step's, eager: each wrapper call a launch). Checks: every kernel of
+    `kernels` was called by its wrapper and launched; the replays launched
+    each kernel of step_counts (name -> exact count, 0 for a kernel the steps
+    must not launch) as often as stated, and its wrapper was called once per
+    launch of one step in the warm-up and once in the capture; the plain
+    tri_Dx_rows was called as often as stated by run(0) and the steps; the
+    first and the last step against the golden; the pins; that the
+    rollout repeats bitwise and that the eager loop gives what the graph
+    gives."""
     from admm_elastic_tpu_torch.ops import stencil as st
     from admm_elastic_tpu_torch.system.system import SimState
 
     first, last = (int(k) for k in g["steps"])
     x0 = solver.x
     state0 = SimState(x=solver.state.x.clone(), v=solver.state.v.clone())
-    reset_counts()
-    with count_calls(st, "tri_Dx_rows") as plain_dx:
-        solver.run(first)
-        x_first = solver.x
-        solver.run(last - first)
-    x_last_t = solver.state.x.clone()
-    stepping = dict(read_counts(model), tri_Dx_rows=plain_dx.calls)
-    for k, want in (step_counts or {}).items():
-        need(stepping.get(k) == want,
-             f"{label}: {last} steps launched {k} {stepping.get(k)} times, expected {want}")
-    extra = after_steps(solver) if after_steps is not None else {}
-    launches = {k: v for k, v in read_counts(model).items() if v}
-    log(f"{label} launches " + json.dumps(launches) + "; by the steps alone "
-        + json.dumps({k: v for k, v in stepping.items() if v or k in (step_counts or {})}))
-    for k in kernels:
-        need(launches.get(k, 0) > 0, f"{label}: kernel {k} was not launched")
-    x_last = x_last_t.cpu().numpy()
+    on_card = solver.device.type == "cuda"
+    step_counts = step_counts or {}
+    xs = {}
 
-    errs = {}
+    def steps():
+        solver.run(first)
+        xs[first] = solver.x
+        solver.run(last - first)
+
+    with count_calls(st, "tri_Dx_rows") as plain_dx:
+        reset_counts()
+        solver.run(0)
+        need(solver._graph is not None or not on_card, f"{label}: run(0) captured no graph")
+        captured = read_counts(model)
+
+        def restore():
+            solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
+
+        by_steps = counted_window(torch, label, steps, {k: v for k, v in step_counts.items()
+                                                        if k != "tri_Dx_rows"}, restore, model)
+    x_last_t = solver.state.x.clone()
+    before_after = read_counts(model)
+    extra = after_steps(solver) if after_steps is not None else {}
+    calls = read_counts(model)
+    after = {k: v - before_after[k] for k, v in calls.items() if v != before_after[k]}
+    if on_card:  # on the CPU the stencil entry's plain version calls it
+        need(plain_dx.calls == step_counts.get("tri_Dx_rows", plain_dx.calls),
+             f"{label}: tri_Dx_rows called {plain_dx.calls} times by the steps")
+        for k in set(by_steps) | {k for k, v in captured.items() if v}:
+            n = by_steps.get(k, 0)
+            need(captured.get(k, 0) == 2 * n // last,
+                 f"{label}: {k}: {captured.get(k, 0)} wrapper calls in the warm-up step and the "
+                 f"capture, {n} launches in {last} replays")
+    launches = {k: by_steps.get(k, 0) + after.get(k, 0) for k in set(by_steps) | set(after)}
+    log(f"{label} launches " + json.dumps(launches) + "; by the replays, on the device "
+        + json.dumps(by_steps) + "; wrapper calls " + json.dumps({k: v for k, v in calls.items() if v}))
+    for k in kernels:
+        need(calls.get(k, 0) > 0 and launches.get(k, 0) > 0,
+             f"{label}: kernel {k}: {calls.get(k, 0)} wrapper calls, {launches.get(k, 0)} launches")
+    x_first, x_last = xs[first], x_last_t.cpu().numpy()
+
+    errs, disp = {}, {}
     for step, x in ((first, x_first), (last, x_last)):
         ref = g[f"x{step}"]
         need(x.shape == ref.shape and np.isfinite(x).all(), f"{label} step {step}: bad state")
         errs[step] = rel_err(x, ref)
+        disp[step], disp_tol = disp_err(x, g, step)
     log(f"{label} vs JAX golden: step {first} {errs[first]:.3e} (bound {STEP1_TOL}), "
-        f"step {last} {errs[last]:.3e} (bound {STEP8_TOL})")
-    need(errs[first] < STEP1_TOL and errs[last] < STEP8_TOL,
-         f"{label}: trajectory off the golden: {errs}")
+        f"step {last} {errs[last]:.3e} (bound {STEP8_TOL}), displacement {disp[first]:.3e}, "
+        f"{disp[last]:.3e} (bound {disp_tol})")
+    need(errs[first] < STEP1_TOL and errs[last] < STEP8_TOL and max(disp.values()) < disp_tol,
+         f"{label}: trajectory off the golden: {errs}, displacement {disp}")
     pin_dev = float(np.abs(x_last[pins] - x0[pins]).max()) if pins else 0.0
     need(pin_dev < 1e-3, f"{label}: pins not held: {pin_dev}")
 
+    graph = solver._graph
     solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
     solver.run(last)
+    need(solver._graph is graph, f"{label}: a new state recaptured the step")
     need(bool(torch.equal(solver.state.x, x_last_t)),
-         f"{label}: {last}-step rollout not bitwise repeatable")
-    return x0, x_last, dict(launches=launches, launches_by_steps=stepping, steps=[first, last],
+         f"{label}: {last}-step graph rollout not bitwise repeatable")
+    eager = graph_vs_eager(torch, label, solver, state0, last, x_last_t)
+    log(f"{label}: graph rollout bitwise repeatable; against the eager loop "
+        f"{'bitwise equal' if eager['bitwise'] else 'rel err %.3e' % eager['rel_err']}")
+    return x0, x_last, dict(launches=launches, launches_by_steps=by_steps, wrapper_calls=calls,
+                            tri_Dx_rows_calls=plain_dx.calls, steps=[first, last],
                             rel_err_step1=errs[first], rel_err_last=errs[last],
-                            pin_dev=pin_dev, bitwise_repeat=True, **extra)
+                            disp_err_step1=disp[first], disp_err_last=disp[last],
+                            pin_dev=pin_dev, bitwise_repeat=True, graph_vs_eager=eager, **extra)
 
 
 def check_sag(label, x0, x8):
@@ -965,13 +1318,190 @@ def free_beam_path(torch):
     return solver, res
 
 
+def gather_path(torch, name):
+    """One of GATHER_SCENES, 8 steps: a gather family launches the rows entry
+    of kernel A (tets) or E (the sheet) once per ADMM iteration and no
+    stencil entry, C or D x kernel (its D x and D^T are plain PyTorch
+    gathers); beam_cho launches what the lattice beam does, around two
+    triangular solves in place of the GEMM."""
+    solver, g, pins = make_gather_solver(name)
+    p = GATHER_SCENES[name]
+    iters = int(g["steps"][-1]) * int(g["admm_iters"])
+    model = p.get("model")
+    if p["mesh"] == "sheet":
+        kernels = ["local_step_tri"]
+        counts = {"local_step_tri": iters, "local_step_tri_stencil": 0, "tri_Dx_rows": 0}
+    elif p.get("lattice"):
+        kernels = [f"local_step_tet_stencil[{model}]", "tet_rhs_rows"]
+        counts = {f"local_step_tet_stencil[{model}]": iters, "tet_rhs_rows": iters,
+                  "tet_Dx_rows": 0, f"local_step_tet_hyper[{model}]": 0}
+    else:
+        kernels = [f"local_step_tet_hyper[{model}]"]
+        counts = {f"local_step_tet_hyper[{model}]": iters, f"local_step_tet_stencil[{model}]": 0,
+                  "tet_rhs_rows": 0, "tet_Dx_rows": 0}
+    x0, x8, res = drive_path(torch, name, solver, g, pins, kernels, model=model,
+                             step_counts=counts)
+    log(f"{name}: the steps launch {kernels[0]} {iters} times")
+    if p["mesh"] == "beam":
+        res.update(check_sag(name, x0, x8))
+    if p["mesh"] == "sheet":
+        # mapped back to the grid's numbering, the grid sheet's trajectory
+        grid = golden("cloth_limit40")
+        res["rel_err_to_grid_sheet"] = rel_err(x8[g["perm"]], grid["x8"])
+        need(res["rel_err_to_grid_sheet"] < STEP8_TOL,
+             f"{name}: {res['rel_err_to_grid_sheet']} off the grid sheet's golden")
+    return solver, res
+
+
+# The one-tet scene of tests/test_lineartet.py (test_lineartet.cpp:165-323).
+ONE_TET_VERTS = np.array([[0, 0, 0], [0, 1, 0], [0, 0, 1], [1, 0, 0]], dtype=np.float64)
+ONE_TET = np.array([[0, 1, 2, 3]])
+ONE_TET_PULLED_X = 52.2321  # the pulled vertex's golden x, +-1e-4 beyond 20 iterations
+# The inverted tet's volume error after 10 steps, per ADMM iteration count 10,
+# 20, 30: the JAX Solver with set_svd_impl("jacobi") (its SoA path, the
+# arithmetic the port repeats), float64. The reference restores the volume to
+# 1e-6 (and the JAX package's CPU default, a LAPACK SVD, to -4.4e-7), but the
+# pose inverted at [1, 1, 1] is symmetric: F^T F gets bitwise equal diagonal
+# entries and the Jacobi SVD stalls on them (ROADMAP Queue 3).
+JAX_JACOBI_VOL_ERR = [1.9386215728819933e-04, 1.1726816286503072e-04, 1.942653552083895e-04]
+ONE_TET_VOL_TOL = 1e-9  # on the volume error, against JAX_JACOBI_VOL_ERR
+
+
+def one_tet_solver(lame, device=None, **settings):
+    from admm_elastic_tpu_torch import Settings, Solver
+
+    s = Solver(device=device or DEVICE)
+    s.add_nodes(ONE_TET_VERTS, np.ones(4))
+    s.add_tet_energies(ONE_TET_VERTS, ONE_TET, lame)
+    need(s.initialize(Settings(verbose=0, linsolver=0, gravity=0.0, dtype=np.float64,
+                               **settings)), "one tet: initialize failed")
+    need(s.system.tets[0].stencil is None, "one tet: not a gather family")
+    return s
+
+
+def one_tet_convergence(device=None):
+    """The pulled vertex converges monotonically to ONE_TET_PULLED_X, at every
+    8th ADMM iteration count from 5 (each count re-initializes, sets x and
+    changes admm_iters: on the card, a capture each)."""
+    from admm_elastic_tpu_torch import Lame
+
+    s = one_tet_solver(Lame.from_youngs_poisson(500000, 0.25), device, timestep_s=1.0 / 24.0)
+    init_x = s.x.copy()
+    last, got = -1.0, {}
+    for it in range(5, 100, 8):
+        s.m_settings.admm_iters = it
+        s.x = init_x
+        need(s.initialize(), "one tet: initialize failed")
+        xx = s.x
+        xx[3] = [200.0, 0.0, 0.0]
+        s.x = xx
+        s.step()
+        new = float(s.x[3][0])
+        got[it] = new
+        err = (ONE_TET_PULLED_X - new) ** 2
+        if it > 20:
+            need(abs(ONE_TET_PULLED_X - new) < 1e-4, f"one tet, {it} iterations: x = {new}")
+        elif last >= 1e-8:
+            need(err <= last * (1 + 1e-12), f"one tet, {it} iterations: no monotone convergence")
+        last = err
+    return got
+
+
+def one_tet_inversion(device=None):
+    """The tet inverted at [1, 1, 1] comes back in 10 steps, with the volume
+    errors of JAX_JACOBI_VOL_ERR (to ONE_TET_VOL_TOL)."""
+    from admm_elastic_tpu_torch import Lame
+    from admm_elastic_tpu_torch.geometry.mesh import tet_volumes
+
+    s = one_tet_solver(Lame(mu=100.0, lam=100.0), device, timestep_s=0.7)
+    init_x = s.x.copy()
+    target = tet_volumes(init_x, ONE_TET)[0]
+    got = {}
+    for iters, want in zip((10, 20, 30), JAX_JACOBI_VOL_ERR):
+        s.m_settings.admm_iters = iters
+        s.x = init_x
+        need(s.initialize(), "one tet: initialize failed")
+        xx = s.x
+        xx[0] = [1.0, 1.0, 1.0]
+        s.x = xx
+        need(tet_volumes(s.x, ONE_TET)[0] < 0, "one tet: not inverted")
+        s.run(10)
+        err = float(tet_volumes(s.x, ONE_TET)[0] - target)
+        got[iters] = err
+        need(abs(err - want) < ONE_TET_VOL_TOL,
+             f"one tet, {iters} iterations: volume error {err}, the JAX package's {want}")
+    return got
+
+
+def invalidation_checks(torch):
+    """The captured step never goes stale, on the pinned bench beam: set_pins
+    between two runs copies moved targets in place (no new capture) and the
+    pinned vertices follow; a new x and v (the setters) take effect at the
+    next run, which then matches the eager loop from them; a change of
+    admm_iters, of gravity and initialize() each give a new capture, in
+    whose warm-up step and capture the wrapper of kernel A's stencil entry is
+    called admm_iters times each, and whose replays launch it admm_iters
+    times a step."""
+    solver, mesh, g, pins = make_solver(NH)
+    out = {}
+    solver.run(1)
+    graph = solver._graph
+    need(graph is not None, "no graph after run(1)")
+    tgt = solver.x[pins] + np.array([0.1, 0.05, 0.0])
+    solver.set_pins(pins, tgt)
+    solver.run(3)
+    need(solver._graph is graph, "set_pins captured the step anew")
+    out["moved_pins_dev"] = float(np.abs(solver.x[pins] - tgt).max())
+    need(out["moved_pins_dev"] < 1e-3, f"moved pins not followed: {out['moved_pins_dev']}")
+
+    rng = np.random.default_rng(5)
+    xs = solver.x + 0.02 * rng.standard_normal(solver.x.shape)
+    vs = 0.1 * rng.standard_normal(xs.shape)
+    solver.x, solver.v = xs, vs
+    solver.run(1)
+    x_graph = solver.state.x.clone()
+    need(solver._graph is graph, "setting x and v captured the step anew")
+    solver.x, solver.v = xs, vs
+    solver._run_eager(1)
+    out["setters_vs_eager"] = dict(bitwise=bool(torch.equal(solver.state.x, x_graph)),
+                                   rel_err=rel_err(x_graph.cpu().numpy(), solver.x))
+    need(out["setters_vs_eager"]["bitwise"]
+         or out["setters_vs_eager"]["rel_err"] <= GRAPH_EAGER_TOL,
+         f"after the setters the graph step is off the eager one: {out['setters_vs_eager']}")
+
+    key = f"local_step_tet_stencil[{NH}]"
+    graphs = [graph]
+    for label, change in (("admm_iters", lambda: setattr(solver.m_settings, "admm_iters", 5)),
+                          ("gravity", lambda: setattr(solver.m_settings, "gravity", -4.9)),
+                          ("initialize", lambda: need(solver.initialize(), "initialize failed"))):
+        change()
+        reset_counts()
+        solver.run(0)
+        need(all(solver._graph is not old for old in graphs), f"{label}: no new capture")
+        graphs.append(solver._graph)
+        iters = solver.m_settings.admm_iters
+        called = read_counts(NH)[key]
+        replayed = counted_window(torch, label, lambda: solver.run(2), {key: 2 * iters},
+                                  model=NH)[key]
+        need(called == 2 * iters and read_counts(NH)[key] == called,
+             f"{label}: {key} called {called} times by the warm-up step and the capture "
+             f"and {read_counts(NH)[key] - called} times by the replays, expected {2 * iters}, 0")
+        need(np.isfinite(solver.x).all(), f"{label}: non-finite state")
+        out[f"recaptured_on_{label}"] = dict(wrapper_calls=called, launches_by_two_steps=replayed)
+    log("graph invalidation " + json.dumps(out))
+    return out
+
+
 # --- phase 5: timing ---------------------------------------------------------------------
 
-def rollout_rate(solver):
+def rollout_rate(solver, eager=False):
+    """ADMM iterations/s over a rollout of at least TARGET_S: run(n), the
+    captured step's replays, or with eager the eager loop (_run_eager)."""
+    advance = solver._run_eager if eager else solver.run
     n_steps = 20
     while True:
         t0 = time.perf_counter()
-        solver.run(n_steps)  # run() synchronizes before it returns
+        advance(n_steps)  # both synchronize before they return
         wall = time.perf_counter() - t0
         if wall >= TARGET_S:
             break
@@ -1286,6 +1816,32 @@ def kernel_cases(torch):
         [xs, tb.st_dl, tb.st_dead] + list(e_args[1:]), 500, 50)
     pairs["local_step_tri"] = [("rows entry", cases["local_step_tri"][0]),
                                ("stencil entry", cases["local_step_tri_stencil"][0])]
+    # The rows entries at the shapes of the gather paths (name@path), on D x
+    # gathered from a perturbed rest pose, from a generator of their own.
+    rng_g = np.random.default_rng(6)
+    for scene, (verts, gb, noise) in gather_batches(torch, f32).items():
+        xg = torch.as_tensor(verts + noise * rng_g.standard_normal(verts.shape), device=DEVICE,
+                             dtype=f32)
+        dixg = gb.Dx_rows(xg)
+        key = gather_key(scene, gb)
+        if key == "local_step_tri":
+            ug = torch.as_tensor(0.02 * rng_g.standard_normal((6, gb.n)), device=DEVICE,
+                                 dtype=f32)
+            ga = (dixg, ug, gb.limit_min, gb.limit_max)
+            cases[f"{key}@{scene}"] = (
+                lambda ga=ga: cuda_tri_local_step.local_step_tri(*ga),
+                lambda ga=ga: local_step_tri_plain(*ga), list(ga), 500, 50)
+            continue
+        ug = torch.as_tensor(0.05 * rng_g.standard_normal((9, gb.n)), device=DEVICE, dtype=f32)
+        ga, model = (dixg, ug, gb.mu, gb.lam, gb.kappa, gb.bulk), gb.model
+        trips = {}
+        if model != "linear":
+            prox_tet_hyper_tuple(tuple(dixg + ug), model, *ga[2:], trips=trips)
+        cases[f"{key}@{scene}"] = (
+            lambda ga=ga, model=model: cuda_local_step.local_step_tet_hyper(*ga, model=model),
+            lambda ga=ga, model=model: local_step_plain(*ga, model=model),
+            [dixg, ug] + ([] if model == "linear" else list(ga[2:])), 200, 3,
+            tet_operations(model, gb.n, True, trips))
     return cases, c_branches, chains, pairs
 
 
@@ -1361,41 +1917,95 @@ def profile_kernels(torch, cases, c_branches, pairs, gpu, reps=20):
     return res
 
 
-def profile_step(torch, solver, gpu, tag, n_steps=5):
-    """torch.profiler over n_steps of the rollout: device busy time, idle
-    share, device operations per ADMM iteration and time by kernel name.
-    Writes step_profile_<tag>.json and the Chrome trace into OUT_DIR."""
+def profile_step(torch, solver, gpu, tag, n_steps=5, eager=False):
+    """torch.profiler over n_steps of the rollout: run (the captured step's
+    replays), or with eager the eager loop: device busy time, idle share,
+    device operations per ADMM iteration and time by kernel name. Writes
+    step_profile_<tag>[_eager].json (and the graph run's Chrome trace) into
+    OUT_DIR."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    solver.run(2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solver.run(n_steps)  # synchronizes before it returns
-        wall_us = (time.perf_counter() - t0) * 1e6
+    advance = solver._run_eager if eager else solver.run
+    advance(2)
+    iters = n_steps * solver.m_settings.admm_iters
+    # Each port kernel of the profiled paths launches once per ADMM
+    # iteration: a window that counts fewer lost events and is taken again.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            advance(n_steps)  # synchronizes before it returns
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ports = port_kernel_counts(prof.events())
+        if ports and all(v == iters for v in ports.values()):
+            break
+        log(f"profile {tag}: the window counted {ports}, expected {iters} of each; "
+            "it is taken again")
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    need(events, "profiler saw no device activity")
+    how = "eager loop" if eager else "graph replays"
+    need(ports and all(v == iters for v in ports.values()),
+         f"profile {tag}: the port's kernels counted {ports} three times, expected {iters} of each")
     by_name = {}
     for e in events:
         cnt_us = by_name.setdefault(e.name, [0, 0.0])
         cnt_us[0] += 1
         cnt_us[1] += e.time_range.elapsed_us()
     busy_us = sum(v[1] for v in by_name.values())
-    iters = n_steps * solver.m_settings.admm_iters
-    res = dict(gpu=gpu, path=tag, steps=n_steps, admm_iters=iters, wall_us=wall_us,
-               busy_us=busy_us, idle_share=1.0 - busy_us / wall_us,
+    res = dict(gpu=gpu, path=tag, mode="eager" if eager else "graph", steps=n_steps,
+               admm_iters=iters, wall_us=wall_us, wall_us_per_step=wall_us / n_steps,
+               busy_us=busy_us, busy_us_per_step=busy_us / n_steps,
+               idle_share=1.0 - busy_us / wall_us,
                device_ops_per_admm_iter=len(events) / iters,
                by_name=dict(sorted(by_name.items(), key=lambda kv: -kv[1][1])))
     os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, f"step_trace_{tag}.json"))
-    with open(os.path.join(OUT_DIR, f"step_profile_{tag}.json"), "w") as f:
+    name = f"step_profile_{tag}{'_eager' if eager else ''}"
+    if not eager:
+        prof.export_chrome_trace(os.path.join(OUT_DIR, f"step_trace_{tag}.json"))
+    with open(os.path.join(OUT_DIR, f"{name}.json"), "w") as f:
         json.dump(res, f, indent=1)
-    log(f"profile {tag}, {n_steps} steps: wall {wall_us:.1f} us, device busy {busy_us:.1f} us, "
-        f"idle share {res['idle_share']:.3f}, {res['device_ops_per_admm_iter']:.1f} device "
-        f"ops per ADMM iteration [{gpu}]")
+    log(f"profile {tag}, {n_steps} steps ({how}): wall {wall_us:.1f} us, device busy "
+        f"{busy_us:.1f} us ({res['busy_us_per_step']:.1f} us per step), idle share "
+        f"{res['idle_share']:.3f}, {res['device_ops_per_admm_iter']:.1f} device ops per ADMM "
+        f"iteration [{gpu}]")
     for name, (cnt, us) in list(res["by_name"].items())[:12]:
         log(f"  {us:9.1f} us {cnt:5d}x {name[:90]}")
     return res
+
+
+def host_timing(torch, gpu, cases, c_branches):
+    """The measurements on the host's clock, on solvers of their own: the
+    captured step against the eager loop in turns (graph, eager, eager,
+    graph) for the beam, cloth_limit40 and beam_gather; then the phases of
+    the beam and cloth steps on the stepped states, each kernel against its
+    plain version, and C's two branches in turns (CUDA events)."""
+    solvers = {"beam": make_solver(NH)[0], "beam_gather": make_gather_solver("beam_gather")[0]}
+    solvers.update({n: make_cloth_solver(n)[0] for n in CLOTH_SCENES})
+    turns = {}
+    for label in ("beam", "cloth_limit40", "beam_gather"):
+        turns[label] = in_turns([("graph", lambda label=label: rollout_rate(solvers[label])),
+                                 ("eager", lambda label=label: rollout_rate(solvers[label],
+                                                                            eager=True))],
+                                lambda call: call())
+        log(f"rollout {label}: graph " + ", ".join(
+            f"{r['admm_iters_per_s']:.1f}" for r in turns[label]["graph"]) + " and eager "
+            + ", ".join(f"{r['admm_iters_per_s']:.1f}" for r in turns[label]["eager"])
+            + f" ADMM iters/s (in turns) [{gpu}]")
+    solvers["cloth_wind40"].run(8)
+    phases = {"beam": step_phases(torch, solvers["beam"])}
+    phases.update({n: cloth_phases(torch, solvers[n]) for n in CLOTH_SCENES})
+    for label, ph in phases.items():
+        for k, v in ph.items():
+            log(f"phase {label}: {k}: {v * 1e3:.1f} us [{gpu}]")
+    times = kernel_times(torch, cases)
+    for k, v in times.items():
+        log(f"time {k}: kernel {v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, "
+            f"bound {v['bound_ms'] * 1e3:.3f} us by {v['bound_by']} "
+            f"({v['bytes']} B, {v['operations']} operations) [{gpu}]")
+    by_branch = in_turns(c_branches, lambda call: events_ms(torch, call, 200))
+    for label, (first, second) in by_branch.items():
+        log(f"time tet_rhs_rows {label}: {first * 1e3:.1f}, {second * 1e3:.1f} us "
+            f"(CUDA events, in turns) [{gpu}]")
+    return turns, phases, times, by_branch
 
 
 def main():
@@ -1424,12 +2034,19 @@ def main():
         env = environment(torch)
         gpu = env["gpu"]
         built = build()
-        checks = stencil_entry_checks(torch, kernel_checks(torch))
+        checks = gather_entry_checks(torch, stencil_entry_checks(torch, kernel_checks(torch)))
+        cases, c_branches, chains, pairs = kernel_cases(torch)
+        profiles = {}
         if args.kernels_only:
-            cases, c_branches, _, pairs = kernel_cases(torch)
-            profile_kernels(torch, cases, c_branches, pairs, gpu)
+            profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, gpu)
             log(gpu)
             return 0
+        # What the host's clock times comes before the first profiler window,
+        # so that no profiler state left in the process can slow the host;
+        # after some 30 windows the profiler also began to drop events.
+        turns, phases, times, by_branch = host_timing(torch, gpu, cases, c_branches)
+        if args.profile:
+            profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, gpu)
 
         paths, rates, solvers = {}, {}, {}
         solvers["beam"], paths["beam"] = beam_path(torch, NH)
@@ -1439,8 +2056,14 @@ def main():
         for model in BEAM_MODELS:
             label = path_label(model)
             solvers[label], paths[label] = beam_path(torch, model)
+        for name in GATHER_SCENES:
+            solvers[name], paths[name] = gather_path(torch, name)
+        checks["graph"] = dict(invalidation=invalidation_checks(torch),
+                               one_tet_convergence=one_tet_convergence(),
+                               one_tet_inversion=one_tet_inversion())
+        log("one tet through the graph: " + json.dumps(
+            {k: checks["graph"][k] for k in ("one_tet_convergence", "one_tet_inversion")}))
         # Every path once in this order and once more in the reverse order:
-        # the step is bound by the host, whose speed drifts within a run, so
         # two readings apart in time tell a path's rate from its place in line.
         for again, order in ((False, list(solvers)), (True, list(reversed(solvers)))):
             for label in order:
@@ -1452,26 +2075,13 @@ def main():
                 log(f"rollout {label}{' (again, reverse order)' if again else ''}: "
                     f"{r['rollout_steps']} steps in {r['wall_s']:.3f} s: "
                     f"{r['admm_iters_per_s']:.1f} ADMM iters/s, {r['step_ms']:.3f} ms/step [{gpu}]")
-        phases = {"beam": step_phases(torch, solvers["beam"])}
-        phases.update({n: cloth_phases(torch, solvers[n]) for n in CLOTH_SCENES})
-        for label, ph in phases.items():
-            for k, v in ph.items():
-                log(f"phase {label}: {k}: {v * 1e3:.1f} us [{gpu}]")
-        cases, c_branches, chains, pairs = kernel_cases(torch)
-        times = kernel_times(torch, cases)
-        for k, v in times.items():
-            log(f"time {k}: kernel {v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, "
-                f"bound {v['bound_ms'] * 1e3:.3f} us by {v['bound_by']} "
-                f"({v['bytes']} B, {v['operations']} operations) [{gpu}]")
-        by_branch = in_turns(c_branches, lambda call: events_ms(torch, call, 200))
-        for label, (first, second) in by_branch.items():
-            log(f"time tet_rhs_rows {label}: {first * 1e3:.1f}, {second * 1e3:.1f} us "
-                f"(CUDA events, in turns) [{gpu}]")
-        profiles = {}
+        for label, t in turns.items():
+            rates[label]["graph_vs_eager"] = t
         if args.profile:
-            for tag in ("beam", "cloth_limit40", "cloth_wind40"):
-                profiles[tag] = profile_step(torch, solvers[tag], gpu, tag)
-            profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, gpu)
+            for tag in ("beam", "cloth_limit40", "cloth_wind40", "beam_gather"):
+                profiles[tag] = dict(graph=profile_step(torch, solvers[tag], gpu, tag),
+                                     eager=profile_step(torch, solvers[tag], gpu, tag,
+                                                        eager=True))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1482,10 +2092,14 @@ def main():
     # strain-limited sheet, B standalone on the unpinned beam. A, B and E list
     # every entry that does their work under "entries": the stencil entry that
     # the steps launch and the rows entry (A, E), the standalone kernel and
-    # the neo-Hookean stencil entry (B).
+    # the neo-Hookean stencil entry (B); and the rows entries of A
+    # (neo-Hookean, linear) and E as the gather paths' steps launch them,
+    # timed at those paths' shapes.
     def entry(name, path):
         t = times[name]
-        return dict(entry=name, path=path, launches=paths[path]["launches"].get(name, 0),
+        counted = name.partition("@")[0]
+        return dict(entry=counted, path=path, launches=paths[path]["launches"].get(counted, 0),
+                    wrapper_calls=paths[path]["wrapper_calls"].get(counted, 0),
                     max_abs_err=checks["f32"][name]["max_abs_err"], ms=t["ms"],
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
@@ -1493,7 +2107,7 @@ def main():
     kernels = []
     for name in times:
         base, _, model = name.partition("[")
-        if base in STENCIL_ENTRY.values():
+        if base in STENCIL_ENTRY.values() or "@" in name:
             continue
         path = ("cloth_limit40" if base == "local_step_tri" else
                 "beam[linear]" if base == "prox_tet_linear" else
@@ -1503,6 +2117,9 @@ def main():
             entries.insert(0, entry(STENCIL_ENTRY[base] + name[len(base):], path))
         elif base == "tet_Dx_rows":
             entries.append(entry(f"{STENCIL_ENTRY['local_step_tet_hyper']}[{NH}]", "beam"))
+        # the rows entry as the gather paths' steps launch it, at their shapes
+        entries += [entry(k, k.partition("@")[2]) for k in times
+                    if k.partition("@")[0] == name and "@" in k]
         src, rep = REPLACES[base]
         kernels.append(dict(entries[0], name=name, route="cuda", source=src, replaces=rep,
                             entries=entries))

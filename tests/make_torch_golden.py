@@ -2,10 +2,10 @@
 runs of the port's full-size scenes, against which chip_smoke.py and the
 port's tests check admm_elastic_tpu_torch where no JAX is installed.
 
-All scenes: float32, linsolver=0, direct_mode="inv", 10 ADMM iterations per
-step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD
-runs the Jacobi SoA path (set_svd_impl("jacobi")), the same body as the port's
-kernels.
+All scenes: float32 (bunny_nh_f64 and bunny_linear_f64: float64),
+linsolver=0, direct_mode="inv" (beam_cho: "cho"), 10 ADMM iterations per
+step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD runs the Jacobi SoA path
+(set_svd_impl("jacobi")), the same body as the port's kernels.
 
 - beam (bench.py:23-24,78-94): the 40x5x5 make_tet_blocks beam, soft rubber,
   -x face pinned, gravity -9.8; neo-Hookean in torch_port_golden_beam.npz and
@@ -20,7 +20,15 @@ kernels.
   chip_smoke.cloth_sheet): the 40x40 sheet, Lame.from_youngs_poisson(1e7,
   0.399), -x edge pinned; strain limits (0.95, 1.05) under gravity in
   torch_port_golden_cloth_limit40.npz, colored wind (0.05, 0.1, 0.02) without
-  gravity in torch_port_golden_cloth_wind40.npz.
+  gravity in torch_port_golden_cloth_wind40.npz;
+- the gather D / D^T and the Cholesky solve (chip_smoke.GATHER_SCENES), under
+  gravity -9.8: beam_gather, the neo-Hookean bench beam with its
+  lattice_dims dropped; bunny_nh and bunny_linear, the reference's
+  data/bunny_1124 through load_elenode with the feet pinned
+  (benchmarks/crossval.py:173-182), soft rubber, and the two again in
+  float64 (bunny_nh_f64, bunny_linear_f64); cloth_gather_limit40, the
+  cloth_limit40 sheet renumbered by chip_smoke.renumbered_sheet; beam_cho, the
+  neo-Hookean bench beam (a lattice) with direct_mode="cho".
 
 Run from the repository root (all files, or only the named ones):
 
@@ -34,13 +42,16 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 from admm_elastic_tpu import Lame, Settings, Solver, binding  # noqa: E402
 from admm_elastic_tpu.forces import make_wind_force  # noqa: E402
 from admm_elastic_tpu.geometry.factory import make_tet_blocks  # noqa: E402
+from admm_elastic_tpu.geometry.io import load_elenode  # noqa: E402
 from admm_elastic_tpu.ops import prox  # noqa: E402
-from chip_smoke import BEAM_FLAGS, BEAM_MODELS, CLOTH_SCENES, cloth_sheet  # noqa: E402
+from chip_smoke import (BEAM_FLAGS, BEAM_MODELS, BUNNY, CLOTH_SCENES, GATHER_SCENES,  # noqa: E402
+                        bunny_pins, cloth_sheet, renumbered_sheet)
 
 DIMS = (40, 5, 5)
 ADMM_ITERS = 10
@@ -51,17 +62,17 @@ FREE_STEPS = (1, 2)  # of beam_free
 DATA = os.path.join(ROOT, "tests", "data")
 
 
-def _settings(gravity):
+def _settings(gravity, direct_mode="inv", dtype=np.float32):
     return Settings(verbose=0, admm_iters=ADMM_ITERS, linsolver=0, gravity=gravity,
-                    timestep_s=DT, dtype=np.float32, direct_mode="inv")
+                    timestep_s=DT, dtype=dtype, direct_mode=direct_mode)
 
 
-def _rollout(solver, steps=STEPS):
+def _rollout(solver, steps=STEPS, dtype=np.float32):
     traj = {"steps": np.asarray(steps)}
     for step in range(1, max(steps) + 1):
         solver.step()
         if step in steps:
-            traj[f"x{step}"] = np.asarray(solver.x, np.float32)
+            traj[f"x{step}"] = np.asarray(solver.x, dtype)
     return traj
 
 
@@ -117,16 +128,58 @@ def cloth(name):
           x0=verts.astype(np.float32), **_rollout(solver))
 
 
+def gather(name):
+    p = GATHER_SCENES[name]
+    solver = Solver()
+    extra = {}
+    if p["mesh"] == "sheet":
+        c = CLOTH_SCENES["cloth_limit40"]
+        verts, tris, masses, pins, perm = renumbered_sheet(c["nx"], c["ny"])
+        solver.add_nodes(verts, masses)
+        lame = Lame.from_youngs_poisson(10000000, 0.399)
+        lame.limit_min, lame.limit_max = c["limits"]
+        solver.add_tri_energies(verts, tris, lame)
+        extra = dict(nx=c["nx"], ny=c["ny"], perm=perm, limits=np.asarray(c["limits"]))
+    else:
+        if p["mesh"] == "beam":
+            mesh = make_tet_blocks(*DIMS)
+            if not p["lattice"]:
+                mesh.lattice_dims = None
+            pins = np.where(mesh.vertices[:, 0] < 1e-9)[0]
+            extra = dict(dims=np.asarray(DIMS))
+        else:
+            mesh = load_elenode(BUNNY)
+            pins = bunny_pins(mesh.vertices)
+        mesh.flags = binding.NOSELFCOLLISION | getattr(binding, BEAM_FLAGS[p["model"]])
+        lame = Lame.soft_rubber()
+        binding.add_tetmesh(solver, mesh, lame, verbose=False)
+        verts = mesh.vertices
+        extra.update(model=p["model"], mu=lame.mu, lam=lame.lam)
+    solver.set_pins([int(i) for i in pins])
+    dtype = p.get("dtype", np.float32)
+    assert solver.initialize(_settings(GRAVITY, p["direct_mode"], dtype))
+    fams = solver.system.tets + solver.system.tris
+    assert len(fams) == 1 and (fams[0].stencil is not None) == (p.get("lattice") is True)
+    assert solver._solve_data.mode == p["direct_mode"]
+    _save(name, gravity=GRAVITY, pins=pins, direct_mode=p["direct_mode"],
+          x0=verts.astype(dtype), **extra, **_rollout(solver, dtype=dtype))
+
+
 def main(argv):
     prox.set_svd_impl("jacobi")
     writers = {"beam": lambda: beam("neohookean"),
                "beam_free": lambda: beam("neohookean", pinned=False)}
     writers.update({f"beam_{m}": (lambda m=m: beam(m)) for m in BEAM_MODELS})
     writers.update({n: (lambda n=n: cloth(n)) for n in CLOTH_SCENES})
+    writers.update({n: (lambda n=n: gather(n)) for n in GATHER_SCENES})
     names = argv or list(writers)
     for n in names:
         if n not in writers:
             raise SystemExit(f"unknown golden {n!r}; one of {sorted(writers)}")
+    # float64 scenes last: jax_enable_x64 stays on once set
+    for n in sorted(names, key=lambda n: "dtype" in GATHER_SCENES.get(n, {})):
+        if "dtype" in GATHER_SCENES.get(n, {}):
+            jax.config.update("jax_enable_x64", True)
         writers[n]()
 
 

@@ -187,19 +187,9 @@ def _unsupported_sheet(**kw):
     s.initialize(_settings(Settings, np.float64, **kw))
 
 
-def _unsupported_non_grid():
-    mesh = factory.make_plane(4, 4)
-    mesh.faces = mesh.faces[:-1]
-    s = Solver(device="cpu")
-    s.add_nodes(mesh.vertices, np.ones(len(mesh.vertices)))
-    s.add_tri_energies(mesh.vertices, mesh.faces, Lame.soft_rubber())
-    s.initialize(_settings(Settings, np.float64))
-
-
 UNSUPPORTED = {
     "cloth_above_direct_max_verts": lambda: _unsupported_sheet(direct_max_verts=10),
     "cloth_pcg": lambda: _unsupported_sheet(linsolver=3),
-    "non_grid_trimesh": _unsupported_non_grid,
     "wind_sequential": lambda: forces.make_wind_force(
         factory.make_plane(2, 2).faces, sequential=True, device="cpu", dtype=torch.float64),
 }

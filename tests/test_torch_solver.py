@@ -178,21 +178,14 @@ def _init_with(settings_kw=None, mesh=None, before=None):
     s.initialize(_settings(Settings, np.float64, **(settings_kw or {})))
 
 
-def _non_lattice():
-    m = _beam()
-    return TetMesh(vertices=m.vertices, tets=m.tets, flags=m.flags)
-
-
 UNSUPPORTED = {
     "linsolver_pcg": lambda: _init_with(dict(linsolver=3)),
     "linsolver_gs": lambda: _init_with(dict(linsolver=1)),
-    "direct_mode_cho": lambda: _init_with(dict(direct_mode="cho")),
     "aa_window": lambda: _init_with(dict(aa_window=4)),
     "unroll_admm": lambda: _init_with(dict(unroll_admm=True)),
     "above_direct_max_verts": lambda: _init_with(dict(direct_max_verts=10)),
     "obstacle": lambda: Solver(device="cpu").add_obstacle(object()),
     "dynamic_collider": lambda: Solver(device="cpu").add_dynamic_collider(object()),
-    "non_lattice_mesh": lambda: _init_with(mesh=_non_lattice()),
     "wrap_lattice": lambda: _init_with(mesh=TetMesh(
         vertices=_beam().vertices, tets=_beam().tets, flags=_beam().flags,
         lattice_dims=(4, 2, 2), lattice_wrap=True)),

@@ -149,9 +149,10 @@ def test_non_grid_triangles_are_rejected():
     for bad in (cut, swapped, fan):
         assert j_st.verify_tri_grid(bad, n_local_verts=len(verts)) is None
         assert p_st.verify_tri_grid(bad, n_local_verts=len(verts)) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_el.build_tri_batch(verts, cut, PLame.soft_rubber(), device="cpu",
-                             dtype=torch.float64)
+    # the port builds them as a gather family: the triangles as given
+    b = p_el.build_tri_batch(verts, cut, PLame.soft_rubber(), device="cpu", dtype=torch.float64)
+    assert b.stencil is None and b.st_dl is None and b.n == len(cut)
+    np.testing.assert_array_equal(b.inds.numpy(), cut)
 
 
 def _eq(p, j):
