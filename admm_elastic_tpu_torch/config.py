@@ -2,8 +2,10 @@
 
 The fields and defaults are those of ``admm_elastic_tpu.config.Settings``
 so that one settings object reads the same in both packages. Only the
-prefactored direct solve (``linsolver=LDLT``, ``direct_mode="inv"``) runs
-in this package; the solver raises ``NotImplementedError`` for the rest.
+prefactored direct solve (``linsolver=LDLT``) runs in this package, in both
+of its modes: ``direct_mode="inv"`` (a GEMM on the stored inverse) and
+``"cho"`` (two triangular solves on the Cholesky factor); the solver raises
+``NotImplementedError`` for the rest.
 
 ``dtype=None`` means float32 here. The JAX package follows
 ``jax_enable_x64`` instead; this package changes no global default.
@@ -53,7 +55,8 @@ class Settings:
     pcg_max_iters: int = 200
     pcg_tol: float = 1e-10
     pcg_precond: str = "jacobi"
-    # "inv" = the Jacobi-equilibrated inverse applied as one GEMM per solve.
+    # "inv" = the Jacobi-equilibrated inverse applied as one GEMM per solve;
+    # "cho" = two triangular solves on the Cholesky factor.
     direct_mode: str = "inv"
     # Newton iterations of the hyperelastic prox (src/TetEnergyTerm.cpp:133).
     prox_newton_iters: int = 8

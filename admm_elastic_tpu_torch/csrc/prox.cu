@@ -12,15 +12,30 @@
 // Layout: zi and the output are [T, 3, 3] row-major; lane t reads its nine
 // values at 9t .. 9t+8 and writes them back there. The TPU wrapper's
 // transpose to rows and its identity padding (_to_rows) are TPU layout and
-// are not carried over: the bounds check t < T replaces the pad. A warp's 32
-// lanes cover one contiguous span of 288 values, so every fetched sector is
-// used, though each single load strides by 9 values.
+// are not carried over: the bounds check t < T replaces the pad. On the same
+// values a lane's z is kernel A's rows entry's with u = 0, bit for bit: the
+// body (tet_lane_prox) is the same.
 //
-// What bounds them on Hopper: D, like A, the length of a lane's dependent
-// chain (see local_step.cu), and it shares A's remedy through prox_hyper:
-// both loops left as soon as the result is fixed. F is the 8 Jacobi sweeps
-// alone (~1,500 operations per lane against 72 B in float), bounded by that
-// chain too.
+// What bounds them on an H100 (float32, the bench beam's D x at its 7,680
+// lanes, and the same values tiled 128 times, 983,040 lanes), and why the
+// kernel is no more than this:
+// - Not the layout. A single load strides 36 bytes, but a warp's 32 lanes
+//   cover one contiguous 1,152-byte span, which its first loads bring into
+//   L1 for the other eight. A variant that staged each block's span through
+//   shared memory (cp.async in, 16-byte stores out) ran 0.5-2.6 % slower at
+//   983,040 lanes for all six models, and at 7,680 for four of them
+//   (tools/prox_turns.py, the two in turns), and was dropped. Kernel A's
+//   rows entry (coalesced rows, twice the bytes) takes the same time as D
+//   and F on the same values.
+// - One wave or less: one lane's dependent chain, as for kernel A (see
+//   local_step.cu): the 8-sweep SVD, for D then the Newton trips; 65-95
+//   times the bound, which is below the time of an empty launch.
+// - Many waves: the rate at which the SMs issue every lane's instructions,
+//   each IEEE division, square root and log a sequence of them (no fast
+//   math), and for D the Newton trips that diverge within a warp: 7-10
+//   times the bound, which counts each of those as one operation. Moving
+//   the bytes once takes 21 us of F's 169. ptxas: 46-58 registers in float,
+//   80-122 in double, no spill.
 //
 // Built once per precision, as local_step.cu.
 

@@ -39,7 +39,7 @@ class ExplicitForce:
         raise NotImplementedError
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class WindForce(ExplicitForce):
     """Wejchert-Haumann wind on a triangle list (see the module docstring).
 

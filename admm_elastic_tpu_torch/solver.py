@@ -23,7 +23,9 @@ graph (the port of ``_run_core``, ``admm_elastic_tpu/solver.py:369-394``):
 at the end, ``step()`` once, so the two share numerics. The first of them
 after ``initialize`` captures the graph; it reads and writes static ``x`` and
 ``v`` buffers. A new ``x`` or ``v`` (the setters, or a new ``state``) is
-copied into those buffers at the next call; ``set_pins`` copies the targets
+copied into those buffers at the next call; the state, the system and its
+batches are frozen dataclasses (as in the JAX package), so no field can be
+swapped behind the graph's back; ``set_pins`` copies the targets
 and active flags into the tensors the graph reads; ``initialize``,
 ``load_arrays``, ``add_explicit_force`` and a change of ``admm_iters``,
 ``prox_newton_iters``, ``refine_passes``, ``timestep_s`` or ``gravity``
@@ -227,11 +229,18 @@ class Solver:
 
     @x.setter
     def x(self, value):
+        """After initialize, the positions of the state (on the card copied
+        into the captured step's buffer at the next run); before it, the
+        staged positions, which replace those of add_nodes (the JAX package's
+        Solver.x)."""
         value = np.asarray(value, dtype=np.float64).reshape(-1, 3)
-        if self.state is None:
-            raise RuntimeError("Solver.x: set positions after initialize()")
-        self.state = dataclasses.replace(
-            self.state, x=torch.as_tensor(value).to(self.device, self._dtype))
+        if self.state is not None:
+            self.state = dataclasses.replace(
+                self.state, x=torch.as_tensor(value).to(self.device, self._dtype))
+        else:
+            self._x_stage = [value]
+            self._m_stage = [np.concatenate(self._m_stage)] if self._m_stage else []
+            self._n_verts = value.shape[0]
 
     @property
     def v(self) -> np.ndarray:

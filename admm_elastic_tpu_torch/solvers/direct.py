@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class DirectData:
     mat: torch.Tensor  # [N, N] (S A S)^-1 ("inv") or the Cholesky factor L ("cho")
     scale: torch.Tensor  # [N, 1] S = diag(A)^(-1/2) ("inv"; ones for "cho")

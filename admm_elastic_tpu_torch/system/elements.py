@@ -37,7 +37,7 @@ _S_TET = np.array(
 _S_TRI = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class TetBatch:
     """A family of tets sharing one constitutive model: a flat stencil
     (slot-major lanes; ``stencil`` set) or a gather family (``gather_idx``).
@@ -105,7 +105,7 @@ class TetBatch:
         return cuda_local_step.local_step_tet_stencil(x, u_rows, self, n_newton_iters)
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class TriBatch:
     """A family of triangle (cloth) elements: a regular sheet as a flat
     stencil (slot-major lanes over cells at vertex pitch; dead lanes have
@@ -158,7 +158,7 @@ class TriBatch:
         return cuda_tri_local_step.local_step_tri_stencil(x, u_rows, self)
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class PinBatch:
     """All pinnable vertices; targets and active flags change at run time."""
 

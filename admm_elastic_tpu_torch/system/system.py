@@ -32,7 +32,7 @@ from admm_elastic_tpu_torch.ops import stencil as stencil_mod
 from admm_elastic_tpu_torch.system.elements import PinBatch, TetBatch, TriBatch
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class System:
     """Static (per-initialize) simulation system."""
 
@@ -51,7 +51,7 @@ class System:
         return self.dt * self.dt
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class SimState:
     """Dynamic state: positions and velocities (src/Solver.hpp:66-67)."""
 

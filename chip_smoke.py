@@ -18,7 +18,10 @@ failure:
    float32, at the shapes of the paths, on main-path inputs and on a stress
    recipe, all outputs finite: A (the tet local step's rows entry, once per
    model, and at a ragged lane count), D and F (the tet prox on [T,3,3]) at
-   7,680 lanes, every lane held (see LANE_TOL), B (D x, exact)
+   7,680 lanes, at a ragged lane count, on a tensor that starts 3 lanes into
+   its storage and (float32) at the throughput size of TILES x 7,680 lanes, every lane
+   held (see LANE_TOL), and each z bit for bit kernel A's rows entry's on the
+   same values with u = 0 (rows_entry_bits), B (D x, exact)
    and C (rhs, its tiled and its wide branch, bitwise equal to each other)
    at 1,536 cells and 1,476 vertices, C's wide branch on a 2x40x40 lattice
    whose halo fits no tile, E (the cloth local step's rows entry) at 3,362
@@ -59,18 +62,23 @@ failure:
      bunny_nh and bunny_linear (data/bunny_1124 through load_elenode; again
      in float64, bunny_nh_f64 and bunny_linear_f64) launch A's rows entry 80
      times and no stencil entry, C or B;
-     cloth_gather_limit40 (the renumbered sheet, also held to the grid
-     sheet's golden) E's rows entry 80 times; beam_cho (direct_mode "cho")
-     what the lattice beam launches;
+     cloth_gather_limit40 and cloth_gather_wind40 (the two sheets
+     renumbered, each also held, mapped back, to its grid sheet's golden at
+     both steps) E's rows entry 80 times; beam_cho (direct_mode "cho") what
+     the lattice beam launches;
    then the captured step's invalidation checks on the bench beam (set_pins,
-   the setters, admm_iters, gravity, initialize) and the one-tet goldens of
+   the setters, admm_iters, gravity, initialize), the frozen state of
+   cloth_wind40 after a graph run (frozen_checks: field assignments raise,
+   the x setter is honored) and the one-tet goldens of
    tests/test_lineartet.py through the graph;
 5. timing (host_timing, on solvers of its own, runs before phase 4 and
    before any profiler window, so that no profiler state can slow the host):
    the beam, cloth_limit40 and beam_gather through the graph and through the
    eager loop in turns, ADMM iterations/s over rollouts of at least 2 s, the
    phases of the beam and cloth steps, and each kernel's time against its
-   plain version (CUDA events) beside its bound: the larger of the bytes it
+   plain version (CUDA events) beside its bound (and D and F at the
+   throughput size beside kernel A's rows entry on the same values, in
+   turns, prox_event_times): the larger of the bytes it
    must move over 3.35 TB/s and the operations the function needs on the
    same inputs over 67 TFLOP/s (the tet kernels: a count per lane taken from
    the CUDA body times the Newton and line-search trips these inputs take;
@@ -84,7 +92,9 @@ failure:
    idle share, device operations per ADMM iteration, time by kernel), and,
    before phase 4, over 20 launches of each kernel, of C's
    branches in turns, of each local step's rows entry and stencil entry in
-   turns (the difference is what D x costs inside the launch) and of an empty
+   turns (the difference is what D x costs inside the launch), of D and F
+   beside kernel A's rows entry on the same values at both sizes
+   (prox_device_times), and of an empty
    kernel (device time per launch, free of the host's enqueue time; the empty
    kernel's is the floor under any launch).
 
@@ -96,11 +106,12 @@ The last lines are the GPU line, one JSON line of kernels (a row per TPU
 kernel with the numbers of the entry its path launches: "launches" those of
 the path's replays, counted on the device, and of its eager calls after them,
 "wrapper_calls" the wrapper's count over the path's window; "entries"
-lists every entry that does the kernel's work), and {"ok": true, "device":
-{...}}. Details
-go to chip_smoke.json in the output directory (OUT_DIR).
+lists every entry that does the kernel's work; D and F add their numbers at
+the throughput size), and {"ok": true, "device": {...}}. Details go to
+chip_smoke.json in the output directory (OUT_DIR).
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -256,12 +267,13 @@ def bunny_pins(verts):
 
 
 # The paths on the gather D / D^T and on the Cholesky solve, float32 unless
-# named, linsolver=0, 10 ADMM iterations, dt 1/24, gravity -9.8: golden file
-# suffix -> scene. "beam" is the 40x5x5 bench beam (its lattice_dims dropped
-# where lattice is False, so that it takes the gather path in both packages),
-# "bunny" the reference's bunny_1124 through load_elenode, "sheet" the
-# cloth_limit40 sheet renumbered by renumbered_sheet. The bunny moves so
-# little (see DISP_TOL) that float32 rounding blurs its displacement; its
+# named, linsolver=0, 10 ADMM iterations, dt 1/24, gravity -9.8 (a sheet:
+# its grid scene's): golden file suffix -> scene. "beam" is the 40x5x5 bench
+# beam (its lattice_dims dropped where lattice is False, so that it takes the
+# gather path in both packages), "bunny" the reference's bunny_1124 through
+# load_elenode, "sheet" the sheet of the CLOTH_SCENES entry `sheet` (its
+# limits, wind and gravity) renumbered by renumbered_sheet. The bunny moves
+# so little (see DISP_TOL) that float32 rounding blurs its displacement; its
 # float64 runs hold the elastic response itself.
 GATHER_SCENES = {
     "beam_gather": dict(mesh="beam", model=NH, lattice=False, direct_mode="inv"),
@@ -269,7 +281,8 @@ GATHER_SCENES = {
     "bunny_linear": dict(mesh="bunny", model="linear", direct_mode="inv"),
     "bunny_nh_f64": dict(mesh="bunny", model=NH, direct_mode="inv", dtype=np.float64),
     "bunny_linear_f64": dict(mesh="bunny", model="linear", direct_mode="inv", dtype=np.float64),
-    "cloth_gather_limit40": dict(mesh="sheet", direct_mode="inv"),
+    "cloth_gather_limit40": dict(mesh="sheet", sheet="cloth_limit40", direct_mode="inv"),
+    "cloth_gather_wind40": dict(mesh="sheet", sheet="cloth_wind40", direct_mode="inv"),
     "beam_cho": dict(mesh="beam", model=NH, lattice=True, direct_mode="cho"),
 }
 
@@ -463,19 +476,28 @@ def make_gather_solver(name, device=None):
     through geometry.io.load_elenode and binding.add_tetmesh, a triangle list
     through Solver.add_tri_energies), on the card unless a device is named;
     returns (solver, golden, pins)."""
+    import torch
+
     from admm_elastic_tpu_torch import Lame, Solver, binding
+    from admm_elastic_tpu_torch.forces import make_wind_force
     from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
     from admm_elastic_tpu_torch.geometry.io import load_elenode
 
     p, g = GATHER_SCENES[name], golden(name)
+    dtype = p.get("dtype", np.float32)
     solver = Solver(device=device or DEVICE)
     if p["mesh"] == "sheet":
-        c = CLOTH_SCENES["cloth_limit40"]
+        c = CLOTH_SCENES[p["sheet"]]
         verts, tris, masses, pins, _ = renumbered_sheet(c["nx"], c["ny"])
         solver.add_nodes(verts, masses)
         lame = Lame.from_youngs_poisson(10000000, 0.399)
-        lame.limit_min, lame.limit_max = c["limits"]
+        if c["limits"] is not None:
+            lame.limit_min, lame.limit_max = c["limits"]
         solver.add_tri_energies(verts, tris, lame)
+        if c["wind"] is not None:
+            solver.add_explicit_force(make_wind_force(
+                tris, direction=c["wind"], colored=True, device=solver.device,
+                dtype=torch.float64 if dtype == np.float64 else torch.float32))
     else:
         if p["mesh"] == "beam":
             mesh = make_tet_blocks(*[int(d) for d in g["dims"]])
@@ -490,8 +512,8 @@ def make_gather_solver(name, device=None):
     pins = [int(i) for i in pins]
     need(pins == [int(i) for i in g["pins"]], f"{name}: pinned set differs from the golden's")
     solver.set_pins(pins)
-    need(solver.initialize(settings_of(g, float(g["gravity"]), p["direct_mode"],
-                                       p.get("dtype", np.float32))), "initialize failed")
+    need(solver.initialize(settings_of(g, float(g["gravity"]), p["direct_mode"], dtype)),
+         "initialize failed")
     fams = solver.system.tets + solver.system.tris
     need(len(fams) == 1 and (fams[0].stencil is not None) == (p.get("lattice") is True),
          f"{name}: the family took the wrong layout")
@@ -536,10 +558,13 @@ def stress_kappa(b, model):
 
 # --- phase 3: kernels against their plain versions --------------------------------
 
-def tet_errs(torch, got, want, name, label, rerun=None):
+def tet_errs(torch, got, want, name, label, rerun=None, period=None):
     """Kernel A, D or F against plain (see LANE_TOL). got and want are lists
     of tensors with the lanes on the last axis; rerun(lanes) gives (kernel,
-    plain) outputs of those lanes on perturbed inputs."""
+    plain) outputs of those lanes on perturbed inputs. With a period, the
+    inputs are one block of `period` lanes tiled, lane l holding the values
+    of lane l % period: the lanes over LANE_TOL count (and are rerun) as
+    their lane of the block."""
     for g in got:
         need(bool(torch.isfinite(g).all()), f"{label} {name}: non-finite output")
     e = torch.cat([(g - w).abs().reshape(-1, g.shape[-1]) for g, w in zip(got, want)])
@@ -556,6 +581,10 @@ def tet_errs(torch, got, want, name, label, rerun=None):
     lane_tol = LANE_TOL[name, "linear" if linear and name == "f32" else which]
     lane_err = e.max(dim=0).values
     over = torch.nonzero(lane_err > lane_tol).flatten()
+    if period is not None:
+        out["tiled_lanes_over"] = len(over)
+        over = torch.unique(over % period)
+        lane_err = lane_err.reshape(-1, period).max(dim=0).values
     out.update(lane_tol=lane_tol, lanes_over=over.tolist(),
                max_within=float(lane_err[lane_err <= lane_tol].max()))
     need(len(over) <= MAX_RERUN_LANES, f"{label} {name}: {len(over)} lanes over {lane_tol}: {out}")
@@ -573,6 +602,78 @@ def tet_errs(torch, got, want, name, label, rerun=None):
         need(out["p99"] < F32_TOL_DIRECT, f"{label} f32: {out}")
     else:
         need(out["p99"] < A_P99_F32 and out["median"] < A_MEDIAN_F32, f"{label} f32: {out}")
+    return out
+
+
+# The throughput size of kernels D and F: the main-path values of the bench
+# beam (7,680 lanes) tiled TILES times, 983,040 lanes, each lane taking the
+# Newton trips of its lane of the beam; 71 MB in and out for F, more than the
+# 50 MB L2, so that each launch reads cold.
+TILES = 128
+
+
+def prox_call(zi, params, model):
+    """Kernel F for the linear model, else kernel D (params: mu, lam, kappa,
+    k)."""
+    from admm_elastic_tpu_torch.ops import cuda_prox
+
+    if model == "linear":
+        return cuda_prox.prox_tet_linear(zi)
+    return cuda_prox.prox_tet_hyper(zi, model, *params)
+
+
+def tiled(x, reps):
+    """x repeated reps times along its first (lane) axis."""
+    return x.repeat((reps,) + (1,) * (x.dim() - 1)).contiguous()
+
+
+def tiled_prox_check(torch, model, zi, params, jitter):
+    """Kernel D or F at the throughput size (zi and params tiled TILES
+    times), float32: against plain (tet_errs, with the beam's lanes as the
+    period) and bit for bit against kernel A's rows entry."""
+    from admm_elastic_tpu_torch.ops.hyper_soa import prox_plain
+
+    zt, pt = tiled(zi, TILES), tuple(tiled(p, TILES) for p in params)
+    label = f"{'F' if model == 'linear' else 'D'}[{model}] main-path x{TILES} f32"
+    k_out = prox_call(zt, pt, model)
+    bits = rows_entry_bits(torch, k_out, zt, pt, model, label)
+
+    def rerun(lanes):
+        zj, pj = jitter(zi[lanes]), tuple(p[lanes] for p in params)
+        return ([prox_call(zj, pj, model).reshape(-1, 9).T],
+                [prox_plain(zj, model, *pj).reshape(-1, 9).T])
+
+    res = tet_errs(torch, [k_out.reshape(-1, 9).T], [prox_plain(zt, model, *pt).reshape(-1, 9).T],
+                   "f32", label, rerun=rerun, period=zi.shape[0])
+    return dict(res, lanes=zt.shape[0], rows_entry=bits)
+
+
+def rows_entry_bits(torch, z33, zi, params, model, label):
+    """Kernel D or F's z against kernel A's rows entry on the same values as
+    rows [9, T] with u = 0, bit for bit: both run lane_prox of
+    csrc/prox_body.cuh. The one difference allowed is the sign of a zero:
+    the rows entry's v = D x + u turns an input -0 into +0, which may reach
+    z as a zero of the other sign. Such lanes are named; any other
+    difference fails."""
+    from admm_elastic_tpu_torch.ops import cuda_local_step
+
+    rows = zi.reshape(-1, 9).T.contiguous()
+    za = cuda_local_step.local_step_tet_hyper(rows, torch.zeros_like(rows), *params,
+                                              model=model)[0]
+    zd = z33.reshape(-1, 9).T
+    bits = torch.int32 if zd.dtype == torch.float32 else torch.int64
+    lanes = torch.nonzero((zd.view(bits) != za.view(bits)).any(dim=0)).flatten()
+    out = dict(bitwise=len(lanes) == 0, lanes_differ=len(lanes))
+    if len(lanes):
+        need(bool(torch.equal(zd[:, lanes], za[:, lanes])),
+             f"{label}: z differs from kernel A's rows entry on the same values "
+             f"(lanes {lanes[:8].tolist()})")
+        negzero = bool((torch.signbit(rows[:, lanes]) & (rows[:, lanes] == 0)).any(dim=0).all())
+        need(negzero, f"{label}: signed zeros in z off kernel A's rows entry without a -0 in")
+        out["signed_zero_lanes"] = lanes[:8].tolist()
+        log(f"{label}: z bitwise equal to kernel A's rows entry (u = 0) but for the sign of "
+            f"a zero on {len(lanes)} lanes ({lanes[:8].tolist()}): an input -0 the rows entry "
+            "adds to u = 0 as +0")
     return out
 
 
@@ -699,10 +800,7 @@ def kernel_checks(torch):
                         a[lanes] for a in args[2:]))
 
             def prox_pair(zi, params, model=model):
-                if model == "linear":
-                    k_out = cuda_prox.prox_tet_linear(zi)
-                else:
-                    k_out = cuda_prox.prox_tet_hyper(zi, model, *params)
+                k_out = prox_call(zi, params, model)
                 need(k_out.shape == zi.shape, "D / F: wrong output shape")
                 return ([k_out.reshape(-1, 9).T],
                         [prox_plain(zi, model, *params).reshape(-1, 9).T])
@@ -714,18 +812,27 @@ def kernel_checks(torch):
             main = (got, u, bm.mu, bm.lam, bm.kappa, bm.bulk)
             stress = (f_rows, torch.zeros_like(f_rows), bm.mu, bm.lam, stress_kappa(bm, model),
                       bm.bulk)
-            # A lane count that does not fill its last block (64 lanes).
+            # A lane count that does not fill its last block; and D / F on a
+            # tensor that starts 3 lanes into its storage.
             ragged = tuple(a[..., :t - 3].contiguous() for a in main)
             a, d = {}, {}
             for which, args, zi in (("main", main, dix_33), ("stress", stress, f_33),
-                                    ("ragged main", ragged, dix_33[:t - 3].contiguous())):
-                a[which] = tet_errs(torch, *rows_pair(args), name, f"A[{model}] {which}-path",
-                                    rerun=rows_rerun(args))
-                d[which] = tet_errs(torch, *prox_pair(zi, args[2:]), name,
-                                    f"{'F' if model == 'linear' else 'D'}[{model}] {which}-path",
+                                    ("ragged main", ragged, dix_33[:t - 3].contiguous()),
+                                    ("unaligned main", tuple(x[..., 3:].contiguous()
+                                                             for x in main), dix_33[3:])):
+                if which != "unaligned main":
+                    a[which] = tet_errs(torch, *rows_pair(args), name,
+                                        f"A[{model}] {which}-path", rerun=rows_rerun(args))
+                label = f"{'F' if model == 'linear' else 'D'}[{model}] {which}-path {name}"
+                got_d, want_d = prox_pair(zi, args[2:])
+                d[which] = tet_errs(torch, got_d, want_d, name, label,
                                     rerun=prox_rerun(zi, args[2:]))
+                d[which]["rows_entry"] = rows_entry_bits(
+                    torch, got_d[0].T.reshape(zi.shape), zi, args[2:], model, label)
+            if name == "f32":
+                d[f"{TILES * t} lanes"] = tiled_prox_check(torch, model, dix_33, main[2:], jitter)
             out[f"local_step_tet_hyper[{model}]"] = dict(
-                a, max_abs_err=max(a[w]["max"] for w in d))
+                a, max_abs_err=max(a[w]["max"] for w in a))
             key = "prox_tet_linear" if model == "linear" else f"prox_tet_hyper[{model}]"
             out[key] = dict(d, max_abs_err=max(v["max"] for v in d.values()))
 
@@ -774,8 +881,6 @@ def stencil_entry_checks(torch, res):
     STRESS_X_NOISE of its pitch ("stress", kappa as stress_kappa); the 40x40
     sheet with and without limits, and the same sheet as the second family of
     a system of two, at a vertex offset."""
-    import dataclasses
-
     from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil, cuda_tri_local_step
     from admm_elastic_tpu_torch.ops import stencil as st
     from admm_elastic_tpu_torch.ops.hyper_soa import local_step_plain
@@ -873,10 +978,11 @@ def gather_batches(torch, dtype):
         if p.get("lattice") or "dtype" in p:  # a float64 bunny: the float32 one's shapes
             continue
         if p["mesh"] == "sheet":
-            c = CLOTH_SCENES["cloth_limit40"]
+            c = CLOTH_SCENES[p["sheet"]]
             verts, elems, _, _, _ = renumbered_sheet(c["nx"], c["ny"])
             lame = Lame.from_youngs_poisson(10000000, 0.399)
-            lame.limit_min, lame.limit_max = c["limits"]
+            if c["limits"] is not None:
+                lame.limit_min, lame.limit_max = c["limits"]
             b = el.build_tri_batch(verts, elems, lame, device=DEVICE, dtype=dtype)
         else:
             mesh = make_tet_blocks(40, 5, 5) if p["mesh"] == "beam" else load_elenode(BUNNY)
@@ -885,7 +991,7 @@ def gather_batches(torch, dtype):
                                    dtype=dtype)
         need(b.stencil is None, f"{scene}: not a gather family")
         table = red.build_gather_table(b.inds.cpu().numpy(), len(verts))
-        b.gather_idx = torch.as_tensor(table, device=DEVICE)
+        b = dataclasses.replace(b, gather_idx=torch.as_tensor(table, device=DEVICE))
         edge = np.linalg.norm(verts[elems[:, 1]] - verts[elems[:, 0]], axis=1).mean()
         out[scene] = (verts, b, 0.05 * edge)
     return out
@@ -1101,7 +1207,7 @@ def graph_vs_eager(torch, label, solver, state0, n_steps, x_graph):
 
 
 def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=None,
-               step_counts=None):
+               step_counts=None, grid=None):
     """Drive a path in one window, with the wrappers' counts set to 0 just
     before and read just after: run(0) (a warm-up step and the capture, the
     wrappers' calls), the replays to the golden's last step (8, or 2),
@@ -1113,9 +1219,10 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
     must not launch) as often as stated, and its wrapper was called once per
     launch of one step in the warm-up and once in the capture; the plain
     tri_Dx_rows was called as often as stated by run(0) and the steps; the
-    first and the last step against the golden; the pins; that the
-    rollout repeats bitwise and that the eager loop gives what the graph
-    gives."""
+    first and the last step against the golden (and, for a renumbered sheet,
+    mapped back by the golden's perm against the grid sheet's golden `grid`);
+    the pins; that the rollout repeats bitwise and that the eager loop gives
+    what the graph gives."""
     from admm_elastic_tpu_torch.ops import stencil as st
     from admm_elastic_tpu_torch.system.system import SimState
 
@@ -1174,6 +1281,14 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
         f"{disp[last]:.3e} (bound {disp_tol})")
     need(errs[first] < STEP1_TOL and errs[last] < STEP8_TOL and max(disp.values()) < disp_tol,
          f"{label}: trajectory off the golden: {errs}, displacement {disp}")
+    to_grid = {}
+    if grid is not None:
+        to_grid = {step: rel_err(x[g["perm"]], grid[f"x{step}"])
+                   for step, x in ((first, x_first), (last, x_last))}
+        log(f"{label} mapped back, vs the grid sheet's golden: step {first} "
+            f"{to_grid[first]:.3e}, step {last} {to_grid[last]:.3e}")
+        need(to_grid[first] < STEP1_TOL and to_grid[last] < STEP8_TOL,
+             f"{label}: off the grid sheet's golden: {to_grid}")
     pin_dev = float(np.abs(x_last[pins] - x0[pins]).max()) if pins else 0.0
     need(pin_dev < 1e-3, f"{label}: pins not held: {pin_dev}")
 
@@ -1190,6 +1305,7 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
                             tri_Dx_rows_calls=plain_dx.calls, steps=[first, last],
                             rel_err_step1=errs[first], rel_err_last=errs[last],
                             disp_err_step1=disp[first], disp_err_last=disp[last],
+                            rel_err_to_grid_sheet={str(k): v for k, v in to_grid.items()},
                             pin_dev=pin_dev, bitwise_repeat=True, graph_vs_eager=eager, **extra)
 
 
@@ -1340,16 +1456,11 @@ def gather_path(torch, name):
         counts = {f"local_step_tet_hyper[{model}]": iters, f"local_step_tet_stencil[{model}]": 0,
                   "tet_rhs_rows": 0, "tet_Dx_rows": 0}
     x0, x8, res = drive_path(torch, name, solver, g, pins, kernels, model=model,
-                             step_counts=counts)
+                             step_counts=counts,
+                             grid=golden(p["sheet"]) if p["mesh"] == "sheet" else None)
     log(f"{name}: the steps launch {kernels[0]} {iters} times")
     if p["mesh"] == "beam":
         res.update(check_sag(name, x0, x8))
-    if p["mesh"] == "sheet":
-        # mapped back to the grid's numbering, the grid sheet's trajectory
-        grid = golden("cloth_limit40")
-        res["rel_err_to_grid_sheet"] = rel_err(x8[g["perm"]], grid["x8"])
-        need(res["rel_err_to_grid_sheet"] < STEP8_TOL,
-             f"{name}: {res['rel_err_to_grid_sheet']} off the grid sheet's golden")
     return solver, res
 
 
@@ -1488,8 +1599,46 @@ def invalidation_checks(torch):
              f"and {read_counts(NH)[key] - called} times by the replays, expected {2 * iters}, 0")
         need(np.isfinite(solver.x).all(), f"{label}: non-finite state")
         out[f"recaptured_on_{label}"] = dict(wrapper_calls=called, launches_by_two_steps=replayed)
+    out["frozen"] = frozen_checks(torch)
     log("graph invalidation " + json.dumps(out))
     return out
+
+
+def frozen_checks(torch):
+    """After a graph run of cloth_wind40 the state is the graph's own, and
+    it, the system, its batches and the wind are frozen: an assignment to a
+    field raises dataclasses.FrozenInstanceError (as in the JAX package),
+    where it would have gone unseen by the replays; the x setter is honored
+    by the next run, which matches the eager loop from the same x and v."""
+    from admm_elastic_tpu_torch.system.system import SimState
+
+    solver, _, _ = make_cloth_solver("cloth_wind40")
+    solver.run(2)
+    graph = solver._graph
+    need(solver.state is graph.state, "after a run the state is not the graph's")
+    wind, b = solver.ext_forces[0], solver.system.tris[0]
+    raised = []
+    for label, target, field, value in (
+            ("solver.state.x", solver.state, "x", solver.state.x.clone()),
+            ("wind.direction", wind, "direction", wind.direction * 2),
+            ("wind.alpha_n", wind, "alpha_n", 1.0),
+            ("TriBatch.limit_min", b, "limit_min", b.limit_min.clone()),
+            ("System.dt", solver.system, "dt", 1.0)):
+        try:
+            setattr(target, field, value)
+        except dataclasses.FrozenInstanceError:
+            raised.append(label)
+        else:
+            raise SmokeFailure(f"{label} = ... did not raise after a graph run")
+    x, v = solver.x + 0.01, solver.v
+    solver.x = x
+    solver.run(3)
+    need(solver._graph is graph, "the x setter captured the step anew")
+    state0 = SimState(x=torch.as_tensor(x, device=DEVICE, dtype=torch.float32),
+                      v=torch.as_tensor(v, device=DEVICE, dtype=torch.float32))
+    eager = graph_vs_eager(torch, "x setter after a graph run", solver, state0, 3,
+                           graph.state.x.clone())
+    return dict(raised=raised, setter_vs_eager=eager)
 
 
 # --- phase 5: timing ---------------------------------------------------------------------
@@ -1717,10 +1866,40 @@ def measure(torch, kern, plain, reads, reps_kernel, reps_plain, operations=None)
     outs = outs if isinstance(outs, tuple) else (outs,)
     n_bytes = sum(t.numel() * t.element_size() for t in list(reads) + list(outs))
     flops = plain_flops(torch, plain) if operations is None else operations
-    by_bytes, by_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    bound_ms, bound_by = bound_of(n_bytes, flops)
     return dict(ms=min(k1, k2), plain_ms=min(p1, p2), readings=[p1, k1, k2, p2],
-                bytes=n_bytes, operations=flops, bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None)
+                bytes=n_bytes, operations=flops, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def prox_turn_cases(torch, model, zi, params, trips):
+    """Kernel D (or F) and kernel A's rows entry on the same values (as rows
+    with u = 0) at the beam's 7,680 lanes and tiled TILES times, float32:
+    size label -> lanes, [(label, call)] (the rows entry, then D / F) to be
+    timed in turns, and the bytes and operations of each (the Newton trips of
+    the beam's values, times TILES)."""
+    from admm_elastic_tpu_torch.ops import cuda_local_step
+
+    out = {}
+    for label, reps in (("7680 lanes", 1), (f"{TILES * zi.shape[0]} lanes", TILES)):
+        zt = tiled(zi, reps)
+        pt = tuple(tiled(p, reps) for p in params)
+        rows = zt.reshape(-1, 9).T.contiguous()
+        u0 = torch.zeros_like(rows)
+        lanes = zt.shape[0]
+        lane_params = [] if model == "linear" else list(pt)
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+        trips_t = {k: v * reps for k, v in trips.items()}
+        calls = [("rows entry", lambda rows=rows, u0=u0, pt=pt: cuda_local_step.local_step_tet_hyper(
+                     rows, u0, *pt, model=model)),
+                 ("prox", lambda zt=zt, pt=pt: prox_call(zt, pt, model))]
+        out[label] = dict(
+            lanes=lanes, calls=calls,
+            bytes={"prox": nbytes([zt, zt] + lane_params),
+                   "rows entry": nbytes([rows, u0, rows, u0] + lane_params)},
+            operations={"prox": tet_operations(model, lanes, False, trips_t),
+                        "rows entry": tet_operations(model, lanes, True, trips_t)})
+    return out
 
 
 def kernel_cases(torch):
@@ -1761,7 +1940,7 @@ def kernel_cases(torch):
     }
     c_branches = [(branch, lambda branch=branch: cuda_stencil.tet_rhs_rows(
         dix, u, b, n, branch=branch)) for branch in ("wide", "tiled")]
-    chains, pairs = {}, {}
+    chains, pairs, prox_turns = {}, {}, {}
     dx_ops = plain_flops(torch, lambda: st.tet_Dx_rows_plain(x, b))
 
     def tet_cases(model, bm):
@@ -1798,6 +1977,7 @@ def kernel_cases(torch):
             cases[f"prox_tet_hyper[{model}]"] = (
                 lambda: cuda_prox.prox_tet_hyper(zi, model, *args[2:]),
                 lambda: prox_plain(zi, model, *args[2:]), [zi] + params, 200, 3, ops[False])
+        prox_turns[model] = prox_turn_cases(torch, model, zi, args[2:], trips[False])
 
     for model in TET_MODELS:
         tet_cases(model, beam_batch(torch, f32, model)[1])
@@ -1842,7 +2022,7 @@ def kernel_cases(torch):
             lambda ga=ga, model=model: local_step_plain(*ga, model=model),
             [dixg, ug] + ([] if model == "linear" else list(ga[2:])), 200, 3,
             tet_operations(model, gb.n, True, trips))
-    return cases, c_branches, chains, pairs
+    return cases, c_branches, chains, pairs, prox_turns
 
 
 def kernel_times(torch, cases):
@@ -1862,12 +2042,14 @@ def in_turns(calls, read):
     return got
 
 
-def profile_kernels(torch, cases, c_branches, pairs, gpu, reps=20):
+def profile_kernels(torch, cases, c_branches, pairs, prox_turns, gpu, reps=20):
     """torch.profiler over `reps` launches of each kernel, of kernel C's two
     branches (in turns), of each local step's rows entry and stencil entry (in
-    turns) and of the empty kernel: device time per launch, without the
-    host's enqueue time that CUDA events include. The empty kernel's is the
-    floor under any launch. Writes kernel_profile.json into OUT_DIR."""
+    turns), of kernels D and F beside kernel A's rows entry on the same
+    values at both sizes (prox_device_times), and of the
+    empty kernel: device time per launch, without the host's enqueue time
+    that CUDA events include. The empty kernel's is the floor under any
+    launch. Writes kernel_profile.json into OUT_DIR."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1909,12 +2091,95 @@ def profile_kernels(torch, cases, c_branches, pairs, gpu, reps=20):
         log(f"device time {name}: rows entry {rows[0]:.2f}, {rows[1]:.2f}, stencil entry "
             f"{fused[0]:.2f}, {fused[1]:.2f} us per call: D x inside the launch costs "
             f"{min(fused) - min(rows):.2f} us [{gpu}]")
+    prox = prox_device_times(torch, gpu, prox_turns, reps)
     os.makedirs(OUT_DIR, exist_ok=True)
     res = dict(gpu=gpu, kernels=out, launch_floor_us=floor, rhs_branches_us=by_branch,
-               entries_us=by_entry)
+               entries_us=by_entry, prox_us=prox)
     with open(os.path.join(OUT_DIR, "kernel_profile.json"), "w") as f:
         json.dump(res, f, indent=1)
     return res
+
+
+def bound_of(nbytes, operations):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the operations over its float32 rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, operations / PEAK_F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def prox_event_times(torch, gpu, prox_turns, reps=20):
+    """Kernels D and F at the throughput size (CUDA events, which read the
+    device there: a launch takes longer than its enqueue) against kernel A's
+    rows entry on the same values, in turns (rows entry, prox, prox, rows
+    entry): model -> ms, rows_ms, the readings, and each one's bound."""
+    out = {}
+    for model, sizes in prox_turns.items():
+        label = [k for k in sizes if k != "7680 lanes"][0]
+        c = sizes[label]
+        got = in_turns(c["calls"], lambda call: events_ms(torch, call, reps))
+        res = dict(lanes=c["lanes"], ms=min(got["prox"]),
+                   rows_ms=min(got["rows entry"]), readings=got)
+        for who, key in (("prox", ""), ("rows entry", "rows_")):
+            res[key + "bound_ms"], res[key + "bound_by"] = bound_of(c["bytes"][who],
+                                                                    c["operations"][who])
+        out[model] = res
+        log(f"time {'F' if model == 'linear' else 'D'}[{model}] at {label}: "
+            f"{res['ms'] * 1e3:.1f} us (bound {res['bound_ms'] * 1e3:.2f} us by {res['bound_by']}); "
+            f"kernel A's rows entry on the same values {res['rows_ms'] * 1e3:.1f} us (bound "
+            f"{res['rows_bound_ms'] * 1e3:.2f} us); readings {json.dumps(got)} [{gpu}]")
+    return out
+
+
+def prox_device_times(torch, gpu, prox_turns, reps=20):
+    """torch.profiler device time per launch of kernel A's rows entry and of
+    D / F on the same values, at both sizes: one window
+    per model and size, the calls in order and then in the reverse order,
+    reps launches each, read back in the order they ran (each call launches
+    one kernel). A window that lost events is taken again, three times at
+    most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for model, sizes in prox_turns.items():
+        out[model] = {}
+        for label, c in sizes.items():
+            seq = c["calls"] + c["calls"][::-1]
+            for attempt in range(3):
+                for _, call in c["calls"]:
+                    call()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _, call in seq:
+                        for _ in range(reps):
+                            call()
+                    torch.cuda.synchronize()
+                ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                             and wrapper_of_symbol(e.name) is not None),
+                            key=lambda e: e.time_range.start)
+                if len(ev) == len(seq) * reps:
+                    break
+                log(f"profiler saw {len(ev)} of {len(seq) * reps} launches of {model} at {label}"
+                    + ("; the window is taken again" if attempt < 2 else ""))
+            else:
+                raise SmokeFailure(f"profiler lost launches of {model} at {label}, three times")
+            got = {name: [] for name, _ in c["calls"]}
+            for i, (name, _) in enumerate(seq):
+                chunk = ev[i * reps:(i + 1) * reps]
+                got[name].append(sum(e.time_range.elapsed_us() for e in chunk) / reps)
+            best = {name: min(v) for name, v in got.items()}
+            res = dict(lanes=c["lanes"], device_us=got, prox_us=best["prox"],
+                       rows_us=best["rows entry"])
+            for who, key in (("prox", ""), ("rows entry", "rows_")):
+                ms, res[key + "bound_by"] = bound_of(c["bytes"][who], c["operations"][who])
+                res[key + "bound_us"] = ms * 1e3
+            out[model][label] = res
+            log(f"device time {'F' if model == 'linear' else 'D'}[{model}] at {label}: "
+                + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in got.items())
+                + f" us per launch (in turns); D / F {res['prox_us']:.2f} us against "
+                f"a bound of {res['bound_us']:.3f} us by {res['bound_by']}, the rows entry "
+                f"{res['rows_us']:.2f} us against {res['rows_bound_us']:.3f} [{gpu}]")
+    return out
 
 
 def profile_step(torch, solver, gpu, tag, n_steps=5, eager=False):
@@ -1972,12 +2237,13 @@ def profile_step(torch, solver, gpu, tag, n_steps=5, eager=False):
     return res
 
 
-def host_timing(torch, gpu, cases, c_branches):
+def host_timing(torch, gpu, cases, c_branches, prox_turns):
     """The measurements on the host's clock, on solvers of their own: the
     captured step against the eager loop in turns (graph, eager, eager,
     graph) for the beam, cloth_limit40 and beam_gather; then the phases of
     the beam and cloth steps on the stepped states, each kernel against its
-    plain version, and C's two branches in turns (CUDA events)."""
+    plain version, C's two branches in turns, and D and F at the throughput
+    size beside kernel A's rows entry (CUDA events)."""
     solvers = {"beam": make_solver(NH)[0], "beam_gather": make_gather_solver("beam_gather")[0]}
     solvers.update({n: make_cloth_solver(n)[0] for n in CLOTH_SCENES})
     turns = {}
@@ -2005,7 +2271,7 @@ def host_timing(torch, gpu, cases, c_branches):
     for label, (first, second) in by_branch.items():
         log(f"time tet_rhs_rows {label}: {first * 1e3:.1f}, {second * 1e3:.1f} us "
             f"(CUDA events, in turns) [{gpu}]")
-    return turns, phases, times, by_branch
+    return turns, phases, times, by_branch, prox_event_times(torch, gpu, prox_turns)
 
 
 def main():
@@ -2035,18 +2301,21 @@ def main():
         gpu = env["gpu"]
         built = build()
         checks = gather_entry_checks(torch, stencil_entry_checks(torch, kernel_checks(torch)))
-        cases, c_branches, chains, pairs = kernel_cases(torch)
+        cases, c_branches, chains, pairs, prox_turns = kernel_cases(torch)
         profiles = {}
         if args.kernels_only:
-            profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, gpu)
+            profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
+                                                  gpu)
             log(gpu)
             return 0
         # What the host's clock times comes before the first profiler window,
         # so that no profiler state left in the process can slow the host;
         # after some 30 windows the profiler also began to drop events.
-        turns, phases, times, by_branch = host_timing(torch, gpu, cases, c_branches)
+        turns, phases, times, by_branch, prox_big = host_timing(torch, gpu, cases, c_branches,
+                                                                prox_turns)
         if args.profile:
-            profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, gpu)
+            profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
+                                                  gpu)
 
         paths, rates, solvers = {}, {}, {}
         solvers["beam"], paths["beam"] = beam_path(torch, NH)
@@ -2121,12 +2390,18 @@ def main():
         entries += [entry(k, k.partition("@")[2]) for k in times
                     if k.partition("@")[0] == name and "@" in k]
         src, rep = REPLACES[base]
-        kernels.append(dict(entries[0], name=name, route="cuda", source=src, replaces=rep,
-                            entries=entries))
+        row = dict(entries[0], name=name, route="cuda", source=src, replaces=rep, entries=entries)
+        if base in ("prox_tet_hyper", "prox_tet_linear"):
+            # the throughput size (TILES x the beam's lanes), CUDA events
+            big = prox_big[model.rstrip("]") or "linear"]
+            row[f"at_{big['lanes']}_lanes"] = {k: big[k] for k in (
+                "ms", "bound_ms", "bound_by", "rows_ms", "rows_bound_ms")}
+        kernels.append(row)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(env=env, build=built, checks=checks, paths=paths, rollouts=rates,
                        phases_ms=phases, kernel_times=times, rhs_branches_ms=by_branch,
+                       prox_throughput_ms=prox_big,
                        warp_chains=chains, profiles=profiles,
                        kernels=kernels), f, indent=1)
     for k in kernels:

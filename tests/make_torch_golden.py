@@ -26,8 +26,9 @@ step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD run
   lattice_dims dropped; bunny_nh and bunny_linear, the reference's
   data/bunny_1124 through load_elenode with the feet pinned
   (benchmarks/crossval.py:173-182), soft rubber, and the two again in
-  float64 (bunny_nh_f64, bunny_linear_f64); cloth_gather_limit40, the
-  cloth_limit40 sheet renumbered by chip_smoke.renumbered_sheet; beam_cho, the
+  float64 (bunny_nh_f64, bunny_linear_f64); cloth_gather_limit40 and
+  cloth_gather_wind40, the cloth_limit40 and cloth_wind40 sheets (with their
+  own gravity) renumbered by chip_smoke.renumbered_sheet; beam_cho, the
   neo-Hookean bench beam (a lattice) with direct_mode="cho".
 
 Run from the repository root (all files, or only the named ones):
@@ -132,14 +133,21 @@ def gather(name):
     p = GATHER_SCENES[name]
     solver = Solver()
     extra = {}
+    gravity = GRAVITY
     if p["mesh"] == "sheet":
-        c = CLOTH_SCENES["cloth_limit40"]
+        c = CLOTH_SCENES[p["sheet"]]
         verts, tris, masses, pins, perm = renumbered_sheet(c["nx"], c["ny"])
         solver.add_nodes(verts, masses)
         lame = Lame.from_youngs_poisson(10000000, 0.399)
-        lame.limit_min, lame.limit_max = c["limits"]
+        if c["limits"] is not None:
+            lame.limit_min, lame.limit_max = c["limits"]
         solver.add_tri_energies(verts, tris, lame)
-        extra = dict(nx=c["nx"], ny=c["ny"], perm=perm, limits=np.asarray(c["limits"]))
+        if c["wind"] is not None:
+            solver.add_explicit_force(make_wind_force(tris, direction=c["wind"], colored=True))
+        gravity = c["gravity"]
+        extra = dict(nx=c["nx"], ny=c["ny"], perm=perm,
+                     limits=np.asarray(c["limits"] if c["limits"] is not None else (-100.0, 100.0)),
+                     wind=np.asarray(c["wind"] if c["wind"] is not None else (0.0, 0.0, 0.0)))
     else:
         if p["mesh"] == "beam":
             mesh = make_tet_blocks(*DIMS)
@@ -157,11 +165,11 @@ def gather(name):
         extra.update(model=p["model"], mu=lame.mu, lam=lame.lam)
     solver.set_pins([int(i) for i in pins])
     dtype = p.get("dtype", np.float32)
-    assert solver.initialize(_settings(GRAVITY, p["direct_mode"], dtype))
+    assert solver.initialize(_settings(gravity, p["direct_mode"], dtype))
     fams = solver.system.tets + solver.system.tris
     assert len(fams) == 1 and (fams[0].stencil is not None) == (p.get("lattice") is True)
     assert solver._solve_data.mode == p["direct_mode"]
-    _save(name, gravity=GRAVITY, pins=pins, direct_mode=p["direct_mode"],
+    _save(name, gravity=gravity, pins=pins, direct_mode=p["direct_mode"],
           x0=verts.astype(dtype), **extra, **_rollout(solver, dtype=dtype))
 
 

@@ -1,6 +1,7 @@
 """Kernels A (every model), B, C, D, E and F, the stencil entries of A and E
 (each lane computing its own D x) and the beam and cloth steps on a
-CUDA card, against the port's own plain versions and CPU path. This file
+CUDA card, against the port's own plain versions and CPU path; D and F also
+bit for bit against A's rows entry, and on an unaligned tensor. This file
 imports no JAX, so it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from admm_elastic_tpu_torch import Lame, Settings, Solver, binding
 from admm_elastic_tpu_torch.forces import make_wind_force
 from admm_elastic_tpu_torch.geometry.factory import make_plane, make_tet_blocks
@@ -144,6 +146,35 @@ def test_prox_kernels_match_plain(cuda_device, model, t, dtype, p99):
     want = prox_plain(zi, model, mu, lam, kappa, k)
     assert got.shape == (t, 3, 3)
     _assert_flip_tolerant([got], [want], p99)
+
+
+@pytest.mark.parametrize("model", TET_MODELS)
+@pytest.mark.parametrize("dtype,p99", [(np.float64, 1e-10), (np.float32, A_F32_P99)])
+def test_prox_kernels_bitwise_against_the_rows_entry(cuda_device, model, dtype, p99):
+    """Kernels D / F at a ragged 7,681 lanes: against plain, and bit for bit
+    kernel A's rows entry on the same values with u = 0
+    (chip_smoke.rows_entry_bits: only a zero's sign may differ, where the
+    input holds a -0)."""
+    zi, *params = (torch.as_tensor(a, device=cuda_device)
+                   for a in prox_inputs(7681, 11, dtype, model))
+    got = chip_smoke.prox_call(zi, params, model)
+    assert got.shape == zi.shape
+    _assert_flip_tolerant([got], [prox_plain(zi, model, *params)], p99)
+    chip_smoke.rows_entry_bits(torch, got, zi, params, model, model)
+
+
+@pytest.mark.parametrize("model", TET_MODELS)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_prox_kernels_on_an_unaligned_tensor(cuda_device, model, dtype):
+    """A [T,3,3] tensor that starts one lane into its storage gives the bits
+    of the same values at the start of their own."""
+    zi, *params = (torch.as_tensor(a, device=cuda_device)
+                   for a in prox_inputs(1001, 5, dtype, model))
+    view, p1 = zi[1:], [p[1:].contiguous() for p in params]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    got = chip_smoke.prox_call(view, p1, model)
+    want = chip_smoke.prox_call(view.clone(), p1, model)
+    assert torch.equal(got, want) and torch.isfinite(got).all()
 
 
 @pytest.mark.parametrize("t", [4, 150, 3362])

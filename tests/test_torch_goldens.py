@@ -13,12 +13,12 @@ beam's):
   steps of free fall; the float32 system takes one refinement pass per ADMM
   iteration, which applies A through system.A_mv (kernels B and C);
 - torch_port_golden_{beam_gather,bunny_nh,bunny_linear,bunny_nh_f64,
-  bunny_linear_f64,cloth_gather_limit40,beam_cho}.npz
+  bunny_linear_f64,cloth_gather_limit40,cloth_gather_wind40,beam_cho}.npz
   (chip_smoke.GATHER_SCENES): the bench beam as a gather family, the
   reference's bunny (600 vertices, 3,460 tets) in two models and two
-  precisions,
-  the renumbered 40x40 sheet (also held, mapped back, to cloth_limit40's
-  golden), and the lattice beam through the Cholesky solve.
+  precisions, the two renumbered 40x40 sheets (each also held, mapped back,
+  to its grid sheet's golden, cloth_limit40's or cloth_wind40's), and the
+  lattice beam through the Cholesky solve.
 
 The scenes come from chip_smoke.py's own make_solver, make_cloth_solver and
 make_gather_solver, on the CPU. Bounds relative to max |x|: 1e-4 after one step, 2e-3 after
@@ -89,7 +89,7 @@ def test_free_beam_golden():
 GATHER_SIZES = {"beam_gather": (1476, 5000), "bunny_nh": (600, 3460),
                 "bunny_linear": (600, 3460), "bunny_nh_f64": (600, 3460),
                 "bunny_linear_f64": (600, 3460), "cloth_gather_limit40": (1681, 3200),
-                "beam_cho": (1476, 7680)}
+                "cloth_gather_wind40": (1681, 3200), "beam_cho": (1476, 7680)}
 
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.GATHER_SCENES))
@@ -101,9 +101,9 @@ def test_gather_golden(name):
     # the bunny moves 1.5e-5 m (max |x| 0.06 m) in 8 steps: disp_err holds it
     _check(solver, g, moved=0.0 if name.startswith("bunny") else 1e-3)
     assert solver.x.dtype == chip_smoke.GATHER_SCENES[name].get("dtype", np.float32)
-    if name == "cloth_gather_limit40":
+    if chip_smoke.GATHER_SCENES[name]["mesh"] == "sheet":
         # mapped back to the grid's numbering, it is the grid sheet's trajectory
-        grid = chip_smoke.golden("cloth_limit40")
+        grid = chip_smoke.golden(chip_smoke.GATHER_SCENES[name]["sheet"])
         perm = g["perm"]
         assert _rel(g["x1"][perm], grid["x1"]) < chip_smoke.STEP1_TOL
         assert _rel(solver.x[perm], grid["x8"]) < chip_smoke.STEP8_TOL

@@ -12,14 +12,17 @@ the bench shapes). On the card:
   chip_smoke.GRAPH_EAGER_TOL of max |x|;
 - two graph rollouts from one state are bitwise equal;
 - nothing goes stale: set_pins copies in place, the x and v setters and a
-  new state take effect at the next run, initialize() and a change of
-  admm_iters, prox_newton_iters, refine_passes, timestep_s or gravity
-  capture anew (the wrapper called by the warm-up step and the capture, the
+  new state take effect at the next run, a field assignment to the state,
+  the wind or a batch raises (the classes are frozen), initialize() and a
+  change of admm_iters, prox_newton_iters, refine_passes, timestep_s or
+  gravity capture anew (the wrapper called by the warm-up step and the capture, the
   replays' launches counted on the device, chip_smoke.counted_window);
 - a capture that fails raises, and nothing runs eagerly in its place;
 - each path of chip_smoke.GATHER_SCENES against its golden;
 - the one-tet goldens of tests/test_lineartet.py through the graph.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -154,6 +157,33 @@ def test_setters_and_new_state_take_effect(cuda_device):
     s.state = SimState(x=s.state.x.clone(), v=s.state.v.clone())  # a new state
     s.run(1)
     assert s._graph is graph and s.state.x is graph.state.x
+
+
+def test_frozen_state_and_the_setter_after_a_graph_run(cuda_device):
+    """After a graph run the state is the graph's own: assigning one of its
+    fields (or a field of the wind or of a batch) raises, as in the JAX
+    package, where before it went unseen by the replays; the x setter is
+    honored by the next run(n), which then matches the eager loop from the
+    same x and v."""
+    s = _sheet(cuda_device, np.float64, renumbered=True)
+    s.run(2)
+    graph = s._graph
+    assert s.state is graph.state
+    wind, b = s.ext_forces[0], s.system.tris[0]
+    for target, field, value in ((s.state, "x", s.state.x.clone()), (wind, "direction",
+                                 wind.direction * 2), (wind, "alpha_n", 1.0),
+                                 (b, "limit_min", b.limit_min.clone())):
+        with pytest.raises(dataclasses.FrozenInstanceError):
+            setattr(target, field, value)
+    x, v = s.x + 0.01, s.v
+    s.x = x
+    s.run(3)
+    assert s._graph is graph
+    x_graph = s.state.x.clone()
+    state0 = SimState(x=torch.as_tensor(x, device=cuda_device),
+                      v=torch.as_tensor(v, device=cuda_device))
+    res = chip_smoke.graph_vs_eager(torch, "setter", s, state0, 3, x_graph)
+    assert res["bitwise"] or res["rel_err"] <= chip_smoke.GRAPH_EAGER_TOL
 
 
 @pytest.mark.parametrize("change", ["admm_iters", "prox_newton_iters", "refine_passes",
