@@ -1,16 +1,19 @@
 """admm_elastic_tpu_torch: the PyTorch / CUDA port of admm_elastic_tpu.
 
 The JAX package beside it is the reference. This package imports torch
-and numpy only, never jax. It runs the prefactored direct path
-(``linsolver=0`` with ``direct_mode`` "inv" or "cho", float32 or float64)
-for tet meshes of any of the six tet models (make_tet_blocks lattices as a
-flat stencil, any other mesh, such as one from ``geometry/io.load_elenode``,
-by gather) and for triangle (cloth) meshes with strain limits and wind, on
-``device="cuda"`` (the default: hand-written Hopper kernels in ``csrc/`` for
-D x, the local steps, the rhs and the element-level prox, and each timestep
-replayed as one captured CUDA graph) or ``device="cpu"`` (the kernels' plain
-PyTorch versions, stepped eagerly). Everything else raises
-NotImplementedError naming the ROADMAP item that ports it.
+and numpy only (and scipy for the RCM ordering of the PCG operator), never
+jax. It runs the prefactored direct path (``linsolver=0`` with
+``direct_mode`` "inv" or "cho") and PCG (``linsolver=3``, Jacobi or
+two-grid; also ``linsolver=0`` above ``direct_max_verts``), float32 or
+float64, for tet meshes of any of the six tet models (make_tet_blocks
+lattices and make_tet_torus rings as a flat stencil, any other mesh, such as
+one from ``geometry/io.load_elenode``, by gather) and for triangle (cloth)
+meshes with strain limits and wind, on ``device="cuda"`` (the default:
+hand-written Hopper kernels in ``csrc/`` for D x, the local steps, the rhs,
+the element-level prox and the whole PCG solve, and each timestep replayed
+as one captured CUDA graph) or ``device="cpu"`` (the kernels' plain PyTorch
+versions, stepped eagerly). Everything else raises NotImplementedError
+naming the ROADMAP item that ports it.
 """
 
 from admm_elastic_tpu_torch.config import Settings

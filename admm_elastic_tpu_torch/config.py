@@ -1,11 +1,13 @@
 """Solver settings (the ``linsolver=0`` slice of the JAX package's config).
 
 The fields and defaults are those of ``admm_elastic_tpu.config.Settings``
-so that one settings object reads the same in both packages. Only the
-prefactored direct solve (``linsolver=LDLT``) runs in this package, in both
-of its modes: ``direct_mode="inv"`` (a GEMM on the stored inverse) and
-``"cho"`` (two triangular solves on the Cholesky factor); the solver raises
-``NotImplementedError`` for the rest.
+so that one settings object reads the same in both packages. Two global
+steps run in this package: the prefactored direct solve (``linsolver=LDLT``)
+in both of its modes, ``direct_mode="inv"`` (a GEMM on the stored inverse)
+and ``"cho"`` (two triangular solves on the Cholesky factor), and PCG
+(``linsolver=PCG``, ``pcg_precond`` "jacobi" or "twogrid"), which also serves
+``LDLT`` above ``direct_max_verts`` vertices; the solver raises
+``NotImplementedError`` for the rest (Gauss-Seidel, Uzawa, AL-PCG).
 
 ``dtype=None`` means float32 here. The JAX package follows
 ``jax_enable_x64`` instead; this package changes no global default.
@@ -35,7 +37,7 @@ class Settings:
     verbose: int = 1  # -v
     admm_iters: int = 10  # -it
     gravity: float = -9.8  # -g
-    linsolver: int = LDLT  # -ls; only LDLT runs in this package
+    linsolver: int = LDLT  # -ls; LDLT and PCG run in this package
     constraint_w: float = -1.0  # -ck (-1 = auto)
 
     # None -> float32; np.float32/np.float64 or torch.float32/torch.float64.
@@ -47,8 +49,8 @@ class Settings:
     uzawa_tol: float = 1e-10
     uzawa_inner: str = "auto"
     uzawa_dense_max_verts: int = 8192
-    # Above this vertex count the JAX package serves linsolver=0 through
-    # ELL-PCG; this package has no PCG yet and raises instead.
+    # Above this vertex count linsolver=0 is served by two-grid PCG at
+    # pcg_tol = min(pcg_tol, 1e-10), as in the JAX package.
     direct_max_verts: int = 12000
     uzawa_inner_tol: float = 1e-8
     uzawa_inner_iters: int = 200

@@ -21,6 +21,10 @@ None) and its ``gather_idx`` table in their place.
 ``direct_from_numpy`` reads ``mat``, ``scale``, the optional ``mode``
 ("inv" unless given) and the optional ``pin_idx``, ``pin_cols``,
 ``pin_vals``, ``pin_diag``.
+``pcg_from_numpy`` reads a PCGData's ``ell_cols``, ``ell_vals``,
+``diag_mass``, ``diag_stiff``, ``diag_pin``, the optional (None where absent)
+``agg``, ``agg_gather``, ``coarse_inv``, ``bands``, ``perm``, ``iperm``, and
+``band_offsets`` and ``band_circular``.
 ``wind_force_from_numpy`` reads a WindForce's ``tris``, ``direction`` and,
 for the colored order, ``color_tris`` and ``color_mask``.
 """
@@ -34,6 +38,7 @@ from admm_elastic_tpu_torch.forces import WindForce
 from admm_elastic_tpu_torch.forces import wind_force_from_numpy as _wind_force
 from admm_elastic_tpu_torch.ops.prox import check_model
 from admm_elastic_tpu_torch.solvers.direct import DirectData
+from admm_elastic_tpu_torch.solvers.pcg import PCGData
 from admm_elastic_tpu_torch.system.elements import PinBatch, TetBatch, TriBatch
 from admm_elastic_tpu_torch.system.system import SimState, System
 
@@ -133,6 +138,27 @@ def direct_from_numpy(d: dict, *, device, dtype: torch.dtype) -> DirectData:
     return DirectData(mat=_f(d["mat"], device, dtype),
                       scale=_f(np.reshape(d["scale"], (-1, 1)), device, dtype),
                       mode=str(d.get("mode", "inv")), **kw)
+
+
+def pcg_from_numpy(d: dict, *, device, dtype: torch.dtype) -> PCGData:
+    def opt(name, conv, *args):
+        return None if d.get(name) is None else conv(d[name], device, *args)
+
+    return PCGData(
+        ell_cols=_i(d["ell_cols"], device, torch.int32),
+        ell_vals=_f(d["ell_vals"], device, dtype),
+        diag_mass=_f(d["diag_mass"], device, dtype),
+        diag_stiff=_f(d["diag_stiff"], device, dtype),
+        diag_pin=_f(d["diag_pin"], device, dtype),
+        agg=opt("agg", _i, torch.int32),
+        agg_gather=opt("agg_gather", _i, torch.int32),
+        coarse_inv=opt("coarse_inv", _f, dtype),
+        bands=opt("bands", _f, dtype),
+        perm=opt("perm", _i),
+        iperm=opt("iperm", _i),
+        band_offsets=tuple(int(o) for o in d.get("band_offsets", ())),
+        band_circular=bool(d.get("band_circular", False)),
+    )
 
 
 def state_from_numpy(x, v, *, device, dtype: torch.dtype) -> SimState:

@@ -77,8 +77,9 @@
 namespace {
 
 // One thread per lane t < n = 5 * cells of a lattice family; u, z, uo are SoA
-// rows [9, n]. A warp's lanes share the slot and have consecutive cells
-// (cells is a multiple of 128), so every load is coalesced.
+// rows [9, n]. A warp's lanes have consecutive cells (and share the slot but
+// where the warp straddles two: a ring's cells are no multiple of 128), so
+// every load is coalesced.
 // The second launch bound says that one block per SM is enough: without it
 // ptxas holds every variant to 128 registers for the sake of occupancy, and
 // the float64 spline_nh variant then spills 8 bytes; with it the float64
@@ -129,7 +130,7 @@ extern "C" int ADMM_CAT(admm_local_step, ADMM_SFX)(
                                             sweeps, stream);
 }
 
-// The stencil entry. geom: host int[48], see make_geom of stencil_body.cuh.
+// The stencil entry. geom: host int[49], see make_geom of stencil_body.cuh.
 extern "C" int ADMM_CAT(admm_local_step_stencil, ADMM_SFX)(
     const ADMM_REAL* x, const ADMM_REAL* dl, const ADMM_REAL* par, const ADMM_REAL* dead,
     const ADMM_REAL* u, const ADMM_REAL* mu, const ADMM_REAL* lam, const ADMM_REAL* kappa,

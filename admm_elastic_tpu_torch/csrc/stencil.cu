@@ -1,5 +1,7 @@
 // Kernels B and C: flat-stencil D x and D^T W^2 (z - u) for one lattice
-// tet family (make_tet_blocks beams), non-wrap.
+// tet family: a make_tet_blocks beam, or a ring lattice (make_tet_torus,
+// Geom::wrap / Match::wrap), whose cells equal its vertex block and are no
+// multiple of 128 or of C's tile.
 //
 // B replaces admm_elastic_tpu/ops/pallas_stencil.py tet_Dx_rows (:157-168,
 // pallas_call at :164, body _dx_blocks :91-112). C replaces tet_rhs_rows
@@ -14,7 +16,7 @@
 // [cells]; par is 1 on even cells; dead is 1 on dead cells. The geometry
 // ints come in a struct by value (Geom of stencil_body.cuh): offs[8], pe[20],
 // po[20] (per slot s and corner j, the cube-corner id on even and on odd
-// cells).
+// cells), wrap.
 //
 // B: one thread per lane (slot, cell), 64-thread blocks; the lane's nine
 // values come from tet_dx_lane of stencil_body.cuh, the same per-lane body
@@ -32,7 +34,11 @@
 // C is a gather: vertex q sums, for each corner id in 0..7, the
 // contributions of cell p = q - offs[cid] (when 0 <= p < cells) for the
 // (slot, corner) pairs whose parity-selected corner id is cid, in slot-major
-// order, and writes its vertex once. No atomics: D^T is deterministic run
+// order, and writes its vertex once. On a ring a cell p = q - offs[cid] < 0
+// is cell p + cells: the plain version adds those contributions after the
+// others (it folds the tail past the last cell onto the head), so the kernels
+// sum the wrapped corner ids apart, in their order, and add that sum last.
+// No atomics: D^T is deterministic run
 // to run, which bitwise checkpoint replay needs. Which pairs feed which
 // corner id depends on pe / po alone, so the host builds that match table
 // once (ops/cuda_stencil.rhs_match_table) and the kernels walk its entries.
@@ -72,11 +78,13 @@ namespace {
 // slot-major order; an entry is (slot * 4 + corner) | kind << 8 with kind
 // BOTH (pe == po == cid: the contribution as it is), EVEN (pe == cid only:
 // times par) or ODD (po == cid only: times 1 - par). At most 40 entries.
+// wrap: 1 on a ring lattice.
 enum MatchKind { BOTH = 0, EVEN = 1, ODD = 2 };
 struct Match {
   int offs[8];
   int start[9];
   int ent[40];
+  int wrap;
 };
 
 template <typename T>
@@ -156,10 +164,11 @@ __global__ void __launch_bounds__(kRhsMaxBlock) tet_rhs_tiled_kernel(
   const int p0 = q0 - halo;
 
   // Phase 1: a thread per (slot, cell column); one round of loads where the
-  // block has a thread for each.
+  // block has a thread for each. A ring's column p < 0 holds cell p + cells.
   for (int idx = threadIdx.x; idx < 5 * width; idx += blockDim.x) {
     const int s = idx / width, col = idx - s * width;
-    const int p = p0 + col;
+    int p = p0 + col;
+    if (m.wrap && p < 0) p += cells;
     if (p < 0 || p >= cells) continue;
     T d[12], g[9];
 #pragma unroll
@@ -182,7 +191,7 @@ __global__ void __launch_bounds__(kRhsMaxBlock) tet_rhs_tiled_kernel(
     const int cid = idx / tile, v = idx - cid * tile;
     const int p = q0 + v - m.offs[cid];
     const int e0 = m.start[cid], e1 = m.start[cid + 1];
-    if (p < 0 || p >= cells) continue;
+    if ((p < 0 && !m.wrap) || p >= cells) continue;
     const int col = p - p0;
     const T pr = sm_par[col];
     const T inv = T(1) - pr;
@@ -200,21 +209,25 @@ __global__ void __launch_bounds__(kRhsMaxBlock) tet_rhs_tiled_kernel(
   __syncthreads();
 
   // Phase 3: a thread per (vertex, component) adds the corner ids' sums in
-  // turn and writes its value once; consecutive threads, consecutive addresses.
+  // turn (a ring's wrapped ones apart, then the two) and writes its value
+  // once; consecutive threads, consecutive addresses.
   for (int idx = threadIdx.x; idx < 3 * tile; idx += blockDim.x) {
     const int v = idx / 3;
     const int q = q0 + v;
     if (q + base >= n_verts) break;
-    T total = T(0);
+    T total = T(0), tail = T(0);
     if (q >= 0 && q < n_vblock) {
 #pragma unroll
       for (int cid = 0; cid < 8; ++cid) {
         const int p = q - m.offs[cid];
-        if (p < 0 || p >= cells || m.start[cid] == m.start[cid + 1]) continue;
-        total = add_rn(total, sm_acc[cid * tile * 3 + idx]);
+        if (p >= cells || m.start[cid] == m.start[cid + 1]) continue;
+        if (p >= 0)
+          total = add_rn(total, sm_acc[cid * tile * 3 + idx]);
+        else if (m.wrap)
+          tail = add_rn(tail, sm_acc[cid * tile * 3 + idx]);
       }
     }
-    out[(int64_t)(blockIdx.x * tile) * 3 + idx] = total;
+    out[(int64_t)(blockIdx.x * tile) * 3 + idx] = m.wrap ? add_rn(total, tail) : total;
   }
 }
 
@@ -227,12 +240,14 @@ __global__ void __launch_bounds__(64) tet_rhs_wide_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_verts) return;
   const int q = i - base;
-  T total[3] = {T(0), T(0), T(0)};
+  T total[3] = {T(0), T(0), T(0)}, tail[3] = {T(0), T(0), T(0)};
   if (q >= 0 && q < n_vblock) {
 #pragma unroll 1
     for (int cid = 0; cid < 8; ++cid) {
-      const int p = q - m.offs[cid];
+      int p = q - m.offs[cid];
       const int e0 = m.start[cid], e1 = m.start[cid + 1];
+      const bool wrapped = m.wrap && p < 0;
+      if (wrapped) p += cells;
       if (p < 0 || p >= cells || e0 == e1) continue;
       const T pr = par[p];
       const T inv = T(1) - pr;
@@ -249,11 +264,17 @@ __global__ void __launch_bounds__(64) tet_rhs_wide_kernel(
         for (int r = 0; r < 3; ++r) acc[r] = rhs_add(e == e0, acc[r], kind, pr, inv, c[r]);
       }
 #pragma unroll
-      for (int r = 0; r < 3; ++r) total[r] = add_rn(total[r], acc[r]);
+      for (int r = 0; r < 3; ++r) {
+        if (wrapped)
+          tail[r] = add_rn(tail[r], acc[r]);
+        else
+          total[r] = add_rn(total[r], acc[r]);
+      }
     }
   }
 #pragma unroll
-  for (int r = 0; r < 3; ++r) out[(int64_t)i * 3 + r] = total[r];
+  for (int r = 0; r < 3; ++r)
+    out[(int64_t)i * 3 + r] = m.wrap ? add_rn(total[r], tail[r]) : total[r];
 }
 
 Match make_match(const int* match) {
@@ -261,6 +282,7 @@ Match make_match(const int* match) {
   for (int i = 0; i < 8; ++i) m.offs[i] = match[i];
   for (int i = 0; i < 9; ++i) m.start[i] = match[8 + i];
   for (int i = 0; i < 40; ++i) m.ent[i] = match[17 + i];
+  m.wrap = match[57];
   return m;
 }
 
@@ -314,7 +336,7 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// geom: host int[48], see make_geom of stencil_body.cuh.
+// geom: host int[49], see make_geom of stencil_body.cuh.
 extern "C" int admm_tet_dx_f32(const float* x, const float* dl, const float* par,
                                const float* dead, float* out, int base, int n_vblock,
                                int cells, const int* geom, void* stream) {
@@ -327,7 +349,7 @@ extern "C" int admm_tet_dx_f64(const double* x, const double* dl, const double* 
   return launch_dx<double>(x, dl, par, dead, out, base, n_vblock, cells, geom, stream);
 }
 
-// match: host int[57] = offs[8], start[9], ent[40] (struct Match).
+// match: host int[58] = offs[8], start[9], ent[40], wrap (struct Match).
 extern "C" int admm_tet_rhs_f32(const float* z, const float* u, const float* w,
                                 const float* dl, const float* par, float* out, int n_verts,
                                 int base, int n_vblock, int cells, const int* match, int tile,

@@ -17,12 +17,15 @@
 //
 // Layout (ops/stencil.py): lane t = slot * cells + p over cells p embedded
 // at vertex pitch, so a corner of cell p is vertex base + p + offs[corner
-// id]. Lanes of a warp share the slot and have consecutive p (cells is a
-// multiple of 128 for a tet family): the reads of dl, par, dead and of each
-// corner of x are coalesced, and all of them are independent.
+// id]. Lanes of a warp have consecutive p and share the slot but where a
+// warp straddles two slots (cells is a multiple of 128 for a plain tet
+// lattice, not for a ring): the reads of dl, par, dead and of each corner of
+// x are coalesced, and all of them are independent.
 //
 // A corner past the family's vertex block reads 0 (the plain version's zero
-// pad): an unchecked read could bring a NaN that survives dl = 0.
+// pad): an unchecked read could bring a NaN that survives dl = 0. On a ring
+// lattice (Geom::wrap; cells = n_vblock) it reads vertex (p + offs) mod cells
+// instead, one compare and subtract: every offset is below cells.
 //
 // Every product and sum is __fmul_rn / __fadd_rn (mul_rn, add_rn): the
 // compiler can contract none of them into an FMA, so a lane's 9 (or 6)
@@ -42,11 +45,13 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // A tet lattice family: offs[8] the flat vertex offset of each cube corner;
-// pe / po [slot * 4 + corner] the cube-corner id on even and on odd cells.
+// pe / po [slot * 4 + corner] the cube-corner id on even and on odd cells;
+// wrap 1 on a ring lattice.
 struct Geom {
   int offs[8];
   int pe[20];
   int po[20];
+  int wrap;
 };
 
 // A sheet: offs[4] the flat vertex offset of each cell corner; pats
@@ -56,12 +61,14 @@ struct TriGeom {
   int pats[24];
 };
 
-// geom: host int[48] = offs[8], pe[20], po[20] (row-major [slot][corner]).
+// geom: host int[49] = offs[8], pe[20], po[20] (row-major [slot][corner]),
+// wrap.
 inline Geom make_geom(const int* geom) {
   Geom g;
   for (int i = 0; i < 8; ++i) g.offs[i] = geom[i];
   for (int i = 0; i < 20; ++i) g.pe[i] = geom[8 + i];
   for (int i = 0; i < 20; ++i) g.po[i] = geom[28 + i];
+  g.wrap = geom[48];
   return g;
 }
 
@@ -74,10 +81,12 @@ inline TriGeom make_tri_geom(const int* geom) {
   return g;
 }
 
-// Vertex base + q of x [N, 3], 0 where q lies past the family's block.
+// Vertex base + q of x [N, 3], 0 where q lies past the family's block, or
+// on a ring (wrap) vertex base + q - n_vblock there.
 template <typename T>
 __device__ __forceinline__ void stencil_corner(const T* __restrict__ x, int base, int n_vblock,
-                                               int q, T out[3]) {
+                                               int q, bool wrap, T out[3]) {
+  if (wrap && q >= n_vblock) q -= n_vblock;
   const bool in = q < n_vblock;
   const int64_t v = (int64_t)(base + (in ? q : 0)) * 3;
 #pragma unroll
@@ -101,8 +110,8 @@ __device__ __forceinline__ void tet_dx_lane(const T* __restrict__ x, const T* __
   for (int j = 0; j < 4; ++j) {
     const int e = g.pe[s * 4 + j], o = g.po[s * 4 + j];
     T xe[3], xo[3];
-    stencil_corner(x, base, n_vblock, p + g.offs[e], xe);
-    stencil_corner(x, base, n_vblock, p + g.offs[o], xo);
+    stencil_corner(x, base, n_vblock, p + g.offs[e], g.wrap != 0, xe);
+    stencil_corner(x, base, n_vblock, p + g.offs[o], g.wrap != 0, xo);
 #pragma unroll
     for (int r = 0; r < 3; ++r)
       xs[j][r] = (e == o) ? xe[r] : add_rn(mul_rn(pr, xe[r]), mul_rn(inv, xo[r]));
@@ -133,7 +142,7 @@ __device__ __forceinline__ void tri_dx_lane(const T* __restrict__ x, const T* __
   T xs[3][3], d[3][2];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    stencil_corner(x, base, cells, p + g.offs[g.pats[s * 3 + j]], xs[j]);
+    stencil_corner(x, base, cells, p + g.offs[g.pats[s * 3 + j]], false, xs[j]);
 #pragma unroll
     for (int c = 0; c < 2; ++c) d[j][c] = dl[((int64_t)(s * 3 + j) * 2 + c) * cells + p];
   }

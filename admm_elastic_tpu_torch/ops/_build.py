@@ -33,8 +33,9 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _PRECISIONS = (("f32", "float"), ("f64", "double"))
-# (source, precision suffix or None): stencil.cu holds both precisions itself.
-UNITS = tuple([("stencil.cu", None)]
+# (source, precision suffix or None): stencil.cu and pcg.cu hold both
+# precisions themselves.
+UNITS = tuple([("stencil.cu", None), ("pcg.cu", None)]
               + [(src, sfx) for src in ("local_step.cu", "prox.cu", "tri_local_step.cu")
                  for sfx, _ in _PRECISIONS])
 
@@ -43,6 +44,7 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     # dix, u, mu, lam, kappa, k, z, uo, n, model, n_iters, sweeps, stream
     "admm_local_step": [_P] * 8 + [_I, _I, _I, _I, _P],
@@ -61,6 +63,10 @@ _SIGNATURES = {
     "admm_tet_dx": [_P] * 5 + [_I, _I, _I, _P, _P],
     # z, u, w, dl, par, out, n_verts, base, n_vblock, cells, match, tile, halo, stream
     "admm_tet_rhs": [_P] * 6 + [_I, _I, _I, _I, _P, _I, _I, _P],
+    # ptrs, ints, offs, tol, omega, stream
+    "admm_pcg_solve": [_P, _P, _P, _D, _D, _P],
+    # n
+    "admm_pcg_grid": [_I],
 }
 
 

@@ -1,0 +1,154 @@
+"""Wrapper of kernel G (``csrc/pcg.cu``): the whole PCG global solve in one
+launch, in place of the JAX package's jnp ``solve_T`` loop
+(``admm_elastic_tpu/solvers/pcg.py:304-348``), which has no Pallas kernel.
+
+``pcg_solve(data, b, x0, tol, max_iters, trips)`` solves A x = b from the
+warm start x0 ([N, 3] each) with the operator and preconditioner of ``data``
+(a ``solvers.pcg.PCGData``) and adds the trips it took to ``trips`` (an int32
+tensor of one element, on the device). Dispatch is by the tensors' device: CPU
+tensors take the plain version (``solvers/pcg.solve_T``, which stops on the
+host); CUDA tensors launch the kernel, and a build or launch failure raises.
+``pcg_solve.launches`` counts kernel launches.
+
+The kernel works in the banded vertex order: where ``data`` carries an RCM
+permutation, ``plan_of`` keeps the diagonal, its inverse and the two-grid
+tables in that order (built once per ``PCGData`` on the device, before any
+capture), and the kernel reads b and x0 and writes x through the
+permutation. The same plan holds the kernel's scratch and its grid barrier,
+so solves that share a ``PCGData`` run one after the other on one stream,
+as a solver's steps do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import weakref
+from typing import Optional
+
+import torch
+
+from admm_elastic_tpu_torch.ops import _build
+from admm_elastic_tpu_torch.solvers import pcg as pcg_mod
+
+OMEGA = 0.7  # the two-grid smoother's damping (PCGData.precondition)
+BLOCK = 256  # vertices per chunk of csrc/pcg.cu (kBlock)
+SLOTS = 4  # partial-sum slots of csrc/pcg.cu (kSlots)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """What kernel G reads besides b and x0, in the banded vertex order, and
+    its scratch."""
+
+    diag: torch.Tensor  # [N]
+    inv_d: torch.Tensor  # [N] 1 / diag, as the plain Jacobi computes it
+    bands: Optional[torch.Tensor]  # [D, N]
+    rest_cols: torch.Tensor  # i32 [K, N]: the rest-ELL column-major (a warp's reads coalesce)
+    rest_vals: torch.Tensor  # [K, N]
+    perm: Optional[torch.Tensor]  # i64 [N]
+    agg: Optional[torch.Tensor]  # i32 [N]
+    agg_gather: Optional[torch.Tensor]  # i32 [C, Kc], banded-order vertices, pad N
+    coarse_inv: Optional[torch.Tensor]  # [C, C]
+    scratch: tuple  # X, R, P, Z, AP, Z2, RES, P2 [N, 3]; RC, EC [C, 3]; parts [SLOTS, chunks]
+    barrier: torch.Tensor  # i32 [64]: the grid barrier (csrc/pcg.cu struct Barrier)
+    offs: object  # ctypes int array of the band offsets
+    ints: tuple  # n, k_rest, n_bands, circular, k_agg, n_coarse
+
+
+_PLANS: dict = {}  # id(PCGData) -> (weakref to it, KernelPlan)
+
+
+def _build_plan(data: pcg_mod.PCGData) -> KernelPlan:
+    n = data.n
+    dev, dtype = data.diag_mass.device, data.diag_mass.dtype
+    diag = data.diag()
+    inv_d = 1.0 / diag
+    perm = data.perm
+    agg, agg_gather = data.agg, data.agg_gather
+    if perm is not None:
+        diag, inv_d = diag[perm], inv_d[perm]
+        if agg is not None:
+            agg = agg[perm]
+            ext = torch.cat([data.iperm, torch.full((1,), n, dtype=torch.int64, device=dev)])
+            agg_gather = ext[agg_gather.long()].to(torch.int32)
+    n_coarse = 0 if data.coarse_inv is None else data.coarse_inv.shape[0]
+
+    def vec(rows):
+        return torch.zeros((max(rows, 1), 3), dtype=dtype, device=dev)
+
+    chunks = -(-n // BLOCK)
+    scratch = tuple(vec(n) for _ in range(8)) + (vec(n_coarse), vec(n_coarse),
+                                                  torch.zeros((SLOTS, max(chunks, 1)),
+                                                              dtype=dtype, device=dev))
+    offs = data.band_offsets
+    return KernelPlan(
+        diag=diag.contiguous(), inv_d=inv_d.contiguous(),
+        bands=None if data.bands is None else data.bands.contiguous(),
+        rest_cols=data.ell_cols.to(torch.int32).T.contiguous(),
+        rest_vals=data.ell_vals.T.contiguous(),
+        perm=None if perm is None else perm.to(torch.int64).contiguous(),
+        agg=None if agg is None else agg.to(torch.int32).contiguous(),
+        agg_gather=None if agg_gather is None else agg_gather.to(torch.int32).contiguous(),
+        coarse_inv=None if data.coarse_inv is None else data.coarse_inv.contiguous(),
+        scratch=scratch,
+        barrier=torch.zeros((64,), dtype=torch.int32, device=dev),
+        offs=(ctypes.c_int * max(len(offs), 1))(*offs),
+        ints=(n, data.ell_cols.shape[1], len(offs), int(data.band_circular),
+              0 if agg_gather is None else agg_gather.shape[1], n_coarse),
+    )
+
+
+def plan_of(data: pcg_mod.PCGData) -> KernelPlan:
+    """The kernel's plan of ``data``, built on first use and kept while
+    ``data`` lives. Build it before a capture: it copies to the device."""
+    hit = _PLANS.get(id(data))
+    if hit is not None and hit[0]() is data:
+        return hit[1]
+    for key in [k for k, (ref, _) in _PLANS.items() if ref() is None]:
+        del _PLANS[key]
+    plan = _build_plan(data)
+    _PLANS[id(data)] = (weakref.ref(data), plan)
+    return plan
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def pcg_solve(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, tol: float,
+              max_iters: int, trips: torch.Tensor) -> torch.Tensor:
+    """x with A x = b to the relative tolerance tol (clamped to 64 eps), from
+    x0, in at most max_iters trips; the trips taken are added to trips."""
+    if b.device.type == "cpu":
+        x, k = pcg_mod.solve_T(data.apply_T, data.precondition_T(), b, x0, tol, max_iters)
+        trips += k
+        return x
+    n = data.n
+    sfx = _build.cuda_args("pcg_solve", b, (
+        ("b", b, (n, 3)), ("x0", x0, (n, 3)), ("diag_mass", data.diag_mass, (n,))))
+    if trips.device != b.device or trips.dtype != torch.int32 or trips.numel() != 1:
+        raise ValueError("pcg_solve: trips must be one int32 element on b's device")
+    plan = plan_of(data)
+    out = torch.empty_like(b)
+    ptrs = ([b, x0, out, plan.perm, plan.diag, plan.inv_d, plan.bands, plan.rest_cols,
+             plan.rest_vals, plan.agg, plan.agg_gather, plan.coarse_inv] + list(plan.scratch)
+            + [plan.barrier, trips])
+    ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[_ptr(t) for t in ptrs])
+    ints = (ctypes.c_int * 7)(*plan.ints, int(max_iters))
+    fn = getattr(_build.library(), f"admm_pcg_solve_{sfx}")
+    with torch.cuda.device(b.device):
+        rc = fn(ptr_arr, ints, plan.offs, float(tol), OMEGA,
+                torch.cuda.current_stream(b.device).cuda_stream)
+    _build.check(rc, "pcg_solve")
+    pcg_solve.launches += 1
+    return out
+
+
+def grid_of(n: int, dtype: torch.dtype) -> int:
+    """The number of blocks kernel G runs for n vertices on the current card."""
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    return int(getattr(_build.library(), f"admm_pcg_grid_{sfx}")(int(n)))
+
+
+pcg_solve.launches = 0

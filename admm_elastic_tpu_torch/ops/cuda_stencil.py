@@ -75,18 +75,20 @@ def rhs_plan_of(b, itemsize: int, branch: str | None = None, tile: int | None = 
 
 @functools.lru_cache(maxsize=64)
 def geom_of(meta):
-    """(base, cells, n_vblock, halo, int[48] offs/pe/po for B, int[57]
-    offs/start/ent for C) of a stencil meta."""
+    """(base, cells, n_vblock, halo, int[49] offs/pe/po/wrap for B and A's
+    stencil entry, int[58] offs/start/ent/wrap for C) of a stencil meta."""
     base, cells, n_vblock, offs, pe, po = stencil_mod._tet_geom(meta)
-    flat = list(offs) + [v for row in pe for v in row] + [v for row in po for v in row]
+    wrap = int(bool(meta[6]))
+    flat = (list(offs) + [v for row in pe for v in row] + [v for row in po for v in row]
+            + [wrap])
     table = rhs_match_table(pe, po)
     start = [0]
     for row in table:
         start.append(start[-1] + len(row))
     ent = [sj | kind << 8 for row in table for sj, kind in row]
-    match = list(offs) + start + ent + [0] * (40 - len(ent))
-    return (base, cells, n_vblock, max(offs), (ctypes.c_int * 48)(*flat),
-            (ctypes.c_int * 57)(*match))
+    match = list(offs) + start + ent + [0] * (40 - len(ent)) + [wrap]
+    return (base, cells, n_vblock, max(offs), (ctypes.c_int * 49)(*flat),
+            (ctypes.c_int * 58)(*match))
 
 
 def tet_Dx_rows(x: torch.Tensor, b) -> torch.Tensor:

@@ -2,15 +2,22 @@
 sheets: host plans, the plain PyTorch versions of kernels B and C, and the
 sheet's D x / D^T.
 
-A port of the non-wrap tet part (:87-321) and the triangle-sheet part
-(:324-487) of ``admm_elastic_tpu/ops/stencil.py``. Elements of a lattice family are reordered slot-major over a
-cell grid embedded at vertex pitch: element t = slot * cells + p, with
-p = ci*Y*Z + cj*Z + ck. A cell's cube corner (di, dj, dk) is then the
-vertex at the constant flat offset di*Y*Z + dj*Z + dk, so D x reads the
-vertex stream at 8 fixed shifts, and D^T adds 8 shifted blocks.
-Cells that do not exist (cj = ny, ck = nz, and the 128-cell pad kept so
-that lanes compare one for one with the JAX package) are dead lanes:
-weight, volume and Dlocal 0; D x injects an identity F there.
+A port of the tet part (:87-321) and the triangle-sheet part (:324-487)
+of ``admm_elastic_tpu/ops/stencil.py``. Elements of a lattice family are
+reordered slot-major over a cell grid embedded at vertex pitch: element
+t = slot * cells + p, with p = ci*Y*Z + cj*Z + ck. A cell's cube corner
+(di, dj, dk) is then the vertex at the constant flat offset
+di*Y*Z + dj*Z + dk, so D x reads the vertex stream at 8 fixed shifts, and
+D^T adds 8 shifted blocks. Cells that do not exist (cj = ny, ck = nz, and
+the 128-cell pad kept so that lanes compare one for one with the JAX
+package) are dead lanes: weight, volume and Dlocal 0; D x injects an
+identity F there.
+
+A ring lattice (``make_tet_torus``, the meta's ``wrap``) has a periodic
+first axis: X counts ring segments, cells and vertices alike, so cells =
+n_vblock = X*Y*Z with no +1 slab and no 128-cell pad, and corner d of cell
+p is vertex (p + d) mod cells. D x reads a wrap-extended stream; D^T folds
+the tail past the last cell back onto the head.
 
 ``tet_Dx_rows_plain`` and ``tet_rhs_rows_plain`` are the plain versions
 that ``ops/cuda_stencil.py`` uses for CPU tensors; the tests and
@@ -57,12 +64,17 @@ def _extract_pats(corner: np.ndarray, parity: np.ndarray, slot: np.ndarray):
 
 
 def verify_lattice(inds: np.ndarray, dims: Tuple[int, int, int],
-                   base: int = 0) -> Optional[StencilMeta]:
-    """Check LOCAL inds [T,4] against a non-wrap (nx,ny,nz)-cell lattice and
-    return its stencil meta, or None. Ring lattices (the JAX package's
-    wrap=True) are not ported yet."""
+                   base: int = 0, wrap: bool = False) -> Optional[StencilMeta]:
+    """Check LOCAL inds [T,4] against an (nx,ny,nz)-cell lattice and return
+    its stencil meta, or None. wrap=True verifies a ring lattice instead: the
+    first axis is periodic, nx ring segments of cells and vertices, first-axis
+    corner deltas taken modulo nx (nx must be even so that the parity
+    pattern closes around the seam)."""
     nx, ny, nz = dims
-    X, Y, Z = nx + 1, ny + 1, nz + 1
+    if wrap and nx % 2 != 0:
+        return None
+    X = nx if wrap else nx + 1
+    Y, Z = ny + 1, nz + 1
     inds = np.asarray(inds)
     t = inds.shape[0]
     if t != nx * ny * nz * 5 or inds.shape[1] != 4:
@@ -75,7 +87,7 @@ def verify_lattice(inds: np.ndarray, dims: Tuple[int, int, int],
     ii = inds // (Y * Z)
     jj = (inds // Z) % Y
     kk = inds % Z
-    di = ii - ci[:, None]
+    di = (ii - ci[:, None]) % nx if wrap else ii - ci[:, None]
     dj = jj - cj[:, None]
     dk = kk - ck[:, None]
     if not ((di >= 0) & (di <= 1) & (dj >= 0) & (dj <= 1)
@@ -86,7 +98,7 @@ def verify_lattice(inds: np.ndarray, dims: Tuple[int, int, int],
     pats = _extract_pats(corner, parity, slot)
     if pats is None:
         return None
-    return (int(base), X, Y, Z, pats[0], pats[1], False)
+    return (int(base), X, Y, Z, pats[0], pats[1], bool(wrap))
 
 
 @dataclasses.dataclass
@@ -144,10 +156,7 @@ def _pad128(n: int) -> int:
 
 def tet_flat_plan(meta: StencilMeta) -> FlatPlan:
     base, X, Y, Z, pe, po, wrap = meta
-    if wrap:
-        raise NotImplementedError(
-            "wrap (ring) lattices are not ported yet (ROADMAP Queue 1 item 6)")
-    nx = X - 1
+    nx = X if wrap else X - 1  # a ring lattice has no +1 slab on its wrap axis
     ny, nz = Y - 1, Z - 1
     ci, cj, ck = np.meshgrid(np.arange(nx), np.arange(Y), np.arange(Z),
                              indexing="ij")
@@ -157,7 +166,9 @@ def tet_flat_plan(meta: StencilMeta) -> FlatPlan:
     src_cell = np.where(live, cell_id, -1).reshape(-1)  # [cells]
     par = ((ci + cj + ck) % 2 == 0).astype(np.float64).reshape(-1)
     dead = ~live.reshape(-1)
-    pad = _pad128(cells) - cells
+    # A ring keeps its exact cell count: its (p + d) mod cells addressing
+    # holds only there.
+    pad = 0 if wrap else _pad128(cells) - cells
     if pad:
         src_cell = np.concatenate([src_cell, np.full((pad,), -1, np.int64)])
         par = np.concatenate([par, np.zeros((pad,))])
@@ -170,13 +181,11 @@ def tet_flat_plan(meta: StencilMeta) -> FlatPlan:
 
 
 def _tet_geom(meta: StencilMeta):
-    """(base, cells, n_vblock, offs, pe, po) of a non-wrap family."""
+    """(base, cells, n_vblock, offs, pe, po) of a family; a ring's (meta[6])
+    cells equal its n_vblock."""
     base, X, Y, Z, pe, po, wrap = meta
-    if wrap:
-        raise NotImplementedError(
-            "wrap (ring) lattices are not ported yet (ROADMAP Queue 1 item 6)")
     YZ = Y * Z
-    cells = _pad128((X - 1) * YZ)
+    cells = X * YZ if wrap else _pad128((X - 1) * YZ)
     n_vblock = X * YZ  # the family's vertex block
     offs = tuple(di * YZ + dj * Z + dk for (di, dj, dk) in _CORNERS)
     return base, cells, n_vblock, offs, pe, po
@@ -186,12 +195,16 @@ def tet_Dx_rows_plain(x: torch.Tensor, b) -> torch.Tensor:
     """Flat-stencil D x -> SoA rows [9, 5*cells] (plain version of kernel B).
 
     Corner reads past the family's vertex block read 0, like the JAX
-    package's zero-padded stream; dead lanes get +1 on the diagonal rows.
+    package's zero-padded stream (a ring's wrap to the block's head); dead
+    lanes get +1 on the diagonal rows.
     """
     base, cells, n_vblock, offs, pe, po = _tet_geom(b.stencil)
     maxd = max(offs)
     xT = x[base:base + n_vblock].T  # [3, verts]
-    xp = torch.nn.functional.pad(xT, (0, cells + maxd - n_vblock))
+    if b.stencil[6]:
+        xp = torch.cat([xT, xT[:, :maxd]], dim=1)
+    else:
+        xp = torch.nn.functional.pad(xT, (0, cells + maxd - n_vblock))
     xc = [xp[:, d:d + cells] for d in offs]
     par = b.st_par
     inv = 1.0 - par
@@ -241,7 +254,12 @@ def tet_Dt_rows_plain(G_rows: torch.Tensor, b, n_verts: int) -> torch.Tensor:
         if acc[cid] is None:
             continue
         out = out + torch.nn.functional.pad(acc[cid], (d, maxd - d))
-    outT = out[:, :n_vblock].T
+    if b.stencil[6]:
+        # out[(p + d) mod cells] += acc[p]: fold the tail back onto the head.
+        head = out[:, :maxd] + out[:, cells:cells + maxd]
+        outT = torch.cat([head, out[:, maxd:cells]], dim=1).T
+    else:
+        outT = out[:, :n_vblock].T
     return torch.nn.functional.pad(outT, (0, 0, base, n_verts - base - n_vblock))
 
 

@@ -1,0 +1,287 @@
+"""Preconditioned conjugate gradient for the global step (``linsolver=3``).
+
+A port of ``admm_elastic_tpu/solvers/pcg.py``: ``PCGData``, ``prepare``, the
+operator's ``diag``, ``apply``, ``apply_T``, ``off_apply`` and ``_banded_T``,
+the Jacobi and two-grid preconditioners, and ``solve`` / ``solve_T`` as plain
+PyTorch. A acts alike on the three coordinates, so the [N, 3] state is one
+Krylov vector and every dot product sums over all of it. ``solve_T`` runs
+the loop on lane-major [3, N] vectors, as the JAX package does.
+
+These are the plain versions. On the card the step runs the whole solve as
+one launch of kernel G (``ops/cuda_pcg.py``, ``csrc/pcg.cu``), held to
+``solve_T`` here; ``solve_T`` reads ``done`` on the host to stop, as the JAX
+package's ``lax.while_loop`` stops, so it runs on the CPU and in the card's
+checks, never inside a captured step.
+
+The operator: A = diag(masses + pins + stiffness) + off-diagonal stiffness,
+the off-diagonal as constant bands in a banded vertex order (``ops/spmv.py``,
+with an RCM permutation where the native order is not banded, and circular
+bands on a ring) plus a thin rest-ELL, or as one ELL table
+(``spmv_format="ell"``). The per-scene stiffness ``scale`` of the JAX
+package belongs to scenario batching, not ported yet: every function takes
+``scale=None`` only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from admm_elastic_tpu_torch.ops import reduction as red
+
+
+def _no_scale(scale) -> None:
+    if scale is not None:
+        raise NotImplementedError(
+            "PCGData: a stiffness scale belongs to scenario batching, which is not "
+            "ported yet (ROADMAP Queue 1 item 12)")
+
+
+@dataclasses.dataclass(frozen=True)
+class PCGData:
+    """Operator data of the PCG global step (the JAX package's PCGData).
+
+    With bands the ELL holds only the rest (entries off the kept diagonals,
+    K often 0); without, the whole off-diagonal. ``band_offsets`` and
+    ``band_circular`` are host fields: the apply unrolls one shifted product
+    per band.
+    """
+
+    ell_cols: torch.Tensor  # i32 [N, K] off-diagonal neighbour columns
+    ell_vals: torch.Tensor  # [N, K] off-diagonal entries (pad 0)
+    diag_mass: torch.Tensor  # [N] lumped masses
+    diag_stiff: torch.Tensor  # [N] dt^2 D^T W^2 D element diagonal
+    diag_pin: torch.Tensor  # [N] dt^2 w_pin^2 on pinned vertices
+    agg: Optional[torch.Tensor] = None  # i32 [N] aggregate of each vertex (two-grid)
+    agg_gather: Optional[torch.Tensor] = None  # i32 [C, Kc] P^T gather table (pad N)
+    coarse_inv: Optional[torch.Tensor] = None  # [C, C] inverse of P^T A P
+    bands: Optional[torch.Tensor] = None  # [D, N] A[i, i + off_d] in band order
+    perm: Optional[torch.Tensor] = None  # i64 [N] RCM order: row i is vertex perm[i]
+    iperm: Optional[torch.Tensor] = None  # i64 [N]
+    band_offsets: Tuple[int, ...] = ()
+    band_circular: bool = False  # offsets mod N, the apply wraps (ring lattices)
+
+    @property
+    def n(self) -> int:
+        return self.diag_mass.shape[0]
+
+    def diag(self, scale=None):
+        _no_scale(scale)
+        return self.diag_mass + self.diag_pin + self.diag_stiff
+
+    def precondition(self, scale=None, omega: float = 0.7):
+        """M^-1 apply on [N, k]: Jacobi, or with the coarse level attached a
+        symmetric two-grid V-cycle (damped-Jacobi smooth, coarse correction,
+        damped-Jacobi smooth)."""
+        inv_d = (1.0 / self.diag(scale))[:, None]
+        if self.agg is None:
+            return lambda r: inv_d * r
+
+        def apply_m(r):
+            z = omega * inv_d * r
+            res = r - self.apply(z, scale)
+            rc = red.dt_gather(res, self.agg_gather)  # P^T res
+            ec = torch.matmul(self.coarse_inv, rc)  # full FP32 (see _check_fp32)
+            z = z + ec[self.agg]
+            z = z + omega * inv_d * (r - self.apply(z, scale))
+            return z
+
+        _check_fp32(self.coarse_inv)
+        return apply_m
+
+    def apply(self, x, scale=None):
+        """A x for x [N, k]."""
+        off = self.off_apply(x, scale)
+        return self.diag(scale)[:, None] * x + off
+
+    def precondition_T(self, scale=None, omega: float = 0.7):
+        """M^-1 apply on lane-major [k, N] vectors; the two-grid V-cycle keeps
+        its [N, k] form behind transposes."""
+        if self.agg is None:
+            inv_d = (1.0 / self.diag(scale))[None, :]
+            return lambda rT: inv_d * rT
+        m = self.precondition(scale, omega)
+        return lambda rT: m(rT.T).T
+
+    def apply_T(self, xT, scale=None):
+        """A x for lane-major xT [k, N]: bands without a permutation or rest
+        directly, the other forms through apply."""
+        if self.bands is not None and self.perm is None and not self.ell_cols.shape[1]:
+            off = self._banded_T(xT, scale)
+            return self.diag(scale)[None, :] * xT + off
+        return self.apply(xT.T, scale).T
+
+    def _banded_T(self, xT, scale=None):
+        _no_scale(scale)
+        lo = max(-min(self.band_offsets), 0)
+        hi = max(max(self.band_offsets), 0)
+        n = xT.shape[1]
+        if self.band_circular:
+            # x[(i + o) mod N] = xp[:, i + lo + o]
+            xp = torch.cat([xT[:, n - lo:], xT, xT[:, :hi]], dim=1)
+        else:
+            xp = torch.nn.functional.pad(xT, (lo, hi))
+        acc = torch.zeros_like(xT)
+        for i, o in enumerate(self.band_offsets):
+            acc = acc + self.bands[i][None, :] * xp[:, lo + o:lo + o + n]
+        return acc
+
+    def off_apply(self, x, scale=None):
+        """Off-diagonal apply: bands (+ the rest-ELL), or the ELL alone."""
+        _no_scale(scale)
+        if self.bands is None:
+            return torch.sum(self.ell_vals[:, :, None] * x[self.ell_cols], dim=1)
+        xb = x if self.perm is None else x[self.perm]
+        off = self._banded_T(xb.T).T
+        if self.ell_cols.shape[1]:
+            off = off + torch.sum(self.ell_vals[:, :, None] * xb[self.ell_cols], dim=1)
+        return off if self.perm is None else off[self.iperm]
+
+
+def _check_fp32(t: torch.Tensor) -> None:
+    """The coarse matmul runs in full FP32 on the card, as the JAX package's
+    (Precision.HIGHEST): TF32 must be off."""
+    if t.device.type != "cuda" or t.dtype != torch.float32:
+        return
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "the two-grid preconditioner needs full-FP32 matmul: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
+
+
+def _np64(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def prepare(system, dtype: torch.dtype, precond: str = "jacobi", agg_size: int = 24,
+            spmv_format: str = "auto", *, device=None) -> PCGData:
+    """One-time operator assembly of A on the host (the JAX package's
+    prepare), onto ``device`` (the system's unless given).
+
+    precond in {"jacobi", "twogrid"}; spmv_format in {"auto", "bands", "ell"}:
+    "auto" takes the bands where the kept diagonals (after RCM if needed)
+    cover >= 90% of the off-diagonal nonzeros.
+    """
+    from admm_elastic_tpu_torch.ops import spmv
+    from admm_elastic_tpu_torch.system import assembly
+
+    device = system.masses.device if device is None else torch.device(device)
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+
+    ell_cols, ell_vals, diag = assembly.assemble_ell(system, dtype=np.float64)
+    bands = perm = iperm = None
+    band_offsets = ()
+    band_circular = False
+    if spmv_format in ("auto", "bands") and ell_cols.shape[1]:
+        plan = spmv.plan_bands(ell_cols, ell_vals)
+        if plan.offsets and (plan.coverage >= 0.9 or spmv_format == "bands"):
+            band_offsets = plan.offsets
+            band_circular = plan.circular
+            bands = dev(plan.bands)
+            ell_cols = plan.rest_cols
+            ell_vals = plan.rest_vals
+            if plan.perm is not None:
+                perm = dev(plan.perm, torch.int64)
+                iperm = dev(plan.iperm, torch.int64)
+    elif spmv_format != "ell" and spmv_format not in ("auto", "bands"):
+        raise ValueError(f"unknown spmv_format {spmv_format!r}")
+    masses = _np64(system.masses)
+    pin_diag = np.zeros_like(masses)
+    if system.pins is not None:
+        dt2 = system.dt * system.dt
+        w2 = _np64(system.pins.weight) ** 2
+        np.add.at(pin_diag, system.pins.idx.cpu().numpy(), dt2 * w2)
+    agg = agg_gather = coarse_inv = None
+    if precond == "twogrid":
+        adj = assembly.vertex_adjacency(system)
+        agg_np = assembly.greedy_aggregates(adj, target_size=agg_size)
+        a_c = assembly.coarse_matrix(system, agg_np)
+        d_c = np.sqrt(np.diag(a_c))
+        s_c = 1.0 / d_c
+        b_inv = np.linalg.inv(a_c * s_c[:, None] * s_c[None, :])
+        agg = dev(agg_np, torch.int32)
+        agg_gather = dev(red.build_gather_table(agg_np[:, None], int(agg_np.max()) + 1),
+                         torch.int32)
+        coarse_inv = dev(s_c[:, None] * b_inv * s_c[None, :])
+    elif precond != "jacobi":
+        raise ValueError(f"unknown pcg preconditioner {precond!r}")
+    return PCGData(
+        ell_cols=dev(ell_cols, torch.int32),
+        ell_vals=dev(ell_vals),
+        diag_mass=dev(masses),
+        diag_stiff=dev(diag - masses - pin_diag),
+        diag_pin=dev(pin_diag),
+        agg=agg,
+        agg_gather=agg_gather,
+        coarse_inv=coarse_inv,
+        bands=bands,
+        perm=perm,
+        iperm=iperm,
+        band_offsets=tuple(int(o) for o in band_offsets),
+        band_circular=bool(band_circular),
+    )
+
+
+def _tolerance(b: torch.Tensor, tol, b_norm2: torch.Tensor) -> torch.Tensor:
+    """tol2 = max(tol, 64 eps)^2 * max(|b|^2, tiny) in b's dtype: the reference
+    default 1e-10 is below float32 precision, so it clamps (in float64 the
+    clamp is a no-op)."""
+    fi = torch.finfo(b.dtype)
+    t = torch.clamp_min(torch.as_tensor(tol, dtype=b.dtype, device=b.device), 64 * fi.eps)
+    return t * t * torch.clamp_min(b_norm2, fi.tiny)
+
+
+def _cg(A_mv, apply_m, b, x0, tol, max_iters: int):
+    """The JAX package's while-loop, stopped on the host: (x, trips)."""
+    tiny = torch.finfo(b.dtype).tiny
+
+    def dot(a, c):
+        return torch.sum(a * c)
+
+    tol2 = _tolerance(b, tol, dot(b, b))
+    r = b - A_mv(x0)
+    z = apply_m(r)
+    x, p, rz = x0, z, dot(r, z)
+    done = bool(dot(r, r) < tol2)
+    k = 0
+    while not done and k < max_iters:
+        Ap = A_mv(p)
+        denom = dot(p, Ap)
+        alpha = rz / torch.where(denom.abs() < tiny, torch.ones_like(denom), denom)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_m(r)
+        rz_new = dot(r, z)
+        beta = rz_new / torch.where(rz.abs() < tiny, torch.ones_like(rz), rz)
+        p = z + beta * p
+        done = bool(dot(r, r) < tol2)
+        rz = rz_new
+        k += 1
+    return x, k
+
+
+def solve(A_mv, precond, b, x0, tol, max_iters: int):
+    """Solve A x = b with preconditioned CG on [N, 3]. precond: an M^-1
+    callable, or the [N] Jacobi diagonal. Returns (x, trips)."""
+    if callable(precond):
+        apply_m = precond
+    else:
+        inv_d = (1.0 / precond)[:, None]
+
+        def apply_m(r):
+            return inv_d * r
+
+    return _cg(A_mv, apply_m, b, x0, tol, int(max_iters))
+
+
+def solve_T(A_mv_T, precond_T, b, x0, tol, max_iters: int):
+    """solve() with lane-major [k, N] internals (PCGData.apply_T /
+    precondition_T); b, x0 and the returned x are [N, k]."""
+    xT, k = _cg(A_mv_T, precond_T, b.T, x0.T, tol, int(max_iters))
+    return xT.T.contiguous(), k

@@ -1,7 +1,11 @@
 """Host-side (numpy) assembly of the single-component global matrix.
 
-A copy of ``_coo_entries``, ``assemble_dense`` and ``assemble_ell`` from
-``admm_elastic_tpu/system/assembly.py``. The system's tensors are read
+A copy of ``_coo_entries``, ``assemble_dense``, ``assemble_ell``,
+``vertex_adjacency``, ``greedy_aggregates`` and ``coarse_matrix`` from
+``admm_elastic_tpu/system/assembly.py`` (the last three build the two-grid
+PCG preconditioner's coarse level). The JAX package runs
+``greedy_aggregates`` through its optional native library where that loads,
+and the same algorithm in Python otherwise; this copy is the Python one. The system's tensors are read
 back in their run dtype and widened to float64, as the JAX package reads
 its arrays, so A is the same bit for bit:
 
@@ -10,7 +14,7 @@ its arrays, so A is the same bit for bit:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -93,3 +97,59 @@ def assemble_ell(system, dtype=np.float64):
     ell_cols[rows, slot] = cols
     ell_vals[rows, slot] = vals
     return ell_cols, ell_vals.astype(dtype), diag.astype(dtype)
+
+
+def vertex_adjacency(system) -> List[np.ndarray]:
+    """Adjacency lists of the vertex graph (vertices sharing an element)."""
+    n = system.n_verts
+    rows, cols, _ = _coo_entries(system)
+    off = rows != cols
+    rows, cols = rows[off], cols[off]
+    key = rows * n + cols
+    key = np.unique(key)
+    rows, cols = key // n, key % n
+    counts = np.bincount(rows, minlength=n)
+    starts = np.concatenate(([0], np.cumsum(counts)))
+    return [cols[starts[i]:starts[i + 1]] for i in range(n)]
+
+
+def greedy_aggregates(adj: List[np.ndarray], target_size: int = 24) -> np.ndarray:
+    """Greedy BFS aggregation of the vertex graph into ~target_size clusters:
+    agg i32 [N], cluster ids 0..C-1 (the coarse level of the two-grid PCG
+    preconditioner, solvers/pcg.py)."""
+    n = len(adj)
+    agg = -np.ones(n, dtype=np.int64)
+    c = 0
+    for v in range(n):
+        if agg[v] >= 0:
+            continue
+        agg[v] = c
+        members = 1
+        frontier = [v]
+        while frontier and members < target_size:
+            nxt = []
+            for u in frontier:
+                for w in adj[u]:
+                    if agg[w] < 0 and members < target_size:
+                        agg[w] = c
+                        members += 1
+                        nxt.append(w)
+            frontier = nxt
+        c += 1
+    return agg.astype(np.int32)
+
+
+def coarse_matrix(system, agg: np.ndarray) -> np.ndarray:
+    """Galerkin coarse operator A_c = P^T A P for piecewise-constant P, host
+    f64 dense [C, C]: A_c[a, b] sums the fine entries (i, j) with agg[i] = a,
+    agg[j] = b; the mass diagonal aggregates likewise."""
+    n = system.n_verts
+    rows, cols, vals = _coo_entries(system)
+    rows, cols, vals = _dedup_coo(rows, cols, vals, n)
+    c = int(agg.max()) + 1
+    A_c = np.zeros((c, c), dtype=np.float64)
+    np.add.at(A_c, (agg[rows], agg[cols]), vals)
+    masses = _np64(system.masses)
+    np.add.at(A_c, (np.arange(c), np.arange(c)),
+              np.bincount(agg, weights=masses, minlength=c))
+    return A_c

@@ -30,7 +30,16 @@ failure:
    system), in which each lane computes its own D x: bitwise equal to the
    two-launch route (B or tri_Dx_rows, then the rows entry) and within the
    rows entries' bounds of the plain composition; the rows entries of A and
-   E at the gather paths' shapes, on gathered D x;
+   E at the gather paths' shapes, on gathered D x; on ring lattices
+   (ring_checks: the torus_pcg20k ring and a 12x4 torus at a vertex offset) B
+   and C's two branches exact and A's stencil entry bitwise against the
+   two-launch route, the lanes whose corner reads cross the seam held apart;
+   kernel G (the whole PCG solve in one launch) against the plain solve_T on
+   each PCG path's first solve and on crossval's small scenes in every
+   operator form (pcg_checks: float64 in the same trips within 1e-10, float32
+   within PCG_F32_TOL; the bunny under the bounds its conditioning allows),
+   twice bitwise, and captured into a CUDA graph; A, C and E at the PCG
+   paths' shapes (path_shape_cases);
 4. the paths, each built through the normal entry points on cuda (float32
    unless named, linsolver=0, 10 ADMM iterations, dt 1/24), Solver.run(n)
    replaying the captured step, in one window with the wrappers' counts set
@@ -66,6 +75,13 @@ failure:
      renumbered, each also held, mapped back, to its grid sheet's golden at
      both steps) E's rows entry 80 times; beam_cho (direct_mode "cho") what
      the lattice beam launches;
+   - PCG_PATHS (pcg_path): beam_pcg160k (80x20x20 cells, 35,721 vertices,
+     Jacobi PCG), torus_pcg20k (a 64x8 ring), cloth_ls0_160 (the 160x160
+     sheet with linsolver=0, switched to two-grid PCG above
+     direct_max_verts) and bunny_pcg, against their goldens under
+     PCG_STEP_TOL / PCG_DISP_TOL, kernel G launched 80 times beside the local
+     step's kernel (and C on the lattices), then each step's CG trips beside
+     the JAX package's and the device operations per iteration;
    then the captured step's invalidation checks on the bench beam (set_pins,
    the setters, admm_iters, gravity, initialize), the frozen state of
    cloth_wind40 after a graph run (frozen_checks: field assignments raise,
@@ -73,12 +89,14 @@ failure:
    tests/test_lineartet.py through the graph;
 5. timing (host_timing, on solvers of its own, runs before phase 4 and
    before any profiler window, so that no profiler state can slow the host):
-   the beam, cloth_limit40 and beam_gather through the graph and through the
-   eager loop in turns, ADMM iterations/s over rollouts of at least 2 s, the
+   the beam, cloth_limit40, beam_gather and the PCG paths through the graph
+   and through the eager loop in turns, ADMM iterations/s over rollouts of at least 2 s, the
    phases of the beam and cloth steps, and each kernel's time against its
    plain version (CUDA events) beside its bound (and D and F at the
    throughput size beside kernel A's rows entry on the same values, in
-   turns, prox_event_times): the larger of the bytes it
+   turns, prox_event_times; kernel G per solve on each PCG path's first
+   solve by torch.profiler, beside the plain solve_T on the card and
+   torch.sparse.mm times its trips, pcg_times): the larger of the bytes it
    must move over 3.35 TB/s and the operations the function needs on the
    same inputs over 67 TFLOP/s (the tet kernels: a count per lane taken from
    the CUDA body times the Newton and line-search trips these inputs take;
@@ -103,7 +121,8 @@ times of phase 6: the short first run of a changed kernel. It prints the GPU
 line but no result line.
 
 The last lines are the GPU line, one JSON line of kernels (a row per TPU
-kernel with the numbers of the entry its path launches: "launches" those of
+kernel, and one for kernel G, which replaces the JAX package's jnp CG loop,
+with the numbers of the entry its path launches: "launches" those of
 the path's replays, counted on the device, and of its eager calls after them,
 "wrapper_calls" the wrapper's count over the path's window; "entries"
 lists every entry that does the kernel's work; D and F add their numbers at
@@ -199,6 +218,8 @@ REPLACES = {
     "prox_tet_hyper": (_CSRC + "prox.cu", _PALLAS + "pallas_kernels.py:141"),
     "local_step_tri": (_CSRC + "tri_local_step.cu", _PALLAS + "pallas_kernels.py:286"),
     "prox_tet_linear": (_CSRC + "prox.cu", _PALLAS + "pallas_kernels.py:322"),
+    # kernel G has no Pallas original: it replaces the JAX package's jnp loop
+    "pcg_solve": (_CSRC + "pcg.cu", "admm_elastic_tpu/solvers/pcg.py:304 solve_T (jnp)"),
 }
 # The entry of each kernel that an ADMM step launches, where that is not the
 # wrapper the kernel is named after: the local steps' stencil entries, in
@@ -287,6 +308,107 @@ GATHER_SCENES = {
 }
 
 
+# The PCG scenes (linsolver=3, or linsolver=0 switched to two-grid PCG above
+# direct_max_verts), neo-Hookean soft rubber unless a sheet, float32 unless
+# named, 10 ADMM iterations, dt 1/24, gravity -9.8: golden file suffix ->
+# scene. The first four are the paths this script drives at full size
+# (PCG_PATHS, benchmarks/matrix.py): the beam-nh-160k beam (:244-245, its -x
+# face pinned), the torus-nh-20k ring (:269, _torus_solver(64, 8): the first
+# (8 + 1)^2 vertices pinned), the 160x160 strain-limited sheet of
+# cloth-limit-160 (:274) with linsolver=0 and the default PCG settings (25,921
+# vertices: above direct_max_verts, so two-grid PCG at tol 1e-10 serves it),
+# and crossval's bunny_nh_pcg (benchmarks/crossval.py:68-69,173-182: the feet
+# pinned, the default Jacobi PCG). The others are crossval's small PCG scenes
+# (:28-37: the 6x3x3 beam, the 12x4 torus), whose goldens the CPU tests read,
+# in float32 and float64.
+PCG_SCENES = {
+    "beam_pcg160k": dict(mesh="beam", dims=(80, 20, 20), settings=dict(
+        linsolver=3, pcg_precond="jacobi", pcg_max_iters=120, pcg_tol=1e-6)),
+    "torus_pcg20k": dict(mesh="torus", ring=(64, 8), settings=dict(
+        linsolver=3, pcg_precond="jacobi", pcg_max_iters=60, pcg_tol=1e-6)),
+    "cloth_ls0_160": dict(mesh="sheet", nx=160, ny=160, limits=(0.95, 1.05),
+                          settings=dict(linsolver=0)),
+    "bunny_pcg": dict(mesh="bunny", settings=dict(linsolver=3)),
+    "bunny_pcg_f64": dict(mesh="bunny", settings=dict(linsolver=3), dtype=np.float64),
+    "beam_pcg": dict(mesh="beam", dims=(6, 3, 3), settings=dict(linsolver=3)),
+    "beam_pcg_f64": dict(mesh="beam", dims=(6, 3, 3), settings=dict(linsolver=3),
+                         dtype=np.float64),
+    "torus_pcg": dict(mesh="torus", ring=(12, 4), settings=dict(linsolver=3)),
+    "torus_pcg_f64": dict(mesh="torus", ring=(12, 4), settings=dict(linsolver=3),
+                          dtype=np.float64),
+}
+PCG_PATHS = ("beam_pcg160k", "torus_pcg20k", "cloth_ls0_160", "bunny_pcg")
+# The PCG paths' golden bounds (step 1, step 8) on x relative to max |x|, and
+# on the displacement (disp_err), at three to ten times the larger gap to the
+# JAX package's golden of two readings at full size: the port's plain path on
+# the CPU (tests/pcg_fault_control.py, which also plants faults that the
+# bounds catch) and this script on an NVIDIA H100 (PERF.md §6), whose
+# kernel G sums in another order. x: beam_pcg160k 7.0e-6 / 6.7e-6 (CPU),
+# 1.9e-6 / 7.0e-6 (card); torus_pcg20k 9.1e-6 / 5.4e-6, 1.4e-4 / 4.8e-6 (the
+# ring is as sensitive after one step as benchmarks/crossval.py:282-296
+# found); cloth_ls0_160 1.2e-6 / 7.9e-6, 8.6e-7 / 7.3e-6; bunny_pcg 2.2e-2 /
+# 1.7e-2 on both. Displacement at the worse step: 3.3e-2, 1.1e-2, 1.1e-2,
+# 0.12. The float32 PCG solve on the pin-stiffened bunny is only as accurate
+# as its clamped tolerance allows: one solve lands 1.4e-2 (the port) and
+# 2.2e-2 (the JAX package) of max |x| from the exact solution of the same
+# system, so the two packages' bunnies part by that much after one step,
+# where crossval's 2e-3 (measured between two backends of the JAX package)
+# assumed one sum order.
+PCG_STEP_TOL = {"beam_pcg160k": (5e-5, 5e-5), "torus_pcg20k": (1e-3, 5e-5),
+                "cloth_ls0_160": (1e-5, 5e-5), "bunny_pcg": (0.1, 0.1)}
+PCG_DISP_TOL = {"beam_pcg160k": 0.1, "torus_pcg20k": 0.1, "cloth_ls0_160": 0.05,
+                "bunny_pcg": 0.5}
+
+
+def pcg_scene(name, api):
+    """One of PCG_SCENES built through the normal entry points of a package
+    whose API the namespace `api` holds (Solver, a no-argument constructor;
+    Settings, Lame, binding, make_tet_blocks, make_tet_torus, load_elenode):
+    returns the initialized solver and the pinned vertex ids. The JAX
+    package's API here is how tests/make_torch_golden.py writes the goldens."""
+    p = PCG_SCENES[name]
+    solver = api.Solver()
+    if p["mesh"] == "sheet":
+        verts, tris, masses, pins = cloth_sheet(p["nx"], p["ny"])
+        solver.add_nodes(verts, masses)
+        lame = api.Lame.from_youngs_poisson(10000000, 0.399)
+        lame.limit_min, lame.limit_max = p["limits"]
+        solver.add_tri_energies(verts, tris, lame)
+    else:
+        if p["mesh"] == "beam":
+            mesh = api.make_tet_blocks(*p["dims"])
+            pins = np.where(mesh.vertices[:, 0] < 1e-9)[0]
+        elif p["mesh"] == "torus":
+            n_ring, n_sec = p["ring"]
+            mesh = api.make_tet_torus(n_ring=n_ring, n_sec=n_sec)
+            pins = np.arange((n_sec + 1) ** 2)
+        else:
+            mesh = api.load_elenode(BUNNY)
+            pins = bunny_pins(mesh.vertices)
+        mesh.flags = api.binding.NOSELFCOLLISION | api.binding.NEOHOOKEAN
+        api.binding.add_tetmesh(solver, mesh, api.Lame.soft_rubber(), verbose=False)
+    solver.set_pins([int(i) for i in pins])
+    st = api.Settings(verbose=0, admm_iters=10, gravity=-9.8, timestep_s=1.0 / 24.0,
+                      dtype=p.get("dtype", np.float32), **p["settings"])
+    need(solver.initialize(st), f"{name}: initialize failed")
+    return solver, np.asarray(pins, dtype=np.int64)
+
+
+def torch_api(device=None):
+    """pcg_scene's namespace for this package, its solvers on `device` (the
+    card unless named)."""
+    import types
+
+    from admm_elastic_tpu_torch import Lame, Settings, Solver, binding
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks, make_tet_torus
+    from admm_elastic_tpu_torch.geometry.io import load_elenode
+
+    return types.SimpleNamespace(
+        Solver=lambda: Solver(device=device or DEVICE), Settings=Settings, Lame=Lame,
+        binding=binding, make_tet_blocks=make_tet_blocks, make_tet_torus=make_tet_torus,
+        load_elenode=load_elenode)
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -297,7 +419,12 @@ def need(cond, msg):
 
 
 def log(msg):
+    """Print a line, and keep it in OUT_DIR/chip_smoke.log: the end of the
+    standard output is all that a remote run may bring back."""
     print(msg, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.log"), "a") as f:
+        f.write(msg + "\n")
 
 
 def run_cmd(cmd):
@@ -1051,11 +1178,392 @@ def gather_entry_checks(torch, res):
 
 # --- phase 4: the paths ------------------------------------------------------------------
 
+# --- phase 3, continued: the ring stencil and kernel G ------------------------------
+
+# The ring lattices of the ring checks: the torus_pcg20k path's (64 x 8 x 8
+# cells, 5,184 of them, no multiple of 128) at vertex offset 0, and crossval's
+# 12 x 4 torus at vertex offset 7 with 3 vertices past its block.
+RING_CASES = {"torus_pcg20k": ((64, 8), 0, 0), "torus12x4": ((12, 4), 7, 3)}
+# Kernel G against the plain solve_T on the same b and x0 (the first global
+# solve of a step from the initial state), on max |x_G - x_plain| / max |x_plain|:
+# float64 within PCG_F64_TOL and in the same trips; float32 within PCG_F32_TOL
+# and the trips within PCG_F32_TRIPS of the plain version's (the two differ in
+# the order of every dot product, which float32 CG amplifies; readings in
+# PERF.md §6).
+# Readings on an NVIDIA H100 (PERF.md §6): float64 at most 5.7e-15 in equal
+# trips, float32 at most 2.5e-6 in equal trips, on every scene and form but
+# the bunny.
+PCG_F64_TOL = 1e-10
+PCG_F32_TOL = 1e-4
+PCG_F32_TRIPS = 0.1  # a fraction of the plain version's trips, at least 2
+# The pin-stiffened bunny (diagonal ratios of ~1e5) carries the two sum orders
+# further, as benchmarks/crossval.py:277-287 found between two backends:
+# float64 7.07e-9 in 143 trips, equal, and in the RCM order (spmv_format
+# "bands") 1.34e-7 in 141 trips against 143; float32 5.9e-4 (1.2e-3 in the
+# RCM order) in 67 trips, equal (on the H100, PERF.md §6). There x is
+# held to the bounds below, the float64 trips within PCG_F32_TRIPS too, and in
+# float64 both x to the solve's own criterion: a true residual
+# |b - A x| / |b| within twice the tolerance.
+PCG_F64_TOL_BUNNY = 1e-6
+PCG_F32_TOL_BUNNY = 1e-2
+
+
+def ring_batch(torch, dtype, ring, off):
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_torus
+    from admm_elastic_tpu_torch.materials import Lame
+    from admm_elastic_tpu_torch.system import elements as el
+
+    mesh = make_tet_torus(n_ring=ring[0], n_sec=ring[1])
+    b = el.build_tet_batch(mesh.vertices, mesh.tets, Lame.soft_rubber(), NH, device=DEVICE,
+                           dtype=dtype, vertex_offset=off, lattice_dims=mesh.lattice_dims,
+                           lattice_wrap=mesh.lattice_wrap)
+    need(b.stencil is not None and b.stencil[6], f"torus {ring}: no ring stencil")
+    return mesh, b
+
+
+def seam_lanes(mesh, b):
+    """The flat lanes of the live tets whose corners lie on both sides of the
+    ring's seam (tests/test_stencil.py:144-146): their corner reads wrap."""
+    from admm_elastic_tpu_torch.ops import stencil as st
+
+    _, X, Y, Z, _, _, _ = b.stencil
+    ii = np.asarray(mesh.tets) // (Y * Z)
+    crossing = np.nonzero(ii.max(axis=1) - ii.min(axis=1) > 1)[0]
+    src = st.tet_flat_plan(b.stencil).src
+    return np.nonzero(np.isin(src, crossing))[0]
+
+
+def ring_checks(torch, res):
+    """Kernels A (stencil entry), B and C on ring lattices (RING_CASES), float64
+    and float32, from a generator of their own: B exactly equal to its plain
+    version, C's tiled and wide branches each exactly equal to it and bitwise
+    equal to each other, A's stencil entry bitwise equal to the two-launch
+    route (B, then the rows entry), each twice bitwise; the live lanes whose
+    corner reads cross the seam, and the vertices of the first ring segment
+    (the head where C folds the wrapped contributions), are counted and held
+    on their own; dead lanes stay finite."""
+    from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil
+    from admm_elastic_tpu_torch.ops import stencil as st
+    from admm_elastic_tpu_torch.ops.hyper_soa import local_step_plain
+
+    rng = np.random.default_rng(7)
+    for dtype, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=DEVICE, dtype=dtype)
+
+        for label, (ring, off, extra) in RING_CASES.items():
+            mesh, b = ring_batch(torch, dtype, ring, off)
+            nv = len(mesh.vertices)
+            n = off + nv + extra
+            verts = np.concatenate([np.zeros((off, 3)), mesh.vertices, np.zeros((extra, 3))])
+            # main-path inputs as the beam's: x off its rest pose by 5 % of the
+            # cross-section's pitch (2 x 0.35 / n_sec), u by 0.05
+            pitch = 0.7 / ring[1]
+            x = dev(verts + 0.05 * pitch * rng.standard_normal(verts.shape))
+            u = dev(0.05 * rng.standard_normal((9, b.n)))
+            lanes = seam_lanes(mesh, b)
+            need(len(lanes) > 0, f"ring {label}: no live lane crosses the seam")
+            lanes_t = torch.as_tensor(lanes, device=DEVICE)
+            # B
+            dx = cuda_stencil.tet_Dx_rows(x, b)
+            need(bool(torch.equal(dx, cuda_stencil.tet_Dx_rows(x, b))),
+                 f"B ring {label} {name}: two runs differ")
+            want = st.tet_Dx_rows_plain(x, b)
+            need(bool(torch.equal(dx, want)), f"B ring {label} {name}: not exact against plain")
+            need(bool(torch.equal(dx[:, lanes_t], want[:, lanes_t])),
+                 f"B ring {label} {name}: the seam lanes differ")
+            # C, both branches
+            z = dev(rng.standard_normal((9, b.n)))
+            want_c = st.tet_rhs_rows_plain(z, u, b, n)
+            got_c = {}
+            for branch in ("tiled", "wide"):
+                got_c[branch] = cuda_stencil.tet_rhs_rows(z, u, b, n, branch=branch)
+                need(bool(torch.equal(got_c[branch],
+                                      cuda_stencil.tet_rhs_rows(z, u, b, n, branch=branch))),
+                     f"C {branch} ring {label} {name}: two runs differ")
+                need(bool(torch.equal(got_c[branch], want_c)),
+                     f"C {branch} ring {label} {name}: not exact against plain")
+            head = max(cuda_stencil.geom_of(b.stencil)[3], 1)
+            need(bool(torch.equal(got_c["tiled"], got_c["wide"])),
+                 f"C ring {label} {name}: the branches differ")
+            need(bool(torch.equal(got_c["tiled"][off:off + head], want_c[off:off + head])),
+                 f"C ring {label} {name}: the folded head differs")
+            # A's stencil entry against B followed by the rows entry
+            k1 = cuda_local_step.local_step_tet_stencil(x, u, b)
+            k2 = cuda_local_step.local_step_tet_stencil(x, u, b)
+            two = cuda_local_step.local_step_tet_hyper(dx, u, b.mu, b.lam, b.kappa, b.bulk,
+                                                       model=NH)
+            for a, a2, c in zip(k1, k2, two):
+                need(bool(torch.isfinite(a).all()), f"A ring {label} {name}: non-finite lanes")
+                need(bool(torch.equal(a, a2)), f"A ring {label} {name}: two runs differ")
+                need(bool(torch.equal(a, c)),
+                     f"A ring {label} {name}: differs from B followed by the rows entry")
+            params = (b.mu, b.lam, b.kappa, b.bulk)
+
+            def rerun(lanes, dx=dx, u=u, params=params):
+                args = (dx[:, lanes] * dev(1.0 + 1e-5 * rng.standard_normal((9, len(lanes)))),
+                        u[:, lanes]) + tuple(a[lanes] for a in params)
+                return (cuda_local_step.local_step_tet_hyper(*args, model=NH),
+                        local_step_plain(*args, model=NH))
+
+            # The square-to-disk map distorts the torus's cells, so its lanes
+            # are held to the stress recipe's per-lane bound (LANE_TOL): one
+            # float32 lane of torus_pcg20k reads 2.0e-3 against plain, 1.3e-2 on
+            # perturbed inputs (on an H100, PERF.md §6), a line-search flip.
+            ea = tet_errs(torch, k1, local_step_plain(dx, u, *params, model=NH), name,
+                          f"A[{NH}] ring stencil entry {label} stress", rerun=rerun)
+            key = f"@{label}" if label in PCG_PATHS else f" {label}"
+            res[name][f"tet_Dx_rows{key}"] = dict(max_abs_err=0.0, exact=True,
+                                                   seam_lanes=len(lanes))
+            res[name][f"tet_rhs_rows{key}"] = dict(max_abs_err=0.0, exact=True,
+                                                    branches_bitwise=True, head_vertices=head)
+            res[name][f"local_step_tet_stencil[{NH}]{key}"] = dict(
+                ea, bitwise_two_launch=True, bitwise_repeat=True, seam_lanes=len(lanes),
+                max_abs_err=ea["max"])
+            log(f"ring {label} {name}: B and C (tiled, wide) exact, A's stencil entry bitwise "
+                f"to the two-launch route, max {ea['max']:.3e} against plain; {len(lanes)} "
+                f"seam lanes, {head} head vertices")
+    return res
+
+
+def first_solve(torch, solver):
+    """(b, x0) of the first global solve of the solver's next step, formed as
+    Solver._step_core forms them (no explicit force on these scenes)."""
+    from admm_elastic_tpu_torch.system import system as sysm
+
+    system, s = solver.system, solver.m_settings
+    state = solver.state
+    need(not solver.ext_forces, "first_solve: a scene with an explicit force")
+    v = state.v.clone()
+    v[:, 1] += solver._kick()
+    x_bar = state.x + system.dt * v
+    z = sysm.zeros_like_Dx(system, x_bar.dtype, x_bar.device)
+    u = [torch.zeros_like(zi) for zi in z]
+    z, u = sysm.local_step(system, x_bar, z, u, s.prox_newton_iters)
+    return sysm.rhs(system, system.masses[:, None] * x_bar, z, u), x_bar
+
+
+def pcg_bytes_ops(data, trips):
+    """The bytes a solve of kernel G must move and the operations it must do,
+    for `trips` trips: per trip the bands, the rest-ELL, the diagonal and its
+    inverse read once, and the [N, 3] vectors each phase reads and writes (A p,
+    its dot; x, r, z and their dots; p), each once; the two-grid V-cycle adds
+    two more applies, P^T, the coarse matrix and its vector, and z's two
+    updates. Setup: b, x0, one apply and x written back."""
+    n = data.n
+    isz = data.diag_mass.element_size()
+    nb = len(data.band_offsets)
+    kr = data.ell_cols.shape[1]
+    mat_bytes = nb * n * isz + n * kr * (isz + 4) + 2 * n * isz
+    mat_ops = 2 * 3 * n * (nb + kr + 1)  # a multiply and an add per entry and component
+    vec = 3 * n * isz
+    trip_bytes = mat_bytes + 12 * vec
+    trip_ops = mat_ops + 3 * n * (2 + 4 + 2 + 2 + 2)  # dot, x, r, z, dots, p
+    if data.agg is not None:
+        c = data.coarse_inv.shape[0]
+        trip_bytes += 2 * mat_bytes + 9 * vec + c * c * isz + 2 * 3 * c * isz + n * 4 \
+            + data.agg_gather.numel() * 4
+        trip_ops += 2 * mat_ops + 3 * n * 6 + 2 * 3 * c * c + 3 * n
+    setup_bytes = mat_bytes + 4 * vec
+    return setup_bytes + trips * trip_bytes, mat_ops + trips * trip_ops
+
+
+def csr_of(torch, solver, dtype):
+    """A (single component: the diagonal and every off-diagonal entry) as a
+    CSR tensor on the card: the yardstick of a library SpMV."""
+    from admm_elastic_tpu_torch.system import assembly
+
+    cols, vals, diag = assembly.assemble_ell(solver.system, dtype=np.float64)
+    n, k = cols.shape
+    rows = np.repeat(np.arange(n), k)
+    keep = vals.reshape(-1) != 0.0
+    r = np.concatenate([rows[keep], np.arange(n)])
+    c = np.concatenate([cols.reshape(-1)[keep].astype(np.int64), np.arange(n)])
+    v = np.concatenate([vals.reshape(-1)[keep], diag])
+    order = np.lexsort((c, r))
+    crow = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(r, minlength=n), out=crow[1:])
+    return torch.sparse_csr_tensor(torch.as_tensor(crow), torch.as_tensor(c[order]),
+                                   torch.as_tensor(v[order]), size=(n, n)).to(DEVICE, dtype)
+
+
+def g_against_plain(torch, label, data, b, x0, tol, max_iters, dtype_name, graph=False):
+    """Kernel G against the plain solve_T on the same inputs (see PCG_F64_TOL,
+    PCG_F32_TOL), G twice bitwise; with graph, G captured into a CUDA graph
+    and replayed, bitwise equal to its eager launch."""
+    from admm_elastic_tpu_torch.ops import cuda_pcg
+    from admm_elastic_tpu_torch.solvers import pcg
+
+    trips = [torch.zeros((1,), dtype=torch.int32, device=DEVICE) for _ in range(2)]
+    xg = cuda_pcg.pcg_solve(data, b, x0, tol, max_iters, trips[0])
+    xg2 = cuda_pcg.pcg_solve(data, b, x0, tol, max_iters, trips[1])
+    need(bool(torch.isfinite(xg).all()), f"G {label} {dtype_name}: non-finite x")
+    need(bool(torch.equal(xg, xg2)) and int(trips[0].item()) == int(trips[1].item()),
+         f"G {label} {dtype_name}: two runs differ")
+    xp, kp = pcg.solve_T(data.apply_T, data.precondition_T(), b, x0, tol, max_iters)
+    kg = int(trips[0].item())
+    err = rel_err(xg.double().cpu().numpy(), xp.double().cpu().numpy())
+    out = dict(rel_err=err, trips=kg, plain_trips=kp, n=data.n,
+               max_abs_err=float((xg - xp).abs().max().item()))
+    if dtype_name == "f64":
+        bound = PCG_F64_TOL_BUNNY if label.startswith("bunny") else PCG_F64_TOL
+        out["bound"] = bound
+        if label.startswith("bunny"):
+            out["residual"], out["plain_residual"] = (
+                float((torch.linalg.norm(b - data.apply(x)) / torch.linalg.norm(b)).item())
+                for x in (xg, xp))
+            stop = max(tol, 64 * torch.finfo(b.dtype).eps) * 2.0
+            need(out["residual"] <= stop and out["plain_residual"] <= stop,
+                 f"G {label} f64: a residual over the tolerance: {out}")
+        same = kg == kp if bound == PCG_F64_TOL else abs(kg - kp) <= max(2, PCG_F32_TRIPS * kp)
+        need(err <= bound and same, f"G {label} f64: {out} (bound {bound}, trips)")
+    else:
+        bound = PCG_F32_TOL_BUNNY if label.startswith("bunny") else PCG_F32_TOL
+        out["bound"] = bound
+        need(err <= bound and abs(kg - kp) <= max(2, PCG_F32_TRIPS * kp),
+             f"G {label} f32: {out} (bound {bound}, trips within {PCG_F32_TRIPS:.0%})")
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+        with torch.cuda.stream(side):
+            cuda_pcg.pcg_solve(data, b, x0, tol, max_iters, t)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g):
+                t.zero_()
+                xc = cuda_pcg.pcg_solve(data, b, x0, tol, max_iters, t)
+        except Exception as e:
+            raise SmokeFailure(f"G {label}: capturing its cooperative launch into a CUDA "
+                               f"graph failed: {e}")
+        g.replay()
+        torch.cuda.synchronize()
+        need(bool(torch.equal(xc, xg)) and int(t.item()) == kg,
+             f"G {label}: the graph replay differs from the eager launch")
+        out["graph_replay_bitwise"] = True
+    return xg, out
+
+
+def pcg_checks(torch):
+    """Kernel G against the plain solve_T on the card: on the first solve of
+    each PCG path (the float32 operator, and the same system's float64
+    operator on the same b and x0 widened), and on crossval's small scenes
+    (ragged N: 112, 300 and 600 vertices) in every operator form the port
+    builds: bands, circular bands (the torus), RCM with a rest-ELL (the bunny
+    with spmv_format "bands"), no bands (spmv_format "ell", and the bunny's
+    "auto"), each with Jacobi and two-grid. G's launch captured
+    into a CUDA graph on the first path. Returns the results and, per path,
+    what the timing needs."""
+    from admm_elastic_tpu_torch.solvers import pcg
+
+    out, timing = {}, {}
+    api = torch_api()
+    runs = [(name, False) for name in PCG_PATHS] + [(name, True) for name in (
+        "beam_pcg", "torus_pcg", "bunny_pcg")]
+    for name, every_form in runs:
+        solver, _ = pcg_scene(name, api)
+        s = solver.m_settings
+        b, x0 = first_solve(torch, solver)
+        forms = [(s.pcg_precond, "auto", solver._solve_data)]
+        if every_form:
+            forms = [(pre, fmt, pcg.prepare(solver.system, torch.float32, precond=pre,
+                                             spmv_format=fmt))
+                     for pre in ("jacobi", "twogrid") for fmt in ("auto", "ell", "bands")]
+        for pre, fmt, d32 in forms:
+            label = f"{name} {pre} {fmt}" if every_form else name
+            d64 = pcg.prepare(solver.system, torch.float64, precond=pre, spmv_format=fmt)
+            shape = dict(bands=len(d32.band_offsets), circular=d32.band_circular,
+                         rcm=d32.perm is not None, rest=d32.ell_cols.shape[1],
+                         coarse=0 if d32.agg is None else d32.coarse_inv.shape[0])
+            res = {"form": shape}
+            xg, res["f32"] = g_against_plain(torch, label, d32, b, x0, s.pcg_tol,
+                                             s.pcg_max_iters, "f32",
+                                             graph=name == PCG_PATHS[0] and DEVICE == "cuda")
+            _, res["f64"] = g_against_plain(torch, label, d64, b.double(), x0.double(),
+                                            s.pcg_tol, s.pcg_max_iters, "f64")
+            out[label] = res
+            log(f"G {label} {json.dumps(shape)}: f32 {res['f32']['rel_err']:.3e} in "
+                f"{res['f32']['trips']} trips (plain {res['f32']['plain_trips']}), f64 "
+                f"{res['f64']['rel_err']:.3e} in {res['f64']['trips']} trips")
+            if not every_form:
+                timing[name] = dict(solver=solver, b=b, x0=x0, data=d32,
+                                    trips=res["f32"]["trips"], max_abs_err=res["f32"][
+                                        "max_abs_err"])
+    return out, timing
+
+
+def g_device_us(torch, fn, reps):
+    """Device time per launch of kernel G by fn() (torch.profiler), after a
+    warm-up; a window with events missing is taken again, three at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "pcg_kernel" in e.name]
+        if len(us) >= reps:
+            return sum(us) / len(us)
+    raise SmokeFailure(f"profiler saw {len(us)} of {reps} launches, three times")
+
+
+def pcg_times(torch, timing, gpu):
+    """Kernel G's time per solve on each path's first solve (CUDA events) with
+    its trips, beside the plain solve_T on the card, a library SpMV
+    (torch.sparse.mm on A as CSR) times the trips, and G's bound (pcg_bytes_ops)."""
+    from admm_elastic_tpu_torch.ops import cuda_pcg
+    from admm_elastic_tpu_torch.solvers import pcg
+
+    out = {}
+    for name, t in timing.items():
+        s = t["solver"].m_settings
+        data, b, x0 = t["data"], t["b"], t["x0"]
+        trips = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+
+        def kern():
+            return cuda_pcg.pcg_solve(data, b, x0, s.pcg_tol, s.pcg_max_iters, trips)
+
+        def plain():
+            return pcg.solve_T(data.apply_T, data.precondition_T(), b, x0, s.pcg_tol,
+                               s.pcg_max_iters)
+
+        a = csr_of(torch, t["solver"], b.dtype)
+        p1, k1, k2, p2 = (events_ms(torch, plain, 2), events_ms(torch, kern, 20),
+                          events_ms(torch, kern, 20), events_ms(torch, plain, 2))
+        spmv = events_ms(torch, lambda: torch.sparse.mm(a, b), 200)
+        n_bytes, ops = pcg_bytes_ops(data, t["trips"])
+        bound_ms, bound_by = bound_of(n_bytes, ops)
+        # G's device time per launch (torch.profiler): the events above also
+        # hold the host's enqueue of each launch
+        ms = g_device_us(torch, kern, 20) * 1e-3
+        out[name] = dict(ms=ms, events_ms=min(k1, k2), plain_ms=min(p1, p2),
+                         readings=[p1, k1, k2, p2],
+                         trips=t["trips"], ms_per_trip=ms / max(t["trips"], 1),
+                         library_ms=spmv * t["trips"], library_spmv_ms=spmv, bytes=n_bytes,
+                         operations=ops, bound_ms=bound_ms, bound_by=bound_by,
+                         grid=cuda_pcg.grid_of(data.n, b.dtype), n=data.n,
+                         bands=len(data.band_offsets), rest=data.ell_cols.shape[1],
+                         twogrid=data.agg is not None)
+        log(f"time pcg_solve@{name}: {ms * 1e3:.1f} us per solve on the device "
+            f"({min(k1, k2) * 1e3:.1f} by CUDA events), {t['trips']} trips, "
+            f"{ms / max(t['trips'], 1) * 1e3:.2f} us per trip on {out[name]['grid']} blocks; "
+            f"plain {min(p1, p2) * 1e3:.1f} us; torch.sparse.mm {spmv * 1e3:.2f} us x trips; "
+            f"bound {bound_ms * 1e3:.2f} us by {bound_by} [{gpu}]")
+    return out
+
+
 def _wrappers():
-    from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_prox, cuda_stencil,
+    from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_pcg, cuda_prox, cuda_stencil,
                                             cuda_tri_local_step)
 
-    return dict(local_step_tet_hyper=cuda_local_step.local_step_tet_hyper,
+    return dict(pcg_solve=cuda_pcg.pcg_solve,
+                local_step_tet_hyper=cuda_local_step.local_step_tet_hyper,
                 local_step_tet_stencil=cuda_local_step.local_step_tet_stencil,
                 tet_Dx_rows=cuda_stencil.tet_Dx_rows, tet_rhs_rows=cuda_stencil.tet_rhs_rows,
                 prox_tet_hyper=cuda_prox.prox_tet_hyper, prox_tet_linear=cuda_prox.prox_tet_linear,
@@ -1083,7 +1591,8 @@ def read_counts(model=None):
 # template arguments.
 _KERNEL_SYMBOL = re.compile(
     r"\b(tet_prox_kernel|tet_local_step_stencil_kernel|tet_dx_kernel|tet_rhs_tiled_kernel|"
-    r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel)<([^>]*)>")
+    r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel|pcg_kernel)"
+    r"<([^>]*)>")
 
 
 def wrapper_of_symbol(symbol):
@@ -1098,7 +1607,7 @@ def wrapper_of_symbol(symbol):
     if kernel.startswith("tet_rhs"):
         return "tet_rhs_rows"
     plain = dict(tet_dx_kernel="tet_Dx_rows", tri_local_step_kernel="local_step_tri",
-                 tri_local_step_stencil_kernel="local_step_tri_stencil")
+                 tri_local_step_stencil_kernel="local_step_tri_stencil", pcg_kernel="pcg_solve")
     if kernel in plain:
         return plain[kernel]
     model = {i: name for name, i in MODEL_IDS.items()}[int(args[1])]
@@ -1207,7 +1716,7 @@ def graph_vs_eager(torch, label, solver, state0, n_steps, x_graph):
 
 
 def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=None,
-               step_counts=None, grid=None):
+               step_counts=None, grid=None, tols=None, disp_bound=None):
     """Drive a path in one window, with the wrappers' counts set to 0 just
     before and read just after: run(0) (a warm-up step and the capture, the
     wrappers' calls), the replays to the golden's last step (8, or 2),
@@ -1276,10 +1785,12 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
         need(x.shape == ref.shape and np.isfinite(x).all(), f"{label} step {step}: bad state")
         errs[step] = rel_err(x, ref)
         disp[step], disp_tol = disp_err(x, g, step)
-    log(f"{label} vs JAX golden: step {first} {errs[first]:.3e} (bound {STEP1_TOL}), "
-        f"step {last} {errs[last]:.3e} (bound {STEP8_TOL}), displacement {disp[first]:.3e}, "
+    step1_tol, step8_tol = tols or (STEP1_TOL, STEP8_TOL)
+    disp_tol = disp_bound or disp_tol
+    log(f"{label} vs JAX golden: step {first} {errs[first]:.3e} (bound {step1_tol}), "
+        f"step {last} {errs[last]:.3e} (bound {step8_tol}), displacement {disp[first]:.3e}, "
         f"{disp[last]:.3e} (bound {disp_tol})")
-    need(errs[first] < STEP1_TOL and errs[last] < STEP8_TOL and max(disp.values()) < disp_tol,
+    need(errs[first] < step1_tol and errs[last] < step8_tol and max(disp.values()) < disp_tol,
          f"{label}: trajectory off the golden: {errs}, displacement {disp}")
     to_grid = {}
     if grid is not None:
@@ -1290,7 +1801,12 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
         need(to_grid[first] < STEP1_TOL and to_grid[last] < STEP8_TOL,
              f"{label}: off the grid sheet's golden: {to_grid}")
     pin_dev = float(np.abs(x_last[pins] - x0[pins]).max()) if pins else 0.0
-    need(pin_dev < 1e-3, f"{label}: pins not held: {pin_dev}")
+    # Pins are springs: where the golden's own pins give more (the PCG sheet's
+    # by 4.6e-3 in 8 steps: its solve stops at a residual of 7.6e-6), the
+    # bound is twice that.
+    ref = g[f"x{last}"]
+    pin_tol = max(1e-3, 2.0 * float(np.abs(ref[pins] - g["x0"][pins]).max())) if pins else 1e-3
+    need(pin_dev < pin_tol, f"{label}: pins not held: {pin_dev} (bound {pin_tol})")
 
     graph = solver._graph
     solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
@@ -1462,6 +1978,181 @@ def gather_path(torch, name):
     if p["mesh"] == "beam":
         res.update(check_sag(name, x0, x8))
     return solver, res
+
+
+def device_ops(torch, fn, iters):
+    """Device operations (kernels, copies, fills) and busy time per ADMM
+    iteration of fn() (torch.profiler on the card; None elsewhere)."""
+    if DEVICE != "cuda":
+        fn()
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # The profiler now and then returns a window with events missing (see
+    # counted_window): a window with fewer than 3 device ops an iteration,
+    # fewer than the port's kernels alone, is taken again, three times at most.
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(ev) >= 3 * iters:
+            break
+    return dict(ops_per_iter=len(ev) / iters,
+                busy_us_per_iter=sum(e.time_range.elapsed_us() for e in ev) / iters)
+
+
+def pcg_path(torch, name):
+    """One of PCG_PATHS through the normal entry points (chip_smoke.pcg_scene),
+    8 steps through the captured step against its golden under PCG_STEP_TOL /
+    PCG_DISP_TOL: the steps launch kernel G once per ADMM iteration, A's
+    stencil entry and C (beam, torus: a ring), E's stencil entry (the sheet)
+    or A's rows entry (the bunny's gather family) as often; then the CG trips
+    of each step (step(), the step's device counter) beside the JAX package's,
+    and the device operations per iteration of one replayed step."""
+    solver, pins = pcg_scene(name, torch_api())
+    g = golden(name)
+    need(np.array_equal(pins, g["pins"]), f"{name}: pinned set differs from the golden's")
+    s = solver.m_settings
+    need(s.linsolver == 3 and s.pcg_precond == str(g["pcg_precond"])
+         and s.pcg_tol == float(g["pcg_tol"]) and s.pcg_max_iters == int(g["pcg_max_iters"])
+         and solver.requested_linsolver == int(g["requested_linsolver"]),
+         f"{name}: the solver's PCG settings differ from the golden's")
+    iters = int(g["steps"][-1]) * int(g["admm_iters"])
+    p = PCG_SCENES[name]
+    model = None if p["mesh"] == "sheet" else NH
+    if p["mesh"] == "sheet":
+        kernels = ["local_step_tri_stencil", "pcg_solve"]
+        counts = {"local_step_tri_stencil": iters, "pcg_solve": iters, "local_step_tri": 0,
+                  "tri_Dx_rows": 0}
+    elif p["mesh"] == "bunny":
+        kernels = [f"local_step_tet_hyper[{NH}]", "pcg_solve"]
+        counts = {f"local_step_tet_hyper[{NH}]": iters, "pcg_solve": iters,
+                  f"local_step_tet_stencil[{NH}]": 0, "tet_rhs_rows": 0, "tet_Dx_rows": 0}
+    else:
+        kernels = [f"local_step_tet_stencil[{NH}]", "tet_rhs_rows", "pcg_solve"]
+        counts = {f"local_step_tet_stencil[{NH}]": iters, "tet_rhs_rows": iters,
+                  "pcg_solve": iters, "tet_Dx_rows": 0, f"local_step_tet_hyper[{NH}]": 0}
+    from admm_elastic_tpu_torch.system.system import SimState
+
+    state0 = SimState(x=solver.state.x.clone(), v=solver.state.v.clone())
+    x0, x8, res = drive_path(torch, name, solver, g, [int(i) for i in pins], kernels,
+                             model=model, step_counts=counts, tols=PCG_STEP_TOL[name],
+                             disp_bound=PCG_DISP_TOL[name])
+    solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
+    trips = []
+    for _ in range(int(g["steps"][-1])):
+        solver.step()
+        trips.append(solver.runtime_data().inner_iters)
+    need(all(t > 0 for t in trips), f"{name}: a step took no CG trip: {trips}")
+    res.update(trips_per_step=trips, jax_trips_per_step=g["trips"].tolist(),
+               pcg=dict(precond=s.pcg_precond, tol=s.pcg_tol, max_iters=s.pcg_max_iters,
+                        requested_linsolver=solver.requested_linsolver,
+                        bands=len(solver._solve_data.band_offsets),
+                        circular=solver._solve_data.band_circular,
+                        rest=solver._solve_data.ell_cols.shape[1]))
+    res["device"] = device_ops(torch, lambda: solver.run(1), int(g["admm_iters"]))
+    log(f"{name}: CG trips per step {trips} (the JAX package's {g['trips'].tolist()}); "
+        f"device per iteration {json.dumps(res['device'])}")
+    if p["mesh"] in ("beam", "torus"):
+        res.update(check_sag(name, x0, x8))
+    elif p["mesh"] == "sheet":
+        need(x8[:, 1].min() < -1e-3, f"{name}: the sheet did not sag")
+    return solver, res
+
+
+def path_shape_cases(torch, res):
+    """The kernels of the PCG paths at those paths' shapes where no earlier
+    case has them (name@path), float32, main-path inputs from a generator of
+    their own: A's stencil entry and C on the 160k beam's lattice (176,640
+    lanes, 35,721 vertices) and on the torus_pcg20k ring, B on the ring, E's
+    stencil entry on the 160x160 sheet (51,842 lanes). Held against plain here
+    (C and B exact, A under LANE_TOL, E under F32_TOL_STENCIL; the ring's
+    results come from ring_checks) and returned as kernel_cases entries."""
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+    from admm_elastic_tpu_torch.materials import Lame
+    from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil, cuda_tri_local_step
+    from admm_elastic_tpu_torch.ops import stencil as st
+    from admm_elastic_tpu_torch.ops.hyper_soa import local_step_plain, prox_tet_hyper_tuple
+    from admm_elastic_tpu_torch.ops.soa import local_step_tri_plain
+    from admm_elastic_tpu_torch.system import elements as el
+
+    f32 = torch.float32
+    rng = np.random.default_rng(8)
+    cases = {}
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=DEVICE, dtype=f32)
+
+    beam = make_tet_blocks(*PCG_SCENES["beam_pcg160k"]["dims"])
+    bb = el.build_tet_batch(beam.vertices, beam.tets, Lame.soft_rubber(), NH, device=DEVICE,
+                            dtype=f32, lattice_dims=beam.lattice_dims)
+    ring_mesh, rb = ring_batch(torch, f32, PCG_SCENES["torus_pcg20k"]["ring"], 0)
+    pitch = 0.7 / PCG_SCENES["torus_pcg20k"]["ring"][1]
+    for label, mesh, b, noise in (("beam_pcg160k", beam, bb, 0.05),
+                                  ("torus_pcg20k", ring_mesh, rb, 0.05 * pitch)):
+        x = dev(mesh.vertices + noise * rng.standard_normal(mesh.vertices.shape))
+        u = dev(0.05 * rng.standard_normal((9, b.n)))
+        n = len(mesh.vertices)
+        dx = cuda_stencil.tet_Dx_rows(x, b)
+        params = (b.mu, b.lam, b.kappa, b.bulk)
+        base, n_vblock = b.stencil[0], len(mesh.vertices)
+        trips = {}
+        prox_tet_hyper_tuple(tuple(dx + u), NH, *params, trips=trips)
+        ops = (tet_operations(NH, b.n, True, trips)
+               + plain_flops(torch, lambda x=x, b=b: st.tet_Dx_rows_plain(x, b)))
+        if label == "beam_pcg160k":
+            c = cuda_stencil.tet_rhs_rows(dx, u, b, n)
+            need(bool(torch.equal(c, st.tet_rhs_rows_plain(dx, u, b, n))),
+                 f"C@{label}: not exact against plain")
+            res["f32"][f"tet_rhs_rows@{label}"] = dict(
+                max_abs_err=0.0, exact=True, plan=list(cuda_stencil.rhs_plan_of(b, 4)))
+            def rerun(lanes, dx=dx, u=u, params=params):
+                args = (dx[:, lanes] * dev(1.0 + 1e-5 * rng.standard_normal((9, len(lanes)))),
+                        u[:, lanes]) + tuple(a[lanes] for a in params)
+                return (cuda_local_step.local_step_tet_hyper(*args, model=NH),
+                        local_step_plain(*args, model=NH))
+
+            k = cuda_local_step.local_step_tet_stencil(x, u, b)
+            e = tet_errs(torch, k, local_step_plain(dx, u, *params, model=NH), "f32",
+                         f"A[{NH}] stencil entry {label}", rerun=rerun)
+            res["f32"][f"local_step_tet_stencil[{NH}]@{label}"] = dict(e, max_abs_err=e["max"])
+        else:
+            cases[f"tet_Dx_rows ring@{label}"] = (
+                lambda x=x, b=b: cuda_stencil.tet_Dx_rows(x, b),
+                lambda x=x, b=b: st.tet_Dx_rows_plain(x, b),
+                [x[base:base + n_vblock], b.st_dl, b.st_par, b.st_dead], 200, 5)
+        cases[f"tet_rhs_rows@{label}"] = (
+            lambda dx=dx, u=u, b=b, n=n: cuda_stencil.tet_rhs_rows(dx, u, b, n),
+            lambda dx=dx, u=u, b=b, n=n: st.tet_rhs_rows_plain(dx, u, b, n),
+            [dx, u, b.weight, b.st_dl, b.st_par], 200, 5)
+        cases[f"local_step_tet_stencil[{NH}]@{label}"] = (
+            lambda x=x, u=u, b=b: cuda_local_step.local_step_tet_stencil(x, u, b),
+            lambda dx=dx, u=u, params=params: local_step_plain(dx, u, *params, model=NH),
+            [x[base:base + n_vblock], b.st_dl, b.st_par, b.st_dead, u] + list(params), 50, 2,
+            ops)
+    p = PCG_SCENES["cloth_ls0_160"]
+    verts, tris, _, _ = cloth_sheet(p["nx"], p["ny"])
+    lame = Lame.from_youngs_poisson(10000000, 0.399)
+    lame.limit_min, lame.limit_max = p["limits"]
+    tb = el.build_tri_batch(verts, tris, lame, device=DEVICE, dtype=f32)
+    xs = dev(verts + 0.02 * rng.standard_normal(verts.shape))
+    ut = dev(0.02 * rng.standard_normal((6, tb.n)))
+    k = cuda_tri_local_step.local_step_tri_stencil(xs, ut, tb)
+    dxt = st.tri_Dx_rows(xs, tb)
+    e = direct_errs(torch, k, local_step_tri_plain(dxt, ut, tb.limit_min, tb.limit_max), "f32",
+                    "E stencil entry cloth_ls0_160")
+    res["f32"]["local_step_tri_stencil@cloth_ls0_160"] = dict(e, max_abs_err=e["max"])
+    cases["local_step_tri_stencil@cloth_ls0_160"] = (
+        lambda: cuda_tri_local_step.local_step_tri_stencil(xs, ut, tb),
+        lambda: local_step_tri_plain(st.tri_Dx_rows(xs, tb), ut, tb.limit_min, tb.limit_max),
+        [xs, tb.st_dl, tb.st_dead, ut, tb.limit_min, tb.limit_max], 200, 5)
+    log("kernels at the PCG paths' shapes: " + json.dumps(
+        {k: v["max_abs_err"] for k, v in res["f32"].items() if "@" in k and "pcg" in k
+         or k.endswith("cloth_ls0_160")}))
+    return cases
 
 
 # The one-tet scene of tests/test_lineartet.py (test_lineartet.cpp:165-323).
@@ -2240,14 +2931,15 @@ def profile_step(torch, solver, gpu, tag, n_steps=5, eager=False):
 def host_timing(torch, gpu, cases, c_branches, prox_turns):
     """The measurements on the host's clock, on solvers of their own: the
     captured step against the eager loop in turns (graph, eager, eager,
-    graph) for the beam, cloth_limit40 and beam_gather; then the phases of
+    graph) for the beam, cloth_limit40, beam_gather and the PCG paths; then the phases of
     the beam and cloth steps on the stepped states, each kernel against its
     plain version, C's two branches in turns, and D and F at the throughput
     size beside kernel A's rows entry (CUDA events)."""
     solvers = {"beam": make_solver(NH)[0], "beam_gather": make_gather_solver("beam_gather")[0]}
     solvers.update({n: make_cloth_solver(n)[0] for n in CLOTH_SCENES})
+    solvers.update({n: pcg_scene(n, torch_api())[0] for n in PCG_PATHS})
     turns = {}
-    for label in ("beam", "cloth_limit40", "beam_gather"):
+    for label in ("beam", "cloth_limit40", "beam_gather") + PCG_PATHS:
         turns[label] = in_turns([("graph", lambda label=label: rollout_rate(solvers[label])),
                                  ("eager", lambda label=label: rollout_rate(solvers[label],
                                                                             eager=True))],
@@ -2279,6 +2971,8 @@ def main():
 
     import torch
 
+    t_start = time.perf_counter()
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace 5 steps of the beam and the cloth step with "
@@ -2296,16 +2990,22 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.log")):
+        os.remove(os.path.join(OUT_DIR, "chip_smoke.log"))
     try:
         env = environment(torch)
         gpu = env["gpu"]
         built = build()
         checks = gather_entry_checks(torch, stencil_entry_checks(torch, kernel_checks(torch)))
+        checks = ring_checks(torch, checks)
+        checks["pcg"], pcg_timing = pcg_checks(torch)
         cases, c_branches, chains, pairs, prox_turns = kernel_cases(torch)
+        cases.update(path_shape_cases(torch, checks))
         profiles = {}
         if args.kernels_only:
             profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
                                                   gpu)
+            pcg_times(torch, pcg_timing, gpu)
             log(gpu)
             return 0
         # What the host's clock times comes before the first profiler window,
@@ -2313,6 +3013,8 @@ def main():
         # after some 30 windows the profiler also began to drop events.
         turns, phases, times, by_branch, prox_big = host_timing(torch, gpu, cases, c_branches,
                                                                 prox_turns)
+        g_times = pcg_times(torch, pcg_timing, gpu)
+        del pcg_timing
         if args.profile:
             profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
                                                   gpu)
@@ -2327,6 +3029,8 @@ def main():
             solvers[label], paths[label] = beam_path(torch, model)
         for name in GATHER_SCENES:
             solvers[name], paths[name] = gather_path(torch, name)
+        for name in PCG_PATHS:
+            solvers[name], paths[name] = pcg_path(torch, name)
         checks["graph"] = dict(invalidation=invalidation_checks(torch),
                                one_tet_convergence=one_tet_convergence(),
                                one_tet_inversion=one_tet_inversion())
@@ -2347,7 +3051,7 @@ def main():
         for label, t in turns.items():
             rates[label]["graph_vs_eager"] = t
         if args.profile:
-            for tag in ("beam", "cloth_limit40", "cloth_wind40", "beam_gather"):
+            for tag in ("beam", "cloth_limit40", "cloth_wind40", "beam_gather") + PCG_PATHS:
                 profiles[tag] = dict(graph=profile_step(torch, solvers[tag], gpu, tag),
                                      eager=profile_step(torch, solvers[tag], gpu, tag,
                                                         eager=True))
@@ -2386,22 +3090,48 @@ def main():
             entries.insert(0, entry(STENCIL_ENTRY[base] + name[len(base):], path))
         elif base == "tet_Dx_rows":
             entries.append(entry(f"{STENCIL_ENTRY['local_step_tet_hyper']}[{NH}]", "beam"))
-        # the rows entry as the gather paths' steps launch it, at their shapes
+        # the entries as the gather and PCG paths' steps launch them, at their
+        # shapes (name@path): the rows entry, and the stencil entry
+        stencil_name = STENCIL_ENTRY[base] + name[len(base):] if base in STENCIL_ENTRY else None
         entries += [entry(k, k.partition("@")[2]) for k in times
-                    if k.partition("@")[0] == name and "@" in k]
+                    if "@" in k and k.partition("@")[0] in (name, stencil_name)]
+        if name == f"local_step_tet_hyper[{NH}]":  # the bunny's shape, as bunny_nh's
+            entries.append(entry(f"local_step_tet_hyper[{NH}]@bunny_nh", "bunny_pcg"))
         src, rep = REPLACES[base]
         row = dict(entries[0], name=name, route="cuda", source=src, replaces=rep, entries=entries)
+        if base == "tet_Dx_rows":
+            # on the ring, B's work runs inside A's ring stencil entry; B alone
+            # on the ring's shape, timed
+            entries.append(entry(f"local_step_tet_stencil[{NH}]@torus_pcg20k", "torus_pcg20k"))
+            ring = times["tet_Dx_rows ring@torus_pcg20k"]
+            row["ring_standalone@torus_pcg20k"] = dict(
+                {k: ring[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                max_abs_err=checks["f32"]["tet_Dx_rows@torus_pcg20k"]["max_abs_err"])
         if base in ("prox_tet_hyper", "prox_tet_linear"):
             # the throughput size (TILES x the beam's lanes), CUDA events
             big = prox_big[model.rstrip("]") or "linear"]
             row[f"at_{big['lanes']}_lanes"] = {k: big[k] for k in (
                 "ms", "bound_ms", "bound_by", "rows_ms", "rows_bound_ms")}
         kernels.append(row)
+    # Kernel G, which replaces the JAX package's jnp CG loop (no Pallas
+    # kernel): one entry per PCG path, its time per solve on the path's first
+    # solve (pcg_times), its launches on the path's steps.
+    g_entries = [dict(entry="pcg_solve", path=name,
+                      launches=paths[name]["launches"].get("pcg_solve", 0),
+                      wrapper_calls=paths[name]["wrapper_calls"].get("pcg_solve", 0),
+                      max_abs_err=checks["pcg"][name]["f32"]["max_abs_err"],
+                      **{k: g_times[name][k] for k in (
+                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "trips",
+                          "ms_per_trip", "grid")})
+                 for name in PCG_PATHS]
+    src, rep = REPLACES["pcg_solve"]
+    kernels.append(dict(g_entries[0], name="pcg_solve", route="cuda", source=src, replaces=rep,
+                        entries=g_entries))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(env=env, build=built, checks=checks, paths=paths, rollouts=rates,
                        phases_ms=phases, kernel_times=times, rhs_branches_ms=by_branch,
-                       prox_throughput_ms=prox_big,
+                       prox_throughput_ms=prox_big, pcg_solve_ms=g_times,
                        warp_chains=chains, profiles=profiles,
                        kernels=kernels), f, indent=1)
     for k in kernels:
@@ -2410,6 +3140,8 @@ def main():
                 print(f"chip_smoke: FAIL: kernel {k['name']}: {e['entry']} has no launch on "
                       f"{e['path']}", file=sys.stderr)
                 return 1
+    log(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s, the kernels' build "
+        "included")
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

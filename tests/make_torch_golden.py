@@ -29,7 +29,14 @@ step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD run
   float64 (bunny_nh_f64, bunny_linear_f64); cloth_gather_limit40 and
   cloth_gather_wind40, the cloth_limit40 and cloth_wind40 sheets (with their
   own gravity) renumbered by chip_smoke.renumbered_sheet; beam_cho, the
-  neo-Hookean bench beam (a lattice) with direct_mode="cho".
+  neo-Hookean bench beam (a lattice) with direct_mode="cho";
+- the PCG scenes (chip_smoke.PCG_SCENES, built by chip_smoke.pcg_scene with
+  this package's API): the four full-size paths beam_pcg160k, torus_pcg20k,
+  cloth_ls0_160 (linsolver=0 above direct_max_verts: two-grid PCG) and
+  bunny_pcg, and crossval's small beam_pcg and torus_pcg, in float32, with
+  bunny_pcg_f64, beam_pcg_f64 and torus_pcg_f64 in float64; each also holds
+  the CG trips of every step 1..8 (``trips``), as runtime_data().inner_iters
+  reports them.
 
 Run from the repository root (all files, or only the named ones):
 
@@ -52,7 +59,7 @@ from admm_elastic_tpu.geometry.factory import make_tet_blocks  # noqa: E402
 from admm_elastic_tpu.geometry.io import load_elenode  # noqa: E402
 from admm_elastic_tpu.ops import prox  # noqa: E402
 from chip_smoke import (BEAM_FLAGS, BEAM_MODELS, BUNNY, CLOTH_SCENES, GATHER_SCENES,  # noqa: E402
-                        bunny_pins, cloth_sheet, renumbered_sheet)
+                        PCG_SCENES, bunny_pins, cloth_sheet, pcg_scene, renumbered_sheet)
 
 DIMS = (40, 5, 5)
 ADMM_ITERS = 10
@@ -173,6 +180,35 @@ def gather(name):
           x0=verts.astype(dtype), **extra, **_rollout(solver, dtype=dtype))
 
 
+def jax_api():
+    """chip_smoke.pcg_scene's namespace for the JAX package."""
+    import types
+
+    from admm_elastic_tpu.geometry.factory import make_tet_torus
+
+    return types.SimpleNamespace(Solver=Solver, Settings=Settings, Lame=Lame, binding=binding,
+                                 make_tet_blocks=make_tet_blocks, make_tet_torus=make_tet_torus,
+                                 load_elenode=load_elenode)
+
+
+def pcg(name):
+    dtype = PCG_SCENES[name].get("dtype", np.float32)
+    solver, pins = pcg_scene(name, jax_api())
+    x0 = np.asarray(solver.x, dtype)
+    traj = {"steps": np.asarray(STEPS)}
+    trips = []
+    for step in range(1, max(STEPS) + 1):
+        solver.step()
+        trips.append(solver.runtime_data().inner_iters)
+        if step in STEPS:
+            traj[f"x{step}"] = np.asarray(solver.x, dtype)
+    s = solver.m_settings
+    _save(name, gravity=GRAVITY, pins=pins, x0=x0, trips=np.asarray(trips),
+          linsolver=s.linsolver, requested_linsolver=solver.requested_linsolver,
+          pcg_precond=s.pcg_precond, pcg_tol=s.pcg_tol, pcg_max_iters=s.pcg_max_iters,
+          **traj)
+
+
 def main(argv):
     prox.set_svd_impl("jacobi")
     writers = {"beam": lambda: beam("neohookean"),
@@ -180,13 +216,18 @@ def main(argv):
     writers.update({f"beam_{m}": (lambda m=m: beam(m)) for m in BEAM_MODELS})
     writers.update({n: (lambda n=n: cloth(n)) for n in CLOTH_SCENES})
     writers.update({n: (lambda n=n: gather(n)) for n in GATHER_SCENES})
+    writers.update({n: (lambda n=n: pcg(n)) for n in PCG_SCENES})
     names = argv or list(writers)
     for n in names:
         if n not in writers:
             raise SystemExit(f"unknown golden {n!r}; one of {sorted(writers)}")
+
+    def f64(n):
+        return "dtype" in GATHER_SCENES.get(n, {}) or "dtype" in PCG_SCENES.get(n, {})
+
     # float64 scenes last: jax_enable_x64 stays on once set
-    for n in sorted(names, key=lambda n: "dtype" in GATHER_SCENES.get(n, {})):
-        if "dtype" in GATHER_SCENES.get(n, {}):
+    for n in sorted(names, key=f64):
+        if f64(n):
             jax.config.update("jax_enable_x64", True)
         writers[n]()
 

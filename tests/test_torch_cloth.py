@@ -188,8 +188,6 @@ def _unsupported_sheet(**kw):
 
 
 UNSUPPORTED = {
-    "cloth_above_direct_max_verts": lambda: _unsupported_sheet(direct_max_verts=10),
-    "cloth_pcg": lambda: _unsupported_sheet(linsolver=3),
     "wind_sequential": lambda: forces.make_wind_force(
         factory.make_plane(2, 2).faces, sequential=True, device="cpu", dtype=torch.float64),
 }

@@ -217,9 +217,9 @@ def test_match_table_holds_every_pair_once_or_as_an_even_odd_couple(dims):
         else:
             assert sorted(uses) == sorted([(cuda_stencil.EVEN, he), (cuda_stencil.ODD, ho)])
     assert sum(len(row) for row in table) <= 40
-    # the struct the kernel reads: offs[8], start[9], ent[40]
+    # the struct the kernel reads: offs[8], start[9], ent[40], wrap
     match = list(cuda_stencil.geom_of(_batch(dims, 0, torch.float64)[1].stencil)[5])
-    assert len(match) == 57 and match[8] == 0
+    assert len(match) == 58 and match[8] == 0 and match[57] == 0
     assert match[16] == sum(len(row) for row in table)
     ent = [sj | kind << 8 for row in table for sj, kind in row]
     assert match[17:17 + len(ent)] == ent

@@ -28,7 +28,6 @@ from admm_elastic_tpu.ops import prox as jprox
 from admm_elastic_tpu.system import system as j_sys
 from admm_elastic_tpu_torch import Lame, Settings, Solver, binding, convert
 from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
-from admm_elastic_tpu_torch.geometry.mesh import TetMesh
 from admm_elastic_tpu_torch.system import system as p_sys
 
 torch.set_num_threads(1)
@@ -179,16 +178,11 @@ def _init_with(settings_kw=None, mesh=None, before=None):
 
 
 UNSUPPORTED = {
-    "linsolver_pcg": lambda: _init_with(dict(linsolver=3)),
     "linsolver_gs": lambda: _init_with(dict(linsolver=1)),
     "aa_window": lambda: _init_with(dict(aa_window=4)),
     "unroll_admm": lambda: _init_with(dict(unroll_admm=True)),
-    "above_direct_max_verts": lambda: _init_with(dict(direct_max_verts=10)),
     "obstacle": lambda: Solver(device="cpu").add_obstacle(object()),
     "dynamic_collider": lambda: Solver(device="cpu").add_dynamic_collider(object()),
-    "wrap_lattice": lambda: _init_with(mesh=TetMesh(
-        vertices=_beam().vertices, tets=_beam().tets, flags=_beam().flags,
-        lattice_dims=(4, 2, 2), lattice_wrap=True)),
     "linsolver_uzawa": lambda: _init_with(dict(linsolver=2)),
     "linsolver_alpcg": lambda: _init_with(dict(linsolver=4)),
     "log_inner": lambda: _init_with(dict(log_inner=True)),
