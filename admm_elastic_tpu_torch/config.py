@@ -1,13 +1,16 @@
-"""Solver settings (the ``linsolver=0`` slice of the JAX package's config).
+"""Solver settings (the JAX package's config).
 
 The fields and defaults are those of ``admm_elastic_tpu.config.Settings``
-so that one settings object reads the same in both packages. Two global
-steps run in this package: the prefactored direct solve (``linsolver=LDLT``)
-in both of its modes, ``direct_mode="inv"`` (a GEMM on the stored inverse)
-and ``"cho"`` (two triangular solves on the Cholesky factor), and PCG
-(``linsolver=PCG``, ``pcg_precond`` "jacobi" or "twogrid"), which also serves
-``LDLT`` above ``direct_max_verts`` vertices; the solver raises
-``NotImplementedError`` for the rest (Gauss-Seidel, Uzawa, AL-PCG).
+so that one settings object reads the same in both packages. Every global
+step of the JAX package runs in this package: the prefactored direct solve
+(``linsolver=LDLT``) in both of its modes, ``direct_mode="inv"`` (a GEMM on
+the stored inverse) and ``"cho"`` (two triangular solves on the Cholesky
+factor), PCG (``linsolver=PCG``, ``pcg_precond`` "jacobi" or "twogrid"),
+which also serves ``LDLT`` above ``direct_max_verts`` vertices, and the
+contact solvers: multicolour Gauss-Seidel (``NCMCGS``), Uzawa (``UZAWACG``,
+its inner solve ``uzawa_inner``) and AL-PCG (``ALPCG``). Anderson
+acceleration, the logged and profiled steps and ``unroll_admm`` raise
+``NotImplementedError``.
 
 ``dtype=None`` means float32 here. The JAX package follows
 ``jax_enable_x64`` instead; this package changes no global default.
@@ -37,7 +40,7 @@ class Settings:
     verbose: int = 1  # -v
     admm_iters: int = 10  # -it
     gravity: float = -9.8  # -g
-    linsolver: int = LDLT  # -ls; LDLT and PCG run in this package
+    linsolver: int = LDLT  # -ls
     constraint_w: float = -1.0  # -ck (-1 = auto)
 
     # None -> float32; np.float32/np.float64 or torch.float32/torch.float64.

@@ -27,6 +27,11 @@ None) and its ``gather_idx`` table in their place.
 ``band_offsets`` and ``band_circular``.
 ``wind_force_from_numpy`` reads a WindForce's ``tris``, ``direction`` and,
 for the colored order, ``color_tris`` and ``color_mask``.
+``gs_from_numpy`` reads a GSData's ``ell_cols``, ``ell_vals``, ``diag``,
+``colors`` and ``colors_mask``; ``obstacle_from_numpy`` a Floor's ``y`` or a
+Sphere's ``center`` and ``rad`` (the kind named by ``kind``, "Floor" or
+"Sphere"); ``state_from_numpy`` takes the state's ``y`` and ``prev_active``
+where the scene has contact rows (size 0 where they are None).
 """
 
 from __future__ import annotations
@@ -34,10 +39,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from admm_elastic_tpu_torch.collision.passive import Floor, Sphere
 from admm_elastic_tpu_torch.forces import WindForce
 from admm_elastic_tpu_torch.forces import wind_force_from_numpy as _wind_force
 from admm_elastic_tpu_torch.ops.prox import check_model
 from admm_elastic_tpu_torch.solvers.direct import DirectData
+from admm_elastic_tpu_torch.solvers.gs import GSData
 from admm_elastic_tpu_torch.solvers.pcg import PCGData
 from admm_elastic_tpu_torch.system.elements import PinBatch, TetBatch, TriBatch
 from admm_elastic_tpu_torch.system.system import SimState, System
@@ -161,9 +168,33 @@ def pcg_from_numpy(d: dict, *, device, dtype: torch.dtype) -> PCGData:
     )
 
 
-def state_from_numpy(x, v, *, device, dtype: torch.dtype) -> SimState:
+def state_from_numpy(x, v, y=None, prev_active=None, *, device,
+                     dtype: torch.dtype) -> SimState:
+    y = np.zeros((0,)) if y is None else y
+    prev_active = np.zeros((0,), dtype=bool) if prev_active is None else prev_active
     return SimState(x=_f(np.reshape(x, (-1, 3)), device, dtype),
-                    v=_f(np.reshape(v, (-1, 3)), device, dtype))
+                    v=_f(np.reshape(v, (-1, 3)), device, dtype),
+                    y=_f(np.reshape(y, (-1,)), device, dtype),
+                    prev_active=_i(np.reshape(prev_active, (-1,)), device, torch.bool))
+
+
+def gs_from_numpy(d: dict, *, device, dtype: torch.dtype) -> GSData:
+    return GSData(ell_cols=_i(d["ell_cols"], device, torch.int32),
+                  ell_vals=_f(d["ell_vals"], device, dtype),
+                  diag=_f(d["diag"], device, dtype),
+                  colors=_i(d["colors"], device, torch.int32),
+                  colors_mask=_i(d["colors_mask"], device, torch.bool))
+
+
+def obstacle_from_numpy(d: dict):
+    """A Floor or Sphere from its arrays (float64, as the obstacles hold
+    numbers; the solver rounds them to its dtype at initialize)."""
+    if d["kind"] == "Floor":
+        return Floor(y=np.asarray(d["y"], dtype=np.float64))
+    if d["kind"] == "Sphere":
+        return Sphere(center=np.asarray(d["center"], dtype=np.float64),
+                      rad=np.asarray(d["rad"], dtype=np.float64))
+    raise ValueError(f"obstacle_from_numpy: unknown kind {d['kind']!r}")
 
 
 def wind_force_from_numpy(d: dict, *, device, dtype: torch.dtype) -> WindForce:

@@ -51,6 +51,22 @@
 // Launched cooperatively (cudaLaunchCooperativeKernel): the runtime refuses a
 // grid that cannot be resident at once, which the barrier needs, and a
 // cooperative launch captures into the step's CUDA graph.
+//
+// The penalty form (PEN, AL-PCG's (A + C^T C) x = b^, replacing the jnp
+// solve of admm_elastic_tpu/solvers/alcg.py:73-127): without dynamic rows
+// C^T C is block-diagonal per vertex, pn pn^T with pn the masked ck-scaled
+// contact normal ([N, 3], zero off contact), so the apply adds
+// pn_j (pn_j . v_j) to each vertex's row (the three products in component
+// order), and the Jacobi inverse, and the two-grid smoother's, is per
+// component, 1 / (diag + diag(C^T C)), formed by the wrapper as the plain
+// version forms it. The coarse correction stays A's. The unpenalized kernel
+// is the other instantiation, unchanged. Its plain twin is
+// admm_elastic_tpu_torch/solvers/alcg.py penalty_solve.
+//
+// done (null, or a flag on the device): where it is set when the kernel
+// starts, the solve takes no trip and returns x0. Uzawa's Schur trips, all
+// in the captured step and predicated on that flag, skip their inner solve
+// by it (solvers/uzawa.py).
 
 #include <cfloat>
 #include <cstdint>
@@ -95,6 +111,9 @@ struct Args {
   const int* agg;          // [N] banded order, or null (Jacobi)
   const int* agg_gather;   // [n_coarse, k_agg] banded-order vertices, pad N
   const T* coarse_inv;     // [n_coarse, n_coarse]
+  const T* pn;             // [N, 3] banded order: the penalty normals (PEN)
+  const T* inv3;           // [N, 3] banded order: 1 / (diag + pn^2) per component (PEN)
+  const unsigned char* done;  // null, or: skip the solve where set
   T* X;                    // scratch [N, 3] each
   T* R;
   T* P;
@@ -107,7 +126,7 @@ struct Args {
   T* EC;
   T* parts;                // scratch [kSlots, n_chunks]
   Barrier* bar;            // zero before the first launch; left zero by every launch
-  int* trips;              // += the trips of this solve
+  int* trips;              // null, or += the trips of this solve
   int n, n_chunks, k_rest, n_bands, circular, k_agg, n_coarse, max_iters;
   T tol, omega;
   int offs[kMaxBands];
@@ -239,8 +258,9 @@ struct PVec {
   }
 };
 
-// (A v)[j] for one vertex of the banded order: diag, bands, rest-ELL.
-template <typename T, typename V>
+// (A v)[j] for one vertex of the banded order: diag, bands, rest-ELL; with
+// PEN, + pn_j (pn_j . v_j).
+template <typename T, bool PEN, typename V>
 __device__ __forceinline__ void spmv(const Args<T>& a, const V& v, int j, T out[3]) {
   const int n = a.n;
   T acc0 = T(0), acc1 = T(0), acc2 = T(0);
@@ -274,12 +294,33 @@ __device__ __forceinline__ void spmv(const Args<T>& a, const V& v, int j, T out[
   out[0] = dj * v(vj) + acc0;
   out[1] = dj * v(vj + 1) + acc1;
   out[2] = dj * v(vj + 2) + acc2;
+  if constexpr (PEN) {
+    const T p0 = __ldg(a.pn + vj), p1 = __ldg(a.pn + vj + 1), p2 = __ldg(a.pn + vj + 2);
+    const T cx = p0 * v(vj) + p1 * v(vj + 1) + p2 * v(vj + 2);
+    out[0] += p0 * cx;
+    out[1] += p1 * cx;
+    out[2] += p2 * cx;
+  }
+}
+
+// The Jacobi inverse of vertex j per component: 1 / diag, or with PEN the
+// wrapper's 1 / (diag + pn^2).
+template <typename T, bool PEN>
+__device__ __forceinline__ void inv_of(const Args<T>& a, int j, T id[3]) {
+  if constexpr (PEN) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) id[r] = __ldg(a.inv3 + j * 3 + r);
+  } else {
+    const T d = __ldg(a.inv_d + j);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) id[r] = d;
+  }
 }
 
 // The two-grid V-cycle after z = omega d^-1 r is in Z (and a barrier): the
 // coarse correction and the second smoothing leave M^-1 r in Z and the
 // partials of r.z and r.r in their slots, then a barrier.
-template <typename T>
+template <typename T, bool PEN>
 __device__ void two_grid(const Args<T>& a, T* sm, unsigned nb) {
   const int n = a.n;
   const T omega = a.omega;
@@ -287,7 +328,7 @@ __device__ void two_grid(const Args<T>& a, T* sm, unsigned nb) {
     const int j = c * kBlock + threadIdx.x;
     if (j < n) {
       T az[3];
-      spmv(a, Vec<T>{a.Z}, j, az);
+      spmv<T, PEN>(a, Vec<T>{a.Z}, j, az);
 #pragma unroll
       for (int r = 0; r < 3; ++r) a.RES[j * 3 + r] = __ldcg(a.R + j * 3 + r) - az[r];
     }
@@ -339,11 +380,12 @@ __device__ void two_grid(const Args<T>& a, T* sm, unsigned nb) {
     const int j = c * kBlock + threadIdx.x;
     T v[2] = {T(0), T(0)};
     if (j < n) {
-      T az[3];
-      spmv(a, Vec<T>{a.Z2}, j, az);
-      const T w = omega * __ldg(a.inv_d + j);
+      T az[3], id[3];
+      spmv<T, PEN>(a, Vec<T>{a.Z2}, j, az);
+      inv_of<T, PEN>(a, j, id);
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
+        const T w = omega * id[r];
         const T rr = __ldcg(a.R + j * 3 + r);
         const T z = __ldcg(a.Z2 + j * 3 + r) + w * (rr - az[r]);
         a.Z[j * 3 + r] = z;
@@ -356,7 +398,7 @@ __device__ void two_grid(const Args<T>& a, T* sm, unsigned nb) {
   grid_sync(a.bar, nb);
 }
 
-template <typename T>
+template <typename T, bool PEN>
 __global__ void __launch_bounds__(kBlock) pcg_kernel(const __grid_constant__ Args<T> a) {
   __shared__ T sm[kWarps * 3];
   __shared__ T bc[3];
@@ -364,6 +406,16 @@ __global__ void __launch_bounds__(kBlock) pcg_kernel(const __grid_constant__ Arg
   const int n = a.n;
   const bool two = a.agg != nullptr;
   const T tiny = Fl<T>::tiny();
+
+  if (a.done != nullptr && *a.done) {  // no solve: x = x0, no trip
+    for (int c = blockIdx.x; c < a.n_chunks; c += nb) {
+      const int j = c * kBlock + threadIdx.x;
+      if (j < n)
+#pragma unroll
+        for (int r = 0; r < 3; ++r) a.x_out[j * 3 + r] = a.x0[j * 3 + r];
+    }
+    return;
+  }
 
   // x = x0 in the banded order; without a permutation the first apply reads
   // x0 itself and x is written beside it, with no barrier in between.
@@ -385,22 +437,21 @@ __global__ void __launch_bounds__(kBlock) pcg_kernel(const __grid_constant__ Arg
       T v[3] = {T(0), T(0), T(0)};
       if (j < n) {
         const int64_t src = a.perm ? a.perm[j] : j;
-        T ax[3];
-        spmv(a, x_first, j, ax);
+        T ax[3], id[3];
+        spmv<T, PEN>(a, x_first, j, ax);
         if (!a.perm)
 #pragma unroll
           for (int r = 0; r < 3; ++r) a.X[j * 3 + r] = a.x0[j * 3 + r];
-        const T id = __ldg(a.inv_d + j);
-        const T w = a.omega * id;
+        inv_of<T, PEN>(a, j, id);
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
           const T bj = a.b[src * 3 + r];
           const T rr = bj - ax[r];
           a.R[j * 3 + r] = rr;
           if (two) {
-            a.Z[j * 3 + r] = w * rr;
+            a.Z[j * 3 + r] = (a.omega * id[r]) * rr;
           } else {
-            const T z = id * rr;
+            const T z = id[r] * rr;
             a.Z[j * 3 + r] = z;
             v[1] += rr * z;
           }
@@ -412,7 +463,7 @@ __global__ void __launch_bounds__(kBlock) pcg_kernel(const __grid_constant__ Arg
     }
     grid_sync(a.bar, nb);
   }
-  if (two) two_grid(a, sm, nb);
+  if (two) two_grid<T, PEN>(a, sm, nb);
   T t0[3];
   {
     const int slots[3] = {S_BB, S_RZ, S_RR};
@@ -436,7 +487,7 @@ __global__ void __launch_bounds__(kBlock) pcg_kernel(const __grid_constant__ Arg
         T v[1] = {T(0)};
         if (j < n) {
           T ap[3];
-          spmv(a, pv, j, ap);
+          spmv<T, PEN>(a, pv, j, ap);
 #pragma unroll
           for (int r = 0; r < 3; ++r) {
             const T p = pv((int64_t)j * 3 + r);
@@ -461,8 +512,8 @@ __global__ void __launch_bounds__(kBlock) pcg_kernel(const __grid_constant__ Arg
         const int j = c * kBlock + threadIdx.x;
         T v[2] = {T(0), T(0)};
         if (j < n) {
-          const T id = __ldg(a.inv_d + j);
-          const T w = a.omega * id;
+          T id[3];
+          inv_of<T, PEN>(a, j, id);
 #pragma unroll
           for (int r = 0; r < 3; ++r) {
             const int i = j * 3 + r;
@@ -471,9 +522,9 @@ __global__ void __launch_bounds__(kBlock) pcg_kernel(const __grid_constant__ Arg
             const T rr = __ldcg(a.R + i) - alpha * __ldcg(a.AP + i);
             a.R[i] = rr;
             if (two) {
-              a.Z[i] = w * rr;
+              a.Z[i] = (a.omega * id[r]) * rr;
             } else {
-              const T z = id * rr;
+              const T z = id[r] * rr;
               a.Z[i] = z;
               v[0] += rr * z;
               v[1] += rr * rr;
@@ -484,7 +535,7 @@ __global__ void __launch_bounds__(kBlock) pcg_kernel(const __grid_constant__ Arg
       }
     }
     grid_sync(a.bar, nb);
-    if (two) two_grid(a, sm, nb);
+    if (two) two_grid<T, PEN>(a, sm, nb);
     T t[2];
     {
       const int slots[2] = {S_RZ, S_RR};
@@ -506,19 +557,19 @@ __global__ void __launch_bounds__(kBlock) pcg_kernel(const __grid_constant__ Arg
       for (int r = 0; r < 3; ++r) a.x_out[dst * 3 + r] = __ldcg(a.X + j * 3 + r);
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *a.trips += k;
+  if (a.trips != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *a.trips += k;
 }
 
 // The grid: as many blocks as can be resident at once, at most one per chunk.
-template <typename T>
+template <typename T, bool PEN>
 int grid_for(int n_chunks, int* grid) {
-  static int resident = 0;  // per precision, for the current device
+  static int resident = 0;  // per precision and form, for the current device
   if (resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t rc = cudaGetDevice(&dev);
     if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_kernel<T>, kBlock, 0);
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_kernel<T, PEN>, kBlock, 0);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     resident = per_sm * sms;
@@ -529,7 +580,8 @@ int grid_for(int n_chunks, int* grid) {
 
 // ptrs: b, x0, x_out, perm, diag, inv_d, bands, rest_cols, rest_vals, agg,
 // agg_gather, coarse_inv, X, R, P, Z, AP, Z2, RES, P2, RC, EC, parts, bar,
-// trips (null where absent); ints: n, k_rest, n_bands, circular, k_agg, n_coarse,
+// trips, pn, inv3, done (null where absent; pn and inv3 both or neither: the
+// penalty form); ints: n, k_rest, n_bands, circular, k_agg, n_coarse,
 // max_iters; offs: the band offsets.
 template <typename T>
 int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, double omega,
@@ -552,6 +604,10 @@ int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, d
   for (int i = 0; i < 11; ++i) *scratch[i] = reinterpret_cast<T*>(ptrs[12 + i]);
   a.bar = reinterpret_cast<Barrier*>(ptrs[23]);
   a.trips = reinterpret_cast<int*>(ptrs[24]);
+  a.pn = reinterpret_cast<const T*>(ptrs[25]);
+  a.inv3 = reinterpret_cast<const T*>(ptrs[26]);
+  a.done = reinterpret_cast<const unsigned char*>(ptrs[27]);
+  if ((a.pn == nullptr) != (a.inv3 == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   a.n = ints[0];
   a.k_rest = ints[1];
   a.n_bands = ints[2];
@@ -565,12 +621,14 @@ int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, d
   if (a.n_bands < 0 || a.n_bands > kMaxBands) return static_cast<int>(cudaErrorInvalidValue);
   for (int d = 0; d < kMaxBands; ++d) a.offs[d] = d < a.n_bands ? offs[d] : 0;
   a.n_chunks = (a.n + kBlock - 1) / kBlock;
+  const bool pen = a.pn != nullptr;
   int grid = 0;
-  const int rc = grid_for<T>(a.n_chunks, &grid);
+  const int rc = pen ? grid_for<T, true>(a.n_chunks, &grid) : grid_for<T, false>(a.n_chunks, &grid);
   if (rc != 0) return rc;
   void* params[] = {&a};
-  return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(pcg_kernel<T>),
-                                                      dim3(grid), dim3(kBlock), params, 0,
+  void* fn = pen ? reinterpret_cast<void*>(pcg_kernel<T, true>)
+                 : reinterpret_cast<void*>(pcg_kernel<T, false>);
+  return static_cast<int>(cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kBlock), params, 0,
                                                       static_cast<cudaStream_t>(stream)));
 }
 
@@ -589,10 +647,10 @@ extern "C" int admm_pcg_solve_f64(const uint64_t* ptrs, const int* ints, const i
 // The grid kernel G takes for n vertices (0 on an error).
 extern "C" int admm_pcg_grid_f32(int n) {
   int grid = 0;
-  return grid_for<float>((n + kBlock - 1) / kBlock, &grid) == 0 ? grid : 0;
+  return grid_for<float, false>((n + kBlock - 1) / kBlock, &grid) == 0 ? grid : 0;
 }
 
 extern "C" int admm_pcg_grid_f64(int n) {
   int grid = 0;
-  return grid_for<double>((n + kBlock - 1) / kBlock, &grid) == 0 ? grid : 0;
+  return grid_for<double, false>((n + kBlock - 1) / kBlock, &grid) == 0 ? grid : 0;
 }

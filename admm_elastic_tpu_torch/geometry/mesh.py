@@ -81,6 +81,12 @@ class TetMesh:
     def weighted_masses(self, density: float) -> np.ndarray:
         return lumped_masses_tet(self.vertices, self.tets, density)
 
+    def apply_xform(self, M: np.ndarray):
+        """Apply a 4x4 homogeneous transform in place."""
+        v = self.vertices
+        self.vertices = (v @ M[:3, :3].T) + M[:3, 3]
+        self._faces = None
+
 
 @dataclasses.dataclass
 class TriangleMesh:

@@ -33,9 +33,9 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _PRECISIONS = (("f32", "float"), ("f64", "double"))
-# (source, precision suffix or None): stencil.cu and pcg.cu hold both
+# (source, precision suffix or None): stencil.cu, pcg.cu and gs.cu hold both
 # precisions themselves.
-UNITS = tuple([("stencil.cu", None), ("pcg.cu", None)]
+UNITS = tuple([("stencil.cu", None), ("pcg.cu", None), ("gs.cu", None)]
               + [(src, sfx) for src in ("local_step.cu", "prox.cu", "tri_local_step.cu")
                  for sfx, _ in _PRECISIONS])
 
@@ -67,6 +67,8 @@ _SIGNATURES = {
     "admm_pcg_solve": [_P, _P, _P, _D, _D, _P],
     # n
     "admm_pcg_grid": [_I],
+    # ptrs, ints, par, omega, tol, stream
+    "admm_gs_solve": [_P, _P, _P, _D, _D, _P],
 }
 
 

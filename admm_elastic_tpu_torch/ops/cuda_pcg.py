@@ -5,10 +5,17 @@ launch, in place of the JAX package's jnp ``solve_T`` loop
 ``pcg_solve(data, b, x0, tol, max_iters, trips)`` solves A x = b from the
 warm start x0 ([N, 3] each) with the operator and preconditioner of ``data``
 (a ``solvers.pcg.PCGData``) and adds the trips it took to ``trips`` (an int32
-tensor of one element, on the device). Dispatch is by the tensors' device: CPU
-tensors take the plain version (``solvers/pcg.solve_T``, which stops on the
-host); CUDA tensors launch the kernel, and a build or launch failure raises.
-``pcg_solve.launches`` counts kernel launches.
+tensor of one element, on the device; None counts nothing). With ``done`` (a bool tensor of one
+element) it takes no trip and returns x0 where the flag is set: Uzawa's
+predicated Schur trips. ``pcg_solve_penalty(data, b, x0, tol, max_iters,
+trips, pn, pen_diag)`` is G's penalty form (pn and pen_diag [N, 3], vertex
+order): (A + pn pn^T) x = b with the per-component Jacobi inverse
+1 / (diag + pen_diag), AL-PCG's solve (``solvers/alcg.py``), in place of the
+JAX package's jnp loop there (``alcg.py:73-127``). Dispatch is by the
+tensors' device: CPU tensors take the plain version (``solvers/pcg.solve_T``,
+or ``solvers/alcg.penalty_solve``, which stop on the host); CUDA tensors
+launch the kernel, and a build or launch failure raises. Each wrapper's
+``launches`` counts its kernel launches.
 
 The kernel works in the banded vertex order: where ``data`` carries an RCM
 permutation, ``plan_of`` keeps the diagonal, its inverse and the two-grid
@@ -117,31 +124,71 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 
 def pcg_solve(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, tol: float,
-              max_iters: int, trips: torch.Tensor) -> torch.Tensor:
+              max_iters: int, trips: Optional[torch.Tensor],
+              done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x with A x = b to the relative tolerance tol (clamped to 64 eps), from
-    x0, in at most max_iters trips; the trips taken are added to trips."""
+    x0, in at most max_iters trips; the trips taken are added to trips
+    (unless None). Where done is set, x0 and no trip."""
     if b.device.type == "cpu":
+        if done is not None and bool(done):
+            return x0.clone()
         x, k = pcg_mod.solve_T(data.apply_T, data.precondition_T(), b, x0, tol, max_iters)
+        if trips is not None:
+            trips += k
+        return x
+    out = _launch(data, b, x0, tol, max_iters, trips, None, done)
+    pcg_solve.launches += 1
+    return out
+
+
+def pcg_solve_penalty(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, tol: float,
+                      max_iters: int, trips: torch.Tensor, pn: torch.Tensor,
+                      pen_diag: torch.Tensor) -> torch.Tensor:
+    """pcg_solve on A + pn pn^T with the Jacobi (or smoothing) diagonal
+    diag + pen_diag per component."""
+    if b.device.type == "cpu":
+        from admm_elastic_tpu_torch.solvers.alcg import penalty_solve
+
+        x, k = penalty_solve(data, pn, pen_diag, b, x0, tol, max_iters)
         trips += k
         return x
+    out = _launch(data, b, x0, tol, max_iters, trips, (pn, pen_diag), None)
+    pcg_solve_penalty.launches += 1
+    return out
+
+
+def _launch(data, b, x0, tol, max_iters, trips, penalty, done):
     n = data.n
-    sfx = _build.cuda_args("pcg_solve", b, (
-        ("b", b, (n, 3)), ("x0", x0, (n, 3)), ("diag_mass", data.diag_mass, (n,))))
-    if trips.device != b.device or trips.dtype != torch.int32 or trips.numel() != 1:
+    fields = [("b", b, (n, 3)), ("x0", x0, (n, 3)), ("diag_mass", data.diag_mass, (n,))]
+    if penalty is not None:
+        fields += [("pn", penalty[0], (n, 3)), ("pen_diag", penalty[1], (n, 3))]
+    sfx = _build.cuda_args("pcg_solve", b, fields)
+    if trips is not None and (trips.device != b.device or trips.dtype != torch.int32
+                              or trips.numel() != 1):
         raise ValueError("pcg_solve: trips must be one int32 element on b's device")
+    if done is not None and (done.device != b.device or done.dtype != torch.bool
+                             or done.numel() != 1):
+        raise ValueError("pcg_solve: done must be one bool element on b's device")
     plan = plan_of(data)
+    pn = inv3 = None
+    if penalty is not None:
+        pn, pen_diag = penalty
+        if plan.perm is not None:
+            pn, pen_diag = pn[plan.perm], pen_diag[plan.perm]
+        # as the plain Jacobi forms it: 1 / (diag + diag(C^T C)) per component
+        inv3 = (1.0 / (plan.diag[:, None] + pen_diag)).contiguous()
+        pn = pn.contiguous()
     out = torch.empty_like(b)
     ptrs = ([b, x0, out, plan.perm, plan.diag, plan.inv_d, plan.bands, plan.rest_cols,
              plan.rest_vals, plan.agg, plan.agg_gather, plan.coarse_inv] + list(plan.scratch)
-            + [plan.barrier, trips])
+            + [plan.barrier, trips, pn, inv3, done])
     ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[_ptr(t) for t in ptrs])
     ints = (ctypes.c_int * 7)(*plan.ints, int(max_iters))
     fn = getattr(_build.library(), f"admm_pcg_solve_{sfx}")
     with torch.cuda.device(b.device):
         rc = fn(ptr_arr, ints, plan.offs, float(tol), OMEGA,
                 torch.cuda.current_stream(b.device).cuda_stream)
-    _build.check(rc, "pcg_solve")
-    pcg_solve.launches += 1
+    _build.check(rc, "pcg_solve" if penalty is None else "pcg_solve_penalty")
     return out
 
 
@@ -152,3 +199,4 @@ def grid_of(n: int, dtype: torch.dtype) -> int:
 
 
 pcg_solve.launches = 0
+pcg_solve_penalty.launches = 0

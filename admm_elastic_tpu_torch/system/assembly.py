@@ -1,11 +1,13 @@
 """Host-side (numpy) assembly of the single-component global matrix.
 
 A copy of ``_coo_entries``, ``assemble_dense``, ``assemble_ell``,
-``vertex_adjacency``, ``greedy_aggregates`` and ``coarse_matrix`` from
-``admm_elastic_tpu/system/assembly.py`` (the last three build the two-grid
-PCG preconditioner's coarse level). The JAX package runs
-``greedy_aggregates`` through its optional native library where that loads,
-and the same algorithm in Python otherwise; this copy is the Python one. The system's tensors are read
+``vertex_adjacency``, ``greedy_aggregates``, ``coarse_matrix`` (the two-grid
+PCG preconditioner's coarse level), ``greedy_coloring`` and ``color_groups``
+(the Gauss-Seidel colour classes) from
+``admm_elastic_tpu/system/assembly.py``. The JAX package runs
+``greedy_aggregates`` and ``greedy_coloring`` through its optional native
+library where that loads, and the same algorithms in Python otherwise; this
+copy is the Python one. The system's tensors are read
 back in their run dtype and widened to float64, as the JAX package reads
 its arrays, so A is the same bit for bit:
 
@@ -153,3 +155,32 @@ def coarse_matrix(system, agg: np.ndarray) -> np.ndarray:
     np.add.at(A_c, (np.arange(c), np.arange(c)),
               np.bincount(agg, weights=masses, minlength=c))
     return A_c
+
+
+def greedy_coloring(adj: List[np.ndarray]) -> np.ndarray:
+    """Greedy graph colouring in vertex order: each vertex takes the least
+    colour none of its neighbours has; i32 colour per vertex."""
+    n = len(adj)
+    colors = np.full((n,), -1, dtype=np.int32)
+    for v in range(n):
+        used = set(colors[u] for u in adj[v] if colors[u] >= 0)
+        c = 0
+        while c in used:
+            c += 1
+        colors[v] = c
+    return colors
+
+
+def color_groups(colors: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The vertices of each colour in increasing order, padded to [C, Lmax]
+    i32 with N (out of range) and a bool mask of the real entries."""
+    n = len(colors)
+    n_colors = int(colors.max()) + 1 if n else 0
+    groups = [np.where(colors == c)[0] for c in range(n_colors)]
+    lmax = max(len(g) for g in groups)
+    out = np.full((n_colors, lmax), n, dtype=np.int32)
+    mask = np.zeros((n_colors, lmax), dtype=bool)
+    for c, g in enumerate(groups):
+        out[c, : len(g)] = g
+        mask[c, : len(g)] = True
+    return out, mask

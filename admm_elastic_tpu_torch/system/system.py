@@ -53,10 +53,21 @@ class System:
 
 @dataclasses.dataclass(frozen=True)
 class SimState:
-    """Dynamic state: positions and velocities (src/Solver.hpp:66-67)."""
+    """Dynamic state (the JAX package's SimState): positions and velocities
+    (src/Solver.hpp:66-67), and the contact multipliers carried from one
+    global solve to the next with the active constraint rows of the last one,
+    which gate their warm start (src/UzawaCG.hpp:68-74; kept only where the
+    active set is unchanged). y and prev_active have 2 H entries (H surface
+    vertices), 0 where the scene has no collision object."""
 
     x: torch.Tensor  # [N, 3]
     v: torch.Tensor  # [N, 3]
+    y: torch.Tensor  # [2 H] multipliers: passive rows, then dynamic rows
+    prev_active: torch.Tensor  # bool [2 H]
+
+    def clone(self) -> "SimState":
+        return SimState(x=self.x.clone(), v=self.v.clone(), y=self.y.clone(),
+                        prev_active=self.prev_active.clone())
 
 
 def Dx(system: System, x):

@@ -38,8 +38,15 @@ failure:
    each PCG path's first solve and on crossval's small scenes in every
    operator form (pcg_checks: float64 in the same trips within 1e-10, float32
    within PCG_F32_TOL; the bunny under the bounds its conditioning allows),
-   twice bitwise, and captured into a CUDA graph; A, C and E at the PCG
-   paths' shapes (path_shape_cases);
+   twice bitwise, and captured into a CUDA graph; kernel H (the whole
+   Gauss-Seidel solve in one launch) against the plain gs.solve at the GS
+   paths' shapes on a real step's first solve at the golden's landed state,
+   with pins and a Floor, a Sphere beside it, and the sphere scene (h_checks:
+   float64 in the same sweeps within H_F64_TOL, float32 within H_F32_TOL),
+   and G's penalty form against alcg.solve_plain at floor_alpcg67k's shapes
+   with its ~900 floor hits, Jacobi and two-grid (gpen_checks); A, C and E
+   at the PCG paths' shapes and A and C at the 67k contact beam's
+   (path_shape_cases);
 4. the paths, each built through the normal entry points on cuda (float32
    unless named, linsolver=0, 10 ADMM iterations, dt 1/24), Solver.run(n)
    replaying the captured step, in one window with the wrappers' counts set
@@ -82,6 +89,14 @@ failure:
      PCG_STEP_TOL / PCG_DISP_TOL, kernel G launched 80 times beside the local
      step's kernel (and C on the lattices), then each step's CG trips beside
      the JAX package's and the device operations per iteration;
+   - CONTACT_PATHS (contact_path): floor_gs5k (kernel H), floor_uzawa5k
+     (Uzawa, direct inner), floor_uzawa67k (Uzawa around kernel G),
+     floor_alpcg67k (G's penalty form), 20 steps held at steps 1, 12 and 20,
+     and sphere_gs, 40 steps held at 1, 16 and 40, under CONTACT_STEP_TOL /
+     CONTACT_DISP_TOL, the launches of contact_counts (Uzawa's predicated
+     trips launch their applies in every replay), the vertices in contact,
+     no tunnelling, each step's inner iterations beside the JAX package's;
+     then bench.py's contact sanity (bench_contact_sanity);
    then the captured step's invalidation checks on the bench beam (set_pins,
    the setters, admm_iters, gravity, initialize), the frozen state of
    cloth_wind40 after a graph run (frozen_checks: field assignments raise,
@@ -89,14 +104,15 @@ failure:
    tests/test_lineartet.py through the graph;
 5. timing (host_timing, on solvers of its own, runs before phase 4 and
    before any profiler window, so that no profiler state can slow the host):
-   the beam, cloth_limit40, beam_gather and the PCG paths through the graph
-   and through the eager loop in turns, ADMM iterations/s over rollouts of at least 2 s, the
+   the beam, cloth_limit40, beam_gather, the PCG and the contact paths
+   through the graph and through the eager loop in turns, ADMM iterations/s over rollouts of at least 2 s, the
    phases of the beam and cloth steps, and each kernel's time against its
    plain version (CUDA events) beside its bound (and D and F at the
    throughput size beside kernel A's rows entry on the same values, in
    turns, prox_event_times; kernel G per solve on each PCG path's first
    solve by torch.profiler, beside the plain solve_T on the card and
-   torch.sparse.mm times its trips, pcg_times): the larger of the bytes it
+   torch.sparse.mm times its trips, pcg_times; H and G's penalty form per
+   solve the same way, contact_kernel_times): the larger of the bytes it
    must move over 3.35 TB/s and the operations the function needs on the
    same inputs over 67 TFLOP/s (the tet kernels: a count per lane taken from
    the CUDA body times the Newton and line-search trips these inputs take;
@@ -121,7 +137,8 @@ times of phase 6: the short first run of a changed kernel. It prints the GPU
 line but no result line.
 
 The last lines are the GPU line, one JSON line of kernels (a row per TPU
-kernel, and one for kernel G, which replaces the JAX package's jnp CG loop,
+kernel, and one each for kernel G, its penalty form and kernel H, which
+replace the JAX package's jnp loops of PCG, AL-PCG and Gauss-Seidel,
 with the numbers of the entry its path launches: "launches" those of
 the path's replays, counted on the device, and of its eager calls after them,
 "wrapper_calls" the wrapper's count over the path's window; "entries"
@@ -218,8 +235,11 @@ REPLACES = {
     "prox_tet_hyper": (_CSRC + "prox.cu", _PALLAS + "pallas_kernels.py:141"),
     "local_step_tri": (_CSRC + "tri_local_step.cu", _PALLAS + "pallas_kernels.py:286"),
     "prox_tet_linear": (_CSRC + "prox.cu", _PALLAS + "pallas_kernels.py:322"),
-    # kernel G has no Pallas original: it replaces the JAX package's jnp loop
+    # kernels G, its penalty form and H have no Pallas original: each replaces
+    # a jnp loop of the JAX package
     "pcg_solve": (_CSRC + "pcg.cu", "admm_elastic_tpu/solvers/pcg.py:304 solve_T (jnp)"),
+    "pcg_solve_penalty": (_CSRC + "pcg.cu", "admm_elastic_tpu/solvers/alcg.py:73 solve (jnp)"),
+    "gs_solve": (_CSRC + "gs.cu", "admm_elastic_tpu/solvers/gs.py:147 solve (jnp)"),
 }
 # The entry of each kernel that an ADMM step launches, where that is not the
 # wrapper the kernel is named after: the local steps' stencil entries, in
@@ -394,19 +414,122 @@ def pcg_scene(name, api):
     return solver, np.asarray(pins, dtype=np.int64)
 
 
+# The contact scenes: an unpinned soft-rubber beam dropped on a Floor(y=-1)
+# (its bottom face starts at y = 0 and reaches the floor after about 11 steps
+# of free fall), or crossval's Sphere; float32 unless named, 10 ADMM
+# iterations, dt 1/24, gravity -9.8, direct_mode "inv": golden file suffix ->
+# scene. The first five are the paths this script drives at full size
+# (CONTACT_PATHS), built as benchmarks/matrix.py's _beam_solver builds them
+# (:28-51: uzawa_max_iters 10, uzawa_inner_tol 1e-5, uzawa_inner_iters 60,
+# PCG ("jacobi", 40, 1e-6) unless named): beam-floor-gs-5k (:246, the 40x5x5
+# neo-Hookean bench beam, Gauss-Seidel), beam-floor-uzawa-5k (:247, Uzawa, its
+# direct inner: 1,476 vertices <= uzawa_dense_max_verts), beam-floor-uzawa-67k
+# (:248, the 60x15x15 linear beam, 15,616 vertices: Uzawa around a two-grid
+# PCG inner), beam-floor-alpcg-67k (:250-252, the same beam, AL-PCG, Jacobi,
+# 120 trips, tol 1e-6), and crossval's sphere_obstacle_gs (benchmarks/
+# crossval.py:122-131 = tests/test_contact.py:384-407: the 4x2x2 linear beam
+# moved by (-2, 2, -1) onto a Sphere of radius 10 at (0, -10, 0), Gauss-Seidel,
+# crossval's settings), the only Sphere scene the JAX package has, at its own
+# size. The rest are crossval's small contact scenes (:39-41, :102-111: the
+# 6x3x3 linear beam on the floor, crossval's settings) for the CPU tests, in
+# float32 and float64, with Uzawa's PCG inner and AL-PCG's two-grid form
+# beside them. "steps" are the steps a rollout runs and "compare" the steps
+# held to the golden.
+CONTACT_SCENES = {
+    "floor_gs5k": dict(dims=(40, 5, 5), model=NH, ls=1, matrix=True),
+    "floor_uzawa5k": dict(dims=(40, 5, 5), model=NH, ls=2, matrix=True),
+    "floor_uzawa67k": dict(dims=(60, 15, 15), model="linear", ls=2, matrix=True),
+    "floor_alpcg67k": dict(dims=(60, 15, 15), model="linear", ls=4, matrix=True,
+                           settings=dict(pcg_max_iters=120)),
+    "sphere_gs": dict(dims=(4, 2, 2), model="linear", ls=1, sphere=True, steps=40,
+                      compare=(1, 16, 40)),
+    "contact_gs": dict(dims=(6, 3, 3), model="linear", ls=1),
+    "contact_uzawa": dict(dims=(6, 3, 3), model="linear", ls=2),
+    "contact_uzawa_pcg": dict(dims=(6, 3, 3), model="linear", ls=2,
+                              settings=dict(uzawa_inner="pcg", pcg_precond="twogrid")),
+    "contact_alpcg": dict(dims=(6, 3, 3), model="linear", ls=4),
+    "contact_alpcg_twogrid": dict(dims=(6, 3, 3), model="linear", ls=4,
+                                  settings=dict(pcg_precond="twogrid")),
+    "contact_gs_f64": dict(dims=(6, 3, 3), model="linear", ls=1, dtype=np.float64),
+    "contact_uzawa_f64": dict(dims=(6, 3, 3), model="linear", ls=2, dtype=np.float64),
+    "contact_uzawa_pcg_f64": dict(dims=(6, 3, 3), model="linear", ls=2, dtype=np.float64,
+                                  settings=dict(uzawa_inner="pcg", pcg_precond="twogrid")),
+    "contact_alpcg_f64": dict(dims=(6, 3, 3), model="linear", ls=4, dtype=np.float64),
+    "contact_alpcg_twogrid_f64": dict(dims=(6, 3, 3), model="linear", ls=4,
+                                      dtype=np.float64, settings=dict(pcg_precond="twogrid")),
+    "sphere_gs_f64": dict(dims=(4, 2, 2), model="linear", ls=1, sphere=True, steps=20,
+                          compare=(1, 16, 20), dtype=np.float64),
+}
+CONTACT_PATHS = ("floor_gs5k", "floor_uzawa5k", "floor_uzawa67k", "floor_alpcg67k",
+                 "sphere_gs")
+CONTACT_STEPS = 20  # bench.py:51-64: the floor is reached after about 11
+CONTACT_COMPARE = (1, 12, 20)  # just after landing, and at rest
+SMALL_CONTACT_STEPS, SMALL_CONTACT_COMPARE = 14, (1, 12, 14)
+SPHERE_CENTER, SPHERE_RAD = (0.0, -10.0, 0.0), 10.0
+CONTACT_EPS = 1e-3  # a vertex within this of an obstacle (or in it) is in contact
+
+
+def contact_steps(name):
+    """(steps run, steps compared) of a contact scene."""
+    p = CONTACT_SCENES[name]
+    if "steps" in p:
+        return p["steps"], p["compare"]
+    if p["dims"] == (6, 3, 3):
+        return SMALL_CONTACT_STEPS, SMALL_CONTACT_COMPARE
+    return CONTACT_STEPS, CONTACT_COMPARE
+
+
+def contact_scene(name, api):
+    """One of CONTACT_SCENES built through the normal entry points of a
+    package whose API the namespace `api` holds (as pcg_scene, and Floor,
+    Sphere, make_xform, asarray: the package's array constructor): returns
+    the initialized solver."""
+    p = CONTACT_SCENES[name]
+    solver = api.Solver()
+    mesh = api.make_tet_blocks(*p["dims"])
+    if p.get("sphere"):
+        mesh.apply_xform(api.make_xform(trans=(-2.0, 2.0, -1.0)))
+    mesh.flags = api.binding.NOSELFCOLLISION | getattr(api.binding, BEAM_FLAGS[p["model"]])
+    api.binding.add_tetmesh(solver, mesh, api.Lame.soft_rubber(), verbose=False)
+    if p.get("sphere"):
+        solver.add_obstacle(api.Sphere(center=api.asarray(list(SPHERE_CENTER)),
+                                       rad=api.asarray(SPHERE_RAD)))
+    else:
+        solver.add_obstacle(api.Floor(y=api.asarray(-1.0)))
+    kw = dict(verbose=0, admm_iters=10, linsolver=p["ls"], gravity=-9.8,
+              timestep_s=1.0 / 24.0, dtype=p.get("dtype", np.float32), direct_mode="inv")
+    if p.get("matrix"):
+        kw.update(pcg_precond="jacobi", pcg_max_iters=40, pcg_tol=1e-6, uzawa_max_iters=10,
+                  uzawa_inner_tol=1e-5, uzawa_inner_iters=60)
+    kw.update(p.get("settings", {}))
+    need(solver.initialize(api.Settings(**kw)), f"{name}: initialize failed")
+    return solver
+
+
+def contacts(name, x):
+    """The vertices within CONTACT_EPS of the scene's obstacle, or in it."""
+    if CONTACT_SCENES[name].get("sphere"):
+        d = np.linalg.norm(x - np.asarray(SPHERE_CENTER), axis=1) - SPHERE_RAD
+    else:
+        d = x[:, 1] + 1.0
+    return int(np.sum(d <= CONTACT_EPS))
+
+
 def torch_api(device=None):
-    """pcg_scene's namespace for this package, its solvers on `device` (the
-    card unless named)."""
+    """pcg_scene's and contact_scene's namespace for this package, its solvers
+    on `device` (the card unless named)."""
     import types
 
-    from admm_elastic_tpu_torch import Lame, Settings, Solver, binding
-    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks, make_tet_torus
+    from admm_elastic_tpu_torch import Floor, Lame, Settings, Solver, Sphere, binding
+    from admm_elastic_tpu_torch.geometry.factory import (make_tet_blocks, make_tet_torus,
+                                                          make_xform)
     from admm_elastic_tpu_torch.geometry.io import load_elenode
 
     return types.SimpleNamespace(
         Solver=lambda: Solver(device=device or DEVICE), Settings=Settings, Lame=Lame,
         binding=binding, make_tet_blocks=make_tet_blocks, make_tet_torus=make_tet_torus,
-        load_elenode=load_elenode)
+        load_elenode=load_elenode, Floor=Floor, Sphere=Sphere, make_xform=make_xform,
+        asarray=lambda v: np.asarray(v, dtype=np.float64))
 
 
 class SmokeFailure(Exception):
@@ -1487,15 +1610,88 @@ def pcg_checks(torch):
                 f"{res['f32']['trips']} trips (plain {res['f32']['plain_trips']}), f64 "
                 f"{res['f64']['rel_err']:.3e} in {res['f64']['trips']} trips")
             if not every_form:
-                timing[name] = dict(solver=solver, b=b, x0=x0, data=d32,
-                                    trips=res["f32"]["trips"], max_abs_err=res["f32"][
-                                        "max_abs_err"])
+                timing[name] = dict(solver=solver, b=b, x0=x0, data=d32, tol=s.pcg_tol,
+                                    max_iters=s.pcg_max_iters, trips=res["f32"]["trips"],
+                                    max_abs_err=res["f32"]["max_abs_err"])
     return out, timing
 
 
-def g_device_us(torch, fn, reps):
-    """Device time per launch of kernel G by fn() (torch.profiler), after a
-    warm-up; a window with events missing is taken again, three at most."""
+def uzawa_inner_checks(torch):
+    """Kernel G as Uzawa's inner solve on floor_uzawa67k (15,616 vertices,
+    two-grid, uzawa_inner_tol 1e-5, uzawa_inner_iters 60; the unpenalized
+    instantiation, which pcg_checks' paths do not reach at this size) against
+    the plain solve_T on two solves of a real step at the golden's landed
+    state: the first inner solve (y = 0, so the right-hand side is b and the
+    guess x_bar) and the first Schur direction's (C^T r from 0, r the active
+    rows' residual after the first). Each in float32 (the first also captured
+    and replayed bitwise) and in the same system's float64 operator on the
+    same inputs widened (equal trips, 1e-10). Then the predicated trip in both
+    precisions: with done set G returns x0 bitwise and adds no trip; with done
+    unset it returns what it returns without the flag, in as many trips.
+    Returns the results and what the timing needs, each keyed by the path's
+    name for the first solve and by "<name> schur" for the other."""
+    from admm_elastic_tpu_torch.collision import constraints as con
+    from admm_elastic_tpu_torch.ops import cuda_pcg
+    from admm_elastic_tpu_torch.solvers import pcg
+
+    name = "floor_uzawa67k"
+    solver = landed_solver(torch, name)
+    s, c = solver.m_settings, solver._contact
+    d32 = solver._solve_data
+    need(isinstance(d32, pcg.PCGData) and d32.agg is not None,
+         f"{name}: Uzawa's inner solve is not two-grid PCG")
+    tol, iters = s.uzawa_inner_tol, s.uzawa_inner_iters
+    d64 = pcg.prepare(solver.system, torch.float64, precond="twogrid")
+    b, x0 = first_solve(torch, solver)
+    # the first Schur direction's right-hand side, as solvers/uzawa.solve forms it
+    hits = solver._detect(x0)
+    h, n = hits.capacity, x0.shape[0]
+    active = torch.cat([hits.p_mask, hits.d_mask])
+    need(bool(active.any()), f"{name}: no active row at the landed state")
+    xa = cuda_pcg.pcg_solve(d32, b, x0, tol, iters, None)
+    r = torch.where(active, torch.cat(con.C_apply(hits, c.ck, xa))
+                    - torch.cat(con.C_rhs(hits, c.ck)), 0.0)
+    rhs = con.Ct_apply(hits, c.ck, r[:h], r[h:], n)
+    out, timing = {}, {}
+    for case, bb, xx in (("first", b, x0), ("schur", rhs, torch.zeros_like(rhs))):
+        label = name if case == "first" else f"{name} {case}"
+        res = dict(active_rows=int(active.sum().item()))
+        x32, res["f32"] = g_against_plain(torch, label, d32, bb, xx, tol, iters, "f32",
+                                          graph=case == "first" and DEVICE == "cuda")
+        x64, res["f64"] = g_against_plain(torch, label, d64, bb.double(), xx.double(), tol,
+                                          iters, "f64")
+        if case == "first":
+            for tag, data, bt, xt, want in (("f32", d32, bb, xx, x32),
+                                            ("f64", d64, bb.double(), xx.double(), x64)):
+                for flag in (True, False):
+                    t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+                    x = cuda_pcg.pcg_solve(data, bt, xt, tol, iters, t,
+                                           done=torch.tensor(flag, device=DEVICE))
+                    k = int(t.item())
+                    if flag:
+                        need(bool(torch.equal(x, xt)) and k == 0,
+                             f"G {label} {tag}: with done set, {k} trips and x is not x0")
+                    else:
+                        need(bool(torch.equal(x, want)) and k == res[tag]["trips"],
+                             f"G {label} {tag}: with done unset, {k} trips and x differs "
+                             "from the solve without the flag")
+                res[tag]["done_set_returns_x0"] = res[tag]["done_unset_bitwise"] = True
+        out[label] = res
+        log(f"G {label} (Uzawa's inner, two-grid, coarse {d32.coarse_inv.shape[0]}, "
+            f"{res['active_rows']} active rows): f32 {res['f32']['rel_err']:.3e} in "
+            f"{res['f32']['trips']} trips (plain {res['f32']['plain_trips']}), f64 "
+            f"{res['f64']['rel_err']:.3e} in {res['f64']['trips']} trips (plain "
+            f"{res['f64']['plain_trips']})" + ("; done set: x0, no trip; done unset: bitwise "
+                                             "the unflagged solve" if case == "first" else ""))
+        timing[label] = dict(solver=solver, b=bb, x0=xx, data=d32, tol=tol, max_iters=iters,
+                             trips=res["f32"]["trips"], max_abs_err=res["f32"]["max_abs_err"])
+    return out, timing
+
+
+def g_device_us(torch, fn, reps, kernel="pcg_kernel"):
+    """Device time per launch of kernel G (or the kernel named) by fn()
+    (torch.profiler), after a warm-up; a window with events missing is taken
+    again, three at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1507,7 +1703,7 @@ def g_device_us(torch, fn, reps):
                 fn()
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and "pcg_kernel" in e.name]
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
         if len(us) >= reps:
             return sum(us) / len(us)
     raise SmokeFailure(f"profiler saw {len(us)} of {reps} launches, three times")
@@ -1516,22 +1712,22 @@ def g_device_us(torch, fn, reps):
 def pcg_times(torch, timing, gpu):
     """Kernel G's time per solve on each path's first solve (CUDA events) with
     its trips, beside the plain solve_T on the card, a library SpMV
-    (torch.sparse.mm on A as CSR) times the trips, and G's bound (pcg_bytes_ops)."""
+    (torch.sparse.mm on A as CSR) times the trips, and G's bound
+    (pcg_bytes_ops); each at the tolerance and trip limit of its path's
+    solve."""
     from admm_elastic_tpu_torch.ops import cuda_pcg
     from admm_elastic_tpu_torch.solvers import pcg
 
     out = {}
     for name, t in timing.items():
-        s = t["solver"].m_settings
-        data, b, x0 = t["data"], t["b"], t["x0"]
+        data, b, x0, tol, iters = (t[k] for k in ("data", "b", "x0", "tol", "max_iters"))
         trips = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
 
         def kern():
-            return cuda_pcg.pcg_solve(data, b, x0, s.pcg_tol, s.pcg_max_iters, trips)
+            return cuda_pcg.pcg_solve(data, b, x0, tol, iters, trips)
 
         def plain():
-            return pcg.solve_T(data.apply_T, data.precondition_T(), b, x0, s.pcg_tol,
-                               s.pcg_max_iters)
+            return pcg.solve_T(data.apply_T, data.precondition_T(), b, x0, tol, iters)
 
         a = csr_of(torch, t["solver"], b.dtype)
         p1, k1, k2, p2 = (events_ms(torch, plain, 2), events_ms(torch, kern, 20),
@@ -1559,10 +1755,11 @@ def pcg_times(torch, timing, gpu):
 
 
 def _wrappers():
-    from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_pcg, cuda_prox, cuda_stencil,
-                                            cuda_tri_local_step)
+    from admm_elastic_tpu_torch.ops import (cuda_gs, cuda_local_step, cuda_pcg, cuda_prox,
+                                            cuda_stencil, cuda_tri_local_step)
 
-    return dict(pcg_solve=cuda_pcg.pcg_solve,
+    return dict(pcg_solve=cuda_pcg.pcg_solve, pcg_solve_penalty=cuda_pcg.pcg_solve_penalty,
+                gs_solve=cuda_gs.gs_solve,
                 local_step_tet_hyper=cuda_local_step.local_step_tet_hyper,
                 local_step_tet_stencil=cuda_local_step.local_step_tet_stencil,
                 tet_Dx_rows=cuda_stencil.tet_Dx_rows, tet_rhs_rows=cuda_stencil.tet_rhs_rows,
@@ -1591,7 +1788,8 @@ def read_counts(model=None):
 # template arguments.
 _KERNEL_SYMBOL = re.compile(
     r"\b(tet_prox_kernel|tet_local_step_stencil_kernel|tet_dx_kernel|tet_rhs_tiled_kernel|"
-    r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel|pcg_kernel)"
+    r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel|pcg_kernel|"
+    r"gs_kernel)"
     r"<([^>]*)>")
 
 
@@ -1606,8 +1804,10 @@ def wrapper_of_symbol(symbol):
     kernel, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
     if kernel.startswith("tet_rhs"):
         return "tet_rhs_rows"
+    if kernel == "pcg_kernel":  # <T, PEN>: the penalty form where PEN
+        return "pcg_solve_penalty" if args[1] == "true" else "pcg_solve"
     plain = dict(tet_dx_kernel="tet_Dx_rows", tri_local_step_kernel="local_step_tri",
-                 tri_local_step_stencil_kernel="local_step_tri_stencil", pcg_kernel="pcg_solve")
+                 tri_local_step_stencil_kernel="local_step_tri_stencil", gs_kernel="gs_solve")
     if kernel in plain:
         return plain[kernel]
     model = {i: name for name, i in MODEL_IDS.items()}[int(args[1])]
@@ -1703,9 +1903,8 @@ def graph_vs_eager(torch, label, solver, state0, n_steps, x_graph):
     """The captured step against the eager loop (Solver._run_eager) over
     n_steps from state0: bitwise equal, or within GRAPH_EAGER_TOL of max |x|.
     Leaves the eager state in the solver."""
-    from admm_elastic_tpu_torch.system.system import SimState
 
-    solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
+    solver.state = state0.clone()
     solver._run_eager(n_steps)
     x_eager = solver.state.x
     bitwise = bool(torch.equal(x_eager, x_graph))
@@ -1731,21 +1930,26 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
     first and the last step against the golden (and, for a renumbered sheet,
     mapped back by the golden's perm against the grid sheet's golden `grid`);
     the pins; that the rollout repeats bitwise and that the eager loop gives
-    what the graph gives."""
+    what the graph gives. Where the golden compares more than two steps (the
+    contact paths), each of them is held, the first under tols[0] and the
+    rest under tols[1]."""
     from admm_elastic_tpu_torch.ops import stencil as st
-    from admm_elastic_tpu_torch.system.system import SimState
 
-    first, last = (int(k) for k in g["steps"])
+    compared = [int(k) for k in g["steps"]]
+    first, last = compared[0], compared[-1]
     x0 = solver.x
-    state0 = SimState(x=solver.state.x.clone(), v=solver.state.v.clone())
+    state0 = solver.state.clone()
     on_card = solver.device.type == "cuda"
     step_counts = step_counts or {}
     xs = {}
 
     def steps():
-        solver.run(first)
-        xs[first] = solver.x
-        solver.run(last - first)
+        done = 0
+        for k in compared:
+            solver.run(k - done)
+            done = k
+            if k != last:
+                xs[k] = solver.x
 
     with count_calls(st, "tri_Dx_rows") as plain_dx:
         reset_counts()
@@ -1754,7 +1958,7 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
         captured = read_counts(model)
 
         def restore():
-            solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
+            solver.state = state0.clone()
 
         by_steps = counted_window(torch, label, steps, {k: v for k, v in step_counts.items()
                                                         if k != "tri_Dx_rows"}, restore, model)
@@ -1768,8 +1972,9 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
              f"{label}: tri_Dx_rows called {plain_dx.calls} times by the steps")
         for k in set(by_steps) | {k for k, v in captured.items() if v}:
             n = by_steps.get(k, 0)
-            need(captured.get(k, 0) == 2 * n // last,
-                 f"{label}: {k}: {captured.get(k, 0)} wrapper calls in the warm-up step and the "
+            c = captured.get(k, 0)
+            need(c == 2 * n // last,
+                 f"{label}: {k}: {c} wrapper calls in the warm-up step and the "
                  f"capture, {n} launches in {last} replays")
     launches = {k: by_steps.get(k, 0) + after.get(k, 0) for k in set(by_steps) | set(after)}
     log(f"{label} launches " + json.dumps(launches) + "; by the replays, on the device "
@@ -1777,20 +1982,23 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
     for k in kernels:
         need(calls.get(k, 0) > 0 and launches.get(k, 0) > 0,
              f"{label}: kernel {k}: {calls.get(k, 0)} wrapper calls, {launches.get(k, 0)} launches")
-    x_first, x_last = xs[first], x_last_t.cpu().numpy()
+    xs[last] = x_last_t.cpu().numpy()
+    x_first, x_last = xs[first], xs[last]
 
     errs, disp = {}, {}
-    for step, x in ((first, x_first), (last, x_last)):
-        ref = g[f"x{step}"]
+    for step in compared:
+        x, ref = xs[step], g[f"x{step}"]
         need(x.shape == ref.shape and np.isfinite(x).all(), f"{label} step {step}: bad state")
         errs[step] = rel_err(x, ref)
         disp[step], disp_tol = disp_err(x, g, step)
     step1_tol, step8_tol = tols or (STEP1_TOL, STEP8_TOL)
     disp_tol = disp_bound or disp_tol
-    log(f"{label} vs JAX golden: step {first} {errs[first]:.3e} (bound {step1_tol}), "
-        f"step {last} {errs[last]:.3e} (bound {step8_tol}), displacement {disp[first]:.3e}, "
-        f"{disp[last]:.3e} (bound {disp_tol})")
-    need(errs[first] < step1_tol and errs[last] < step8_tol and max(disp.values()) < disp_tol,
+    log(f"{label} vs JAX golden: " + ", ".join(
+        f"step {k} {errs[k]:.3e} (bound {step1_tol if k == first else step8_tol})"
+        for k in compared) + ", displacement " + ", ".join(f"{disp[k]:.3e}" for k in compared)
+        + f" (bound {disp_tol})")
+    need(errs[first] < step1_tol and all(errs[k] < step8_tol for k in compared[1:])
+         and max(disp.values()) < disp_tol,
          f"{label}: trajectory off the golden: {errs}, displacement {disp}")
     to_grid = {}
     if grid is not None:
@@ -1809,7 +2017,7 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
     need(pin_dev < pin_tol, f"{label}: pins not held: {pin_dev} (bound {pin_tol})")
 
     graph = solver._graph
-    solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
+    solver.state = state0.clone()
     solver.run(last)
     need(solver._graph is graph, f"{label}: a new state recaptured the step")
     need(bool(torch.equal(solver.state.x, x_last_t)),
@@ -1817,10 +2025,12 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
     eager = graph_vs_eager(torch, label, solver, state0, last, x_last_t)
     log(f"{label}: graph rollout bitwise repeatable; against the eager loop "
         f"{'bitwise equal' if eager['bitwise'] else 'rel err %.3e' % eager['rel_err']}")
+    drive_path.xs = xs  # x at each compared step, for the caller's own checks
     return x0, x_last, dict(launches=launches, launches_by_steps=by_steps, wrapper_calls=calls,
                             tri_Dx_rows_calls=plain_dx.calls, steps=[first, last],
                             rel_err_step1=errs[first], rel_err_last=errs[last],
                             disp_err_step1=disp[first], disp_err_last=disp[last],
+                            rel_err={str(k): v for k, v in errs.items()},
                             rel_err_to_grid_sheet={str(k): v for k, v in to_grid.items()},
                             pin_dev=pin_dev, bitwise_repeat=True, graph_vs_eager=eager, **extra)
 
@@ -2035,13 +2245,12 @@ def pcg_path(torch, name):
         kernels = [f"local_step_tet_stencil[{NH}]", "tet_rhs_rows", "pcg_solve"]
         counts = {f"local_step_tet_stencil[{NH}]": iters, "tet_rhs_rows": iters,
                   "pcg_solve": iters, "tet_Dx_rows": 0, f"local_step_tet_hyper[{NH}]": 0}
-    from admm_elastic_tpu_torch.system.system import SimState
 
-    state0 = SimState(x=solver.state.x.clone(), v=solver.state.v.clone())
+    state0 = solver.state.clone()
     x0, x8, res = drive_path(torch, name, solver, g, [int(i) for i in pins], kernels,
                              model=model, step_counts=counts, tols=PCG_STEP_TOL[name],
                              disp_bound=PCG_DISP_TOL[name])
-    solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
+    solver.state = state0.clone()
     trips = []
     for _ in range(int(g["steps"][-1])):
         solver.step()
@@ -2061,6 +2270,449 @@ def pcg_path(torch, name):
     elif p["mesh"] == "sheet":
         need(x8[:, 1].min() < -1e-3, f"{name}: the sheet did not sag")
     return solver, res
+
+
+# --- contact: kernel H, kernel G's penalty form, the contact paths -----------
+
+# Kernel H against the plain gs.solve on the same inputs: float64 in the same
+# sweeps within H_F64_TOL of max |x|; float32 sweeps within one and x within
+# H_F32_TOL (a Floor's update is bit for bit the plain one's; a Sphere's
+# norms are summed in another order, and the exit test's sums of squares
+# differ by rounding: one sweep more or less moves x by its last update).
+H_F64_TOL = 1e-10
+H_F32_TOL = 1e-4
+# Kernel G's penalty form against alcg.solve_plain: float64 in the same trips
+# within PCG_F64_TOL, float32 trips within one and x within PCG_F32_TOL.
+GPEN_F32_TRIPS = 1
+# The contact paths' golden bounds (the first compared step, the later ones)
+# on x relative to max |x|, and on the displacement: three to ten times the
+# larger gap of two readings at full size, the port's plain path on the CPU
+# (tests/contact_fault_control.py, which also plants faults that they catch)
+# and this script on an NVIDIA H100 (PERF.md). x, the worse later step:
+# floor_gs5k 1.5e-5 (CPU) / 6.5e-6 (card), floor_uzawa5k 1.6e-3 / 1.6e-3,
+# floor_uzawa67k 2.3e-3 (card; its CPU run takes too long to repeat),
+# floor_alpcg67k 3.1e-6 / 2.9e-6, sphere_gs 2.1e-4 / 3.1e-4; the
+# displacement: 9.4e-3 (step 1), 5.6e-2 / 5.7e-2, 0.108, 1.8e-4 / 1.7e-4,
+# 4.3e-4 / 3.1e-4. Uzawa's Schur CG meets uzawa_max_iters on the landing
+# beam, and its unconverged iterate carries each sum order into the contact
+# forces: its bounds catch tunnelling, not a centimetre (PERF.md).
+CONTACT_STEP_TOL = {"floor_gs5k": (1e-4, 1e-4), "floor_uzawa5k": (1e-4, 1e-2),
+                    "floor_uzawa67k": (1e-4, 1e-2), "floor_alpcg67k": (1e-4, 3e-5),
+                    "sphere_gs": (1e-4, 1e-3)}
+CONTACT_DISP_TOL = {"floor_gs5k": 0.05, "floor_uzawa5k": 0.2, "floor_uzawa67k": 0.35,
+                    "floor_alpcg67k": 1e-3, "sphere_gs": 2e-3}
+LANDING_STEP = 12  # the first compared step after the floor is reached
+
+
+def landed_solver(torch, name):
+    """The path's solver (float32, on the card) in the golden's landed state
+    (x at LANDING_STEP, or the sphere's step 16; v = 0): its next step pushes
+    the bottom face into the obstacle."""
+    import dataclasses
+
+    solver = contact_scene(name, torch_api())
+    g = golden(name)
+    step = [int(k) for k in g["steps"]][1]
+    x = torch.as_tensor(g[f"x{step}"], device=DEVICE, dtype=torch.float32)
+    solver.state = dataclasses.replace(solver.state, x=x, v=torch.zeros_like(x))
+    return solver
+
+
+def gs_data64(torch, solver):
+    """The GSData of the solver's system in float64 (A assembled in float64
+    from the same element batches)."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.system import assembly
+
+    cols, vals, diag = assembly.assemble_ell(solver.system, dtype=np.float64)
+    d = solver._solve_data
+    return dataclasses.replace(d, ell_vals=torch.as_tensor(vals, device=DEVICE),
+                               diag=torch.as_tensor(diag, device=DEVICE))
+
+
+def h_against_plain(torch, label, data, b, x0, pin_mask, pin_target, obstacles, s, dtype_name,
+                    graph=False):
+    """Kernel H against the plain gs.solve on the same inputs (H_F64_TOL,
+    H_F32_TOL), twice bitwise; with graph, captured and replayed bitwise."""
+    from admm_elastic_tpu_torch.ops import cuda_gs
+    from admm_elastic_tpu_torch.solvers import gs
+
+    dtype = b.dtype
+    obs = [o.to(DEVICE, dtype) for o in obstacles]
+    params = cuda_gs.obstacle_params(obs)  # a host read: before the capture
+    sweeps = [torch.zeros((1,), dtype=torch.int32, device=DEVICE) for _ in range(2)]
+    args = (b, x0, pin_mask, pin_target, obs, s.gs_omega, s.gs_max_iters, s.gs_tol)
+    xh = cuda_gs.gs_solve(data, *args, sweeps[0], params=params)
+    xh2 = cuda_gs.gs_solve(data, *args, sweeps[1], params=params)
+    need(bool(torch.isfinite(xh).all()), f"H {label} {dtype_name}: non-finite x")
+    kh = int(sweeps[0].item())
+    need(bool(torch.equal(xh, xh2)) and kh == int(sweeps[1].item()),
+         f"H {label} {dtype_name}: two runs differ")
+    xp, kp = gs.solve(data.ell_cols, data.ell_vals, data.diag, data.colors, data.colors_mask, b,
+                      x0, pin_mask, pin_target, obs, None, None, s.gs_omega, s.gs_max_iters,
+                      s.gs_tol, may_have_dyn=False)
+    err = rel_err(xh.double().cpu().numpy(), xp.double().cpu().numpy())
+    out = dict(rel_err=err, sweeps=kh, plain_sweeps=kp, n=int(b.shape[0]),
+               bitwise=bool(torch.equal(xh, xp)), max_abs_err=float((xh - xp).abs().max()),
+               colors=int(data.colors.shape[0]), width=int(data.colors.shape[1]))
+    if dtype_name == "f64":
+        need(err <= H_F64_TOL and kh == kp, f"H {label} f64: {out} (bound {H_F64_TOL})")
+    else:
+        need(err <= H_F32_TOL and abs(kh - kp) <= 1, f"H {label} f32: {out} (bound {H_F32_TOL})")
+    if graph:
+        t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g):
+                t.zero_()
+                xc = cuda_gs.gs_solve(data, *args, t, params=params)
+        except Exception as e:
+            raise SmokeFailure(f"H {label}: capturing it into a CUDA graph failed: {e}")
+        g.replay()
+        torch.cuda.synchronize()
+        need(bool(torch.equal(xc, xh)) and int(t.item()) == kh,
+             f"H {label}: the graph replay differs from the eager launch")
+        out["graph_replay_bitwise"] = True
+    return out
+
+
+def h_checks(torch):
+    """Kernel H on the card against the plain gs.solve at the GS paths'
+    shapes, on a real step's first solve (b and x_bar from the local step at
+    the golden's landed state: the bottom face pushed into the obstacle): the
+    floor_gs5k beam with its -x face pinned in the dense pin arrays (targets
+    5 mm off), float32 and the same inputs widened to float64; the same with a
+    Sphere beside the Floor whose top meets the floor plane under the beam
+    (both hit: the first of least distance wins); and sphere_gs. Returns the
+    results and, per path, what the timing needs."""
+    from admm_elastic_tpu_torch import Floor, Sphere
+
+    out, timing = {}, {}
+    for name in ("floor_gs5k", "sphere_gs"):
+        solver = landed_solver(torch, name)
+        s = solver.m_settings
+        b, x0 = first_solve(torch, solver)
+        n = x0.shape[0]
+        pin_mask = torch.zeros((n,), dtype=torch.bool, device=DEVICE)
+        pin_target = torch.zeros_like(x0)
+        if name == "floor_gs5k":
+            face = np.where(golden(name)["x0"][:, 0] < 1e-9)[0]
+            pin_mask[torch.as_tensor(face, device=DEVICE)] = True
+            pin_target[pin_mask] = x0[pin_mask] + 0.005
+        cases = [(name, list(solver.obstacles))]
+        if name == "floor_gs5k":
+            cases.append((f"{name} sphere+floor", [Sphere(center=[20.0, -11.0, 2.5], rad=10.0),
+                                                   Floor(y=-1.0)]))
+        d64 = gs_data64(torch, solver)
+        for label, obstacles in cases:
+            res = {}
+            res["f32"] = h_against_plain(torch, label, solver._solve_data, b, x0, pin_mask,
+                                         pin_target, obstacles, s, "f32",
+                                         graph=(label == name == "floor_gs5k"
+                                                and DEVICE == "cuda"))
+            res["f64"] = h_against_plain(torch, label, d64, b.double(), x0.double(), pin_mask,
+                                         pin_target.double(), obstacles, s, "f64")
+            out[label] = res
+            log(f"H {label} ({res['f32']['colors']} colours of at most {res['f32']['width']}): "
+                f"f32 {res['f32']['rel_err']:.3e} in {res['f32']['sweeps']} sweeps (plain "
+                f"{res['f32']['plain_sweeps']}, bitwise {res['f32']['bitwise']}), f64 "
+                f"{res['f64']['rel_err']:.3e} in {res['f64']['sweeps']} sweeps")
+        timing[name] = dict(solver=solver, b=b, x0=x0, pin_mask=pin_mask, pin_target=pin_target,
+                            sweeps=out[name]["f32"]["sweeps"],
+                            max_abs_err=out[name]["f32"]["max_abs_err"])
+    return out, timing
+
+
+def gpen_inputs(torch, solver, dtype):
+    """(hits, ck, b, x0, y) of the solver's next first global solve in dtype:
+    the passive hits at x_bar (a float64 run detects on x_bar widened)."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.collision import constraints as con
+    from admm_elastic_tpu_torch.collision.passive import detect_passive
+
+    b, x0 = first_solve(torch, solver)
+    b, x0 = b.to(dtype), x0.to(dtype)
+    c = solver._contact
+    obs = [o.to(DEVICE, dtype) for o in solver.obstacles]
+    _, point, normal, mask, _ = detect_passive(obs, x0)
+    hits = dataclasses.replace(con.empty_hits(c.surf, dtype, dense=c.dense, may_dyn=False),
+                               p_mask=mask, p_normal=normal, p_point=point)
+    y = torch.zeros((2 * hits.capacity,), dtype=dtype, device=DEVICE)
+    return hits, c.ck.to(dtype), b, x0, y
+
+
+def gpen_against_plain(torch, label, data, hits, ck, b, x0, y, s, dtype_name, graph=False):
+    """Kernel G's penalty form (alcg.solve on the card) against the plain
+    alcg.solve_plain on the same inputs; twice bitwise; with graph, captured
+    and replayed bitwise."""
+    from admm_elastic_tpu_torch.solvers import alcg
+
+    trips = [torch.zeros((1,), dtype=torch.int32, device=DEVICE) for _ in range(2)]
+    xg, yg = alcg.solve(data, hits, ck, b, x0, y, s.pcg_tol, s.pcg_max_iters, trips[0])
+    xg2, _ = alcg.solve(data, hits, ck, b, x0, y, s.pcg_tol, s.pcg_max_iters, trips[1])
+    kg = int(trips[0].item())
+    need(bool(torch.isfinite(xg).all()), f"G penalty {label} {dtype_name}: non-finite x")
+    need(bool(torch.equal(xg, xg2)) and kg == int(trips[1].item()),
+         f"G penalty {label} {dtype_name}: two runs differ")
+    xp, yp, kp = alcg.solve_plain(data, hits, ck, b, x0, y, s.pcg_tol, s.pcg_max_iters)
+    err = rel_err(xg.double().cpu().numpy(), xp.double().cpu().numpy())
+    out = dict(rel_err=err, trips=kg, plain_trips=kp, n=data.n,
+               hits=int(hits.p_mask.sum().item()), max_abs_err=float((xg - xp).abs().max()),
+               y_rel_err=rel_err(yg.double().cpu().numpy(), yp.double().cpu().numpy()))
+    if dtype_name == "f64":
+        need(err <= PCG_F64_TOL and kg == kp, f"G penalty {label} f64: {out}")
+    else:
+        need(err <= PCG_F32_TOL and abs(kg - kp) <= GPEN_F32_TRIPS,
+             f"G penalty {label} f32: {out}")
+    if graph:
+        t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g):
+                t.zero_()
+                xc, _ = alcg.solve(data, hits, ck, b, x0, y, s.pcg_tol, s.pcg_max_iters, t)
+        except Exception as e:
+            raise SmokeFailure(f"G penalty {label}: capturing it failed: {e}")
+        g.replay()
+        torch.cuda.synchronize()
+        need(bool(torch.equal(xc, xg)) and int(t.item()) == kg,
+             f"G penalty {label}: the graph replay differs from the eager launch")
+        out["graph_replay_bitwise"] = True
+    return out
+
+
+def gpen_checks(torch):
+    """Kernel G's penalty form on the card against alcg.solve_plain at
+    floor_alpcg67k's shapes (15,616 vertices) on a real step's first solve at
+    the golden's landed state (some 900 floor hits): the path's Jacobi form
+    (the dense surface: the JAX package's solve_T form) and a two-grid form
+    of the same system (the JAX package's general form, with C^T C), each in
+    float32 and widened to float64; the unpenalized G on Uzawa's inner solve
+    (floor_uzawa67k) is held by uzawa_inner_checks. Returns the results and
+    what the timing needs."""
+    from admm_elastic_tpu_torch.solvers import pcg
+
+    out = {}
+    solver = landed_solver(torch, "floor_alpcg67k")
+    s = solver.m_settings
+    timing = {}
+    for pre in ("jacobi", "twogrid"):
+        d32 = (solver._solve_data if pre == s.pcg_precond
+               else pcg.prepare(solver.system, torch.float32, precond=pre))
+        d64 = pcg.prepare(solver.system, torch.float64, precond=pre)
+        res = {}
+        for dtype, tag, data in ((torch.float32, "f32", d32), (torch.float64, "f64", d64)):
+            hits, ck, b, x0, y = gpen_inputs(torch, solver, dtype)
+            res[tag] = gpen_against_plain(torch, f"floor_alpcg67k {pre}", data, hits, ck, b, x0,
+                                          y, s, tag, graph=(tag == "f32" and pre == "jacobi"
+                                                            and DEVICE == "cuda"))
+            if tag == "f32" and pre == s.pcg_precond:
+                timing["floor_alpcg67k"] = dict(solver=solver, data=data, hits=hits, ck=ck, b=b,
+                                                x0=x0, y=y, trips=res[tag]["trips"],
+                                                max_abs_err=res[tag]["max_abs_err"])
+        out[pre] = res
+        log(f"G penalty floor_alpcg67k {pre} ({res['f32']['hits']} hits): f32 "
+            f"{res['f32']['rel_err']:.3e} in {res['f32']['trips']} trips (plain "
+            f"{res['f32']['plain_trips']}), f64 {res['f64']['rel_err']:.3e} in "
+            f"{res['f64']['trips']} trips (plain {res['f64']['plain_trips']})")
+    return out, timing
+
+
+def contact_counts(name, iters):
+    """The launches of each port kernel that a contact path's replays make in
+    `iters` ADMM iterations (0 for one they must not launch), and the
+    kernels that must launch."""
+    p = CONTACT_SCENES[name]
+    model = p["model"]
+    applies = 1 + CONTACT_MAX_UZAWA  # Uzawa: the first A^-1 and every predicated trip's
+    counts = {f"local_step_tet_stencil[{model}]": iters, f"local_step_tet_hyper[{model}]": 0,
+              "gs_solve": 0, "pcg_solve": 0, "pcg_solve_penalty": 0}
+    kernels = [f"local_step_tet_stencil[{model}]", "tet_rhs_rows"]
+    if p["ls"] == 1:
+        counts.update(gs_solve=iters, tet_rhs_rows=iters, tet_Dx_rows=0)
+        kernels.append("gs_solve")
+    elif p["ls"] == 4:
+        counts.update(pcg_solve_penalty=iters, tet_rhs_rows=iters, tet_Dx_rows=0)
+        kernels.append("pcg_solve_penalty")
+    elif p["dims"] == (60, 15, 15):  # Uzawa around kernel G
+        counts.update(pcg_solve=applies * iters, tet_rhs_rows=iters, tet_Dx_rows=0)
+        kernels.append("pcg_solve")
+    else:  # Uzawa around the direct solve: each apply refines once through A_mv (B, C)
+        counts.update(tet_rhs_rows=(1 + applies) * iters, tet_Dx_rows=applies * iters)
+        kernels.append("tet_Dx_rows")
+    return counts, kernels
+
+
+CONTACT_MAX_UZAWA = 10  # uzawa_max_iters of the matrix scenes (benchmarks/matrix.py:47-51)
+
+
+def contact_path(torch, name):
+    """One of CONTACT_PATHS through the normal entry points
+    (chip_smoke.contact_scene), 20 steps (sphere_gs 40) through the captured
+    step against its golden under CONTACT_STEP_TOL / CONTACT_DISP_TOL at
+    steps 1, 12 and 20 (the sphere 1, 16, 40): the launches of contact_counts
+    on the device, the graph bitwise equal to the eager loop; the vertices in
+    contact (> 0 after landing), no tunnelling (min y > -1.1, bench.py:67; the
+    sphere: min distance > 10 - 0.05, tests/test_contact.py:404-406); then each
+    step's inner iterations (step(), the step's device counter) beside the JAX
+    package's, and the device operations per iteration of one replayed step."""
+    p = CONTACT_SCENES[name]
+    solver = contact_scene(name, torch_api())
+    g = golden(name)
+    s = solver.m_settings
+    need(s.linsolver == int(g["linsolver"])
+         and type(solver._solve_data).__name__ == str(g["uzawa_inner"]),
+         f"{name}: the solver's global step differs from the golden's")
+    need(p["ls"] != 2 or s.uzawa_max_iters == CONTACT_MAX_UZAWA, f"{name}: uzawa_max_iters")
+    compared = [int(k) for k in g["steps"]]
+    iters = compared[-1] * s.admm_iters
+    counts, kernels = contact_counts(name, iters)
+    state0 = solver.state.clone()
+    x0, x_last, res = drive_path(torch, name, solver, g, [], kernels, model=p["model"],
+                                 step_counts=counts, tols=CONTACT_STEP_TOL[name],
+                                 disp_bound=CONTACT_DISP_TOL[name])
+    xs = drive_path.xs
+    touching = [contacts(name, xs[k]) for k in compared]
+    need(all(t > 0 for t in touching[1:]), f"{name}: no contact after landing: {touching}")
+    if p.get("sphere"):
+        d = np.linalg.norm(x_last - np.asarray(SPHERE_CENTER), axis=1)
+        need(d.min() > SPHERE_RAD - 0.05, f"{name}: into the sphere: {d.min()}")
+        res["min_distance"] = float(d.min())
+    else:
+        need(min(x[:, 1].min() for x in xs.values()) > -1.1, f"{name}: through the floor")
+    res["min_y"] = float(min(x[:, 1].min() for x in xs.values()))
+    solver.state = state0.clone()
+    inner = []
+    for _ in range(compared[-1]):
+        solver.step()
+        inner.append(solver.runtime_data().inner_iters)
+    # before contact AL-PCG's warm start can leave a solve no trip, as in the
+    # JAX package; from the landing step on every step iterates
+    need(all(k > 0 for k in inner[compared[1] - 1:]),
+         f"{name}: a step after landing took no inner iteration: {inner}")
+    res.update(contacts=touching, jax_contacts=g["contacts"].tolist(),
+               active_rows=int(solver.state.prev_active.sum().item()),
+               inner_per_step=inner, jax_inner_per_step=g["inner"].tolist())
+    res["device"] = device_ops(torch, lambda: solver.run(1), s.admm_iters)
+    log(f"{name}: contacts {touching} (the JAX package's {g['contacts'].tolist()}), inner "
+        f"iterations per step {inner} (the JAX package's {g['inner'].tolist()}); device per "
+        f"iteration {json.dumps(res['device'])}")
+    return solver, res
+
+
+def bench_contact_sanity(torch):
+    """bench.py's contact sanity (bench.py:41-69) on the port, timed: the
+    4x2x2 linear beam on a Floor(y=-1) with linsolver 1, 2 and 4, float32,
+    direct_mode "inv", run(20) (the captured step): finite, not through the
+    floor (min y > -1.1)."""
+    from admm_elastic_tpu_torch import Floor, Lame, Settings, Solver, binding
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+
+    out = {}
+    for ls in (1, 2, 4):
+        t0 = time.perf_counter()
+        mesh = make_tet_blocks(4, 2, 2)
+        mesh.flags = binding.NOSELFCOLLISION | binding.LINEAR
+        s = Solver(device=DEVICE)
+        binding.add_tetmesh(s, mesh, Lame.soft_rubber(), verbose=False)
+        s.add_obstacle(Floor(y=-1.0))
+        need(s.initialize(Settings(verbose=0, admm_iters=10, linsolver=ls, gravity=-9.8,
+                                   dtype=np.float32, direct_mode="inv")), "sanity: initialize")
+        s.run(20)
+        x = s.x
+        need(np.isfinite(x).all(), f"sanity ls={ls}: contact scene non-finite")
+        need(x[:, 1].min() > -1.1, f"sanity ls={ls}: tunneled through the floor "
+             f"(min y {x[:, 1].min()})")
+        out[ls] = dict(min_y=float(x[:, 1].min()), wall_s=time.perf_counter() - t0)
+    log("bench.py contact sanity: " + json.dumps(out))
+    return out
+
+
+def h_bytes_ops(data, sweeps, itemsize):
+    """The bytes kernel H must move (the ELL, the diagonal, the colour groups,
+    b, x0, the pins read once, x written once) and the operations its sweeps
+    do on these inputs: per sweep and vertex the ELL row sum (two per entry
+    and component) twice (the update and the residual), the update and the
+    residual's own (about 40), the contact projection not counted."""
+    n, k = data.ell_cols.shape
+    nbytes = (n * k * (4 + itemsize) + n * itemsize + data.colors.numel() * 4
+              + 3 * n * itemsize * 4 + n)
+    ops = sweeps * n * (2 * 2 * 3 * k + 40)
+    return nbytes, ops
+
+
+def contact_kernel_times(torch, h_timing, gpen_timing, gpu):
+    """Kernel H per solve (floor_gs5k, sphere_gs) and G's penalty form per
+    solve (floor_alpcg67k) on their first-solve inputs: device time
+    (torch.profiler), CUDA events, the plain versions on the card, the bound;
+    the library yardstick of G's penalty form, torch.sparse.mm of A as CSR
+    times its trips (none computes a GS sweep: null)."""
+    from admm_elastic_tpu_torch.ops import cuda_gs
+    from admm_elastic_tpu_torch.solvers import alcg, gs
+
+    out = {}
+    for name, t in h_timing.items():
+        solver = t["solver"]
+        s, data = solver.m_settings, solver._solve_data
+        obs = list(solver._contact.obstacles)
+        params = solver._contact.gs_params
+        sweeps = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+        args = (t["b"], t["x0"], t["pin_mask"], t["pin_target"], obs, s.gs_omega,
+                s.gs_max_iters, s.gs_tol)
+
+        def kern():
+            return cuda_gs.gs_solve(data, *args, sweeps, params=params)
+
+        def plain():
+            return gs.solve(data.ell_cols, data.ell_vals, data.diag, data.colors,
+                            data.colors_mask, *args[:5], None, None, *args[5:],
+                            may_have_dyn=False)
+
+        p1, k1, k2, p2 = (events_ms(torch, plain, 1), events_ms(torch, kern, 20),
+                          events_ms(torch, kern, 20), events_ms(torch, plain, 1))
+        ms = g_device_us(torch, kern, 20, kernel="gs_kernel") * 1e-3
+        n_bytes, ops = h_bytes_ops(data, t["sweeps"], 4)
+        bound_ms, bound_by = bound_of(n_bytes, ops)
+        out[f"gs_solve@{name}"] = dict(
+            ms=ms, events_ms=min(k1, k2), plain_ms=min(p1, p2), readings=[p1, k1, k2, p2],
+            sweeps=t["sweeps"], ms_per_sweep=ms / max(t["sweeps"], 1), bytes=n_bytes,
+            operations=ops, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            max_abs_err=t["max_abs_err"], colors=int(data.colors.shape[0]))
+    for name, t in gpen_timing.items():
+        s = t["solver"].m_settings
+        trips = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+        ins = (t["data"], t["hits"], t["ck"], t["b"], t["x0"], t["y"], s.pcg_tol, s.pcg_max_iters)
+
+        def kern():
+            return alcg.solve(*ins, trips)
+
+        def plain():
+            return alcg.solve_plain(*ins)
+
+        a = csr_of(torch, t["solver"], torch.float32)
+        p1, k1, k2, p2 = (events_ms(torch, plain, 2), events_ms(torch, kern, 20),
+                          events_ms(torch, kern, 20), events_ms(torch, plain, 2))
+        spmv = events_ms(torch, lambda: torch.sparse.mm(a, t["b"]), 200)
+        ms = g_device_us(torch, kern, 20, kernel="pcg_kernel") * 1e-3
+        n_bytes, ops = pcg_bytes_ops(t["data"], t["trips"])
+        vec = 3 * t["data"].n * 4
+        n_bytes += 2 * vec  # pn and the per-component inverse, read once
+        ops += (t["trips"] + 1) * 3 * t["data"].n * 4  # pn (pn . v) per apply
+        bound_ms, bound_by = bound_of(n_bytes, ops)
+        out[f"pcg_solve_penalty@{name}"] = dict(
+            ms=ms, events_ms=min(k1, k2), plain_ms=min(p1, p2), readings=[p1, k1, k2, p2],
+            trips=t["trips"], ms_per_trip=ms / max(t["trips"], 1), bytes=n_bytes,
+            operations=ops, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=spmv * t["trips"], library_spmv_ms=spmv, max_abs_err=t["max_abs_err"])
+    for k, v in out.items():
+        its = v.get("sweeps", v.get("trips"))
+        log(f"time {k}: {v['ms'] * 1e3:.1f} us per solve on the device ({v['events_ms'] * 1e3:.1f} "
+            f"by CUDA events), {its} sweeps/trips; plain {v['plain_ms'] * 1e3:.1f} us; library "
+            f"{'none' if v['library_ms'] is None else '%.2f us' % (v['library_ms'] * 1e3)}; bound "
+            f"{v['bound_ms'] * 1e3:.3f} us by {v['bound_by']} [{gpu}]")
+    return out
 
 
 def path_shape_cases(torch, res):
@@ -2149,9 +2801,38 @@ def path_shape_cases(torch, res):
         lambda: cuda_tri_local_step.local_step_tri_stencil(xs, ut, tb),
         lambda: local_step_tri_plain(st.tri_Dx_rows(xs, tb), ut, tb.limit_min, tb.limit_max),
         [xs, tb.st_dl, tb.st_dead, ut, tb.limit_min, tb.limit_max], 200, 5)
-    log("kernels at the PCG paths' shapes: " + json.dumps(
-        {k: v["max_abs_err"] for k, v in res["f32"].items() if "@" in k and "pcg" in k
-         or k.endswith("cloth_ls0_160")}))
+    # the contact paths' 67k beam (60x15x15, linear: A's linear stencil entry,
+    # C), 101,250 lanes, 15,616 vertices
+    cb = make_tet_blocks(*CONTACT_SCENES["floor_uzawa67k"]["dims"])
+    lb = el.build_tet_batch(cb.vertices, cb.tets, Lame.soft_rubber(), "linear", device=DEVICE,
+                            dtype=f32, lattice_dims=cb.lattice_dims)
+    x = dev(cb.vertices + 0.05 * rng.standard_normal(cb.vertices.shape))
+    u = dev(0.05 * rng.standard_normal((9, lb.n)))
+    n = len(cb.vertices)
+    dx = cuda_stencil.tet_Dx_rows(x, lb)
+    params = (lb.mu, lb.lam, lb.kappa, lb.bulk)
+    base = lb.stencil[0]
+    c = cuda_stencil.tet_rhs_rows(dx, u, lb, n)
+    need(bool(torch.equal(c, st.tet_rhs_rows_plain(dx, u, lb, n))),
+         "C@floor_uzawa67k: not exact against plain")
+    res["f32"]["tet_rhs_rows@floor_uzawa67k"] = dict(max_abs_err=0.0, exact=True)
+    k = cuda_local_step.local_step_tet_stencil(x, u, lb)
+    e = tet_errs(torch, k, local_step_plain(dx, u, *params, model="linear"), "f32",
+                 "A[linear] stencil entry floor_uzawa67k")
+    res["f32"]["local_step_tet_stencil[linear]@floor_uzawa67k"] = dict(e, max_abs_err=e["max"])
+    cases["tet_rhs_rows@floor_uzawa67k"] = (
+        lambda: cuda_stencil.tet_rhs_rows(dx, u, lb, n),
+        lambda: st.tet_rhs_rows_plain(dx, u, lb, n),
+        [dx, u, lb.weight, lb.st_dl, lb.st_par], 200, 5)
+    cases["local_step_tet_stencil[linear]@floor_uzawa67k"] = (
+        lambda: cuda_local_step.local_step_tet_stencil(x, u, lb),
+        lambda: local_step_plain(dx, u, *params, model="linear"),
+        [x[base:base + n], lb.st_dl, lb.st_par, lb.st_dead, u] + list(params), 50, 2,
+        tet_operations("linear", lb.n, True, None)
+        + plain_flops(torch, lambda: st.tet_Dx_rows_plain(x, lb)))
+    log("kernels at the PCG and contact paths' shapes: " + json.dumps(
+        {k: v["max_abs_err"] for k, v in res["f32"].items() if "@" in k and (
+            "pcg" in k or "67k" in k) or k.endswith("cloth_ls0_160")}))
     return cases
 
 
@@ -2326,7 +3007,8 @@ def frozen_checks(torch):
     solver.run(3)
     need(solver._graph is graph, "the x setter captured the step anew")
     state0 = SimState(x=torch.as_tensor(x, device=DEVICE, dtype=torch.float32),
-                      v=torch.as_tensor(v, device=DEVICE, dtype=torch.float32))
+                      v=torch.as_tensor(v, device=DEVICE, dtype=torch.float32),
+                      y=solver.state.y.clone(), prev_active=solver.state.prev_active.clone())
     eager = graph_vs_eager(torch, "x setter after a graph run", solver, state0, 3,
                            graph.state.x.clone())
     return dict(raised=raised, setter_vs_eager=eager)
@@ -2873,19 +3555,30 @@ def prox_device_times(torch, gpu, prox_turns, reps=20):
     return out
 
 
-def profile_step(torch, solver, gpu, tag, n_steps=5, eager=False):
+def profile_step(torch, solver, gpu, tag, n_steps=5, eager=False, per_iter=None):
     """torch.profiler over n_steps of the rollout: run (the captured step's
     replays), or with eager the eager loop: device busy time, idle share,
     device operations per ADMM iteration and time by kernel name. Writes
     step_profile_<tag>[_eager].json (and the graph run's Chrome trace) into
-    OUT_DIR."""
+    OUT_DIR. per_iter: the launches of each port kernel per ADMM iteration
+    where that is not one (Uzawa's predicated trips), in the replays and in
+    the eager loop alike."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     advance = solver._run_eager if eager else solver.run
     advance(2)
     iters = n_steps * solver.m_settings.admm_iters
-    # Each port kernel of the profiled paths launches once per ADMM
+
+    def counted_as_expected(ports):
+        if not ports:
+            return False
+        if per_iter is None:
+            return all(v == iters for v in ports.values())
+        return all(ports.get(k, 0) == per_iter.get(k, 1) * iters
+                   for k in set(ports) | set(per_iter))
+
+    # The port's kernels launch per_iter times (once by default) per ADMM
     # iteration: a window that counts fewer lost events and is taken again.
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2893,14 +3586,15 @@ def profile_step(torch, solver, gpu, tag, n_steps=5, eager=False):
             advance(n_steps)  # synchronizes before it returns
             wall_us = (time.perf_counter() - t0) * 1e6
         ports = port_kernel_counts(prof.events())
-        if ports and all(v == iters for v in ports.values()):
+        if counted_as_expected(ports):
             break
-        log(f"profile {tag}: the window counted {ports}, expected {iters} of each; "
-            "it is taken again")
+        log(f"profile {tag}: the window counted {ports}, expected {iters} iterations of "
+            f"{per_iter or 'one each'}; it is taken again")
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     how = "eager loop" if eager else "graph replays"
-    need(ports and all(v == iters for v in ports.values()),
-         f"profile {tag}: the port's kernels counted {ports} three times, expected {iters} of each")
+    need(counted_as_expected(ports),
+         f"profile {tag}: the port's kernels counted {ports} three times, expected {iters} "
+         f"iterations of {per_iter or 'one each'}")
     by_name = {}
     for e in events:
         cnt_us = by_name.setdefault(e.name, [0, 0.0])
@@ -2915,7 +3609,9 @@ def profile_step(torch, solver, gpu, tag, n_steps=5, eager=False):
                by_name=dict(sorted(by_name.items(), key=lambda kv: -kv[1][1])))
     os.makedirs(OUT_DIR, exist_ok=True)
     name = f"step_profile_{tag}{'_eager' if eager else ''}"
-    if not eager:
+    if not eager and tag not in CONTACT_SCENES:
+        # (a contact path's trace runs to tens of MB: the output directory
+        # that a remote run brings back is limited)
         prof.export_chrome_trace(os.path.join(OUT_DIR, f"step_trace_{tag}.json"))
     with open(os.path.join(OUT_DIR, f"{name}.json"), "w") as f:
         json.dump(res, f, indent=1)
@@ -2928,6 +3624,35 @@ def profile_step(torch, solver, gpu, tag, n_steps=5, eager=False):
     return res
 
 
+PROFILED = ("beam", "cloth_limit40", "cloth_wind40", "beam_gather") + PCG_PATHS + CONTACT_PATHS
+
+
+def step_profiles(torch, gpu):
+    """profile_step of each PROFILED path, graph replays and eager loop, on
+    solvers of their own (a contact path's from its landed state, after
+    LANDING_STEP steps): the --profile phase, run by main in a process of its
+    own whose profiler has opened no window before."""
+    out = {}
+    for tag in PROFILED:
+        if tag == "beam":
+            solver = make_solver(NH)[0]
+        elif tag in CLOTH_SCENES:
+            solver = make_cloth_solver(tag)[0]
+        elif tag in GATHER_SCENES:
+            solver = make_gather_solver(tag)[0]
+        elif tag in PCG_SCENES:
+            solver = pcg_scene(tag, torch_api())[0]
+        else:
+            solver = contact_scene(tag, torch_api())
+            solver.run(LANDING_STEP)
+        per_iter = ({k: v for k, v in contact_counts(tag, 1)[0].items() if v}
+                    if tag in CONTACT_SCENES else None)
+        out[tag] = dict(graph=profile_step(torch, solver, gpu, tag, per_iter=per_iter),
+                        eager=profile_step(torch, solver, gpu, tag, eager=True,
+                                           per_iter=per_iter))
+    return out
+
+
 def host_timing(torch, gpu, cases, c_branches, prox_turns):
     """The measurements on the host's clock, on solvers of their own: the
     captured step against the eager loop in turns (graph, eager, eager,
@@ -2938,8 +3663,9 @@ def host_timing(torch, gpu, cases, c_branches, prox_turns):
     solvers = {"beam": make_solver(NH)[0], "beam_gather": make_gather_solver("beam_gather")[0]}
     solvers.update({n: make_cloth_solver(n)[0] for n in CLOTH_SCENES})
     solvers.update({n: pcg_scene(n, torch_api())[0] for n in PCG_PATHS})
+    solvers.update({n: contact_scene(n, torch_api()) for n in CONTACT_PATHS})
     turns = {}
-    for label in ("beam", "cloth_limit40", "beam_gather") + PCG_PATHS:
+    for label in ("beam", "cloth_limit40", "beam_gather") + PCG_PATHS + CONTACT_PATHS:
         turns[label] = in_turns([("graph", lambda label=label: rollout_rate(solvers[label])),
                                  ("eager", lambda label=label: rollout_rate(solvers[label],
                                                                             eager=True))],
@@ -2977,6 +3703,7 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also trace 5 steps of the beam and the cloth step with "
                          "torch.profiler (step_profile_*.json in the output directory)")
+    ap.add_argument("--step-profiles", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build, the kernels' checks against plain and their "
                          "device times: the short first run of a changed kernel")
@@ -2990,6 +3717,15 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.step_profiles:
+        try:
+            profiles = step_profiles(torch, environment(torch)["gpu"])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        with open(os.path.join(OUT_DIR, "step_profiles.json"), "w") as f:
+            json.dump(profiles, f, indent=1)
+        return 0
     if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.log")):
         os.remove(os.path.join(OUT_DIR, "chip_smoke.log"))
     try:
@@ -2999,6 +3735,11 @@ def main():
         checks = gather_entry_checks(torch, stencil_entry_checks(torch, kernel_checks(torch)))
         checks = ring_checks(torch, checks)
         checks["pcg"], pcg_timing = pcg_checks(torch)
+        inner_checks, inner_timing = uzawa_inner_checks(torch)
+        checks["pcg"].update(inner_checks)
+        pcg_timing.update(inner_timing)
+        checks["gs"], h_timing = h_checks(torch)
+        checks["pcg_penalty"], gpen_timing = gpen_checks(torch)
         cases, c_branches, chains, pairs, prox_turns = kernel_cases(torch)
         cases.update(path_shape_cases(torch, checks))
         profiles = {}
@@ -3006,6 +3747,7 @@ def main():
             profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
                                                   gpu)
             pcg_times(torch, pcg_timing, gpu)
+            contact_kernel_times(torch, h_timing, gpen_timing, gpu)
             log(gpu)
             return 0
         # What the host's clock times comes before the first profiler window,
@@ -3014,7 +3756,8 @@ def main():
         turns, phases, times, by_branch, prox_big = host_timing(torch, gpu, cases, c_branches,
                                                                 prox_turns)
         g_times = pcg_times(torch, pcg_timing, gpu)
-        del pcg_timing
+        c_times = contact_kernel_times(torch, h_timing, gpen_timing, gpu)
+        del pcg_timing, h_timing, gpen_timing
         if args.profile:
             profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
                                                   gpu)
@@ -3031,6 +3774,9 @@ def main():
             solvers[name], paths[name] = gather_path(torch, name)
         for name in PCG_PATHS:
             solvers[name], paths[name] = pcg_path(torch, name)
+        for name in CONTACT_PATHS:
+            solvers[name], paths[name] = contact_path(torch, name)
+        checks["bench_contact_sanity"] = bench_contact_sanity(torch)
         checks["graph"] = dict(invalidation=invalidation_checks(torch),
                                one_tet_convergence=one_tet_convergence(),
                                one_tet_inversion=one_tet_inversion())
@@ -3051,10 +3797,13 @@ def main():
         for label, t in turns.items():
             rates[label]["graph_vs_eager"] = t
         if args.profile:
-            for tag in ("beam", "cloth_limit40", "cloth_wind40", "beam_gather") + PCG_PATHS:
-                profiles[tag] = dict(graph=profile_step(torch, solvers[tag], gpu, tag),
-                                     eager=profile_step(torch, solvers[tag], gpu, tag,
-                                                        eager=True))
+            # in a process of its own: after the paths' counted windows this
+            # process's profiler began to drop events (one launch in 50)
+            rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--step-profiles"],
+                                cwd=HERE, timeout=900).returncode
+            need(rc == 0, f"the step profiles' process exited with {rc}")
+            with open(os.path.join(OUT_DIR, "step_profiles.json")) as f:
+                profiles.update(json.load(f))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3115,23 +3864,40 @@ def main():
         kernels.append(row)
     # Kernel G, which replaces the JAX package's jnp CG loop (no Pallas
     # kernel): one entry per PCG path, its time per solve on the path's first
-    # solve (pcg_times), its launches on the path's steps.
-    g_entries = [dict(entry="pcg_solve", path=name,
-                      launches=paths[name]["launches"].get("pcg_solve", 0),
-                      wrapper_calls=paths[name]["wrapper_calls"].get("pcg_solve", 0),
+    # solve (pcg_times), its launches on the path's steps; and two for
+    # Uzawa's inner solve on floor_uzawa67k: its first solve and a Schur
+    # direction's (solve "<path> schur").
+    g_entries = [dict(entry="pcg_solve", path=name.partition(" ")[0], solve=name,
+                      launches=paths[name.partition(" ")[0]]["launches"].get("pcg_solve", 0),
+                      wrapper_calls=paths[name.partition(" ")[0]]["wrapper_calls"].get(
+                          "pcg_solve", 0),
                       max_abs_err=checks["pcg"][name]["f32"]["max_abs_err"],
                       **{k: g_times[name][k] for k in (
                           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "trips",
                           "ms_per_trip", "grid")})
-                 for name in PCG_PATHS]
+                 for name in PCG_PATHS + ("floor_uzawa67k", "floor_uzawa67k schur")]
     src, rep = REPLACES["pcg_solve"]
     kernels.append(dict(g_entries[0], name="pcg_solve", route="cuda", source=src, replaces=rep,
                         entries=g_entries))
+    # Kernel H (floor_gs5k, sphere_gs) and G's penalty form (floor_alpcg67k):
+    # per solve on the path's first-solve inputs at its landed state.
+    for kname, kpaths in (("gs_solve", ("floor_gs5k", "sphere_gs")),
+                          ("pcg_solve_penalty", ("floor_alpcg67k",))):
+        entries = [dict(entry=kname, path=p, launches=paths[p]["launches"].get(kname, 0),
+                        wrapper_calls=paths[p]["wrapper_calls"].get(kname, 0),
+                        **{k: v for k, v in c_times[f"{kname}@{p}"].items() if k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                            "max_abs_err", "sweeps", "trips", "ms_per_sweep", "ms_per_trip")})
+                   for p in kpaths]
+        src, rep = REPLACES[kname]
+        kernels.append(dict(entries[0], name=kname, route="cuda", source=src, replaces=rep,
+                            entries=entries))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(env=env, build=built, checks=checks, paths=paths, rollouts=rates,
                        phases_ms=phases, kernel_times=times, rhs_branches_ms=by_branch,
                        prox_throughput_ms=prox_big, pcg_solve_ms=g_times,
+                       contact_solve_ms=c_times,
                        warp_chains=chains, profiles=profiles,
                        kernels=kernels), f, indent=1)
     for k in kernels:

@@ -36,7 +36,16 @@ step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD run
   bunny_pcg, and crossval's small beam_pcg and torus_pcg, in float32, with
   bunny_pcg_f64, beam_pcg_f64 and torus_pcg_f64 in float64; each also holds
   the CG trips of every step 1..8 (``trips``), as runtime_data().inner_iters
-  reports them.
+  reports them;
+- the contact scenes (chip_smoke.CONTACT_SCENES, built by
+  chip_smoke.contact_scene with this package's API): the five full-size paths
+  floor_gs5k, floor_uzawa5k, floor_uzawa67k, floor_alpcg67k (20 steps) and
+  sphere_gs (40), and crossval's small contact scenes (14 steps; the sphere
+  in float64, 20) in float32 and float64; each holds x at the compared steps
+  (``compare``), the inner iterations of every step (``inner``: GS sweeps,
+  Schur trips or CG trips), the vertices in contact at the compared steps
+  (``contacts``, chip_smoke.contacts) and, for Uzawa and AL-PCG, the active
+  constraint rows the state carries after them (``active_rows``).
 
 Run from the repository root (all files, or only the named ones):
 
@@ -58,8 +67,9 @@ from admm_elastic_tpu.forces import make_wind_force  # noqa: E402
 from admm_elastic_tpu.geometry.factory import make_tet_blocks  # noqa: E402
 from admm_elastic_tpu.geometry.io import load_elenode  # noqa: E402
 from admm_elastic_tpu.ops import prox  # noqa: E402
-from chip_smoke import (BEAM_FLAGS, BEAM_MODELS, BUNNY, CLOTH_SCENES, GATHER_SCENES,  # noqa: E402
-                        PCG_SCENES, bunny_pins, cloth_sheet, pcg_scene, renumbered_sheet)
+from chip_smoke import (BEAM_FLAGS, BEAM_MODELS, BUNNY, CLOTH_SCENES,  # noqa: E402
+                        CONTACT_SCENES, GATHER_SCENES, PCG_SCENES, bunny_pins, cloth_sheet,
+                        contact_scene, contact_steps, contacts, pcg_scene, renumbered_sheet)
 
 DIMS = (40, 5, 5)
 ADMM_ITERS = 10
@@ -181,14 +191,18 @@ def gather(name):
 
 
 def jax_api():
-    """chip_smoke.pcg_scene's namespace for the JAX package."""
+    """chip_smoke.pcg_scene's and contact_scene's namespace for the JAX package."""
     import types
 
-    from admm_elastic_tpu.geometry.factory import make_tet_torus
+    import jax.numpy as jnp
+
+    from admm_elastic_tpu import Floor, Sphere
+    from admm_elastic_tpu.geometry.factory import make_tet_torus, make_xform
 
     return types.SimpleNamespace(Solver=Solver, Settings=Settings, Lame=Lame, binding=binding,
                                  make_tet_blocks=make_tet_blocks, make_tet_torus=make_tet_torus,
-                                 load_elenode=load_elenode)
+                                 load_elenode=load_elenode, Floor=Floor, Sphere=Sphere,
+                                 make_xform=make_xform, asarray=jnp.asarray)
 
 
 def pcg(name):
@@ -209,6 +223,29 @@ def pcg(name):
           **traj)
 
 
+def contact(name):
+    p = CONTACT_SCENES[name]
+    dtype = p.get("dtype", np.float32)
+    solver = contact_scene(name, jax_api())
+    steps, compare = contact_steps(name)
+    x0 = np.asarray(solver.x, dtype)
+    traj, inner, touching, rows = {}, [], [], []
+    for step in range(1, steps + 1):
+        solver.step()
+        inner.append(solver.runtime_data().inner_iters)
+        if step in compare:
+            x = np.asarray(solver.x, dtype)
+            traj[f"x{step}"] = x
+            touching.append(contacts(name, x))
+            rows.append(int(np.asarray(solver.state.prev_active).sum()))
+    s = solver.m_settings
+    _save(name, gravity=GRAVITY, x0=x0, steps=np.asarray(compare), n_steps=steps,
+          linsolver=s.linsolver, inner=np.asarray(inner), contacts=np.asarray(touching),
+          active_rows=np.asarray(rows), dims=np.asarray(p["dims"]), model=p["model"],
+          uzawa_inner=type(solver._solve_data).__name__, pcg_precond=s.pcg_precond,
+          **traj)
+
+
 def main(argv):
     prox.set_svd_impl("jacobi")
     writers = {"beam": lambda: beam("neohookean"),
@@ -217,13 +254,15 @@ def main(argv):
     writers.update({n: (lambda n=n: cloth(n)) for n in CLOTH_SCENES})
     writers.update({n: (lambda n=n: gather(n)) for n in GATHER_SCENES})
     writers.update({n: (lambda n=n: pcg(n)) for n in PCG_SCENES})
+    writers.update({n: (lambda n=n: contact(n)) for n in CONTACT_SCENES})
     names = argv or list(writers)
     for n in names:
         if n not in writers:
             raise SystemExit(f"unknown golden {n!r}; one of {sorted(writers)}")
 
     def f64(n):
-        return "dtype" in GATHER_SCENES.get(n, {}) or "dtype" in PCG_SCENES.get(n, {})
+        return any("dtype" in scenes.get(n, {})
+                   for scenes in (GATHER_SCENES, PCG_SCENES, CONTACT_SCENES))
 
     # float64 scenes last: jax_enable_x64 stays on once set
     for n in sorted(names, key=f64):

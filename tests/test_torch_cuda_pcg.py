@@ -26,7 +26,6 @@ import chip_smoke
 from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_pcg, cuda_stencil
 from admm_elastic_tpu_torch.ops import stencil as st
 from admm_elastic_tpu_torch.solvers import pcg
-from admm_elastic_tpu_torch.system.system import SimState
 
 pytestmark = pytest.mark.cuda
 
@@ -78,14 +77,14 @@ def test_g_adds_its_trips_and_replays_in_a_graph(cuda_device):
 @pytest.mark.parametrize("name", ["beam_pcg_f64", "torus_pcg"])
 def test_pcg_solver_graph_equals_eager_and_counts_trips(cuda_device, name):
     solver = _scene(name)
-    state0 = SimState(x=solver.state.x.clone(), v=solver.state.v.clone())
+    state0 = solver.state.clone()
     trips = []
     for _ in range(3):
         solver.step()
         trips.append(solver.runtime_data().inner_iters)
     assert all(t > 0 for t in trips)
     x_graph = solver.state.x.clone()
-    solver.state = SimState(x=state0.x.clone(), v=state0.v.clone())
+    solver.state = state0.clone()
     solver._run_eager(3)
     assert torch.equal(solver.state.x, x_graph)
     solver.run(2)

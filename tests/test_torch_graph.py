@@ -97,7 +97,7 @@ SCENES = {
 
 
 def _state(s):
-    return SimState(x=s.state.x.clone(), v=s.state.v.clone())
+    return s.state.clone()
 
 
 @pytest.mark.parametrize("scene", sorted(SCENES))
@@ -108,7 +108,7 @@ def test_graph_matches_eager_and_repeats(cuda_device, scene, dtype):
     s.run(8)
     x_graph = s.state.x.clone()
     assert s._graph is not None and torch.isfinite(x_graph).all()
-    s.state = SimState(x=state0.x.clone(), v=state0.v.clone())
+    s.state = state0.clone()
     s.run(8)
     assert torch.equal(s.state.x, x_graph)
     res = chip_smoke.graph_vs_eager(torch, scene, s, state0, 8, x_graph)
@@ -154,7 +154,7 @@ def test_setters_and_new_state_take_effect(cuda_device):
     s.x, s.v = xs, vs
     s._run_eager(1)
     assert torch.allclose(s.state.x, x_graph, rtol=0, atol=1e-12)
-    s.state = SimState(x=s.state.x.clone(), v=s.state.v.clone())  # a new state
+    s.state = s.state.clone()  # a new state
     s.run(1)
     assert s._graph is graph and s.state.x is graph.state.x
 
@@ -181,7 +181,8 @@ def test_frozen_state_and_the_setter_after_a_graph_run(cuda_device):
     assert s._graph is graph
     x_graph = s.state.x.clone()
     state0 = SimState(x=torch.as_tensor(x, device=cuda_device),
-                      v=torch.as_tensor(v, device=cuda_device))
+                      v=torch.as_tensor(v, device=cuda_device), y=s.state.y.clone(),
+                      prev_active=s.state.prev_active.clone())
     res = chip_smoke.graph_vs_eager(torch, "setter", s, state0, 3, x_graph)
     assert res["bitwise"] or res["rel_err"] <= chip_smoke.GRAPH_EAGER_TOL
 

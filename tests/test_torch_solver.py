@@ -177,14 +177,17 @@ def _init_with(settings_kw=None, mesh=None, before=None):
     s.initialize(_settings(Settings, np.float64, **(settings_kw or {})))
 
 
+# ls 1, 2 and 4 run since the contact slice: what they still refuse is their
+# traced (logged) solve, ROADMAP Queue 1 item 11; an obstacle that is not an
+# analytic one names item 9.
 UNSUPPORTED = {
-    "linsolver_gs": lambda: _init_with(dict(linsolver=1)),
+    "linsolver_gs": lambda: _init_with(dict(linsolver=1, log_inner=True)),
     "aa_window": lambda: _init_with(dict(aa_window=4)),
     "unroll_admm": lambda: _init_with(dict(unroll_admm=True)),
     "obstacle": lambda: Solver(device="cpu").add_obstacle(object()),
     "dynamic_collider": lambda: Solver(device="cpu").add_dynamic_collider(object()),
-    "linsolver_uzawa": lambda: _init_with(dict(linsolver=2)),
-    "linsolver_alpcg": lambda: _init_with(dict(linsolver=4)),
+    "linsolver_uzawa": lambda: _init_with(dict(linsolver=2, log_inner=True)),
+    "linsolver_alpcg": lambda: _init_with(dict(linsolver=4, log_inner=True)),
     "log_inner": lambda: _init_with(dict(log_inner=True)),
     "self_collision": lambda: binding.add_tetmesh(Solver(device="cpu"),
                                                   _beam(binding.NEOHOOKEAN), verbose=False),

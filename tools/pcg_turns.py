@@ -11,9 +11,12 @@ times), with its own chip_smoke.py, package and kernel library. A child
 builds each path of its chip_smoke.PCG_PATHS through chip_smoke.pcg_scene and
 reads: kernel G's device time per solve on the path's first solve (the b and
 x0 of chip_smoke.first_solve; torch.profiler, 20 launches) with its trips,
-and the rollout rate of the captured step (chip_smoke.rollout_rate, at
-least 2 s). Prints one line per path and child, and the card's name and
-power limit; writes pcg_turns.json into chip_smoke.OUT_DIR.
+the rollout rate of the captured step (chip_smoke.rollout_rate, at
+least 2 s), and a digest of G's first solve and of x after 8 steps of a
+path built anew: the two checkouts' digests say whether they compute the
+same bits. Prints one line per path and child, whether the digests agree,
+and the card's name and power limit; writes pcg_turns.json into
+chip_smoke.OUT_DIR.
 """
 
 import argparse
@@ -23,6 +26,12 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def child(root):
@@ -61,8 +70,13 @@ def child(root):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and "pcg_kernel" in e.name]
         rate = cs.rollout_rate(solver)
+        fresh, _ = cs.pcg_scene(name, cs.torch_api())
+        b2, x2 = cs.first_solve(torch, fresh)
+        xg = cuda_pcg.pcg_solve(fresh._solve_data, b2, x2, s.pcg_tol, s.pcg_max_iters, trips)
+        fresh.run(8)
         out[name] = dict(g_us=sum(us) / max(len(us), 1), g_launches_seen=len(us), trips=k,
-                         step_ms=rate["step_ms"], admm_iters_per_s=rate["admm_iters_per_s"])
+                         step_ms=rate["step_ms"], admm_iters_per_s=rate["admm_iters_per_s"],
+                         g_x_sha=_digest(xg), x8_sha=_digest(fresh.state.x))
     print("PCG_TURNS " + json.dumps(out), flush=True)
 
 
@@ -99,9 +113,15 @@ def main():
                 print(f"{label} {name}: G {r['g_us']:.2f} us per solve ({r['trips']} trips), "
                       f"step {r['step_ms']:.4f} ms, {r['admm_iters_per_s']:.1f} ADMM iters/s "
                       f"[{gpu}]", flush=True)
+    same = {name: all(r[name][k] == readings["other"][0][name][k]
+                      for r in readings["this"] + readings["other"] for k in ("g_x_sha", "x8_sha"))
+            for name in readings["this"][0]}
+    for name, eq in same.items():
+        print(f"{name}: G's first solve and x after 8 steps {'bitwise equal' if eq else 'DIFFER'} "
+              "in the two checkouts", flush=True)
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     with open(os.path.join(cs.OUT_DIR, "pcg_turns.json"), "w") as f:
-        json.dump(dict(gpu=gpu, other=other, readings=readings), f, indent=1)
+        json.dump(dict(gpu=gpu, other=other, readings=readings, bitwise=same), f, indent=1)
     print(gpu)
     return 0
 
