@@ -70,6 +70,13 @@ _SIGNATURES = {
     # ptrs, ints, par, omega, tol, stream
     "admm_gs_solve": [_P, _P, _P, _D, _D, _P],
 }
+_PLAIN_SIGNATURES = {  # one function for both precisions
+    "admm_empty_launch": [_P],  # stream
+    "admm_pcg_barrier_loop": [_I, _I, _P, _P],  # grid, iters, barrier, stream
+    "admm_cluster_barrier_loop": [_I, _I, _I, _I, _P],  # cluster, threads, smem, iters, stream
+    "admm_cluster_capacity": [_I, _I, _I],  # cluster, threads, smem
+    "admm_smem_optin": [],
+}
 
 
 def _nvcc() -> str:
@@ -82,19 +89,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _digest() -> str:
-    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(UNITS)).encode())
+def _digest(units=UNITS, defines=()) -> str:
+    h = hashlib.sha256((" ".join(NVCC_FLAGS + tuple(defines)) + repr(units)).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
+def build(units=UNITS, defines=()) -> Path:
     """Compile the units of csrc/ in parallel and link them, unless a library
     of the same hash exists; returns its path. The build time of each unit and
-    its ptxas report (registers, spills) go to a .log beside the library."""
-    so = BUILD_DIR / f"libadmm_kernels_{_digest()}.so"
+    its ptxas report (registers, spills) go to a .log beside the library.
+    units and defines (extra -D flags) make a variant library, such as
+    tools/g_h_anatomy.py's."""
+    so = BUILD_DIR / f"libadmm_kernels_{_digest(units, defines)}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -102,11 +111,11 @@ def build() -> Path:
     tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
     procs = []
-    for src, sfx in UNITS:
+    for src, sfx in units:
         obj = BUILD_DIR / f"{tag}.{Path(src).stem}{'_' + sfx if sfx else ''}.o"
-        defs = []
+        defs = list(defines)
         if sfx:
-            defs = [f"-DADMM_REAL={dict(_PRECISIONS)[sfx]}", f"-DADMM_SFX={sfx}"]
+            defs += [f"-DADMM_REAL={dict(_PRECISIONS)[sfx]}", f"-DADMM_SFX={sfx}"]
         cmd = [nvcc, *NVCC_FLAGS, *defs, "-c", str(CSRC / src), "-o", str(obj)]
         procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))
@@ -137,21 +146,35 @@ def build() -> Path:
     return so
 
 
+def _load(so: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    for name, args in _SIGNATURES.items():
+        for suffix, _ in _PRECISIONS:
+            fn = getattr(lib, f"{name}_{suffix}", None)
+            if fn is not None:
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+    for name, args in _PLAIN_SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, args in _SIGNATURES.items():
-                for suffix, _ in _PRECISIONS:
-                    fn = getattr(lib, f"{name}_{suffix}")
-                    fn.argtypes = args
-                    fn.restype = ctypes.c_int
-            lib.admm_empty_launch.argtypes = [_P]
-            lib.admm_empty_launch.restype = ctypes.c_int
-            _lib = lib
+            _lib = _load(build())
         return _lib
+
+
+def variant(units, defines) -> ctypes.CDLL:
+    """A library of the named units built with extra -D flags (a
+    measurement's variant; the port itself loads library())."""
+    return _load(build(tuple(units), tuple(defines)))
 
 
 def check(rc: int, name: str) -> None:

@@ -13,6 +13,13 @@ version (``solvers/gs.solve``, which stops on the host); CUDA tensors launch
 the kernel, and a build or launch failure raises. ``gs_solve.launches``
 counts kernel launches.
 
+The kernel has two forms (``csrc/gs.cu``): SHARED, x in the block's shared
+memory for the whole solve, where it fits; GLOBAL, x in global memory, for
+any N. ``h_form`` chooses by N, the dtype and the card's shared memory; a
+caller may ask for one (``form=``), and SHARED where x does not fit raises.
+Either runs a block of 512 threads, or of 1,024 where a colour is wider
+than 512 rows (``h_wide``).
+
 The obstacles reach the kernel by value, as ``params`` =
 ``obstacle_params(obstacles)``, which reads them to the host (a
 synchronisation, which a capture refuses): a captured step passes the
@@ -23,6 +30,8 @@ the wrapper reads them itself.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import weakref
 
 import torch
 
@@ -32,6 +41,79 @@ from admm_elastic_tpu_torch.solvers import gs as gs_mod
 
 MAX_OBSTACLES = 8  # csrc/gs.cu kMaxObstacles
 FLOOR, SPHERE = 0, 1  # csrc/gs.cu enum Kind
+FORMS = ("global", "shared")
+STATIC_SMEM = 17 * 8  # the kernel's static shared memory, at most (csrc/gs.cu lane_sum)
+LANES = 512  # csrc/gs.cu kLanes: a colour wider than this takes the WIDE block
+
+
+def h_wide(width: int) -> bool:
+    """Whether kernel H runs its WIDE block (1,024 threads, the ELL read per
+    colour slot) for colours of at most width rows: where a colour is wider
+    than the 512-thread block (PERF.md: 576.8 against 885.0 us on floor_gs5k's
+    558-row colours, 229.1 against 214.4 on sphere_gs's 20)."""
+    return width > LANES
+
+
+def h_form(n: int, itemsize: int, smem_optin: int, want=None) -> str:
+    """The form kernel H takes for n vertices: "shared" where x ([n, 3] of
+    itemsize bytes) fits smem_optin bytes of shared memory beside the
+    kernel's own, else "global". want asks for one; "shared" where x does
+    not fit raises ValueError."""
+    if want not in (None,) + FORMS:
+        raise ValueError(f"gs_solve: form {want!r}, expected one of {FORMS}")
+    fits = n * 3 * itemsize + STATIC_SMEM <= smem_optin
+    if want == "shared" and not fits:
+        raise ValueError(f"gs_solve: x of {n} vertices in {itemsize}-byte values does not fit "
+                         f"{smem_optin} bytes of shared memory")
+    return want or ("shared" if fits else "global")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """The ELL of a GSData in the two layouts kernel H's WIDE block reads: per
+    colour and column-major (the passes: a warp's loads of one entry
+    coalesce), and column-major in the vertex order (the residual). The
+    512-thread block reads the ELL by row and takes no plan."""
+
+    ccols: torch.Tensor  # i32 [C, K, L]: entry k of colour c's slot i (pad: column 0, value 0)
+    cvals: torch.Tensor  # [C, K, L]
+    tcols: torch.Tensor  # i32 [K, N]
+    tvals: torch.Tensor  # [K, N]
+
+
+def build_plan(data: gs_mod.GSData) -> KernelPlan:
+    """The kernel's layouts of data's ELL (the same values, moved)."""
+    n = data.ell_cols.shape[0]
+    rows = data.colors.long().clamp(max=max(n - 1, 0))  # pad slots read row N-1, never used
+    return KernelPlan(ccols=data.ell_cols[rows].permute(0, 2, 1).contiguous(),
+                      cvals=data.ell_vals[rows].permute(0, 2, 1).contiguous(),
+                      tcols=data.ell_cols.T.contiguous(), tvals=data.ell_vals.T.contiguous())
+
+
+_PLANS: dict = {}  # id(GSData) -> (weakref to it, KernelPlan)
+
+
+def plan_of(data: gs_mod.GSData) -> KernelPlan:
+    """build_plan of data, built on first use and kept while data lives.
+    Build it before a capture: it moves tensors on the device."""
+    hit = _PLANS.get(id(data))
+    if hit is not None and hit[0]() is data:
+        return hit[1]
+    for key in [k for k, (ref, _) in _PLANS.items() if ref() is None]:
+        del _PLANS[key]
+    plan = build_plan(data)
+    _PLANS[id(data)] = (weakref.ref(data), plan)
+    return plan
+
+
+_OPTIN: list = []  # the card's shared memory a block may take, read once
+
+
+def form_of(n: int, dtype: torch.dtype, want=None) -> str:
+    """h_form on the current card."""
+    if not _OPTIN:
+        _OPTIN.append(int(_build.library().admm_smem_optin()))
+    return h_form(n, torch.empty((), dtype=dtype).element_size(), _OPTIN[0], want)
 
 
 def obstacle_params(obstacles):
@@ -54,15 +136,27 @@ def obstacle_params(obstacles):
 
 def gs_solve(data: gs_mod.GSData, b: torch.Tensor, x0: torch.Tensor, pin_mask: torch.Tensor,
              pin_target: torch.Tensor, obstacles, omega: float, max_iters: int, tol: float,
-             sweeps: torch.Tensor, params=None) -> torch.Tensor:
+             sweeps: torch.Tensor, params=None, form=None) -> torch.Tensor:
     """x after the constrained SOR sweeps from x0; the sweeps are added to
-    sweeps. params: obstacle_params(obstacles), read here where None."""
+    sweeps. params: obstacle_params(obstacles), read here where None. form:
+    the kernel's form ("global", "shared"; None: h_form's choice)."""
     if b.device.type == "cpu":
         x, k = gs_mod.solve(data.ell_cols, data.ell_vals, data.diag, data.colors,
                             data.colors_mask, b, x0, pin_mask, pin_target, obstacles, None, None,
                             omega, max_iters, tol, may_have_dyn=False)
         sweeps += k
         return x
+    out = _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol, sweeps,
+                  params, form=form)
+    gs_solve.launches += 1
+    return out
+
+
+def _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol, sweeps, params,
+            lib=None, form=None):
+    """Launch kernel H from ``lib`` (the port's library, or an anatomy build
+    of the same source: chip_smoke.floor_library, tools/g_h_anatomy.py) in
+    ``form`` (None: form_of's choice), in the block h_wide chooses."""
     n, k = data.ell_cols.shape
     sfx = _build.cuda_args("gs_solve", b, (
         ("b", b, (n, 3)), ("x0", x0, (n, 3)), ("diag", data.diag, (n,)),
@@ -76,19 +170,22 @@ def gs_solve(data: gs_mod.GSData, b: torch.Tensor, x0: torch.Tensor, pin_mask: t
             raise ValueError(f"gs_solve: {name} must be a contiguous {dtype} tensor of shape "
                              f"{tuple(shape)} on {b.device}")
     kinds, par = obstacle_params(obstacles) if params is None else params
-    out = torch.empty_like(b)
-    ptrs = [data.ell_cols, data.ell_vals, data.diag, data.colors, b, x0, out, pin_mask,
-            pin_target, sweeps]
-    ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[t.data_ptr() for t in ptrs])
     n_colors, width = data.colors.shape
-    ints = (ctypes.c_int * (6 + MAX_OBSTACLES))(n, k, n_colors, width, int(max_iters),
-                                                len(kinds), *kinds)
-    fn = getattr(_build.library(), f"admm_gs_solve_{sfx}")
+    wide = h_wide(width)
+    plan = plan_of(data) if wide else None  # the 512-thread block reads the ELL by row
+    out = torch.empty_like(b)
+    ptrs = [data.ell_cols, data.ell_vals] + (
+        [plan.ccols, plan.cvals, plan.tcols, plan.tvals] if wide else [None] * 4) + [
+        data.diag, data.colors, b, x0, out, pin_mask, pin_target, sweeps]
+    ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[0 if t is None else t.data_ptr() for t in ptrs])
+    shared = form_of(n, b.dtype, form) == "shared"
+    ints = (ctypes.c_int * (7 + MAX_OBSTACLES))(n, k, n_colors, width, int(max_iters),
+                                                int(shared) | 2 * int(wide), len(kinds), *kinds)
+    fn = getattr(lib or _build.library(), f"admm_gs_solve_{sfx}")
     with torch.cuda.device(b.device):
         rc = fn(ptr_arr, ints, par, float(omega), float(tol),
                 torch.cuda.current_stream(b.device).cuda_stream)
     _build.check(rc, "gs_solve")
-    gs_solve.launches += 1
     return out
 
 

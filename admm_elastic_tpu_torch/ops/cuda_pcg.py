@@ -17,6 +17,14 @@ or ``solvers/alcg.penalty_solve``, which stop on the host); CUDA tensors
 launch the kernel, and a build or launch failure raises. Each wrapper's
 ``launches`` counts its kernel launches.
 
+The kernel has two forms (``csrc/pcg.cu``): CLUSTER, one thread-block
+cluster of at most 16 blocks of 512 threads with the solve's vectors in the
+blocks' shared memory, chosen where at most 11 blocks cover the problem and
+its rows have no rest-ELL; GRID, a cooperative grid of persistent blocks with
+the vectors in global memory, for any N. ``g_form`` chooses, by N, the dtype
+and the card's cluster and shared-memory budget; a caller may ask for one
+(``form=``), and a form that cannot take the shape raises.
+
 The kernel works in the banded vertex order: where ``data`` carries an RCM
 permutation, ``plan_of`` keeps the diagonal, its inverse and the two-grid
 tables in that order (built once per ``PCGData`` on the device, before any
@@ -39,8 +47,83 @@ from admm_elastic_tpu_torch.ops import _build
 from admm_elastic_tpu_torch.solvers import pcg as pcg_mod
 
 OMEGA = 0.7  # the two-grid smoother's damping (PCGData.precondition)
-BLOCK = 256  # vertices per chunk of csrc/pcg.cu (kBlock)
+BLOCK = 256  # vertices per chunk of csrc/pcg.cu (kGroup)
 SLOTS = 4  # partial-sum slots of csrc/pcg.cu (kSlots)
+MAX_BANDS = 64  # csrc/pcg.cu kMaxBands
+CLUSTER_VECS = 8  # the vectors a CLUSTER block keeps (csrc/pcg.cu enum Vec)
+CLUSTER_SHIFTS = (8, 9)  # blocks of 256 or 512 threads, one vertex a thread
+CLUSTER_MAX = 16  # the largest cluster the card may take (non-portable size)
+CLUSTER_CHOSEN = 11  # the most blocks with which g_form chooses the CLUSTER form
+CLUSTER_STATIC_SMEM = (16 + 8) * 3 * 8  # the kernel's static shared memory, at most
+FORMS = ("grid", "cluster")
+
+
+def cluster_smem(shift: int, itemsize: int) -> int:
+    """The dynamic shared memory of a CLUSTER block of 2^shift threads:
+    each vector's span and the span's partial sums (csrc/pcg.cu
+    cluster_smem)."""
+    return ((CLUSTER_VECS << shift) * 3 + SLOTS * (1 << (shift - 8))) * itemsize
+
+
+def _cluster_fit(n: int, itemsize: int, max_blocks: int, smem_optin: int) -> Optional[tuple]:
+    """("cluster", blocks, shift): the smallest blocks (2^shift threads) with
+    which one cluster of at most max_blocks blocks covers n and a block's
+    vectors fit smem_optin bytes of shared memory; None where none does."""
+    chunks = -(-n // BLOCK)
+    for shift in CLUSTER_SHIFTS:
+        blocks = -(-chunks // (1 << (shift - 8)))
+        if (blocks <= max_blocks
+                and cluster_smem(shift, itemsize) + CLUSTER_STATIC_SMEM <= smem_optin):
+            return ("cluster", blocks, shift)
+    return None
+
+
+def g_form(n: int, itemsize: int, n_bands: int, k_rest: int, max_cluster: int, smem_optin: int,
+           want: Optional[str] = None) -> tuple:
+    """The form kernel G takes for n vertices with n_bands bands and a
+    rest-ELL of k_rest columns: ("cluster", blocks, shift) (_cluster_fit)
+    where one cluster of at most CLUSTER_CHOSEN blocks (and at most
+    max_cluster) covers n and the rows have no rest-ELL, else ("grid", 0, 0).
+    The CLUSTER form won where it was measured at 1, 2 and 11 blocks and lost
+    at 16, and on the bunny's rest-ELL, whose random columns read across the
+    cluster (PERF.md). want ("grid" or "cluster") asks for one: the CLUSTER
+    form takes up to min(max_cluster, CLUSTER_MAX) blocks. A form that cannot
+    take the shape, and more than MAX_BANDS bands in any form, raise
+    ValueError."""
+    if n_bands > MAX_BANDS:
+        raise ValueError(f"pcg_solve: {n_bands} bands, kernel G takes at most {MAX_BANDS}")
+    if want not in (None,) + FORMS:
+        raise ValueError(f"pcg_solve: form {want!r}, expected one of {FORMS}")
+    if want == "grid":
+        return ("grid", 0, 0)
+    if want == "cluster":
+        fit = _cluster_fit(n, itemsize, min(max_cluster, CLUSTER_MAX), smem_optin)
+        if fit is None:
+            raise ValueError(f"pcg_solve: {n} vertices in {itemsize}-byte values fit no cluster "
+                             f"of at most {max_cluster} blocks in {smem_optin} bytes of shared "
+                             "memory")
+        return fit
+    fit = None if k_rest > 0 else _cluster_fit(n, itemsize, min(max_cluster, CLUSTER_CHOSEN),
+                                                  smem_optin)
+    return fit or ("grid", 0, 0)
+
+
+_BUDGET: dict = {}  # itemsize -> (max_cluster, smem_optin) of the current card
+
+
+def card_budget(itemsize: int) -> tuple:
+    """(the largest cluster of the CLUSTER form's largest blocks, with their
+    shared memory, that the card can hold; the shared memory a block may
+    take), read once."""
+    if itemsize not in _BUDGET:
+        lib = _build.library()
+        optin = int(lib.admm_smem_optin())
+        smem = cluster_smem(CLUSTER_SHIFTS[-1], itemsize)
+        threads = 1 << CLUSTER_SHIFTS[-1]
+        size = next((c for c in (16, 8, 4, 2)
+                     if lib.admm_cluster_capacity(c, threads, smem) >= 1), 1)
+        _BUDGET[itemsize] = (size, optin)
+    return _BUDGET[itemsize]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,10 +208,11 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 def pcg_solve(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, tol: float,
               max_iters: int, trips: Optional[torch.Tensor],
-              done: Optional[torch.Tensor] = None) -> torch.Tensor:
+              done: Optional[torch.Tensor] = None, form: Optional[str] = None) -> torch.Tensor:
     """x with A x = b to the relative tolerance tol (clamped to 64 eps), from
     x0, in at most max_iters trips; the trips taken are added to trips
-    (unless None). Where done is set, x0 and no trip."""
+    (unless None). Where done is set, x0 and no trip. form: the kernel's
+    form ("grid", "cluster"; None: g_form's choice)."""
     if b.device.type == "cpu":
         if done is not None and bool(done):
             return x0.clone()
@@ -136,14 +220,14 @@ def pcg_solve(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, tol: flo
         if trips is not None:
             trips += k
         return x
-    out = _launch(data, b, x0, tol, max_iters, trips, None, done)
+    out = _launch(data, b, x0, tol, max_iters, trips, None, done, form=form)
     pcg_solve.launches += 1
     return out
 
 
 def pcg_solve_penalty(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, tol: float,
                       max_iters: int, trips: torch.Tensor, pn: torch.Tensor,
-                      pen_diag: torch.Tensor) -> torch.Tensor:
+                      pen_diag: torch.Tensor, form: Optional[str] = None) -> torch.Tensor:
     """pcg_solve on A + pn pn^T with the Jacobi (or smoothing) diagonal
     diag + pen_diag per component."""
     if b.device.type == "cpu":
@@ -152,12 +236,22 @@ def pcg_solve_penalty(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, 
         x, k = penalty_solve(data, pn, pen_diag, b, x0, tol, max_iters)
         trips += k
         return x
-    out = _launch(data, b, x0, tol, max_iters, trips, (pn, pen_diag), None)
+    out = _launch(data, b, x0, tol, max_iters, trips, (pn, pen_diag), None, form=form)
     pcg_solve_penalty.launches += 1
     return out
 
 
-def _launch(data, b, x0, tol, max_iters, trips, penalty, done):
+def form_of(data: pcg_mod.PCGData, dtype: torch.dtype, form: Optional[str] = None) -> tuple:
+    """g_form for data's system in dtype on the current card."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return g_form(data.n, itemsize, len(data.band_offsets), data.ell_cols.shape[1],
+                  *card_budget(itemsize), want=form)
+
+
+def _launch(data, b, x0, tol, max_iters, trips, penalty, done, lib=None, grid=0, form=None):
+    """Launch kernel G from ``lib`` (the port's library, or a variant of
+    tools/g_h_anatomy.py's) in ``form`` (None: form_of's choice); the GRID
+    form on at most ``grid`` blocks (0: as many as can be resident)."""
     n = data.n
     fields = [("b", b, (n, 3)), ("x0", x0, (n, 3)), ("diag_mass", data.diag_mass, (n,))]
     if penalty is not None:
@@ -183,8 +277,10 @@ def _launch(data, b, x0, tol, max_iters, trips, penalty, done):
              plan.rest_vals, plan.agg, plan.agg_gather, plan.coarse_inv] + list(plan.scratch)
             + [plan.barrier, trips, pn, inv3, done])
     ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[_ptr(t) for t in ptrs])
-    ints = (ctypes.c_int * 7)(*plan.ints, int(max_iters))
-    fn = getattr(_build.library(), f"admm_pcg_solve_{sfx}")
+    kind, blocks, shift = form_of(data, b.dtype, form)
+    ints = (ctypes.c_int * 11)(*plan.ints, int(max_iters), int(grid), FORMS.index(kind), blocks,
+                               shift)
+    fn = getattr(lib or _build.library(), f"admm_pcg_solve_{sfx}")
     with torch.cuda.device(b.device):
         rc = fn(ptr_arr, ints, plan.offs, float(tol), OMEGA,
                 torch.cuda.current_stream(b.device).cuda_stream)
@@ -193,9 +289,18 @@ def _launch(data, b, x0, tol, max_iters, trips, penalty, done):
 
 
 def grid_of(n: int, dtype: torch.dtype) -> int:
-    """The number of blocks kernel G runs for n vertices on the current card."""
+    """The number of blocks kernel G's GRID form runs for n vertices on the
+    current card."""
     sfx = "f32" if dtype == torch.float32 else "f64"
     return int(getattr(_build.library(), f"admm_pcg_grid_{sfx}")(int(n)))
+
+
+def blocks_of(data: pcg_mod.PCGData, dtype: torch.dtype, form: Optional[str] = None) -> tuple:
+    """(form, blocks, threads a block) of kernel G on data's system."""
+    kind, blocks, shift = form_of(data, dtype, form)
+    if kind == "grid":
+        return kind, grid_of(data.n, dtype), BLOCK
+    return kind, blocks, 1 << shift
 
 
 pcg_solve.launches = 0

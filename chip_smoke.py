@@ -44,10 +44,18 @@ failure:
    with pins and a Floor, a Sphere beside it, and the sphere scene (h_checks:
    float64 in the same sweeps within H_F64_TOL, float32 within H_F32_TOL),
    and G's penalty form against alcg.solve_plain at floor_alpcg67k's shapes
-   with its ~900 floor hits, Jacobi and two-grid (gpen_checks); A, C and E
+   with its ~900 floor hits, Jacobi and two-grid (gpen_checks); each of G's
+   forms (CLUSTER where the system fits one thread-block cluster, GRID) and
+   H's (SHARED where x fits shared memory, GLOBAL) that takes a shape,
+   bitwise equal to the one the wrapper chooses there, in as many trips or
+   sweeps, captured and replayed, G also on beams at and beyond the CLUSTER
+   form's largest N (G_EDGE_SCENES); G's GRID form on 8 blocks bitwise its full
+   grid; H beyond the SHARED form's reach (the 67k beam in float64) bitwise
+   the plain gs.solve; A, C and E
    at the PCG paths' shapes and A and C at the 67k contact beam's
    (path_shape_cases);
-4. the paths, each built through the normal entry points on cuda (float32
+4. the paths (path_phase, in a process of its own with the graph checks
+   below), each built through the normal entry points on cuda (float32
    unless named, linsolver=0, 10 ADMM iterations, dt 1/24), Solver.run(n)
    replaying the captured step, in one window with the wrappers' counts set
    to 0 just before and read just after: captured (run(0): the wrappers count
@@ -112,15 +120,19 @@ failure:
    turns, prox_event_times; kernel G per solve on each PCG path's first
    solve by torch.profiler, beside the plain solve_T on the card and
    torch.sparse.mm times its trips, pcg_times; H and G's penalty form per
-   solve the same way, contact_kernel_times): the larger of the bytes it
+   solve the same way, contact_kernel_times; each form of G and H by CUDA
+   events queued behind a sleep kernel, in turns, beside its latency floor,
+   the same solve in a build whose phases do no row work, floor_library):
+   the larger of the bytes it
    must move over 3.35 TB/s and the operations the function needs on the
    same inputs over 67 TFLOP/s (the tet kernels: a count per lane taken from
    the CUDA body times the Newton and line-search trips these inputs take;
    B, C, E: the plain version's operations, counted as it runs; a stencil
    entry: its own bytes, x and the stencil fields in place of D x rows, and
    D x's operations on top); C's two branches in turns (wide, tiled, tiled,
-   wide) within this one run; after phase 4 every path's rollout through
-   the graph, twice, the second time in the reverse order;
+   wide) within this one run; in phase 4's process, after the paths, every
+   path's rollout through the graph, twice, the second time in the reverse
+   order;
 6. with --profile only: torch.profiler over 5 steps of the beam, the cloth
    steps and beam_gather, graph replays and eager loop (device busy time,
    idle share, device operations per ADMM iteration, time by kernel), and,
@@ -139,7 +151,9 @@ line but no result line.
 The last lines are the GPU line, one JSON line of kernels (a row per TPU
 kernel, and one each for kernel G, its penalty form and kernel H, which
 replace the JAX package's jnp loops of PCG, AL-PCG and Gauss-Seidel,
-with the numbers of the entry its path launches: "launches" those of
+with an entry per solve and form, "main" the form the wrapper chooses,
+"floor_ms" the latency floor; each row with the numbers of the entry its path
+launches: "launches" those of
 the path's replays, counted on the device, and of its eager calls after them,
 "wrapper_calls" the wrapper's count over the path's window; "entries"
 lists every entry that does the kernel's work; D and F add their numbers at
@@ -358,6 +372,13 @@ PCG_SCENES = {
                           dtype=np.float64),
 }
 PCG_PATHS = ("beam_pcg160k", "torus_pcg20k", "cloth_ls0_160", "bunny_pcg")
+# Beams at and just beyond the CLUSTER form of kernel G's largest N, 16 blocks
+# of 512 threads: 16 x 16 x 32 = 8,192 vertices, and 17 x 16 x 32 (the GRID
+# form alone); held to the plain solve_T by pcg_checks (no golden).
+G_EDGE_SCENES = {
+    "beam_g_edge_inside": dict(mesh="beam", dims=(15, 15, 31), settings=dict(linsolver=3)),
+    "beam_g_edge_beyond": dict(mesh="beam", dims=(16, 15, 31), settings=dict(linsolver=3)),
+}
 # The PCG paths' golden bounds (step 1, step 8) on x relative to max |x|, and
 # on the displacement (disp_err), at three to ten times the larger gap to the
 # JAX package's golden of two readings at full size: the port's plain path on
@@ -380,13 +401,14 @@ PCG_DISP_TOL = {"beam_pcg160k": 0.1, "torus_pcg20k": 0.1, "cloth_ls0_160": 0.05,
                 "bunny_pcg": 0.5}
 
 
-def pcg_scene(name, api):
-    """One of PCG_SCENES built through the normal entry points of a package
-    whose API the namespace `api` holds (Solver, a no-argument constructor;
-    Settings, Lame, binding, make_tet_blocks, make_tet_torus, load_elenode):
-    returns the initialized solver and the pinned vertex ids. The JAX
-    package's API here is how tests/make_torch_golden.py writes the goldens."""
-    p = PCG_SCENES[name]
+def pcg_scene(name, api, scenes=None):
+    """One of PCG_SCENES (or of scenes) built through the normal entry points
+    of a package whose API the namespace `api` holds (Solver, a no-argument
+    constructor; Settings, Lame, binding, make_tet_blocks, make_tet_torus,
+    load_elenode): returns the initialized solver and the pinned vertex ids.
+    The JAX package's API here is how tests/make_torch_golden.py writes the
+    goldens."""
+    p = (scenes or PCG_SCENES)[name]
     solver = api.Solver()
     if p["mesh"] == "sheet":
         verts, tris, masses, pins = cloth_sheet(p["nx"], p["ny"])
@@ -536,6 +558,16 @@ class SmokeFailure(Exception):
     pass
 
 
+class ProfilerShort(SmokeFailure):
+    """A counted window came back short of launches three times: records
+    that torch.profiler lost, or launches that did not happen."""
+
+
+# The exit code of the paths' process (--paths) where a counted window came
+# back short three times; main runs that process once more, from the start.
+PROFILER_SHORT_RC = 3
+
+
 def need(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
@@ -596,18 +628,41 @@ def environment(torch):
 
 # --- phase 2: build ------------------------------------------------------------
 
+# The latency floor of kernels G and H: pcg.cu and gs.cu built with phases
+# and passes that do no row work (csrc/pcg.cu ADMM_G_ANATOMY, csrc/gs.cu
+# ADMM_H_ANATOMY: the barriers, block sums and totals of G, the __syncthreads
+# chain of H, in a fixed number of trips or sweeps); tools/g_h_anatomy.py
+# builds the other variants.
+FLOOR_UNITS = (("pcg.cu", None), ("gs.cu", None))
+FLOOR_DEFINES = ("-DADMM_G_ANATOMY=1", "-DADMM_H_ANATOMY=1")
+
+
+def floor_library():
+    """The latency-floor build of G and H (FLOOR_DEFINES), loaded."""
+    from admm_elastic_tpu_torch.ops import _build
+
+    return _build.variant(FLOOR_UNITS, FLOOR_DEFINES)
+
+
 def build():
+    """The port's kernels and the latency-floor build, all units compiled in
+    parallel."""
+    import concurrent.futures
+
     from admm_elastic_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.library()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(_build.library), pool.submit(_build.build, FLOOR_UNITS, FLOOR_DEFINES)]
+        for j in jobs:
+            j.result()
     secs = time.perf_counter() - t0
     so = _build.build()
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
              if ln.startswith("==") or "registers" in ln or "Compiling entry" in ln
              or ("spill" in ln and "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
                  not in ln)]
-    log(f"build {secs:.1f} s -> {so.name}")
+    log(f"build {secs:.1f} s -> {so.name} and the latency-floor build")
     for ln in ptxas:
         log(f"  ptxas {ln}")
     return dict(build_s=secs, library=so.name, ptxas=ptxas)
@@ -782,6 +837,42 @@ def events_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+SLEEP_CYCLES = 100_000_000  # some 60 ms at the card's clock: longer than the host's enqueue
+
+
+def queued_us(torch, calls, reps):
+    """{label: device µs per call} for each (label, fn) of calls, fn()
+    launching one kernel (and at most a few small tensor operations before
+    it): CUDA events around each call, the calls in turns, reps rounds, all
+    queued behind a sleep kernel so that the card runs them back to back and
+    no event waits on the host's enqueue. Off the card (a rehearsal) the
+    host's clock."""
+    for _, fn in calls:
+        fn()
+    if DEVICE != "cuda":
+        out = {}
+        for label, fn in calls:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            out[label] = (time.perf_counter() - t0) / reps * 1e6
+        return out
+    torch.cuda.synchronize()
+    pairs = {label: [] for label, _ in calls}
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for _ in range(reps):
+        for label, fn in calls:
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            start.record()
+            fn()
+            stop.record()
+            pairs[label].append((start, stop))
+    torch.cuda.synchronize()
+    return {label: sum(a.elapsed_time(b) for a, b in ev) / len(ev) * 1e3
+            for label, ev in pairs.items()}
 
 
 def stencil_err(torch, got, want):
@@ -1510,10 +1601,60 @@ def csr_of(torch, solver, dtype):
                                    torch.as_tensor(v[order]), size=(n, n)).to(DEVICE, dtype)
 
 
+def g_forms(data, dtype):
+    """The forms of kernel G that take data's system in dtype on this card:
+    the GRID form always, the CLUSTER form where it fits (cuda_pcg.g_form).
+    Off the card (a rehearsal) the wrappers' plain versions: "plain"."""
+    from admm_elastic_tpu_torch.ops import cuda_pcg
+
+    if DEVICE != "cuda":
+        return ["plain"]
+    forms = ["grid"]
+    try:
+        cuda_pcg.form_of(data, dtype, "cluster")
+        forms.append("cluster")
+    except ValueError:
+        pass
+    return forms
+
+
+def g_blocks(data, dtype, form=None):
+    """(form, blocks, threads a block) of kernel G (cuda_pcg.blocks_of);
+    ("plain", 0, 0) off the card."""
+    from admm_elastic_tpu_torch.ops import cuda_pcg
+
+    return cuda_pcg.blocks_of(data, dtype, form) if DEVICE == "cuda" else ("plain", 0, 0)
+
+
+def capture_bitwise(torch, label, fn, want, k_want):
+    """fn(t) (a kernel launch that adds its iterations to the int32 counter
+    t) captured into a CUDA graph and replayed: its output bitwise want, its
+    iterations k_want."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+    with torch.cuda.stream(side):
+        fn(t)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            t.zero_()
+            xc = fn(t)
+    except Exception as e:
+        raise SmokeFailure(f"{label}: capturing it into a CUDA graph failed: {e}")
+    g.replay()
+    torch.cuda.synchronize()
+    need(bool(torch.equal(xc, want)) and int(t.item()) == k_want,
+         f"{label}: the graph replay differs from the eager launch")
+
+
 def g_against_plain(torch, label, data, b, x0, tol, max_iters, dtype_name, graph=False):
     """Kernel G against the plain solve_T on the same inputs (see PCG_F64_TOL,
-    PCG_F32_TOL), G twice bitwise; with graph, G captured into a CUDA graph
-    and replayed, bitwise equal to its eager launch."""
+    PCG_F32_TOL), G twice bitwise; every other form that takes the shape
+    (g_forms) bitwise equal to the form the wrapper chooses, in as many
+    trips; with graph, each form captured into a CUDA graph and replayed,
+    bitwise equal to its eager launch."""
     from admm_elastic_tpu_torch.ops import cuda_pcg
     from admm_elastic_tpu_torch.solvers import pcg
 
@@ -1545,25 +1686,20 @@ def g_against_plain(torch, label, data, b, x0, tol, max_iters, dtype_name, graph
         out["bound"] = bound
         need(err <= bound and abs(kg - kp) <= max(2, PCG_F32_TRIPS * kp),
              f"G {label} f32: {out} (bound {bound}, trips within {PCG_F32_TRIPS:.0%})")
-    if graph:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
+    out["form"], out["blocks"], out["threads"] = g_blocks(data, b.dtype)
+    out["forms"] = {}
+    for form in g_forms(data, b.dtype):
         t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
-        with torch.cuda.stream(side):
-            cuda_pcg.pcg_solve(data, b, x0, tol, max_iters, t)
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(g):
-                t.zero_()
-                xc = cuda_pcg.pcg_solve(data, b, x0, tol, max_iters, t)
-        except Exception as e:
-            raise SmokeFailure(f"G {label}: capturing its cooperative launch into a CUDA "
-                               f"graph failed: {e}")
-        g.replay()
-        torch.cuda.synchronize()
-        need(bool(torch.equal(xc, xg)) and int(t.item()) == kg,
-             f"G {label}: the graph replay differs from the eager launch")
+        xf = cuda_pcg.pcg_solve(data, b, x0, tol, max_iters, t, form=form)
+        need(bool(torch.equal(xf, xg)) and int(t.item()) == kg,
+             f"G {label} {dtype_name}: the {form} form differs from the {out['form']} form")
+        out["forms"][form] = dict(bitwise_to_chosen=True, trips=kg,
+                                  blocks=g_blocks(data, b.dtype, form)[1:])
+        if graph:
+            capture_bitwise(torch, f"G {label} ({form})", lambda t, form=form: cuda_pcg.pcg_solve(
+                data, b, x0, tol, max_iters, t, form=form), xg, kg)
+            out["forms"][form]["graph_replay_bitwise"] = True
+    if graph:
         out["graph_replay_bitwise"] = True
     return xg, out
 
@@ -1575,24 +1711,28 @@ def pcg_checks(torch):
     (ragged N: 112, 300 and 600 vertices) in every operator form the port
     builds: bands, circular bands (the torus), RCM with a rest-ELL (the bunny
     with spmv_format "bands"), no bands (spmv_format "ell", and the bunny's
-    "auto"), each with Jacobi and two-grid. G's launch captured
-    into a CUDA graph on the first path. Returns the results and, per path,
-    what the timing needs."""
+    "auto"), each with Jacobi and two-grid; and on the G_EDGE_SCENES beams at
+    and beyond the CLUSTER form's largest N, Jacobi and two-grid. Every form
+    of G that takes a shape runs (g_against_plain); each form's launch
+    captured into a CUDA graph and replayed, in float32, on the first path
+    and on the edge beams. Returns the results and, per path, what the
+    timing needs."""
     from admm_elastic_tpu_torch.solvers import pcg
 
     out, timing = {}, {}
     api = torch_api()
     runs = [(name, False) for name in PCG_PATHS] + [(name, True) for name in (
-        "beam_pcg", "torus_pcg", "bunny_pcg")]
+        "beam_pcg", "torus_pcg", "bunny_pcg")] + [(name, True) for name in G_EDGE_SCENES]
     for name, every_form in runs:
-        solver, _ = pcg_scene(name, api)
+        solver, _ = pcg_scene(name, api, dict(PCG_SCENES, **G_EDGE_SCENES))
         s = solver.m_settings
         b, x0 = first_solve(torch, solver)
         forms = [(s.pcg_precond, "auto", solver._solve_data)]
         if every_form:
+            fmts = ("auto",) if name in G_EDGE_SCENES else ("auto", "ell", "bands")
             forms = [(pre, fmt, pcg.prepare(solver.system, torch.float32, precond=pre,
                                              spmv_format=fmt))
-                     for pre in ("jacobi", "twogrid") for fmt in ("auto", "ell", "bands")]
+                     for pre in ("jacobi", "twogrid") for fmt in fmts]
         for pre, fmt, d32 in forms:
             label = f"{name} {pre} {fmt}" if every_form else name
             d64 = pcg.prepare(solver.system, torch.float64, precond=pre, spmv_format=fmt)
@@ -1602,13 +1742,19 @@ def pcg_checks(torch):
             res = {"form": shape}
             xg, res["f32"] = g_against_plain(torch, label, d32, b, x0, s.pcg_tol,
                                              s.pcg_max_iters, "f32",
-                                             graph=name == PCG_PATHS[0] and DEVICE == "cuda")
+                                             graph=DEVICE == "cuda" and (
+                                                 name == PCG_PATHS[0] or name in G_EDGE_SCENES))
             _, res["f64"] = g_against_plain(torch, label, d64, b.double(), x0.double(),
                                             s.pcg_tol, s.pcg_max_iters, "f64")
+            if name in G_EDGE_SCENES and DEVICE == "cuda":
+                want = ["grid", "cluster"] if name.endswith("inside") else ["grid"]
+                need(all(list(res[t]["forms"]) == want for t in ("f32", "f64")),
+                     f"G {label}: forms {list(res['f32']['forms'])}, expected {want}")
             out[label] = res
             log(f"G {label} {json.dumps(shape)}: f32 {res['f32']['rel_err']:.3e} in "
                 f"{res['f32']['trips']} trips (plain {res['f32']['plain_trips']}), f64 "
-                f"{res['f64']['rel_err']:.3e} in {res['f64']['trips']} trips")
+                f"{res['f64']['rel_err']:.3e} in {res['f64']['trips']} trips; forms "
+                f"{list(res['f32']['forms'])} bitwise equal")
             if not every_form:
                 timing[name] = dict(solver=solver, b=b, x0=x0, data=d32, tol=s.pcg_tol,
                                     max_iters=s.pcg_max_iters, trips=res["f32"]["trips"],
@@ -1663,26 +1809,38 @@ def uzawa_inner_checks(torch):
         if case == "first":
             for tag, data, bt, xt, want in (("f32", d32, bb, xx, x32),
                                             ("f64", d64, bb.double(), xx.double(), x64)):
-                for flag in (True, False):
-                    t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
-                    x = cuda_pcg.pcg_solve(data, bt, xt, tol, iters, t,
-                                           done=torch.tensor(flag, device=DEVICE))
-                    k = int(t.item())
-                    if flag:
-                        need(bool(torch.equal(x, xt)) and k == 0,
-                             f"G {label} {tag}: with done set, {k} trips and x is not x0")
-                    else:
-                        need(bool(torch.equal(x, want)) and k == res[tag]["trips"],
-                             f"G {label} {tag}: with done unset, {k} trips and x differs "
-                             "from the solve without the flag")
+                for form in g_forms(data, bt.dtype):
+                    for flag in (True, False):
+                        t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+                        x = cuda_pcg.pcg_solve(data, bt, xt, tol, iters, t,
+                                               done=torch.tensor(flag, device=DEVICE), form=form)
+                        k = int(t.item())
+                        if flag:
+                            need(bool(torch.equal(x, xt)) and k == 0,
+                                 f"G {label} {tag} {form}: with done set, {k} trips and x is "
+                                 "not x0")
+                        else:
+                            need(bool(torch.equal(x, want)) and k == res[tag]["trips"],
+                                 f"G {label} {tag} {form}: with done unset, {k} trips and x "
+                                 "differs from the solve without the flag")
                 res[tag]["done_set_returns_x0"] = res[tag]["done_unset_bitwise"] = True
+                if DEVICE != "cuda":
+                    continue
+                # the GRID form on 8 blocks: each walks some 8 chunks, with the
+                # same bits
+                t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+                x = cuda_pcg._launch(data, bt, xt, tol, iters, t, None, None, grid=8, form="grid")
+                need(bool(torch.equal(x, want)) and int(t.item()) == res[tag]["trips"],
+                     f"G {label} {tag}: the GRID form on 8 blocks differs from the full grid")
+                res[tag]["grid_of_8_bitwise"] = True
         out[label] = res
         log(f"G {label} (Uzawa's inner, two-grid, coarse {d32.coarse_inv.shape[0]}, "
             f"{res['active_rows']} active rows): f32 {res['f32']['rel_err']:.3e} in "
             f"{res['f32']['trips']} trips (plain {res['f32']['plain_trips']}), f64 "
             f"{res['f64']['rel_err']:.3e} in {res['f64']['trips']} trips (plain "
-            f"{res['f64']['plain_trips']})" + ("; done set: x0, no trip; done unset: bitwise "
-                                             "the unflagged solve" if case == "first" else ""))
+            f"{res['f64']['plain_trips']}); forms {list(res['f32']['forms'])} bitwise equal"
+            + ("; done set: x0, no trip; done unset: bitwise the unflagged solve; the GRID form "
+               "on 8 blocks bitwise" if case == "first" else ""))
         timing[label] = dict(solver=solver, b=bb, x0=xx, data=d32, tol=tol, max_iters=iters,
                              trips=res["f32"]["trips"], max_abs_err=res["f32"]["max_abs_err"])
     return out, timing
@@ -1691,13 +1849,15 @@ def uzawa_inner_checks(torch):
 def g_device_us(torch, fn, reps, kernel="pcg_kernel"):
     """Device time per launch of kernel G (or the kernel named) by fn()
     (torch.profiler), after a warm-up; a window with events missing is taken
-    again, three at most."""
+    again, three at most, and then the reading is None (not measured): the
+    time the kernels line reports is the queued CUDA events' (queued_us),
+    and this one only stands beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1706,15 +1866,51 @@ def g_device_us(torch, fn, reps, kernel="pcg_kernel"):
               if e.device_type == DeviceType.CUDA and kernel in e.name]
         if len(us) >= reps:
             return sum(us) / len(us)
-    raise SmokeFailure(f"profiler saw {len(us)} of {reps} launches, three times")
+        log(f"profiler saw {len(us)} of {reps} launches of {kernel}"
+            + ("; the window is taken again" if attempt < 2 else "; not measured"))
+    return None
+
+
+def profiler_or_queued(torch, fn, kernel, queued_ms):
+    """(profiler_ms, ms) of a solve: torch.profiler's device time per launch
+    of fn() (g_device_us; None where the profiler did not see every launch)
+    and the time to report, the profiler's or else the queued CUDA events'."""
+    us = g_device_us(torch, fn, 20, kernel=kernel)
+    prof_ms = None if us is None else us * 1e-3
+    return prof_ms, queued_ms if prof_ms is None else prof_ms
+
+
+def g_form_times(torch, run, data, dtype, trips, reps=10):
+    """Each form of G (g_forms) on one solve, in turns: device µs per solve
+    (queued_us) of run(form, lib, max_iters) with its own exit, and of the
+    latency-floor build (floor_library: no row work) in as many trips, its
+    blocks; off the card (a rehearsal) no floor build: null."""
+    from admm_elastic_tpu_torch.ops import cuda_pcg
+
+    forms = g_forms(data, dtype)
+    calls = [(("kernel", f), lambda f=f: run(f, None, None)) for f in forms]
+    if DEVICE == "cuda":
+        lib = floor_library()
+        calls += [(("floor", f), lambda f=f: run(f, lib, max(trips, 1))) for f in forms]
+    us = queued_us(torch, calls + calls[::-1], reps)
+    out = {}
+    for f in forms:
+        floor = us.get(("floor", f))
+        kind, blocks, threads = g_blocks(data, dtype, f)
+        out[f] = dict(ms=us[("kernel", f)] * 1e-3, floor_ms=None if floor is None else floor * 1e-3,
+                      ms_per_trip=us[("kernel", f)] * 1e-3 / max(trips, 1), blocks=blocks,
+                      threads=threads)
+    return out
 
 
 def pcg_times(torch, timing, gpu):
-    """Kernel G's time per solve on each path's first solve (CUDA events) with
-    its trips, beside the plain solve_T on the card, a library SpMV
-    (torch.sparse.mm on A as CSR) times the trips, and G's bound
-    (pcg_bytes_ops); each at the tolerance and trip limit of its path's
-    solve."""
+    """Kernel G's time per solve on each path's first solve with its trips:
+    the form the wrapper chooses by torch.profiler (device time per launch),
+    every form (g_forms) by queued CUDA events in turns beside its latency
+    floor (the no-row-work build in as many trips); beside the plain solve_T
+    on the card, a library SpMV (torch.sparse.mm on A as CSR) times the
+    trips, and G's bound (pcg_bytes_ops); each at the tolerance and trip
+    limit of its path's solve."""
     from admm_elastic_tpu_torch.ops import cuda_pcg
     from admm_elastic_tpu_torch.solvers import pcg
 
@@ -1729,26 +1925,39 @@ def pcg_times(torch, timing, gpu):
         def plain():
             return pcg.solve_T(data.apply_T, data.precondition_T(), b, x0, tol, iters)
 
+        def run(form, lib, its):
+            if lib is None:
+                return cuda_pcg.pcg_solve(data, b, x0, tol, iters, None, form=form)
+            return cuda_pcg._launch(data, b, x0, tol, its, None, None, None, lib=lib, form=form)
+
         a = csr_of(torch, t["solver"], b.dtype)
         p1, k1, k2, p2 = (events_ms(torch, plain, 2), events_ms(torch, kern, 20),
                           events_ms(torch, kern, 20), events_ms(torch, plain, 2))
         spmv = events_ms(torch, lambda: torch.sparse.mm(a, b), 200)
         n_bytes, ops = pcg_bytes_ops(data, t["trips"])
         bound_ms, bound_by = bound_of(n_bytes, ops)
+        forms = g_form_times(torch, run, data, b.dtype, t["trips"])
         # G's device time per launch (torch.profiler): the events above also
         # hold the host's enqueue of each launch
-        ms = g_device_us(torch, kern, 20) * 1e-3
-        out[name] = dict(ms=ms, events_ms=min(k1, k2), plain_ms=min(p1, p2),
-                         readings=[p1, k1, k2, p2],
+        form = g_blocks(data, b.dtype)[0]
+        prof_ms, ms = profiler_or_queued(torch, kern, "pcg_kernel", forms[form]["ms"])
+        out[name] = dict(ms=ms, profiler_ms=prof_ms, events_ms=min(k1, k2), plain_ms=min(p1, p2),
+                         readings=[p1, k1, k2, p2], form=form, forms=forms,
+                         floor_ms=forms[form]["floor_ms"],
                          trips=t["trips"], ms_per_trip=ms / max(t["trips"], 1),
                          library_ms=spmv * t["trips"], library_spmv_ms=spmv, bytes=n_bytes,
                          operations=ops, bound_ms=bound_ms, bound_by=bound_by,
-                         grid=cuda_pcg.grid_of(data.n, b.dtype), n=data.n,
+                         grid=forms[form]["blocks"], n=data.n,
                          bands=len(data.band_offsets), rest=data.ell_cols.shape[1],
                          twogrid=data.agg is not None)
-        log(f"time pcg_solve@{name}: {ms * 1e3:.1f} us per solve on the device "
-            f"({min(k1, k2) * 1e3:.1f} by CUDA events), {t['trips']} trips, "
-            f"{ms / max(t['trips'], 1) * 1e3:.2f} us per trip on {out[name]['grid']} blocks; "
+        per_form = "; ".join(
+            f"{f} ({v['blocks']} x {v['threads']}) {v['ms'] * 1e3:.1f} us, floor "
+            + ("n/a" if v["floor_ms"] is None else f"{v['floor_ms'] * 1e3:.1f} us")
+            for f, v in forms.items())
+        log(f"time pcg_solve@{name}: {ms * 1e3:.1f} us per solve on the device in the {form} "
+            f"form ({'torch.profiler' if prof_ms is not None else 'queued CUDA events'}; "
+            f"{min(k1, k2) * 1e3:.1f} by CUDA events), {t['trips']} trips, "
+            f"{ms / max(t['trips'], 1) * 1e3:.2f} us per trip; by queued events {per_form}; "
             f"plain {min(p1, p2) * 1e3:.1f} us; torch.sparse.mm {spmv * 1e3:.2f} us x trips; "
             f"bound {bound_ms * 1e3:.2f} us by {bound_by} [{gpu}]")
     return out
@@ -1850,11 +2059,15 @@ def device_launches(torch, fn, model=None):
     return port_kernel_counts(prof.events())
 
 
-def counted_window(torch, label, fn, expect, reset=None, model=None):
+def counted_window(torch, label, fn, expect, reset=None, model=None, split=None):
     """device_launches of fn(), held to expect (name -> exact count, 0 for a
     kernel fn must not launch). The profiler now and then drops events of a
     window, so a window short of expect is taken again (reset() first, where
-    fn must start from the same state), three times at most."""
+    fn must start from the same state), three times at most. Where it stays
+    short and split is given, split() takes it once more in smaller windows,
+    each held the same way to its own share of expect, and returns their
+    counts summed: the largest window (floor_uzawa67k's, some 117,000 device
+    records) lost a few of them on most runs (PERF.md §7)."""
     for attempt in range(3):
         if reset is not None:
             reset()
@@ -1864,7 +2077,42 @@ def counted_window(torch, label, fn, expect, reset=None, model=None):
             return counts
         log(f"{label}: a window counted {off}, expected {expect}"
             + ("; it is taken again" if attempt < 2 else ""))
-    raise SmokeFailure(f"{label}: launched {off}, expected {expect}, three times")
+    short = all(v < expect[k] for k, v in off.items())
+    if short and split is not None:
+        log(f"{label}: the window is taken again in smaller windows")
+        if reset is not None:
+            reset()
+        counts = split()
+        off = {k: counts.get(k, 0) for k, want in expect.items() if counts.get(k, 0) != want}
+        need(not off, f"{label}: the smaller windows counted {off} in all, expected {expect}")
+        return counts
+    raise (ProfilerShort if short else SmokeFailure)(
+        f"{label}: launched {off}, expected {expect}, three times")
+
+
+def profiler_warmup(torch):
+    """The process's first torch.profiler window, on a few small kernels:
+    CUPTI is set up here, once (main sets TEARDOWN_CUPTI=0, so no later
+    window tears it down and sets it up again among the captured graphs).
+    In the paths' process it comes before any graph is captured, in the main
+    process after host_timing, whose host clock it must not slow. Logs and
+    returns the device events it saw: a profiler that traces nothing shows
+    here, before any reading needs it."""
+    if DEVICE != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones((1024,), device=DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            x = x * 1.5
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    log(f"profiler warm-up: {n} device events of 8 launches (TEARDOWN_CUPTI="
+        f"{os.environ.get('TEARDOWN_CUPTI')})")
+    return n
 
 
 def rel_err(x, ref):
@@ -1960,8 +2208,27 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
         def restore():
             solver.state = state0.clone()
 
-        by_steps = counted_window(torch, label, steps, {k: v for k, v in step_counts.items()
-                                                        if k != "tri_Dx_rows"}, restore, model)
+        expect = {k: v for k, v in step_counts.items() if k != "tri_Dx_rows"}
+
+        def step_by_step():
+            # one window a replayed step, each from its own start state
+            need(all(v % last == 0 for v in expect.values()),
+                 f"{label}: launches {expect} not a whole number per step")
+            total = {}
+            for k in range(1, last + 1):
+                start = solver.state.clone()
+                got = counted_window(torch, f"{label} step {k}", lambda: solver.run(1),
+                                     {n: v // last for n, v in expect.items()},
+                                     lambda start=start: setattr(solver, "state", start.clone()),
+                                     model)
+                for n, v in got.items():
+                    total[n] = total.get(n, 0) + v
+                if k in compared and k != last:
+                    xs[k] = solver.x
+            return total
+
+        by_steps = counted_window(torch, label, steps, expect, restore, model,
+                                  split=step_by_step)
     x_last_t = solver.state.x.clone()
     before_after = read_counts(model)
     extra = after_steps(solver) if after_steps is not None else {}
@@ -2331,10 +2598,37 @@ def gs_data64(torch, solver):
                                diag=torch.as_tensor(diag, device=DEVICE))
 
 
+def h_forms(n, dtype):
+    """The forms of kernel H that take n vertices in dtype on this card: the
+    GLOBAL form always, the SHARED form where x fits (cuda_gs.h_form). Off
+    the card (a rehearsal) the wrapper's plain version: "plain"."""
+    from admm_elastic_tpu_torch.ops import cuda_gs
+
+    if DEVICE != "cuda":
+        return ["plain"]
+    forms = ["global"]
+    try:
+        cuda_gs.form_of(n, dtype, "shared")
+        forms.append("shared")
+    except ValueError:
+        pass
+    return forms
+
+
+def h_chosen(n, dtype):
+    """The form kernel H takes for n vertices (cuda_gs.form_of); "plain"
+    off the card."""
+    from admm_elastic_tpu_torch.ops import cuda_gs
+
+    return cuda_gs.form_of(n, dtype) if DEVICE == "cuda" else "plain"
+
+
 def h_against_plain(torch, label, data, b, x0, pin_mask, pin_target, obstacles, s, dtype_name,
                     graph=False):
     """Kernel H against the plain gs.solve on the same inputs (H_F64_TOL,
-    H_F32_TOL), twice bitwise; with graph, captured and replayed bitwise."""
+    H_F32_TOL), twice bitwise; every other form that takes the shape
+    (h_forms) bitwise equal to the form the wrapper chooses, in as many
+    sweeps; with graph, each form captured and replayed bitwise."""
     from admm_elastic_tpu_torch.ops import cuda_gs
     from admm_elastic_tpu_torch.solvers import gs
 
@@ -2353,28 +2647,45 @@ def h_against_plain(torch, label, data, b, x0, pin_mask, pin_target, obstacles, 
                       x0, pin_mask, pin_target, obs, None, None, s.gs_omega, s.gs_max_iters,
                       s.gs_tol, may_have_dyn=False)
     err = rel_err(xh.double().cpu().numpy(), xp.double().cpu().numpy())
-    out = dict(rel_err=err, sweeps=kh, plain_sweeps=kp, n=int(b.shape[0]),
+    n = int(b.shape[0])
+    out = dict(rel_err=err, sweeps=kh, plain_sweeps=kp, n=n,
                bitwise=bool(torch.equal(xh, xp)), max_abs_err=float((xh - xp).abs().max()),
-               colors=int(data.colors.shape[0]), width=int(data.colors.shape[1]))
+               colors=int(data.colors.shape[0]), width=int(data.colors.shape[1]),
+               form=h_chosen(n, dtype))
     if dtype_name == "f64":
         need(err <= H_F64_TOL and kh == kp, f"H {label} f64: {out} (bound {H_F64_TOL})")
     else:
         need(err <= H_F32_TOL and abs(kh - kp) <= 1, f"H {label} f32: {out} (bound {H_F32_TOL})")
-    if graph:
+    out["forms"] = {}
+    for form in h_forms(n, dtype):
         t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
-        g = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(g):
-                t.zero_()
-                xc = cuda_gs.gs_solve(data, *args, t, params=params)
-        except Exception as e:
-            raise SmokeFailure(f"H {label}: capturing it into a CUDA graph failed: {e}")
-        g.replay()
-        torch.cuda.synchronize()
-        need(bool(torch.equal(xc, xh)) and int(t.item()) == kh,
-             f"H {label}: the graph replay differs from the eager launch")
+        xf = cuda_gs.gs_solve(data, *args, t, params=params, form=form)
+        need(bool(torch.equal(xf, xh)) and int(t.item()) == kh,
+             f"H {label} {dtype_name}: the {form} form differs from the {out['form']} form")
+        out["forms"][form] = dict(bitwise_to_chosen=True, sweeps=kh)
+        if graph:
+            capture_bitwise(torch, f"H {label} ({form})", lambda t, form=form: cuda_gs.gs_solve(
+                data, *args, t, params=params, form=form), xh, kh)
+            out["forms"][form]["graph_replay_bitwise"] = True
+    if graph:
         out["graph_replay_bitwise"] = True
     return out
+
+
+def gs_data_of(torch, system, np_dtype):
+    """The GSData Solver builds for linsolver=1 (solver.py), of any system,
+    in np_dtype."""
+    from admm_elastic_tpu_torch.solvers import gs
+    from admm_elastic_tpu_torch.system import assembly
+
+    cols, vals, diag = assembly.assemble_ell(system, dtype=np_dtype)
+    groups, gmask = assembly.color_groups(
+        assembly.greedy_coloring(assembly.vertex_adjacency(system)))
+    return gs.GSData(ell_cols=torch.as_tensor(cols, device=DEVICE),
+                     ell_vals=torch.as_tensor(vals, device=DEVICE),
+                     diag=torch.as_tensor(diag, device=DEVICE),
+                     colors=torch.as_tensor(groups, device=DEVICE),
+                     colors_mask=torch.as_tensor(gmask, device=DEVICE))
 
 
 def h_checks(torch):
@@ -2384,8 +2695,13 @@ def h_checks(torch):
     floor_gs5k beam with its -x face pinned in the dense pin arrays (targets
     5 mm off), float32 and the same inputs widened to float64; the same with a
     Sphere beside the Floor whose top meets the floor plane under the beam
-    (both hit: the first of least distance wins); and sphere_gs. Returns the
-    results and, per path, what the timing needs."""
+    (both hit: the first of least distance wins); and sphere_gs; each in
+    every form that takes it (h_forms), the float32 floor_gs5k case also
+    captured and replayed. Then H beyond the SHARED form's reach: the
+    floor_uzawa67k beam (15,616 vertices) on its Floor under Gauss-Seidel
+    (gs_data_of), float64 (x 375 KB: the GLOBAL form only) and float32 (both
+    forms), each bitwise the plain gs.solve. Returns the results and, per
+    path, what the timing needs."""
     from admm_elastic_tpu_torch import Floor, Sphere
 
     out, timing = {}, {}
@@ -2417,10 +2733,28 @@ def h_checks(torch):
             log(f"H {label} ({res['f32']['colors']} colours of at most {res['f32']['width']}): "
                 f"f32 {res['f32']['rel_err']:.3e} in {res['f32']['sweeps']} sweeps (plain "
                 f"{res['f32']['plain_sweeps']}, bitwise {res['f32']['bitwise']}), f64 "
-                f"{res['f64']['rel_err']:.3e} in {res['f64']['sweeps']} sweeps")
+                f"{res['f64']['rel_err']:.3e} in {res['f64']['sweeps']} sweeps; forms "
+                f"{list(res['f32']['forms'])} bitwise equal")
         timing[name] = dict(solver=solver, b=b, x0=x0, pin_mask=pin_mask, pin_target=pin_target,
                             sweeps=out[name]["f32"]["sweeps"],
                             max_abs_err=out[name]["f32"]["max_abs_err"])
+    label = "floor_uzawa67k gs"
+    solver = landed_solver(torch, "floor_uzawa67k")
+    b, x0 = first_solve(torch, solver)
+    no_pin = torch.zeros((x0.shape[0],), dtype=torch.bool, device=DEVICE)
+    res = {}
+    for tag, np_dtype, dtype in (("f32", np.float32, torch.float32),
+                                 ("f64", np.float64, torch.float64)):
+        data = gs_data_of(torch, solver.system, np_dtype)
+        res[tag] = h_against_plain(torch, label, data, b.to(dtype), x0.to(dtype), no_pin,
+                                   x0.to(dtype), list(solver.obstacles), solver.m_settings, tag)
+        need(res[tag]["bitwise"], f"H {label} {tag}: not bitwise the plain gs.solve on a Floor")
+    need(list(res["f64"]["forms"]) == (["global"] if DEVICE == "cuda" else ["plain"]),
+         f"H {label} f64: the SHARED form took x")
+    out[label] = res
+    log(f"H {label} ({res['f32']['colors']} colours of at most {res['f32']['width']}): f32 "
+        f"forms {list(res['f32']['forms'])}, f64 forms {list(res['f64']['forms'])}, each "
+        f"bitwise the plain gs.solve in {res['f32']['sweeps']} / {res['f64']['sweeps']} sweeps")
     return out, timing
 
 
@@ -2445,8 +2779,9 @@ def gpen_inputs(torch, solver, dtype):
 
 def gpen_against_plain(torch, label, data, hits, ck, b, x0, y, s, dtype_name, graph=False):
     """Kernel G's penalty form (alcg.solve on the card) against the plain
-    alcg.solve_plain on the same inputs; twice bitwise; with graph, captured
-    and replayed bitwise."""
+    alcg.solve_plain on the same inputs; twice bitwise; every form that takes
+    the shape (g_forms) bitwise equal to the one the wrapper chooses, in as
+    many trips; with graph, each form captured and replayed bitwise."""
     from admm_elastic_tpu_torch.solvers import alcg
 
     trips = [torch.zeros((1,), dtype=torch.int32, device=DEVICE) for _ in range(2)]
@@ -2466,19 +2801,28 @@ def gpen_against_plain(torch, label, data, hits, ck, b, x0, y, s, dtype_name, gr
     else:
         need(err <= PCG_F32_TOL and abs(kg - kp) <= GPEN_F32_TRIPS,
              f"G penalty {label} f32: {out}")
-    if graph:
+    # every form of G's penalty form on the solve alcg.solve hands it
+    from admm_elastic_tpu_torch.ops import cuda_pcg
+
+    _, b_hat, pen_diag, _ = alcg._setup(hits, ck, b, y)
+    pn = alcg.penalty_vectors(hits, ck, b.shape[0])
+    out["form"] = g_blocks(data, b.dtype)[0]
+    out["forms"] = {}
+    for form in g_forms(data, b.dtype):
+        def solve(t, form=form):
+            return cuda_pcg.pcg_solve_penalty(data, b_hat, x0, s.pcg_tol, s.pcg_max_iters, t, pn,
+                                              pen_diag, form=form)
+
         t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
-        g = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(g):
-                t.zero_()
-                xc, _ = alcg.solve(data, hits, ck, b, x0, y, s.pcg_tol, s.pcg_max_iters, t)
-        except Exception as e:
-            raise SmokeFailure(f"G penalty {label}: capturing it failed: {e}")
-        g.replay()
-        torch.cuda.synchronize()
-        need(bool(torch.equal(xc, xg)) and int(t.item()) == kg,
-             f"G penalty {label}: the graph replay differs from the eager launch")
+        xf = solve(t)
+        need(bool(torch.equal(xf, xg)) and int(t.item()) == kg,
+             f"G penalty {label} {dtype_name}: the {form} form differs from the {out['form']} "
+             "form")
+        out["forms"][form] = dict(bitwise_to_chosen=True, trips=kg)
+        if graph:
+            capture_bitwise(torch, f"G penalty {label} ({form})", solve, xg, kg)
+            out["forms"][form]["graph_replay_bitwise"] = True
+    if graph:
         out["graph_replay_bitwise"] = True
     return out
 
@@ -2645,11 +2989,13 @@ def h_bytes_ops(data, sweeps, itemsize):
 
 def contact_kernel_times(torch, h_timing, gpen_timing, gpu):
     """Kernel H per solve (floor_gs5k, sphere_gs) and G's penalty form per
-    solve (floor_alpcg67k) on their first-solve inputs: device time
-    (torch.profiler), CUDA events, the plain versions on the card, the bound;
-    the library yardstick of G's penalty form, torch.sparse.mm of A as CSR
-    times its trips (none computes a GS sweep: null)."""
-    from admm_elastic_tpu_torch.ops import cuda_gs
+    solve (floor_alpcg67k) on their first-solve inputs: device time of the
+    form the wrapper chooses (torch.profiler), every form by queued CUDA
+    events in turns beside its latency floor (the no-row-work build in as
+    many sweeps or trips), CUDA events, the plain versions on the card, the
+    bound; the library yardstick of G's penalty form, torch.sparse.mm of A as
+    CSR times its trips (none computes a GS sweep: null)."""
+    from admm_elastic_tpu_torch.ops import cuda_gs, cuda_pcg
     from admm_elastic_tpu_torch.solvers import alcg, gs
 
     out = {}
@@ -2670,13 +3016,32 @@ def contact_kernel_times(torch, h_timing, gpen_timing, gpu):
                             data.colors_mask, *args[:5], None, None, *args[5:],
                             may_have_dyn=False)
 
+        def run(form, lib):
+            if lib is None:
+                return cuda_gs.gs_solve(data, *args, sweeps, params=params, form=form)
+            return cuda_gs._launch(data, *args[:6], t["sweeps"], s.gs_tol, sweeps, params,
+                                   lib=lib, form=form)
+
         p1, k1, k2, p2 = (events_ms(torch, plain, 1), events_ms(torch, kern, 20),
                           events_ms(torch, kern, 20), events_ms(torch, plain, 1))
-        ms = g_device_us(torch, kern, 20, kernel="gs_kernel") * 1e-3
+        n = int(t["b"].shape[0])
+        forms = h_forms(n, t["b"].dtype)
+        calls = [(("kernel", f), lambda f=f: run(f, None)) for f in forms]
+        if DEVICE == "cuda":
+            lib = floor_library()
+            calls += [(("floor", f), lambda f=f: run(f, lib)) for f in forms]
+        us = queued_us(torch, calls + calls[::-1], 10)
+        by_form = {f: dict(ms=us[("kernel", f)] * 1e-3,
+                           floor_ms=(us[("floor", f)] * 1e-3 if ("floor", f) in us else None),
+                           ms_per_sweep=us[("kernel", f)] * 1e-3 / max(t["sweeps"], 1))
+                   for f in forms}
         n_bytes, ops = h_bytes_ops(data, t["sweeps"], 4)
         bound_ms, bound_by = bound_of(n_bytes, ops)
+        form = h_chosen(n, t["b"].dtype)
+        prof_ms, ms = profiler_or_queued(torch, kern, "gs_kernel", by_form[form]["ms"])
         out[f"gs_solve@{name}"] = dict(
-            ms=ms, events_ms=min(k1, k2), plain_ms=min(p1, p2), readings=[p1, k1, k2, p2],
+            ms=ms, profiler_ms=prof_ms, events_ms=min(k1, k2), plain_ms=min(p1, p2), readings=[p1, k1, k2, p2],
+            form=form, forms=by_form, floor_ms=by_form[form]["floor_ms"],
             sweeps=t["sweeps"], ms_per_sweep=ms / max(t["sweeps"], 1), bytes=n_bytes,
             operations=ops, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             max_abs_err=t["max_abs_err"], colors=int(data.colors.shape[0]))
@@ -2691,25 +3056,44 @@ def contact_kernel_times(torch, h_timing, gpen_timing, gpu):
         def plain():
             return alcg.solve_plain(*ins)
 
+        _, b_hat, pen_diag, _ = alcg._setup(t["hits"], t["ck"], t["b"], t["y"])
+        pn = alcg.penalty_vectors(t["hits"], t["ck"], t["b"].shape[0])
+
+        def run(form, lib, its):
+            if lib is None:
+                return cuda_pcg.pcg_solve_penalty(t["data"], b_hat, t["x0"], s.pcg_tol,
+                                                  s.pcg_max_iters, trips, pn, pen_diag, form=form)
+            return cuda_pcg._launch(t["data"], b_hat, t["x0"], s.pcg_tol, its, None,
+                                    (pn, pen_diag), None, lib=lib, form=form)
+
         a = csr_of(torch, t["solver"], torch.float32)
         p1, k1, k2, p2 = (events_ms(torch, plain, 2), events_ms(torch, kern, 20),
                           events_ms(torch, kern, 20), events_ms(torch, plain, 2))
         spmv = events_ms(torch, lambda: torch.sparse.mm(a, t["b"]), 200)
-        ms = g_device_us(torch, kern, 20, kernel="pcg_kernel") * 1e-3
+        forms = g_form_times(torch, run, t["data"], t["b"].dtype, t["trips"])
         n_bytes, ops = pcg_bytes_ops(t["data"], t["trips"])
         vec = 3 * t["data"].n * 4
         n_bytes += 2 * vec  # pn and the per-component inverse, read once
         ops += (t["trips"] + 1) * 3 * t["data"].n * 4  # pn (pn . v) per apply
         bound_ms, bound_by = bound_of(n_bytes, ops)
+        form = g_blocks(t["data"], t["b"].dtype)[0]
+        prof_ms, ms = profiler_or_queued(torch, kern, "pcg_kernel", forms[form]["ms"])
         out[f"pcg_solve_penalty@{name}"] = dict(
-            ms=ms, events_ms=min(k1, k2), plain_ms=min(p1, p2), readings=[p1, k1, k2, p2],
+            ms=ms, profiler_ms=prof_ms, events_ms=min(k1, k2), plain_ms=min(p1, p2), readings=[p1, k1, k2, p2],
+            form=form, forms=forms, floor_ms=forms[form]["floor_ms"],
             trips=t["trips"], ms_per_trip=ms / max(t["trips"], 1), bytes=n_bytes,
             operations=ops, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=spmv * t["trips"], library_spmv_ms=spmv, max_abs_err=t["max_abs_err"])
     for k, v in out.items():
         its = v.get("sweeps", v.get("trips"))
-        log(f"time {k}: {v['ms'] * 1e3:.1f} us per solve on the device ({v['events_ms'] * 1e3:.1f} "
-            f"by CUDA events), {its} sweeps/trips; plain {v['plain_ms'] * 1e3:.1f} us; library "
+        per_form = "; ".join(
+            f"{f} {w['ms'] * 1e3:.1f} us, floor "
+            + ("n/a" if w["floor_ms"] is None else f"{w['floor_ms'] * 1e3:.1f} us")
+            for f, w in v["forms"].items())
+        log(f"time {k}: {v['ms'] * 1e3:.1f} us per solve on the device in the {v['form']} form "
+            f"({'torch.profiler' if v['profiler_ms'] is not None else 'queued CUDA events'}; "
+            f"{v['events_ms'] * 1e3:.1f} by CUDA events), {its} sweeps/trips; by queued events "
+            f"{per_form}; plain {v['plain_ms'] * 1e3:.1f} us; library "
             f"{'none' if v['library_ms'] is None else '%.2f us' % (v['library_ms'] * 1e3)}; bound "
             f"{v['bound_ms'] * 1e3:.3f} us by {v['bound_by']} [{gpu}]")
     return out
@@ -3653,6 +4037,51 @@ def step_profiles(torch, gpu):
     return out
 
 
+def path_phase(torch, gpu):
+    """Every path through the graph against its golden, each driven once in
+    one window with its replays' launches counted on the device
+    (drive_path); bench.py's contact sanity; the graph's invalidation
+    checks (counted windows too) and the one-tet goldens through it; then
+    every path's rollout rate, once in that order and once more in the
+    reverse order (two readings apart in time tell a path's rate from its
+    place in line): (paths, rates, checks). Run by main in a process of its
+    own (--paths)."""
+    paths, rates, solvers = {}, {}, {}
+    t0 = time.perf_counter()
+    profiler_warmup(torch)
+    solvers["beam"], paths["beam"] = beam_path(torch, NH)
+    for name in CLOTH_SCENES:
+        solvers[name], paths[name] = cloth_path(torch, name)
+    _, paths[FREE_BEAM] = free_beam_path(torch)
+    for model in BEAM_MODELS:
+        label = path_label(model)
+        solvers[label], paths[label] = beam_path(torch, model)
+    for name in GATHER_SCENES:
+        solvers[name], paths[name] = gather_path(torch, name)
+    for name in PCG_PATHS:
+        solvers[name], paths[name] = pcg_path(torch, name)
+    for name in CONTACT_PATHS:
+        solvers[name], paths[name] = contact_path(torch, name)
+    checks = dict(bench_contact_sanity=bench_contact_sanity(torch),
+                  graph=dict(invalidation=invalidation_checks(torch),
+                             one_tet_convergence=one_tet_convergence(),
+                             one_tet_inversion=one_tet_inversion()))
+    log("one tet through the graph: " + json.dumps(
+        {k: checks["graph"][k] for k in ("one_tet_convergence", "one_tet_inversion")}))
+    for again, order in ((False, list(solvers)), (True, list(reversed(solvers)))):
+        for label in order:
+            r = rollout_rate(solvers[label])
+            if again:
+                rates[label]["again"] = r
+            else:
+                rates[label] = r
+            log(f"rollout {label}{' (again, reverse order)' if again else ''}: "
+                f"{r['rollout_steps']} steps in {r['wall_s']:.3f} s: "
+                f"{r['admm_iters_per_s']:.1f} ADMM iters/s, {r['step_ms']:.3f} ms/step [{gpu}]")
+    log(f"the paths' phase: {time.perf_counter() - t0:.1f} s")
+    return paths, rates, checks
+
+
 def host_timing(torch, gpu, cases, c_branches, prox_turns):
     """The measurements on the host's clock, on solvers of their own: the
     captured step against the eager loop in turns (graph, eager, eager,
@@ -3695,6 +4124,12 @@ def host_timing(torch, gpu, cases, c_branches, prox_turns):
 def main():
     import argparse
 
+    # torch.profiler tears CUPTI down at the end of each window and sets it up
+    # again in the next, which it turns off itself where it captures CUDA
+    # graphs (torch/profiler/profiler.py: a re-initialisation among captured
+    # graphs fails); this script captures many graphs and opens windows after
+    # them. Set before torch is imported; the child processes inherit it.
+    os.environ["TEARDOWN_CUPTI"] = "0"
     import torch
 
     t_start = time.perf_counter()
@@ -3704,6 +4139,7 @@ def main():
                     help="also trace 5 steps of the beam and the cloth step with "
                          "torch.profiler (step_profile_*.json in the output directory)")
     ap.add_argument("--step-profiles", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--paths", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build, the kernels' checks against plain and their "
                          "device times: the short first run of a changed kernel")
@@ -3725,6 +4161,15 @@ def main():
             return 1
         with open(os.path.join(OUT_DIR, "step_profiles.json"), "w") as f:
             json.dump(profiles, f, indent=1)
+        return 0
+    if args.paths:
+        try:
+            paths, rates, graph_checks = path_phase(torch, environment(torch)["gpu"])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return PROFILER_SHORT_RC if isinstance(e, ProfilerShort) else 1
+        with open(os.path.join(OUT_DIR, "paths.json"), "w") as f:
+            json.dump(dict(paths=paths, rates=rates, checks=graph_checks), f, indent=1)
         return 0
     if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.log")):
         os.remove(os.path.join(OUT_DIR, "chip_smoke.log"))
@@ -3755,6 +4200,7 @@ def main():
         # after some 30 windows the profiler also began to drop events.
         turns, phases, times, by_branch, prox_big = host_timing(torch, gpu, cases, c_branches,
                                                                 prox_turns)
+        env["profiler_warmup_events"] = profiler_warmup(torch)
         g_times = pcg_times(torch, pcg_timing, gpu)
         c_times = contact_kernel_times(torch, h_timing, gpen_timing, gpu)
         del pcg_timing, h_timing, gpen_timing
@@ -3762,38 +4208,29 @@ def main():
             profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
                                                   gpu)
 
-        paths, rates, solvers = {}, {}, {}
-        solvers["beam"], paths["beam"] = beam_path(torch, NH)
-        for name in CLOTH_SCENES:
-            solvers[name], paths[name] = cloth_path(torch, name)
-        _, paths[FREE_BEAM] = free_beam_path(torch)
-        for model in BEAM_MODELS:
-            label = path_label(model)
-            solvers[label], paths[label] = beam_path(torch, model)
-        for name in GATHER_SCENES:
-            solvers[name], paths[name] = gather_path(torch, name)
-        for name in PCG_PATHS:
-            solvers[name], paths[name] = pcg_path(torch, name)
-        for name in CONTACT_PATHS:
-            solvers[name], paths[name] = contact_path(torch, name)
-        checks["bench_contact_sanity"] = bench_contact_sanity(torch)
-        checks["graph"] = dict(invalidation=invalidation_checks(torch),
-                               one_tet_convergence=one_tet_convergence(),
-                               one_tet_inversion=one_tet_inversion())
-        log("one tet through the graph: " + json.dumps(
-            {k: checks["graph"][k] for k in ("one_tet_convergence", "one_tet_inversion")}))
-        # Every path once in this order and once more in the reverse order:
-        # two readings apart in time tell a path's rate from its place in line.
-        for again, order in ((False, list(solvers)), (True, list(reversed(solvers)))):
-            for label in order:
-                r = rollout_rate(solvers[label])
-                if again:
-                    rates[label]["again"] = r
-                else:
-                    rates[label] = r
-                log(f"rollout {label}{' (again, reverse order)' if again else ''}: "
-                    f"{r['rollout_steps']} steps in {r['wall_s']:.3f} s: "
-                    f"{r['admm_iters_per_s']:.1f} ADMM iters/s, {r['step_ms']:.3f} ms/step [{gpu}]")
+        # The paths and the graph's checks in a process of their own, whose
+        # profiler has opened no window before: the counted windows do not
+        # depend on what the checks above ran (late in one long process the
+        # profiler dropped a graph replay's records: PERF.md §7).
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            for attempt in range(2):
+                rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--paths"],
+                                    cwd=HERE, timeout=900).returncode
+                if rc != PROFILER_SHORT_RC or attempt:
+                    break
+                # a window short three times: taken again with the whole
+                # phase in a fresh process, whose every window must count
+                # in full as before
+                log("the paths' process: a counted window came back short three times; "
+                    "the phase runs again in a fresh process")
+            need(rc == 0, f"the paths' process exited with {rc}")
+            with open(os.path.join(OUT_DIR, "paths.json")) as f:
+                saved = json.load(f)
+            paths, rates, graph_checks = saved["paths"], saved["rates"], saved["checks"]
+        else:  # a rehearsal off the card: in this process
+            paths, rates, graph_checks = path_phase(torch, gpu)
+        checks.update(graph_checks)
         for label, t in turns.items():
             rates[label]["graph_vs_eager"] = t
         if args.profile:
@@ -3862,33 +4299,43 @@ def main():
             row[f"at_{big['lanes']}_lanes"] = {k: big[k] for k in (
                 "ms", "bound_ms", "bound_by", "rows_ms", "rows_bound_ms")}
         kernels.append(row)
-    # Kernel G, which replaces the JAX package's jnp CG loop (no Pallas
-    # kernel): one entry per PCG path, its time per solve on the path's first
-    # solve (pcg_times), its launches on the path's steps; and two for
-    # Uzawa's inner solve on floor_uzawa67k: its first solve and a Schur
-    # direction's (solve "<path> schur").
-    g_entries = [dict(entry="pcg_solve", path=name.partition(" ")[0], solve=name,
-                      launches=paths[name.partition(" ")[0]]["launches"].get("pcg_solve", 0),
-                      wrapper_calls=paths[name.partition(" ")[0]]["wrapper_calls"].get(
-                          "pcg_solve", 0),
-                      max_abs_err=checks["pcg"][name]["f32"]["max_abs_err"],
-                      **{k: g_times[name][k] for k in (
-                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "trips",
-                          "ms_per_trip", "grid")})
-                 for name in PCG_PATHS + ("floor_uzawa67k", "floor_uzawa67k schur")]
+    # Kernels G, its penalty form and H, which replace the JAX package's jnp
+    # loops (no Pallas kernel): one entry per solve and form, the solve's time
+    # in that form (queued CUDA events, in turns with the other form) beside
+    # its latency floor; "main" the form the wrapper chooses there, whose
+    # entry carries the path's launches (the other form's 0: it runs in the
+    # checks and the timing only) and its torch.profiler time as
+    # "profiler_ms". G: each PCG path's first solve, and Uzawa's inner solve
+    # on floor_uzawa67k (its first solve and a Schur direction's, solve
+    # "<path> schur"); H: floor_gs5k, sphere_gs; the penalty form:
+    # floor_alpcg67k, each on its first-solve inputs at the landed state.
+    def form_entries(kname, solve, path, t, err):
+        out = []
+        for form, f in t["forms"].items():
+            main = form == t["form"]
+            out.append(dict(
+                entry=kname, path=path, solve=solve, form=form, main=main,
+                launches=paths[path]["launches"].get(kname, 0) if main else 0,
+                wrapper_calls=paths[path]["wrapper_calls"].get(kname, 0) if main else 0,
+                max_abs_err=err, ms=f["ms"], floor_ms=f["floor_ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+                profiler_ms=t["profiler_ms"] if main else None,
+                **{k: t[k] for k in ("trips", "sweeps") if k in t},
+                **{k: f[k] for k in ("blocks", "threads", "ms_per_trip", "ms_per_sweep")
+                   if k in f}))
+        return sorted(out, key=lambda e: not e["main"])
+
+    g_entries = [e for name in PCG_PATHS + ("floor_uzawa67k", "floor_uzawa67k schur")
+                 for e in form_entries("pcg_solve", name, name.partition(" ")[0], g_times[name],
+                                       checks["pcg"][name]["f32"]["max_abs_err"])]
     src, rep = REPLACES["pcg_solve"]
     kernels.append(dict(g_entries[0], name="pcg_solve", route="cuda", source=src, replaces=rep,
                         entries=g_entries))
-    # Kernel H (floor_gs5k, sphere_gs) and G's penalty form (floor_alpcg67k):
-    # per solve on the path's first-solve inputs at its landed state.
     for kname, kpaths in (("gs_solve", ("floor_gs5k", "sphere_gs")),
                           ("pcg_solve_penalty", ("floor_alpcg67k",))):
-        entries = [dict(entry=kname, path=p, launches=paths[p]["launches"].get(kname, 0),
-                        wrapper_calls=paths[p]["wrapper_calls"].get(kname, 0),
-                        **{k: v for k, v in c_times[f"{kname}@{p}"].items() if k in (
-                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                            "max_abs_err", "sweeps", "trips", "ms_per_sweep", "ms_per_trip")})
-                   for p in kpaths]
+        entries = [e for p in kpaths
+                   for e in form_entries(kname, p, p, c_times[f"{kname}@{p}"],
+                                         c_times[f"{kname}@{p}"]["max_abs_err"])]
         src, rep = REPLACES[kname]
         kernels.append(dict(entries[0], name=kname, route="cuda", source=src, replaces=rep,
                             entries=entries))
@@ -3902,7 +4349,7 @@ def main():
                        kernels=kernels), f, indent=1)
     for k in kernels:
         for e in k["entries"]:
-            if e["launches"] <= 0:
+            if e.get("main", True) and e["launches"] <= 0:
                 print(f"chip_smoke: FAIL: kernel {k['name']}: {e['entry']} has no launch on "
                       f"{e['path']}", file=sys.stderr)
                 return 1

@@ -10,6 +10,10 @@ scenes (chip_smoke.CONTACT_SCENES) at the golden's landed state:
 - H against the plain gs.solve with the pins and the obstacles (a Floor, a
   Sphere, both), float64 in the same sweeps within chip_smoke.H_F64_TOL,
   float32 within H_F32_TOL, twice bitwise;
+- each form of H (SHARED, GLOBAL) bitwise the other and the plain gs.solve
+  on a Floor, float32 and float64, captured and replayed: on the landed
+  floor_gs5k (x fits shared memory) and on the landed floor_uzawa67k beam
+  under Gauss-Seidel (15,616 vertices: in float64 beyond the SHARED form);
 - G's penalty form against alcg.solve_plain (the dense Jacobi form and the
   two-grid form), float64 in the same trips within PCG_F64_TOL, float32
   within PCG_F32_TOL;
@@ -74,6 +78,22 @@ def test_h_on_the_sphere_scene(cuda_device):
         data = solver._solve_data if tag == "f32" else chip_smoke.gs_data64(torch, solver)
         chip_smoke.h_against_plain(torch, "sphere_gs", data, b.to(dtype), x0.to(dtype), no_pin,
                                    x0.to(dtype), list(solver.obstacles), s, tag)
+
+
+@pytest.mark.parametrize("name", ["floor_gs5k", "floor_uzawa67k"])
+def test_h_forms_inside_and_beyond_shared_memory(cuda_device, name):
+    solver = chip_smoke.landed_solver(torch, name)
+    b, x0 = chip_smoke.first_solve(torch, solver)
+    no_pin = torch.zeros((x0.shape[0],), dtype=torch.bool, device=cuda_device)
+    for dtype, np_dtype, tag in ((torch.float32, np.float32, "f32"),
+                                 (torch.float64, np.float64, "f64")):
+        data = chip_smoke.gs_data_of(torch, solver.system, np_dtype)
+        r = chip_smoke.h_against_plain(torch, name, data, b.to(dtype), x0.to(dtype), no_pin,
+                                       x0.to(dtype), list(solver.obstacles), solver.m_settings,
+                                       tag, graph=True)
+        assert r["bitwise"] and r["graph_replay_bitwise"]
+        beyond = name == "floor_uzawa67k" and tag == "f64"
+        assert list(r["forms"]) == (["global"] if beyond else ["global", "shared"])
 
 
 @pytest.mark.parametrize("name", ["contact_alpcg", "contact_alpcg_twogrid"])

@@ -12,6 +12,10 @@ the PCG paths' full size). On the card:
   (the bunny within PCG_F64_TOL_BUNNY), float32 within PCG_F32_TOL; twice
   bitwise; the trips added to the counter it is handed;
 - G captured into a CUDA graph replays its eager launch bit for bit;
+- each form of G (CLUSTER, GRID) bitwise equal to the other in as many
+  trips, and against the plain solve_T, on a beam at the CLUSTER form's
+  largest N (8,192 vertices: 16 blocks of 512) and on one just beyond it
+  (8,704, the GRID form alone), float64 and float32, captured and replayed;
 - a PCG solver's graph rollout bitwise equal to its eager loop, and step()
   reporting the step's trips from the device counter, 0 after run(n);
 - kernels B and C on a ring lattice exactly equal to their plain versions,
@@ -72,6 +76,38 @@ def test_g_adds_its_trips_and_replays_in_a_graph(cuda_device):
     _, out = chip_smoke.g_against_plain(torch, "torus_pcg", solver._solve_data, b, x0,
                                         s.pcg_tol, s.pcg_max_iters, "f32", graph=True)
     assert out["graph_replay_bitwise"]
+
+
+# make_tet_blocks dims at and beyond the CLUSTER form's largest N: 16 x 16 x
+# 32 = 8,192 vertices (one vertex a thread, 16 blocks of 512), 17 x 16 x 32
+EDGE = {"inside": (15, 15, 31), "beyond": (16, 15, 31)}
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "twogrid"])
+@pytest.mark.parametrize("where", sorted(EDGE))
+def test_g_forms_inside_and_beyond_the_cluster(cuda_device, monkeypatch, where, precond):
+    name = f"beam_pcg_{where}"
+    monkeypatch.setitem(chip_smoke.PCG_SCENES, name, dict(
+        mesh="beam", dims=EDGE[where], settings=dict(linsolver=3, pcg_precond=precond)))
+    solver = _scene(name)
+    s = solver.m_settings
+    b, x0 = chip_smoke.first_solve(torch, solver)
+    for dtype, label in ((torch.float64, "f64"), (torch.float32, "f32")):
+        data = (solver._solve_data if dtype == torch.float32
+                else pcg.prepare(solver.system, dtype, precond=precond))
+        _, out = chip_smoke.g_against_plain(torch, name, data, b.to(dtype), x0.to(dtype),
+                                            s.pcg_tol, s.pcg_max_iters, label,
+                                            graph=label == "f32")
+        assert list(out["forms"]) == (["grid", "cluster"] if where == "inside" else ["grid"])
+        # 16 blocks: the CLUSTER form takes the shape but lost there, so it is
+        # not chosen (cuda_pcg.CLUSTER_CHOSEN)
+        assert out["form"] == "grid"
+    if where == "inside":
+        assert cuda_pcg.blocks_of(solver._solve_data, torch.float32, "cluster") == (
+            "cluster", 16, 512)
+    else:
+        with pytest.raises(ValueError):
+            cuda_pcg.form_of(solver._solve_data, torch.float32, "cluster")
 
 
 @pytest.mark.parametrize("name", ["beam_pcg_f64", "torus_pcg"])
