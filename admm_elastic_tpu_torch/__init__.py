@@ -10,10 +10,13 @@ Gauss-Seidel (``linsolver=1``), Uzawa (``2``) and AL-PCG (``4``), float32 or
 float64, for tet meshes of any of the six tet models (make_tet_blocks
 lattices and make_tet_torus rings as a flat stencil, any other mesh, such as
 one from ``geometry/io.load_elenode``, by gather) and for triangle (cloth)
-meshes with strain limits and wind, on ``device="cuda"`` (the default:
+meshes with strain limits and wind (batched, colored or sequential), with
+Anderson acceleration (``aa_window``), the logged and profiled steps
+(``log_inner``, ``verbose >= 2``) and checkpoints (``utils/checkpoint.py``),
+on ``device="cuda"`` (the default:
 hand-written Hopper kernels in ``csrc/`` for D x, the local steps, the rhs,
-the element-level prox, the whole PCG solve (also with AL-PCG's penalty)
-and the whole Gauss-Seidel solve, and each timestep replayed
+the element-level prox, the whole PCG solve (also with AL-PCG's penalty),
+the whole Gauss-Seidel solve and the sequential wind, and each timestep replayed
 as one captured CUDA graph) or ``device="cpu"`` (the kernels' plain PyTorch
 versions, stepped eagerly). Everything else raises NotImplementedError
 naming the ROADMAP item that ports it.

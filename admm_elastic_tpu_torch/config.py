@@ -8,8 +8,9 @@ the stored inverse) and ``"cho"`` (two triangular solves on the Cholesky
 factor), PCG (``linsolver=PCG``, ``pcg_precond`` "jacobi" or "twogrid"),
 which also serves ``LDLT`` above ``direct_max_verts`` vertices, and the
 contact solvers: multicolour Gauss-Seidel (``NCMCGS``), Uzawa (``UZAWACG``,
-its inner solve ``uzawa_inner``) and AL-PCG (``ALPCG``). Anderson
-acceleration, the logged and profiled steps and ``unroll_admm`` raise
+its inner solve ``uzawa_inner``) and AL-PCG (``ALPCG``), each also with
+Anderson acceleration (``aa_window``) and in the logged (``log_inner``) and
+profiled (``verbose >= 2``) steps. ``unroll_admm`` raises
 ``NotImplementedError``.
 
 ``dtype=None`` means float32 here. The JAX package follows

@@ -25,8 +25,9 @@ None) and its ``gather_idx`` table in their place.
 ``diag_mass``, ``diag_stiff``, ``diag_pin``, the optional (None where absent)
 ``agg``, ``agg_gather``, ``coarse_inv``, ``bands``, ``perm``, ``iperm``, and
 ``band_offsets`` and ``band_circular``.
-``wind_force_from_numpy`` reads a WindForce's ``tris``, ``direction`` and,
-for the colored order, ``color_tris`` and ``color_mask``.
+``wind_force_from_numpy`` reads a WindForce's ``tris``, ``direction``, the
+optional ``alpha_n`` and ``sequential`` and, for the colored order,
+``color_tris`` and ``color_mask``.
 ``gs_from_numpy`` reads a GSData's ``ell_cols``, ``ell_vals``, ``diag``,
 ``colors`` and ``colors_mask``; ``obstacle_from_numpy`` a Floor's ``y`` or a
 Sphere's ``center`` and ``rad`` (the kind named by ``kind``, "Floor" or
@@ -199,4 +200,5 @@ def obstacle_from_numpy(d: dict):
 
 def wind_force_from_numpy(d: dict, *, device, dtype: torch.dtype) -> WindForce:
     return _wind_force(d["tris"], d["direction"], d.get("color_tris"), d.get("color_mask"),
-                       device=device, dtype=dtype, alpha_n=float(d.get("alpha_n", 1000.0)))
+                       device=device, dtype=dtype, alpha_n=float(d.get("alpha_n", 1000.0)),
+                       sequential=bool(d.get("sequential", False)))

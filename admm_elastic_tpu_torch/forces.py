@@ -3,13 +3,18 @@
 A port of ``admm_elastic_tpu/forces.py`` (reference src/ExplicitForce.{hpp,
 cpp}): explicit forces project v before x_bar is computed
 (src/Solver.cpp:53-54). ``WindForce`` is the Wejchert-Haumann (1991)
-aerodynamics model per triangle, in two application orders:
+aerodynamics model per triangle, in three application orders:
 
 - batched: every triangle reads the pre-kick velocities and each vertex sums
   the kicks of its incident triangles;
 - colored: triangles greedily colored so that no color shares a vertex; colors
   apply in sequence, each as one batched update (Gauss-Seidel stability at
-  ~8 batched steps).
+  ~8 batched steps);
+- sequential: each triangle reads the velocities that the triangles before it
+  have already kicked, in file order: the reference's single-threaded loop
+  (src/ExplicitForce.cpp:55-104), the JAX package's scan over every triangle.
+  On the card one launch of kernel I (``ops/cuda_wind.py``,
+  ``csrc/wind_seq.cu``), on the CPU its plain version.
 
 The JAX package scatter-adds the per-triangle kicks. A scatter-add on a CUDA
 device runs on atomics in an order that changes from run to run, so here
@@ -18,9 +23,6 @@ its incident (triangle, corner) kicks from a host-built table and adds them
 in increasing triangle order (the order of a sequential scatter-add); a color
 touches every vertex at most once, so it is a gather, an add and an indexed
 copy. Rollouts stay bitwise repeatable.
-
-The sequential order (each triangle reads velocities already updated by the
-previous ones, a scan over every triangle) is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from admm_elastic_tpu_torch.ops import cuda_wind
 
 
 class ExplicitForce:
@@ -51,7 +55,8 @@ class WindForce(ExplicitForce):
     tris: torch.Tensor  # i64 [W, 3]
     direction: torch.Tensor  # [3]
     alpha_n: float = 1000.0  # normal coupling strength
-    # Batched mode (None -> colored): per vertex its incident flat
+    sequential: bool = False  # the reference's order: kernel I
+    # Batched mode (None -> colored or sequential): per vertex its incident flat
     # (triangle*3 + corner) slots, increasing, padded with W*3 (a zero row):
     # i64 [N_touched_max + 1, K].
     vert_slots: Optional[torch.Tensor] = None
@@ -73,6 +78,8 @@ class WindForce(ExplicitForce):
 
     def project(self, dt, x, v, m):
         del m
+        if self.sequential:
+            return cuda_wind.wind_seq(self.tris, self.direction, self.alpha_n, dt, x, v)
         if self.vert_slots is None:
             for tri in self.color_verts:  # [L_c, 3], vertex-disjoint
                 force = self._tri_force(dt, x[tri], v[tri])
@@ -138,12 +145,16 @@ def _vertex_slots(tris: np.ndarray) -> np.ndarray:
 
 
 def wind_force_from_numpy(tris, direction, color_tris=None, color_mask=None, *, device,
-                          dtype: torch.dtype, alpha_n: float = 1000.0) -> WindForce:
+                          dtype: torch.dtype, alpha_n: float = 1000.0,
+                          sequential: bool = False) -> WindForce:
     """A WindForce on `device` from the JAX package's arrays (tris, direction
-    and, for the colored order, color_tris and color_mask)."""
+    and, for the colored order, color_tris and color_mask) and its flag
+    sequential."""
     # np.array copies: arrays exported from JAX are read-only
     tris_np = np.array(tris, dtype=np.int64).reshape(-1, 3)
-    if color_tris is not None:
+    if sequential:
+        kw = dict(sequential=True)
+    elif color_tris is not None:
         ct, cm = np.array(color_tris), np.array(color_mask, dtype=bool)
         kw = dict(color_verts=tuple(torch.as_tensor(tris_np[ct[c][cm[c]]], device=device)
                                     for c in range(ct.shape[0])))
@@ -158,13 +169,9 @@ def wind_force_from_numpy(tris, direction, color_tris=None, color_mask=None, *, 
 def make_wind_force(tris: np.ndarray, direction=(0.0, 0.0, 0.0), *, device,
                     dtype: torch.dtype, sequential: bool = False,
                     colored: bool = False) -> WindForce:
-    if sequential:
-        raise NotImplementedError(
-            "WindForce(sequential=True), a scan over every triangle, is not ported "
-            "yet (ROADMAP Queue 1 item 7)")
     tris_np = np.asarray(tris, dtype=np.int64).reshape(-1, 3)
     color_tris = color_mask = None
-    if colored:
+    if colored and not sequential:
         color_tris, color_mask = _color_triangles(tris_np)
     return wind_force_from_numpy(tris_np, direction, color_tris, color_mask, device=device,
-                                 dtype=dtype)
+                                 dtype=dtype, sequential=sequential)

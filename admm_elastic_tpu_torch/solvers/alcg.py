@@ -132,3 +132,24 @@ def solve(pcg_data, hits: con.Hits, ck, b, x0, y, tol, max_iters: int, trips):
     pn = penalty_vectors(hits, ck, b.shape[0])
     x = cuda_pcg.pcg_solve_penalty(pcg_data, b_hat, x0, tol, max_iters, trips, pn, pen_diag)
     return x, _ascent(hits, ck, x, c, y, active)
+
+
+def solve_traced(pcg_data, hits: con.Hits, ck, b, x0, y, n_iters: int, x_star=None,
+                 err_denom=None):
+    """Fixed-length traced AL pass (the SolverLog tier;
+    admm_elastic_tpu/solvers/alcg.py:130-157): pcg.solve_traced on
+    A + C^T C with the penalty-folded preconditioner, then the multiplier
+    ascent.
+
+    The JAX package's non-fused diagnostic, ported as plain PyTorch on every
+    device (kernel G's penalty form has no traced form). Returns
+    (x, y, {"res", "err"}).
+    """
+    c, b_hat, pen_diag, active = _setup(hits, ck, b, y)
+
+    def A_hat(x):
+        return pcg_data.apply(x) + con.CtC_apply(hits, ck, x)
+
+    x, tr = pcg_mod.solve_traced(A_hat, _penalty_precond(pcg_data, A_hat, pen_diag), b_hat, x0,
+                                 n_iters, x_star=x_star, err_denom=err_denom)
+    return x, _ascent(hits, ck, x, c, y, active), tr

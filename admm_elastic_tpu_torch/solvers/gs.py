@@ -27,7 +27,7 @@ import torch
 
 from admm_elastic_tpu_torch.collision import constraints as con
 from admm_elastic_tpu_torch.collision.passive import detect_passive, norm3
-from admm_elastic_tpu_torch.solvers.pcg import _tolerance
+from admm_elastic_tpu_torch.solvers.pcg import _err_denom, _tolerance, trace_err, traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,3 +153,27 @@ def solve(ell_cols, ell_vals, diag, colors, colors_mask, b, x0, pin_mask, pin_ta
         done = bool(residual2(x) < tol2)
         k += 1
     return x, k
+
+
+def solve_traced(ell_cols, ell_vals, diag, colors, colors_mask, b, x0, pin_mask, pin_target,
+                 obstacles, hits: con.Hits, ck, omega, n_sweeps: int, x_star=None,
+                 err_denom=None, may_have_dyn: bool = True):
+    """Fixed-length SOR sweeps with a per-sweep residual trace (the SolverLog
+    tier; admm_elastic_tpu/solvers/gs.py:199-229): exactly n_sweeps, no exit
+    test, and after each sweep an extra residual pass, res [n_sweeps] =
+    ||b_eff - (A + C^T C) x_k||, and err against x_star where given.
+
+    The JAX package's non-fused diagnostic, ported as plain PyTorch on every
+    device (kernel H has no traced form). Returns (x, {"res", "err"}).
+    """
+    color_update, residual2, _ = _sweep_setup(
+        ell_cols, ell_vals, diag, colors, colors_mask, b, pin_mask, pin_target, obstacles,
+        hits, ck, omega, may_have_dyn=may_have_dyn)
+    err_denom = _err_denom(x_star, x0, err_denom)
+    x, res, errs = x0, [], []
+    for _ in range(int(n_sweeps)):
+        for ci in range(colors.shape[0]):
+            x = color_update(ci, x)
+        res.append(torch.sqrt(residual2(x)))
+        errs.append(trace_err(x_star, x, err_denom))
+    return x, traced(res, errs)

@@ -285,3 +285,69 @@ def solve_T(A_mv_T, precond_T, b, x0, tol, max_iters: int):
     precondition_T); b, x0 and the returned x are [N, k]."""
     xT, k = _cg(A_mv_T, precond_T, b.T, x0.T, tol, int(max_iters))
     return xT.T.contiguous(), k
+
+
+def _err_denom(x_star, x0, err_denom):
+    """||x* - x0|| floored at the dtype's tiny: the error's normaliser where
+    the caller gives none."""
+    if x_star is None or err_denom is not None:
+        return err_denom
+    return torch.clamp_min(torch.linalg.norm(x_star - x0), torch.finfo(x0.dtype).tiny)
+
+
+def trace_err(x_star, x, err_denom):
+    """||x* - x|| / err_denom, or None without x_star."""
+    return None if x_star is None else torch.linalg.norm(x_star - x) / err_denom
+
+
+def traced(res, errs):
+    """The trace dict of a solve_traced: res [n] and err [n] (None without
+    x_star)."""
+    return {"res": torch.stack(res) if res else torch.zeros((0,)),
+            "err": torch.stack(errs) if errs and errs[0] is not None else None}
+
+
+def solve_traced(A_mv, precond, b, x0, n_iters: int, x_star=None, err_denom=None):
+    """Fixed-length PCG with a per-iteration residual trace (the SolverLog
+    tier; admm_elastic_tpu/solvers/pcg.py:351-405): exactly n_iters trips, no
+    early exit, and where a denominator falls under the dtype's tiny the step
+    freezes (alpha = 0, beta = 0), so that the trace goes flat instead of NaN.
+    Records res [n_iters] = ||b - A x_k|| (the recurrence's r) and, with
+    x_star, err [n_iters] = ||x* - x_k|| / ||x* - x_0||.
+
+    The JAX package's non-fused diagnostic, ported as plain PyTorch on every
+    device: it has no kernel there either. Returns (x, {"res", "err"}).
+    """
+    if callable(precond):
+        apply_m = precond
+    else:
+        inv_d = (1.0 / precond)[:, None]
+
+        def apply_m(r):
+            return inv_d * r
+
+    def dot(a, c):
+        return torch.sum(a * c)
+
+    err_denom = _err_denom(x_star, x0, err_denom)
+    tiny = torch.finfo(b.dtype).tiny
+    r = b - A_mv(x0)
+    z = apply_m(r)
+    x, p, rz = x0, z, dot(r, z)
+    res, errs = [], []
+    for _ in range(int(n_iters)):
+        Ap = A_mv(p)
+        denom = dot(p, Ap)
+        small = denom.abs() < tiny
+        alpha = torch.where(small, 0.0, rz / torch.where(small, torch.ones_like(denom), denom))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_m(r)
+        rz_new = dot(r, z)
+        flat = rz.abs() < tiny
+        beta = torch.where(flat, 0.0, rz_new / torch.where(flat, torch.ones_like(rz), rz))
+        p = z + beta * p
+        rz = rz_new
+        res.append(torch.sqrt(dot(r, r)))
+        errs.append(trace_err(x_star, x, err_denom))
+    return x, traced(res, errs)

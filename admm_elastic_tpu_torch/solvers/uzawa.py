@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from admm_elastic_tpu_torch.collision import constraints as con
+from admm_elastic_tpu_torch.solvers.pcg import _err_denom, trace_err, traced
 
 
 def _dot(a, b):
@@ -94,3 +95,51 @@ def solve(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters: int, tol):
         k = k + go.to(torch.int32)
         done = done | bad | small
     return x, yv, torch.clamp_min(k, 1)
+
+
+def solve_traced(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, n_iters: int, x_star=None,
+                 err_denom=None):
+    """Fixed-length Schur CG with a per-trip residual trace (the SolverLog
+    tier; admm_elastic_tpu/solvers/uzawa.py:123-175): exactly n_iters trips,
+    no exit test; where the denominator falls under the dtype's tiny the trip
+    freezes (alpha = 0, beta = 0). Records res [n_iters] = ||C x_k - c|| on
+    the active rows (the Schur residual) and err against x_star where given.
+    apply_Ainv as in solve (the inner solve runs every trip).
+
+    The JAX package's non-fused diagnostic, ported as plain PyTorch on every
+    device around the port's A^-1 apply. Returns (x, y, {"res", "err"}).
+    """
+    n = b0.shape[0]
+    h = hits.capacity
+    tiny = torch.finfo(b0.dtype).tiny
+
+    def C(x):
+        rp, rd = con.C_apply(hits, ck, x)
+        return torch.cat([rp, rd])
+
+    def Ct(yv):
+        return con.Ct_apply(hits, ck, yv[:h], yv[h:], n)
+
+    cp, cd = con.C_rhs(hits, ck)
+    c = torch.cat([cp, cd])
+    active = torch.cat([hits.p_mask, hits.d_mask])
+    err_denom = _err_denom(x_star, x_guess, err_denom)
+    x = apply_Ainv(b0 - Ct(y), x_guess, None)
+    r = torch.where(active, C(x) - c, 0.0)
+    d, yv = r, y
+    res, errs = [], []
+    for _ in range(int(n_iters)):
+        q2 = apply_Ainv(Ct(d), None, None)
+        q3 = torch.where(active, C(q2), 0.0)
+        denom = _dot(d, q3)
+        bad = torch.abs(denom) < tiny
+        safe = torch.where(bad, torch.ones_like(denom), denom)
+        alpha = torch.where(bad, 0.0, _dot(d, r) / safe)
+        x = x - alpha * q2
+        yv = yv + alpha * d
+        r = r - alpha * q3
+        beta = torch.where(bad, 0.0, _dot(r, q3) / safe)
+        d = r - beta * d
+        res.append(torch.sqrt(_dot(r, r)))
+        errs.append(trace_err(x_star, x, err_denom))
+    return x, yv, traced(res, errs)

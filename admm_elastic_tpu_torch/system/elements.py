@@ -139,6 +139,14 @@ class TriBatch:
     def bulk(self):
         return self.lam + (2.0 / 3.0) * self.mu
 
+    def prox(self, zi, n_newton_iters: int = 8):
+        """Prox of one sheet on SoA rows [6, T]: kernel E's rows entry with
+        u = 0."""
+        if zi.ndim != 2:
+            raise ValueError(f"TriBatch.prox: rows [6, T] expected, got {tuple(zi.shape)}")
+        z, _ = self.local_step_rows(zi, torch.zeros_like(zi), n_newton_iters)
+        return z
+
     def local_step_rows(self, dix_rows, u_rows, n_newton_iters: int = 8):
         """Fused cloth local step on rows [6, T] (kernel E): (z, u')."""
         del n_newton_iters

@@ -91,6 +91,41 @@ def zeros_like_Dx(system: System, dtype, device):
     return out
 
 
+def flat(v_list):
+    """The per-family iterates as one vector (the Anderson variable)."""
+    return torch.cat([vi.reshape(-1) for vi in v_list])
+
+
+def unflat(system: System, vec):
+    """flat's inverse: views of vec in the shapes D x gives."""
+    shapes = [(9, b.n) for b in system.tets] + [(6, b.n) for b in system.tris]
+    if system.pins is not None:
+        shapes.append((system.pins.n, 3))
+    out, o = [], 0
+    for shape in shapes:
+        n = shape[0] * shape[1]
+        out.append(vec[o:o + n].reshape(shape))
+        o += n
+    return out
+
+
+def prox_split(system: System, v_list, n_newton_iters: int = 8):
+    """z_i = prox(v_i), u_i = v_i - z_i per family: the Anderson iteration's
+    local step (admm_elastic_tpu/solver.py:320-322). Tets and sheets take
+    kernel A's and E's rows entries with u = 0, whose u' = (v + 0) - z is
+    v - z bit for bit; the pins their prox."""
+    new_z, new_u = [], []
+    for b, v in zip(tuple(system.tets) + tuple(system.tris), v_list):
+        zi, ui = b.local_step_rows(v, torch.zeros_like(v), n_newton_iters)
+        new_z.append(zi)
+        new_u.append(ui)
+    if system.pins is not None:
+        zi = system.pins.prox(v_list[-1])
+        new_z.append(zi)
+        new_u.append(v_list[-1] - zi)
+    return new_z, new_u
+
+
 def local_step(system: System, x, z_list, u_list, n_newton_iters: int = 8):
     """z_i = prox(D_i x + u_i); u_i += D_i x - z_i (src/EnergyTerm.hpp:130-140)."""
     new_z, new_u = [], []

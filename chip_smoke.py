@@ -52,8 +52,12 @@ failure:
    form's largest N (G_EDGE_SCENES); G's GRID form on 8 blocks bitwise its full
    grid; H beyond the SHARED form's reach (the 67k beam in float64) bitwise
    the plain gs.solve; A, C and E
-   at the PCG paths' shapes and A and C at the 67k contact beam's
-   (path_shape_cases);
+   at the PCG paths' shapes, A and C at the 67k contact beam's, and there
+   too the standalone B and A's linear rows entry with u = 0 as
+   floor_alpcg67k_aa4 launches them (path_shape_cases); kernel I (the sequential wind, one thread walking
+   the triangles) against its plain version run on the card at 3,200 and
+   51,200 triangles, float32 and float64, in each form that takes the shape
+   (SHARED, v in shared memory; GLOBAL), bit for bit (kernel_i_checks);
 4. the paths (path_phase, in a process of its own with the graph checks
    below), each built through the normal entry points on cuda (float32
    unless named, linsolver=0, 10 ADMM iterations, dt 1/24), Solver.run(n)
@@ -105,6 +109,23 @@ failure:
      trips launch their applies in every replay), the vertices in contact,
      no tunnelling, each step's inner iterations beside the JAX package's;
      then bench.py's contact sanity (bench_contact_sanity);
+   - AA_PATHS (VARIANT_SCENES: an earlier path with aa_window=4): beam_aa4
+     and cloth_aa4 (aa_path: every iteration launches A's or E's rows entry
+     with u = 0 and no stencil entry, the standalone B 11 times a step on the
+     beam), floor_alpcg67k_aa4 (contact_path, held under floor_alpcg67k's
+     bounds; its landing overshoot no deeper than the JAX package's own), each
+     with its device operations per iteration beside its base path's;
+     cloth_wind40_seq (cloth_path: cloth_wind40 with the sequential wind,
+     kernel I once per step), and its rate and replayed step with kernel I
+     held to GLOBAL against its chosen form (wind_form_turns);
+   then the extras (extras_checks): Anderson's gain on the 10x3x3 beam in
+   float64 (aa_wins_check), the logged step once per linsolver on
+   LOGGED_SCENES against a Solver(device="cpu") from the same state
+   (logged_checks), the profiled step bitwise the eager step on the beam and
+   floor_gs5k (profiled_checks), a kept state as a snapshot, the bitwise
+   replay from a checkpoint and the card's file on the CPU, and the
+   snapshot's cost, with a step() on the handed state against one on an
+   assigned state (checkpoint_checks);
    then the captured step's invalidation checks on the bench beam (set_pins,
    the setters, admm_iters, gravity, initialize), the frozen state of
    cloth_wind40 after a graph run (frozen_checks: field assignments raise,
@@ -113,11 +134,15 @@ failure:
 5. timing (host_timing, on solvers of its own, runs before phase 4 and
    before any profiler window, so that no profiler state can slow the host):
    the beam, cloth_limit40, beam_gather, the PCG and the contact paths
-   through the graph and through the eager loop in turns, ADMM iterations/s over rollouts of at least 2 s, the
+   through the graph and through the eager loop in turns, ADMM iterations/s over rollouts of at least
+   TARGET_S (1 s; 2 s before the run grew by this slice's paths), the
    phases of the beam and cloth steps, and each kernel's time against its
    plain version (CUDA events) beside its bound (and D and F at the
    throughput size beside kernel A's rows entry on the same values, in
-   turns, prox_event_times; kernel G per solve on each PCG path's first
+   turns, prox_event_times; kernel I at both sheets per form beside its
+   latency floor and its plain version's one call; each variant path's
+   rollout rate beside its base path's, in turns (variant_turns); kernel G per
+   solve on each PCG path's first
    solve by torch.profiler, beside the plain solve_T on the card and
    torch.sparse.mm times its trips, pcg_times; H and G's penalty form per
    solve the same way, contact_kernel_times; each form of G and H by CUDA
@@ -149,8 +174,10 @@ times of phase 6: the short first run of a changed kernel. It prints the GPU
 line but no result line.
 
 The last lines are the GPU line, one JSON line of kernels (a row per TPU
-kernel, and one each for kernel G, its penalty form and kernel H, which
-replace the JAX package's jnp loops of PCG, AL-PCG and Gauss-Seidel,
+kernel, and one each for kernel G, its penalty form, kernel H and kernel I,
+which replace the JAX package's jnp loops of PCG, AL-PCG, Gauss-Seidel and
+the sequential wind; every row with its launches on this slice's paths,
+"launches_on_new_paths";
 with an entry per solve and form, "main" the form the wrapper chooses,
 "floor_ms" the latency floor; each row with the numbers of the entry its path
 launches: "launches" those of
@@ -224,7 +251,7 @@ DISP_TOL = {"float32": 0.1, "float64": 1e-6}
 # A graph rollout against the eager loop over the same steps, where the two
 # are not bitwise equal: relative to max |x| (see graph_vs_eager).
 GRAPH_EAGER_TOL = 1e-6
-TARGET_S = 2.0
+TARGET_S = 1.0  # a timed rollout's least wall time, s
 DEVICE = "cuda"
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate
 # and float32 rate outside the tensor cores, an FMA counted as two operations.
@@ -254,6 +281,9 @@ REPLACES = {
     "pcg_solve": (_CSRC + "pcg.cu", "admm_elastic_tpu/solvers/pcg.py:304 solve_T (jnp)"),
     "pcg_solve_penalty": (_CSRC + "pcg.cu", "admm_elastic_tpu/solvers/alcg.py:73 solve (jnp)"),
     "gs_solve": (_CSRC + "gs.cu", "admm_elastic_tpu/solvers/gs.py:147 solve (jnp)"),
+    # kernel I: the sequential wind's scan over the triangles
+    "wind_seq": (_CSRC + "wind_seq.cu", "admm_elastic_tpu/forces.py:78 WindForce.project "
+                 "sequential lax.scan (jnp)"),
 }
 # The entry of each kernel that an ADMM step launches, where that is not the
 # wrapper the kernel is named after: the local steps' stencil entries, in
@@ -491,9 +521,34 @@ SPHERE_CENTER, SPHERE_RAD = (0.0, -10.0, 0.0), 10.0
 CONTACT_EPS = 1e-3  # a vertex within this of an obstacle (or in it) is in contact
 
 
+# The Anderson paths and the sequential wind: an earlier path's scene with one
+# setting changed, golden file suffix -> (the base scene, the change). The
+# Anderson window is the JAX package's measured one (admm_elastic_tpu/
+# config.py:86-99, tests/test_anderson.py:53-91); "sequential" is the wind's
+# order (WindForce(sequential=True)), any other key a Settings field.
+AA_WINDOW = 4
+VARIANT_SCENES = {
+    "beam_aa4": ("beam", dict(aa_window=AA_WINDOW)),
+    "cloth_aa4": ("cloth_limit40", dict(aa_window=AA_WINDOW)),
+    "floor_alpcg67k_aa4": ("floor_alpcg67k", dict(aa_window=AA_WINDOW)),
+    "cloth_wind40_seq": ("cloth_wind40", dict(sequential=True)),
+}
+AA_PATHS = ("beam_aa4", "cloth_aa4", "floor_alpcg67k_aa4")
+WIND_SEQ_PATH = "cloth_wind40_seq"
+WIND_SEQ_TRIANGLES = 3200  # its 40x40 sheet
+
+
+def variant_of(name):
+    """(base scene, Settings changes, sequential wind) of a scene name: a
+    VARIANT_SCENES entry, or the scene itself unchanged."""
+    base, change = VARIANT_SCENES.get(name, (name, {}))
+    change = dict(change)
+    return base, change, bool(change.pop("sequential", False))
+
+
 def contact_steps(name):
     """(steps run, steps compared) of a contact scene."""
-    p = CONTACT_SCENES[name]
+    p = CONTACT_SCENES[variant_of(name)[0]]
     if "steps" in p:
         return p["steps"], p["compare"]
     if p["dims"] == (6, 3, 3):
@@ -501,12 +556,15 @@ def contact_steps(name):
     return CONTACT_STEPS, CONTACT_COMPARE
 
 
-def contact_scene(name, api):
-    """One of CONTACT_SCENES built through the normal entry points of a
-    package whose API the namespace `api` holds (as pcg_scene, and Floor,
-    Sphere, make_xform, asarray: the package's array constructor): returns
-    the initialized solver."""
-    p = CONTACT_SCENES[name]
+def contact_scene(name, api, **extra):
+    """One of CONTACT_SCENES (or a VARIANT_SCENES entry of one) built through
+    the normal entry points of a package whose API the namespace `api` holds
+    (as pcg_scene, and Floor, Sphere, make_xform, asarray: the package's
+    array constructor), with the Settings changes `extra` on top: returns the
+    initialized solver."""
+    base, change, _ = variant_of(name)
+    change.update(extra)
+    p = CONTACT_SCENES[base]
     solver = api.Solver()
     mesh = api.make_tet_blocks(*p["dims"])
     if p.get("sphere"):
@@ -523,14 +581,14 @@ def contact_scene(name, api):
     if p.get("matrix"):
         kw.update(pcg_precond="jacobi", pcg_max_iters=40, pcg_tol=1e-6, uzawa_max_iters=10,
                   uzawa_inner_tol=1e-5, uzawa_inner_iters=60)
-    kw.update(p.get("settings", {}))
+    kw.update(p.get("settings", {}), **change)
     need(solver.initialize(api.Settings(**kw)), f"{name}: initialize failed")
     return solver
 
 
 def contacts(name, x):
     """The vertices within CONTACT_EPS of the scene's obstacle, or in it."""
-    if CONTACT_SCENES[name].get("sphere"):
+    if CONTACT_SCENES[variant_of(name)[0]].get("sphere"):
         d = np.linalg.norm(x - np.asarray(SPHERE_CENTER), axis=1) - SPHERE_RAD
     else:
         d = x[:, 1] + 1.0
@@ -633,12 +691,13 @@ def environment(torch):
 # ADMM_H_ANATOMY: the barriers, block sums and totals of G, the __syncthreads
 # chain of H, in a fixed number of trips or sweeps); tools/g_h_anatomy.py
 # builds the other variants.
-FLOOR_UNITS = (("pcg.cu", None), ("gs.cu", None))
-FLOOR_DEFINES = ("-DADMM_G_ANATOMY=1", "-DADMM_H_ANATOMY=1")
+FLOOR_UNITS = (("pcg.cu", None), ("gs.cu", None), ("wind_seq.cu", None))
+FLOOR_DEFINES = ("-DADMM_G_ANATOMY=1", "-DADMM_H_ANATOMY=1", "-DADMM_I_FLOOR=1")
 
 
 def floor_library():
-    """The latency-floor build of G and H (FLOOR_DEFINES), loaded."""
+    """The latency-floor build of G, H and I (FLOOR_DEFINES; kernel I's walk
+    with the loads and stores of v and no arithmetic), loaded."""
     from admm_elastic_tpu_torch.ops import _build
 
     return _build.variant(FLOOR_UNITS, FLOOR_DEFINES)
@@ -711,25 +770,30 @@ def cloth_batch(torch, dtype, limits=True, vertex_offset=0):
                                      vertex_offset=vertex_offset)
 
 
-def settings_of(g, gravity, direct_mode="inv", dtype=np.float32):
+def settings_of(g, gravity, direct_mode="inv", dtype=np.float32, **change):
     from admm_elastic_tpu_torch import Settings
 
     return Settings(verbose=0, admm_iters=int(g["admm_iters"]), linsolver=0, gravity=gravity,
-                    timestep_s=float(g["dt"]), dtype=dtype, direct_mode=direct_mode)
+                    timestep_s=float(g["dt"]), dtype=dtype, direct_mode=direct_mode, **change)
 
 
-def make_solver(model=NH, device=None, pinned=True):
+def make_solver(model=NH, device=None, pinned=True, name=None):
     """The bench beam with one of the six tet models, through the normal entry
     points, on the card unless a device is named; returns (solver, mesh,
     golden, pins). Without pins (neo-Hookean only, golden FREE_BEAM) the
     float32 system takes one refinement pass per ADMM iteration, which applies
-    A through system.A_mv."""
+    A through system.A_mv. name: a VARIANT_SCENES entry of the beam (its
+    golden and its settings)."""
     from admm_elastic_tpu_torch import Lame, Solver, binding
 
     mesh, g = beam_mesh(model)
     if not pinned:
         need(model == NH, "the unpinned beam is neo-Hookean")
         g = golden(FREE_BEAM)
+    change = {}
+    if name is not None:
+        need(model == NH and pinned and variant_of(name)[0] == "beam", f"{name}: not the beam")
+        g, change = golden(name), variant_of(name)[1]
     solver = Solver(device=device or DEVICE)
     lame = Lame.soft_rubber()
     if model in BEAM_FLAGS:
@@ -743,22 +807,24 @@ def make_solver(model=NH, device=None, pinned=True):
     need(pins == [int(i) for i in g["pins"]], "pinned set differs from the golden's")
     if pinned:
         solver.set_pins(pins)
-    need(solver.initialize(settings_of(g, float(g["gravity"]))), "initialize failed")
+    need(solver.initialize(settings_of(g, float(g["gravity"]), **change)), "initialize failed")
     need(solver.system.tets[0].model == model, "the beam got another model")
     need(solver._refine_eff == (0 if pinned else 1), "unexpected refinement passes")
     return solver, mesh, g, pins
 
 
 def make_cloth_solver(name, device=None):
-    """One of CLOTH_SCENES through the normal entry points, on the card unless
-    a device is named; returns (solver, golden, pins)."""
+    """One of CLOTH_SCENES (or a VARIANT_SCENES entry of one) through the
+    normal entry points, on the card unless a device is named; returns
+    (solver, golden, pins)."""
     import torch
 
     from admm_elastic_tpu_torch import Lame, Solver
     from admm_elastic_tpu_torch.forces import make_wind_force
 
     device = device or DEVICE
-    p, g = CLOTH_SCENES[name], golden(name)
+    base, change, sequential = variant_of(name)
+    p, g = CLOTH_SCENES[base], golden(name)
     verts, tris, masses, pin_ids = cloth_sheet(p["nx"], p["ny"])
     pins = [int(i) for i in pin_ids]
     need(pins == [int(i) for i in g["pins"]], "pinned set differs from the golden's")
@@ -770,9 +836,10 @@ def make_cloth_solver(name, device=None):
     solver.add_tri_energies(verts, tris, lame)
     solver.set_pins(pins)
     if p["wind"] is not None:
-        solver.add_explicit_force(make_wind_force(tris, direction=p["wind"], colored=True,
+        solver.add_explicit_force(make_wind_force(tris, direction=p["wind"],
+                                                  colored=not sequential, sequential=sequential,
                                                   device=device, dtype=torch.float32))
-    need(solver.initialize(settings_of(g, p["gravity"])), "initialize failed")
+    need(solver.initialize(settings_of(g, p["gravity"], **change)), "initialize failed")
     return solver, g, pins
 
 
@@ -1965,10 +2032,10 @@ def pcg_times(torch, timing, gpu):
 
 def _wrappers():
     from admm_elastic_tpu_torch.ops import (cuda_gs, cuda_local_step, cuda_pcg, cuda_prox,
-                                            cuda_stencil, cuda_tri_local_step)
+                                            cuda_stencil, cuda_tri_local_step, cuda_wind)
 
     return dict(pcg_solve=cuda_pcg.pcg_solve, pcg_solve_penalty=cuda_pcg.pcg_solve_penalty,
-                gs_solve=cuda_gs.gs_solve,
+                gs_solve=cuda_gs.gs_solve, wind_seq=cuda_wind.wind_seq,
                 local_step_tet_hyper=cuda_local_step.local_step_tet_hyper,
                 local_step_tet_stencil=cuda_local_step.local_step_tet_stencil,
                 tet_Dx_rows=cuda_stencil.tet_Dx_rows, tet_rhs_rows=cuda_stencil.tet_rhs_rows,
@@ -1998,7 +2065,7 @@ def read_counts(model=None):
 _KERNEL_SYMBOL = re.compile(
     r"\b(tet_prox_kernel|tet_local_step_stencil_kernel|tet_dx_kernel|tet_rhs_tiled_kernel|"
     r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel|pcg_kernel|"
-    r"gs_kernel)"
+    r"gs_kernel|wind_seq_kernel)"
     r"<([^>]*)>")
 
 
@@ -2016,7 +2083,8 @@ def wrapper_of_symbol(symbol):
     if kernel == "pcg_kernel":  # <T, PEN>: the penalty form where PEN
         return "pcg_solve_penalty" if args[1] == "true" else "pcg_solve"
     plain = dict(tet_dx_kernel="tet_Dx_rows", tri_local_step_kernel="local_step_tri",
-                 tri_local_step_stencil_kernel="local_step_tri_stencil", gs_kernel="gs_solve")
+                 tri_local_step_stencil_kernel="local_step_tri_stencil", gs_kernel="gs_solve",
+                 wind_seq_kernel="wind_seq")
     if kernel in plain:
         return plain[kernel]
     model = {i: name for name, i in MODEL_IDS.items()}[int(args[1])]
@@ -2040,23 +2108,40 @@ def port_kernel_counts(events):
     return counts
 
 
+PROFILED_I = "wind_seq records"  # kernel I's launches as torch.profiler recorded them
+
+
 def device_launches(torch, fn, model=None):
     """Run fn() and count the port's kernels that ran on the device in it, by
     name. On the card from torch.profiler's kernel records, which see inside
-    a graph replay, where no wrapper runs; off the card (a rehearsal whose
-    wrappers count their calls) from the wrappers' counts, A and D under
-    [model]."""
+    a graph replay, where no wrapper runs, and kernel I from its own device
+    counter; off the card (a rehearsal whose wrappers count their calls) from
+    the wrappers' counts, A and D under [model]."""
     if DEVICE != "cuda":
         before = read_counts(model)
         fn()
         return {k: v - before[k] for k, v in read_counts(model).items() if v != before[k]}
     from torch.profiler import ProfilerActivity, profile
 
+    from admm_elastic_tpu_torch.ops import cuda_wind
+
     torch.cuda.synchronize()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    wind_before = cuda_wind.device_launches(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return port_kernel_counts(prof.events())
+    counts = port_kernel_counts(prof.events())
+    # Kernel I counts its own launches on the device: the profiler misses some
+    # of its records (PERF.md §7, tools/kernel_i_records.py). What the
+    # profiler recorded of it stays beside the count, under PROFILED_I.
+    seen = counts.pop("wind_seq", 0)
+    wind = cuda_wind.device_launches(dev) - wind_before
+    if wind:
+        counts["wind_seq"] = wind
+    if wind or seen:
+        counts[PROFILED_I] = seen
+    return counts
 
 
 def counted_window(torch, label, fn, expect, reset=None, model=None, split=None):
@@ -2237,7 +2322,7 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
     if on_card:  # on the CPU the stencil entry's plain version calls it
         need(plain_dx.calls == step_counts.get("tri_Dx_rows", plain_dx.calls),
              f"{label}: tri_Dx_rows called {plain_dx.calls} times by the steps")
-        for k in set(by_steps) | {k for k, v in captured.items() if v}:
+        for k in (set(by_steps) - {PROFILED_I}) | {k for k, v in captured.items() if v}:
             n = by_steps.get(k, 0)
             c = captured.get(k, 0)
             need(c == 2 * n // last,
@@ -2324,13 +2409,21 @@ def sheet_rows_entry(torch):
 
 
 def cloth_path(torch, name):
+    """A sheet of CLOTH_SCENES (or cloth_wind40_seq: kernel I once per step)
+    through the captured step: E's stencil entry once per ADMM iteration, then
+    E's rows entry held to it on the stepped state."""
     solver, g, pins = make_cloth_solver(name)
     log(f"{name}: no tet family, tet_rhs_rows is not on this path")
-    iters = int(g["steps"][-1]) * int(g["admm_iters"])
+    steps = int(g["steps"][-1])
+    iters = steps * int(g["admm_iters"])
+    kernels = ["local_step_tri_stencil", "local_step_tri"]
+    counts = {"local_step_tri_stencil": iters, "local_step_tri": 0, "tri_Dx_rows": 0}
+    if variant_of(name)[2]:  # the sequential wind
+        kernels.append("wind_seq")
+        counts["wind_seq"] = steps
     x0, x8, res = drive_path(
-        torch, name, solver, g, pins, ["local_step_tri_stencil", "local_step_tri"],
-        after_steps=sheet_rows_entry(torch),
-        step_counts={"local_step_tri_stencil": iters, "local_step_tri": 0, "tri_Dx_rows": 0})
+        torch, name, solver, g, pins, kernels, after_steps=sheet_rows_entry(torch),
+        step_counts=counts)
     log(f"{name}: the steps launch the sheet's stencil entry {iters} times and tri_Dx_rows "
         "not at all")
     # Outside the counted window: the stencil entry on the same stepped state.
@@ -2340,7 +2433,7 @@ def cloth_path(torch, name):
          f"{name}: the rows entry and the stencil entry differ on the stepped state")
     res["rows_entry_bitwise"] = True
     moved = float(np.abs(x8 - x0).max())
-    if CLOTH_SCENES[name]["gravity"] < 0.0:
+    if CLOTH_SCENES[variant_of(name)[0]]["gravity"] < 0.0:
         need(x8[:, 1].min() < -1e-3, f"{name}: the sheet did not sag")
     need(moved > 1e-4, f"{name}: the sheet did not move")
     res.update(moved=moved, min_y=float(x8[:, 1].min()))
@@ -2864,12 +2957,21 @@ def gpen_checks(torch):
     return out, timing
 
 
-def contact_counts(name, iters):
+def contact_counts(name, iters, admm_iters=10):
     """The launches of each port kernel that a contact path's replays make in
     `iters` ADMM iterations (0 for one they must not launch), and the
-    kernels that must launch."""
-    p = CONTACT_SCENES[name]
+    kernels that must launch. An Anderson path (VARIANT_SCENES) launches A's
+    rows entry in place of its stencil entry, and the standalone B once per
+    iteration and once more per step."""
+    base, change, _ = variant_of(name)
+    p = CONTACT_SCENES[base]
     model = p["model"]
+    if change.get("aa_window") and p["ls"] == 4:
+        counts = {f"local_step_tet_hyper[{model}]": iters, f"local_step_tet_stencil[{model}]": 0,
+                  "gs_solve": 0, "pcg_solve": 0, "pcg_solve_penalty": iters,
+                  "tet_rhs_rows": iters, "tet_Dx_rows": iters + iters // admm_iters}
+        return counts, [f"local_step_tet_hyper[{model}]", "tet_Dx_rows", "tet_rhs_rows",
+                        "pcg_solve_penalty"]
     applies = 1 + CONTACT_MAX_UZAWA  # Uzawa: the first A^-1 and every predicated trip's
     counts = {f"local_step_tet_stencil[{model}]": iters, f"local_step_tet_hyper[{model}]": 0,
               "gs_solve": 0, "pcg_solve": 0, "pcg_solve_penalty": 0}
@@ -2901,8 +3003,11 @@ def contact_path(torch, name):
     contact (> 0 after landing), no tunnelling (min y > -1.1, bench.py:67; the
     sphere: min distance > 10 - 0.05, tests/test_contact.py:404-406); then each
     step's inner iterations (step(), the step's device counter) beside the JAX
-    package's, and the device operations per iteration of one replayed step."""
-    p = CONTACT_SCENES[name]
+    package's, and the device operations per iteration of one replayed step.
+    An Anderson path (floor_alpcg67k_aa4) is held under its base path's
+    bounds, with the base's device operations beside its own."""
+    base = variant_of(name)[0]
+    p = CONTACT_SCENES[base]
     solver = contact_scene(name, torch_api())
     g = golden(name)
     s = solver.m_settings
@@ -2912,11 +3017,11 @@ def contact_path(torch, name):
     need(p["ls"] != 2 or s.uzawa_max_iters == CONTACT_MAX_UZAWA, f"{name}: uzawa_max_iters")
     compared = [int(k) for k in g["steps"]]
     iters = compared[-1] * s.admm_iters
-    counts, kernels = contact_counts(name, iters)
+    counts, kernels = contact_counts(name, iters, s.admm_iters)
     state0 = solver.state.clone()
     x0, x_last, res = drive_path(torch, name, solver, g, [], kernels, model=p["model"],
-                                 step_counts=counts, tols=CONTACT_STEP_TOL[name],
-                                 disp_bound=CONTACT_DISP_TOL[name])
+                                 step_counts=counts, tols=CONTACT_STEP_TOL[base],
+                                 disp_bound=CONTACT_DISP_TOL[base])
     xs = drive_path.xs
     touching = [contacts(name, xs[k]) for k in compared]
     need(all(t > 0 for t in touching[1:]), f"{name}: no contact after landing: {touching}")
@@ -2924,6 +3029,14 @@ def contact_path(torch, name):
         d = np.linalg.norm(x_last - np.asarray(SPHERE_CENTER), axis=1)
         need(d.min() > SPHERE_RAD - 0.05, f"{name}: into the sphere: {d.min()}")
         res["min_distance"] = float(d.min())
+    elif base != name:
+        # Anderson's extrapolation overshoots into the floor at landing in
+        # the JAX package too (its golden: -1.119 at step 12, -1.009 at 20):
+        # no deeper than its own run by a centimetre, and out by the end
+        jax_min = min(float(g[f"x{k}"][:, 1].min()) for k in compared)
+        need(min(x[:, 1].min() for x in xs.values()) > jax_min - 0.01
+             and x_last[:, 1].min() > -1.1, f"{name}: through the floor")
+        res["jax_min_y"] = jax_min
     else:
         need(min(x[:, 1].min() for x in xs.values()) > -1.1, f"{name}: through the floor")
     res["min_y"] = float(min(x[:, 1].min() for x in xs.values()))
@@ -2939,7 +3052,14 @@ def contact_path(torch, name):
     res.update(contacts=touching, jax_contacts=g["contacts"].tolist(),
                active_rows=int(solver.state.prev_active.sum().item()),
                inner_per_step=inner, jax_inner_per_step=g["inner"].tolist())
-    res["device"] = device_ops(torch, lambda: solver.run(1), s.admm_iters)
+    if base != name:
+        plain = contact_scene(base, torch_api())
+        plain.run(LANDING_STEP)
+        solver.state = state0.clone()
+        solver.run(LANDING_STEP)
+        res.update(variant_device_ops(torch, solver, plain))
+    else:
+        res["device"] = device_ops(torch, lambda: solver.run(1), s.admm_iters)
     log(f"{name}: contacts {touching} (the JAX package's {g['contacts'].tolist()}), inner "
         f"iterations per step {inner} (the JAX package's {g['inner'].tolist()}); device per "
         f"iteration {json.dumps(res['device'])}")
@@ -3100,13 +3220,16 @@ def contact_kernel_times(torch, h_timing, gpen_timing, gpu):
 
 
 def path_shape_cases(torch, res):
-    """The kernels of the PCG paths at those paths' shapes where no earlier
-    case has them (name@path), float32, main-path inputs from a generator of
-    their own: A's stencil entry and C on the 160k beam's lattice (176,640
-    lanes, 35,721 vertices) and on the torus_pcg20k ring, B on the ring, E's
-    stencil entry on the 160x160 sheet (51,842 lanes). Held against plain here
-    (C and B exact, A under LANE_TOL, E under F32_TOL_STENCIL; the ring's
-    results come from ring_checks) and returned as kernel_cases entries."""
+    """The kernels of the PCG, contact and Anderson paths at those paths'
+    shapes where no earlier case has them (name@path), float32, main-path
+    inputs from a generator of their own: A's stencil entry and C on the 160k
+    beam's lattice (176,640 lanes, 35,721 vertices) and on the torus_pcg20k
+    ring, B on the ring, E's stencil entry on the 160x160 sheet (51,842
+    lanes); on the contact paths' 60x15x15 beam (101,250 lanes) A's linear
+    stencil entry and C, and for floor_alpcg67k_aa4 the standalone B and A's
+    linear rows entry with u = 0. Held against plain here (C and B exact, A
+    under LANE_TOL, E under F32_TOL_STENCIL; the ring's results come from
+    ring_checks) and returned as kernel_cases entries."""
     from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
     from admm_elastic_tpu_torch.materials import Lame
     from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_stencil, cuda_tri_local_step
@@ -3186,7 +3309,8 @@ def path_shape_cases(torch, res):
         lambda: local_step_tri_plain(st.tri_Dx_rows(xs, tb), ut, tb.limit_min, tb.limit_max),
         [xs, tb.st_dl, tb.st_dead, ut, tb.limit_min, tb.limit_max], 200, 5)
     # the contact paths' 67k beam (60x15x15, linear: A's linear stencil entry,
-    # C), 101,250 lanes, 15,616 vertices
+    # C; on the Anderson path B and A's rows entry), 101,250 lanes, 15,616
+    # vertices
     cb = make_tet_blocks(*CONTACT_SCENES["floor_uzawa67k"]["dims"])
     lb = el.build_tet_batch(cb.vertices, cb.tets, Lame.soft_rubber(), "linear", device=DEVICE,
                             dtype=f32, lattice_dims=cb.lattice_dims)
@@ -3214,6 +3338,32 @@ def path_shape_cases(torch, res):
         [x[base:base + n], lb.st_dl, lb.st_par, lb.st_dead, u] + list(params), 50, 2,
         tet_operations("linear", lb.n, True, None)
         + plain_flops(torch, lambda: st.tet_Dx_rows_plain(x, lb)))
+    # the same beam as floor_alpcg67k_aa4's Anderson iterations launch its
+    # kernels: the standalone B (D x for g(v) and v0) and A's linear rows
+    # entry with u = 0 (the prox of the Anderson iterate v)
+    need(bool(torch.equal(dx, st.tet_Dx_rows_plain(x, lb))),
+         "B@floor_alpcg67k_aa4: not exact against plain")
+    res["f32"]["tet_Dx_rows@floor_alpcg67k_aa4"] = dict(max_abs_err=0.0, exact=True)
+    u0 = torch.zeros_like(u)
+
+    def rerun(lanes):
+        args = (dx[:, lanes] * dev(1.0 + 1e-5 * rng.standard_normal((9, len(lanes)))),
+                u0[:, lanes]) + tuple(a[lanes] for a in params)
+        return (cuda_local_step.local_step_tet_hyper(*args, model="linear"),
+                local_step_plain(*args, model="linear"))
+
+    k = cuda_local_step.local_step_tet_hyper(dx, u0, *params, model="linear")
+    e = tet_errs(torch, k, local_step_plain(dx, u0, *params, model="linear"), "f32",
+                 "A[linear] rows entry floor_alpcg67k_aa4", rerun=rerun)
+    res["f32"]["local_step_tet_hyper[linear]@floor_alpcg67k_aa4"] = dict(e, max_abs_err=e["max"])
+    cases["tet_Dx_rows@floor_alpcg67k_aa4"] = (
+        lambda: cuda_stencil.tet_Dx_rows(x, lb),
+        lambda: st.tet_Dx_rows_plain(x, lb),
+        [x[base:base + n], lb.st_dl, lb.st_par, lb.st_dead], 200, 5)
+    cases["local_step_tet_hyper[linear]@floor_alpcg67k_aa4"] = (
+        lambda: cuda_local_step.local_step_tet_hyper(dx, u0, *params, model="linear"),
+        lambda: local_step_plain(dx, u0, *params, model="linear"), [dx, u0], 50, 2,
+        tet_operations("linear", lb.n, True, None))
     log("kernels at the PCG and contact paths' shapes: " + json.dumps(
         {k: v["max_abs_err"] for k, v in res["f32"].items() if "@" in k and (
             "pcg" in k or "67k" in k) or k.endswith("cloth_ls0_160")}))
@@ -3361,17 +3511,19 @@ def invalidation_checks(torch):
 
 
 def frozen_checks(torch):
-    """After a graph run of cloth_wind40 the state is the graph's own, and
-    it, the system, its batches and the wind are frozen: an assignment to a
-    field raises dataclasses.FrozenInstanceError (as in the JAX package),
-    where it would have gone unseen by the replays; the x setter is honored
-    by the next run, which matches the eager loop from the same x and v."""
+    """After a graph run of cloth_wind40 the state is a snapshot of the
+    graph's buffers, not the buffers themselves, and it, the system, its
+    batches and the wind are frozen: an assignment to a field raises
+    dataclasses.FrozenInstanceError (as in the JAX package), where it would
+    have gone unseen by the replays; the x setter is honored by the next run,
+    which matches the eager loop from the same x and v."""
     from admm_elastic_tpu_torch.system.system import SimState
 
     solver, _, _ = make_cloth_solver("cloth_wind40")
     solver.run(2)
     graph = solver._graph
-    need(solver.state is graph.state, "after a run the state is not the graph's")
+    need(solver.state is not graph.state and solver.state.x is not graph.state.x,
+         "after a run the state is the graph's own buffers")
     wind, b = solver.ext_forces[0], solver.system.tris[0]
     raised = []
     for label, target, field, value in (
@@ -3394,8 +3546,479 @@ def frozen_checks(torch):
                       v=torch.as_tensor(v, device=DEVICE, dtype=torch.float32),
                       y=solver.state.y.clone(), prev_active=solver.state.prev_active.clone())
     eager = graph_vs_eager(torch, "x setter after a graph run", solver, state0, 3,
-                           graph.state.x.clone())
+                           solver.state.x.clone())
     return dict(raised=raised, setter_vs_eager=eager)
+
+
+# --- the solver extras: kernel I, Anderson, the logged and profiled steps, checkpoints ----
+
+# Kernel I's shapes: the 40x40 sheet of cloth_wind40_seq (3,200 triangles,
+# 1,681 vertices: v in shared memory) and the 160x160 sheet (51,200
+# triangles, 25,921 vertices, 311 KB of v in float32: global memory).
+WIND_SHEETS = (40, 160)
+WIND_ALPHA, WIND_DT = 1000.0, 1.0 / 24.0
+# The operations of one triangle in csrc/wind_seq.cu: the mean 9, the
+# relative velocity 3, the edges 6, the cross product 9, the norm 6, the
+# normal 3, the area 1, v_n 5, the force's scalar 4 and vector 9, the adds 9.
+WIND_OPS = 64
+
+
+def wind_inputs(torch, nx, dtype):
+    """The nx x nx sheet's triangles on the card, its positions jittered and
+    small velocities (seeded), and the wind's direction, as kernel I takes
+    them (as tests/test_torch_cuda_extras.py makes them)."""
+    verts, tris, _, _ = cloth_sheet(nx, nx)
+    rng = np.random.default_rng(nx)
+    x = verts + 0.05 * rng.standard_normal(verts.shape)
+    v = 0.01 * rng.standard_normal(verts.shape)
+    t = dict(dtype=dtype, device=DEVICE)
+    return (torch.as_tensor(tris, device=DEVICE), torch.tensor([0.05, 0.1, 0.02], **t),
+            torch.as_tensor(x, **t), torch.as_tensor(v, **t))
+
+
+def wind_bytes_ops(w, n, itemsize):
+    """Kernel I's least bytes (the triangles, x and v read once, v written
+    once, the direction) and operations for w triangles on n vertices."""
+    return w * 3 * 8 + 3 * n * 3 * itemsize + 3 * itemsize, WIND_OPS * w
+
+
+def kernel_i_checks(torch, gpu):
+    """Kernel I against its plain version on the card (wind_seq_plain: the
+    same IEEE-rounded operations in the same order), at WIND_SHEETS in float32
+    and float64, in each form that takes the shape (SHARED where v fits the
+    block's shared memory, GLOBAL always): bit for bit, finite, the velocities
+    kicked; the SHARED form beyond its reach raises. Timing (on the card):
+    each form by CUDA events, its latency floor (the same walk in the floor
+    build, FLOOR_DEFINES: the dependent loads and stores of v with no
+    arithmetic), the plain version's one call on the host's clock around a
+    synchronize, and the bound. Returns (checks, timing)."""
+    from admm_elastic_tpu_torch.ops import _build, cuda_wind
+
+    checks, timing = {}, {}
+    on_card = DEVICE == "cuda"
+    optin = _build.library().admm_smem_optin() if on_card else 232448
+    floor = floor_library() if on_card else None
+    for nx in WIND_SHEETS:
+        for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            tris, d, x, v = wind_inputs(torch, nx, dtype)
+            w, n = tris.shape[0], x.shape[0]
+            label = f"wind_seq@{w}"
+            t0 = time.perf_counter()
+            want = cuda_wind.wind_seq_plain(tris, d, WIND_ALPHA, WIND_DT, x, v)
+            if on_card:
+                torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            need(bool(torch.isfinite(want).all()) and not bool(torch.equal(want, v)),
+                 f"{label} {dname}: the plain version kicked nothing")
+            chosen = cuda_wind.i_form(n, x.element_size(), optin)
+            forms = {}
+            for form in cuda_wind.FORMS:
+                if form == "shared" and chosen != "shared":
+                    if on_card:  # the plain version takes no form
+                        try:
+                            cuda_wind.wind_seq(tris, d, WIND_ALPHA, WIND_DT, x, v, form=form)
+                        except ValueError:
+                            continue
+                        raise SmokeFailure(f"{label} {dname}: the SHARED form took {n} vertices")
+                    continue
+                got = cuda_wind.wind_seq(tris, d, WIND_ALPHA, WIND_DT, x, v, form=form)
+                need(bool(torch.equal(got, want)),
+                     f"{label} {dname} {form}: kernel I is "
+                     f"{float((got - want).abs().max()):.3e} off its plain version")
+                entry = dict(bitwise=True)
+                if on_card and dname == "f32":
+                    entry["ms"] = events_ms(torch, lambda form=form: cuda_wind.wind_seq(
+                        tris, d, WIND_ALPHA, WIND_DT, x, v, form=form), 3)
+                    entry["floor_ms"] = events_ms(torch, lambda form=form: cuda_wind.wind_seq(
+                        tris, d, WIND_ALPHA, WIND_DT, x, v, form=form, lib=floor), 3)
+                forms[form] = entry
+            checks[f"{label} {dname}"] = dict(triangles=w, vertices=n, form=chosen,
+                                              forms=sorted(forms), max_abs_err=0.0)
+            if dname == "f32":
+                nbytes, ops = wind_bytes_ops(w, n, x.element_size())
+                bound_ms, bound_by = bound_of(nbytes, ops)
+                timing[label] = dict(triangles=w, vertices=n, form=chosen, forms=forms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                     bytes=nbytes, operations=ops, library_ms=None)
+                if on_card:
+                    log(f"time {label}: " + ", ".join(
+                        f"{f} {e['ms'] * 1e3:.1f} us (floor {e['floor_ms'] * 1e3:.1f} us)"
+                        for f, e in forms.items())
+                        + f"; plain {plain_ms:.1f} ms (one call); bound {bound_ms * 1e3:.3f} us "
+                        f"by {bound_by} [{gpu}]")
+            log(f"{label} {dname}: kernel I bit for bit its plain version in "
+                f"{sorted(forms)} ({n} vertices, chosen {chosen})")
+    return checks, timing
+
+
+def variant_device_ops(torch, solver, base):
+    """device_ops of one replayed step of a variant path's solver and of its
+    base scene's (a solver of its own, 8 steps in)."""
+    base.run(8)
+    it = solver.m_settings.admm_iters
+    return dict(device=device_ops(torch, lambda: solver.run(1), it),
+                device_plain=device_ops(torch, lambda: base.run(1), it))
+
+
+def aa_path(torch, name):
+    """beam_aa4 or cloth_aa4 (VARIANT_SCENES: aa_window=4) through the
+    captured step against its golden: every ADMM iteration launches the rows
+    entry of kernel A (tets) or E (the sheet) with u = 0 (the prox of v), and
+    D x runs once more per step than the iterations (v0 = D x_bar; the
+    standalone kernel B on the lattice, tri_Dx_rows on the sheet); no stencil
+    entry runs. Then the device operations per iteration of a replayed step,
+    beside the base path's."""
+    base_name = variant_of(name)[0]
+    steps = 8
+    if base_name == "beam":
+        solver, _, g, pins = make_solver(NH, name=name)
+        base = make_solver(NH)[0]
+        it = solver.m_settings.admm_iters
+        iters = steps * it
+        kernels = [f"local_step_tet_hyper[{NH}]", "tet_Dx_rows", "tet_rhs_rows"]
+        counts = {f"local_step_tet_hyper[{NH}]": iters, "tet_Dx_rows": iters + steps,
+                  "tet_rhs_rows": iters, f"local_step_tet_stencil[{NH}]": 0}
+        model = NH
+    else:
+        solver, g, pins = make_cloth_solver(name)
+        base = make_cloth_solver(base_name)[0]
+        it = solver.m_settings.admm_iters
+        iters = steps * it
+        kernels = ["local_step_tri"]
+        # the plain tri_Dx_rows is called by the warm-up step and the capture
+        counts = {"local_step_tri": iters, "local_step_tri_stencil": 0,
+                  "tri_Dx_rows": 2 * (it + 1)}
+        model = None
+    need(solver.m_settings.aa_window == AA_WINDOW and int(g["steps"][-1]) == steps,
+         f"{name}: not the Anderson path of its golden")
+    x0, x8, res = drive_path(torch, name, solver, g, pins, kernels, model=model,
+                             step_counts=counts)
+    if base_name == "beam":
+        res.update(check_sag(name, x0, x8))
+    else:
+        need(x8[:, 1].min() < -1e-3, f"{name}: the sheet did not sag")
+    res.update(variant_device_ops(torch, solver, base))
+    log(f"{name}: the steps launch {kernels[0]} {iters} times; device per iteration "
+        f"{json.dumps(res['device'])}, the base path's {json.dumps(res['device_plain'])}")
+    return solver, res
+
+
+def aa_wins_check(torch):
+    """tests/test_anderson.py:53-91 on the card in float64: the 10x3x3
+    neo-Hookean beam, one step of 10 ADMM iterations with aa_window=4 below
+    half the plain step's error against a 600-iteration step (the eager loop;
+    the two 10-iteration steps through the captured step)."""
+    from admm_elastic_tpu_torch import Lame, Settings, Solver, binding
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+
+    def build(aa, iters):
+        mesh = make_tet_blocks(10, 3, 3)
+        mesh.flags = binding.NOSELFCOLLISION | binding.NEOHOOKEAN
+        s = Solver(device=DEVICE)
+        binding.add_tetmesh(s, mesh, Lame.soft_rubber(), verbose=False)
+        s.set_pins([int(i) for i in np.where(mesh.vertices[:, 0] < 1e-9)[0]])
+        need(s.initialize(Settings(verbose=0, admm_iters=iters, linsolver=0, gravity=-9.8,
+                                   dtype=np.float64, direct_mode="inv", aa_window=aa)),
+             "initialize failed")
+        return s
+
+    ref = build(0, 600)
+    ref._run_eager(1)
+    errs = {}
+    for aa in (0, AA_WINDOW):
+        s = build(aa, 10)
+        s.run(1)
+        errs[aa] = float(np.linalg.norm(ref.x - s.x))
+    need(np.isfinite(errs[AA_WINDOW]) and errs[AA_WINDOW] < 0.5 * errs[0],
+         f"aa_window={AA_WINDOW} does not halve the plain error: {errs}")
+    log(f"Anderson (float64, 10 iterations): error against the converged step "
+        f"{errs[AA_WINDOW]:.3e} with aa_window={AA_WINDOW}, {errs[0]:.3e} without "
+        f"({errs[0] / errs[AA_WINDOW]:.1f}x)")
+    return dict(err_plain=errs[0], err_aa=errs[AA_WINDOW], ratio=errs[0] / errs[AA_WINDOW])
+
+
+# The logged step once per linsolver (scene, steps before it: the contact
+# scenes after landing, so that contacts are active; log_inner_iters, 0 for
+# the solver's max iterations). The torus traces 300 CG trips: its
+# pcg_max_iters of 60 stops the Jacobi CG on the stiff ring at a fall of some
+# 27x, and tests/test_solverlog.py's assertion needs a curve that reaches the
+# noise floor (at 300 every solve of its first step falls below 1e-10 of its
+# start, the port on the CPU).
+LOGGED_SCENES = {0: ("beam", 0, 0), 3: ("torus_pcg20k", 0, 300),
+                 1: ("floor_gs5k", LANDING_STEP, 0), 2: ("floor_uzawa5k", LANDING_STEP, 0),
+                 4: ("floor_alpcg67k", LANDING_STEP, 0)}
+# The card's logged step against the same logged step of a Solver(device="cpu")
+# from the same state, both in float64 (the scene initialized again in
+# float64): in float32 the torus's 300 CG trips follow each device's own
+# rounding, and the two curves parted by 0.36 of their start at some trip
+# while both fell to 1e-9 (on an H100, PERF.md §6). Each trace within
+# LOGGED_TRACE_TOL of its row's largest value (each device sums its dots in
+# its own order), x within LOGGED_X_TOL of max |x|. The direct solve's
+# residual is rounding noise on both and is held to be finite alone. Uzawa:
+# the first solve's trace alone, and x under the Uzawa path's bound: the Schur
+# CG puts the contact vertices on the floor within rounding, and whether the
+# next detection finds them below it is a last-bit coin flip per device
+# (tests/test_torch_logging.py), after which the iterations part.
+LOGGED_TRACE_TOL = 1e-6
+LOGGED_X_TOL = 1e-8
+
+
+def logged_scene(name, device):
+    """A LOGGED_SCENES scene on `device`, initialized again in float64."""
+    if name == "beam":
+        s = make_solver(NH, device=device)[0]
+    elif name in PCG_SCENES:
+        s = pcg_scene(name, torch_api(device))[0]
+    else:
+        s = contact_scene(name, torch_api(device))
+    need(s.initialize(dataclasses.replace(s.m_settings, dtype=np.float64)),
+         f"{name}: initialize failed")
+    return s
+
+
+# Gauss-Seidel's first solve on floor_gs5k after landing floors at the
+# projection equilibrium, 0.2 of its start (the port on the CPU, alike with
+# 30, 100 and 300 sweeps): it must fall, where tests/test_solverlog.py's
+# dropped box, whose first solve starts far from equilibrium, falls 10x.
+GS_FIRST_FALL = 1.0
+
+
+def solverlog_assertions(ls, r, f64=False, gs_fall=0.1):
+    """tests/test_solverlog.py's assertions on one step's residual traces r
+    [admm_iters, n_inner], its absolute slacks (1e-12 and the like, for
+    float64) taken as 1e-6 of the largest residual in float32; gs_fall the
+    fall of Gauss-Seidel's first solve (0.1 there)."""
+    slack = (lambda a: a) if f64 else (lambda a: max(a, 1e-6 * float(np.abs(r).max())))
+    if ls == 3:
+        return bool(np.all(r[:, -1] <= 1e-6 * r[:, 0] + slack(1e-12)))
+    if ls == 1:
+        return bool(r[0, -1] < gs_fall * r[0, 0]
+                    and np.all(r[:, -1] <= 1.1 * r[:, 0] + slack(1e-9)))
+    if ls == 2:
+        return bool(np.all(np.diff(r, axis=1) <= slack(1e-12) + 0.5 * r[:, :-1])
+                    and np.all(r[:, -1] <= r[:, 0] + slack(1e-15)) and r.max() > 0)
+    if ls == 4:
+        nz = r[:, 0] > 1e-12
+        return bool(np.all(r[nz, -1] <= 1e-4 * r[nz, 0] + slack(1e-10)))
+    return True
+
+
+def logged_checks(torch):
+    """The logged step (log_inner: step() routes to step_logged) once per
+    linsolver on LOGGED_SCENES in float64, on the card and on a
+    Solver(device="cpu") from the same state: the traces' shape [admm_iters, n_inner], all finite,
+    tests/test_solverlog.py's assertions (solverlog_assertions), and the card
+    against the CPU under LOGGED_TRACE_TOL / LOGGED_X_TOL."""
+    from admm_elastic_tpu_torch.system.system import SimState
+
+    out = {}
+    for ls, (name, before, n_log) in LOGGED_SCENES.items():
+        card = logged_scene(name, DEVICE)
+        card.run(before)
+        cpu = logged_scene(name, "cpu")
+        cpu.state = SimState(**{f: getattr(card.state, f).cpu().clone()
+                                for f in ("x", "v", "y", "prev_active")})
+        logs, wall = [], []
+        for s in (card, cpu):
+            need(s.m_settings.linsolver == ls, f"{name}: linsolver {s.m_settings.linsolver}")
+            s.m_settings.log_inner = True
+            s.m_settings.log_inner_iters = n_log
+            t0 = time.perf_counter()
+            logs.append(s.step())
+            wall.append(time.perf_counter() - t0)
+            s.m_settings.log_inner = False
+        lc, lh = logs
+        r = lc.residuals
+        n_inner = n_log or {0: 1, 1: card.m_settings.gs_max_iters,
+                            2: card.m_settings.uzawa_max_iters, 3: card.m_settings.pcg_max_iters,
+                            4: card.m_settings.pcg_max_iters}[ls]
+        need(r.shape == (card.m_settings.admm_iters, n_inner) and np.isfinite(r).all()
+             and lc.final_r == float(r[-1, -1]),
+             f"{name}: logged traces of shape {r.shape}, finite {np.isfinite(r).all()}")
+        need(solverlog_assertions(ls, r, f64=True, gs_fall=GS_FIRST_FALL),
+             f"{name}: the traces fail tests/test_solverlog.py's "
+             f"assertions: first solve {r[0].tolist()}")
+        rows = 1 if ls == 2 else r.shape[0]
+        scale = np.maximum(np.abs(lh.residuals[:rows]).max(axis=1, keepdims=True), 1e-30)
+        trace_err = (0.0 if ls == 0 else
+                     float((np.abs(r[:rows] - lh.residuals[:rows]) / scale).max()))
+        x_err = rel_err(card.x, cpu.x)
+        x_tol = CONTACT_STEP_TOL[name][1] if ls == 2 else LOGGED_X_TOL
+        log(f"logged step ls={ls} on {name}: traces {r.shape}, first solve "
+            f"{r[0, 0]:.3e} -> {r[0, -1]:.3e}, final_r {lc.final_r:.3e}; against the CPU: "
+            f"trace {trace_err:.3e} (bound {LOGGED_TRACE_TOL}, {rows} rows), x {x_err:.3e} "
+            f"(bound {x_tol}); {wall[0]:.2f} s on {DEVICE}, {wall[1]:.2f} s on the CPU")
+        need(trace_err <= LOGGED_TRACE_TOL and x_err <= x_tol,
+             f"{name}: the card's logged step is off the CPU's: trace {trace_err}, x {x_err}")
+        out[name] = dict(linsolver=ls, shape=list(r.shape), final_r=lc.final_r,
+                         first_solve=[float(r[0, 0]), float(r[0, -1])], trace_err=trace_err,
+                         trace_rows=rows, x_err=x_err, card_s=wall[0], cpu_s=wall[1])
+    return out
+
+
+def profiled_checks(torch):
+    """The profiled step (verbose=2: step() routes to step_profiled) on the
+    bench beam and on floor_gs5k after landing: x bitwise the eager step's
+    (_run_eager(1)) from the same state, every phase > 0 and their sum within
+    step_ms."""
+    out = {}
+    for name in ("beam", "floor_gs5k"):
+        s = make_solver(NH)[0] if name == "beam" else contact_scene(name, torch_api())
+        if name != "beam":
+            s.run(LANDING_STEP)
+        state0 = s.state.clone()
+        s._run_eager(1)
+        x_eager = s.state.x.clone()
+        s.state = state0.clone()
+        s.m_settings.verbose = 2
+        rt = s.step()
+        s.m_settings.verbose = 0
+        phases = dict(local_ms=rt.local_ms, collision_ms=rt.collision_ms,
+                      global_ms=rt.global_ms)
+        need(bool(torch.equal(s.state.x, x_eager)),
+             f"{name}: the profiled step is not the eager step bit for bit")
+        need(min(phases.values()) > 0 and sum(phases.values()) <= rt.step_ms,
+             f"{name}: profiled phases {phases} against step_ms {rt.step_ms}")
+        log(f"profiled step on {name}: bitwise the eager step; " + ", ".join(
+            f"{k} {v:.3f}" for k, v in phases.items()) + f" of step_ms {rt.step_ms:.3f}, "
+            f"inner iterations {rt.inner_iters}")
+        out[name] = dict(phases, step_ms=rt.step_ms, inner_iters=rt.inner_iters, bitwise=True)
+    return out
+
+
+def checkpoint_checks(torch):
+    """On the bench beam through the captured step: a kept solver.state is a
+    snapshot (st0 after run(0), step 0: a step from it leaves it as it was,
+    and st0 restored steps bit for bit as before); tests/test_utils.py:22-40's
+    bitwise replay from a checkpoint (utils/checkpoint.py); the card's file
+    loads on the CPU bit for bit; and the cost of the snapshot, the two
+    device copies of x, v, y and prev_active a step() or run(n) makes where
+    the caller assigned a state, and a step() with and without the copy in
+    (CUDA events)."""
+    import tempfile
+
+    from admm_elastic_tpu_torch.utils import checkpoint as ck
+
+    s = make_solver(NH)[0]
+    s.run(0)
+    st0 = s.state
+    ref = st0.clone()
+    s.step()
+    x1 = s.state.x.clone()
+    fields = ("x", "v", "y", "prev_active")
+    need(all(bool(torch.equal(getattr(st0, f), getattr(ref, f))) for f in fields),
+         "a kept state was written by the step after it")
+    s.state = st0
+    s.step()
+    need(bool(torch.equal(s.state.x, x1)), "a kept state does not restore the step")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        s.run(3)
+        ck.save_state(path, s.state)
+        x3 = s.x
+        s.step()
+        s.state = ck.load_state(path, device=DEVICE)
+        need(np.array_equal(s.x, x3), "the loaded state is not the saved one")
+        s.step()
+        x4 = s.x
+        s.state = ck.load_state(path, device=DEVICE)
+        s.step()
+        need(np.array_equal(s.x, x4), "the step from a checkpoint does not repeat bit for bit")
+        cpu = ck.load_state(path, device="cpu")
+        need(np.array_equal(cpu.x.numpy(), x3) and cpu.x.device.type == "cpu",
+             "the card's checkpoint does not load on the CPU")
+    out = dict(snapshot=True, replay_bitwise=True, loads_on_cpu=True)
+    if DEVICE == "cuda":
+        g = s._step_graph()
+
+        def copies():
+            for f in fields:
+                getattr(g.state, f).copy_(getattr(s.state, f))
+            return g.state.clone()
+
+        def assigned_step():
+            s.state = dataclasses.replace(s.state)  # another object, the same tensors
+            s.step()
+
+        # the copies alone, and a whole step() on the state the last one
+        # handed out (one copy, out) against one on an assigned state (two),
+        # in turns
+        out["snapshot_copies_us"] = events_ms(torch, copies, 200) * 1e3
+        steps = in_turns([("kept", s.step), ("assigned", assigned_step)],
+                         lambda call: events_ms(torch, call, 200) * 1e3)
+        out["step_us"] = steps
+        log(f"the kept state's snapshot: {out['snapshot_copies_us']:.2f} us for both copies of "
+            f"x, v, y, prev_active; step() on the handed state "
+            + ", ".join(f"{t:.2f}" for t in steps["kept"]) + " us, on an assigned state "
+            + ", ".join(f"{t:.2f}" for t in steps["assigned"])
+            + " us (in turns; the bench beam, CUDA events)")
+    log("checkpoint: a kept state is a snapshot; the replay from a checkpoint repeats bit "
+        "for bit; the card's file loads on the CPU")
+    return out
+
+
+def extras_checks(torch):
+    """The checks of the solver extras beyond their paths: Anderson's gain,
+    the logged and profiled steps, checkpoints and the snapshot."""
+    return dict(aa_wins=aa_wins_check(torch), logged=logged_checks(torch),
+                profiled=profiled_checks(torch), checkpoint=checkpoint_checks(torch))
+
+
+def variant_turns(torch, gpu):
+    """Each variant path's rollout rate beside its base path's, through the
+    captured step, in turns (base, variant, variant, base), on solvers of
+    their own."""
+    def solver_of(name):
+        base = variant_of(name)[0]
+        if base == "beam":
+            return make_solver(NH, name=None if name == base else name)[0]
+        if base in CLOTH_SCENES:
+            return make_cloth_solver(name)[0]
+        return contact_scene(name, torch_api())
+
+    out = {}
+    for name in AA_PATHS + (WIND_SEQ_PATH,):
+        base = variant_of(name)[0]
+        pair = {base: solver_of(base), name: solver_of(name)}
+        out[name] = in_turns([(k, lambda k=k: rollout_rate(pair[k])) for k in pair],
+                             lambda call: call())
+        log(f"rollout {name} against {base}: " + "; ".join(
+            f"{k} " + ", ".join(f"{r['admm_iters_per_s']:.1f}" for r in v)
+            for k, v in out[name].items()) + f" ADMM iters/s (in turns) [{gpu}]")
+    return out
+
+
+def wind_form_turns(torch, gpu):
+    """What kernel I's form moves end to end: cloth_wind40_seq captured with
+    kernel I in the form its wrapper chooses (SHARED on this sheet) and once
+    more with it held to GLOBAL, on solvers of their own; their rollout rates
+    in turns (chosen, GLOBAL, GLOBAL, chosen, twice over), and the captured
+    step's device time by CUDA events over 200 replays, in the same turns."""
+    from admm_elastic_tpu_torch.ops import cuda_wind
+
+    chosen = make_cloth_solver(WIND_SEQ_PATH)[0]
+    chosen.run(0)
+    i_form = cuda_wind.i_form
+    cuda_wind.i_form = lambda n, itemsize, optin, want=None: i_form(n, itemsize, optin,
+                                                                    want or "global")
+    try:
+        held = make_cloth_solver(WIND_SEQ_PATH)[0]
+        held.run(0)  # the capture: no replay calls the wrapper again
+    finally:
+        cuda_wind.i_form = i_form
+    pair = {"chosen": chosen, "global": held}
+    out = {f"{k} rates": v for k, v in in_turns(
+        [(k, lambda k=k: rollout_rate(pair[k])) for k in pair] * 2, lambda call: call()).items()}
+    if DEVICE == "cuda":
+        out.update({f"{k} step_ms": v for k, v in in_turns(
+            [(k, lambda k=k: events_ms(torch, pair[k]._graph.graph.replay, 200)) for k in pair],
+            lambda call: call()).items()})
+    log(f"rollout {WIND_SEQ_PATH}, kernel I in its chosen form against GLOBAL: "
+        + "; ".join(f"{k} " + ", ".join(f"{r['admm_iters_per_s']:.1f}" for r in out[f"{k} rates"])
+                    for k in pair) + " ADMM iters/s (in turns); "
+        + "; ".join(f"{k} " + ", ".join(f"{t * 1e3:.1f}" for t in out.get(f"{k} step_ms", []))
+                    for k in pair) + f" us a replayed step [{gpu}]")
+    return out
 
 
 # --- phase 5: timing ---------------------------------------------------------------------
@@ -4062,7 +4685,11 @@ def path_phase(torch, gpu):
         solvers[name], paths[name] = pcg_path(torch, name)
     for name in CONTACT_PATHS:
         solvers[name], paths[name] = contact_path(torch, name)
-    checks = dict(bench_contact_sanity=bench_contact_sanity(torch),
+    for name in AA_PATHS:
+        drive = contact_path if variant_of(name)[0] in CONTACT_SCENES else aa_path
+        solvers[name], paths[name] = drive(torch, name)
+    solvers[WIND_SEQ_PATH], paths[WIND_SEQ_PATH] = cloth_path(torch, WIND_SEQ_PATH)
+    checks = dict(bench_contact_sanity=bench_contact_sanity(torch), extras=extras_checks(torch),
                   graph=dict(invalidation=invalidation_checks(torch),
                              one_tet_convergence=one_tet_convergence(),
                              one_tet_inversion=one_tet_inversion()))
@@ -4185,6 +4812,7 @@ def main():
         pcg_timing.update(inner_timing)
         checks["gs"], h_timing = h_checks(torch)
         checks["pcg_penalty"], gpen_timing = gpen_checks(torch)
+        checks["wind_seq"], i_timing = kernel_i_checks(torch, gpu)
         cases, c_branches, chains, pairs, prox_turns = kernel_cases(torch)
         cases.update(path_shape_cases(torch, checks))
         profiles = {}
@@ -4193,6 +4821,7 @@ def main():
                                                   gpu)
             pcg_times(torch, pcg_timing, gpu)
             contact_kernel_times(torch, h_timing, gpen_timing, gpu)
+            log("kernel I: " + json.dumps(i_timing))
             log(gpu)
             return 0
         # What the host's clock times comes before the first profiler window,
@@ -4200,6 +4829,8 @@ def main():
         # after some 30 windows the profiler also began to drop events.
         turns, phases, times, by_branch, prox_big = host_timing(torch, gpu, cases, c_branches,
                                                                 prox_turns)
+        variant_rates = variant_turns(torch, gpu)
+        wind_forms = wind_form_turns(torch, gpu)
         env["profiler_warmup_events"] = profiler_warmup(torch)
         g_times = pcg_times(torch, pcg_timing, gpu)
         c_times = contact_kernel_times(torch, h_timing, gpen_timing, gpu)
@@ -4339,12 +4970,43 @@ def main():
         src, rep = REPLACES[kname]
         kernels.append(dict(entries[0], name=kname, route="cuda", source=src, replaces=rep,
                             entries=entries))
+    # Kernel I, which replaces the JAX package's scan of the sequential wind (no
+    # Pallas kernel): one entry per sheet and form, beside its latency floor;
+    # "main" the form the wrapper chooses on cloth_wind40_seq's sheet, whose
+    # entry carries the path's launches (the kernel's device counter) and
+    # beside them profiler_launches, the records torch.profiler kept of them.
+    i_entries = []
+    for label, t in i_timing.items():
+        for form, f in t["forms"].items():
+            main = form == t["form"] and t["triangles"] == WIND_SEQ_TRIANGLES
+            i_entries.append(dict(
+                entry="wind_seq", path=WIND_SEQ_PATH if main else None, main=main,
+                triangles=t["triangles"], vertices=t["vertices"], form=form,
+                launches=paths[WIND_SEQ_PATH]["launches"].get("wind_seq", 0) if main else 0,
+                profiler_launches=(paths[WIND_SEQ_PATH]["launches"].get(PROFILED_I, 0)
+                                   if main else 0),
+                wrapper_calls=(paths[WIND_SEQ_PATH]["wrapper_calls"].get("wind_seq", 0)
+                               if main else 0),
+                max_abs_err=checks["wind_seq"][f"{label} f32"]["max_abs_err"], ms=f["ms"],
+                floor_ms=f["floor_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None))
+    i_entries.sort(key=lambda e: not e["main"])
+    src, rep = REPLACES["wind_seq"]
+    kernels.append(dict(i_entries[0], name="wind_seq", route="cuda", source=src, replaces=rep,
+                        entries=i_entries))
+    # every row's launches on this slice's paths (Anderson, the sequential wind)
+    for row in kernels:
+        names = sorted({e["entry"] for e in row["entries"]})
+        row["launches_on_new_paths"] = {
+            p: {n: paths[p]["launches"][n] for n in names if paths[p]["launches"].get(n)}
+            for p in AA_PATHS + (WIND_SEQ_PATH,)}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(env=env, build=built, checks=checks, paths=paths, rollouts=rates,
                        phases_ms=phases, kernel_times=times, rhs_branches_ms=by_branch,
                        prox_throughput_ms=prox_big, pcg_solve_ms=g_times,
-                       contact_solve_ms=c_times,
+                       contact_solve_ms=c_times, wind_seq_ms=i_timing,
+                       variant_rollouts=variant_rates, wind_seq_forms_end_to_end=wind_forms,
                        warp_chains=chains, profiles=profiles,
                        kernels=kernels), f, indent=1)
     for k in kernels:

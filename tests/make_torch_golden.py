@@ -45,7 +45,11 @@ step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD run
   (``compare``), the inner iterations of every step (``inner``: GS sweeps,
   Schur trips or CG trips), the vertices in contact at the compared steps
   (``contacts``, chip_smoke.contacts) and, for Uzawa and AL-PCG, the active
-  constraint rows the state carries after them (``active_rows``).
+  constraint rows the state carries after them (``active_rows``);
+- the variants (chip_smoke.VARIANT_SCENES): beam_aa4, cloth_aa4 and
+  floor_alpcg67k_aa4, the beam, cloth_limit40 and floor_alpcg67k with Anderson
+  acceleration (aa_window=4), and cloth_wind40_seq, cloth_wind40 with the
+  sequential wind (WindForce(sequential=True)), each stored as its base is.
 
 Run from the repository root (all files, or only the named ones):
 
@@ -68,8 +72,9 @@ from admm_elastic_tpu.geometry.factory import make_tet_blocks  # noqa: E402
 from admm_elastic_tpu.geometry.io import load_elenode  # noqa: E402
 from admm_elastic_tpu.ops import prox  # noqa: E402
 from chip_smoke import (BEAM_FLAGS, BEAM_MODELS, BUNNY, CLOTH_SCENES,  # noqa: E402
-                        CONTACT_SCENES, GATHER_SCENES, PCG_SCENES, bunny_pins, cloth_sheet,
-                        contact_scene, contact_steps, contacts, pcg_scene, renumbered_sheet)
+                        CONTACT_SCENES, GATHER_SCENES, PCG_SCENES, VARIANT_SCENES, bunny_pins,
+                        cloth_sheet, contact_scene, contact_steps, contacts, pcg_scene,
+                        renumbered_sheet, variant_of)
 
 DIMS = (40, 5, 5)
 ADMM_ITERS = 10
@@ -80,9 +85,9 @@ FREE_STEPS = (1, 2)  # of beam_free
 DATA = os.path.join(ROOT, "tests", "data")
 
 
-def _settings(gravity, direct_mode="inv", dtype=np.float32):
+def _settings(gravity, direct_mode="inv", dtype=np.float32, **change):
     return Settings(verbose=0, admm_iters=ADMM_ITERS, linsolver=0, gravity=gravity,
-                    timestep_s=DT, dtype=dtype, direct_mode=direct_mode)
+                    timestep_s=DT, dtype=dtype, direct_mode=direct_mode, **change)
 
 
 def _rollout(solver, steps=STEPS, dtype=np.float32):
@@ -101,7 +106,8 @@ def _save(name, **arrays):
     print(f"wrote {out}")
 
 
-def beam(model, pinned=True):
+def beam(model, pinned=True, name=None):
+    change = variant_of(name)[1] if name else {}
     mesh = make_tet_blocks(*DIMS)
     solver = Solver()
     lame = Lame.soft_rubber()
@@ -115,9 +121,11 @@ def beam(model, pinned=True):
     pins = np.where(mesh.vertices[:, 0] < 1e-9)[0] if pinned else np.zeros((0,), np.int64)
     if pinned:
         solver.set_pins([int(i) for i in pins])
-    assert solver.initialize(_settings(GRAVITY))
+    assert solver.initialize(_settings(GRAVITY, **change))
     assert solver.system.tets[0].model == model
-    if pinned:
+    if name:
+        steps = STEPS
+    elif pinned:
         name, steps = "beam" if model == "neohookean" else f"beam_{model}", STEPS
     else:
         assert model == "neohookean" and solver._refine_eff == 1
@@ -127,7 +135,8 @@ def beam(model, pinned=True):
 
 
 def cloth(name):
-    p = CLOTH_SCENES[name]
+    base, change, sequential = variant_of(name)
+    p = CLOTH_SCENES[base]
     verts, tris, masses, pins = cloth_sheet(p["nx"], p["ny"])
     solver = Solver()
     solver.add_nodes(verts, masses)
@@ -137,8 +146,9 @@ def cloth(name):
     solver.add_tri_energies(verts, tris, lame)
     solver.set_pins([int(i) for i in pins])
     if p["wind"] is not None:
-        solver.add_explicit_force(make_wind_force(tris, direction=p["wind"], colored=True))
-    assert solver.initialize(_settings(p["gravity"]))
+        solver.add_explicit_force(make_wind_force(tris, direction=p["wind"],
+                                                  colored=not sequential, sequential=sequential))
+    assert solver.initialize(_settings(p["gravity"], **change))
     assert solver.system.tris[0].stencil is not None
     _save(name, nx=p["nx"], ny=p["ny"], gravity=p["gravity"], pins=pins,
           limits=np.asarray(p["limits"] if p["limits"] is not None else (-100.0, 100.0)),
@@ -224,7 +234,7 @@ def pcg(name):
 
 
 def contact(name):
-    p = CONTACT_SCENES[name]
+    p = CONTACT_SCENES[variant_of(name)[0]]
     dtype = p.get("dtype", np.float32)
     solver = contact_scene(name, jax_api())
     steps, compare = contact_steps(name)
@@ -255,12 +265,17 @@ def main(argv):
     writers.update({n: (lambda n=n: gather(n)) for n in GATHER_SCENES})
     writers.update({n: (lambda n=n: pcg(n)) for n in PCG_SCENES})
     writers.update({n: (lambda n=n: contact(n)) for n in CONTACT_SCENES})
+    variants = {"beam": lambda n: beam("neohookean", name=n), "cloth_limit40": cloth,
+                "cloth_wind40": cloth, "floor_alpcg67k": contact}
+    writers.update({n: (lambda n=n, base=base: variants[base](n))
+                    for n, (base, _) in VARIANT_SCENES.items()})
     names = argv or list(writers)
     for n in names:
         if n not in writers:
             raise SystemExit(f"unknown golden {n!r}; one of {sorted(writers)}")
 
     def f64(n):
+        n = variant_of(n)[0]
         return any("dtype" in scenes.get(n, {})
                    for scenes in (GATHER_SCENES, PCG_SCENES, CONTACT_SCENES))
 

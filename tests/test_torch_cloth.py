@@ -180,20 +180,3 @@ def test_cpu_solver_launches_no_kernel():
     assert cuda_tri_local_step.local_step_tri.launches == before
 
 
-def _unsupported_sheet(**kw):
-    mesh = factory.make_plane(4, 4)
-    s = Solver(device="cpu")
-    binding.add_trimesh(s, mesh, verbose=False)
-    s.initialize(_settings(Settings, np.float64, **kw))
-
-
-UNSUPPORTED = {
-    "wind_sequential": lambda: forces.make_wind_force(
-        factory.make_plane(2, 2).faces, sequential=True, device="cpu", dtype=torch.float64),
-}
-
-
-@pytest.mark.parametrize("case", sorted(UNSUPPORTED))
-def test_unsupported_cloth_raises_with_roadmap_item(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNSUPPORTED[case]()

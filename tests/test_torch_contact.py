@@ -51,6 +51,16 @@ torch.set_num_threads(1)
 F64 = torch.float64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _default_svd_after_the_module():
+    """_both sets the JAX package's Jacobi SVD (set_svd_impl, module state);
+    the default goes back after the module, so that a later file in the same
+    worker (tests/test_lineartet.py, which holds the default SVD's volume
+    error) does not run on the Jacobi one."""
+    yield
+    jprox.set_svd_impl("auto")
+
+
 def _jax_api():
     return types.SimpleNamespace(
         Solver=JSolver, Settings=JSettings, Lame=JLame, binding=jbinding,

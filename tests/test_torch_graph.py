@@ -156,19 +156,30 @@ def test_setters_and_new_state_take_effect(cuda_device):
     assert torch.allclose(s.state.x, x_graph, rtol=0, atol=1e-12)
     s.state = s.state.clone()  # a new state
     s.run(1)
-    assert s._graph is graph and s.state.x is graph.state.x
+    # the state after a run is a snapshot, never the graph's own buffers
+    assert s._graph is graph and s.state.x is not graph.state.x
+    kept = s.state
+    x_kept = kept.x.clone()
+    s.run(1)
+    assert torch.equal(kept.x, x_kept)  # no replay wrote the kept state
+    x_next = s.state.x.clone()
+    s.state = kept
+    s.run(1)
+    assert s._graph is graph and torch.equal(s.state.x, x_next)  # restored bitwise
 
 
 def test_frozen_state_and_the_setter_after_a_graph_run(cuda_device):
-    """After a graph run the state is the graph's own: assigning one of its
-    fields (or a field of the wind or of a batch) raises, as in the JAX
-    package, where before it went unseen by the replays; the x setter is
-    honored by the next run(n), which then matches the eager loop from the
-    same x and v."""
+    """After a graph run the state is a snapshot, not the graph's buffers:
+    assigning one of its fields (or a field of the wind or of a batch)
+    raises, as in the JAX package, where before it went unseen by the
+    replays; the x setter is honored by the next run(n), which then matches
+    the eager loop from the same x and v."""
     s = _sheet(cuda_device, np.float64, renumbered=True)
     s.run(2)
     graph = s._graph
-    assert s.state is graph.state
+    assert s.state is not graph.state
+    assert all(torch.equal(getattr(s.state, f), getattr(graph.state, f))
+               for f in ("x", "v", "y", "prev_active"))
     wind, b = s.ext_forces[0], s.system.tris[0]
     for target, field, value in ((s.state, "x", s.state.x.clone()), (wind, "direction",
                                  wind.direction * 2), (wind, "alpha_n", 1.0),

@@ -218,15 +218,6 @@ def test_the_step_counter_holds_one_step_s_trips():
     assert p.runtime_data().inner_iters == g["trips"][1] == int(p._inner.item())
 
 
-@pytest.mark.parametrize("linsolver", [cfg.NCMCGS, cfg.UZAWACG, cfg.ALPCG])
-def test_unported_linsolvers_raise_naming_their_item(linsolver):
-    """ls 1, 2 and 4 run since the contact slice; their traced (logged) solves
-    do not yet, and name their item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        _sheet(PORT, dataclasses.replace(_switch_settings(Settings), linsolver=linsolver,
-                                         log_inner=True))
-
-
 def test_graph_key_names_the_pcg_settings():
     p = _sheet(PORT, _switch_settings(Settings))
     key = p._graph_key()

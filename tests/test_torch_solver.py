@@ -181,14 +181,9 @@ def _init_with(settings_kw=None, mesh=None, before=None):
 # traced (logged) solve, ROADMAP Queue 1 item 11; an obstacle that is not an
 # analytic one names item 9.
 UNSUPPORTED = {
-    "linsolver_gs": lambda: _init_with(dict(linsolver=1, log_inner=True)),
-    "aa_window": lambda: _init_with(dict(aa_window=4)),
     "unroll_admm": lambda: _init_with(dict(unroll_admm=True)),
     "obstacle": lambda: Solver(device="cpu").add_obstacle(object()),
     "dynamic_collider": lambda: Solver(device="cpu").add_dynamic_collider(object()),
-    "linsolver_uzawa": lambda: _init_with(dict(linsolver=2, log_inner=True)),
-    "linsolver_alpcg": lambda: _init_with(dict(linsolver=4, log_inner=True)),
-    "log_inner": lambda: _init_with(dict(log_inner=True)),
     "self_collision": lambda: binding.add_tetmesh(Solver(device="cpu"),
                                                   _beam(binding.NEOHOOKEAN), verbose=False),
 }
@@ -203,7 +198,9 @@ def test_unsupported_raises_with_roadmap_item(case):
 def test_import_loads_no_jax():
     code = ("import sys, admm_elastic_tpu_torch, admm_elastic_tpu_torch.convert, "
             "admm_elastic_tpu_torch.binding, admm_elastic_tpu_torch.ops.cuda_local_step, "
-            "admm_elastic_tpu_torch.ops.cuda_stencil; "
+            "admm_elastic_tpu_torch.ops.cuda_stencil, admm_elastic_tpu_torch.ops.cuda_wind, "
+            "admm_elastic_tpu_torch.solvers.anderson, admm_elastic_tpu_torch.utils.checkpoint, "
+            "admm_elastic_tpu_torch.utils.logging; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'admm_elastic_tpu', 'triton')]; print(bad); assert not bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

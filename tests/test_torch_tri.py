@@ -280,7 +280,3 @@ def test_wind_project_matches_jax(colored, np_dt, t_dt, tol):
     assert torch.equal(got, again)
 
 
-def test_wind_sequential_is_not_ported():
-    _, tris, _, _ = cloth_sheet(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_forces.make_wind_force(tris, sequential=True, device="cpu", dtype=torch.float64)
