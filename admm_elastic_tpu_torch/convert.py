@@ -29,9 +29,13 @@ None) and its ``gather_idx`` table in their place.
 optional ``alpha_n`` and ``sequential`` and, for the colored order,
 ``color_tris`` and ``color_mask``.
 ``gs_from_numpy`` reads a GSData's ``ell_cols``, ``ell_vals``, ``diag``,
-``colors`` and ``colors_mask``; ``obstacle_from_numpy`` a Floor's ``y`` or a
-Sphere's ``center`` and ``rad`` (the kind named by ``kind``, "Floor" or
-"Sphere"); ``state_from_numpy`` takes the state's ``y`` and ``prev_active``
+``colors`` and ``colors_mask``; ``obstacle_from_numpy`` a Floor's ``y``, a
+Sphere's ``center`` and ``rad``, a PassiveMeshSDF's ``vals4``, ``minv``,
+``origin``, ``h`` with its meta ``dims`` and ``near_lanes``, or a
+PassiveMeshExact's ``tri_abc``, ``nrm``, ``face_table``, ``face_count``,
+``tet_count``, ``origin``, ``h`` with ``dims``, ``capture_cells``,
+``fallback_lanes`` and ``near_lanes`` (the JAX dataclasses' data and meta
+fields; the kind named by ``kind``); ``state_from_numpy`` takes the state's ``y`` and ``prev_active``
 where the scene has contact rows (size 0 where they are None).
 """
 
@@ -40,7 +44,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from admm_elastic_tpu_torch.collision.passive import Floor, Sphere
+from admm_elastic_tpu_torch.collision.passive import (Floor, PassiveMeshExact, PassiveMeshSDF,
+                                                       Sphere)
 from admm_elastic_tpu_torch.forces import WindForce
 from admm_elastic_tpu_torch.forces import wind_force_from_numpy as _wind_force
 from admm_elastic_tpu_torch.ops.prox import check_model
@@ -188,13 +193,27 @@ def gs_from_numpy(d: dict, *, device, dtype: torch.dtype) -> GSData:
 
 
 def obstacle_from_numpy(d: dict):
-    """A Floor or Sphere from its arrays (float64, as the obstacles hold
-    numbers; the solver rounds them to its dtype at initialize)."""
+    """An obstacle from its arrays: the geometry float64, as the obstacles
+    hold numbers (the solver rounds it to its dtype at initialize), the
+    integer tables in their own dtypes."""
+    f64 = lambda k: np.asarray(d[k], dtype=np.float64)  # noqa: E731
     if d["kind"] == "Floor":
-        return Floor(y=np.asarray(d["y"], dtype=np.float64))
+        return Floor(y=f64("y"))
     if d["kind"] == "Sphere":
-        return Sphere(center=np.asarray(d["center"], dtype=np.float64),
-                      rad=np.asarray(d["rad"], dtype=np.float64))
+        return Sphere(center=f64("center"), rad=f64("rad"))
+    if d["kind"] == "PassiveMeshSDF":
+        return PassiveMeshSDF(vals4=f64("vals4"), minv=f64("minv"), origin=f64("origin"),
+                              h=f64("h"), dims=tuple(int(v) for v in d["dims"]),
+                              near_lanes=int(d.get("near_lanes", 0)))
+    if d["kind"] == "PassiveMeshExact":
+        return PassiveMeshExact(
+            tri_abc=f64("tri_abc"), nrm=f64("nrm"), face_table=np.asarray(d["face_table"]),
+            face_count=np.asarray(d["face_count"], dtype=np.int32),
+            tet_count=np.asarray(d["tet_count"], dtype=np.int8), origin=f64("origin"),
+            h=f64("h"), dims=tuple(int(v) for v in d["dims"]),
+            capture_cells=float(d.get("capture_cells", 2.0)),
+            fallback_lanes=int(d.get("fallback_lanes", 128)),
+            near_lanes=int(d.get("near_lanes", 0)))
     raise ValueError(f"obstacle_from_numpy: unknown kind {d['kind']!r}")
 
 

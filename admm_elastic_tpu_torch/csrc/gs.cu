@@ -14,8 +14,9 @@
 //   per vertex i of the colour:  lux = sum_k vals[i, k] x[cols[i, k]] (column
 //     order, from 0); x_gs = (b_i - lux) / diag_i;
 //     x_new = (1 - omega) x_i + omega x_gs;
-//     the deepest obstacle at x_new (Floor, Sphere; the first of least
-//     distance); where it is hit (distance < 0): delta = x_gs - p,
+//     the deepest obstacle at x_new (Floor, Sphere, PassiveMeshSDF,
+//     PassiveMeshExact; the first of least distance); where it is hit
+//     (distance < 0): delta = x_gs - p,
 //     (u, v) = the tangent basis of its normal (orthoG: not_n = e_z where
 //     n_x > 0.999, else e_x; u = not_n x n, v = n x u, each over
 //     max(|.|, 1e-30)), x_new = u (u . delta) + v (v . delta) + p;
@@ -61,10 +62,22 @@
 // the same bits and the sweeps are the same. b and the pins come through the
 // read-only path. The sweeps taken are added to a device counter (Solver's
 // inner iterations). No atomics.
+//
+// Mesh obstacles (at most 8 obstacles of any kinds) come by pointer to their
+// tables, with kernel J's device body (obstacle_body.cuh). A pass with one
+// takes phases (mesh_pass): x_gs and x_new of every slot of the colour; each
+// obstacle in order, a mesh one's near-lane compaction and deep fallback
+// ranking the colour's slots by a block-wide prefix count once every x_new
+// is known, as the JAX sweep detects on the colour's padded rows at once;
+// then the projection, the pins and x. Its slots' values wait in global
+// scratch between the phases. A pass with the analytic obstacles alone is
+// the one-go update_row above, unchanged.
 
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "obstacle_body.cuh"
 
 // Anatomy builds (tools/g_h_anatomy.py), each with the exit test ignored so
 // that a solve takes max_iters sweeps: ADMM_H_ANATOMY=1 passes with no row
@@ -85,29 +98,8 @@ constexpr int kThreads = WIDE ? 1024 : 512;
 constexpr int kLanes = 512;  // the lanes of the residual's and |b|^2's sums (the parent's block)
 constexpr int kLaneWarps = kLanes / 32;
 constexpr int kMaxObstacles = 8;
-enum Kind { FLOOR = 0, SPHERE = 1 };
-
-// IEEE-rounded operations: nvcc would contract a * b + c into an fma, which
-// the plain version's separate tensor operations do not.
-template <typename T> struct Op;
-template <> struct Op<float> {
-  __device__ static float mul(float a, float b) { return __fmul_rn(a, b); }
-  __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
-  __device__ static float sub(float a, float b) { return __fsub_rn(a, b); }
-  __device__ static float div(float a, float b) { return __fdiv_rn(a, b); }
-  __device__ static float sqrt(float a) { return __fsqrt_rn(a); }
-  __device__ static float tiny() { return FLT_MIN; }
-  __device__ static float eps() { return FLT_EPSILON; }
-};
-template <> struct Op<double> {
-  __device__ static double mul(double a, double b) { return __dmul_rn(a, b); }
-  __device__ static double add(double a, double b) { return __dadd_rn(a, b); }
-  __device__ static double sub(double a, double b) { return __dsub_rn(a, b); }
-  __device__ static double div(double a, double b) { return __ddiv_rn(a, b); }
-  __device__ static double sqrt(double a) { return __dsqrt_rn(a); }
-  __device__ static double tiny() { return DBL_MIN; }
-  __device__ static double eps() { return DBL_EPSILON; }
-};
+enum Kind { FLOOR = 0, SPHERE = 1 };  // and obstacle_body.cuh's MESH_SDF, MESH_EXACT
+constexpr int kSlot = 20;  // a slot's scratch values in a pass with mesh obstacles (mesh_pass)
 
 template <typename T>
 struct Args {
@@ -129,6 +121,12 @@ struct Args {
   T omega, tol;
   int kind[kMaxObstacles];
   T par[kMaxObstacles][4];  // Floor: y; Sphere: centre x, y, z, radius
+  Mesh<T> mesh[kMaxObstacles];  // the mesh obstacles' tables, by pointer
+  T* scratch;                   // [width, kSlot] with mesh obstacles, else null
+  int* iscratch;                // [2 width]: a slot's flags, then the fallback's slots
+  // after the parent's fields: n_mesh beside n_obs moved omega and tol, which
+  // cost floor_gs5k's solve 2 % (tools/h_turns.py, PERF.md)
+  int n_mesh;
 };
 
 // The sum of v over the first kLanes threads in a fixed tree (any others
@@ -188,12 +186,6 @@ __device__ __forceinline__ T norm3(const T u[3]) {
   return O::sqrt(O::add(O::add(O::mul(u[0], u[0]), O::mul(u[1], u[1])), O::mul(u[2], u[2])));
 }
 
-// torch.clamp_min(d, 1e-30): NaN stays NaN
-template <typename T>
-__device__ __forceinline__ T floor30(T d) {
-  return d < T(1e-30) ? T(1e-30) : d;
-}
-
 // a x b, as the plain _cross forms it
 template <typename T>
 __device__ __forceinline__ void cross(const T a[3], const T b[3], T out[3]) {
@@ -201,12 +193,6 @@ __device__ __forceinline__ void cross(const T a[3], const T b[3], T out[3]) {
   out[0] = O::sub(O::mul(a[1], b[2]), O::mul(a[2], b[1]));
   out[1] = O::sub(O::mul(a[2], b[0]), O::mul(a[0], b[2]));
   out[2] = O::sub(O::mul(a[0], b[1]), O::mul(a[1], b[0]));
-}
-
-template <typename T>
-__device__ __forceinline__ T dot3(const T a[3], const T b[3]) {
-  using O = Op<T>;
-  return O::add(O::add(O::mul(a[0], b[0]), O::mul(a[1], b[1])), O::mul(a[2], b[2]));
 }
 
 // The signed distance, surface point and normal of obstacle o at x.
@@ -237,14 +223,13 @@ __device__ __forceinline__ T signed_distance(const Args<T>& a, int o, const T x[
   return O::sub(dist, q[3]);
 }
 
-// One vertex's update of its colour's pass: colour c's slot i, vertex row.
+// The SOR update of colour c's slot i, vertex row: x_gs and x_new.
 template <typename T, bool SH, bool WIDE>
-__device__ __forceinline__ void update_row(const Args<T>& a, const XMem<T, SH>& x, int c, int i,
-                                           int row, T one_m) {
+__device__ __forceinline__ void sor_row(const Args<T>& a, const XMem<T, SH>& x, int c, int i,
+                                        int row, T one_m, T xg[3], T xn[3]) {
   using O = Op<T>;
   // the row's own values first: their loads overlap the sum's
   const T aii = __ldg(a.diag + row);
-  const bool pinned = __ldg(a.pinned + row);
   T bi[3], xi[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
@@ -259,12 +244,43 @@ __device__ __forceinline__ void update_row(const Args<T>& a, const XMem<T, SH>& 
     const int64_t e0 = (int64_t)row * a.k;
     row_sum<T, true, SH>(a, x, a.ell_cols + e0, a.ell_vals + e0, 1, lux);
   }
-  T xg[3], xn[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     xg[r] = O::div(O::sub(bi[r], lux[r]), aii);
     xn[r] = O::add(O::mul(one_m, xi[r]), O::mul(a.omega, xg[r]));
   }
+}
+
+// The contact's tangent-plane update of a hit vertex: x_new = u (u . delta)
+// + v (v . delta) + p, delta = x_gs - p, (u, v) orthoG's basis of nrm.
+template <typename T>
+__device__ __forceinline__ void project(const T xg[3], const T p[3], const T nrm[3], T xn[3]) {
+  using O = Op<T>;
+  T delta[3], u[3], v[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) delta[r] = O::sub(xg[r], p[r]);
+  const T not_n[3] = {nrm[0] > T(0.999) ? T(0) : T(1), T(0), nrm[0] > T(0.999) ? T(1) : T(0)};
+  cross(not_n, nrm, u);
+  T nu = floor30(norm3(u));
+#pragma unroll
+  for (int r = 0; r < 3; ++r) u[r] = O::div(u[r], nu);
+  cross(nrm, u, v);
+  nu = floor30(norm3(v));
+#pragma unroll
+  for (int r = 0; r < 3; ++r) v[r] = O::div(v[r], nu);
+  const T du = dot3(u, delta), dv = dot3(v, delta);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) xn[r] = O::add(O::add(O::mul(u[r], du), O::mul(v[r], dv)), p[r]);
+}
+
+// One vertex's update of its colour's pass: colour c's slot i, vertex row
+// (the analytic obstacles only).
+template <typename T, bool SH, bool WIDE>
+__device__ __forceinline__ void update_row(const Args<T>& a, const XMem<T, SH>& x, int c, int i,
+                                           int row, T one_m) {
+  const bool pinned = __ldg(a.pinned + row);
+  T xg[3], xn[3];
+  sor_row<T, SH, WIDE>(a, x, c, i, row, one_m, xg, xn);
   if (a.n_obs > 0) {
     T p[3], nrm[3];
     T best = signed_distance(a, 0, xn, p, nrm);
@@ -280,23 +296,7 @@ __device__ __forceinline__ void update_row(const Args<T>& a, const XMem<T, SH>& 
         }
       }
     }
-    if (best < T(0)) {
-      T delta[3], u[3], v[3];
-#pragma unroll
-      for (int r = 0; r < 3; ++r) delta[r] = O::sub(xg[r], p[r]);
-      const T not_n[3] = {nrm[0] > T(0.999) ? T(0) : T(1), T(0), nrm[0] > T(0.999) ? T(1) : T(0)};
-      cross(not_n, nrm, u);
-      T nu = floor30(norm3(u));
-#pragma unroll
-      for (int r = 0; r < 3; ++r) u[r] = O::div(u[r], nu);
-      cross(nrm, u, v);
-      nu = floor30(norm3(v));
-#pragma unroll
-      for (int r = 0; r < 3; ++r) v[r] = O::div(v[r], nu);
-      const T du = dot3(u, delta), dv = dot3(v, delta);
-#pragma unroll
-      for (int r = 0; r < 3; ++r) xn[r] = O::add(O::add(O::mul(u[r], du), O::mul(v[r], dv)), p[r]);
-    }
+    if (best < T(0)) project(xg, p, nrm, xn);
   }
   if (pinned) {
 #pragma unroll
@@ -306,11 +306,236 @@ __device__ __forceinline__ void update_row(const Args<T>& a, const XMem<T, SH>& 
   for (int r = 0; r < 3; ++r) x.set(row * 3 + r, xn[r]);
 }
 
+// --- a colour's pass with mesh obstacles ---------------------------------------
+//
+// The JAX sweep detects on the colour's padded rows x_new [L, 3] at once
+// (admm_elastic_tpu/solvers/gs.py:115-127), so a mesh obstacle's near-lane
+// compaction and deep fallback rank the colour's slots, L = its padded
+// width, in slot order. A colour is its vertices first and its padding (row
+// n, run as row n - 1) at the tail (system/assembly.py color_groups), so a
+// padded slot ranks after every real one: it never takes a near-lane place
+// or a fallback place from a real vertex, and changes only the overflow
+// flag, which Gauss-Seidel discards as the JAX package does (gs.py:120).
+// This pass therefore skips the padded slots, as the analytic pass does.
+// (tests/test_torch_mesh_obstacle.py holds the plain detection to this: the
+// same rows with and without tail duplicates.) A slot's values live in
+// a.scratch between the phases, which barriers separate; a slot belongs to
+// thread i % threads in every phase.
+//
+// scratch per slot: 0-2 x_gs, 3-5 x_new, 6 the deepest distance, 7-9 its
+// point, 10-12 its normal, 13 a mesh obstacle's distance, 14-16 its point,
+// 17-19 its normal. iscratch: flags per slot, then the fallback's slots.
+constexpr int kEval = 16;  // flag: the slot takes the obstacle's narrow phase
+
+template <typename T>
+__device__ __forceinline__ void merge(T* s, bool first, T d, const T p[3], const T n[3]) {
+  if (first || d < s[6]) {  // the first of least distance, as argmin
+    s[6] = d;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      s[7 + r] = p[r];
+      s[10 + r] = n[r];
+    }
+  }
+}
+
+// One mesh obstacle at every real slot of the pass, merged into the slots'
+// deepest (first: it is obstacle 0).
+template <typename T, bool WIDE>
+__device__ void mesh_obstacle(const Args<T>& a, const Mesh<T>& m, bool first, const int* grp,
+                              int* smi) {
+  using O = Op<T>;
+  constexpr int threads = kThreads<WIDE>;
+  const int tid = threadIdx.x, L = a.width, K = m.near_lanes;
+  const bool compact = K > 0 && K < L, sdf = m.kind == MESH_SDF;
+  int* flags = a.iscratch;
+  int* fb_list = a.iscratch + L;
+  // 1. the slots that take the narrow phase: the first K near ones, or all
+  int near_total = 0;
+  for (int b = 0; b < L; b += threads) {
+    const int i = b + tid;
+    const bool real = i < L && __ldg(grp + i) < a.n;
+    bool near = false;
+    if (real && compact) {
+      const T* xn = a.scratch + (int64_t)i * kSlot + 3;
+      if (sdf) {
+        T f[3];
+        near = sdf_near(m, sdf_cell(m, xn, f));
+      } else {
+        bool in_grid;
+        const int cid = exact_cell(m, xn, in_grid);
+        near = in_grid && exact_near_tet(m, cid);
+      }
+    }
+    bool eval = real;
+    if (compact) {
+      int total;
+      const int r = near_total + block_rank<threads>(near, smi, total);
+      near_total += total;
+      eval = near && r < K;
+    }
+    if (real) flags[i] = eval ? kEval : 0;
+  }
+  // 2. the narrow phase; the exact one's deep lanes ranked in slot order
+  const int seen = compact ? K : L;
+  const int k_fb = m.fallback_lanes < seen ? m.fallback_lanes : seen;
+  const T capture = O::mul(T(m.capture_cells), m.h[0]);
+  int need_total = 0;
+  for (int b = 0; b < L; b += threads) {
+    const int i = b + tid;
+    bool need = false;
+    if (i < L && __ldg(grp + i) < a.n && (flags[i] & kEval)) {
+      T* s = a.scratch + (int64_t)i * kSlot;
+      const T* p = s + 3;
+      if (sdf) {
+        T f[3], n[3];
+        const T d = sdf_blend(m, sdf_cell(m, p, f), f, n);
+        const bool keep = d < T(1e29);
+        s[13] = d;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          s[14 + r] = keep ? O::sub(p[r], O::mul(d, n[r])) : T(0);
+          s[17 + r] = n[r];
+        }
+      } else {
+        T cl[3], n[3], dist;
+        bool in_grid, any_face;
+        const int cid = exact_cell(m, p, in_grid);
+        const bool valid = compact || in_grid;
+        candidates(m, p, cid, valid, dist, cl, n, any_face);
+        const bool near_tet = exact_near_tet(m, cid);
+        need = valid && near_tet && (!any_face || dist > capture);
+        s[13] = dist;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          s[14 + r] = cl[r];
+          s[17 + r] = n[r];
+        }
+        flags[i] |= (any_face ? 1 : 0) | (near_tet ? 2 : 0) | (need ? 4 : 0);
+      }
+    }
+    if (!sdf) {
+      int total;
+      const int r = need_total + block_rank<threads>(need, smi, total);
+      if (need && r < k_fb && m.n_tris > 0) {
+        fb_list[r] = i;
+        flags[i] |= 8;
+      }
+      need_total += total;
+    }
+  }
+  if (!sdf) {
+    __syncthreads();
+    const int served = (k_fb > 0 && m.n_tris > 0) ? (need_total < k_fb ? need_total : k_fb) : 0;
+    for (int w = tid >> 5; w < served; w += threads / 32) {  // a warp per deep slot
+      const int i = fb_list[w];
+      T* s = a.scratch + (int64_t)i * kSlot;
+      T p[3], cl[3], n[3], dist;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) p[r] = s[3 + r];
+      brute_force_warp(m, p, dist, cl, n);
+      if ((tid & 31) == 0) {
+        s[13] = dist;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          s[14 + r] = cl[r];
+          s[17 + r] = n[r];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // 3. each slot's distance (no hit where it took no narrow phase), merged
+  for (int i = tid; i < L; i += threads) {
+    if (__ldg(grp + i) >= a.n) continue;
+    T* s = a.scratch + (int64_t)i * kSlot;
+    const int fl = flags[i];
+    T d = T(kBig), pt[3] = {T(0), T(0), T(0)}, n[3] = {T(0), T(0), T(0)};
+    if (fl & kEval) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        pt[r] = s[14 + r];
+        n[r] = s[17 + r];
+      }
+      if (sdf) {
+        d = s[13];
+      } else {
+        const bool need = fl & 4, srv = fl & 8;
+        const bool any_face = ((fl & 1) || srv) && !(need && !srv);
+        d = exact_signed(s + 3, s[13], pt, n, any_face, (fl & 2) != 0);
+      }
+    }
+    merge(s, first, d, pt, n);
+  }
+}
+
+// Colour c's pass where a mesh obstacle is among the obstacles: x_gs and
+// x_new of every real slot; each obstacle in order into the slot's deepest
+// (the analytic ones per slot, the mesh ones by mesh_obstacle); then the
+// projection, the pins and x, as update_row.
 template <typename T, bool SH, bool WIDE>
+__device__ void mesh_pass(const Args<T>& a, const XMem<T, SH>& x, int c, T one_m, int* smi) {
+  constexpr int threads = kThreads<WIDE>;
+  const int tid = threadIdx.x, L = a.width;
+  const int* grp = a.groups + (int64_t)c * L;
+  for (int i = tid; i < L; i += threads) {
+    const int row = __ldg(grp + i);
+    if (row >= a.n) continue;
+    T xg[3], xn[3];
+    sor_row<T, SH, WIDE>(a, x, c, i, row, one_m, xg, xn);
+    T* s = a.scratch + (int64_t)i * kSlot;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      s[r] = xg[r];
+      s[3 + r] = xn[r];
+    }
+  }
+  for (int o = 0; o < a.n_obs; ++o) {
+    if (a.kind[o] >= MESH_SDF) {
+      mesh_obstacle<T, WIDE>(a, a.mesh[o], o == 0, grp, smi);
+      continue;
+    }
+    for (int i = tid; i < L; i += threads) {
+      if (__ldg(grp + i) >= a.n) continue;
+      T* s = a.scratch + (int64_t)i * kSlot;
+      T xn[3], p[3], nrm[3];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) xn[r] = s[3 + r];
+      const T d = signed_distance(a, o, xn, p, nrm);
+      merge(s, o == 0, d, p, nrm);
+    }
+  }
+  for (int i = tid; i < L; i += threads) {
+    const int row = __ldg(grp + i);
+    if (row >= a.n) continue;
+    const T* s = a.scratch + (int64_t)i * kSlot;
+    T xg[3], xn[3], p[3], nrm[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      xg[r] = s[r];
+      xn[r] = s[3 + r];
+      p[r] = s[7 + r];
+      nrm[r] = s[10 + r];
+    }
+    if (s[6] < T(0)) project(xg, p, nrm, xn);
+    if (__ldg(a.pinned + row)) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) xn[r] = __ldg(a.pin_target + row * 3 + r);
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r) x.set(row * 3 + r, xn[r]);
+  }
+}
+
+// MESH: the instantiation for an obstacle set with a mesh obstacle (its
+// passes are mesh_pass); without one the kernel is the analytic one-go update,
+// its code untouched by the mesh phases.
+template <typename T, bool SH, bool WIDE, bool MESH>
 __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constant__ Args<T> a) {
   constexpr int threads = kThreads<WIDE>;
   using O = Op<T>;
   __shared__ T sm[kLaneWarps + 1];
+  __shared__ int smi[MESH ? threads / 32 : 1];  // block_rank's warp counts
   extern __shared__ __align__(16) unsigned char dyn[];
   const XMem<T, SH> x{SH ? reinterpret_cast<T*>(dyn) : a.x};
   const int n = a.n, tid = threadIdx.x;
@@ -333,6 +558,11 @@ __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constan
   bool done = false;
   while (!done && k < a.max_iters) {
     for (int c = 0; kAnatomy != 4 && c < a.n_colors; ++c) {
+      if constexpr (MESH && kAnatomy == 0) {
+        mesh_pass<T, SH, WIDE>(a, x, c, one_m, smi);
+        __syncthreads();
+        continue;
+      }
       for (int i = tid; kAnatomy != 1 && i < a.width; i += threads) {
         const int row = __ldg(a.groups + (int64_t)c * a.width + i);
         if (row >= n) continue;
@@ -383,27 +613,30 @@ __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constan
   if (tid == 0) *a.sweeps += k;
 }
 
-template <typename T, bool WIDE>
+template <typename T, bool WIDE, bool MESH>
 cudaError_t launch_form(const Args<T>& a, bool shared, cudaStream_t s) {
   if (shared) {
     static int granted = 0;  // the dynamic shared memory allowed so far
     const int smem = static_cast<int>(a.n * 3 * sizeof(T));
     if (smem > granted) {
       const cudaError_t rc = cudaFuncSetAttribute(
-          gs_kernel<T, true, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          gs_kernel<T, true, WIDE, MESH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (rc != cudaSuccess) return rc;
       granted = smem;
     }
-    gs_kernel<T, true, WIDE><<<1, kThreads<WIDE>, smem, s>>>(a);
+    gs_kernel<T, true, WIDE, MESH><<<1, kThreads<WIDE>, smem, s>>>(a);
   } else {
-    gs_kernel<T, false, WIDE><<<1, kThreads<WIDE>, 0, s>>>(a);
+    gs_kernel<T, false, WIDE, MESH><<<1, kThreads<WIDE>, 0, s>>>(a);
   }
   return cudaGetLastError();
 }
 
 // ptrs: ell_cols, ell_vals, ccols, cvals, tcols, tvals, diag, groups, b, x0,
-// x, pinned, pin_target, sweeps; ints: n, k, n_colors, width, max_iters, form (0 GLOBAL,
-// 1 SHARED), n_obs, kind[n_obs]; par: [n_obs, 4].
+// x, pinned, pin_target, sweeps, scratch, iscratch, then kMeshPtrs per obstacle
+// (a mesh obstacle's tables, obstacle_body.cuh; 0 for an analytic one); ints:
+// n, k, n_colors, width, max_iters, form (bit 0 SHARED, bit 1 WIDE), n_obs,
+// kind[kMaxObstacles], then kMeshInts per obstacle; par: [n_obs, 4] (a mesh
+// obstacle: capture_cells).
 template <typename T>
 int launch(const uint64_t* ptrs, const int* ints, const double* par, double omega, double tol,
            void* stream) {
@@ -433,13 +666,26 @@ int launch(const uint64_t* ptrs, const int* ints, const double* par, double omeg
   a.tol = T(tol);
   if (a.n <= 0) return 0;
   if (a.n_obs < 0 || a.n_obs > kMaxObstacles) return static_cast<int>(cudaErrorInvalidValue);
+  a.scratch = reinterpret_cast<T*>(ptrs[14]);
+  a.iscratch = reinterpret_cast<int*>(ptrs[15]);
+  a.n_mesh = 0;
   for (int o = 0; o < kMaxObstacles; ++o) {
     a.kind[o] = o < a.n_obs ? ints[7 + o] : FLOOR;
     for (int q = 0; q < 4; ++q) a.par[o][q] = o < a.n_obs ? T(par[o * 4 + q]) : T(0);
+    if (o < a.n_obs && a.kind[o] >= MESH_SDF) {
+      a.mesh[o] = mesh_from<T>(ints + 7 + kMaxObstacles + o * kMeshInts,
+                               ptrs + 16 + o * kMeshPtrs, par[o * 4]);
+      ++a.n_mesh;
+    }
   }
+  if (a.n_mesh > 0 && (a.scratch == nullptr || a.iscratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(wide ? launch_form<T, true>(a, shared, s)
-                               : launch_form<T, false>(a, shared, s));
+  if (a.n_mesh > 0)
+    return static_cast<int>(wide ? launch_form<T, true, true>(a, shared, s)
+                                 : launch_form<T, false, true>(a, shared, s));
+  return static_cast<int>(wide ? launch_form<T, true, false>(a, shared, s)
+                               : launch_form<T, false, false>(a, shared, s));
 }
 
 }  // namespace

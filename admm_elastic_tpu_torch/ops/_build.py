@@ -33,9 +33,10 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _PRECISIONS = (("f32", "float"), ("f64", "double"))
-# (source, precision suffix or None): stencil.cu, pcg.cu, gs.cu and wind_seq.cu hold
-# both precisions themselves.
-UNITS = tuple([("stencil.cu", None), ("pcg.cu", None), ("gs.cu", None), ("wind_seq.cu", None)]
+# (source, precision suffix or None): stencil.cu, pcg.cu, gs.cu, wind_seq.cu and
+# obstacle.cu hold both precisions themselves.
+UNITS = tuple([("stencil.cu", None), ("pcg.cu", None), ("gs.cu", None), ("wind_seq.cu", None),
+               ("obstacle.cu", None)]
               + [(src, sfx) for src in ("local_step.cu", "prox.cu", "tri_local_step.cu")
                  for sfx, _ in _PRECISIONS])
 
@@ -71,6 +72,8 @@ _SIGNATURES = {
     "admm_gs_solve": [_P, _P, _P, _D, _D, _P],
     # ptrs, n, w, neg_alpha, dt, shared, stream
     "admm_wind_seq": [_P, _I, _I, _D, _D, _I, _P],
+    # ptrs, ints, capture_cells, stream
+    "admm_mesh_detect": [_P, _P, _D, _P],
 }
 _PLAIN_SIGNATURES = {  # one function for both precisions
     "admm_empty_launch": [_P],  # stream

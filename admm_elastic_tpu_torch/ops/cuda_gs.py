@@ -5,8 +5,8 @@ Pallas kernel.
 
 ``gs_solve(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters,
 tol, sweeps, params=None)`` runs the SOR sweeps of ``data`` (a ``solvers.gs.GSData``) from
-x0 with the dense pin arrays and the analytic obstacles (``Floor``,
-``Sphere``; at most 8) until the residual test holds or max_iters sweeps,
+x0 with the dense pin arrays and the obstacles (``Floor``, ``Sphere``,
+``PassiveMeshSDF``, ``PassiveMeshExact``; at most 8) until the residual test holds or max_iters sweeps,
 and adds the sweeps to ``sweeps`` (an int32 tensor of one element on the
 device). Dispatch is by the tensors' device: CPU tensors take the plain
 version (``solvers/gs.solve``, which stops on the host); CUDA tensors launch
@@ -20,11 +20,14 @@ caller may ask for one (``form=``), and SHARED where x does not fit raises.
 Either runs a block of 512 threads, or of 1,024 where a colour is wider
 than 512 rows (``h_wide``).
 
-The obstacles reach the kernel by value, as ``params`` =
+The analytic obstacles reach the kernel by value, as ``params`` =
 ``obstacle_params(obstacles)``, which reads them to the host (a
 synchronisation, which a capture refuses): a captured step passes the
 parameters that the solver read at ``initialize``; where ``params`` is None
-the wrapper reads them itself.
+the wrapper reads them itself. A mesh obstacle reaches it by the addresses of
+its tables (``cuda_obstacle.mesh_desc``, no synchronisation), which the
+obstacle keeps alive; a solve with one takes a scratch of 20 values and two
+ints per colour slot.
 """
 
 from __future__ import annotations
@@ -35,14 +38,17 @@ import weakref
 
 import torch
 
-from admm_elastic_tpu_torch.collision.passive import Floor, Sphere
-from admm_elastic_tpu_torch.ops import _build
+from admm_elastic_tpu_torch.collision.passive import MESH, Floor, PassiveMeshSDF, Sphere
+from admm_elastic_tpu_torch.ops import _build, cuda_obstacle
 from admm_elastic_tpu_torch.solvers import gs as gs_mod
 
 MAX_OBSTACLES = 8  # csrc/gs.cu kMaxObstacles
 FLOOR, SPHERE = 0, 1  # csrc/gs.cu enum Kind
 FORMS = ("global", "shared")
-STATIC_SMEM = 17 * 8  # the kernel's static shared memory, at most (csrc/gs.cu lane_sum)
+# the kernel's static shared memory, at most (csrc/gs.cu: lane_sum's 17 values,
+# block_rank's 32 ints)
+STATIC_SMEM = 17 * 8 + 32 * 4
+SLOT_SCRATCH = 20  # csrc/gs.cu kSlot
 LANES = 512  # csrc/gs.cu kLanes: a colour wider than this takes the WIDE block
 
 
@@ -118,7 +124,8 @@ def form_of(n: int, dtype: torch.dtype, want=None) -> str:
 
 def obstacle_params(obstacles):
     """(kinds, params) of the obstacles as kernel H takes them: Floor (y),
-    Sphere (centre, radius)."""
+    Sphere (centre, radius), a mesh obstacle (its kind and capture_cells; its
+    tables go by address)."""
     if len(obstacles) > MAX_OBSTACLES:
         raise ValueError(f"gs_solve: at most {MAX_OBSTACLES} obstacles, got {len(obstacles)}")
     kinds, par = [], []
@@ -129,8 +136,13 @@ def obstacle_params(obstacles):
         elif isinstance(o, Sphere):
             kinds.append(SPHERE)
             par += [float(c) for c in o.center.reshape(3).tolist()] + [float(o.rad)]
+        elif isinstance(o, MESH):
+            kinds.append(cuda_obstacle.MESH_SDF if isinstance(o, PassiveMeshSDF)
+                         else cuda_obstacle.MESH_EXACT)
+            par += [float(getattr(o, "capture_cells", 0.0)), 0.0, 0.0, 0.0]
         else:
-            raise NotImplementedError(f"kernel H takes Floor and Sphere, not {type(o).__name__}")
+            raise TypeError(f"kernel H takes Floor, Sphere, PassiveMeshSDF and "
+                            f"PassiveMeshExact, not {type(o).__name__}")
     return tuple(kinds), (ctypes.c_double * max(len(par), 1))(*par)
 
 
@@ -174,13 +186,25 @@ def _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol,
     wide = h_wide(width)
     plan = plan_of(data) if wide else None  # the 512-thread block reads the ELL by row
     out = torch.empty_like(b)
+    mesh_ints, mesh_ptrs, scratch = [], [], [None, None]
+    for o in obstacles:
+        if isinstance(o, MESH):
+            i, p, _ = cuda_obstacle.mesh_desc(o, b.device, b.dtype)
+        else:
+            i, p = [0] * cuda_obstacle.MESH_INTS, [None] * cuda_obstacle.MESH_PTRS
+        mesh_ints += i
+        mesh_ptrs += p
+    if any(isinstance(o, MESH) for o in obstacles):
+        scratch = [torch.empty((width, SLOT_SCRATCH), dtype=b.dtype, device=b.device),
+                   torch.empty((2 * width,), dtype=torch.int32, device=b.device)]
     ptrs = [data.ell_cols, data.ell_vals] + (
         [plan.ccols, plan.cvals, plan.tcols, plan.tvals] if wide else [None] * 4) + [
-        data.diag, data.colors, b, x0, out, pin_mask, pin_target, sweeps]
-    ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[0 if t is None else t.data_ptr() for t in ptrs])
+        data.diag, data.colors, b, x0, out, pin_mask, pin_target, sweeps] + scratch + mesh_ptrs
+    ptr_arr = (ctypes.c_uint64 * len(ptrs))(*cuda_obstacle.addresses(ptrs))
     shared = form_of(n, b.dtype, form) == "shared"
-    ints = (ctypes.c_int * (7 + MAX_OBSTACLES))(n, k, n_colors, width, int(max_iters),
-                                                int(shared) | 2 * int(wide), len(kinds), *kinds)
+    head = [n, k, n_colors, width, int(max_iters), int(shared) | 2 * int(wide), len(kinds),
+            *kinds] + [0] * (MAX_OBSTACLES - len(kinds))
+    ints = (ctypes.c_int * (len(head) + len(mesh_ints)))(*head, *mesh_ints)
     fn = getattr(lib or _build.library(), f"admm_gs_solve_{sfx}")
     with torch.cuda.device(b.device):
         rc = fn(ptr_arr, ints, par, float(omega), float(tol),

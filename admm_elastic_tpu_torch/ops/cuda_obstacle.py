@@ -1,0 +1,114 @@
+"""Wrapper of kernel J (``csrc/obstacle.cu``): one mesh obstacle's detection
+in one launch, in place of the JAX package's jnp narrow phases
+(``admm_elastic_tpu/collision/passive.py:120-179`` and ``:401-546``), which
+have no Pallas kernel.
+
+``mesh_detect(obs, x, overflow)`` returns (dx [V], point [V, 3], normal
+[V, 3], mask [V]) of the mesh obstacle ``obs`` (``PassiveMeshSDF`` or
+``PassiveMeshExact``, on x's device in x's dtype) at the query lanes x
+[V, 3], and sets ``overflow`` (an int32 tensor of one element on x's
+device) to 1 where its near-lane compaction or its deep fallback dropped a
+lane; it never clears it. Dispatch is by the tensors' device: CPU tensors
+take the plain version (the obstacle's own ``signed_distance_with_overflow``);
+CUDA tensors launch the kernel, and a build or launch failure raises.
+``mesh_detect.launches`` counts kernel launches.
+
+``mesh_desc`` describes a mesh obstacle to kernel J and to kernel H's sweeps
+(``ops/cuda_gs.py``): its sizes and the device addresses of its tables, read
+without a synchronisation, so a captured step passes the same addresses the
+obstacle keeps.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from admm_elastic_tpu_torch.collision.passive import PassiveMeshExact, PassiveMeshSDF
+from admm_elastic_tpu_torch.ops import _build
+
+MESH_SDF, MESH_EXACT = 2, 3  # csrc/obstacle_body.cuh enum MeshKind
+MESH_INTS, MESH_PTRS = 10, 9  # csrc/obstacle_body.cuh kMeshInts, kMeshPtrs
+
+
+def _check(name, t, device, dtype, shape=None):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous() or (
+            shape is not None and tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"mesh obstacle: {name} must be a contiguous {dtype} tensor"
+                         f"{'' if shape is None else f' of shape {tuple(shape)}'} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def mesh_desc(obs, device, dtype):
+    """(ints [MESH_INTS], pointers [MESH_PTRS], capture_cells) of a mesh
+    obstacle whose tensors lie on device in dtype (the solver's obs.to): kind,
+    dims, near_lanes, kf, table16, n_tris, fallback_lanes, n_nodes; origin, h,
+    vals4, minv, tri_abc, nrm, face_table, face_count, tet_count (0 where the
+    kind has none)."""
+    _check("origin", obs.origin, device, dtype, (3,))
+    _check("h", obs.h, device, dtype, ())
+    g = obs.dims[0] * obs.dims[1] * obs.dims[2]
+    if isinstance(obs, PassiveMeshSDF):
+        _check("vals4", obs.vals4, device, dtype, (g, 4))
+        _check("minv", obs.minv, device, torch.float64, (g,))
+        ints = [MESH_SDF, *obs.dims, obs.near_lanes, 0, 0, 0, 0, g]
+        ptrs = [obs.origin, obs.h, obs.vals4, obs.minv] + [None] * 5
+        return ints, ptrs, 0.0
+    if isinstance(obs, PassiveMeshExact):
+        f = obs.tri_abc.shape[0]
+        _check("tri_abc", obs.tri_abc, device, dtype, (f, 3, 3))
+        _check("nrm", obs.nrm, device, dtype, (f, 7, 3))
+        table16 = obs.face_table.dtype == torch.int16
+        _check("face_table", obs.face_table, device, torch.int16 if table16 else torch.int32,
+               (g, obs.face_table.shape[1]))
+        _check("face_count", obs.face_count, device, torch.int32, (g,))
+        _check("tet_count", obs.tet_count, device, torch.int8, (g,))
+        ints = [MESH_EXACT, *obs.dims, obs.near_lanes, obs.face_table.shape[1], int(table16), f,
+                obs.fallback_lanes, g]
+        ptrs = [obs.origin, obs.h, None, None, obs.tri_abc, obs.nrm, obs.face_table,
+                obs.face_count, obs.tet_count]
+        return ints, ptrs, float(obs.capture_cells)
+    raise TypeError(f"mesh_detect: {type(obs).__name__} is not a mesh obstacle")
+
+
+def addresses(tensors):
+    """The device addresses of tensors (0 for None)."""
+    return [0 if t is None else t.data_ptr() for t in tensors]
+
+
+def mesh_detect(obs, x: torch.Tensor, overflow: torch.Tensor):
+    """(dx, point, normal, mask) of mesh obstacle obs at x [V, 3]; its
+    overflow set in overflow (int32 [1])."""
+    if x.device.type == "cpu":
+        dx, point, normal, ovf = obs.signed_distance_with_overflow(x)
+        overflow |= ovf.to(overflow.dtype)
+        return dx, point, normal, dx < 0.0
+    out = _launch(obs, x, overflow)
+    mesh_detect.launches += 1
+    return out
+
+
+def _launch(obs, x, overflow):
+    v = x.shape[0]
+    sfx = _build.cuda_args("mesh_detect", x, (("x", x, (v, 3)),))
+    _check("overflow", overflow, x.device, torch.int32, (1,))
+    ints, ptrs, capture = mesh_desc(obs, x.device, x.dtype)
+    dx = torch.empty((v,), dtype=x.dtype, device=x.device)
+    point = torch.empty_like(x)
+    normal = torch.empty_like(x)
+    mask = torch.empty((v,), dtype=torch.bool, device=x.device)
+    scratch = torch.empty((2 * v + max(getattr(obs, "fallback_lanes", 0), 1),), dtype=torch.int32,
+                          device=x.device)
+    lists = [scratch[:v], scratch[v:2 * v], scratch[2 * v:]]
+    ptr_arr = (ctypes.c_uint64 * (MESH_PTRS + 9))(*addresses(
+        ptrs + [x, dx, point, normal, mask, overflow] + lists))
+    int_arr = (ctypes.c_int * (MESH_INTS + 1))(*ints, v)
+    fn = getattr(_build.library(), f"admm_mesh_detect_{sfx}")
+    with torch.cuda.device(x.device):
+        rc = fn(ptr_arr, int_arr, capture, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "mesh_detect")
+    return dx, point, normal, mask
+
+
+mesh_detect.launches = 0

@@ -45,7 +45,13 @@ step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD run
   (``compare``), the inner iterations of every step (``inner``: GS sweeps,
   Schur trips or CG trips), the vertices in contact at the compared steps
   (``contacts``, chip_smoke.contacts) and, for Uzawa and AL-PCG, the active
-  constraint rows the state carries after them (``active_rows``);
+  constraint rows the state carries after them (``active_rows``), and each
+  step's runtime_data().collision_overflow (``overflow``); among them the
+  mesh-obstacle scenes (PassiveMeshSDF, PassiveMeshExact): the card's paths
+  chip_smoke.MESH_PATHS (slab_sdf_gs5k, slab_exact_gs5k and
+  slab_exact_alpcg67k, 20 steps; exactmesh_deep_gs, 8) and the CPU tests'
+  chip_smoke.MESH_CPU_SCENES (crossval's five mesh scenes, two with
+  near_lanes=4, a compacted AL-PCG scene, 8 steps; one in float64);
 - the variants (chip_smoke.VARIANT_SCENES): beam_aa4, cloth_aa4 and
   floor_alpcg67k_aa4, the beam, cloth_limit40 and floor_alpcg67k with Anderson
   acceleration (aa_window=4), and cloth_wind40_seq, cloth_wind40 with the
@@ -206,12 +212,13 @@ def jax_api():
 
     import jax.numpy as jnp
 
-    from admm_elastic_tpu import Floor, Sphere
+    from admm_elastic_tpu import Floor, PassiveMeshExact, PassiveMeshSDF, Sphere
     from admm_elastic_tpu.geometry.factory import make_tet_torus, make_xform
 
     return types.SimpleNamespace(Solver=Solver, Settings=Settings, Lame=Lame, binding=binding,
                                  make_tet_blocks=make_tet_blocks, make_tet_torus=make_tet_torus,
                                  load_elenode=load_elenode, Floor=Floor, Sphere=Sphere,
+                                 PassiveMeshSDF=PassiveMeshSDF, PassiveMeshExact=PassiveMeshExact,
                                  make_xform=make_xform, asarray=jnp.asarray)
 
 
@@ -239,10 +246,11 @@ def contact(name):
     solver = contact_scene(name, jax_api())
     steps, compare = contact_steps(name)
     x0 = np.asarray(solver.x, dtype)
-    traj, inner, touching, rows = {}, [], [], []
+    traj, inner, touching, rows, overflow = {}, [], [], [], []
     for step in range(1, steps + 1):
         solver.step()
         inner.append(solver.runtime_data().inner_iters)
+        overflow.append(solver.runtime_data().collision_overflow)
         if step in compare:
             x = np.asarray(solver.x, dtype)
             traj[f"x{step}"] = x
@@ -253,7 +261,7 @@ def contact(name):
           linsolver=s.linsolver, inner=np.asarray(inner), contacts=np.asarray(touching),
           active_rows=np.asarray(rows), dims=np.asarray(p["dims"]), model=p["model"],
           uzawa_inner=type(solver._solve_data).__name__, pcg_precond=s.pcg_precond,
-          **traj)
+          overflow=np.asarray(overflow), **traj)
 
 
 def main(argv):

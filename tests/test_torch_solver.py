@@ -177,22 +177,26 @@ def _init_with(settings_kw=None, mesh=None, before=None):
     s.initialize(_settings(Settings, np.float64, **(settings_kw or {})))
 
 
-# ls 1, 2 and 4 run since the contact slice: what they still refuse is their
-# traced (logged) solve, ROADMAP Queue 1 item 11; an obstacle that is not an
-# analytic one names item 9.
+# What raises: (call, exception, message). Every obstacle of the JAX package
+# runs since the mesh obstacles' slice; an object that is no obstacle raises
+# TypeError, naming the four.
 UNSUPPORTED = {
-    "unroll_admm": lambda: _init_with(dict(unroll_admm=True)),
-    "obstacle": lambda: Solver(device="cpu").add_obstacle(object()),
-    "dynamic_collider": lambda: Solver(device="cpu").add_dynamic_collider(object()),
-    "self_collision": lambda: binding.add_tetmesh(Solver(device="cpu"),
-                                                  _beam(binding.NEOHOOKEAN), verbose=False),
+    "unroll_admm": (lambda: _init_with(dict(unroll_admm=True)), NotImplementedError, "ROADMAP"),
+    "obstacle": (lambda: Solver(device="cpu").add_obstacle(object()), TypeError,
+                 "is not an obstacle: Floor, Sphere, PassiveMeshSDF or PassiveMeshExact"),
+    "dynamic_collider": (lambda: Solver(device="cpu").add_dynamic_collider(object()),
+                         NotImplementedError, "ROADMAP"),
+    "self_collision": (lambda: binding.add_tetmesh(Solver(device="cpu"),
+                                                   _beam(binding.NEOHOOKEAN), verbose=False),
+                       NotImplementedError, "ROADMAP"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_raises_with_roadmap_item(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNSUPPORTED[case]()
+    fn, exc, match = UNSUPPORTED[case]
+    with pytest.raises(exc, match=match):
+        fn()
 
 
 def test_import_loads_no_jax():
@@ -200,7 +204,9 @@ def test_import_loads_no_jax():
             "admm_elastic_tpu_torch.binding, admm_elastic_tpu_torch.ops.cuda_local_step, "
             "admm_elastic_tpu_torch.ops.cuda_stencil, admm_elastic_tpu_torch.ops.cuda_wind, "
             "admm_elastic_tpu_torch.solvers.anderson, admm_elastic_tpu_torch.utils.checkpoint, "
-            "admm_elastic_tpu_torch.utils.logging; "
+            "admm_elastic_tpu_torch.utils.logging, admm_elastic_tpu_torch.collision.passive, "
+            "admm_elastic_tpu_torch.ops.cuda_obstacle; "
+            "from admm_elastic_tpu_torch import PassiveMeshSDF, PassiveMeshExact; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'admm_elastic_tpu', 'triton')]; print(bad); assert not bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
