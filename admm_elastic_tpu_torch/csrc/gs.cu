@@ -70,8 +70,9 @@
 // ranking the colour's slots by a block-wide prefix count once every x_new
 // is known, as the JAX sweep detects on the colour's padded rows at once;
 // then the projection, the pins and x. Its slots' values wait in global
-// scratch between the phases. A pass with the analytic obstacles alone is
-// the one-go update_row above, unchanged.
+// scratch between the phases; the exact walk takes a group of threads a
+// slot (mesh_obstacle). A pass with the analytic obstacles alone is the
+// one-go update_row above, unchanged.
 
 #include <cfloat>
 #include <cstdint>
@@ -127,6 +128,7 @@ struct Args {
   // after the parent's fields: n_mesh beside n_obs moved omega and tol, which
   // cost floor_gs5k's solve 2 % (tools/h_turns.py, PERF.md)
   int n_mesh;
+  int group;  // threads a slot in the exact walk: 0 the rule (group_size), or 1-32
 };
 
 // The sum of v over the first kLanes threads in a fixed tree (any others
@@ -320,11 +322,17 @@ __device__ __forceinline__ void update_row(const Args<T>& a, const XMem<T, SH>& 
 // (tests/test_torch_mesh_obstacle.py holds the plain detection to this: the
 // same rows with and without tail duplicates.) A slot's values live in
 // a.scratch between the phases, which barriers separate; a slot belongs to
-// thread i % threads in every phase.
+// thread i % threads in every phase but the exact walk, where a group of g
+// threads takes each evaluated slot (obstacle_body.cuh candidates; g by
+// group_size: the largest power of two <= 32 with g x the evaluated slots
+// <= the block's threads and g <= a table row, 8 at some 123 slots and
+// 1,024 threads) and its leader writes the slot's values; the need flags
+// are then ranked in slot order.
 //
 // scratch per slot: 0-2 x_gs, 3-5 x_new, 6 the deepest distance, 7-9 its
 // point, 10-12 its normal, 13 a mesh obstacle's distance, 14-16 its point,
-// 17-19 its normal. iscratch: flags per slot, then the fallback's slots.
+// 17-19 its normal. iscratch: flags per slot, then the fallback's slots,
+// then the evaluated slots in slot order.
 constexpr int kEval = 16;  // flag: the slot takes the obstacle's narrow phase
 
 template <typename T>
@@ -350,7 +358,9 @@ __device__ void mesh_obstacle(const Args<T>& a, const Mesh<T>& m, bool first, co
   const bool compact = K > 0 && K < L, sdf = m.kind == MESH_SDF;
   int* flags = a.iscratch;
   int* fb_list = a.iscratch + L;
-  // 1. the slots that take the narrow phase: the first K near ones, or all
+  int* list = a.iscratch + 2 * L;
+  // 1. the slots that take the narrow phase: the first K near ones (listed
+  // in slot order), or all
   int near_total = 0;
   for (int b = 0; b < L; b += threads) {
     const int i = b + tid;
@@ -373,38 +383,47 @@ __device__ void mesh_obstacle(const Args<T>& a, const Mesh<T>& m, bool first, co
       const int r = near_total + block_rank<threads>(near, smi, total);
       near_total += total;
       eval = near && r < K;
+      if (eval) list[r] = i;
     }
     if (real) flags[i] = eval ? kEval : 0;
   }
-  // 2. the narrow phase; the exact one's deep lanes ranked in slot order
-  const int seen = compact ? K : L;
-  const int k_fb = m.fallback_lanes < seen ? m.fallback_lanes : seen;
-  const T capture = O::mul(T(m.capture_cells), m.h[0]);
-  int need_total = 0;
-  for (int b = 0; b < L; b += threads) {
-    const int i = b + tid;
-    bool need = false;
-    if (i < L && __ldg(grp + i) < a.n && (flags[i] & kEval)) {
+  if (sdf) {  // 2. the SDF's blend, a thread a slot
+    for (int i = tid; i < L; i += threads) {
+      if (__ldg(grp + i) >= a.n || !(flags[i] & kEval)) continue;
       T* s = a.scratch + (int64_t)i * kSlot;
       const T* p = s + 3;
-      if (sdf) {
-        T f[3], n[3];
-        const T d = sdf_blend(m, sdf_cell(m, p, f), f, n);
-        const bool keep = d < T(1e29);
-        s[13] = d;
+      T f[3], n[3];
+      const T d = sdf_blend(m, sdf_cell(m, p, f), f, n);
+      const bool keep = d < T(1e29);
+      s[13] = d;
 #pragma unroll
-        for (int r = 0; r < 3; ++r) {
-          s[14 + r] = keep ? O::sub(p[r], O::mul(d, n[r])) : T(0);
-          s[17 + r] = n[r];
-        }
-      } else {
-        T cl[3], n[3], dist;
-        bool in_grid, any_face;
-        const int cid = exact_cell(m, p, in_grid);
-        const bool valid = compact || in_grid;
-        candidates(m, p, cid, valid, dist, cl, n, any_face);
+      for (int r = 0; r < 3; ++r) {
+        s[14 + r] = keep ? O::sub(p[r], O::mul(d, n[r])) : T(0);
+        s[17 + r] = n[r];
+      }
+    }
+  } else {
+    // 2. the exact walk, a group of g threads an evaluated slot; its deep
+    // slots ranked in slot order
+    __syncthreads();  // every slot's x_new and flags, and the list
+    const int n_eval = compact ? (near_total < K ? near_total : K) : L;
+    const int g = a.group > 0 ? a.group : group_size(n_eval, threads, m.kf);
+    const int seen = compact ? K : L;
+    const int k_fb = m.fallback_lanes < seen ? m.fallback_lanes : seen;
+    const T capture = O::mul(T(m.capture_cells), m.h[0]);
+    for (int e = tid / g; e < n_eval; e += threads / g) {
+      const int i = compact ? list[e] : e;
+      if (!compact && __ldg(grp + i) >= a.n) continue;  // a padded slot (the whole group)
+      T* s = a.scratch + (int64_t)i * kSlot;
+      const T p[3] = {s[3], s[4], s[5]};
+      T cl[3], n[3], dist;
+      bool in_grid, any_face;
+      const int cid = exact_cell(m, p, in_grid);
+      const bool valid = compact || in_grid;
+      candidates(m, p, cid, valid, g, dist, cl, n, any_face);
+      if ((tid & (g - 1)) == 0) {
         const bool near_tet = exact_near_tet(m, cid);
-        need = valid && near_tet && (!any_face || dist > capture);
+        const bool need = valid && near_tet && (!any_face || dist > capture);
         s[13] = dist;
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
@@ -414,7 +433,11 @@ __device__ void mesh_obstacle(const Args<T>& a, const Mesh<T>& m, bool first, co
         flags[i] |= (any_face ? 1 : 0) | (near_tet ? 2 : 0) | (need ? 4 : 0);
       }
     }
-    if (!sdf) {
+    __syncthreads();  // the need flags
+    int need_total = 0;
+    for (int b = 0; b < L; b += threads) {
+      const int i = b + tid;
+      const bool need = i < L && __ldg(grp + i) < a.n && (flags[i] & 4);
       int total;
       const int r = need_total + block_rank<threads>(need, smi, total);
       if (need && r < k_fb && m.n_tris > 0) {
@@ -423,8 +446,6 @@ __device__ void mesh_obstacle(const Args<T>& a, const Mesh<T>& m, bool first, co
       }
       need_total += total;
     }
-  }
-  if (!sdf) {
     __syncthreads();
     const int served = (k_fb > 0 && m.n_tris > 0) ? (need_total < k_fb ? need_total : k_fb) : 0;
     for (int w = tid >> 5; w < served; w += threads / 32) {  // a warp per deep slot
@@ -634,7 +655,8 @@ cudaError_t launch_form(const Args<T>& a, bool shared, cudaStream_t s) {
 // ptrs: ell_cols, ell_vals, ccols, cvals, tcols, tvals, diag, groups, b, x0,
 // x, pinned, pin_target, sweeps, scratch, iscratch, then kMeshPtrs per obstacle
 // (a mesh obstacle's tables, obstacle_body.cuh; 0 for an analytic one); ints:
-// n, k, n_colors, width, max_iters, form (bit 0 SHARED, bit 1 WIDE), n_obs,
+// n, k, n_colors, width, max_iters, form (bit 0 SHARED, bit 1 WIDE, bits 2-7
+// the exact walk's group: 0 the rule), n_obs,
 // kind[kMaxObstacles], then kMeshInts per obstacle; par: [n_obs, 4] (a mesh
 // obstacle: capture_cells).
 template <typename T>
@@ -661,6 +683,7 @@ int launch(const uint64_t* ptrs, const int* ints, const double* par, double omeg
   a.width = ints[3];
   a.max_iters = ints[4];
   const bool shared = (ints[5] & 1) != 0, wide = (ints[5] & 2) != 0;
+  a.group = (ints[5] >> 2) & 63;
   a.n_obs = ints[6];
   a.omega = T(omega);
   a.tol = T(tol);
@@ -679,6 +702,8 @@ int launch(const uint64_t* ptrs, const int* ints, const double* par, double omeg
     }
   }
   if (a.n_mesh > 0 && (a.scratch == nullptr || a.iscratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((a.group & (a.group - 1)) != 0 || a.group > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.n_mesh > 0)

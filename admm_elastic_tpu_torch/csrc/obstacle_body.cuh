@@ -21,8 +21,15 @@
 // version agree bit for bit on the card.
 //
 // The compaction of the near lanes and of the fallback lanes ranks them by a
-// block-wide prefix count in lane order (block_rank), as jax.lax.top_k
-// orders a 0/1 mask; no atomic slot allocation, which would reorder them.
+// prefix count in lane order (block_rank within a block; kernel J adds the
+// counts of the blocks before it), as jax.lax.top_k orders a 0/1 mask; no
+// atomic slot allocation, which would reorder them.
+//
+// The exact walk over a cell's candidates is spread over a group of threads
+// (candidates): each thread walks every g-th entry of the row and the group
+// keeps the first of least squared distance by xor shuffles. The pick is the
+// serial walk's, since the first least in table order does not depend on the
+// order in which the entries are visited.
 #pragma once
 
 #include <cfloat>
@@ -233,13 +240,23 @@ __device__ __forceinline__ int exact_cell(const Mesh<T>& o, const T p[3], bool& 
 
 template <typename T>
 __device__ __forceinline__ bool exact_near_tet(const Mesh<T>& o, int cid) {
-  return o.tet_count[cid] > 0;
+  return __ldg(o.tet_count + cid) > 0;
 }
 
 template <typename T>
 __device__ __forceinline__ int table_at(const Mesh<T>& o, int64_t i) {
-  return o.table16 ? static_cast<int>(static_cast<const short*>(o.face_table)[i])
-                   : static_cast<const int*>(o.face_table)[i];
+  return o.table16 ? static_cast<int>(__ldg(static_cast<const short*>(o.face_table) + i))
+                   : __ldg(static_cast<const int*>(o.face_table) + i);
+}
+
+// The 9 corner values of triangle fid (a, b, c), through the read-only path.
+// (Staging the soup in shared memory was measured in turns in J and in H and
+// did not win: PERF.md.)
+template <typename T>
+__device__ __forceinline__ void corners(const Mesh<T>& o, int fid, T abc[9]) {
+  const int64_t at = static_cast<int64_t>(fid) * 9;
+#pragma unroll
+  for (int r = 0; r < 9; ++r) abc[r] = __ldg(o.tri_abc + at + r);
 }
 
 // Ericson's closest point on triangle abc (9 values: a, b, c): cl and its
@@ -301,8 +318,9 @@ __device__ __forceinline__ void pt_tri_closest(const T p[3], const T* abc, T cl[
 template <typename T>
 __device__ __forceinline__ T tri_d2(const Mesh<T>& o, const T p[3], int fid) {
   using O = Op<T>;
-  T cl[3], v, w;
-  pt_tri_closest(p, o.tri_abc + static_cast<int64_t>(fid) * 9, cl, v, w);
+  T abc[9], cl[3], v, w;
+  corners(o, fid, abc);
+  pt_tri_closest(p, abc, cl, v, w);
   const T d[3] = {O::sub(p[0], cl[0]), O::sub(p[1], cl[1]), O::sub(p[2], cl[2])};
   return dot3(d, d);
 }
@@ -312,8 +330,9 @@ __device__ __forceinline__ T tri_d2(const Mesh<T>& o, const T p[3], int fid) {
 template <typename T>
 __device__ __forceinline__ void feature(const Mesh<T>& o, const T p[3], int fid, T cl[3], T n[3]) {
   using O = Op<T>;
-  T v, w;
-  pt_tri_closest(p, o.tri_abc + static_cast<int64_t>(fid) * 9, cl, v, w);
+  T abc[9], v, w;
+  corners(o, fid, abc);
+  pt_tri_closest(p, abc, cl, v, w);
   const T eps = T(1e-5), one_m = O::sub(T(1), eps);
   const T u = O::sub(O::sub(T(1), v), w);
   int idx = 0;
@@ -324,31 +343,61 @@ __device__ __forceinline__ void feature(const Mesh<T>& o, const T p[3], int fid,
   if (v >= one_m) idx = 2;
   if (v <= eps && w <= eps) idx = 1;
   const T* r = o.nrm + (static_cast<int64_t>(fid) * 7 + idx) * 3;
-  n[0] = r[0];
-  n[1] = r[1];
-  n[2] = r[2];
+  n[0] = __ldg(r);
+  n[1] = __ldg(r + 1);
+  n[2] = __ldg(r + 2);
   unit3(n);
 }
 
-// The candidates of cell cid (none where !valid): the first of least squared
-// distance -> dist, its closest point cl and normal n; any_face: a candidate
-// was there. With none, the table's first entry gives cl and n, as the plain
-// version's argmin over an all-masked row picks entry 0.
+// The threads that walk one entry's candidates where a block of threads
+// owns n entries: the largest power of two <= 32 with g n <= threads and no
+// wider than a row of the table (kf), whose threads past its end would only
+// add rounds to the reduction (ops/cuda_obstacle.py j_group).
+__device__ __forceinline__ int group_size(int n, int threads, int kf) {
+  int g = 32;
+  while (g > 1 && (g * n > threads || g > kf)) g >>= 1;
+  return g;
+}
+
+// The candidates of cell cid (none where !valid) by a group of g threads (g a
+// power of two, at most 32, aligned in its warp; group_size chooses it; every
+// thread of the group
+// calls this with the same p, cid and valid): thread t of the group walks
+// entries t, t + g, ... of the cell's row, the group's loads of the table
+// consecutive, and keeps the first least (d2, k) of its own entries under a
+// strict d2 < best from kBig; the group then keeps the least d2, the lower k
+// on a tie. That is the serial walk's pick, the first of least squared
+// distance in table order; a NaN d2 is never picked, and with no entry below
+// kBig (an empty row, every d2 NaN or >= 1e30) the pick is entry 0, as the
+// plain version's argmin over an all-masked row. -> dist, the pick's closest
+// point cl and normal n, any_face (a candidate was there), the same bits in
+// every thread of the group.
 template <typename T>
 __device__ __forceinline__ void candidates(const Mesh<T>& o, const T p[3], int cid, bool valid,
-                                           T& dist, T cl[3], T n[3], bool& any_face) {
+                                           int g, T& dist, T cl[3], T n[3], bool& any_face) {
   using O = Op<T>;
-  const int cnt = valid ? o.face_count[cid] : 0;
+  const int lane = threadIdx.x & 31;
+  const unsigned group = g == 32 ? 0xffffffffu : ((1u << g) - 1u) << (lane & ~(g - 1));
+  const int cnt = valid ? __ldg(o.face_count + cid) : 0;
   const int64_t row = static_cast<int64_t>(cid) * o.kf;
   T best = T(kBig);
-  int j = 0;
-  for (int k = 0; k < cnt; ++k) {
+  int j = INT_MAX;  // none of this thread's entries below kBig
+  for (int k = lane & (g - 1); k < cnt; k += g) {
     const T d2 = tri_d2(o, p, table_at(o, row + k));
     if (d2 < best) {
       best = d2;
       j = k;
     }
   }
+  for (int off = g >> 1; off > 0; off >>= 1) {
+    const T b2 = __shfl_xor_sync(group, best, off);
+    const int j2 = __shfl_xor_sync(group, j, off);
+    if (b2 < best || (b2 == best && j2 < j)) {
+      best = b2;
+      j = j2;
+    }
+  }
+  if (j == INT_MAX) j = 0;  // best is kBig
   dist = O::sqrt(maxp(best, T(0)));
   any_face = cnt > 0;
   feature(o, p, table_at(o, row + j), cl, n);

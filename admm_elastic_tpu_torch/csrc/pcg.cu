@@ -108,6 +108,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "grid_sync.cuh"
+
 // Anatomy builds (tools/g_h_anatomy.py): with ADMM_G_ANATOMY=1 the phases do
 // no row work (the barriers, the block sums and the totals remain) and the
 // exit test is ignored, so a solve takes max_iters trips. The shipped build
@@ -144,14 +146,6 @@ template <> struct Fl<float> {
 template <> struct Fl<double> {
   __device__ static double tiny() { return DBL_MIN; }
   __device__ static double eps() { return DBL_EPSILON; }
-};
-
-// The arrivals and the generation sit on cache lines of their own: the
-// blocks that wait read the generation while the others add to the count.
-struct Barrier {
-  unsigned count;  // blocks arrived at the current barrier; 0 between barriers
-  unsigned pad[31];
-  unsigned gen;    // barriers completed
 };
 
 template <typename T>
@@ -251,55 +245,6 @@ struct Mem {
     }
   }
 };
-
-// Every block arrives, then leaves together; the last to arrive resets the
-// count and opens the next generation. Memory order (PTX, device scope): the
-// block's writes are ordered before thread 0's arrival by __syncthreads, the
-// arrival releases them (an acq_rel add on the count, whose sequence of adds
-// the last arrival acquires), the last arrival releases the next generation,
-// and the waiting thread 0s acquire it before __syncthreads lets their blocks
-// read: the pattern of CUTLASS's GenericBarrier, with no full fence. A block
-// that waits more than kBarrierCycles (about 2 s) traps: the launch fails with
-// an error instead of hanging, should the grid ever not be resident at once.
-constexpr long long kBarrierCycles = 1ll << 32;
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned add_acq_rel(unsigned* p, unsigned v) {
-  unsigned old;
-  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
-               : "=r"(old) : "l"(p), "r"(v) : "memory");
-  return old;
-}
-
-__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
-  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void grid_sync(Barrier* bar, unsigned nb) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned g = ld_acquire(&bar->gen);
-    if (add_acq_rel(&bar->count, 1u) == nb - 1) {
-      st_relaxed(&bar->count, 0u);
-      add_release(&bar->gen, 1u);
-    } else {
-      const long long t0 = clock64();
-      while (ld_acquire(&bar->gen) == g) {
-        if (clock64() - t0 > kBarrierCycles) __trap();
-      }
-    }
-  }
-  __syncthreads();
-}
 
 // The end of a phase: the grid barrier, or the cluster's (arrive with
 // release, wait with acquire: the blocks' shared and global writes are seen).

@@ -81,6 +81,7 @@ _PLAIN_SIGNATURES = {  # one function for both precisions
     "admm_cluster_barrier_loop": [_I, _I, _I, _I, _P],  # cluster, threads, smem, iters, stream
     "admm_cluster_capacity": [_I, _I, _I],  # cluster, threads, smem
     "admm_smem_optin": [],
+    "admm_mesh_blocks": [_I],  # f64
 }
 
 

@@ -4,10 +4,11 @@ Gauss-Seidel solve in one launch, in place of the JAX package's jnp loop
 Pallas kernel.
 
 ``gs_solve(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters,
-tol, sweeps, params=None)`` runs the SOR sweeps of ``data`` (a ``solvers.gs.GSData``) from
-x0 with the dense pin arrays and the obstacles (``Floor``, ``Sphere``,
-``PassiveMeshSDF``, ``PassiveMeshExact``; at most 8) until the residual test holds or max_iters sweeps,
-and adds the sweeps to ``sweeps`` (an int32 tensor of one element on the
+tol, sweeps, params=None, form=None, group=None)`` runs the SOR sweeps of
+``data`` (a ``solvers.gs.GSData``) from x0 with the dense pin arrays and the
+obstacles (``Floor``, ``Sphere``, ``PassiveMeshSDF``, ``PassiveMeshExact``;
+at most 8) until the residual test holds or max_iters sweeps, and adds the
+sweeps to ``sweeps`` (an int32 tensor of one element on the
 device). Dispatch is by the tensors' device: CPU tensors take the plain
 version (``solvers/gs.solve``, which stops on the host); CUDA tensors launch
 the kernel, and a build or launch failure raises. ``gs_solve.launches``
@@ -26,8 +27,10 @@ synchronisation, which a capture refuses): a captured step passes the
 parameters that the solver read at ``initialize``; where ``params`` is None
 the wrapper reads them itself. A mesh obstacle reaches it by the addresses of
 its tables (``cuda_obstacle.mesh_desc``, no synchronisation), which the
-obstacle keeps alive; a solve with one takes a scratch of 20 values and two
-ints per colour slot.
+obstacle keeps alive; a solve with one takes a scratch of 20 values and three
+ints per colour slot. The exact walk takes a group of threads per evaluated
+slot (``cuda_obstacle.j_group`` over the block's threads); ``group`` forces
+one, for tests and measurements, and changes no bit of x.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ FORMS = ("global", "shared")
 # block_rank's 32 ints)
 STATIC_SMEM = 17 * 8 + 32 * 4
 SLOT_SCRATCH = 20  # csrc/gs.cu kSlot
+SLOT_INTS = 3  # csrc/gs.cu iscratch: flags, the fallback's slots, the evaluated slots
+GROUPS = (1, 2, 4, 8, 16, 32)  # the exact walk's threads a slot (csrc/gs.cu Args.group)
 LANES = 512  # csrc/gs.cu kLanes: a colour wider than this takes the WIDE block
 
 
@@ -148,10 +153,11 @@ def obstacle_params(obstacles):
 
 def gs_solve(data: gs_mod.GSData, b: torch.Tensor, x0: torch.Tensor, pin_mask: torch.Tensor,
              pin_target: torch.Tensor, obstacles, omega: float, max_iters: int, tol: float,
-             sweeps: torch.Tensor, params=None, form=None) -> torch.Tensor:
+             sweeps: torch.Tensor, params=None, form=None, group=None) -> torch.Tensor:
     """x after the constrained SOR sweeps from x0; the sweeps are added to
     sweeps. params: obstacle_params(obstacles), read here where None. form:
-    the kernel's form ("global", "shared"; None: h_form's choice)."""
+    the kernel's form ("global", "shared"; None: h_form's choice); group: the
+    exact walk's threads a slot (None: the rule's, per pass)."""
     if b.device.type == "cpu":
         x, k = gs_mod.solve(data.ell_cols, data.ell_vals, data.diag, data.colors,
                             data.colors_mask, b, x0, pin_mask, pin_target, obstacles, None, None,
@@ -159,13 +165,13 @@ def gs_solve(data: gs_mod.GSData, b: torch.Tensor, x0: torch.Tensor, pin_mask: t
         sweeps += k
         return x
     out = _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol, sweeps,
-                  params, form=form)
+                  params, form=form, group=group)
     gs_solve.launches += 1
     return out
 
 
 def _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol, sweeps, params,
-            lib=None, form=None):
+            lib=None, form=None, group=None):
     """Launch kernel H from ``lib`` (the port's library, or an anatomy build
     of the same source: chip_smoke.floor_library, tools/g_h_anatomy.py) in
     ``form`` (None: form_of's choice), in the block h_wide chooses."""
@@ -196,13 +202,16 @@ def _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol,
         mesh_ptrs += p
     if any(isinstance(o, MESH) for o in obstacles):
         scratch = [torch.empty((width, SLOT_SCRATCH), dtype=b.dtype, device=b.device),
-                   torch.empty((2 * width,), dtype=torch.int32, device=b.device)]
+                   torch.empty((SLOT_INTS * width,), dtype=torch.int32, device=b.device)]
     ptrs = [data.ell_cols, data.ell_vals] + (
         [plan.ccols, plan.cvals, plan.tcols, plan.tvals] if wide else [None] * 4) + [
         data.diag, data.colors, b, x0, out, pin_mask, pin_target, sweeps] + scratch + mesh_ptrs
     ptr_arr = (ctypes.c_uint64 * len(ptrs))(*cuda_obstacle.addresses(ptrs))
     shared = form_of(n, b.dtype, form) == "shared"
-    head = [n, k, n_colors, width, int(max_iters), int(shared) | 2 * int(wide), len(kinds),
+    if group not in (None,) + GROUPS:
+        raise ValueError(f"gs_solve: group {group!r}, expected one of {GROUPS}")
+    bits = int(shared) | 2 * int(wide) | (group or 0) << 2
+    head = [n, k, n_colors, width, int(max_iters), bits, len(kinds),
             *kinds] + [0] * (MAX_OBSTACLES - len(kinds))
     ints = (ctypes.c_int * (len(head) + len(mesh_ints)))(*head, *mesh_ints)
     fn = getattr(lib or _build.library(), f"admm_gs_solve_{sfx}")

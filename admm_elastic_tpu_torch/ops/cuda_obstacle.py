@@ -3,8 +3,8 @@ in one launch, in place of the JAX package's jnp narrow phases
 (``admm_elastic_tpu/collision/passive.py:120-179`` and ``:401-546``), which
 have no Pallas kernel.
 
-``mesh_detect(obs, x, overflow)`` returns (dx [V], point [V, 3], normal
-[V, 3], mask [V]) of the mesh obstacle ``obs`` (``PassiveMeshSDF`` or
+``mesh_detect(obs, x, overflow, blocks=None)`` returns (dx [V], point [V, 3],
+normal [V, 3], mask [V]) of the mesh obstacle ``obs`` (``PassiveMeshSDF`` or
 ``PassiveMeshExact``, on x's device in x's dtype) at the query lanes x
 [V, 3], and sets ``overflow`` (an int32 tensor of one element on x's
 device) to 1 where its near-lane compaction or its deep fallback dropped a
@@ -12,6 +12,14 @@ lane; it never clears it. Dispatch is by the tensors' device: CPU tensors
 take the plain version (the obstacle's own ``signed_distance_with_overflow``);
 CUDA tensors launch the kernel, and a build or launch failure raises.
 ``mesh_detect.launches`` counts kernel launches.
+
+The kernel runs as a cooperative grid of persistent blocks of 512 threads
+(``j_grid``: one a SM, and at most one a 16 lanes); a launch that the
+runtime refuses raises. Its grid barrier is one zeroed buffer per device,
+allocated on the first call, which must come before any capture (the
+solver's warm-up step makes it); each launch leaves it as it found it.
+``blocks`` caps the grid, for measurements and tests; it changes no bit of
+the result.
 
 ``mesh_desc`` describes a mesh obstacle to kernel J and to kernel H's sweeps
 (``ops/cuda_gs.py``): its sizes and the device addresses of its tables, read
@@ -30,6 +38,33 @@ from admm_elastic_tpu_torch.ops import _build
 
 MESH_SDF, MESH_EXACT = 2, 3  # csrc/obstacle_body.cuh enum MeshKind
 MESH_INTS, MESH_PTRS = 10, 9  # csrc/obstacle_body.cuh kMeshInts, kMeshPtrs
+J_THREADS = 512  # csrc/obstacle.cu kThreads
+LANES_PER_BLOCK = J_THREADS // 32  # the fewest lanes a block takes: a warp each
+BARRIER_INTS = 64  # csrc/grid_sync.cuh struct Barrier, rounded up
+
+
+def j_grid(v: int, most: int, cap=None) -> int:
+    """The blocks of kernel J for v lanes: at most most (one a SM, where the
+    card holds one: max_blocks), one a LANES_PER_BLOCK lanes and cap."""
+    grid = min(most, -(-v // LANES_PER_BLOCK))
+    return max(1, grid if cap is None else min(grid, cap))
+
+
+def j_span(n: int, grid: int) -> int:
+    """The lanes (or list entries) of n that each block of a grid owns, in
+    order (csrc/obstacle.cu): block b takes [b span, (b + 1) span)."""
+    return -(-n // grid)
+
+
+def j_group(per: int, threads: int = J_THREADS, kf: int = 32) -> int:
+    """The threads that walk one entry's candidates where a block of threads
+    owns per entries of a table whose rows hold kf (csrc/obstacle_body.cuh
+    group_size; kernel J's block, and kernel H's pass with its own block and
+    count): the largest power of two <= 32 with g per <= threads and g <= kf."""
+    g = 32
+    while g > 1 and (g * per > threads or g > kf):
+        g //= 2
+    return g
 
 
 def _check(name, t, device, dtype, shape=None):
@@ -77,33 +112,62 @@ def addresses(tensors):
     return [0 if t is None else t.data_ptr() for t in tensors]
 
 
-def mesh_detect(obs, x: torch.Tensor, overflow: torch.Tensor):
+def mesh_detect(obs, x: torch.Tensor, overflow: torch.Tensor, blocks=None):
     """(dx, point, normal, mask) of mesh obstacle obs at x [V, 3]; its
-    overflow set in overflow (int32 [1])."""
+    overflow set in overflow (int32 [1]); blocks caps kernel J's grid."""
     if x.device.type == "cpu":
         dx, point, normal, ovf = obs.signed_distance_with_overflow(x)
         overflow |= ovf.to(overflow.dtype)
         return dx, point, normal, dx < 0.0
-    out = _launch(obs, x, overflow)
+    out = _launch(obs, x, overflow, blocks)
     mesh_detect.launches += 1
     return out
 
 
-def _launch(obs, x, overflow):
+_MAX_BLOCKS: dict = {}  # (device, dtype) -> the most blocks of kernel J a launch takes
+_BARRIERS: dict = {}  # device -> kernel J's grid barrier
+
+
+def max_blocks(device, dtype) -> int:
+    """The most blocks of kernel J a launch takes on the card: one a SM
+    (read once)."""
+    key = (device, dtype)
+    if key not in _MAX_BLOCKS:
+        with torch.cuda.device(device):
+            n = int(_build.library().admm_mesh_blocks(int(dtype == torch.float64)))
+        if n <= 0:
+            raise RuntimeError(f"mesh_detect: the card holds no block of kernel J "
+                               f"(cudaError {-n})")
+        _MAX_BLOCKS[key] = n
+    return _MAX_BLOCKS[key]
+
+
+def _barrier(device):
+    if device not in _BARRIERS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("mesh_detect: call it once on this device before a capture "
+                               "(its grid barrier is allocated on the first call)")
+        _BARRIERS[device] = torch.zeros((BARRIER_INTS,), dtype=torch.int32, device=device)
+    return _BARRIERS[device]
+
+
+def _launch(obs, x, overflow, blocks=None):
     v = x.shape[0]
     sfx = _build.cuda_args("mesh_detect", x, (("x", x, (v, 3)),))
     _check("overflow", overflow, x.device, torch.int32, (1,))
     ints, ptrs, capture = mesh_desc(obs, x.device, x.dtype)
+    grid = j_grid(v, max_blocks(x.device, x.dtype), blocks)
     dx = torch.empty((v,), dtype=x.dtype, device=x.device)
     point = torch.empty_like(x)
     normal = torch.empty_like(x)
     mask = torch.empty((v,), dtype=torch.bool, device=x.device)
-    scratch = torch.empty((2 * v + max(getattr(obs, "fallback_lanes", 0), 1),), dtype=torch.int32,
-                          device=x.device)
-    lists = [scratch[:v], scratch[v:2 * v], scratch[2 * v:]]
-    ptr_arr = (ctypes.c_uint64 * (MESH_PTRS + 9))(*addresses(
-        ptrs + [x, dx, point, normal, mask, overflow] + lists))
-    int_arr = (ctypes.c_int * (MESH_INTS + 1))(*ints, v)
+    k_fb = max(getattr(obs, "fallback_lanes", 0), 1)
+    scratch = torch.empty((3 * v + 2 * grid + k_fb,), dtype=torch.int32, device=x.device)
+    lists = [scratch[:v], scratch[v:2 * v], scratch[2 * v:3 * v],
+             scratch[3 * v:3 * v + 2 * grid], scratch[3 * v + 2 * grid:]]
+    ptr_arr = (ctypes.c_uint64 * (MESH_PTRS + 12))(*addresses(
+        ptrs + [x, dx, point, normal, mask, overflow] + lists + [_barrier(x.device)]))
+    int_arr = (ctypes.c_int * (MESH_INTS + 2))(*ints, v, grid)
     fn = getattr(_build.library(), f"admm_mesh_detect_{sfx}")
     with torch.cuda.device(x.device):
         rc = fn(ptr_arr, int_arr, capture, torch.cuda.current_stream(x.device).cuda_stream)

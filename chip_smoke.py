@@ -2843,11 +2843,13 @@ def h_chosen(n, dtype):
 
 
 def h_against_plain(torch, label, data, b, x0, pin_mask, pin_target, obstacles, s, dtype_name,
-                    graph=False):
+                    graph=False, bitwise=False):
     """Kernel H against the plain gs.solve on the same inputs (H_F64_TOL,
-    H_F32_TOL), twice bitwise; every other form that takes the shape
-    (h_forms) bitwise equal to the form the wrapper chooses, in as many
-    sweeps; with graph, each form captured and replayed bitwise."""
+    H_F32_TOL; with bitwise, the same bits), twice bitwise; every other form
+    that takes the shape (h_forms) bitwise equal to the form the wrapper
+    chooses, in as many sweeps; with an exact mesh obstacle, the exact walk at
+    every group size (cuda_gs.GROUPS) in the chosen form, each bitwise the
+    chosen run; with graph, each form captured and replayed bitwise."""
     from admm_elastic_tpu_torch.ops import cuda_gs
     from admm_elastic_tpu_torch.solvers import gs
 
@@ -2875,6 +2877,16 @@ def h_against_plain(torch, label, data, b, x0, pin_mask, pin_target, obstacles, 
         need(err <= H_F64_TOL and kh == kp, f"H {label} f64: {out} (bound {H_F64_TOL})")
     else:
         need(err <= H_F32_TOL and abs(kh - kp) <= 1, f"H {label} f32: {out} (bound {H_F32_TOL})")
+    need(not bitwise or (out["bitwise"] and kh == kp),
+         f"H {label} {dtype_name}: not bitwise the plain gs.solve: {out}")
+    if DEVICE == "cuda" and any(is_exact(o) for o in obs):
+        out["variants"] = {}
+        for name, kw in h_variants():
+            t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+            xv = cuda_gs.gs_solve(data, *args, t, params=params, **kw)
+            need(bool(torch.equal(xv, xh)) and int(t.item()) == kh,
+                 f"H {label} {dtype_name}: {name} differs from the chosen run")
+            out["variants"][name] = True
     out["forms"] = {}
     for form in h_forms(n, dtype):
         t = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
@@ -2889,6 +2901,20 @@ def h_against_plain(torch, label, data, b, x0, pin_mask, pin_target, obstacles, 
     if graph:
         out["graph_replay_bitwise"] = True
     return out
+
+
+def is_exact(obstacle):
+    """Whether an obstacle is the port's exact mesh obstacle."""
+    from admm_elastic_tpu_torch import PassiveMeshExact
+
+    return isinstance(obstacle, PassiveMeshExact)
+
+
+def h_variants():
+    """(label, gs_solve keywords) of kernel H's exact walk at every group size."""
+    from admm_elastic_tpu_torch.ops import cuda_gs
+
+    return [(f"group {g}", dict(group=g)) for g in cuda_gs.GROUPS]
 
 
 def gs_data_of(torch, system, np_dtype):
@@ -2989,11 +3015,12 @@ H_MESH_CASES = ("slab_sdf_gs5k", "slab_exact_gs5k", "exactmesh_deep_gs", "sdf_ob
 def h_mesh_checks(torch):
     """Kernel H with a mesh obstacle (PassiveMeshSDF, PassiveMeshExact) on
     the card against the plain gs.solve, on a real step's first solve of
-    H_MESH_CASES: float64 in the same sweeps within H_F64_TOL, float32 within
-    H_F32_TOL, every form that takes the shape bitwise the chosen one, the
+    H_MESH_CASES: float64 and float32 bitwise, in the same sweeps, every form
+    that takes the shape bitwise the chosen one, with an exact obstacle its
+    walk at every group size (h_variants), the
     float32 slab_exact_gs5k case also captured and replayed; then a Floor
     beside the exact slab (both obstacles in one sweep; the first of least
-    distance). Returns (checks, timing of the two slab paths)."""
+    distance). Returns (checks, timing of the mesh paths)."""
     from admm_elastic_tpu_torch import Floor
 
     out, timing = {}, {}
@@ -3011,15 +3038,17 @@ def h_mesh_checks(torch):
             res = dict(
                 f32=h_against_plain(torch, label, solver._solve_data, b, x0, no_pin, x0,
                                     obstacles, s, "f32",
-                                    graph=(label == "slab_exact_gs5k" and DEVICE == "cuda")),
+                                    graph=(label == "slab_exact_gs5k" and DEVICE == "cuda"),
+                                    bitwise=True),
                 f64=h_against_plain(torch, label, d64, b.double(), x0.double(), no_pin,
-                                    x0.double(), obstacles, s, "f64"))
+                                    x0.double(), obstacles, s, "f64", bitwise=True))
             out[label] = res
             log(f"H {label} ({res['f32']['colors']} colours of at most {res['f32']['width']}): "
                 f"f32 {res['f32']['rel_err']:.3e} in {res['f32']['sweeps']} sweeps (plain "
                 f"{res['f32']['plain_sweeps']}, bitwise {res['f32']['bitwise']}), f64 "
                 f"{res['f64']['rel_err']:.3e} in {res['f64']['sweeps']} sweeps; forms "
-                f"{list(res['f32']['forms'])} bitwise equal")
+                f"{list(res['f32']['forms'])} bitwise equal; "
+                f"{list(res['f32'].get('variants', {}))} bitwise the chosen run")
         if name in MESH_PATHS:
             timing[name] = dict(solver=solver, b=b, x0=x0, pin_mask=no_pin, pin_target=x0,
                                 sweeps=out[name]["f32"]["sweeps"],
@@ -3035,6 +3064,47 @@ J_F64_TOL = 1e-12
 J_F32_TOL = 1e-5
 J_F32_FLIP = 1e-5
 J_STEPS = (1, 12)  # slab_exact_alpcg67k's golden states that J is checked on
+# a grid cap for kernel J's block-boundary cases: 15,616 lanes in spans of
+# 3,124, the last one short, and the boundary whose near count sets near_lanes
+J_CAP = 5
+J_BOUNDARY = 2
+J_SPREAD_BLOCKS = 4  # the deep lanes spread one a block over this many
+
+
+def j_blocks(x, blocks=None):
+    """The blocks kernel J runs on for x (cuda_obstacle.j_grid on this card,
+    capped at blocks); None off the card."""
+    from admm_elastic_tpu_torch.ops import cuda_obstacle as co
+
+    if x.device.type != "cuda":
+        return None
+    return co.j_grid(int(x.shape[0]), co.max_blocks(x.device, x.dtype), blocks)
+
+
+def j_near_mask(torch, obs, x):
+    """The near lanes of an exact obstacle at x (float64, on the CPU): in the
+    grid and in a tet-occupied cell, as the compaction ranks them."""
+    p = torch.as_tensor(np.asarray(x, np.float64)).reshape(-1, 3)
+    o = obs.to("cpu", torch.float64)
+    cid, in_grid = o.cells(p)
+    return (in_grid & (o.tet_count[cid] > 0)).numpy()
+
+
+def j_spread_deep(torch, deep, x_deep):
+    """(x, blocks): one deep lane of the deep scene's query (more than the
+    capture radius inside, so it needs the fallback) at the end of each of
+    J_SPREAD_BLOCKS spans of 16 lanes, the other lanes far outside the grid,
+    so that the fallback's served lanes lie in more than one block."""
+    p = np.asarray(x_deep, np.float64).reshape(-1, 3)
+    o = deep.to("cpu", torch.float64)
+    d = o.signed_distance(torch.as_tensor(p))[0].numpy()
+    lanes = np.flatnonzero(d < -float(o.capture_cells) * float(o.h))
+    need(lanes.size >= J_SPREAD_BLOCKS, f"J: {lanes.size} deep lanes in the deep scene's query")
+    span = 16
+    x = np.tile(o.origin.numpy() - 100.0, (J_SPREAD_BLOCKS * span, 1))
+    for b in range(J_SPREAD_BLOCKS):
+        x[b * span + span - 1] = p[lanes[b]]
+    return x, J_SPREAD_BLOCKS
 
 
 def mesh_work(torch, obs, x):
@@ -3078,16 +3148,17 @@ def mesh_bytes_ops(torch, obs, x, itemsize):
     return nbytes, 20 * v + 100 * (cand + ev) + 100 * deep * (obs.tri_abc.shape[0] + 1)
 
 
-def j_case(torch, label, obs, x, dtype_name):
-    """Kernel J against the plain version at x on the card, twice bitwise:
-    the comparison's numbers."""
+def j_case(torch, label, obs, x, dtype_name, blocks=None):
+    """Kernel J against the plain version at x on the card (its grid capped
+    at blocks), twice bitwise, and bitwise the plain version with its
+    overflow flag: the comparison's numbers."""
     from admm_elastic_tpu_torch.ops import cuda_obstacle
 
     dtype = x.dtype
     obs = obs.to(DEVICE, dtype)
     ovf = [torch.zeros((1,), dtype=torch.int32, device=DEVICE) for _ in range(2)]
-    dk, pk, nk, mk = cuda_obstacle.mesh_detect(obs, x, ovf[0])
-    dk2, pk2, nk2, _ = cuda_obstacle.mesh_detect(obs, x, ovf[1])
+    dk, pk, nk, mk = cuda_obstacle.mesh_detect(obs, x, ovf[0], blocks=blocks)
+    dk2, pk2, nk2, _ = cuda_obstacle.mesh_detect(obs, x, ovf[1], blocks=blocks)
     need(all(bool(torch.equal(a, b)) for a, b in ((dk, dk2), (pk, pk2), (nk, nk2)))
          and int(ovf[0].item()) == int(ovf[1].item()), f"J {label} {dtype_name}: two runs differ")
     dp, pp, np_, op = obs.signed_distance_with_overflow(x)
@@ -3100,10 +3171,12 @@ def j_case(torch, label, obs, x, dtype_name):
               float((nk - np_)[keep].abs().max()) if bool(keep.any()) else 0.0)
     out = dict(lanes=int(x.shape[0]), hits=int(mp.sum()), flips=int(flips.sum()),
                max_abs_err=err, overflow=bool(ovf[0].item()), plain_overflow=bool(op),
-               near_lanes=obs.near_lanes, bitwise=bool(torch.equal(dk, dp) and torch.equal(pk, pp)
-                                                       and torch.equal(nk, np_)))
+               near_lanes=obs.near_lanes, blocks=j_blocks(x, blocks),
+               bitwise=bool(torch.equal(dk, dp) and torch.equal(pk, pp)
+                            and torch.equal(nk, np_) and torch.equal(mk, mp)))
     need(out["overflow"] == out["plain_overflow"],
          f"J {label} {dtype_name}: overflow {out['overflow']}, plain {out['plain_overflow']}")
+    need(out["bitwise"], f"J {label} {dtype_name}: not bitwise the plain version: {out}")
     need(bool(torch.isfinite(dk).all() and torch.isfinite(pk).all() and torch.isfinite(nk).all()),
          f"J {label} {dtype_name}: non-finite output")
     if dtype_name == "f64":
@@ -3125,8 +3198,13 @@ def kernel_j_checks(torch):
     slab_sdf_gs5k at its step 12, compacted and dense; both with near_lanes=4,
     whose compaction overflows; the deep crossval scene's query at its first
     step's x_bar (0.24 m into the slab: the deep fallback), with the path's
-    fallback_lanes and with 2 (the fallback overflows). Returns (checks,
-    timing of the 67k path's detection)."""
+    fallback_lanes and with 2 (the fallback overflows); the grid's ranking
+    across blocks: the 67k state on J_CAP blocks (spans that do not divide
+    15,616), compacted, dense and with near_lanes at J_BOUNDARY's near count
+    and one below it, and four deep lanes one a block (j_spread_deep), served
+    and with fallback_lanes 2. Every case bitwise the plain version, twice
+    the same bits, the same overflow flag. Returns (checks, timing of the
+    67k path's detection)."""
     import dataclasses
 
     api = torch_api()
@@ -3146,13 +3224,30 @@ def kernel_j_checks(torch):
     xd = x_deep.double().cpu().numpy()
     cases += [("exactmesh_deep_gs x_bar", deep, xd),
               ("exactmesh_deep_gs x_bar fallback2", dataclasses.replace(deep, fallback_lanes=2), xd)]
-    for label, obs, x in cases:
+    cases = [c + (None,) for c in cases]
+    # the multi-block ranking: a capped grid whose spans do not divide the
+    # lanes, near_lanes at a block boundary's near count and one below it, the
+    # dense form, and the deep fallback's served lanes in several blocks
+    x12 = golden("slab_exact_alpcg67k")["x12"]
+    edge = int(j_near_mask(torch, exact67, x12)[:J_BOUNDARY * -(-len(x12) // J_CAP)].sum())
+    cases += [(f"slab_exact_alpcg67k@12 blocks{J_CAP}", exact67, x12, J_CAP),
+              (f"slab_exact_alpcg67k@12 blocks{J_CAP} dense",
+               dataclasses.replace(exact67, near_lanes=0), x12, J_CAP)]
+    cases += [(f"slab_exact_alpcg67k@12 blocks{J_CAP} near{k}",
+               dataclasses.replace(exact67, near_lanes=k), x12, J_CAP) for k in (edge, edge - 1)]
+    xs, nb = j_spread_deep(torch, deep, xd)
+    cases += [(f"exactmesh_deep_gs spread blocks{nb}", dataclasses.replace(deep, near_lanes=0),
+               xs, nb),
+              (f"exactmesh_deep_gs spread blocks{nb} fallback2",
+               dataclasses.replace(deep, near_lanes=0, fallback_lanes=2), xs, nb)]
+    for label, obs, x, blocks in cases:
         res = {}
         for dname, dtype in (("f64", torch.float64), ("f32", torch.float32)):
             xt = torch.as_tensor(np.asarray(x, np.float64)).to(DEVICE, dtype)
-            res[dname] = j_case(torch, label, obs, xt, dname)
+            res[dname] = j_case(torch, label, obs, xt, dname, blocks=blocks)
         checks[label] = res
-        log(f"J {label}: {res['f64']['lanes']} lanes, {res['f64']['hits']} hits, overflow "
+        log(f"J {label}: {res['f64']['lanes']} lanes on {res['f64']['blocks']} / "
+            f"{res['f32']['blocks']} blocks, {res['f64']['hits']} hits, overflow "
             f"{res['f64']['overflow']}; f64 {res['f64']['max_abs_err']:.3e} (bitwise "
             f"{res['f64']['bitwise']}), f32 {res['f32']['max_abs_err']:.3e} with "
             f"{res['f32']['flips']} flips (bitwise {res['f32']['bitwise']})")
@@ -3162,6 +3257,11 @@ def kernel_j_checks(torch):
     need(checks["exactmesh_deep_gs x_bar fallback2"]["f64"]["overflow"]
          and not checks["exactmesh_deep_gs x_bar"]["f64"]["overflow"],
          "J: the deep fallback's capacity did not decide its overflow")
+    need(checks[f"exactmesh_deep_gs spread blocks{nb} fallback2"]["f64"]["overflow"]
+         and not checks[f"exactmesh_deep_gs spread blocks{nb}"]["f64"]["overflow"],
+         "J: the spread deep lanes' overflow")
+    need(all(checks[f"slab_exact_alpcg67k@12 blocks{J_CAP} near{k}"]["f64"]["overflow"]
+             for k in (edge, edge - 1)), "J: near_lanes at a block boundary did not overflow")
     for k in J_STEPS:
         label = f"slab_exact_alpcg67k@{k}"
         timing[label] = dict(obs=exact67, x=golden("slab_exact_alpcg67k")[f"x{k}"],
@@ -3203,13 +3303,13 @@ def kernel_j_times(torch, j_timing, gpu):
             plain_ms=min(p1, p2), readings=[p1, k1, k2, p2], lanes=int(x.shape[0]),
             evaluated=ev, candidates=cand, deep=deep, near_lanes=obs.near_lanes, bytes=nbytes,
             operations=ops, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            max_abs_err=t["max_abs_err"])
+            max_abs_err=t["max_abs_err"], blocks=j_blocks(x))
         v = out[f"mesh_detect@{label}"]
         log(f"time mesh_detect@{label}: {ms * 1e3:.1f} us per launch on the device "
             f"({'torch.profiler' if prof_ms is not None else 'queued CUDA events'}; "
             f"{v['events_ms'] * 1e3:.1f} by CUDA events), {ev} lanes evaluated, {cand} "
-            f"candidates; plain {v['plain_ms'] * 1e3:.1f} us; library none; bound "
-            f"{bound_ms * 1e3:.3f} us by {bound_by} [{gpu}]")
+            f"candidates, {v['blocks']} blocks; plain {v['plain_ms'] * 1e3:.1f} us; library "
+            f"none; bound {bound_ms * 1e3:.3f} us by {bound_by} [{gpu}]")
     return out
 
 
@@ -3528,6 +3628,15 @@ def contact_kernel_times(torch, h_timing, gpen_timing, gpu):
                            floor_ms=(us[("floor", f)] * 1e-3 if ("floor", f) in us else None),
                            ms_per_sweep=us[("kernel", f)] * 1e-3 / max(t["sweeps"], 1))
                    for f in forms}
+        # an exact obstacle's walk at every group size in the chosen form, in
+        # turns
+        variants = {}
+        if DEVICE == "cuda" and any(is_exact(o) for o in obs):
+            vcalls = [(label, lambda kw=kw: cuda_gs.gs_solve(data, *args, sweeps, params=params,
+                                                              **kw))
+                      for label, kw in h_variants()]
+            variants = {k: v * 1e-3 for k, v in queued_us(torch, vcalls + vcalls[::-1],
+                                                          5).items()}
         n_bytes, ops = h_bytes_ops(data, t["sweeps"], 4)
         bound_ms, bound_by = bound_of(n_bytes, ops)
         form = h_chosen(n, t["b"].dtype)
@@ -3537,7 +3646,8 @@ def contact_kernel_times(torch, h_timing, gpen_timing, gpu):
             form=form, forms=by_form, floor_ms=by_form[form]["floor_ms"],
             sweeps=t["sweeps"], ms_per_sweep=ms / max(t["sweeps"], 1), bytes=n_bytes,
             operations=ops, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            max_abs_err=t["max_abs_err"], colors=int(data.colors.shape[0]))
+            max_abs_err=t["max_abs_err"], colors=int(data.colors.shape[0]),
+            variants=variants)
     for name, t in gpen_timing.items():
         s = t["solver"].m_settings
         trips = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
@@ -3589,6 +3699,10 @@ def contact_kernel_times(torch, h_timing, gpen_timing, gpu):
             f"{per_form}; plain {v['plain_ms'] * 1e3:.1f} us; library "
             f"{'none' if v['library_ms'] is None else '%.2f us' % (v['library_ms'] * 1e3)}; bound "
             f"{v['bound_ms'] * 1e3:.3f} us by {v['bound_by']} [{gpu}]")
+        if v.get("variants"):
+            log(f"time {k}, the exact walk by queued events: "
+                + "; ".join(f"{n} {w * 1e3:.1f} us" for n, w in v["variants"].items())
+                + f" [{gpu}]")
     return out
 
 
@@ -5034,10 +5148,10 @@ def step_profiles(torch, gpu):
 
 
 def path_phase(torch, gpu):
-    """Every path through the graph against its golden, each driven once in
-    one window with its replays' launches counted on the device
-    (drive_path); bench.py's contact sanity; the graph's invalidation
-    checks (counted windows too) and the one-tet goldens through it; then
+    """The graph's invalidation checks (counted windows too); every path
+    through the graph against its golden, each driven once in one window
+    with its replays' launches counted on the device (drive_path); bench.py's
+    contact sanity; the one-tet goldens through the graph; then
     every path's rollout rate, once in that order and once more in the
     reverse order (two readings apart in time tell a path's rate from its
     place in line): (paths, rates, checks). Run by main in a process of its
@@ -5045,6 +5159,10 @@ def path_phase(torch, gpu):
     paths, rates, solvers = {}, {}, {}
     t0 = time.perf_counter()
     profiler_warmup(torch)
+    # the graph's invalidation checks first: late in a long process
+    # torch.profiler has dropped one record of their counted window, three
+    # times running (PERF.md §7)
+    invalidation = invalidation_checks(torch)
     solvers["beam"], paths["beam"] = beam_path(torch, NH)
     for name in CLOTH_SCENES:
         solvers[name], paths[name] = cloth_path(torch, name)
@@ -5063,7 +5181,7 @@ def path_phase(torch, gpu):
         solvers[name], paths[name] = drive(torch, name)
     solvers[WIND_SEQ_PATH], paths[WIND_SEQ_PATH] = cloth_path(torch, WIND_SEQ_PATH)
     checks = dict(bench_contact_sanity=bench_contact_sanity(torch), extras=extras_checks(torch),
-                  graph=dict(invalidation=invalidation_checks(torch),
+                  graph=dict(invalidation=invalidation,
                              one_tet_convergence=one_tet_convergence(),
                              one_tet_inversion=one_tet_inversion()))
     log("one tet through the graph: " + json.dumps(
@@ -5341,7 +5459,7 @@ def main():
     kernels.append(dict(g_entries[0], name="pcg_solve", route="cuda", source=src, replaces=rep,
                         entries=g_entries))
     for kname, kpaths in (("gs_solve", ("floor_gs5k", "sphere_gs", "slab_sdf_gs5k",
-                                        "slab_exact_gs5k")),
+                                        "slab_exact_gs5k", "exactmesh_deep_gs")),
                           ("pcg_solve_penalty", ("floor_alpcg67k",))):
         entries = [e for p in kpaths
                    for e in form_entries(kname, p, p, c_times[f"{kname}@{p}"],
