@@ -14,7 +14,9 @@ aerodynamics model per triangle, in three application orders:
   have already kicked, in file order: the reference's single-threaded loop
   (src/ExplicitForce.cpp:55-104), the JAX package's scan over every triangle.
   On the card one launch of kernel I (``ops/cuda_wind.py``,
-  ``csrc/wind_seq.cu``), on the CPU its plain version.
+  ``csrc/wind_seq.cu``), which walks the triangles' level schedule
+  (``cuda_wind.bake_schedule``, baked when the force is built: the scan's
+  bits, a level's triangles in parallel); on the CPU its plain version.
 
 The JAX package scatter-adds the per-triangle kicks. A scatter-add on a CUDA
 device runs on atomics in an order that changes from run to run, so here
@@ -49,7 +51,10 @@ class WindForce(ExplicitForce):
 
     tris and direction are the JAX package's arrays; vert_slots and
     color_verts are derived on the host by ``wind_force_from_numpy`` (the
-    latter from the JAX package's color_tris and color_mask).
+    latter from the JAX package's color_tris and color_mask). A sequential
+    force bakes its level schedule when it is built (``__post_init__``, on
+    every route: the host reads tris once, never inside a capture); one
+    handed in is checked against tris, and a mismatch raises ValueError.
     """
 
     tris: torch.Tensor  # i64 [W, 3]
@@ -62,6 +67,17 @@ class WindForce(ExplicitForce):
     vert_slots: Optional[torch.Tensor] = None
     # Colored mode: per color the valid triangles' vertex ids, i64 [L_c, 3].
     color_verts: Tuple[torch.Tensor, ...] = ()
+    # Sequential mode: the triangles' level schedule, kernel I's walk.
+    schedule: Optional[cuda_wind.WindSchedule] = None
+
+    def __post_init__(self):
+        if not self.sequential:
+            return
+        if self.schedule is None:
+            object.__setattr__(self, "schedule", cuda_wind.bake_schedule(self.tris,
+                                                                         self.tris.device))
+        else:
+            cuda_wind.check_schedule(self.schedule, self.tris)
 
     def _tri_force(self, dt, p, vv):
         curr_v = torch.mean(vv, dim=-2)
@@ -79,7 +95,8 @@ class WindForce(ExplicitForce):
     def project(self, dt, x, v, m):
         del m
         if self.sequential:
-            return cuda_wind.wind_seq(self.tris, self.direction, self.alpha_n, dt, x, v)
+            return cuda_wind.wind_seq(self.tris, self.direction, self.alpha_n, dt, x, v,
+                                      self.schedule)
         if self.vert_slots is None:
             for tri in self.color_verts:  # [L_c, 3], vertex-disjoint
                 force = self._tri_force(dt, x[tri], v[tri])

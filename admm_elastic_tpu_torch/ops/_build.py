@@ -70,8 +70,8 @@ _SIGNATURES = {
     "admm_pcg_grid": [_I],
     # ptrs, ints, par, omega, tol, stream
     "admm_gs_solve": [_P, _P, _P, _D, _D, _P],
-    # ptrs, n, w, neg_alpha, dt, shared, stream
-    "admm_wind_seq": [_P, _I, _I, _D, _D, _I, _P],
+    # ptrs, ints, neg_alpha, dt, stream
+    "admm_wind_seq": [_P, _P, _D, _D, _P],
     # ptrs, ints, capture_cells, stream
     "admm_mesh_detect": [_P, _P, _D, _P],
 }

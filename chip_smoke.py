@@ -54,10 +54,13 @@ failure:
    the plain gs.solve; A, C and E
    at the PCG paths' shapes, A and C at the 67k contact beam's, and there
    too the standalone B and A's linear rows entry with u = 0 as
-   floor_alpcg67k_aa4 launches them (path_shape_cases); kernel I (the sequential wind, one thread walking
-   the triangles) against its plain version run on the card at 3,200 and
-   51,200 triangles, float32 and float64, in each form that takes the shape
-   (SHARED, v in shared memory; GLOBAL), bit for bit (kernel_i_checks);
+   floor_alpcg67k_aa4 launches them (path_shape_cases); kernel I (the sequential wind, the
+   triangles' level schedule a level at a time) against its plain version, the
+   scan, run on the card at 3,200 and 51,200 triangles, on the 160x160 sheet
+   shuffled, a fan and repeated vertices (wind_lists), float32 and float64, in
+   each form that takes the shape (SHARED, v and the geometry in shared
+   memory; GLOBAL), bit for bit, and the
+   plain level walk bit for bit the scan (kernel_i_checks);
    kernel H with the mesh obstacles against the plain gs.solve
    (h_mesh_checks: the 5k slab paths landed, a Floor beside the exact slab,
    the deep crossval scene's first solve through the fallback, the
@@ -207,6 +210,7 @@ chip_smoke.json in the output directory (OUT_DIR).
 """
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -3862,12 +3866,15 @@ ONE_TET_VERTS = np.array([[0, 0, 0], [0, 1, 0], [0, 0, 1], [1, 0, 0]], dtype=np.
 ONE_TET = np.array([[0, 1, 2, 3]])
 ONE_TET_PULLED_X = 52.2321  # the pulled vertex's golden x, +-1e-4 beyond 20 iterations
 # The inverted tet's volume error after 10 steps, per ADMM iteration count 10,
-# 20, 30: the JAX Solver with set_svd_impl("jacobi") (its SoA path, the
-# arithmetic the port repeats), float64. The reference restores the volume to
+# 20, ..., 90 (tests/test_lineartet.py's counts): the JAX Solver with
+# set_svd_impl("jacobi") (its SoA path, the arithmetic the port repeats),
+# float64. The reference restores the volume to
 # 1e-6 (and the JAX package's CPU default, a LAPACK SVD, to -4.4e-7), but the
 # pose inverted at [1, 1, 1] is symmetric: F^T F gets bitwise equal diagonal
 # entries and the Jacobi SVD stalls on them (ROADMAP Queue 3).
-JAX_JACOBI_VOL_ERR = [1.9386215728819933e-04, 1.1726816286503072e-04, 1.942653552083895e-04]
+JAX_JACOBI_VOL_ERR = [1.9386215728819933e-04, 1.1726816286503072e-04, 1.942653552083895e-04,
+                      2.7299505383290845e-04, 3.31037040131571e-04, 3.6852838534282006e-04,
+                      3.869666055658638e-04, 3.876863794058938e-04, 3.7246462209955533e-04]
 ONE_TET_VOL_TOL = 1e-9  # on the volume error, against JAX_JACOBI_VOL_ERR
 
 
@@ -3885,14 +3892,15 @@ def one_tet_solver(lame, device=None, **settings):
 
 def one_tet_convergence(device=None):
     """The pulled vertex converges monotonically to ONE_TET_PULLED_X, at every
-    8th ADMM iteration count from 5 (each count re-initializes, sets x and
-    changes admm_iters: on the card, a capture each)."""
+    4th ADMM iteration count from 5, as tests/test_lineartet.py (each count
+    re-initializes, sets x and changes admm_iters: on the card, a capture
+    each)."""
     from admm_elastic_tpu_torch import Lame
 
     s = one_tet_solver(Lame.from_youngs_poisson(500000, 0.25), device, timestep_s=1.0 / 24.0)
     init_x = s.x.copy()
     last, got = -1.0, {}
-    for it in range(5, 100, 8):
+    for it in range(5, 100, 4):
         s.m_settings.admm_iters = it
         s.x = init_x
         need(s.initialize(), "one tet: initialize failed")
@@ -3921,7 +3929,7 @@ def one_tet_inversion(device=None):
     init_x = s.x.copy()
     target = tet_volumes(init_x, ONE_TET)[0]
     got = {}
-    for iters, want in zip((10, 20, 30), JAX_JACOBI_VOL_ERR):
+    for iters, want in zip(range(10, 100, 10), JAX_JACOBI_VOL_ERR):
         s.m_settings.admm_iters = iters
         s.x = init_x
         need(s.initialize(), "one tet: initialize failed")
@@ -4040,13 +4048,21 @@ def frozen_checks(torch):
 # --- the solver extras: kernel I, Anderson, the logged and profiled steps, checkpoints ----
 
 # Kernel I's shapes: the 40x40 sheet of cloth_wind40_seq (3,200 triangles,
-# 1,681 vertices: v in shared memory) and the 160x160 sheet (51,200
-# triangles, 25,921 vertices, 311 KB of v in float32: global memory).
+# 1,681 vertices, 236 levels of at most 20: v, the geometry and the ids fit
+# one block's shared memory) and the 160x160 sheet (51,200 triangles, 25,921
+# vertices, 956 levels of at most 80: they do not).
 WIND_SHEETS = (40, 160)
+WIND_SHEET_LABELS = tuple(f"wind_seq@{2 * nx * nx}" for nx in WIND_SHEETS)
 WIND_ALPHA, WIND_DT = 1000.0, 1.0 / 24.0
+# The lists beyond the sheets (wind_lists): the 160x160 sheet's triangles in
+# a shuffled order (28 levels of up to 3,963 triangles, wider than a block), a
+# fan of WIND_FAN triangles on one vertex (as many levels of one triangle) and
+# the 4x4 sheet with two triangles of a repeated vertex among its own (their
+# force is 0).
+WIND_FAN = 200
 # The operations of one triangle in csrc/wind_seq.cu: the mean 9, the
 # relative velocity 3, the edges 6, the cross product 9, the norm 6, the
-# normal 3, the area 1, v_n 5, the force's scalar 4 and vector 9, the adds 9.
+# normal 3, the area 2, v_n 5, the force's scalar 3 and vector 9, the adds 9.
 WIND_OPS = 64
 
 
@@ -4063,21 +4079,62 @@ def wind_inputs(torch, nx, dtype):
             torch.as_tensor(x, **t), torch.as_tensor(v, **t))
 
 
+def wind_fan(k):
+    """k triangles (0, i, i + 1) around vertex 0, a jittered ring (seeded):
+    (vertices [k + 2, 3], triangles [k, 3])."""
+    rng = np.random.default_rng(k)
+    ang = np.linspace(0.0, 2.0 * np.pi, k + 1)
+    ring = np.stack([np.cos(ang), 0.1 * rng.standard_normal(k + 1), np.sin(ang)], axis=1)
+    tris = np.stack([np.zeros(k, np.int64), np.arange(1, k + 1), np.arange(2, k + 2)], axis=1)
+    return np.concatenate([np.zeros((1, 3)), ring]), tris
+
+
+def wind_repeated():
+    """The 4x4 sheet's triangles with (3, 3, 7) and (5, 9, 9) among them."""
+    verts, tris, _, _ = cloth_sheet(4, 4)
+    tris = np.insert(tris, [10, 20], [[3, 3, 7], [5, 9, 9]], axis=0)
+    return verts, tris
+
+
+def wind_lists(torch, dtype):
+    """[(label, tris, direction, x, v)] of kernel I's checks: the WIND_SHEETS,
+    the 160x160 sheet shuffled, the fan and the repeated vertices, each
+    positions jittered and velocities small (seeded), on DEVICE."""
+    out = []
+    for nx in WIND_SHEETS:
+        tris, d, x, v = wind_inputs(torch, nx, dtype)
+        out.append((f"wind_seq@{tris.shape[0]}", tris, d, x, v))
+    perm = np.random.default_rng(7).permutation(tris.shape[0])
+    out.append((f"wind_seq@{tris.shape[0]} shuffled", tris[torch.as_tensor(perm, device=DEVICE)],
+                d, x, v))
+    t = dict(dtype=dtype, device=DEVICE)
+    for label, (verts, tri) in ((f"wind_seq fan@{WIND_FAN}", wind_fan(WIND_FAN)),
+                                ("wind_seq repeated@34", wind_repeated())):
+        rng = np.random.default_rng(len(tri))
+        out.append((label, torch.as_tensor(tri, device=DEVICE), d,
+                    torch.as_tensor(verts + 0.05 * rng.standard_normal(verts.shape), **t),
+                    torch.as_tensor(0.01 * rng.standard_normal(verts.shape), **t)))
+    return out
+
+
 def wind_bytes_ops(w, n, itemsize):
     """Kernel I's least bytes (the triangles, x and v read once, v written
-    once, the direction) and operations for w triangles on n vertices."""
+    once, the direction) and operations for w triangles on n vertices. The
+    level schedule is this design's input, not the function's: it is not
+    counted."""
     return w * 3 * 8 + 3 * n * 3 * itemsize + 3 * itemsize, WIND_OPS * w
 
 
 def kernel_i_checks(torch, gpu):
-    """Kernel I against its plain version on the card (wind_seq_plain: the
-    same IEEE-rounded operations in the same order), at WIND_SHEETS in float32
-    and float64, in each form that takes the shape (SHARED where v fits the
-    block's shared memory, GLOBAL always): bit for bit, finite, the velocities
-    kicked; the SHARED form beyond its reach raises. Timing (on the card):
-    each form by CUDA events, its latency floor (the same walk in the floor
-    build, FLOOR_DEFINES: the dependent loads and stores of v with no
-    arithmetic), the plain version's one call on the host's clock around a
+    """Kernel I against its plain version on the card (wind_seq_plain, the
+    scan: the same IEEE-rounded operations in the same order) on wind_lists
+    in float32 and float64, in each form that takes the shape: bit for bit,
+    finite, the velocities kicked; the level walk in plain PyTorch
+    (wind_seq_levels_plain) bit for bit the scan too; a form that cannot take
+    the shape raises. Timing (on the card), float32 and float64: each form by
+    CUDA events, its latency floor (the same levels in the floor build,
+    FLOOR_DEFINES: the loads and stores of v and the barriers, no
+    arithmetic), the plain scan's one call on the host's clock around a
     synchronize, and the bound. Returns (checks, timing)."""
     from admm_elastic_tpu_torch.ops import _build, cuda_wind
 
@@ -4085,11 +4142,10 @@ def kernel_i_checks(torch, gpu):
     on_card = DEVICE == "cuda"
     optin = _build.library().admm_smem_optin() if on_card else 232448
     floor = floor_library() if on_card else None
-    for nx in WIND_SHEETS:
-        for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
-            tris, d, x, v = wind_inputs(torch, nx, dtype)
-            w, n = tris.shape[0], x.shape[0]
-            label = f"wind_seq@{w}"
+    for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        for label, tris, d, x, v in wind_lists(torch, dtype):
+            sched = cuda_wind.bake_schedule(tris, tris.device)
+            w, n, item = tris.shape[0], x.shape[0], x.element_size()
             t0 = time.perf_counter()
             want = cuda_wind.wind_seq_plain(tris, d, WIND_ALPHA, WIND_DT, x, v)
             if on_card:
@@ -4097,44 +4153,54 @@ def kernel_i_checks(torch, gpu):
             plain_ms = (time.perf_counter() - t0) * 1e3
             need(bool(torch.isfinite(want).all()) and not bool(torch.equal(want, v)),
                  f"{label} {dname}: the plain version kicked nothing")
-            chosen = cuda_wind.i_form(n, x.element_size(), optin)
+            walked = cuda_wind.wind_seq_levels_plain(sched, tris, d, WIND_ALPHA, WIND_DT, x, v)
+            levels_bitwise = bool(torch.equal(walked, want))
+            need(levels_bitwise or not on_card, f"{label} {dname}: the plain level walk is "
+                 f"{float((walked - want).abs().max()):.3e} off the scan")
+            chosen = cuda_wind.i_form(n, w, item, optin)
             forms = {}
             for form in cuda_wind.FORMS:
-                if form == "shared" and chosen != "shared":
+                call = functools.partial(cuda_wind.wind_seq, tris, d, WIND_ALPHA, WIND_DT, x, v,
+                                         sched, form=form)
+                try:
+                    cuda_wind.i_form(n, w, item, optin, form)
+                except ValueError:
                     if on_card:  # the plain version takes no form
                         try:
-                            cuda_wind.wind_seq(tris, d, WIND_ALPHA, WIND_DT, x, v, form=form)
+                            call()
                         except ValueError:
                             continue
-                        raise SmokeFailure(f"{label} {dname}: the SHARED form took {n} vertices")
+                        raise SmokeFailure(f"{label} {dname}: the {form} form took the shape")
                     continue
-                got = cuda_wind.wind_seq(tris, d, WIND_ALPHA, WIND_DT, x, v, form=form)
+                got = call()
                 need(bool(torch.equal(got, want)),
                      f"{label} {dname} {form}: kernel I is "
                      f"{float((got - want).abs().max()):.3e} off its plain version")
                 entry = dict(bitwise=True)
-                if on_card and dname == "f32":
-                    entry["ms"] = events_ms(torch, lambda form=form: cuda_wind.wind_seq(
-                        tris, d, WIND_ALPHA, WIND_DT, x, v, form=form), 3)
-                    entry["floor_ms"] = events_ms(torch, lambda form=form: cuda_wind.wind_seq(
-                        tris, d, WIND_ALPHA, WIND_DT, x, v, form=form, lib=floor), 3)
-                forms[form] = entry
-            checks[f"{label} {dname}"] = dict(triangles=w, vertices=n, form=chosen,
-                                              forms=sorted(forms), max_abs_err=0.0)
-            if dname == "f32":
-                nbytes, ops = wind_bytes_ops(w, n, x.element_size())
-                bound_ms, bound_by = bound_of(nbytes, ops)
-                timing[label] = dict(triangles=w, vertices=n, form=chosen, forms=forms,
-                                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                     bytes=nbytes, operations=ops, library_ms=None)
                 if on_card:
-                    log(f"time {label}: " + ", ".join(
-                        f"{f} {e['ms'] * 1e3:.1f} us (floor {e['floor_ms'] * 1e3:.1f} us)"
-                        for f, e in forms.items())
-                        + f"; plain {plain_ms:.1f} ms (one call); bound {bound_ms * 1e3:.3f} us "
-                        f"by {bound_by} [{gpu}]")
-            log(f"{label} {dname}: kernel I bit for bit its plain version in "
-                f"{sorted(forms)} ({n} vertices, chosen {chosen})")
+                    got = queued_us(torch, [("ms", call), ("floor_ms", functools.partial(
+                        call, lib=floor))] * 2, 3)
+                    entry.update({k: us * 1e-3 for k, us in got.items()})
+                forms[form] = entry
+            checks[f"{label} {dname}"] = dict(
+                triangles=w, vertices=n, levels=sched.n_levels, widest=sched.widest,
+                form=chosen, forms=sorted(forms), max_abs_err=0.0,
+                levels_plain_bitwise=levels_bitwise)
+            nbytes, ops = wind_bytes_ops(w, n, item)
+            bound_ms, bound_by = bound_of(nbytes, ops)
+            timing[f"{label} {dname}"] = dict(
+                triangles=w, vertices=n, levels=sched.n_levels, widest=sched.widest,
+                form=chosen, forms=forms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, operations=ops, library_ms=None)
+            if on_card:
+                log(f"time {label} {dname}: " + ", ".join(
+                    f"{f} {e['ms'] * 1e3:.1f} us (floor {e['floor_ms'] * 1e3:.1f} us)"
+                    for f, e in forms.items())
+                    + f"; plain {plain_ms:.1f} ms (one call); bound {bound_ms * 1e3:.3f} us "
+                    f"by {bound_by}; {sched.n_levels} levels of at most {sched.widest} [{gpu}]")
+            log(f"{label} {dname}: kernel I bit for bit its plain version in {sorted(forms)} "
+                f"({w} triangles, {n} vertices, {sched.n_levels} levels, chosen {chosen}); the "
+                f"plain level walk {'bit for bit' if levels_bitwise else 'NOT bitwise'} the scan")
     return checks, timing
 
 
@@ -4486,8 +4552,8 @@ def wind_form_turns(torch, gpu):
     chosen = make_cloth_solver(WIND_SEQ_PATH)[0]
     chosen.run(0)
     i_form = cuda_wind.i_form
-    cuda_wind.i_form = lambda n, itemsize, optin, want=None: i_form(n, itemsize, optin,
-                                                                    want or "global")
+    cuda_wind.i_form = lambda n, w, itemsize, optin, want=None: i_form(n, w, itemsize, optin,
+                                                                       want or "global")
     try:
         held = make_cloth_solver(WIND_SEQ_PATH)[0]
         held.run(0)  # the capture: no replay calls the wrapper again
@@ -5473,7 +5539,10 @@ def main():
     # entry carries the path's launches (the kernel's device counter) and
     # beside them profiler_launches, the records torch.profiler kept of them.
     i_entries = []
-    for label, t in i_timing.items():
+    for key, t in i_timing.items():
+        label, dname = key.rsplit(" ", 1)
+        if dname != "f32" or label not in WIND_SHEET_LABELS:
+            continue
         for form, f in t["forms"].items():
             main = form == t["form"] and t["triangles"] == WIND_SEQ_TRIANGLES
             i_entries.append(dict(
@@ -5484,7 +5553,8 @@ def main():
                                    if main else 0),
                 wrapper_calls=(paths[WIND_SEQ_PATH]["wrapper_calls"].get("wind_seq", 0)
                                if main else 0),
-                max_abs_err=checks["wind_seq"][f"{label} f32"]["max_abs_err"], ms=f["ms"],
+                levels=t["levels"], widest=t["widest"],
+                max_abs_err=checks["wind_seq"][key]["max_abs_err"], ms=f["ms"],
                 floor_ms=f["floor_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"], library_ms=None))
     i_entries.sort(key=lambda e: not e["main"])

@@ -113,10 +113,10 @@ def _beam(aa, iters, dtype=np.float64, dims=(10, 3, 3)):
 
 def test_aa_wins_on_elastic_scene():
     """tests/test_anderson.py:53-91 on the port: at 10 ADMM iterations
-    aa_window=4 is below half the plain error against the converged step (300
-    iterations here, 600 there: both past the ~100 where the two variants
-    reach the ADMM noise floor, admm_elastic_tpu/config.py:86-99)."""
-    ref = _beam(0, 300)
+    aa_window=4 is below half the plain error against the converged step (600
+    iterations, as there: past the ~100 where the two variants reach the ADMM
+    noise floor, admm_elastic_tpu/config.py:86-99)."""
+    ref = _beam(0, 600)
     ref.step()
     errs = {}
     for aa in (0, 4):

@@ -7,12 +7,14 @@ profiled step. This file imports no JAX:
 Without a card every test here skips (chip_smoke.py runs the same checks at
 the paths' shapes). On the card:
 
-- kernel I against its plain version (ops/cuda_wind.wind_seq_plain, on the
-  card: the same IEEE-rounded operations in the same order; PyTorch's CPU
-  square root is not IEEE-rounded on every host) at 3,200 and 51,200
-  triangles (the 40x40 and 160x160 sheets), float32 and float64, in each form
-  that takes the shape: bit for bit; the SHARED form where v does not fit
-  raises;
+- kernel I against its plain version (ops/cuda_wind.wind_seq_plain, the
+  scan, on the card: the same IEEE-rounded operations in the same order;
+  PyTorch's CPU square root is not IEEE-rounded on every host) on
+  chip_smoke.wind_lists (3,200 and 51,200 triangles: the 40x40 and 160x160
+  sheets; the 160x160 sheet shuffled, its levels wider than a block; a fan;
+  repeated vertices), float32 and float64, in each form that takes the
+  shape: bit for bit, as the plain level walk (wind_seq_levels_plain); a form
+  that cannot take the shape raises;
 - the Anderson-accelerated step (aa_window=4) and the sequential wind through
   the captured graph against the eager loop from one state (bitwise, or
   within chip_smoke.GRAPH_EAGER_TOL), two graph rollouts bitwise equal; the
@@ -46,35 +48,38 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def wind_inputs(nx, dtype, device):
-    """The nx x nx sheet's triangles, positions jittered and small velocities
-    (seeded), as kernel I takes them."""
-    verts, tris, _, _ = chip_smoke.cloth_sheet(nx, nx)
-    rng = np.random.default_rng(nx)
-    x = verts + 0.05 * rng.standard_normal(verts.shape)
-    v = 0.01 * rng.standard_normal(verts.shape)
-    t = dict(dtype=dtype, device=device)
-    return (torch.as_tensor(tris, device=device), torch.tensor([0.05, 0.1, 0.02], **t),
-            torch.as_tensor(x, **t), torch.as_tensor(v, **t))
+WIND_LISTS = ("wind_seq@3200", "wind_seq@51200", "wind_seq@51200 shuffled",
+              f"wind_seq fan@{chip_smoke.WIND_FAN}", "wind_seq repeated@34")
 
 
-@pytest.mark.parametrize("nx", [40, 160])
+@pytest.mark.parametrize("name", WIND_LISTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernel_i_matches_its_plain_version(cuda_device, nx, dtype):
-    tris, d, x, v = wind_inputs(nx, dtype, cuda_device)
+def test_kernel_i_matches_its_plain_version(cuda_device, name, dtype):
+    (tris, d, x, v), = [c[1:] for c in chip_smoke.wind_lists(torch, dtype) if c[0] == name]
+    sched = cuda_wind.bake_schedule(tris, tris.device)
     want = cuda_wind.wind_seq_plain(tris, d, 1000.0, 1.0 / 24.0, x, v)
-    fits = x.shape[0] * 3 * x.element_size() <= _build.library().admm_smem_optin()
-    before = cuda_wind.wind_seq.launches
+    walked = cuda_wind.wind_seq_levels_plain(sched, tris, d, 1000.0, 1.0 / 24.0, x, v)
+    assert torch.equal(walked, want), (walked - want).abs().max()
+    optin = _build.library().admm_smem_optin()
+    n, w, item = x.shape[0], tris.shape[0], x.element_size()
+    before, ran = cuda_wind.wind_seq.launches, []
     for form in cuda_wind.FORMS:
-        if form == "shared" and not fits:
+        try:
+            cuda_wind.i_form(n, w, item, optin, form)
+        except ValueError:
             with pytest.raises(ValueError, match="does not fit"):
-                cuda_wind.wind_seq(tris, d, 1000.0, 1.0 / 24.0, x, v, form=form)
+                cuda_wind.wind_seq(tris, d, 1000.0, 1.0 / 24.0, x, v, sched, form=form)
             continue
-        got = cuda_wind.wind_seq(tris, d, 1000.0, 1.0 / 24.0, x, v, form=form)
+        got = cuda_wind.wind_seq(tris, d, 1000.0, 1.0 / 24.0, x, v, sched, form=form)
+        ran.append(form)
         torch.cuda.synchronize()
         assert torch.isfinite(got).all() and not torch.equal(got, v)
         assert torch.equal(got, want), (form, (got - want).abs().max())
-    assert cuda_wind.wind_seq.launches - before == (2 if fits else 1)
+    fits = cuda_wind.i_form(n, w, item, optin) == "shared"
+    assert ran == (["shared", "global"] if fits else ["global"])
+    assert cuda_wind.wind_seq.launches - before == len(ran)
+    with pytest.raises(ValueError, match="no level schedule"):
+        cuda_wind.wind_seq(tris, d, 1000.0, 1.0 / 24.0, x, v)
 
 
 def _small_sheet(device, sequential=False, aa_window=0):

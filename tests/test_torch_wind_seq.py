@@ -91,16 +91,34 @@ def test_convert_carries_the_flag():
     assert not convert.wind_force_from_numpy(d, device="cpu", dtype=torch.float64).sequential
 
 
-@pytest.mark.parametrize("n, itemsize, want", [
-    (1681, 4, "shared"), (1681, 8, "shared"), (25921, 4, "global"), (25921, 8, "global"),
-    (19370, 4, "shared"), (19371, 4, "global"), (9685, 8, "shared"), (9686, 8, "global")])
-def test_kernel_i_form(n, itemsize, want):
-    """SHARED where v ([n, 3]) fits the 232,448 bytes an H100 block may take."""
-    assert cuda_wind.i_form(n, itemsize, 232448) == want
-    if want == "global":
+@pytest.mark.parametrize("n, w, itemsize, want", [
+    (1681, 3200, 4, "shared"), (1681, 3200, 8, "shared"),  # cloth_wind40_seq
+    (25921, 51200, 4, "global"), (25921, 51200, 8, "global"),  # the 160x160 sheet
+    (19366, 2, 4, "shared"), (19367, 2, 4, "global"),  # 232,448 bytes staged, one vertex more
+    (9678, 4, 8, "shared"), (9679, 4, 8, "global"),
+    (1, 8301, 4, "shared"), (1, 8302, 4, "global"),  # ... one triangle more
+    (1, 5282, 8, "shared"), (1, 5283, 8, "global"),
+    (0, 0, 4, "shared")])
+def test_kernel_i_form(n, w, itemsize, want):
+    """SHARED where v, the geometry and the ids fit the 232,448 bytes an H100
+    block may take; else GLOBAL. The walkers: the widest level in warps, one
+    warp to the block's 512 threads."""
+    optin = 232448
+    assert cuda_wind.i_form(n, w, itemsize, optin) == want
+    fits = cuda_wind.staged_bytes(n, w, itemsize) <= optin
+    assert fits == (want == "shared")
+    assert cuda_wind.staged_bytes(n, w, itemsize) == (3 * n + 4 * w) * itemsize + 12 * w
+    if not fits:
         with pytest.raises(ValueError, match="does not fit"):
-            cuda_wind.i_form(n, itemsize, 232448, want="shared")
-    assert cuda_wind.i_form(n, itemsize, 232448, want="global") == "global"
+            cuda_wind.i_form(n, w, itemsize, optin, want="shared")
+    else:
+        assert cuda_wind.i_form(n, w, itemsize, optin, want="shared") == "shared"
+    assert cuda_wind.i_form(n, w, itemsize, optin, want="global") == "global"
+    for widest, walkers in ((0, 32), (1, 32), (20, 32), (33, 64), (80, 96), (512, 512),
+                            (3963, 512)):
+        assert cuda_wind.walkers(widest) == walkers
+    with pytest.raises(ValueError, match="expected one of"):
+        cuda_wind.i_form(n, w, itemsize, optin, want="pool")
 
 
 @pytest.fixture(scope="module")
