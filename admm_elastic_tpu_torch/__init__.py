@@ -6,8 +6,9 @@ jax. It runs the prefactored direct path (``linsolver=0`` with
 ``direct_mode`` "inv" or "cho"), PCG (``linsolver=3``, Jacobi or
 two-grid; also ``linsolver=0`` above ``direct_max_verts``), and contact with
 the obstacles ``Floor``, ``Sphere``, ``PassiveMeshSDF`` and
-``PassiveMeshExact`` through multicolour Gauss-Seidel (``linsolver=1``),
-Uzawa (``2``) and AL-PCG (``4``), float32 or float64, for tet meshes of any
+``PassiveMeshExact`` and self-collision (``collision/dynamic``: a collider
+for each tet mesh without NOSELFCOLLISION) through multicolour Gauss-Seidel
+(``linsolver=1``), Uzawa (``2``) and AL-PCG (``4``), float32 or float64, for tet meshes of any
 of the six tet models (make_tet_blocks lattices and make_tet_torus rings as a
 flat stencil, any other mesh, such as one from ``geometry/io.load_elenode``,
 by gather) and for triangle (cloth) meshes with strain limits and wind
@@ -16,8 +17,10 @@ by gather) and for triangle (cloth) meshes with strain limits and wind
 ``verbose >= 2``) and checkpoints (``utils/checkpoint.py``), on
 ``device="cuda"`` (the default: hand-written Hopper kernels in ``csrc/`` for
 D x, the local steps, the rhs, the element-level prox, the whole PCG solve
-(also with AL-PCG's penalty), the whole Gauss-Seidel solve, a mesh
-obstacle's detection and the sequential wind, and each timestep replayed as
+(also with AL-PCG's penalty and the self-collision rows), the whole
+Gauss-Seidel solve (also with the self-collision rows), a mesh obstacle's
+detection, a collider's detection, the self-collision rows' sums and the
+sequential wind, and each timestep replayed as
 one captured CUDA graph) or ``device="cpu"`` (the kernels' plain PyTorch
 versions, stepped eagerly). Everything else raises NotImplementedError
 naming the ROADMAP item that ports it.

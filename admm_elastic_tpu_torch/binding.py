@@ -6,14 +6,18 @@ validation, node append, tet energy family by flag (linear, neo-Hookean, StVK,
 Xu spline). A tet mesh with ``lattice_dims`` (make_tet_blocks) runs as a flat
 stencil; any other (a mesh from ``geometry/io.load_elenode``, or a lattice
 whose ``lattice_dims`` is None) runs as a gather family, as does a triangle
-mesh that is no regular sheet (``system/elements.py``). Self-collision is not
-ported yet, so a tet mesh must carry NOSELFCOLLISION.
+mesh that is no regular sheet (``system/elements.py``). A tet mesh without
+NOSELFCOLLISION registers its self-collision collider
+(``collision/dynamic.make_tet_mesh_collider``) and appends its surface
+vertices to the query set, as the reference turns self-collision on for every
+mesh that does not opt out (AddMeshes.hpp:125-137).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from admm_elastic_tpu_torch.collision.dynamic import make_tet_mesh_collider
 from admm_elastic_tpu_torch.geometry.mesh import TetMesh, TriangleMesh
 from admm_elastic_tpu_torch.materials import Lame
 from admm_elastic_tpu_torch.solver import Solver
@@ -38,10 +42,6 @@ RUBBER_DENSITY = 1522.0  # kg/m^3 (AddMeshes.hpp:105)
 def add_tetmesh(solver: Solver, mesh: TetMesh, lame: Lame | None = None, verbose: bool = True,
                 density: float = RUBBER_DENSITY):
     """Append a tet mesh to the solver; returns its vertex offset."""
-    if not (mesh.flags & NOSELFCOLLISION):
-        raise NotImplementedError(
-            "self-collision is not ported yet: set NOSELFCOLLISION in mesh.flags "
-            "(ROADMAP Queue 1 item 10)")
     if lame is None:
         lame = Lame.rubber()
     prev_verts = solver._n_verts
@@ -49,6 +49,12 @@ def add_tetmesh(solver: Solver, mesh: TetMesh, lame: Lame | None = None, verbose
     if np.any(masses <= 0.0):
         raise RuntimeError("TetMesh Error: Zero mass")
     solver.add_nodes(mesh.vertices, masses)
+
+    if not (mesh.flags & NOSELFCOLLISION):
+        solver.add_dynamic_collider(
+            make_tet_mesh_collider(mesh.vertices, mesh.tets, mesh.faces, prev_verts))
+        for i in mesh.surface_inds():
+            solver.surface_inds.append(int(i) + prev_verts)
 
     model = "linear"
     for flag, m in _FLAG_TO_MODEL.items():

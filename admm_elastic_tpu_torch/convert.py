@@ -35,7 +35,9 @@ Sphere's ``center`` and ``rad``, a PassiveMeshSDF's ``vals4``, ``minv``,
 PassiveMeshExact's ``tri_abc``, ``nrm``, ``face_table``, ``face_count``,
 ``tet_count``, ``origin``, ``h`` with ``dims``, ``capture_cells``,
 ``fallback_lanes`` and ``near_lanes`` (the JAX dataclasses' data and meta
-fields; the kind named by ``kind``); ``state_from_numpy`` takes the state's ``y`` and ``prev_active``
+fields; the kind named by ``kind``); ``collider_from_numpy`` a
+TetMeshCollider's ``tets``, ``rest_verts``, ``faces``, ``vert_offset`` and
+``cell_cap``; ``state_from_numpy`` takes the state's ``y`` and ``prev_active``
 where the scene has contact rows (size 0 where they are None).
 """
 
@@ -44,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from admm_elastic_tpu_torch.collision.dynamic import TetMeshCollider
 from admm_elastic_tpu_torch.collision.passive import (Floor, PassiveMeshExact, PassiveMeshSDF,
                                                        Sphere)
 from admm_elastic_tpu_torch.forces import WindForce
@@ -215,6 +218,18 @@ def obstacle_from_numpy(d: dict):
             fallback_lanes=int(d.get("fallback_lanes", 128)),
             near_lanes=int(d.get("near_lanes", 0)))
     raise ValueError(f"obstacle_from_numpy: unknown kind {d['kind']!r}")
+
+
+def collider_from_numpy(d: dict) -> TetMeshCollider:
+    """A self-collision collider from its arrays: the rest vertices in their
+    own float dtype (the solver rounds them to its dtype at initialize), the
+    tets (global) and faces (local) int32."""
+    rest = np.array(d["rest_verts"])
+    return TetMeshCollider(tets=torch.as_tensor(np.array(d["tets"], dtype=np.int32)),
+                           rest_verts=torch.as_tensor(rest),
+                           faces=torch.as_tensor(np.array(d["faces"], dtype=np.int32)),
+                           vert_offset=int(d["vert_offset"]),
+                           cell_cap=int(d.get("cell_cap", 24)))
 
 
 def wind_force_from_numpy(d: dict, *, device, dtype: torch.dtype) -> WindForce:

@@ -1,8 +1,8 @@
 // Kernel H: one nodal-constrained multicolour Gauss-Seidel solve per launch.
 //
 // It has no Pallas original. It replaces the jnp loop of
-// admm_elastic_tpu/solvers/gs.py solve (:147-196) without dynamic rows
-// (may_have_dyn=False): a lax.while_loop of SOR sweeps that stops on a device
+// admm_elastic_tpu/solvers/gs.py solve (:147-196), without dynamic rows
+// (may_have_dyn=False) and, in its DYN form below, with them: a lax.while_loop of SOR sweeps that stops on a device
 // value. The port's timestep is one captured CUDA graph, where the host
 // cannot branch, and as plain PyTorch a sweep would be some 15 launches per
 // colour. The plain version is admm_elastic_tpu_torch/solvers/gs.py solve;
@@ -73,11 +73,27 @@
 // scratch between the phases; the exact walk takes a group of threads a
 // slot (mesh_obstacle). A pass with the analytic obstacles alone is the
 // one-go update_row above, unchanged.
+//
+// DYN: the self-collision rows folded in as a penalty A + C^T C, b + C^T c
+// (the JAX package's may_have_dyn sweeps, admm_elastic_tpu/solvers/gs.py:85-106;
+// the instantiation for a solver with colliders, with the analytic obstacles;
+// with a mesh obstacle the wrapper raises). b is b_eff = b + C^T c and pen the
+// penalty diagonal where(n_active > 0, diag(C^T C), 0), both formed by the
+// wrapper with kernel L as the plain version forms them. Each colour pass
+// first computes the active rows' C x from the x at the pass's start (a thread
+// a row, into global scratch, then a barrier), as the plain colour update takes
+// C^T C x of the x before it (hit-coupled vertices of one colour update
+// Jacobi-style, the JAX package's accepted deviation); then each row of the
+// colour gathers its C^T C x through dyn_rows.cuh (its own row's term, then its
+// face corners in table order), lux = (lux + C^T C x) - pen x and a_ii = diag +
+// pen per component. The residual adds C^T C x of the swept x, its rows
+// computed first.
 
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dyn_rows.cuh"
 #include "obstacle_body.cuh"
 
 // Anatomy builds (tools/g_h_anatomy.py), each with the exit test ignored so
@@ -129,6 +145,11 @@ struct Args {
   // cost floor_gs5k's solve 2 % (tools/h_turns.py, PERF.md)
   int n_mesh;
   int group;  // threads a slot in the exact walk: 0 the rule (group_size), or 1-32
+  // DYN: the dynamic rows and their table, the penalty diagonal [N, 3], and
+  // the rows' C x [H] (scratch)
+  DynRows<T> dyn;
+  const T* pen;
+  T* rd;
 };
 
 // The sum of v over the first kLanes threads in a fixed tree (any others
@@ -226,9 +247,29 @@ __device__ __forceinline__ T signed_distance(const Args<T>& a, int o, const T x[
 }
 
 // The SOR update of colour c's slot i, vertex row: x_gs and x_new.
-template <typename T, bool SH, bool WIDE>
+// DYN: vertex row's C^T C x, the rows' C x in a.rd (dyn_rows.cuh).
+template <typename T>
+__device__ __forceinline__ void ctc_row(const Args<T>& a, int row, T ck, T ctc[3]) {
+  const T* rd = a.rd;
+  const auto y = [rd](int64_t r) { return rd[r]; };
+  dyn_own_ct(a.dyn, row, ck, y, ctc);
+  dyn_corners_ct(a.dyn, row, ck, y, ctc);
+}
+
+// DYN: every active row's C x at x, into a.rd; a barrier follows.
+template <typename T, bool SH, int THREADS>
+__device__ __forceinline__ void rows_phase(const Args<T>& a, const XMem<T, SH>& x, T ck) {
+  const auto load = [&x](int64_t q, T o[3]) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) o[r] = x[q * 3 + r];
+  };
+  for (int r = threadIdx.x; r < a.dyn.h; r += THREADS)
+    if (a.dyn.mask[r]) a.rd[r] = dyn_row_value(a.dyn, r, ck, load);
+}
+
+template <typename T, bool SH, bool WIDE, bool DYN = false>
 __device__ __forceinline__ void sor_row(const Args<T>& a, const XMem<T, SH>& x, int c, int i,
-                                        int row, T one_m, T xg[3], T xn[3]) {
+                                        int row, T one_m, T xg[3], T xn[3], T ck = T(0)) {
   using O = Op<T>;
   // the row's own values first: their loads overlap the sum's
   const T aii = __ldg(a.diag + row);
@@ -246,9 +287,20 @@ __device__ __forceinline__ void sor_row(const Args<T>& a, const XMem<T, SH>& x, 
     const int64_t e0 = (int64_t)row * a.k;
     row_sum<T, true, SH>(a, x, a.ell_cols + e0, a.ell_vals + e0, 1, lux);
   }
+  T aii3[3] = {aii, aii, aii};
+  if constexpr (DYN) {
+    T ctc[3];
+    ctc_row(a, row, ck, ctc);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const T pen = a.pen[row * 3 + r];
+      aii3[r] = O::add(aii, pen);
+      lux[r] = O::sub(O::add(lux[r], ctc[r]), O::mul(pen, xi[r]));
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    xg[r] = O::div(O::sub(bi[r], lux[r]), aii);
+    xg[r] = O::div(O::sub(bi[r], lux[r]), aii3[r]);
     xn[r] = O::add(O::mul(one_m, xi[r]), O::mul(a.omega, xg[r]));
   }
 }
@@ -277,12 +329,12 @@ __device__ __forceinline__ void project(const T xg[3], const T p[3], const T nrm
 
 // One vertex's update of its colour's pass: colour c's slot i, vertex row
 // (the analytic obstacles only).
-template <typename T, bool SH, bool WIDE>
+template <typename T, bool SH, bool WIDE, bool DYN = false>
 __device__ __forceinline__ void update_row(const Args<T>& a, const XMem<T, SH>& x, int c, int i,
-                                           int row, T one_m) {
+                                           int row, T one_m, T ck = T(0)) {
   const bool pinned = __ldg(a.pinned + row);
   T xg[3], xn[3];
-  sor_row<T, SH, WIDE>(a, x, c, i, row, one_m, xg, xn);
+  sor_row<T, SH, WIDE, DYN>(a, x, c, i, row, one_m, xg, xn, ck);
   if (a.n_obs > 0) {
     T p[3], nrm[3];
     T best = signed_distance(a, 0, xn, p, nrm);
@@ -550,9 +602,11 @@ __device__ void mesh_pass(const Args<T>& a, const XMem<T, SH>& x, int c, T one_m
 
 // MESH: the instantiation for an obstacle set with a mesh obstacle (its
 // passes are mesh_pass); without one the kernel is the analytic one-go update,
-// its code untouched by the mesh phases.
-template <typename T, bool SH, bool WIDE, bool MESH>
+// its code untouched by the mesh phases. DYN: the dynamic rows' penalty (with
+// the analytic obstacles; never with MESH).
+template <typename T, bool SH, bool WIDE, bool MESH, bool DYN>
 __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constant__ Args<T> a) {
+  static_assert(!(MESH && DYN), "the DYN form takes the analytic obstacles only");
   constexpr int threads = kThreads<WIDE>;
   using O = Op<T>;
   __shared__ T sm[kLaneWarps + 1];
@@ -575,6 +629,7 @@ __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constan
   const T tol = a.tol < T(64) * O::eps() ? T(64) * O::eps() : a.tol;
   const T tol2 = tol * tol * (bb < O::tiny() ? O::tiny() : bb);
   const T one_m = O::sub(T(1), a.omega);
+  const T ck = DYN ? *a.dyn.ck : T(0);
   int k = 0;
   bool done = false;
   while (!done && k < a.max_iters) {
@@ -583,6 +638,10 @@ __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constan
         mesh_pass<T, SH, WIDE>(a, x, c, one_m, smi);
         __syncthreads();
         continue;
+      }
+      if constexpr (DYN) {
+        rows_phase<T, SH, threads>(a, x, ck);
+        __syncthreads();
       }
       for (int i = tid; kAnatomy != 1 && i < a.width; i += threads) {
         const int row = __ldg(a.groups + (int64_t)c * a.width + i);
@@ -596,7 +655,7 @@ __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constan
             row_sum<T, true, SH>(a, x, a.ell_cols + e0, a.ell_vals + e0, 1, lux);
           if (lux[0] == T(-12345.5)) x.set(row * 3, lux[1]);  // keeps the sum
         } else {
-          update_row<T, SH, WIDE>(a, x, c, i, row, one_m);
+          update_row<T, SH, WIDE, DYN>(a, x, c, i, row, one_m, ck);
         }
       }
       __syncthreads();
@@ -604,6 +663,10 @@ __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constan
     if (kAnatomy != 0 && kAnatomy != 4) {
       ++k;
       continue;
+    }
+    if constexpr (DYN) {
+      rows_phase<T, SH, threads>(a, x, ck);
+      __syncthreads();
     }
     T rr = T(0);  // |b - A x|^2
     for (int i = tid; tid < kLanes && i < n; i += kLanes) {
@@ -617,9 +680,12 @@ __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constan
       else
         row_sum<T, false, SH>(a, x, a.ell_cols + (int64_t)i * a.k, a.ell_vals + (int64_t)i * a.k, 1,
                               lux);
+      T ctc[3] = {T(0), T(0), T(0)};
+      if constexpr (DYN) ctc_row(a, i, ck, ctc);
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
-        const T res = bi[r] - (d * x[i * 3 + r] + lux[r]);
+        const T res = DYN ? bi[r] - ((d * x[i * 3 + r] + lux[r]) + ctc[r])
+                          : bi[r] - (d * x[i * 3 + r] + lux[r]);
         rr += res * res;
       }
     }
@@ -634,31 +700,33 @@ __global__ void __launch_bounds__(kThreads<WIDE>) gs_kernel(const __grid_constan
   if (tid == 0) *a.sweeps += k;
 }
 
-template <typename T, bool WIDE, bool MESH>
+template <typename T, bool WIDE, bool MESH, bool DYN>
 cudaError_t launch_form(const Args<T>& a, bool shared, cudaStream_t s) {
   if (shared) {
     static int granted = 0;  // the dynamic shared memory allowed so far
     const int smem = static_cast<int>(a.n * 3 * sizeof(T));
     if (smem > granted) {
       const cudaError_t rc = cudaFuncSetAttribute(
-          gs_kernel<T, true, WIDE, MESH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          gs_kernel<T, true, WIDE, MESH, DYN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (rc != cudaSuccess) return rc;
       granted = smem;
     }
-    gs_kernel<T, true, WIDE, MESH><<<1, kThreads<WIDE>, smem, s>>>(a);
+    gs_kernel<T, true, WIDE, MESH, DYN><<<1, kThreads<WIDE>, smem, s>>>(a);
   } else {
-    gs_kernel<T, false, WIDE, MESH><<<1, kThreads<WIDE>, 0, s>>>(a);
+    gs_kernel<T, false, WIDE, MESH, DYN><<<1, kThreads<WIDE>, 0, s>>>(a);
   }
   return cudaGetLastError();
 }
 
 // ptrs: ell_cols, ell_vals, ccols, cvals, tcols, tvals, diag, groups, b, x0,
 // x, pinned, pin_target, sweeps, scratch, iscratch, then kMeshPtrs per obstacle
-// (a mesh obstacle's tables, obstacle_body.cuh; 0 for an analytic one); ints:
+// (a mesh obstacle's tables, obstacle_body.cuh; 0 for an analytic one), then
+// DYN's (all null without dynamic rows): mask, vidx, face, barys, normal, ck,
+// order, start, slot (null: the query set is every vertex), pen, rd; ints:
 // n, k, n_colors, width, max_iters, form (bit 0 SHARED, bit 1 WIDE, bits 2-7
 // the exact walk's group: 0 the rule), n_obs,
-// kind[kMaxObstacles], then kMeshInts per obstacle; par: [n_obs, 4] (a mesh
-// obstacle: capture_cells).
+// kind[kMaxObstacles], then kMeshInts per obstacle, then the dynamic rows' H;
+// par: [n_obs, 4] (a mesh obstacle: capture_cells).
 template <typename T>
 int launch(const uint64_t* ptrs, const int* ints, const double* par, double omega, double tol,
            void* stream) {
@@ -705,12 +773,32 @@ int launch(const uint64_t* ptrs, const int* ints, const double* par, double omeg
     return static_cast<int>(cudaErrorInvalidValue);
   if ((a.group & (a.group - 1)) != 0 || a.group > 32)
     return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t* dp = ptrs + 16 + kMaxObstacles * kMeshPtrs;
+  a.dyn.mask = reinterpret_cast<const unsigned char*>(dp[0]);
+  a.dyn.vidx = reinterpret_cast<const int64_t*>(dp[1]);
+  a.dyn.face = reinterpret_cast<const int64_t*>(dp[2]);
+  a.dyn.barys = reinterpret_cast<const T*>(dp[3]);
+  a.dyn.normal = reinterpret_cast<const T*>(dp[4]);
+  a.dyn.ck = reinterpret_cast<const T*>(dp[5]);
+  a.dyn.order = reinterpret_cast<const int64_t*>(dp[6]);
+  a.dyn.start = reinterpret_cast<const int64_t*>(dp[7]);
+  a.dyn.slot = reinterpret_cast<const int*>(dp[8]);
+  a.pen = reinterpret_cast<const T*>(dp[9]);
+  a.rd = reinterpret_cast<T*>(dp[10]);
+  a.dyn.h = ints[7 + kMaxObstacles + kMaxObstacles * kMeshInts];
+  const bool dyn = a.dyn.mask != nullptr;
+  if (dyn && (a.n_mesh > 0 || a.pen == nullptr || a.rd == nullptr || a.dyn.ck == nullptr ||
+              a.dyn.order == nullptr || a.dyn.start == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.n_mesh > 0)
-    return static_cast<int>(wide ? launch_form<T, true, true>(a, shared, s)
-                                 : launch_form<T, false, true>(a, shared, s));
-  return static_cast<int>(wide ? launch_form<T, true, false>(a, shared, s)
-                               : launch_form<T, false, false>(a, shared, s));
+    return static_cast<int>(wide ? launch_form<T, true, true, false>(a, shared, s)
+                                 : launch_form<T, false, true, false>(a, shared, s));
+  if (dyn)
+    return static_cast<int>(wide ? launch_form<T, true, false, true>(a, shared, s)
+                                 : launch_form<T, false, false, true>(a, shared, s));
+  return static_cast<int>(wide ? launch_form<T, true, false, false>(a, shared, s)
+                               : launch_form<T, false, false, false>(a, shared, s));
 }
 
 }  // namespace

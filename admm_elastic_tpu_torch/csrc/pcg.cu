@@ -98,6 +98,18 @@
 // is the other instantiation, unchanged. Its plain twin is
 // admm_elastic_tpu_torch/solvers/alcg.py penalty_solve.
 //
+// DYN, the penalty form with the self-collision rows (AL-PCG with colliders,
+// the JAX package's pcg.solve on A + C^T C, alcg.py:105-107): the dynamic
+// rows couple a vertex to its face's three, so C^T C is not block-diagonal.
+// Each apply is then two phases: the active rows' C v (a thread a row,
+// dyn_rows.cuh, v read through the banded order's inverse permutation, into
+// global scratch RD), a barrier, and the apply above with each vertex's C^T RD
+// added (its own row's term, then its face corners in table order, as kernel
+// L sums them). The Jacobi inverse 1 / (diag + diag(C^T C)) comes from the
+// wrapper, the dynamic rows' terms included. Jacobi only: the wrapper raises
+// for the two-grid preconditioner. Its plain twin is
+// admm_elastic_tpu_torch/solvers/alcg.py penalty_solve_dyn.
+//
 // done (null, or a flag on the device): where it is set when the kernel
 // starts, the solve takes no trip and returns x0. Uzawa's Schur trips, all
 // in the captured step and predicated on that flag, skip their inner solve
@@ -108,6 +120,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dyn_rows.cuh"
 #include "grid_sync.cuh"
 
 // Anatomy builds (tools/g_h_anatomy.py): with ADMM_G_ANATOMY=1 the phases do
@@ -175,6 +188,12 @@ struct Args {
   int shift;               // CLUSTER: log2 of the vertices (threads) of a block
   T tol, omega;
   int offs[kMaxBands];
+  // DYN, after the other forms' fields: the dynamic rows and their table
+  // (vertex order), each vertex's banded index (null without a permutation),
+  // the rows' C v [H]
+  DynRows<T> dyn;
+  const int64_t* iperm;
+  T* RD;
 };
 
 // Where the solve's vectors and partial sums live, and how a thread reaches
@@ -375,11 +394,22 @@ struct Z2Vec {
   }
 };
 
+// DYN: every active row's C v into RD (v indexed in the banded order); the
+// caller's barrier follows.
+template <typename T, typename V>
+__device__ __forceinline__ void dyn_rows(const Args<T>& a, const V& v) {
+  const T ck = __ldg(a.dyn.ck);
+  const int64_t* ip = a.iperm;
+  const auto load = [&v, ip](int64_t q, T o[3]) { v.load3(static_cast<int>(ip ? ip[q] : q), o); };
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < a.dyn.h; r += gridDim.x * blockDim.x)
+    if (a.dyn.mask[r]) a.RD[r] = dyn_row_value(a.dyn, r, ck, load);
+}
+
 // (A v)[j] for one vertex of the banded order: diag, bands, rest-ELL; with
-// PEN, + pn_j (pn_j . v_j). The bands' loads are issued kNb at a time, before
-// their sums, which stay in band order; the rest-ELL's in the parent's loop,
-// in column order.
-template <typename T, bool PEN, typename V>
+// PEN, + pn_j (pn_j . v_j); with DYN, + the dynamic rows' C^T of RD. The bands'
+// loads are issued kNb at a time, before their sums, which stay in band order;
+// the rest-ELL's in the parent's loop, in column order.
+template <typename T, bool PEN, typename V, bool DYN = false>
 __device__ __forceinline__ void spmv(const Args<T>& a, const V& v, int j, T out[3]) {
   const int n = a.n;
   T acc0 = T(0), acc1 = T(0), acc2 = T(0);
@@ -434,6 +464,18 @@ __device__ __forceinline__ void spmv(const Args<T>& a, const V& v, int j, T out[
     out[0] += p0 * cx;
     out[1] += p1 * cx;
     out[2] += p2 * cx;
+  }
+  if constexpr (DYN) {  // + C^T (C v) of the dynamic rows, RD from the phase before
+    const int64_t vo = a.perm ? a.perm[j] : j;
+    const T ck = __ldg(a.dyn.ck);
+    const T* rd = a.RD;
+    const auto y = [rd](int64_t r) { return __ldcg(rd + r); };
+    T acc[3];
+    dyn_own_ct(a.dyn, vo, ck, y, acc);
+    dyn_corners_ct(a.dyn, vo, ck, y, acc);
+    out[0] += acc[0];
+    out[1] += acc[1];
+    out[2] += acc[2];
   }
 }
 
@@ -563,9 +605,10 @@ __device__ void two_grid(const Args<T>& a, const Mem<T, CL>& m, T* sm) {
 }
 
 // GRID: two blocks an SM, so that the resident grid reaches 264 chunks
-template <typename T, bool PEN, bool CL>
+template <typename T, bool PEN, bool CL, bool DYN>
 __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
     pcg_kernel(const __grid_constant__ Args<T> a) {
+  static_assert(PEN || !DYN, "DYN is a penalty form");
   __shared__ T sm[kMaxWarps * 3];
   __shared__ T smt[kGroupWarps * 3];
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -610,6 +653,13 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
     }
     phase_sync<CL>(a.bar);
   }
+  if constexpr (DYN) {  // the rows' C x0
+    if (a.perm)
+      dyn_rows(a, Vx<T, CL>{m, X});
+    else
+      dyn_rows(a, In<T>{a.x0});
+    phase_sync<CL>(a.bar);
+  }
   {
     const int slots[3] = {S_BB, S_RZ, S_RR};
     FOR_CHUNKS(c, j) {  // r = b - A x; z = M^-1 r (Jacobi)
@@ -618,9 +668,9 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
         const int64_t src = a.perm ? a.perm[j] : j;
         T ax[3], id[3];
         if (a.perm) {
-          spmv<T, PEN>(a, Vx<T, CL>{m, X}, j, ax);
+          spmv<T, PEN, Vx<T, CL>, DYN>(a, Vx<T, CL>{m, X}, j, ax);
         } else {
-          spmv<T, PEN>(a, In<T>{a.x0}, j, ax);
+          spmv<T, PEN, In<T>, DYN>(a, In<T>{a.x0}, j, ax);
 #pragma unroll
           for (int r = 0; r < 3; ++r) m.st(X, j, r, a.x0[j * 3 + r]);
         }
@@ -665,11 +715,15 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
     {
       const int slots[1] = {S_PAP};
       const PVec<T, CL> pv{m, zfin, p_old, beta, k == 0};
+      if constexpr (DYN) {  // the rows' C p
+        dyn_rows(a, pv);
+        phase_sync<CL>(a.bar);
+      }
       FOR_CHUNKS(c, j) {  // p = z + beta p; Ap = A p
         T v[1] = {T(0)};
         if (kRows && j < n) {
           T ap[3], pj[3];
-          spmv<T, PEN>(a, pv, j, ap);
+          spmv<T, PEN, PVec<T, CL>, DYN>(a, pv, j, ap);
           pv.load3(j, pj);
 #pragma unroll
           for (int r = 0; r < 3; ++r) {
@@ -745,7 +799,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
 
 // The resident grid of the GRID form: as many blocks as can be resident at
 // once.
-template <typename T, bool PEN>
+template <typename T, bool PEN, bool DYN>
 int resident_blocks(int* resident) {
   static int cached = 0;  // per precision and form, for the current device
   if (cached == 0) {
@@ -753,7 +807,7 @@ int resident_blocks(int* resident) {
     cudaError_t rc = cudaGetDevice(&dev);
     if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_kernel<T, PEN, false>,
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_kernel<T, PEN, false, DYN>,
                                                          kGroup, 0);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -813,24 +867,26 @@ int cluster_smem(int shift) {
   return static_cast<int>((((size_t)kVecs << shift) * 3 + kSlots * (1 << (shift - 8))) * sizeof(T));
 }
 
-template <typename T, bool PEN>
+template <typename T, bool PEN, bool DYN>
 cudaError_t launch_cluster(const Args<T>& a, int cluster, cudaStream_t stream) {
   static int granted = -1;  // per precision and form
   const int smem = cluster_smem<T>(a.shift);
-  cudaError_t rc = allow_cluster(pcg_kernel<T, PEN, true>, smem, &granted);
+  cudaError_t rc = allow_cluster(pcg_kernel<T, PEN, true, DYN>, smem, &granted);
   if (rc != cudaSuccess) return rc;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(cluster, 1 << a.shift, smem, stream, &attr);
-  return cudaLaunchKernelEx(&cfg, pcg_kernel<T, PEN, true>, a);
+  return cudaLaunchKernelEx(&cfg, pcg_kernel<T, PEN, true, DYN>, a);
 }
 
 // ptrs: b, x0, x_out, perm, diag, inv_d, bands, rest_cols, rest_vals, agg,
 // agg_gather, coarse_inv, X, R, P, Z, AP, Z2, RES, P2, RC, EC, parts, bar,
 // trips, pn, inv3, done (null where absent; pn and inv3 both or neither: the
-// penalty form); ints: n, k_rest, n_bands, circular, k_agg, n_coarse,
+// penalty form), then the DYN form's (null without dynamic rows): mask, vidx,
+// face, barys, normal, ck, order, start, slot (null: the query set is every
+// vertex), iperm (null: no permutation), RD; ints: n, k_rest, n_bands, circular, k_agg, n_coarse,
 // max_iters, grid cap (GRID, 0: the resident grid; tools/g_h_anatomy.py),
 // form (0 GRID, 1 CLUSTER), cluster blocks, log2 of a cluster block's
-// threads; offs: the band offsets.
+// threads, the dynamic rows' H; offs: the band offsets.
 template <typename T>
 int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, double omega,
            void* stream) {
@@ -858,6 +914,23 @@ int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, d
   a.inv3 = reinterpret_cast<const T*>(ptrs[26]);
   a.done = reinterpret_cast<const unsigned char*>(ptrs[27]);
   if ((a.pn == nullptr) != (a.inv3 == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  a.dyn.mask = reinterpret_cast<const unsigned char*>(ptrs[28]);
+  a.dyn.vidx = reinterpret_cast<const int64_t*>(ptrs[29]);
+  a.dyn.face = reinterpret_cast<const int64_t*>(ptrs[30]);
+  a.dyn.barys = reinterpret_cast<const T*>(ptrs[31]);
+  a.dyn.normal = reinterpret_cast<const T*>(ptrs[32]);
+  a.dyn.ck = reinterpret_cast<const T*>(ptrs[33]);
+  a.dyn.order = reinterpret_cast<const int64_t*>(ptrs[34]);
+  a.dyn.start = reinterpret_cast<const int64_t*>(ptrs[35]);
+  a.dyn.slot = reinterpret_cast<const int*>(ptrs[36]);
+  a.iperm = reinterpret_cast<const int64_t*>(ptrs[37]);
+  a.RD = reinterpret_cast<T*>(ptrs[38]);
+  a.dyn.h = ints[11];
+  const bool dyn = a.dyn.mask != nullptr;
+  if (dyn && (a.pn == nullptr || a.agg != nullptr || a.RD == nullptr || a.dyn.ck == nullptr ||
+              a.dyn.order == nullptr || a.dyn.start == nullptr ||
+              (a.perm != nullptr) != (a.iperm != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.n = ints[0];
   a.k_rest = ints[1];
   a.n_bands = ints[2];
@@ -880,18 +953,22 @@ int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, d
     if (a.shift < 8 || (1 << a.shift) > kClusterThreads || cluster < 1 ||
         cluster > kMaxCluster || ((int64_t)cluster << a.shift) < a.n)
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(pen ? launch_cluster<T, true>(a, cluster, s)
-                                : launch_cluster<T, false>(a, cluster, s));
+    return static_cast<int>(dyn ? launch_cluster<T, true, true>(a, cluster, s)
+                            : pen ? launch_cluster<T, true, false>(a, cluster, s)
+                                  : launch_cluster<T, false, false>(a, cluster, s));
   }
   a.shift = 0;
   int grid = 0;
-  const int rc = pen ? resident_blocks<T, true>(&grid) : resident_blocks<T, false>(&grid);
+  const int rc = dyn   ? resident_blocks<T, true, true>(&grid)
+                 : pen ? resident_blocks<T, true, false>(&grid)
+                       : resident_blocks<T, false, false>(&grid);
   if (rc != 0) return rc;
   if (a.n_chunks < grid) grid = a.n_chunks;
   if (cap > 0 && cap < grid) grid = cap;  // a smaller grid (tools/g_h_anatomy.py)
   void* params[] = {&a};
-  void* fn = pen ? reinterpret_cast<void*>(pcg_kernel<T, true, false>)
-                 : reinterpret_cast<void*>(pcg_kernel<T, false, false>);
+  void* fn = dyn   ? reinterpret_cast<void*>(pcg_kernel<T, true, false, true>)
+             : pen ? reinterpret_cast<void*>(pcg_kernel<T, true, false, false>)
+                   : reinterpret_cast<void*>(pcg_kernel<T, false, false, false>);
   return static_cast<int>(cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kGroup), params, 0, s));
 }
 
@@ -948,7 +1025,7 @@ extern "C" int admm_cluster_capacity(int cluster, int threads, int smem) {
 template <typename T>
 int grid_of(int n) {
   int grid = 0;
-  if (resident_blocks<T, false>(&grid) != 0) return 0;
+  if (resident_blocks<T, false, false>(&grid) != 0) return 0;
   const int chunks = (n + kGroup - 1) / kGroup;
   return chunks < grid ? chunks : grid;
 }

@@ -1,7 +1,7 @@
 """Host tet and triangle mesh containers and mesh utilities (numpy).
 
 A copy of the tet and triangle parts of ``admm_elastic_tpu.geometry.mesh``:
-surface faces, volumes, areas and lumped masses.
+surface faces and vertices, volumes, areas and lumped masses.
 """
 
 from __future__ import annotations
@@ -27,6 +27,11 @@ def surface_faces_from_tets(tets: np.ndarray) -> np.ndarray:
     key = np.sort(f, axis=1)
     _, inv, counts = np.unique(key, axis=0, return_inverse=True, return_counts=True)
     return f[counts[inv] == 1]
+
+
+def surface_vertex_indices(tets: np.ndarray) -> np.ndarray:
+    """Vertices on the boundary (mcl::TetMesh::surface_inds)."""
+    return np.unique(surface_faces_from_tets(tets))
 
 
 def tet_volumes(verts: np.ndarray, tets: np.ndarray) -> np.ndarray:

@@ -33,10 +33,10 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _PRECISIONS = (("f32", "float"), ("f64", "double"))
-# (source, precision suffix or None): stencil.cu, pcg.cu, gs.cu, wind_seq.cu and
-# obstacle.cu hold both precisions themselves.
+# (source, precision suffix or None): stencil.cu, pcg.cu, gs.cu, wind_seq.cu,
+# obstacle.cu and self_collision.cu hold both precisions themselves.
 UNITS = tuple([("stencil.cu", None), ("pcg.cu", None), ("gs.cu", None), ("wind_seq.cu", None),
-               ("obstacle.cu", None)]
+               ("obstacle.cu", None), ("self_collision.cu", None)]
               + [(src, sfx) for src in ("local_step.cu", "prox.cu", "tri_local_step.cu")
                  for sfx, _ in _PRECISIONS])
 
@@ -74,6 +74,9 @@ _SIGNATURES = {
     "admm_wind_seq": [_P, _P, _D, _D, _P],
     # ptrs, ints, capture_cells, stream
     "admm_mesh_detect": [_P, _P, _D, _P],
+    # ptrs, ints, stream
+    "admm_dyn_detect": [_P, _P, _P],
+    "admm_dyn_gather": [_P, _P, _P],
 }
 _PLAIN_SIGNATURES = {  # one function for both precisions
     "admm_empty_launch": [_P],  # stream

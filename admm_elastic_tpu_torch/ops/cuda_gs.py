@@ -1,7 +1,7 @@
 """Wrapper of kernel H (``csrc/gs.cu``): the whole nodal-constrained
 Gauss-Seidel solve in one launch, in place of the JAX package's jnp loop
-(``admm_elastic_tpu/solvers/gs.py:147-196``, no dynamic rows), which has no
-Pallas kernel.
+(``admm_elastic_tpu/solvers/gs.py:147-196``; ``gs_solve_dyn`` with dynamic
+rows), which has no Pallas kernel.
 
 ``gs_solve(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters,
 tol, sweeps, params=None, form=None, group=None)`` runs the SOR sweeps of
@@ -31,6 +31,17 @@ obstacle keeps alive; a solve with one takes a scratch of 20 values and three
 ints per colour slot. The exact walk takes a group of threads per evaluated
 slot (``cuda_obstacle.j_group`` over the block's threads); ``group`` forces
 one, for tests and measurements, and changes no bit of x.
+
+``gs_solve_dyn(..., hits, ck, slot_of, ...)`` is the solve with the
+self-collision rows folded in as a penalty (the JAX package's
+``may_have_dyn``): hits carry the dynamic rows and their table
+(``constraints.with_table``; no passive row: the obstacles are the sweeps'
+own), slot_of each vertex's row (None where the query set is every vertex).
+The wrapper forms b + C^T c and the penalty diagonal where(n_active > 0,
+diag(C^T C), 0) as the plain version does (kernel L), and launches H's DYN
+form, which takes the analytic obstacles and raises with a mesh obstacle. On
+the CPU the plain ``solvers/gs.solve`` with ``may_have_dyn``. Its own
+``launches`` counts it.
 """
 
 from __future__ import annotations
@@ -41,8 +52,9 @@ import weakref
 
 import torch
 
+from admm_elastic_tpu_torch.collision import constraints as con
 from admm_elastic_tpu_torch.collision.passive import MESH, Floor, PassiveMeshSDF, Sphere
-from admm_elastic_tpu_torch.ops import _build, cuda_obstacle
+from admm_elastic_tpu_torch.ops import _build, cuda_dynamic, cuda_obstacle
 from admm_elastic_tpu_torch.solvers import gs as gs_mod
 
 MAX_OBSTACLES = 8  # csrc/gs.cu kMaxObstacles
@@ -170,11 +182,40 @@ def gs_solve(data: gs_mod.GSData, b: torch.Tensor, x0: torch.Tensor, pin_mask: t
     return out
 
 
+def gs_solve_dyn(data: gs_mod.GSData, b: torch.Tensor, x0: torch.Tensor, pin_mask: torch.Tensor,
+                 pin_target: torch.Tensor, obstacles, omega: float, max_iters: int, tol: float,
+                 sweeps: torch.Tensor, hits: con.Hits, ck: torch.Tensor, slot_of, params=None,
+                 form=None) -> torch.Tensor:
+    """gs_solve with the dynamic rows of hits (their table built) folded in
+    as a penalty; slot_of: i32 [N] each vertex's row, or None (dense)."""
+    if b.device.type == "cpu":
+        x, k = gs_mod.solve(data.ell_cols, data.ell_vals, data.diag, data.colors,
+                            data.colors_mask, b, x0, pin_mask, pin_target, obstacles, hits, ck,
+                            omega, max_iters, tol, may_have_dyn=True)
+        sweeps += k
+        return x
+    if any(isinstance(o, MESH) for o in obstacles):
+        raise NotImplementedError("gs_solve_dyn: kernel H's DYN form takes Floor and Sphere "
+                                  "obstacles; a mesh obstacle with self-collision under "
+                                  "Gauss-Seidel is not ported (ROADMAP Queue 2)")
+    n = b.shape[0]
+    if hits.d_order is None:
+        hits = con.with_table(hits, n)
+    pen = torch.where(hits.n_active() > 0, con.CtC_diag(hits, ck, n, b.dtype),
+                      torch.zeros((n, 3), dtype=b.dtype, device=b.device))
+    b_eff = b + con.Ct_c(hits, ck, n)
+    out = _launch(data, b_eff, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol, sweeps,
+                  params, form=form, dyn=(hits, ck, slot_of, pen))
+    gs_solve_dyn.launches += 1
+    return out
+
+
 def _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol, sweeps, params,
-            lib=None, form=None, group=None):
+            lib=None, form=None, group=None, dyn=None):
     """Launch kernel H from ``lib`` (the port's library, or an anatomy build
     of the same source: chip_smoke.floor_library, tools/g_h_anatomy.py) in
-    ``form`` (None: form_of's choice), in the block h_wide chooses."""
+    ``form`` (None: form_of's choice), in the block h_wide chooses; dyn:
+    (hits, ck, slot_of, pen) for the DYN form."""
     n, k = data.ell_cols.shape
     sfx = _build.cuda_args("gs_solve", b, (
         ("b", b, (n, 3)), ("x0", x0, (n, 3)), ("diag", data.diag, (n,)),
@@ -193,7 +234,7 @@ def _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol,
     plan = plan_of(data) if wide else None  # the 512-thread block reads the ELL by row
     out = torch.empty_like(b)
     mesh_ints, mesh_ptrs, scratch = [], [], [None, None]
-    for o in obstacles:
+    for o in list(obstacles) + [None] * (MAX_OBSTACLES - len(obstacles)):
         if isinstance(o, MESH):
             i, p, _ = cuda_obstacle.mesh_desc(o, b.device, b.dtype)
         else:
@@ -203,9 +244,17 @@ def _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol,
     if any(isinstance(o, MESH) for o in obstacles):
         scratch = [torch.empty((width, SLOT_SCRATCH), dtype=b.dtype, device=b.device),
                    torch.empty((SLOT_INTS * width,), dtype=torch.int32, device=b.device)]
+    dyn_ptrs, h = [None] * 11, 0
+    if dyn is not None:
+        hits, ck, slot_of, pen = dyn
+        h = int(hits.d_mask.shape[0])
+        _build.cuda_args("gs_solve_dyn", b, (("pen", pen, (n, 3)),))
+        dyn_ptrs = cuda_dynamic.rows_ptrs("gs_solve_dyn", hits, ck, slot_of, b) + [
+            pen, torch.empty((max(h, 1),), dtype=b.dtype, device=b.device)]
     ptrs = [data.ell_cols, data.ell_vals] + (
         [plan.ccols, plan.cvals, plan.tcols, plan.tvals] if wide else [None] * 4) + [
-        data.diag, data.colors, b, x0, out, pin_mask, pin_target, sweeps] + scratch + mesh_ptrs
+        data.diag, data.colors, b, x0, out, pin_mask, pin_target, sweeps] + scratch + mesh_ptrs + (
+        dyn_ptrs)
     ptr_arr = (ctypes.c_uint64 * len(ptrs))(*cuda_obstacle.addresses(ptrs))
     shared = form_of(n, b.dtype, form) == "shared"
     if group not in (None,) + GROUPS:
@@ -213,7 +262,7 @@ def _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol,
     bits = int(shared) | 2 * int(wide) | (group or 0) << 2
     head = [n, k, n_colors, width, int(max_iters), bits, len(kinds),
             *kinds] + [0] * (MAX_OBSTACLES - len(kinds))
-    ints = (ctypes.c_int * (len(head) + len(mesh_ints)))(*head, *mesh_ints)
+    ints = (ctypes.c_int * (len(head) + len(mesh_ints) + 1))(*head, *mesh_ints, h)
     fn = getattr(lib or _build.library(), f"admm_gs_solve_{sfx}")
     with torch.cuda.device(b.device):
         rc = fn(ptr_arr, ints, par, float(omega), float(tol),
@@ -223,3 +272,4 @@ def _launch(data, b, x0, pin_mask, pin_target, obstacles, omega, max_iters, tol,
 
 
 gs_solve.launches = 0
+gs_solve_dyn.launches = 0

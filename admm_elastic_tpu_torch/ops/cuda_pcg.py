@@ -11,9 +11,14 @@ predicated Schur trips. ``pcg_solve_penalty(data, b, x0, tol, max_iters,
 trips, pn, pen_diag)`` is G's penalty form (pn and pen_diag [N, 3], vertex
 order): (A + pn pn^T) x = b with the per-component Jacobi inverse
 1 / (diag + pen_diag), AL-PCG's solve (``solvers/alcg.py``), in place of the
-JAX package's jnp loop there (``alcg.py:73-127``). Dispatch is by the
+JAX package's jnp loop there (``alcg.py:73-127``). ``pcg_solve_dyn(...,
+pn, pen_diag, hits, ck, slot_of)`` is its DYN form, with the self-collision
+rows of hits (their table built, ``constraints.with_table``) added to each
+apply, A + pn pn^T + C_d^T C_d, pen_diag their diagonal too (Jacobi only: a
+two-grid PCGData raises). Dispatch is by the
 tensors' device: CPU tensors take the plain version (``solvers/pcg.solve_T``,
-or ``solvers/alcg.penalty_solve``, which stop on the host); CUDA tensors
+or ``solvers/alcg.penalty_solve`` or ``penalty_solve_dyn``, which stop on the
+host); CUDA tensors
 launch the kernel, and a build or launch failure raises. Each wrapper's
 ``launches`` counts its kernel launches.
 
@@ -241,6 +246,32 @@ def pcg_solve_penalty(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, 
     return out
 
 
+def pcg_solve_dyn(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, tol: float,
+                  max_iters: int, trips: torch.Tensor, pn: torch.Tensor, pen_diag: torch.Tensor,
+                  hits, ck: torch.Tensor, slot_of: Optional[torch.Tensor],
+                  form: Optional[str] = None) -> torch.Tensor:
+    """pcg_solve_penalty with the dynamic rows of hits added to A (slot_of:
+    i32 [N] each vertex's row, None where the query set is every vertex)."""
+    from admm_elastic_tpu_torch.collision import constraints as con
+
+    if b.device.type == "cpu":
+        from admm_elastic_tpu_torch.solvers.alcg import penalty_solve_dyn
+
+        x, k = penalty_solve_dyn(data, pn, pen_diag, hits, ck, b, x0, tol, max_iters)
+        trips += k
+        return x
+    if data.agg is not None:
+        raise NotImplementedError("pcg_solve_dyn: kernel G's DYN form takes the Jacobi "
+                                  "preconditioner; two-grid with self-collision rows is not "
+                                  "ported to the card (ROADMAP Queue 2)")
+    if hits.d_order is None:
+        hits = con.with_table(hits, data.n)
+    out = _launch(data, b, x0, tol, max_iters, trips, (pn, pen_diag), None, form=form,
+                  dyn=(hits, ck, slot_of))
+    pcg_solve_dyn.launches += 1
+    return out
+
+
 def form_of(data: pcg_mod.PCGData, dtype: torch.dtype, form: Optional[str] = None) -> tuple:
     """g_form for data's system in dtype on the current card."""
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -248,10 +279,12 @@ def form_of(data: pcg_mod.PCGData, dtype: torch.dtype, form: Optional[str] = Non
                   *card_budget(itemsize), want=form)
 
 
-def _launch(data, b, x0, tol, max_iters, trips, penalty, done, lib=None, grid=0, form=None):
+def _launch(data, b, x0, tol, max_iters, trips, penalty, done, lib=None, grid=0, form=None,
+            dyn=None):
     """Launch kernel G from ``lib`` (the port's library, or a variant of
     tools/g_h_anatomy.py's) in ``form`` (None: form_of's choice); the GRID
-    form on at most ``grid`` blocks (0: as many as can be resident)."""
+    form on at most ``grid`` blocks (0: as many as can be resident); dyn:
+    (hits, ck, slot_of) for the DYN form (with penalty)."""
     n = data.n
     fields = [("b", b, (n, 3)), ("x0", x0, (n, 3)), ("diag_mass", data.diag_mass, (n,))]
     if penalty is not None:
@@ -272,19 +305,29 @@ def _launch(data, b, x0, tol, max_iters, trips, penalty, done, lib=None, grid=0,
         # as the plain Jacobi forms it: 1 / (diag + diag(C^T C)) per component
         inv3 = (1.0 / (plan.diag[:, None] + pen_diag)).contiguous()
         pn = pn.contiguous()
+    dyn_ptrs, h = [None] * 11, 0
+    if dyn is not None:
+        from admm_elastic_tpu_torch.ops import cuda_dynamic
+
+        hits, ck, slot_of = dyn
+        h = int(hits.d_mask.shape[0])
+        iperm = None if plan.perm is None else data.iperm.to(torch.int64).contiguous()
+        dyn_ptrs = cuda_dynamic.rows_ptrs("pcg_solve_dyn", hits, ck, slot_of, b) + [
+            iperm, torch.empty((max(h, 1),), dtype=b.dtype, device=b.device)]
     out = torch.empty_like(b)
     ptrs = ([b, x0, out, plan.perm, plan.diag, plan.inv_d, plan.bands, plan.rest_cols,
              plan.rest_vals, plan.agg, plan.agg_gather, plan.coarse_inv] + list(plan.scratch)
-            + [plan.barrier, trips, pn, inv3, done])
+            + [plan.barrier, trips, pn, inv3, done] + dyn_ptrs)
     ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[_ptr(t) for t in ptrs])
     kind, blocks, shift = form_of(data, b.dtype, form)
-    ints = (ctypes.c_int * 11)(*plan.ints, int(max_iters), int(grid), FORMS.index(kind), blocks,
-                               shift)
+    ints = (ctypes.c_int * 12)(*plan.ints, int(max_iters), int(grid), FORMS.index(kind), blocks,
+                               shift, h)
     fn = getattr(lib or _build.library(), f"admm_pcg_solve_{sfx}")
     with torch.cuda.device(b.device):
         rc = fn(ptr_arr, ints, plan.offs, float(tol), OMEGA,
                 torch.cuda.current_stream(b.device).cuda_stream)
-    _build.check(rc, "pcg_solve" if penalty is None else "pcg_solve_penalty")
+    _build.check(rc, "pcg_solve" if penalty is None else
+                 "pcg_solve_penalty" if dyn is None else "pcg_solve_dyn")
     return out
 
 
@@ -305,3 +348,4 @@ def blocks_of(data: pcg_mod.PCGData, dtype: torch.dtype, form: Optional[str] = N
 
 pcg_solve.launches = 0
 pcg_solve_penalty.launches = 0
+pcg_solve_dyn.launches = 0

@@ -78,6 +78,37 @@ def dot3(u, v):
     return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
 
 
+# --- [..., 3, 3] determinant and inverse ----------------------------------------
+# A copy of admm_elastic_tpu/ops/svd3.py det3 / inv3 (:34-55), the closed forms,
+# on [..., 3, 3] tensors, every sum written out in component order: the plain
+# version of kernel K's per-tet frames (csrc/self_collision.cu).
+
+def _cross_rows(a, b):
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def det3(m):
+    """The determinant r0 . (r1 x r2) of each 3x3 (rows r0, r1, r2)."""
+    c = _cross_rows(m[..., 1, :], m[..., 2, :])
+    r0 = m[..., 0, :]
+    return (r0[..., 0] * c[..., 0] + r0[..., 1] * c[..., 1]) + r0[..., 2] * c[..., 2]
+
+
+def inv3(m):
+    """The inverse of each 3x3 by the adjugate: column j is the cross product
+    of the rows other than j, over det3 (1 where |det| < 1e-300 in the
+    dtype: never in float32, where it rounds to 0)."""
+    d = det3(m)
+    tiny = torch.tensor(1e-300, dtype=d.dtype, device=d.device)
+    safe = torch.where(torch.abs(d) < tiny, 1.0, d)
+    c0 = _cross_rows(m[..., 1, :], m[..., 2, :])
+    c1 = _cross_rows(m[..., 2, :], m[..., 0, :])
+    c2 = _cross_rows(m[..., 0, :], m[..., 1, :])
+    return torch.stack([c0, c1, c2], dim=-1) / safe[..., None, None]
+
+
 def col(a, j):
     return (a[j], a[3 + j], a[6 + j])
 

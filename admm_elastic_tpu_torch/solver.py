@@ -2,29 +2,35 @@
 
 A port of ``admm_elastic_tpu/solver.py`` with the same API (``add_nodes``,
 ``add_tet_energies``, ``add_tri_energies``, ``add_explicit_force``,
-``add_obstacle``, ``set_pins``, ``initialize``, ``step``, ``run``, ``x`` /
-``v``) and five global steps: ``linsolver=0`` (prefactored direct,
-``direct_mode`` "inv" or "cho"; above ``direct_max_verts`` vertices served by
-two-grid PCG at ``pcg_tol = min(pcg_tol, 1e-10)``, as the JAX package does,
+``add_obstacle``, ``add_dynamic_collider``, ``set_pins``, ``initialize``,
+``step``, ``run``, ``x`` / ``v``) and five global steps: ``linsolver=0``
+(prefactored direct, ``direct_mode`` "inv" or "cho"; above
+``direct_max_verts`` vertices served by two-grid PCG at
+``pcg_tol = min(pcg_tol, 1e-10)``, as the JAX package does,
 on a copy of the settings), ``1`` (multicolour Gauss-Seidel with the pins and
 the obstacles in its sweeps), ``2`` (Uzawa: CG on the contact Schur
 complement around a direct or PCG inner solve), ``3`` (PCG, Jacobi or
 two-grid) and ``4`` (augmented-Lagrangian PCG). Contact is with the passive
 obstacles of ``collision/passive``: ``Floor``, ``Sphere``, ``PassiveMeshSDF``
 and ``PassiveMeshExact`` (``add_obstacle``; not with ``linsolver=0``), queried
-at every vertex, or at ``surface_inds``. One timestep (src/Solver.cpp:35-109):
+at every vertex, or at ``surface_inds``, and self-collision with the
+colliders of ``collision/dynamic`` (``add_dynamic_collider``; ``binding.add_tetmesh``
+registers one for each mesh without NOSELFCOLLISION and appends its surface
+vertices to ``surface_inds``). One timestep (src/Solver.cpp:35-109):
 
     v <- explicit forces(x, v);  v_y += dt g;  x_bar = x + dt v
     z = 0;  u = 0;  x' = x_bar
     repeat admm_iters:
         local:   z, u <- prox(D x' + u)                kernel A (tets), E (cloth)
         detect:  the deepest obstacle hit per surface vertex at x' (not for GS;
-                 a mesh obstacle by kernel J)
+                 a mesh obstacle by kernel J) and the first collider's hit
+                 (kernel K; also for GS), the dynamic rows' table by vertex
         global:  b = M x_bar + dt^2 D^T W^2 (z - u)    kernel C (stencil tets)
                  x' = A^-1 b: GEMM or two triangular solves, + pin-row polish
                  (direct); a PCG solve from x' (kernel G); the GS sweeps
-                 from x' (kernel H, detecting per vertex); Uzawa's Schur CG, y
-                 where the active rows are those of the last solve; one
+                 from x' (kernel H, detecting per vertex, the dynamic rows
+                 folded in as a penalty); Uzawa's Schur CG (C^T by kernel L),
+                 y where the active rows are those of the last solve; one
                  AL-PCG solve from x' (kernel G's penalty form) and y's ascent
     v = (x' - x) / dt;  x = x'
 
@@ -63,10 +69,10 @@ iterations, as the JAX package reports them: ``admm_iters`` on the direct
 path, else the sum of the GS sweeps, the Schur trips or the CG trips (a device
 counter that the step writes, read once after it); after ``run(n)`` it is 0,
 as there. ``runtime_data().collision_overflow`` after ``step()`` or
-``run(n)`` says whether a mesh obstacle's fixed-capacity stage (near-lane
-compaction, the deep fallback) dropped a contact in any detection of the
-steps: a device flag that the detections set, zeroed before the call's
-steps and read once after them, outside the graph (under Gauss-Seidel the
+``run(n)`` says whether a fixed-capacity stage (a mesh obstacle's near-lane
+compaction or deep fallback, a collider's cell capacity or HIT_CAP) dropped a
+contact in any detection of the steps: a device flag that the detections set,
+zeroed before the call's steps and read once after them, outside the graph (under Gauss-Seidel the
 sweeps' own detections drop theirs silently, as in the JAX package). What
 this package does not run raises NotImplementedError naming the ROADMAP item
 that ports it.
@@ -84,10 +90,11 @@ import torch
 
 from admm_elastic_tpu_torch import config as cfg
 from admm_elastic_tpu_torch.collision import constraints as con
+from admm_elastic_tpu_torch.collision.dynamic import TetMeshCollider
 from admm_elastic_tpu_torch.collision.passive import MESH, check_obstacle, pick_deepest
 from admm_elastic_tpu_torch.config import Settings
 from admm_elastic_tpu_torch.materials import Lame
-from admm_elastic_tpu_torch.ops import cuda_gs, cuda_obstacle, cuda_pcg
+from admm_elastic_tpu_torch.ops import cuda_dynamic, cuda_gs, cuda_obstacle, cuda_pcg
 from admm_elastic_tpu_torch.ops import reduction as red
 from admm_elastic_tpu_torch.solvers import alcg as alcg_mod
 from admm_elastic_tpu_torch.solvers import anderson as anderson_mod
@@ -115,8 +122,8 @@ class RuntimeData:
     step_ms: float = 0.0
     inner_iters: int = 0
     # True if a fixed-capacity collision stage (a mesh obstacle's near-lane
-    # compaction or deep fallback) dropped a contact in the step(s) this
-    # record covers
+    # compaction or deep fallback, a collider's cell capacity or HIT_CAP)
+    # dropped a contact in the step(s) this record covers
     collision_overflow: bool = False
 
     def print(self, settings: Settings):
@@ -192,6 +199,9 @@ class _Contact:
     surf: torch.Tensor  # i64 [H] the query vertices
     dense: bool  # the query set is every vertex in order
     obstacles: tuple  # the obstacles on the device, in the run dtype
+    colliders: tuple  # the self-collision colliders on the device, in the run dtype
+    slot_of: Optional[torch.Tensor]  # i32 [N]: each vertex's query slot, -1 for none
+    # (None where the query set is dense)
     pin_mask: torch.Tensor  # bool [N] (Gauss-Seidel's pins), rewritten by set_pins
     pin_target: torch.Tensor  # [N, 3]
     empty: con.Hits  # no hit, no dynamic row
@@ -229,6 +239,7 @@ class Solver:
         # (src/Collider.hpp:158)
         self.surface_inds: List[int] = []
         self.obstacles: List = []
+        self.colliders: List[TetMeshCollider] = []
         self.system: Optional[sysm.System] = None
         self.state: Optional[sysm.SimState] = None
         # DirectData (linsolver=0; 2 with the direct inner), GSData (1) or
@@ -300,10 +311,23 @@ class Solver:
                 c, obstacles=obstacles, gs_params=self._gs_params(obstacles))
         self._graph = None
 
-    def add_dynamic_collider(self, obj):
-        raise NotImplementedError(
-            "dynamic colliders (self-collision) are not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+    def add_dynamic_collider(self, obj: TetMeshCollider):
+        """Add a self-collision collider (collision/dynamic.TetMeshCollider;
+        anything else raises TypeError, convert.collider_from_numpy carries a
+        JAX package one over). Its query vertices are surface_inds (set
+        before initialize). After initialize it goes to the device in the run
+        dtype at once, and the captured step is captured anew."""
+        if not isinstance(obj, TetMeshCollider):
+            raise TypeError(f"add_dynamic_collider takes a TetMeshCollider, not "
+                            f"{type(obj).__name__} (convert.collider_from_numpy carries a JAX "
+                            "package collider over)")
+        self.colliders.append(obj)
+        c = self._contact
+        if c is not None:
+            self._contact = dataclasses.replace(
+                c, colliders=c.colliders + (obj.to(self.device, self._dtype),),
+                empty=dataclasses.replace(c.empty, may_dyn=True))
+        self._graph = None
 
     def set_pins(self, inds, points=None):
         """(Re)set the pin constraint set (src/Solver.cpp:113-157).
@@ -432,7 +456,7 @@ class Solver:
         if n < 1 or m_np.shape[0] != n:
             print("\n**Solver Error: Problem with node data!")
             return False
-        if s.linsolver == cfg.LDLT and self.obstacles:
+        if s.linsolver == cfg.LDLT and (self.obstacles or self.colliders):
             # before the size switch: linsolver=0 takes no collision object at
             # any size (src/Solver.cpp:249-254); switching to PCG first would
             # drop the obstacles silently
@@ -518,7 +542,7 @@ class Solver:
             solve_data = direct_mod.prepare(assembly.assemble_dense(system), device=dev,
                                             dtype=dtype, mode=s.direct_mode,
                                             pin_rows=pin_rows)
-        cap = 2 * _surface(self.surface_inds, bool(self.obstacles), n)[0].shape[0]
+        cap = 2 * _surface(self.surface_inds, self._has_cobjs(), n)[0].shape[0]
         state = sysm.SimState(
             x=torch.as_tensor(x_np).to(dev, dtype),
             v=torch.zeros((n, 3), dtype=dtype, device=dev),
@@ -546,7 +570,7 @@ class Solver:
         if not isinstance(solve_data, takes.get(ls, ())):
             raise ValueError(f"Solver.load_arrays: {type(solve_data).__name__} for "
                              f"linsolver={ls}")
-        if ls == cfg.LDLT and self.obstacles:
+        if ls == cfg.LDLT and self._has_cobjs():
             raise RuntimeError("**Solver::add_obstacle Error: No collisions with LDLT solver")
         pcg = isinstance(solve_data, pcg_mod.PCGData)
         lead = (solve_data.diag_mass if pcg else solve_data.diag
@@ -575,6 +599,11 @@ class Solver:
         self._graph = None
         self.initialized = True
 
+    def _has_cobjs(self) -> bool:
+        """Whether a collision object (an obstacle or a collider) exists: then
+        the default query set is every vertex (the JAX package's has_cobjs)."""
+        return bool(self.obstacles or self.colliders)
+
     def _contact_of(self, system: sysm.System, n: int) -> "_Contact":
         """What the contact steps read, on the device (the JAX package's
         initialize, admm_elastic_tpu/solver.py:657-684): the constraint weight
@@ -590,15 +619,21 @@ class Solver:
         ck = max_w * 3.0 if s.linsolver in (cfg.NCMCGS, cfg.ALPCG) else 1.0
         if s.constraint_w > 0.0:
             ck = s.constraint_w
-        surf, dense = _surface(self.surface_inds, bool(self.obstacles), n)
+        surf, dense = _surface(self.surface_inds, self._has_cobjs(), n)
         mask, target = self._pin_arrays()
         surf_dev = torch.as_tensor(surf, device=dev)
         obstacles = tuple(o.to(dev, dtype) for o in self.obstacles)
+        slot_of = None
+        if not dense:
+            slots = np.full((n,), -1, dtype=np.int32)
+            slots[surf] = np.arange(surf.shape[0], dtype=np.int32)
+            slot_of = torch.as_tensor(slots, device=dev)
         return _Contact(
             ck=torch.tensor(float(np.sqrt(max(0.0, ck))), dtype=dtype, device=dev),
             surf=surf_dev, dense=dense, obstacles=obstacles,
+            colliders=tuple(c.to(dev, dtype) for c in self.colliders), slot_of=slot_of,
             pin_mask=mask.to(dev), pin_target=target.to(dev),
-            empty=con.empty_hits(surf_dev, dtype, dense=dense, may_dyn=False),
+            empty=con.empty_hits(surf_dev, dtype, dense=dense, may_dyn=bool(self.colliders)),
             gs_params=self._gs_params(obstacles))
 
     def _gs_params(self, obstacles):
@@ -653,27 +688,43 @@ class Solver:
         return cuda_pcg.pcg_solve(data, rhs, torch.zeros_like(rhs) if x0 is None else x0,
                                   s.uzawa_inner_tol, s.uzawa_inner_iters, None, done=done)
 
-    def _detect(self, x) -> con.Hits:
-        """The passive hits at x of every query vertex (the JAX package's
-        _detect, admm_elastic_tpu/solver.py:91-132; no dynamic collider): the
-        first obstacle of least distance, a mesh obstacle through
-        cuda_obstacle.mesh_detect (kernel J on the card), whose overflow goes
-        to the solver's device flag."""
+    def _detect(self, x, with_passive: bool = True) -> con.Hits:
+        """The hits at x of every query vertex (the JAX package's _detect,
+        admm_elastic_tpu/solver.py:91-132): with_passive, the first obstacle
+        of least distance, a mesh obstacle through cuda_obstacle.mesh_detect
+        (kernel J on the card); the first collider's hit per vertex through
+        cuda_dynamic.dyn_detect (kernel K on the card; the callers list the
+        rows' corners by vertex, constraints.with_table). Overflows go to the
+        solver's device flag."""
         c = self._contact
-        if c.surf.shape[0] == 0 or not c.obstacles:
+        if c.surf.shape[0] == 0:
             return c.empty
+        hits = c.empty
         xs = x if c.dense else x[c.surf]
-        found, mask = [], None
-        for o in c.obstacles:
-            if isinstance(o, MESH):
-                dx, point, normal, mask = cuda_obstacle.mesh_detect(o, xs, self._overflow)
-                found.append((dx, point, normal))
-            else:
-                found.append(o.signed_distance(xs))
-        dx, point, normal = pick_deepest(found)
-        if len(found) > 1 or mask is None:
-            mask = dx < 0.0
-        return dataclasses.replace(c.empty, p_mask=mask, p_normal=normal, p_point=point)
+        if c.obstacles and with_passive:
+            found, mask = [], None
+            for o in c.obstacles:
+                if isinstance(o, MESH):
+                    dx, point, normal, mask = cuda_obstacle.mesh_detect(o, xs, self._overflow)
+                    found.append((dx, point, normal))
+                else:
+                    found.append(o.signed_distance(xs))
+            dx, point, normal = pick_deepest(found)
+            if len(found) > 1 or mask is None:
+                mask = dx < 0.0
+            hits = dataclasses.replace(hits, p_mask=mask, p_normal=normal, p_point=point)
+        if c.colliders:
+            h = c.surf.shape[0]
+            rows = (torch.zeros((h,), dtype=torch.bool, device=x.device),
+                    torch.zeros((h, 3), dtype=torch.int64, device=x.device),
+                    torch.zeros((h, 3), dtype=x.dtype, device=x.device),
+                    torch.zeros((h, 3), dtype=x.dtype, device=x.device))
+            for col in c.colliders:
+                rows = cuda_dynamic.dyn_detect(col, x, xs, c.surf, rows, self._overflow)
+            d_mask, d_face, d_barys, d_normal = rows
+            hits = dataclasses.replace(hits, d_mask=d_mask, d_face=d_face, d_barys=d_barys,
+                                       d_normal=d_normal)
+        return hits
 
     def _global(self, b, curr_x, y, n_prev, hits=None):
         """One global solve with the configured mode (src/Solver.cpp:98-99),
@@ -685,7 +736,16 @@ class Solver:
         ls = s.linsolver
         c = self._contact
         if ls == cfg.NCMCGS:
-            # the passive contacts are the sweeps' own per-vertex projection
+            # the passive contacts are the sweeps' own per-vertex projection;
+            # the dynamic rows fold in as a penalty (kernel H's DYN form)
+            if c.colliders:
+                if hits is None:
+                    hits = self._detect(curr_x, with_passive=False)
+                x = cuda_gs.gs_solve_dyn(
+                    self._solve_data, b, curr_x, c.pin_mask, c.pin_target, c.obstacles,
+                    s.gs_omega, s.gs_max_iters, s.gs_tol, self._inner,
+                    con.with_table(hits, b.shape[0]), c.ck, c.slot_of, params=c.gs_params)
+                return x, y, n_prev
             x = cuda_gs.gs_solve(self._solve_data, b, curr_x, c.pin_mask, c.pin_target,
                                  c.obstacles, s.gs_omega, s.gs_max_iters, s.gs_tol, self._inner,
                                  params=c.gs_params)
@@ -698,7 +758,7 @@ class Solver:
                 self._inner += it
             else:
                 x, y = alcg_mod.solve(self._solve_data, hits, c.ck, b, curr_x, y, s.pcg_tol,
-                                      s.pcg_max_iters, self._inner)
+                                      s.pcg_max_iters, self._inner, slot_of=c.slot_of)
             return x, y, act
         if isinstance(self._solve_data, pcg_mod.PCGData):
             return (cuda_pcg.pcg_solve(self._solve_data, b, curr_x, s.pcg_tol, s.pcg_max_iters,
@@ -706,12 +766,14 @@ class Solver:
         return self._apply_Ainv(b), y, n_prev
 
     def _contact_rows(self, curr_x, y, n_prev, hits=None):
-        """The contact solvers' hits at curr_x (detected here where None; no
-        dynamic row: dedup() would change nothing), their active rows, and y
-        kept only where the active SET is that of the last solve
-        (system.SimState; stricter than the reference's count gate)."""
+        """The contact solvers' hits at curr_x (detected here where None),
+        deduped (a vertex with a passive row keeps no dynamic row) with their
+        table, their active rows, and y kept only where the active SET is that
+        of the last solve (system.SimState; stricter than the reference's
+        count gate)."""
         if hits is None:
             hits = self._detect(curr_x)
+        hits = con.with_table(hits.dedup(), curr_x.shape[0])
         act = torch.cat([hits.p_mask, hits.d_mask])
         return hits, torch.where(torch.all(act == n_prev), y, torch.zeros_like(y)), act
 
@@ -725,10 +787,12 @@ class Solver:
         c, data = self._contact, self._solve_data
         kw = dict(x_star=x_star, err_denom=err_denom)
         if ls == cfg.NCMCGS:
+            hits = (con.with_table(self._detect(curr_x, with_passive=False), curr_x.shape[0])
+                    if c.colliders else c.empty)
             x, tr = gs_mod.solve_traced(data.ell_cols, data.ell_vals, data.diag, data.colors,
                                         data.colors_mask, b, curr_x, c.pin_mask, c.pin_target,
-                                        c.obstacles, c.empty, c.ck, s.gs_omega, n_inner,
-                                        may_have_dyn=False, **kw)
+                                        c.obstacles, hits, c.ck, s.gs_omega, n_inner,
+                                        may_have_dyn=bool(c.colliders), **kw)
         elif ls in (cfg.UZAWACG, cfg.ALPCG):
             hits, y, n_prev = self._contact_rows(curr_x, y, n_prev)
             if ls == cfg.UZAWACG:
@@ -805,12 +869,12 @@ class Solver:
 
     def _graph_reads(self) -> tuple:
         """The objects a captured step reads, and a mesh obstacle's tables,
-        whose addresses kernels H and J hold."""
+        whose addresses kernels H and J hold, and the colliders."""
         tables = tuple(getattr(o, f.name) for o in self._contact.obstacles if isinstance(o, MESH)
                        for f in dataclasses.fields(o)
                        if isinstance(getattr(o, f.name), torch.Tensor))
         return ((self.system, self._solve_data) + tuple(self.ext_forces)
-                + self._contact.obstacles + tables)
+                + self._contact.obstacles + tables + self._contact.colliders)
 
     def _graph_key(self) -> tuple:
         s = self.m_settings
@@ -921,20 +985,22 @@ class Solver:
         if s.verbose > 0:
             self._runtime.print(s)
 
-    def _meshes(self) -> bool:
-        """Whether a mesh obstacle is placed: only its detections set the
-        overflow flag, so only then is the flag zeroed and read."""
-        return any(isinstance(o, MESH) for o in self._contact.obstacles)
+    def _flagged(self) -> bool:
+        """Whether a mesh obstacle or a collider is placed: only their
+        detections set the overflow flag, so only then is the flag zeroed and
+        read."""
+        c = self._contact
+        return bool(c.colliders) or any(isinstance(o, MESH) for o in c.obstacles)
 
     def _clear_overflow(self) -> None:
-        if self._meshes():
+        if self._flagged():
             self._overflow.zero_()
 
     def _dropped(self) -> bool:
         """Whether a detection since the flag was zeroed dropped a contact
-        (reads the device flag, a synchronisation, where a mesh obstacle is
-        placed)."""
-        return self._meshes() and bool(self._overflow.item())
+        (reads the device flag, a synchronisation, where a mesh obstacle or a
+        collider is placed)."""
+        return self._flagged() and bool(self._overflow.item())
 
     def step_profiled(self) -> RuntimeData:
         """One timestep with per-phase wall-clock timings (local, collision,
@@ -975,7 +1041,8 @@ class Solver:
             self._sync()
             rt.local_ms += (time.perf_counter() - t) * 1e3
             t = time.perf_counter()
-            hits = self._detect(x) if ls != cfg.NCMCGS else None
+            hits = (self._detect(x, with_passive=ls != cfg.NCMCGS)
+                    if ls != cfg.NCMCGS or self._contact.colliders else None)
             self._sync()
             rt.collision_ms += (time.perf_counter() - t) * 1e3
             t = time.perf_counter()

@@ -17,10 +17,14 @@ A + pn pn^T (pn the masked ck-scaled normals); otherwise ``pcg.solve`` with
 ``constraints.CtC_apply`` and ``_penalty_precond``. On the card the PCG
 solve is one launch of kernel G in its penalty form (``ops/cuda_pcg.py``),
 which applies A + pn pn^T per vertex (pn scattered to [N, 3] where the surface
-is not dense: without dynamic rows C^T C is block-diagonal per vertex) with
-the per-component Jacobi inverse 1 / (diag + diag(C^T C)). ``solve_plain``
-is the JAX forms on any device, the twin the card's checks hold G to, and
-``penalty_solve`` G's own form as plain PyTorch.
+is not dense: the passive rows' C^T C is block-diagonal per vertex) with
+the per-component Jacobi inverse 1 / (diag + diag(C^T C)); with dynamic rows
+(self-collision) in its DYN form, which adds the dynamic rows' C^T C x, their
+C x first and then each vertex's face-corner sum in table order
+(``constraints.with_table``), in each apply (Jacobi only: with two-grid it
+raises). ``solve_plain`` is the JAX forms on any device, the twin the card's
+checks hold G to, and ``penalty_solve`` / ``penalty_solve_dyn`` G's own forms
+as plain PyTorch.
 """
 
 from __future__ import annotations
@@ -87,50 +91,72 @@ def penalty_solve(data, pn, pen_diag, b, x0, tol, max_iters: int):
     return pcg_mod.solve(A_hat, _penalty_precond(data, A_hat, pen_diag), b, x0, tol, max_iters)
 
 
+def penalty_solve_dyn(data, pn, pen_diag, hits: con.Hits, ck, b, x0, tol, max_iters: int,
+                      gather=con.dyn_gather):
+    """Kernel G's DYN form as plain PyTorch: PCG on A + pn pn^T + C_d^T C_d
+    (the dynamic rows' C and C^T, constraints.C_apply / Ct_dyn with gather),
+    [N, 3], with the per-component Jacobi inverse 1 / (diag + pen_diag) (or
+    the two-grid V-cycle of _penalty_precond). Returns (x, trips)."""
+    n = b.shape[0]
+
+    def A_hat(x):
+        cx = pn[:, 0] * x[:, 0] + pn[:, 1] * x[:, 1] + pn[:, 2] * x[:, 2]
+        rd = con.C_apply(hits, ck, x)[1]
+        return (data.apply(x) + pn * cx[:, None]) + con.Ct_dyn(hits, ck, rd, n, gather)
+
+    return pcg_mod.solve(A_hat, _penalty_precond(data, A_hat, pen_diag), b, x0, tol, max_iters)
+
+
 def _ascent(hits, ck, x, c, y, active):
     rp, rd = con.C_apply(hits, ck, x)
     return torch.where(active, y + (torch.cat([rp, rd]) - c), 0.0)
 
 
-def _setup(hits, ck, b, y):
+def _setup(hits, ck, b, y, gather=con.dyn_gather):
     n = b.shape[0]
     h = hits.capacity
     cp, cd = con.C_rhs(hits, ck)
     c = torch.cat([cp, cd])
     cy = c - y
-    b_hat = b + con.Ct_apply(hits, ck, cy[:h], cy[h:], n)
-    return c, b_hat, con.CtC_diag(hits, ck, n, b.dtype), torch.cat([hits.p_mask, hits.d_mask])
+    b_hat = b + con.Ct_apply(hits, ck, cy[:h], cy[h:], n, gather)
+    return (c, b_hat, con.CtC_diag(hits, ck, n, b.dtype, gather),
+            torch.cat([hits.p_mask, hits.d_mask]))
 
 
-def solve_plain(pcg_data, hits: con.Hits, ck, b, x0, y, tol, max_iters: int):
-    """One AL pass as the JAX package runs it, plain PyTorch on any device.
+def solve_plain(pcg_data, hits: con.Hits, ck, b, x0, y, tol, max_iters: int,
+                gather=con.dyn_gather):
+    """One AL pass as the JAX package runs it, plain PyTorch on any device
+    (gather: constraints.dyn_gather_plain for the plain twin on the card).
     Returns (x, y, pcg trips)."""
-    c, b_hat, pen_diag, active = _setup(hits, ck, b, y)
+    c, b_hat, pen_diag, active = _setup(hits, ck, b, y, gather)
     if hits.dense and not hits.may_dyn and pcg_data.agg is None:
         pn = penalty_vectors(hits, ck, b.shape[0])
         x, iters = penalty_solve(pcg_data, pn, pen_diag, b_hat, x0, tol, max_iters)
     else:
         def A_hat(x):
-            return pcg_data.apply(x) + con.CtC_apply(hits, ck, x)
+            return pcg_data.apply(x) + con.CtC_apply(hits, ck, x, gather)
 
         x, iters = pcg_mod.solve(A_hat, _penalty_precond(pcg_data, A_hat, pen_diag), b_hat,
                                  x0, tol, max_iters)
     return x, _ascent(hits, ck, x, c, y, active), iters
 
 
-def solve(pcg_data, hits: con.Hits, ck, b, x0, y, tol, max_iters: int, trips):
+def solve(pcg_data, hits: con.Hits, ck, b, x0, y, tol, max_iters: int, trips, slot_of=None):
     """One AL pass: returns (x, y); the PCG trips are added to trips (an int32
     tensor of one element on b's device). On the CPU solve_plain; on the card
-    kernel G's penalty form (no dynamic rows: colliders are not ported)."""
+    kernel G's penalty form, its DYN form where colliders are registered
+    (slot_of: each vertex's query slot, None for a dense surface)."""
     if b.device.type == "cpu":
         x, y_new, iters = solve_plain(pcg_data, hits, ck, b, x0, y, tol, max_iters)
         trips += iters
         return x, y_new
-    if hits.may_dyn:
-        con._dyn_on_cpu(hits)
     c, b_hat, pen_diag, active = _setup(hits, ck, b, y)
     pn = penalty_vectors(hits, ck, b.shape[0])
-    x = cuda_pcg.pcg_solve_penalty(pcg_data, b_hat, x0, tol, max_iters, trips, pn, pen_diag)
+    if hits.may_dyn:
+        x = cuda_pcg.pcg_solve_dyn(pcg_data, b_hat, x0, tol, max_iters, trips, pn, pen_diag,
+                                   hits, ck, slot_of)
+    else:
+        x = cuda_pcg.pcg_solve_penalty(pcg_data, b_hat, x0, tol, max_iters, trips, pn, pen_diag)
     return x, _ascent(hits, ck, x, c, y, active)
 
 

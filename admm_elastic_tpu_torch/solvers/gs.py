@@ -8,8 +8,8 @@ updated position and its update projected onto the contact's tangent plane
 (Eq. 47 of the TVCG paper). Self-collision rows fold in as a penalty
 A + C^T C, b + C^T c (``may_have_dyn``).
 
-These are the plain versions. On the card a solve without dynamic rows is
-one launch of kernel H (``ops/cuda_gs.py``, ``csrc/gs.cu``), held to
+These are the plain versions. On the card a solve is one launch of kernel H
+(``ops/cuda_gs.py``, ``csrc/gs.cu``; with dynamic rows its DYN form), held to
 ``solve`` here; ``solve`` tests its exit on the host after each sweep, as
 the JAX package's ``lax.while_loop`` tests it on the device, so it runs on the
 CPU and in the card's checks, never inside a captured step. Every row sum
@@ -77,18 +77,20 @@ def ell_offdiag_mv(ell_cols, ell_vals, x):
 
 
 def _sweep_setup(ell_cols, ell_vals, diag, colors, colors_mask, b, pin_mask, pin_target,
-                 obstacles, hits: con.Hits, ck, omega, may_have_dyn: bool = True):
+                 obstacles, hits: con.Hits, ck, omega, may_have_dyn: bool = True,
+                 gather=con.dyn_gather):
     """(color_update, residual2, b_eff) of the SOR sweeps. may_have_dyn=False
     (no dynamic collider is registered, so hits.d_mask is all False) drops
-    the penalty terms."""
+    the penalty terms; gather sums the rows' face corners
+    (constraints.Ct_apply)."""
     n = diag.shape[0]
     dtype = b.dtype
     om = torch.as_tensor(omega, dtype=dtype, device=b.device)
     if may_have_dyn:
         has_dyn = hits.n_active() > 0
-        pen_diag = torch.where(has_dyn, con.CtC_diag(hits, ck, n, dtype),
+        pen_diag = torch.where(has_dyn, con.CtC_diag(hits, ck, n, dtype, gather),
                                torch.zeros((n, 3), dtype=dtype, device=b.device))
-        b_eff = b + con.Ct_c(hits, ck, n)
+        b_eff = b + con.Ct_c(hits, ck, n, gather)
     else:
         pen_diag = None
         b_eff = b
@@ -101,7 +103,7 @@ def _sweep_setup(ell_cols, ell_vals, diag, colors, colors_mask, b, pin_mask, pin
         if may_have_dyn:
             aii = diag[safe][:, None] + pen_diag[safe]
             # the penalty's off-diagonal from the fresh x: true GS across colours
-            ctc_x = con.CtC_apply(hits, ck, x)
+            ctc_x = con.CtC_apply(hits, ck, x, gather)
             lux = lux + ctc_x[safe] - pen_diag[safe] * x[safe]
         else:
             aii = diag[safe][:, None]
@@ -125,7 +127,7 @@ def _sweep_setup(ell_cols, ell_vals, diag, colors, colors_mask, b, pin_mask, pin
     def residual2(x):
         ax = diag[:, None] * x + ell_offdiag_mv(ell_cols, ell_vals, x)
         if may_have_dyn:
-            ax = ax + con.CtC_apply(hits, ck, x)
+            ax = ax + con.CtC_apply(hits, ck, x, gather)
         r = b_eff - ax
         return torch.sum(r * r)
 
@@ -134,17 +136,18 @@ def _sweep_setup(ell_cols, ell_vals, diag, colors, colors_mask, b, pin_mask, pin
 
 def solve(ell_cols, ell_vals, diag, colors, colors_mask, b, x0, pin_mask, pin_target,
           obstacles, hits: con.Hits, ck, omega, max_iters: int, tol,
-          may_have_dyn: bool = True):
+          may_have_dyn: bool = True, gather=con.dyn_gather):
     """Constrained multicolour SOR sweeps until the residual |b - A x|^2 falls
     under max(tol, 64 eps)^2 max(|b|^2, tiny), at most max_iters. Returns
     (x, sweeps).
 
     colors: i32 [C, L] vertex ids per colour, padded with N; hits: the
-    dynamic rows only (the passive contacts are the per-vertex projection).
+    dynamic rows only (the passive contacts are the per-vertex projection);
+    gather: constraints.dyn_gather_plain for kernel H's plain twin on the card.
     """
     color_update, residual2, b_eff = _sweep_setup(
         ell_cols, ell_vals, diag, colors, colors_mask, b, pin_mask, pin_target, obstacles,
-        hits, ck, omega, may_have_dyn=may_have_dyn)
+        hits, ck, omega, may_have_dyn=may_have_dyn, gather=gather)
     tol2 = _tolerance(b, tol, torch.sum(b_eff * b_eff))
     x, k, done = x0, 0, False
     while not done and k < int(max_iters):

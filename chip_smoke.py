@@ -69,7 +69,16 @@ failure:
    67k slab at the golden's steps 1 and 12, compacted as its path runs it
    and dense, the 5k SDF slab, near_lanes=4 overflowing, the deep fallback
    and its overflow; float64 within J_F64_TOL, float32 with every flipped hit
-   within rounding of dx = 0, the overflow flags equal);
+   within rounding of dx = 0, the overflow flags equal); kernel K (a
+   collider's self-collision detection, merged into the dynamic rows) and
+   kernel L (the rows' C^T and diag(C^T C) as an ordered gather) bit for bit
+   their plain twins, float64 and float32, on the self-collision paths'
+   golden states (two colliders; boxes_gs20's broad phase), tests/
+   test_broadphase.py's folded block dense and broad, and HIT_CAP = 1
+   (kernel_k_checks); H's DYN form against gs.solve with the dynamic rows and
+   G's DYN form against alcg.solve_plain at boxes_gs8's and boxes_alpcg8's
+   first solve from a state with dynamic rows (hdyn_gdyn_checks: float64 in
+   the same sweeps or trips within 1e-10, float32 within 1e-4);
 4. the paths (path_phase, in a process of its own with the graph checks
    below), each built through the normal entry points on cuda (float32
    unless named, linsolver=0, 10 ADMM iterations, dt 1/24), Solver.run(n)
@@ -136,6 +145,13 @@ failure:
      cloth_wind40_seq (cloth_path: cloth_wind40 with the sequential wind,
      kernel I once per step), and its rate and replayed step with kernel I
      held to GLOBAL against its chosen form (wind_form_turns);
+   - SELFCOLL_PATHS (selfcoll_path, self-collision: benchmarks/matrix.py's
+     two boxes on a floor, each box a collider): boxes_gs8 (H's DYN form),
+     boxes_uzawa8 (Uzawa, L in every Schur trip), boxes_alpcg8 (G's DYN
+     form), boxes_gs20 (K's broad phase), K twice an ADMM iteration, held at
+     step 1, the golden's first step with a dynamic hit and the last, under
+     SELFCOLL_STEP_TOL / SELFCOLL_DISP_TOL, with the dynamic hits, no
+     tunnelling between the boxes and each step's collision_overflow;
    then the extras (extras_checks): Anderson's gain on the 10x3x3 beam in
    float64 (aa_wins_check), the logged step once per linsolver on
    LOGGED_SCENES against a Solver(device="cpu") from the same state
@@ -165,7 +181,9 @@ failure:
    torch.sparse.mm times its trips, pcg_times; H and G's penalty form per
    solve the same way, contact_kernel_times (H also on the two slab paths);
    kernel J per launch on slab_exact_alpcg67k's detections, compacted and
-   dense, kernel_j_times; each form of G and H by CUDA
+   dense, kernel_j_times; K, L, H[DYN] and G[DYN] at the self-collision
+   paths' shapes beside their plain twins, bounds and (L) index_add_,
+   selfcoll_kernel_times; each form of G and H by CUDA
    events queued behind a sleep kernel, in turns, beside its latency floor,
    the same solve in a build whose phases do no row work, floor_library):
    the larger of the bytes it
@@ -195,10 +213,11 @@ line but no result line.
 
 The last lines are the GPU line, one JSON line of kernels (a row per TPU
 kernel, and one each for kernel G, its penalty form, kernel H, kernel I and
-kernel J, which replace the JAX package's jnp loops of PCG, AL-PCG,
-Gauss-Seidel, the sequential wind and the mesh obstacles' narrow phases;
-every row with its launches on this slice's paths (MESH_PATHS),
-"launches_on_new_paths";
+kernel J, K, L and the DYN forms of G and H, which replace the JAX package's
+jnp loops of PCG, AL-PCG, Gauss-Seidel, the sequential wind, the mesh
+obstacles' narrow phases, the self-collision detection and the dynamic rows'
+scatters; every row with its launches on this slice's paths (SELFCOLL_PATHS),
+"launches_on_new_paths", and per step;
 with an entry per solve and form, "main" the form the wrapper chooses,
 "floor_ms" the latency floor; each row with the numbers of the entry its path
 launches: "launches" those of
@@ -309,6 +328,17 @@ REPLACES = {
     # kernel J: a mesh obstacle's narrow phase (SDF and exact)
     "mesh_detect": (_CSRC + "obstacle.cu", "admm_elastic_tpu/collision/passive.py:120,401 "
                     "PassiveMeshSDF / PassiveMeshExact.signed_distance_with_overflow (jnp)"),
+    # kernel K: a collider's self-collision detection; L: the dynamic rows'
+    # face-corner sums (a gather in place of .at[d_face].add); H's and G's DYN
+    # forms: their solves with the dynamic rows' penalty
+    "dyn_detect": (_CSRC + "self_collision.cu", "admm_elastic_tpu/collision/dynamic.py:196 "
+                   "detect_dynamic (jnp)"),
+    "dyn_gather": (_CSRC + "dyn_rows.cuh", "admm_elastic_tpu/collision/constraints.py:146,167 "
+                   "Ct_apply / CtC_diag .at[d_face].add (jnp)"),
+    "gs_solve_dyn": (_CSRC + "gs.cu", "admm_elastic_tpu/solvers/gs.py:85 solve, may_have_dyn "
+                     "(jnp)"),
+    "pcg_solve_dyn": (_CSRC + "pcg.cu", "admm_elastic_tpu/solvers/alcg.py:105 solve with dynamic "
+                      "rows (jnp)"),
 }
 # The entry of each kernel that an ADMM step launches, where that is not the
 # wrapper the kernel is named after: the local steps' stencil entries, in
@@ -611,6 +641,49 @@ CONTACT_COMPARE = (1, 12, 20)  # just after landing, and at rest
 SMALL_CONTACT_STEPS, SMALL_CONTACT_COMPARE = 14, (1, 12, 14)
 SPHERE_CENTER, SPHERE_RAD = (0.0, -10.0, 0.0), 10.0
 CONTACT_EPS = 1e-3  # a vertex within this of an obstacle (or in it) is in contact
+
+
+# Self-collision (ROADMAP Queue 1 item 10): benchmarks/matrix.py _boxes_solver
+# (:183-199, the box of apps/boxes.py's fallback): two make_tet_blocks boxes of
+# n x n x n cells of 1/n, the second 1.25 above the first, self-collision on
+# (LINEAR, no NOSELFCOLLISION), Lame.rubber(), a Floor at y = -0.5, 10 ADMM
+# iterations, float32, pcg_max_iters 60, pcg_tol 1e-6; n = 8 under GS, Uzawa
+# (the solver of apps/torus.py) and AL-PCG, n = 20 under GS (40,000 tets a box,
+# above BROADPHASE_MIN_TETS: the hash-grid broad phase). "steps": the steps a
+# rollout runs; the golden holds step 1, the first step whose state shows a
+# dynamic hit, and the last. The CPU tests' 3x3x3 stacks
+# (tests/test_contact.py:199-220, 317-345: the same scene at n = 3, the
+# default settings) are SELFCOLL_CPU_SCENES.
+SELFCOLL_SCENES = {
+    "boxes_gs8": dict(n=8, ls=1, steps=14),
+    "boxes_uzawa8": dict(n=8, ls=2, steps=14),
+    "boxes_alpcg8": dict(n=8, ls=4, steps=14),
+    "boxes_gs20": dict(n=20, ls=1, steps=12),
+}
+SELFCOLL_PATHS = tuple(SELFCOLL_SCENES)
+BOXES_SPACING, BOXES_FLOOR = 1.25, -0.5
+
+
+def boxes_scene(name, api, dtype=np.float32, **change):
+    """A SELFCOLL_SCENES scene built through the normal entry points of a
+    package whose API the namespace `api` holds (as contact_scene), with the
+    Settings changes `change`: returns (the initialized solver, the number of
+    vertices of a box)."""
+    p = SELFCOLL_SCENES[name]
+    solver = api.Solver()
+    n_box = 0
+    for i in range(2):
+        m = api.make_tet_blocks(p["n"], p["n"], p["n"], cell=1.0 / p["n"])
+        m.apply_xform(api.make_xform(trans=(0.0, i * BOXES_SPACING, 0.0)))
+        m.flags = api.binding.LINEAR
+        api.binding.add_tetmesh(solver, m, api.Lame.rubber(), verbose=False)
+        n_box = len(m.vertices)
+    solver.add_obstacle(api.Floor(y=api.asarray(BOXES_FLOOR)))
+    kw = dict(verbose=0, admm_iters=10, linsolver=p["ls"], dtype=dtype, pcg_max_iters=60,
+              pcg_tol=1e-6)
+    kw.update(change)
+    need(solver.initialize(api.Settings(**kw)), f"{name}: initialize failed")
+    return solver, n_box
 
 
 # The Anderson paths and the sequential wind: an earlier path's scene with one
@@ -2151,13 +2224,15 @@ def pcg_times(torch, timing, gpu):
 
 
 def _wrappers():
-    from admm_elastic_tpu_torch.ops import (cuda_gs, cuda_local_step, cuda_obstacle, cuda_pcg,
-                                            cuda_prox, cuda_stencil, cuda_tri_local_step,
-                                            cuda_wind)
+    from admm_elastic_tpu_torch.ops import (cuda_dynamic, cuda_gs, cuda_local_step,
+                                            cuda_obstacle, cuda_pcg, cuda_prox, cuda_stencil,
+                                            cuda_tri_local_step, cuda_wind)
 
     return dict(pcg_solve=cuda_pcg.pcg_solve, pcg_solve_penalty=cuda_pcg.pcg_solve_penalty,
-                gs_solve=cuda_gs.gs_solve, wind_seq=cuda_wind.wind_seq,
-                mesh_detect=cuda_obstacle.mesh_detect,
+                pcg_solve_dyn=cuda_pcg.pcg_solve_dyn, gs_solve=cuda_gs.gs_solve,
+                gs_solve_dyn=cuda_gs.gs_solve_dyn, wind_seq=cuda_wind.wind_seq,
+                mesh_detect=cuda_obstacle.mesh_detect, dyn_detect=cuda_dynamic.dyn_detect,
+                dyn_gather=cuda_dynamic.dyn_gather,
                 local_step_tet_hyper=cuda_local_step.local_step_tet_hyper,
                 local_step_tet_stencil=cuda_local_step.local_step_tet_stencil,
                 tet_Dx_rows=cuda_stencil.tet_Dx_rows, tet_rhs_rows=cuda_stencil.tet_rhs_rows,
@@ -2187,7 +2262,7 @@ def read_counts(model=None):
 _KERNEL_SYMBOL = re.compile(
     r"\b(tet_prox_kernel|tet_local_step_stencil_kernel|tet_dx_kernel|tet_rhs_tiled_kernel|"
     r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel|pcg_kernel|"
-    r"gs_kernel|wind_seq_kernel|mesh_detect_kernel)"
+    r"gs_kernel|wind_seq_kernel|mesh_detect_kernel|dyn_rank_kernel|dyn_gather_kernel)"
     r"<([^>]*)>")
 
 
@@ -2202,11 +2277,17 @@ def wrapper_of_symbol(symbol):
     kernel, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
     if kernel.startswith("tet_rhs"):
         return "tet_rhs_rows"
-    if kernel == "pcg_kernel":  # <T, PEN>: the penalty form where PEN
+    if kernel == "pcg_kernel":  # <T, PEN, CL, DYN>: the penalty form where PEN, DYN's
+        if len(args) > 3 and args[3] == "true":
+            return "pcg_solve_dyn"
         return "pcg_solve_penalty" if args[1] == "true" else "pcg_solve"
+    if kernel == "gs_kernel":  # <T, SH, WIDE, MESH, DYN>
+        return "gs_solve_dyn" if len(args) > 4 and args[4] == "true" else "gs_solve"
+    # kernel K is four launches a call (self_collision.cu): its rank launch counts it
     plain = dict(tet_dx_kernel="tet_Dx_rows", tri_local_step_kernel="local_step_tri",
-                 tri_local_step_stencil_kernel="local_step_tri_stencil", gs_kernel="gs_solve",
-                 wind_seq_kernel="wind_seq", mesh_detect_kernel="mesh_detect")
+                 tri_local_step_stencil_kernel="local_step_tri_stencil",
+                 wind_seq_kernel="wind_seq", mesh_detect_kernel="mesh_detect",
+                 dyn_rank_kernel="dyn_detect", dyn_gather_kernel="dyn_gather")
     if kernel in plain:
         return plain[kernel]
     model = {i: name for name, i in MODEL_IDS.items()}[int(args[1])]
@@ -2467,12 +2548,15 @@ def drive_path(torch, label, solver, g, pins, kernels, after_steps=None, model=N
         disp[step], disp_tol = disp_err(x, g, step)
     step1_tol, step8_tol = tols or (STEP1_TOL, STEP8_TOL)
     disp_tol = disp_bound or disp_tol
+    # step8_tol None: the trajectory is held at its first compared step only
+    # (the caller holds the others one step at a time)
+    held = compared if step8_tol is not None else [first]
     log(f"{label} vs JAX golden: " + ", ".join(
         f"step {k} {errs[k]:.3e} (bound {step1_tol if k == first else step8_tol})"
         for k in compared) + ", displacement " + ", ".join(f"{disp[k]:.3e}" for k in compared)
-        + f" (bound {disp_tol})")
-    need(errs[first] < step1_tol and all(errs[k] < step8_tol for k in compared[1:])
-         and max(disp.values()) < disp_tol,
+        + f" (bound {disp_tol}, held at steps {held})")
+    need(errs[first] < step1_tol and all(errs[k] < step8_tol for k in held[1:])
+         and max(disp[k] for k in held) < disp_tol,
          f"{label}: trajectory off the golden: {errs}, displacement {disp}")
     to_grid = {}
     if grid is not None:
@@ -3543,6 +3627,668 @@ def contact_path(torch, name):
     return solver, res
 
 
+# --- self-collision (ROADMAP Queue 1 item 10): kernels K, L, H[DYN], G[DYN] ----
+
+# The paths against their goldens: (step 1, the later held steps) relative to
+# max |x|, and the displacement bound, some 3-7 times the gaps the card showed
+# (PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W): GS 1.2e-5 / 8.0e-4 /
+# 1.6e-3 (boxes_gs20 1.7e-5 / 8.8e-4 / 1.4e-3); Uzawa 6.0e-5 / - / 7.9e-3 at
+# step 1, AL-PCG 0 / - / 0. Uzawa's and AL-PCG's trajectories are held at step
+# 1 only (None): from the landing on the JAX package parts from itself in one
+# step as far as the port parts from it. Each golden holds a control, the held
+# step once more from the state before it with x one ulp up
+# (tests/make_torch_golden.py): boxes_uzawa8's step 9 parts by 1.0e-2 of max
+# |x| with 50 hits for 128, boxes_alpcg8's step 6 by 1.9e-2 with 62 hits for
+# 128 and 355 PCG trips for 267, where GS's part by 8.1e-6. Every path's held
+# steps after the first are held one step at a time instead (SELFCOLL_ONESTEP).
+SELFCOLL_STEP_TOL = {"boxes_gs8": (1e-4, 1e-2), "boxes_uzawa8": (2e-4, None),
+                     "boxes_alpcg8": (1e-4, None), "boxes_gs20": (1e-4, 1e-2)}
+SELFCOLL_DISP_TOL = {"boxes_gs8": 0.02, "boxes_uzawa8": 0.03, "boxes_alpcg8": 0.02,
+                     "boxes_gs20": 0.02}
+# Each held step after the first, one step (the captured step, run(1)) from
+# the golden's state before it: x against the golden's under the first bound
+# (relative to max |x|) and its dynamic hits against the golden's under the
+# second. The x bounds are 3-4 times the largest one-step gap of the port (on
+# the card, PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W; on the CPU) and of
+# the golden's one-ulp control: boxes_gs8 7.7e-6 / 5.4e-6 / 8.1e-6,
+# boxes_uzawa8 1.006e-2 / 1.006e-2 / 1.007e-2, boxes_alpcg8 9.2e-4 / 1.8e-2
+# / 1.9e-2, boxes_gs20 5.1e-6 / - / 7.4e-6. The hit bounds: the control's
+# hits part from the golden's by 78 of 128 (boxes_uzawa8 step 9; the port's
+# by 85) and 66 of 128 (boxes_alpcg8 step 6; the port's by 0), each bound below
+# the count; GS's by none.
+SELFCOLL_ONESTEP = {"boxes_gs8": (3e-5, 8), "boxes_uzawa8": (3e-2, 100),
+                    "boxes_alpcg8": (6e-2, 96), "boxes_gs20": (3e-5, 24)}
+# The dynamic hits at a held step of the port's own run may differ from the
+# JAX package's by this many where its trajectory is held (from the same
+# runs: GS 0 and 5 of 887); the hits of the port's detection at the golden's
+# own states by GOLDEN_HITS_TOL (float32: a barycentric within rounding of 0),
+# and its first step with a dynamic hit by one step.
+SELFCOLL_HITS_BOUND = {"boxes_gs8": 8, "boxes_uzawa8": 0, "boxes_alpcg8": 0, "boxes_gs20": 24}
+GOLDEN_HITS_TOL = 2
+TUNNEL_MARGIN = 0.02  # m: the top box may sink this much deeper into the bottom one than
+# the JAX package's run lets it (the boxes are 1 m)
+K_CASES_FOLD = 8  # tests/test_broadphase.py's folded block
+
+
+def dyn_hits(solver, x):
+    """The dynamic hits of the solver's query vertices at x (numpy or a
+    tensor): its detection without the passive rows (kernel K on the card)."""
+    import torch
+
+    xt = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x))
+    xt = xt.to(device=solver.device, dtype=solver.state.x.dtype)
+    return int(solver._detect(xt, with_passive=False).d_mask.sum().item())
+
+
+def selfcoll_counts(name, iters, s):
+    """The launches of each port kernel that a self-collision path's replays
+    make in `iters` ADMM iterations (0 for one they must not launch), and the
+    kernels that must launch: each box is a family of its own (the local step
+    and the rhs twice an iteration) and a collider of its own (K twice a
+    detection, once per ADMM iteration); L twice a solve (C^T c and diag(C^T
+    C)) for GS and AL-PCG, once per A^-1 apply for Uzawa (C^T of y, then of
+    each Schur direction), whose direct applies refine once through A_mv (B
+    and C per family)."""
+    ls = SELFCOLL_SCENES[name]["ls"]
+    fam = 2
+    model = "linear"
+    counts = {f"local_step_tet_stencil[{model}]": fam * iters,
+              f"local_step_tet_hyper[{model}]": 0, "gs_solve": 0, "pcg_solve": 0,
+              "pcg_solve_penalty": 0, "mesh_detect": 0, "dyn_detect": 2 * iters,
+              "gs_solve_dyn": 0, "pcg_solve_dyn": 0}
+    kernels = [f"local_step_tet_stencil[{model}]", "tet_rhs_rows", "dyn_detect", "dyn_gather"]
+    if ls == 1:
+        counts.update(gs_solve_dyn=iters, dyn_gather=2 * iters, tet_rhs_rows=fam * iters,
+                      tet_Dx_rows=0)
+        kernels.append("gs_solve_dyn")
+    elif ls == 4:
+        counts.update(pcg_solve_dyn=iters, dyn_gather=2 * iters, tet_rhs_rows=fam * iters,
+                      tet_Dx_rows=0)
+        kernels.append("pcg_solve_dyn")
+    else:
+        applies = 1 + s.uzawa_max_iters
+        counts.update(dyn_gather=applies * iters, tet_rhs_rows=fam * (1 + applies) * iters,
+                      tet_Dx_rows=fam * applies * iters)
+        kernels.append("tet_Dx_rows")
+    return counts, kernels
+
+
+def box_gap(x, n_box):
+    """The top box's lowest y less the bottom box's highest."""
+    return float(x[n_box:, 1].min() - x[:n_box, 1].max())
+
+
+def selfcoll_path(torch, name):
+    """One of SELFCOLL_PATHS through the normal entry points (boxes_scene),
+    its steps through the captured step against its golden under
+    SELFCOLL_STEP_TOL / SELFCOLL_DISP_TOL at the held steps (1, the first with
+    a dynamic hit, the last): the launches of selfcoll_counts on the device,
+    the graph bitwise equal to the eager loop; the dynamic hits at each held
+    step beside the JAX package's (SELFCOLL_HITS_BOUND), those of the golden's
+    own states (GOLDEN_HITS_TOL), the first step with a hit (one step apart at
+    most); no tunnelling (the top box no deeper into the bottom one than the
+    JAX package's run by TUNNEL_MARGIN, the floor held 0.1 m); each step's
+    collision_overflow equal to the JAX package's and its inner iterations
+    beside them; the device operations per iteration."""
+    p = SELFCOLL_SCENES[name]
+    solver, n_box = boxes_scene(name, torch_api())
+    g = golden(name)
+    s = solver.m_settings
+    need(s.linsolver == int(g["linsolver"]) and int(g["n_box"]) == n_box
+         and type(solver._solve_data).__name__ == str(g["uzawa_inner"]),
+         f"{name}: the solver differs from the golden's")
+    compared = [int(k) for k in g["steps"]]
+    iters = compared[-1] * s.admm_iters
+    counts, kernels = selfcoll_counts(name, iters, s)
+    state0 = solver.state.clone()
+    x0, x_last, res = drive_path(torch, name, solver, g, [], kernels, model="linear",
+                                 step_counts=counts, tols=SELFCOLL_STEP_TOL[name],
+                                 disp_bound=SELFCOLL_DISP_TOL[name])
+    xs = drive_path.xs
+    jh = [int(h) for h in g["hits"]]
+    hits = {k: dyn_hits(solver, xs[k]) for k in compared}
+    at_golden = {k: dyn_hits(solver, g[f"x{k}"]) for k in compared}
+    bound = SELFCOLL_HITS_BOUND[name]
+    held = compared if SELFCOLL_STEP_TOL[name][1] is not None else compared[:1]
+    for k in compared:
+        need(k not in held or abs(hits[k] - jh[k - 1]) <= bound,
+             f"{name} step {k}: {hits[k]} dynamic hits, the JAX package's {jh[k - 1]} "
+             f"(bound {bound})")
+        need(abs(at_golden[k] - jh[k - 1]) <= GOLDEN_HITS_TOL,
+             f"{name} step {k}: {at_golden[k]} dynamic hits at the golden's state, the JAX "
+             f"package's {jh[k - 1]}")
+    gaps = {k: box_gap(xs[k], n_box) for k in compared}
+    jax_gap = min(box_gap(g[f"x{k}"], n_box) for k in compared)
+    floor_min = min(float(x[:, 1].min()) for x in xs.values())
+    need(min(gaps.values()) > min(jax_gap, 0.0) - TUNNEL_MARGIN,
+         f"{name}: the top box tunnels into the bottom one: gaps {gaps}, the JAX package's "
+         f"least {jax_gap}")
+    need(floor_min > BOXES_FLOOR - 0.1, f"{name}: through the floor ({floor_min})")
+    solver.state = state0.clone()
+    inner, overflow, step_hits = [], [], []
+    for _ in range(compared[-1]):
+        solver.step()
+        inner.append(solver.runtime_data().inner_iters)
+        overflow.append(solver.runtime_data().collision_overflow)
+        step_hits.append(dyn_hits(solver, solver.state.x))
+    need(overflow == g["overflow"].tolist(),
+         f"{name}: collision_overflow {overflow}, the JAX package's {g['overflow'].tolist()}")
+    first = next((k + 1 for k, h in enumerate(step_hits) if h > 0), None)
+    need(first is not None and abs(first - compared[1]) <= 1,
+         f"{name}: first dynamic hit at step {first}, the JAX package's at {compared[1]} "
+         f"(hits per step {step_hits})")
+    one = selfcoll_one_steps(torch, solver, name, g, compared[1:])
+    res.update(one_step=one, dynamic_hits={str(k): v for k, v in hits.items()},
+               dynamic_hits_at_golden={str(k): v for k, v in at_golden.items()},
+               dynamic_hits_per_step=step_hits, jax_hits_per_step=jh,
+               jax_dynamic_hits={str(k): jh[k - 1] for k in compared},
+               box_gap={str(k): v for k, v in gaps.items()}, jax_least_box_gap=jax_gap,
+               min_y=floor_min, collision_overflow=overflow, inner_per_step=inner,
+               jax_inner_per_step=g["inner"].tolist(),
+               device=device_ops(torch, lambda: solver.run(1), s.admm_iters))
+    log(f"{name}: dynamic hits {hits} (the JAX package's {res['jax_dynamic_hits']}; at the "
+        f"golden's states {at_golden}), per step {step_hits} (the JAX package's {jh}), box gaps "
+        f"{ {k: round(v, 4) for k, v in gaps.items()} } (the JAX package's least "
+        f"{jax_gap:.4f}), inner iterations per step {inner} (the JAX package's "
+        f"{g['inner'].tolist()}), overflow {overflow}; device per iteration "
+        f"{json.dumps(res['device'])}")
+    return solver, res
+
+
+def selfcoll_one_steps(torch, solver, name, g, steps):
+    """Each of `steps` one step (run(1), the captured step) from the golden's
+    state before it (s{k}_x, _v, _y, _prev_active): x against the golden's
+    x{k} and the dynamic hits against the golden's under SELFCOLL_ONESTEP,
+    beside the golden's own one-ulp control (ctl{k}_gap, _hits, _inner)."""
+    x_tol, hit_tol = SELFCOLL_ONESTEP[name]
+    st0 = solver.state
+    out = {}
+    for k in steps:
+        solver.state = type(st0)(**{f: torch.as_tensor(g[f"s{k}_{f}"], device=DEVICE)
+                                    for f in ("x", "v", "y", "prev_active")})
+        solver.run(1)
+        x = solver.x
+        gap = rel_err(x, g[f"x{k}"])
+        h = dyn_hits(solver, solver.state.x)
+        jh = int(g["hits"][k - 1])
+        out[str(k)] = dict(rel_err=gap, hits=h, jax_hits=jh,
+                           inner=solver.runtime_data().inner_iters, jax_inner=int(g["inner"][k - 1]),
+                           control_rel_err=float(g[f"ctl{k}_gap"]),
+                           control_hits=int(g[f"ctl{k}_hits"]),
+                           control_inner=int(g[f"ctl{k}_inner"]))
+        log(f"{name} step {k} one step from the golden's state: {gap:.3e} of max |x| (bound "
+            f"{x_tol}; the JAX package's one-ulp control {float(g[f'ctl{k}_gap']):.3e}), {h} "
+            f"dynamic hits (the golden's {jh}, bound {hit_tol}; the control's "
+            f"{int(g[f'ctl{k}_hits'])})")
+        need(np.isfinite(x).all() and gap <= x_tol and abs(h - jh) <= hit_tol,
+             f"{name} step {k}: one step from the golden's state off it: {out[str(k)]}")
+    solver.state = st0
+    return out
+
+
+def golden_state_solver(torch, name, step):
+    """A self-collision path's solver (float32, on the card) at its golden's
+    x after `step`, v = 0."""
+    import dataclasses
+
+    solver, _ = boxes_scene(name, torch_api())
+    x = torch.as_tensor(golden(name)[f"x{step}"], device=DEVICE, dtype=torch.float32)
+    solver.state = dataclasses.replace(solver.state, x=x, v=torch.zeros_like(x))
+    return solver
+
+
+def folded_case(torch, n):
+    """tests/test_broadphase.py's block folded onto itself: (collider, x,
+    surf) in float64 on DEVICE."""
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+    from admm_elastic_tpu_torch.geometry.mesh import surface_vertex_indices
+
+    mesh = make_tet_blocks(n, n, n)
+    x = mesh.vertices.astype(np.float64).copy()
+    x[:, 0] = np.abs(x[:, 0] - n / 2 - 0.2) * 0.9
+    col = dyn.make_tet_mesh_collider(mesh.vertices, mesh.tets, mesh.faces, 0)
+    return ([col.to(DEVICE, torch.float64)], torch.as_tensor(x, device=DEVICE),
+            torch.as_tensor(surface_vertex_indices(mesh.tets), device=DEVICE))
+
+
+def k_cases(torch):
+    """[(label, colliders, x, surf, limits)] of kernel K's checks, float64:
+    boxes_gs8 at its golden's first-hit step and last step (two colliders,
+    772 query vertices), boxes_gs20 at its first-hit and last steps (the
+    broad phase, 4,804 query vertices), the folded block dense and with the
+    broad phase forced, and with HIT_CAP = 1 (limits: the dynamic module's
+    constants for the case)."""
+    out = []
+    for name in ("boxes_gs8", "boxes_gs20"):
+        g = golden(name)
+        solver, _ = boxes_scene(name, torch_api())
+        c = solver._contact
+        for k in [int(v) for v in g["steps"]][1:]:
+            out.append((f"{name}@{k}", [col.to(DEVICE, torch.float64) for col in c.colliders],
+                        torch.as_tensor(g[f"x{k}"], device=DEVICE, dtype=torch.float64),
+                        c.surf, {}))
+    cols, x, surf = folded_case(torch, K_CASES_FOLD)
+    out += [(f"folded{K_CASES_FOLD} dense", cols, x, surf, dict(BROADPHASE_MIN_TETS=10 ** 9)),
+            (f"folded{K_CASES_FOLD} broad", cols, x, surf, dict(BROADPHASE_MIN_TETS=1)),
+            (f"folded{K_CASES_FOLD} hit_cap 1", cols, x, surf,
+             dict(BROADPHASE_MIN_TETS=10 ** 9, HIT_CAP=1))]
+    return out
+
+
+class dyn_limits:
+    """Set the dynamic module's constants for a block."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        from admm_elastic_tpu_torch.collision import dynamic as dyn
+
+        self.old = {k: getattr(dyn, k) for k in self.kw}
+        for k, v in self.kw.items():
+            setattr(dyn, k, v)
+
+    def __exit__(self, *exc):
+        from admm_elastic_tpu_torch.collision import dynamic as dyn
+
+        for k, v in self.old.items():
+            setattr(dyn, k, v)
+
+
+def k_detect(torch, cols, x, surf, plain):
+    """The merged rows and the overflow flag of K (or its plain twin) over
+    the colliders cols at x, from empty rows."""
+    from admm_elastic_tpu_torch.ops import cuda_dynamic
+
+    h = surf.shape[0]
+    rows = (torch.zeros((h,), dtype=torch.bool, device=x.device),
+            torch.zeros((h, 3), dtype=torch.int64, device=x.device),
+            torch.zeros((h, 3), dtype=x.dtype, device=x.device),
+            torch.zeros((h, 3), dtype=x.dtype, device=x.device))
+    flag = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    xs = x[surf]
+    for c in cols:
+        rows = (cuda_dynamic.detect_plain if plain else cuda_dynamic.dyn_detect)(
+            c, x, xs, surf, rows, flag)
+    return rows, flag
+
+
+def rows_hits(torch, rows, surf, n):
+    """Hits of the dynamic rows alone, with their table."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.collision import constraints as con
+
+    d_mask, d_face, d_barys, d_normal = rows
+    e = con.empty_hits(surf, d_barys.dtype, dense=False, may_dyn=True)
+    return con.with_table(dataclasses.replace(e, d_mask=d_mask, d_face=d_face, d_barys=d_barys,
+                                              d_normal=d_normal), n)
+
+
+def l_pair(torch, hits, n, seed):
+    """Kernel L's two modes against its plain twin on hits: (max |diff|,
+    bitwise) over C^T y (random y and base) and diag(C^T C)."""
+    from admm_elastic_tpu_torch.collision import constraints as con
+    from admm_elastic_tpu_torch.ops import cuda_dynamic
+
+    rng = np.random.default_rng(seed)
+    dt = hits.d_barys.dtype
+    base = torch.as_tensor(rng.standard_normal((n, 3)), device=DEVICE, dtype=dt)
+    yd = torch.as_tensor(rng.standard_normal(hits.capacity), device=DEVICE, dtype=dt)
+    ck = torch.tensor(2.5, device=DEVICE, dtype=dt)
+    worst, bitwise = 0.0, True
+    for mode, y in ((con.CT, yd), (con.DIAG, None)):
+        got = cuda_dynamic.dyn_gather(hits, base, mode, ck, y)
+        vals = con.corner_values(hits, mode, ck, y).reshape(-1, 3)
+        want = con.gather_plain(hits.d_order, hits.d_start, vals, base)
+        bitwise &= bool(torch.equal(got, want))
+        worst = max(worst, float((got - want).abs().max()))
+    return worst, bitwise
+
+
+def kernel_k_checks(torch):
+    """Kernel K (a collider's detection, merged into the rows) and kernel L
+    (the rows' C^T and diag(C^T C) by their table) bit for bit their plain
+    twins on the card, float64 and float32, on k_cases: the paths' states,
+    the folded block dense and broad, HIT_CAP = 1 (its hit overflow set), two
+    colliders and one, query sets wider than a block. Returns (checks, what
+    the timing needs)."""
+    out, timing = {}, {}
+    for label, cols, x64, surf, limits in k_cases(torch):
+        n = x64.shape[0]
+        for dname, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            cols_t = [c.to(DEVICE, dtype) for c in cols]
+            x = x64.to(dtype)
+            with dyn_limits(**limits):
+                rows_k, flag_k = k_detect(torch, cols_t, x, surf, plain=False)
+                rows_p, flag_p = k_detect(torch, cols_t, x, surf, plain=True)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(rows_k, rows_p))
+            hits = int(rows_k[0].sum().item())
+            need(same and int(flag_k.item()) == int(flag_p.item()),
+                 f"K {label} {dname}: not bit for bit its plain twin (hits {hits} against "
+                 f"{int(rows_p[0].sum().item())}, overflow {int(flag_k.item())} against "
+                 f"{int(flag_p.item())})")
+            need(hits > 0, f"K {label} {dname}: no hit")
+            if "hit_cap 1" in label:
+                need(hits == 1 and int(flag_k.item()) == 1, f"K {label}: HIT_CAP not held")
+            h = rows_hits(torch, rows_k, surf, n)
+            l_err, l_bitwise = l_pair(torch, h, n, seed=hits)
+            need(l_bitwise, f"L {label} {dname}: not bit for bit its plain twin ({l_err:.3e})")
+            out[f"{label} {dname}"] = dict(hits=hits, overflow=int(flag_k.item()),
+                                           queries=int(surf.shape[0]), colliders=len(cols),
+                                           tets=sum(c.n_tets for c in cols), max_abs_err=0.0,
+                                           l_max_abs_err=l_err, bitwise=True)
+            if dname == "f32" and label.startswith("boxes"):
+                timing[label] = dict(cols=cols_t, x=x, surf=surf, hits=h, n=n,
+                                     limits=limits)
+        log(f"K and L {label}: bit for bit their plain twins in float64 and float32 "
+            f"({out[label + ' f64']['hits']} hits, {int(surf.shape[0])} queries, "
+            f"{len(cols)} collider(s), overflow {out[label + ' f64']['overflow']})")
+    return out, timing
+
+
+def overlap_solver(torch, n):
+    """Two n^3 boxes under Gauss-Seidel (boxes_scene's, float32, on the
+    card), the top one moved down until its bottom layer sits half a cell
+    inside the bottom box, v = 0: dynamic rows at rest, in colours narrower
+    than kernel H's 512-thread block for n = 6 (288 rows)."""
+    import dataclasses
+
+    SELFCOLL_SCENES[f"overlap{n}"] = dict(n=n, ls=1, steps=1)
+    try:
+        solver, n_box = boxes_scene(f"overlap{n}", torch_api())
+    finally:
+        del SELFCOLL_SCENES[f"overlap{n}"]
+    x = solver.state.x.clone()
+    x[n_box:, 1] -= BOXES_SPACING - 1.0 + 0.5 / n
+    solver.state = dataclasses.replace(solver.state, x=x, v=torch.zeros_like(x))
+    return solver
+
+
+def dyn_step_inputs(torch, name, step, dtype):
+    """(solver, b, x0, hits) of a self-collision path's first global solve from
+    its golden's state after `step` (v = 0; name "overlap<n>": overlap_solver's
+    state), in dtype: the hits of its detection at x0 (GS: the dynamic rows
+    alone; AL-PCG: deduped), with their table."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.collision import constraints as con
+
+    solver = (overlap_solver(torch, int(name[len("overlap"):])) if name.startswith("overlap")
+              else golden_state_solver(torch, name, step))
+    b, x0 = first_solve(torch, solver)
+    gs = solver.m_settings.linsolver == 1
+    hits = solver._detect(x0, with_passive=not gs)
+    if not gs:
+        hits = hits.dedup()
+    if dtype == torch.float64:
+        hits = dataclasses.replace(hits, **{f: getattr(hits, f).double() for f in (
+            "p_normal", "p_point", "d_barys", "d_normal")})
+        b, x0 = b.double(), x0.double()
+    return solver, b, x0, con.with_table(hits, b.shape[0])
+
+
+# H[DYN]'s cases: boxes_gs8 (5 colours of at most 600 rows) and boxes_gs20
+# (over 512: the WIDE block, 1,024 threads), an overlapped pair of 6^3 boxes
+# (288: the 512-thread block)
+H_DYN_CASES = ("boxes_gs8", "boxes_gs20", "overlap6")
+
+
+def h_dyn_forms(torch, n, dtype):
+    """The forms of kernel H that take n vertices in dtype on this card:
+    global always, shared where x fits the block's shared memory."""
+    from admm_elastic_tpu_torch.ops import cuda_gs
+
+    try:
+        cuda_gs.form_of(n, dtype, "shared")
+    except ValueError:
+        return ["global"]
+    return ["global", "shared"]
+
+
+def hdyn_gdyn_checks(torch):
+    """H's DYN form against the plain gs.solve (may_have_dyn, the rows' sums
+    by constraints.dyn_gather_plain) at the first solve from the golden's
+    first-hit state of each H_DYN_CASES path (boxes_gs8 and boxes_gs20: the
+    WIDE block) and from overlap_solver(6)'s state (the 512-thread block), in
+    every form that takes the shape
+    (h_dyn_forms), float32 and float64: bit for bit and in the same sweeps,
+    each twice bitwise. G's DYN form (alcg.solve on the card) against the
+    plain alcg.solve_plain at boxes_alpcg8's: float64 within PCG_F64_TOL in
+    the same trips; float32 no further from it than the plain solve in
+    float32 is from the plain solve in float64 (the lower precision's own
+    gap, read here), its trips within GPEN_F32_TRIPS; twice bitwise. G is not
+    held bit for bit: its dots are tree sums, which no plain twin repeats
+    (ROADMAP Queue 2). Returns (checks, what the timing needs)."""
+    from admm_elastic_tpu_torch.collision import constraints as con
+    from admm_elastic_tpu_torch.ops import cuda_gs
+    from admm_elastic_tpu_torch.solvers import alcg, gs, pcg
+
+    out, timing = {}, {}
+    plain = con.dyn_gather_plain
+    for name in H_DYN_CASES:
+        step = None if name.startswith("overlap") else [int(k) for k in golden(name)["steps"]][1]
+        for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            solver, b, x0, hits = dyn_step_inputs(torch, name, step, dtype)
+            s, c = solver.m_settings, solver._contact
+            data = solver._solve_data if dtype == torch.float32 else gs_data64(torch, solver)
+            obs = [o.to(DEVICE, dtype) for o in solver.obstacles]
+            ck = c.ck.to(dtype)
+            pin_target = c.pin_target.to(dtype)
+            params = cuda_gs.obstacle_params(obs)
+            args = (data, b, x0, c.pin_mask, pin_target, obs, s.gs_omega, s.gs_max_iters,
+                    s.gs_tol)
+            n_hits = int(hits.d_mask.sum().item())
+            need(n_hits > 0, f"H[DYN] {name}: no dynamic row at the checked state")
+            xp, kp = gs.solve(data.ell_cols, data.ell_vals, data.diag, data.colors,
+                              data.colors_mask, b, x0, c.pin_mask, pin_target, obs, hits, ck,
+                              s.gs_omega, s.gs_max_iters, s.gs_tol, may_have_dyn=True,
+                              gather=plain)
+            forms = h_dyn_forms(torch, int(b.shape[0]), dtype)
+            wide = cuda_gs.h_wide(int(data.colors.shape[1]))
+            r = dict(hits=n_hits, n=int(b.shape[0]), plain_sweeps=kp, wide=wide, forms={},
+                     max_abs_err=0.0)  # bit for bit in every form, or need() failed
+            for form in forms:
+                ts = [torch.zeros((1,), dtype=torch.int32, device=DEVICE) for _ in range(2)]
+                xh, xh2 = (cuda_gs.gs_solve_dyn(*args, t, hits, ck, c.slot_of, params=params,
+                                                form=form) for t in ts)
+                kh = int(ts[0].item())
+                need(bool(torch.equal(xh, xh2)) and kh == int(ts[1].item()),
+                     f"H[DYN] {name} {dname} {form}: two runs differ")
+                err = rel_err(xh.double().cpu().numpy(), xp.double().cpu().numpy())
+                need(bool(torch.equal(xh, xp)) and kh == kp,
+                     f"H[DYN] {name} {dname} {form}{' wide' if wide else ''}: not bit for bit "
+                     f"its plain twin (rel err {err:.3e}, {kh} sweeps, plain {kp})")
+                r["forms"][form] = dict(sweeps=kh, bitwise=True)
+            out[f"gs_solve_dyn@{name} {dname}"] = r
+            if dname == "f32":
+                timing[f"gs_solve_dyn@{name}"] = dict(
+                    args=args, hits=hits, ck=ck, slot_of=c.slot_of, params=params, sweeps=kp,
+                    max_abs_err=0.0,
+                    plain=lambda args=args, hits=hits, ck=ck, s=s, data=data: gs.solve(
+                        data.ell_cols, data.ell_vals, data.diag, data.colors, data.colors_mask,
+                        *args[1:6], hits, ck, s.gs_omega, s.gs_max_iters, s.gs_tol,
+                        may_have_dyn=True, gather=plain))
+            log(f"H[DYN] {name} {dname}: {n_hits} dynamic rows, {data.colors.shape[0]} colours "
+                f"of at most {data.colors.shape[1]}, {'WIDE' if wide else '512-thread'} block, "
+                f"forms {forms} each bit for bit the plain gs.solve in {kp} sweeps")
+    name = "boxes_alpcg8"
+    step = [int(k) for k in golden(name)["steps"]][1]
+    got = {}
+    for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        solver, b, x0, hits = dyn_step_inputs(torch, name, step, dtype)
+        s, c = solver.m_settings, solver._contact
+        data = (solver._solve_data if dtype == torch.float32
+                else pcg.prepare(solver.system, torch.float64, precond=s.pcg_precond))
+        ck = c.ck.to(dtype)
+        y = torch.zeros((2 * hits.capacity,), dtype=dtype, device=DEVICE)
+        ts = [torch.zeros((1,), dtype=torch.int32, device=DEVICE) for _ in range(2)]
+        xg, yg = alcg.solve(data, hits, ck, b, x0, y, s.pcg_tol, s.pcg_max_iters, ts[0],
+                            slot_of=c.slot_of)
+        xg2, _ = alcg.solve(data, hits, ck, b, x0, y, s.pcg_tol, s.pcg_max_iters, ts[1],
+                            slot_of=c.slot_of)
+        kg = int(ts[0].item())
+        need(bool(torch.equal(xg, xg2)) and kg == int(ts[1].item()),
+             f"G[DYN] {name} {dname}: two runs differ")
+        xp, yp, kp = alcg.solve_plain(data, hits, ck, b, x0, y, s.pcg_tol, s.pcg_max_iters,
+                                      gather=con.dyn_gather_plain)
+        got[dname] = xp.double().cpu().numpy()
+        err = rel_err(xg.double().cpu().numpy(), got[dname])
+        r = dict(rel_err=err, trips=kg, plain_trips=kp, n=int(b.shape[0]),
+                 hits=int(hits.d_mask.sum().item()), passive=int(hits.p_mask.sum().item()),
+                 max_abs_err=float((xg - xp).abs().max()),
+                 y_rel_err=rel_err(yg.double().cpu().numpy(), yp.double().cpu().numpy()))
+        need(r["hits"] > 0, f"G[DYN] {name}: no dynamic row at the checked state")
+        out[f"pcg_solve_dyn@{name} {dname}"] = r
+        if dname == "f32":
+            _, b_hat, pen_diag, _ = alcg._setup(hits, ck, b, y)
+            pn = alcg.penalty_vectors(hits, ck, b.shape[0])
+            timing["pcg_solve_dyn@boxes_alpcg8"] = dict(
+                data=data, b_hat=b_hat, x0=x0, pn=pn, pen_diag=pen_diag, hits=hits, ck=ck,
+                slot_of=c.slot_of, s=s, trips=kg, max_abs_err=r["max_abs_err"])
+    r32, r64 = out[f"pcg_solve_dyn@{name} f32"], out[f"pcg_solve_dyn@{name} f64"]
+    control = rel_err(got["f32"], got["f64"])  # the plain solve's own float32 gap
+    r32["f32_control"] = control
+    need(r64["rel_err"] <= PCG_F64_TOL and r64["trips"] == r64["plain_trips"],
+         f"G[DYN] {name} f64: {r64} (bound {PCG_F64_TOL})")
+    need(r32["rel_err"] <= control and abs(r32["trips"] - r32["plain_trips"]) <= GPEN_F32_TRIPS,
+         f"G[DYN] {name} f32: {r32} (bound: the plain solve's float32 gap {control:.3e})")
+    for dname, r in (("f32", r32), ("f64", r64)):
+        log(f"G[DYN] {name} {dname}: {r['hits']} dynamic and {r['passive']} passive rows, rel "
+            f"err {r['rel_err']:.3e}, {r['trips']} trips (plain {r['plain_trips']})"
+            + (f"; the plain solve's float32 gap to its float64 {control:.3e}"
+               if dname == "f32" else ""))
+    return out, timing
+
+
+def selfcoll_kernel_times(torch, k_timing, hg_timing, gpu):
+    """Kernels K, L, H[DYN] and G[DYN] on the card at the paths' shapes:
+    each call by queued CUDA events and by torch.profiler (the device time of
+    its kernels, summed over a call), its plain twin's by CUDA events, the
+    bound (K: the pair tests and the face walk at ~40 and ~80 operations, or
+    the bytes of x, the tets and the rest mesh; L: the rows and the table read
+    once and [N, 3] written once; H and G: as h_bytes_ops / pcg_bytes_ops
+    count them), and L's yardstick, index_add_ of the same terms (float
+    atomics; never in the port). Returns {label: entry}."""
+    from admm_elastic_tpu_torch.collision import constraints as con
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
+    from admm_elastic_tpu_torch.ops import cuda_dynamic, cuda_gs, cuda_pcg
+
+    out = {}
+    for label, t in k_timing.items():
+        x, surf, cols, hits, n = t["x"], t["surf"], t["cols"], t["hits"], t["n"]
+        item = x.element_size()
+
+        def k_call(t=t):
+            with dyn_limits(**t["limits"]):
+                return k_detect(torch, t["cols"], t["x"], t["surf"], plain=False)
+
+        def k_plain(t=t):
+            with dyn_limits(**t["limits"]):
+                return k_detect(torch, t["cols"], t["x"], t["surf"], plain=True)
+
+        h_q = int(surf.shape[0])
+        broad = any(c.n_tets > dyn.BROADPHASE_MIN_TETS for c in cols)
+        pairs = 0
+        for c in cols:
+            if c.n_tets > dyn.BROADPHASE_MIN_TETS:
+                cand, _ = dyn._broad_phase_candidates(x[c.tets.long()], x[surf], c.cell_cap)
+                pairs += int((cand < c.n_tets).sum().item())
+            else:
+                pairs += h_q * c.n_tets
+        n_hits = int(hits.d_mask.sum().item())
+        faces = sum(int(c.faces.shape[0]) for c in cols)
+        ops = 40 * pairs + 80 * n_hits * faces // len(cols)
+        nbytes = (x.numel() * item + sum(c.tets.numel() * 4 + c.rest_verts.numel() * item
+                                         + c.faces.numel() * 4 for c in cols)
+                  + h_q * (8 + 1 + 24 + 2 * 3 * item))
+        k_us = queued_us(torch, [("k", k_call)] * 2, 5)["k"]
+        plain_ms = events_ms(torch, k_plain, 3)
+        prof = g_device_us(torch, k_call, 5, kernel="dyn_")
+        bound_ms, bound_by = bound_of(nbytes, ops)
+        out[f"dyn_detect@{label}"] = dict(
+            ms=k_us * 1e-3, profiler_ms=None if prof is None else prof * 4 * len(cols) * 1e-3,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            operations=ops, library_ms=None, pairs=pairs, hits=n_hits, queries=h_q,
+            broad=broad, colliders=len(cols))
+        ck = torch.tensor(2.5, device=DEVICE, dtype=x.dtype)
+        yd = torch.ones((hits.capacity,), device=DEVICE, dtype=x.dtype)
+        base = torch.zeros((n, 3), device=DEVICE, dtype=x.dtype)
+        vals = con.corner_values(hits, con.CT, ck, yd).reshape(-1, 3)
+        k_ent = int(hits.d_start[-1].item())
+        ent = hits.d_order[:k_ent]
+        idx, src = hits.d_face.reshape(-1)[ent], vals[ent]
+        l_us = queued_us(torch, [("l", lambda: cuda_dynamic.dyn_gather(
+            hits, base, con.CT, ck, yd))] * 2, 10)["l"]
+        lib_ms = events_ms(torch, lambda: base.clone().index_add_(0, idx, src), 20)
+        l_plain = events_ms(torch, lambda: con.gather_plain(hits.d_order, hits.d_start, vals,
+                                                             base), 5)
+        l_prof = g_device_us(torch, lambda: cuda_dynamic.dyn_gather(hits, base, con.CT, ck, yd),
+                             20, kernel="dyn_gather_kernel")
+        l_bytes = (hits.capacity * (1 + 8 + 24 + 6 * item) + (3 * hits.capacity + n + 1) * 8
+                   + 2 * n * 3 * item)
+        l_ops = 4 * 3 * k_ent
+        lb, lby = bound_of(l_bytes, l_ops)
+        out[f"dyn_gather@{label}"] = dict(
+            ms=l_us * 1e-3, profiler_ms=None if l_prof is None else l_prof * 1e-3,
+            plain_ms=l_plain, bound_ms=lb, bound_by=lby, bytes=l_bytes, operations=l_ops,
+            library_ms=lib_ms, entries=k_ent, n=n)
+        log(f"time K {label}: {k_us:.1f} us a call (queued), profiler "
+            f"{'not measured' if prof is None else '%.1f us' % (prof * 4 * len(cols))}; "
+            f"plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} us by {bound_by} "
+            f"({pairs} pair tests, {n_hits} hits x {faces // len(cols)} faces) [{gpu}]")
+        log(f"time L {label}: {l_us:.1f} us a launch (queued), profiler "
+            f"{'not measured' if l_prof is None else '%.1f us' % l_prof}; plain "
+            f"{l_plain * 1e3:.1f} us; index_add_ {lib_ms * 1e3:.1f} us; bound {lb * 1e3:.3f} us "
+            f"by {lby} ({k_ent} entries) [{gpu}]")
+    for name in H_DYN_CASES:
+        key = f"gs_solve_dyn@{name}"
+        t = hg_timing[key]
+        a = t["args"]
+        h_call = lambda t=t, a=a: cuda_gs.gs_solve_dyn(  # noqa: E731
+            *a, torch.zeros((1,), dtype=torch.int32, device=DEVICE), t["hits"], t["ck"],
+            t["slot_of"], params=t["params"])
+        h_us = queued_us(torch, [("h", h_call)] * 2, 5)["h"]
+        h_prof = g_device_us(torch, h_call, 5, kernel="gs_kernel")
+        h_plain = events_ms(torch, t["plain"], 1)
+        nbytes, ops = h_bytes_ops(a[0], t["sweeps"], a[1].element_size())
+        hb, hby = bound_of(nbytes, ops)
+        out[key] = dict(ms=h_us * 1e-3, profiler_ms=None if h_prof is None else h_prof * 1e-3,
+                        plain_ms=h_plain, bound_ms=hb, bound_by=hby, library_ms=None,
+                        sweeps=t["sweeps"], max_abs_err=t["max_abs_err"])
+    t = hg_timing["pcg_solve_dyn@boxes_alpcg8"]
+    s = t["s"]
+    g_call = lambda: cuda_pcg.pcg_solve_dyn(  # noqa: E731
+        t["data"], t["b_hat"], t["x0"], s.pcg_tol, s.pcg_max_iters,
+        torch.zeros((1,), dtype=torch.int32, device=DEVICE), t["pn"], t["pen_diag"], t["hits"],
+        t["ck"], t["slot_of"])
+    g_us = queued_us(torch, [("g", g_call)] * 2, 5)["g"]
+    g_prof = g_device_us(torch, g_call, 5, kernel="pcg_kernel")
+
+    def g_plain():
+        from admm_elastic_tpu_torch.solvers.alcg import penalty_solve_dyn
+
+        return penalty_solve_dyn(t["data"], t["pn"], t["pen_diag"], t["hits"], t["ck"],
+                                 t["b_hat"], t["x0"], s.pcg_tol, s.pcg_max_iters,
+                                 gather=con.dyn_gather_plain)
+
+    g_plain_ms = events_ms(torch, g_plain, 1)
+    nbytes, ops = pcg_bytes_ops(t["data"], t["trips"])
+    gb, gby = bound_of(nbytes, ops)
+    out["pcg_solve_dyn@boxes_alpcg8"] = dict(ms=g_us * 1e-3, profiler_ms=None if g_prof is None
+                                             else g_prof * 1e-3, plain_ms=g_plain_ms,
+                                             bound_ms=gb, bound_by=gby, library_ms=None,
+                                             trips=t["trips"], max_abs_err=t["max_abs_err"])
+    for k in [f"gs_solve_dyn@{n}" for n in H_DYN_CASES] + ["pcg_solve_dyn@boxes_alpcg8"]:
+        e = out[k]
+        prof = "not measured" if e["profiler_ms"] is None else f"{e['profiler_ms'] * 1e3:.1f} us"
+        log(f"time {k}: {e['ms'] * 1e3:.1f} us a solve (queued), profiler {prof}; plain "
+            f"{e['plain_ms'] * 1e3:.1f} us; bound {e['bound_ms'] * 1e3:.3f} us by "
+            f"{e['bound_by']} [{gpu}]")
+    return out
+
+
 def bench_contact_sanity(torch):
     """bench.py's contact sanity (bench.py:41-69) on the port, timed: the
     4x2x2 linear beam on a Floor(y=-1) with linsolver 1, 2 and 4, float32,
@@ -4053,6 +4799,12 @@ def frozen_checks(torch):
 # vertices, 956 levels of at most 80: they do not).
 WIND_SHEETS = (40, 160)
 WIND_SHEET_LABELS = tuple(f"wind_seq@{2 * nx * nx}" for nx in WIND_SHEETS)
+# kernel_i_checks runs the lists of more triangles than this in float32 only:
+# the plain scan of a 51,200-triangle list takes some 19 s on the card, and
+# the float64 bits are held on the 3,200-triangle sheet, the fan and the
+# repeated vertices (a depth cut that keeps the run under 900 s with the
+# self-collision paths)
+WIND_F64_MAX_TRIANGLES = 3200
 WIND_ALPHA, WIND_DT = 1000.0, 1.0 / 24.0
 # The lists beyond the sheets (wind_lists): the 160x160 sheet's triangles in
 # a shuffled order (28 levels of up to 3,963 triangles, wider than a block), a
@@ -4128,7 +4880,8 @@ def wind_bytes_ops(w, n, itemsize):
 def kernel_i_checks(torch, gpu):
     """Kernel I against its plain version on the card (wind_seq_plain, the
     scan: the same IEEE-rounded operations in the same order) on wind_lists
-    in float32 and float64, in each form that takes the shape: bit for bit,
+    in float32 and float64 (the 51,200-triangle lists in float32 only,
+    WIND_F64_MAX_TRIANGLES), in each form that takes the shape: bit for bit,
     finite, the velocities kicked; the level walk in plain PyTorch
     (wind_seq_levels_plain) bit for bit the scan too; a form that cannot take
     the shape raises. Timing (on the card), float32 and float64: each form by
@@ -4144,6 +4897,8 @@ def kernel_i_checks(torch, gpu):
     floor = floor_library() if on_card else None
     for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
         for label, tris, d, x, v in wind_lists(torch, dtype):
+            if dname == "f64" and tris.shape[0] > WIND_F64_MAX_TRIANGLES:
+                continue
             sched = cuda_wind.bake_schedule(tris, tris.device)
             w, n, item = tris.shape[0], x.shape[0], x.element_size()
             t0 = time.perf_counter()
@@ -5246,6 +6001,8 @@ def path_phase(torch, gpu):
         drive = contact_path if variant_of(name)[0] in CONTACT_SCENES else aa_path
         solvers[name], paths[name] = drive(torch, name)
     solvers[WIND_SEQ_PATH], paths[WIND_SEQ_PATH] = cloth_path(torch, WIND_SEQ_PATH)
+    for name in SELFCOLL_PATHS:
+        solvers[name], paths[name] = selfcoll_path(torch, name)
     checks = dict(bench_contact_sanity=bench_contact_sanity(torch), extras=extras_checks(torch),
                   graph=dict(invalidation=invalidation,
                              one_tet_convergence=one_tet_convergence(),
@@ -5373,6 +6130,8 @@ def main():
         checks["mesh_detect"], j_timing = kernel_j_checks(torch)
         checks["pcg_penalty"], gpen_timing = gpen_checks(torch)
         checks["wind_seq"], i_timing = kernel_i_checks(torch, gpu)
+        checks["dyn_detect"], k_timing = kernel_k_checks(torch)
+        checks["dyn_solves"], hg_timing = hdyn_gdyn_checks(torch)
         cases, c_branches, chains, pairs, prox_turns = kernel_cases(torch)
         cases.update(path_shape_cases(torch, checks))
         profiles = {}
@@ -5382,6 +6141,7 @@ def main():
             pcg_times(torch, pcg_timing, gpu)
             contact_kernel_times(torch, h_timing, gpen_timing, gpu)
             kernel_j_times(torch, j_timing, gpu)
+            selfcoll_kernel_times(torch, k_timing, hg_timing, gpu)
             log("kernel I: " + json.dumps(i_timing))
             log(gpu)
             return 0
@@ -5396,7 +6156,8 @@ def main():
         g_times = pcg_times(torch, pcg_timing, gpu)
         c_times = contact_kernel_times(torch, h_timing, gpen_timing, gpu)
         j_times = kernel_j_times(torch, j_timing, gpu)
-        del pcg_timing, h_timing, gpen_timing, j_timing
+        k_times = selfcoll_kernel_times(torch, k_timing, hg_timing, gpu)
+        del pcg_timing, h_timing, gpen_timing, j_timing, k_timing, hg_timing
         if args.profile:
             profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
                                                   gpu)
@@ -5581,18 +6342,56 @@ def main():
     src, rep = REPLACES["mesh_detect"]
     kernels.append(dict(j_entries[0], name="mesh_detect", route="cuda", source=src,
                         replaces=rep, entries=j_entries))
-    # every row's launches on this slice's paths (the mesh obstacles)
+    # Kernels K, L and the DYN forms of H and G (self-collision; no Pallas
+    # original): one entry per timed shape; "main" the one whose path launches
+    # it, with the path's launches and launches per step.
+    def selfcoll_row(kname, shapes, path, err_of):
+        steps = int(golden(path)["steps"][-1])
+        ents = []
+        for i, shape in enumerate(shapes):
+            t = k_times[f"{kname}@{shape}"]
+            main = i == 0
+            launches = paths[path]["launches"].get(kname, 0) if main else 0
+            ents.append(dict(
+                entry=kname, path=path if main else None, case=shape, main=main,
+                launches=launches, launches_per_step=launches / steps if main else 0,
+                wrapper_calls=paths[path]["wrapper_calls"].get(kname, 0) if main else 0,
+                max_abs_err=err_of(shape),
+                **{f: t[f] for f in ("ms", "profiler_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms") if f in t}))
+        src, rep_ = REPLACES[kname]
+        return dict(ents[0], name=kname, route="cuda", source=src, replaces=rep_, entries=ents)
+
+    k_labels = [k.partition("@")[2] for k in k_times if k.startswith("dyn_detect@")]
+    gs8_first = [k for k in k_labels if k.startswith("boxes_gs8@")]
+    k_order = gs8_first[:1] + [k for k in k_labels if k not in gs8_first[:1]]
+    kernels.append(selfcoll_row("dyn_detect", k_order, "boxes_gs8",
+                                lambda sh: checks["dyn_detect"][f"{sh} f32"]["max_abs_err"]))
+    kernels.append(selfcoll_row("dyn_gather", k_order, "boxes_gs8",
+                                lambda sh: checks["dyn_detect"][f"{sh} f32"]["l_max_abs_err"]))
+    kernels.append(selfcoll_row("gs_solve_dyn", list(H_DYN_CASES), "boxes_gs8",
+                                lambda sh: checks["dyn_solves"][f"gs_solve_dyn@{sh} f32"][
+                                    "max_abs_err"]))
+    kernels.append(selfcoll_row("pcg_solve_dyn", ["boxes_alpcg8"], "boxes_alpcg8",
+                                lambda sh: checks["dyn_solves"][f"pcg_solve_dyn@{sh} f32"][
+                                    "max_abs_err"]))
+    # every row's launches on this slice's paths (self-collision) and their
+    # launches per step
     for row in kernels:
         names = sorted({e["entry"] for e in row["entries"]})
         row["launches_on_new_paths"] = {
             p: {n: paths[p]["launches"][n] for n in names if paths[p]["launches"].get(n)}
-            for p in MESH_PATHS}
+            for p in SELFCOLL_PATHS}
+        row["launches_per_step_on_new_paths"] = {
+            p: {n: v / int(golden(p)["steps"][-1]) for n, v in launches.items()}
+            for p, launches in row["launches_on_new_paths"].items()}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(env=env, build=built, checks=checks, paths=paths, rollouts=rates,
                        phases_ms=phases, kernel_times=times, rhs_branches_ms=by_branch,
                        prox_throughput_ms=prox_big, pcg_solve_ms=g_times,
                        contact_solve_ms=c_times, wind_seq_ms=i_timing, mesh_detect_ms=j_times,
+                       selfcoll_ms=k_times,
                        variant_rollouts=variant_rates, wind_seq_forms_end_to_end=wind_forms,
                        warp_chains=chains, profiles=profiles,
                        kernels=kernels), f, indent=1)

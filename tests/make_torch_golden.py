@@ -52,6 +52,19 @@ step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD run
   slab_exact_alpcg67k, 20 steps; exactmesh_deep_gs, 8) and the CPU tests'
   chip_smoke.MESH_CPU_SCENES (crossval's five mesh scenes, two with
   near_lanes=4, a compacted AL-PCG scene, 8 steps; one in float64);
+- the self-collision scenes (chip_smoke.SELFCOLL_SCENES, built by
+  chip_smoke.boxes_scene with this package's API, float32 with
+  jax_enable_x64 off, so that the colliders' rest vertices are float32 as the
+  port's): boxes_gs8, boxes_uzawa8, boxes_alpcg8 (14 steps) and boxes_gs20
+  (12), each holding x at step 1, at the first step whose state shows a
+  dynamic hit and at the last (``steps``), the dynamic hits of every step's
+  state (``hits``: the JAX package's _detect without the passive rows), the
+  inner iterations and collision_overflow of every step, and the two boxes'
+  vertex count (``n_box``); for each held step k after the first, the state
+  that step starts from (``s{k}_x``, ``_v``, ``_y``, ``_prev_active``) and a
+  control: the same step from that state with x one ulp up (np.nextafter),
+  its gap to x{k} relative to max |x| (``ctl{k}_gap``), its dynamic hits and
+  its inner iterations;
 - the variants (chip_smoke.VARIANT_SCENES): beam_aa4, cloth_aa4 and
   floor_alpcg67k_aa4, the beam, cloth_limit40 and floor_alpcg67k with Anderson
   acceleration (aa_window=4), and cloth_wind40_seq, cloth_wind40 with the
@@ -78,9 +91,9 @@ from admm_elastic_tpu.geometry.factory import make_tet_blocks  # noqa: E402
 from admm_elastic_tpu.geometry.io import load_elenode  # noqa: E402
 from admm_elastic_tpu.ops import prox  # noqa: E402
 from chip_smoke import (BEAM_FLAGS, BEAM_MODELS, BUNNY, CLOTH_SCENES,  # noqa: E402
-                        CONTACT_SCENES, GATHER_SCENES, PCG_SCENES, VARIANT_SCENES, bunny_pins,
-                        cloth_sheet, contact_scene, contact_steps, contacts, pcg_scene,
-                        renumbered_sheet, variant_of)
+                        CONTACT_SCENES, GATHER_SCENES, PCG_SCENES, SELFCOLL_SCENES,
+                        VARIANT_SCENES, boxes_scene, bunny_pins, cloth_sheet, contact_scene,
+                        contact_steps, contacts, pcg_scene, renumbered_sheet, variant_of)
 
 DIMS = (40, 5, 5)
 ADMM_ITERS = 10
@@ -264,6 +277,60 @@ def contact(name):
           overflow=np.asarray(overflow), **traj)
 
 
+def dynamic_hits(solver, x):
+    """The dynamic hits of the JAX solver's query vertices at x (its _detect
+    without the passive rows)."""
+    from admm_elastic_tpu.solver import _detect
+
+    h = _detect(tuple(solver.obstacles), tuple(solver.colliders), x, solver._surf_inds_dev, False,
+                solver._dtype, solver._surf_dense)
+    return int(np.asarray(h.d_mask).sum())
+
+
+def selfcoll(name):
+    import dataclasses
+
+    p = SELFCOLL_SCENES[name]
+    solver, n_box = boxes_scene(name, jax_api())
+    x0 = np.asarray(solver.x, np.float32)
+    xs, inner, overflow, hits, states = {}, [], [], [], {}
+    for step in range(1, p["steps"] + 1):
+        states[step] = solver.state
+        solver.step()
+        inner.append(solver.runtime_data().inner_iters)
+        overflow.append(solver.runtime_data().collision_overflow)
+        hits.append(dynamic_hits(solver, solver.state.x))
+        xs[step] = np.asarray(solver.x, np.float32)
+    first = next((k + 1 for k, h in enumerate(hits) if h > 0), None)
+    if first is None:
+        raise SystemExit(f"{name}: no dynamic hit in {p['steps']} steps")
+    compare = sorted({1, first, p["steps"]})
+    # each held step after the first once more from the state before it, with
+    # x moved by one ulp: how far the package parts from itself in one step
+    held, control = {}, {}
+    for k in compare[1:]:
+        st = states[k]
+        held.update({f"s{k}_{f}": np.asarray(getattr(st, f)) for f in
+                     ("x", "v", "y", "prev_active")})
+        xu = np.asarray(st.x)
+        solver.state = dataclasses.replace(st, x=jax.numpy.asarray(
+            np.nextafter(xu, np.inf, dtype=xu.dtype)))
+        solver.step()
+        xc = np.asarray(solver.x, np.float32)
+        control[f"ctl{k}_gap"] = float(np.abs(xc - xs[k]).max() / np.abs(xs[k]).max())
+        control[f"ctl{k}_hits"] = dynamic_hits(solver, solver.state.x)
+        control[f"ctl{k}_inner"] = solver.runtime_data().inner_iters
+        print(f"{name} step {k} from the state before with x one ulp off: "
+              f"{control[f'ctl{k}_gap']:.3e} of max |x|, {control[f'ctl{k}_hits']} hits "
+              f"(the run's {hits[k - 1]}), {control[f'ctl{k}_inner']} inner iterations "
+              f"(the run's {inner[k - 1]})")
+    s = solver.m_settings
+    _save(name, gravity=s.gravity, x0=x0, steps=np.asarray(compare), n_steps=p["steps"],
+          linsolver=s.linsolver, inner=np.asarray(inner), overflow=np.asarray(overflow),
+          hits=np.asarray(hits), n_box=n_box, uzawa_inner=type(solver._solve_data).__name__,
+          **{f"x{k}": xs[k] for k in compare}, **held, **control)
+
+
 def main(argv):
     prox.set_svd_impl("jacobi")
     writers = {"beam": lambda: beam("neohookean"),
@@ -273,6 +340,7 @@ def main(argv):
     writers.update({n: (lambda n=n: gather(n)) for n in GATHER_SCENES})
     writers.update({n: (lambda n=n: pcg(n)) for n in PCG_SCENES})
     writers.update({n: (lambda n=n: contact(n)) for n in CONTACT_SCENES})
+    writers.update({n: (lambda n=n: selfcoll(n)) for n in SELFCOLL_SCENES})
     variants = {"beam": lambda n: beam("neohookean", name=n), "cloth_limit40": cloth,
                 "cloth_wind40": cloth, "floor_alpcg67k": contact}
     writers.update({n: (lambda n=n, base=base: variants[base](n))

@@ -193,13 +193,27 @@ def test_constraints_are_the_jax_package_s(dense, may_dyn):
 
 
 def test_dynamic_rows_stay_off_the_card():
-    """The d_face scatter adds duplicates: on a CUDA tensor it raises, naming
-    ROADMAP Queue 1 item 10 (tested here on a stand-in device check)."""
+    """The d_face scatter adds duplicates, which on the card would need float
+    atomics: on a tensor that is not on the CPU the dynamic rows' sums go to
+    kernel L's ordered gather (cuda_dynamic.dyn_gather, ROADMAP Queue 1 item
+    10), never to the plain loop (tested here on the meta device)."""
+    from admm_elastic_tpu_torch.ops import cuda_dynamic
+
     rng = np.random.default_rng(5)
     th, _ = _hits(rng, 12, False, True)
-    meta = torch.empty((th.capacity, 3), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        tcon.C_apply(dataclasses.replace(th, p_normal=meta), 1.0, _t(np.zeros((12, 3))))
+    th = tcon.with_table(th, 12)
+    meta = dataclasses.replace(th, **{f.name: getattr(th, f.name).to("meta")
+                                      for f in dataclasses.fields(th)
+                                      if isinstance(getattr(th, f.name), torch.Tensor)})
+    seen = []
+    real = cuda_dynamic.dyn_gather
+    cuda_dynamic.dyn_gather = lambda hits, base, mode, ck, yd=None: seen.append(mode) or base
+    try:
+        tcon.Ct_apply(meta, 1.0, meta.d_barys[:, 0], meta.d_barys[:, 1], 12)
+        tcon.CtC_diag(meta, 1.0, 12, F64)
+    finally:
+        cuda_dynamic.dyn_gather = real
+    assert seen == [tcon.CT, tcon.DIAG]
 
 
 # --- colouring -------------------------------------------------------------------

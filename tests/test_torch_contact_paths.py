@@ -8,8 +8,8 @@
   step and a measured contact bound after landing, the vertices in contact,
   the inner iterations of every step;
 - linsolver=0 with an obstacle raises RuntimeError at every size, before the
-  switch to PCG; a collider and self-collision raise, naming their ROADMAP
-  item, and a JAX package obstacle raises, naming convert.obstacle_from_numpy;
+  switch to PCG, and so does a self-colliding mesh; a JAX package obstacle or
+  collider raises, naming convert.obstacle_from_numpy or collider_from_numpy;
 - runtime_data().inner_iters after step() (the GS sweeps, the Schur trips,
   the CG trips of the step) and after run(n) (0); set_pins after initialize
   rewrites Gauss-Seidel's dense pin arrays in place; the graph key names
@@ -147,17 +147,23 @@ def _sdf():
     return PassiveMeshSDF.from_tet_mesh(obs.vertices, obs.tets, resolution=8)
 
 
+def _self_colliding_ldlt():
+    s = Solver(device="cpu")
+    binding.add_tetmesh(s, make_tet_blocks(2, 2, 2), verbose=False)
+    s.initialize(Settings(verbose=0, linsolver=0))
+
+
 # what each refuses: (call, exception, message). The mesh obstacles run since
-# their slice (ROADMAP Queue 1 item 9); a JAX package obstacle handed to the
-# port raises, naming the converter that carries its arrays over.
+# their slice (ROADMAP Queue 1 item 9), the colliders and self-collision since
+# theirs (item 10); a JAX package obstacle or collider handed to the port
+# raises, naming the converter that carries its arrays over, and a
+# self-colliding mesh with linsolver=0 raises as an obstacle does.
 REFUSED = {
     "mesh_obstacle": (lambda: Solver(device="cpu").add_obstacle(_sdf()), TypeError,
                       r"convert\.obstacle_from_numpy"),
-    "collider": (lambda: Solver(device="cpu").add_dynamic_collider(object()),
-                 NotImplementedError, "ROADMAP Queue 1 item 10"),
-    "self_collision": (lambda: binding.add_tetmesh(
-        Solver(device="cpu"), make_tet_blocks(2, 2, 2), verbose=False), NotImplementedError,
-        "ROADMAP Queue 1 item 10"),
+    "collider": (lambda: Solver(device="cpu").add_dynamic_collider(object()), TypeError,
+                 r"convert\.collider_from_numpy"),
+    "self_collision": (_self_colliding_ldlt, RuntimeError, "No collisions with LDLT solver"),
 }
 
 

@@ -179,16 +179,23 @@ def _init_with(settings_kw=None, mesh=None, before=None):
 
 # What raises: (call, exception, message). Every obstacle of the JAX package
 # runs since the mesh obstacles' slice; an object that is no obstacle raises
-# TypeError, naming the four.
+# TypeError, naming the four. Self-collision runs since its slice (ROADMAP
+# Queue 1 item 10): an object that is no collider raises TypeError, naming the
+# converter of a JAX package collider, and a self-colliding mesh with
+# linsolver=0 raises as an obstacle does (admm_elastic_tpu/solver.py:697-703).
+def _self_colliding_ldlt():
+    s = Solver(device="cpu")
+    binding.add_tetmesh(s, _beam(binding.NEOHOOKEAN), verbose=False)
+    s.initialize(_settings(Settings, np.float64))
+
+
 UNSUPPORTED = {
     "unroll_admm": (lambda: _init_with(dict(unroll_admm=True)), NotImplementedError, "ROADMAP"),
     "obstacle": (lambda: Solver(device="cpu").add_obstacle(object()), TypeError,
                  "is not an obstacle: Floor, Sphere, PassiveMeshSDF or PassiveMeshExact"),
     "dynamic_collider": (lambda: Solver(device="cpu").add_dynamic_collider(object()),
-                         NotImplementedError, "ROADMAP"),
-    "self_collision": (lambda: binding.add_tetmesh(Solver(device="cpu"),
-                                                   _beam(binding.NEOHOOKEAN), verbose=False),
-                       NotImplementedError, "ROADMAP"),
+                         TypeError, r"convert\.collider_from_numpy"),
+    "self_collision": (_self_colliding_ldlt, RuntimeError, "No collisions with LDLT solver"),
 }
 
 
