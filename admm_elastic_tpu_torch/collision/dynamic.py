@@ -22,7 +22,9 @@ JAX package's ``_detect`` does (admm_elastic_tpu/solver.py:112-130): the first
 collider's hit per vertex, the overflows ORed. ``BROADPHASE_MIN_TETS``,
 ``HIT_CAP`` and ``CELL_CAP`` are read at call time, so a test may set them.
 The collider's arrays are numpy-built and go to the solver's device and dtype
-at ``initialize`` (``TetMeshCollider.to``).
+at ``initialize`` (``TetMeshCollider.to``), where the solver also puts every
+collider into one ``ColliderTable`` (``collider_table``), which kernel K walks
+in one call.
 """
 
 from __future__ import annotations
@@ -61,6 +63,50 @@ class TetMeshCollider:
         return dataclasses.replace(self, tets=self.tets.to(device),
                                    rest_verts=self.rest_verts.to(device=device, dtype=dtype),
                                    faces=self.faces.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class ColliderTable:
+    """Every collider of a solver in one table, built once (collider_table):
+    their tets, rest vertices and faces concatenated in collider order, and a
+    row of INFO ints a collider on the device. Kernel K walks it in one
+    call; its plain twin walks colliders, one after the other."""
+
+    colliders: tuple  # the TetMeshColliders, in order
+    tets: torch.Tensor  # i32 [T, 4] global vertex ids
+    rest_verts: torch.Tensor  # [V, 3]
+    faces: torch.Tensor  # i32 [F, 3], local to their collider
+    info: torch.Tensor  # i32 [C, len(INFO)]
+    tet_off: tuple  # each collider's first tet in tets, and the total last
+
+    INFO = ("tet0", "n_tets", "rest0", "face0", "n_faces", "vert_offset", "cell_cap")
+
+    def collider(self, i: int) -> TetMeshCollider:
+        """Collider i again, from the table's slices."""
+        row = dict(zip(self.INFO, self.info[i].tolist()))
+        rest_end = (int(self.info[i + 1, 2]) if i + 1 < len(self.colliders)
+                    else self.rest_verts.shape[0])
+        return TetMeshCollider(
+            tets=self.tets[row["tet0"]:row["tet0"] + row["n_tets"]],
+            rest_verts=self.rest_verts[row["rest0"]:rest_end],
+            faces=self.faces[row["face0"]:row["face0"] + row["n_faces"]],
+            vert_offset=row["vert_offset"], cell_cap=row["cell_cap"])
+
+
+def collider_table(colliders) -> ColliderTable:
+    """The colliders (on one device, in one dtype) as one table."""
+    colliders = tuple(colliders)
+    counts = [(c.n_tets, c.rest_verts.shape[0], c.faces.shape[0]) for c in colliders]
+    starts = np.cumsum([(0, 0, 0)] + counts, axis=0)
+    info = [(int(t0), n_t, int(r0), int(f0), n_f, c.vert_offset, c.cell_cap)
+            for c, (t0, r0, f0), (n_t, _, n_f) in zip(colliders, starts, counts)]
+    info = torch.tensor(info, dtype=torch.int32, device=colliders[0].tets.device)
+    return ColliderTable(
+        colliders=colliders, tets=torch.cat([c.tets for c in colliders]).contiguous(),
+        rest_verts=torch.cat([c.rest_verts for c in colliders]).contiguous(),
+        faces=torch.cat([c.faces for c in colliders]).contiguous(),
+        info=info.reshape(-1, len(ColliderTable.INFO)),
+        tet_off=tuple(int(t) for t in starts[:, 0]))
 
 
 def _rest_cell_cap(rest_verts: np.ndarray, tets: np.ndarray) -> int:
@@ -171,6 +217,20 @@ def _cell_keys(c):
     return (c[..., 0] * _HASH[0]) ^ (c[..., 1] * _HASH[1]) ^ (c[..., 2] * _HASH[2])
 
 
+def _grid_cells(x4, query_pts):
+    """The hash grid of the broad phase: (i32 [T] each tet's centre cell's
+    key, i32 [H, 3] each query point's cell). The cell is the largest tet
+    extent, from the lowest corner. Kernel K's wrapper makes its keys and
+    cells here too."""
+    centers = torch.mean(x4, dim=1)
+    lo = torch.amin(x4, dim=(0, 1))
+    ext = torch.amax(x4, dim=1) - torch.amin(x4, dim=1)
+    cell = torch.clamp_min(torch.amax(ext), 1e-12)
+    inv_cell = 1.0 / cell
+    keys = _cell_keys(torch.floor((centers - lo) * inv_cell).to(torch.int32))
+    return keys, torch.floor((query_pts - lo) * inv_cell).to(torch.int32)
+
+
 def _broad_phase_candidates(x4, query_pts, cap: int = CELL_CAP):
     """Hash-grid candidates: (i64 [H, 27 cap] tet ids, T the miss pad; bool
     [H] overflow). The cell is the largest tet extent, so a tet holding a
@@ -180,15 +240,9 @@ def _broad_phase_candidates(x4, query_pts, cap: int = CELL_CAP):
     stable, as jnp.argsort."""
     t = x4.shape[0]
     dev = x4.device
-    centers = torch.mean(x4, dim=1)
-    lo = torch.amin(x4, dim=(0, 1))
-    ext = torch.amax(x4, dim=1) - torch.amin(x4, dim=1)
-    cell = torch.clamp_min(torch.amax(ext), 1e-12)
-    inv_cell = 1.0 / cell
-    keys = _cell_keys(torch.floor((centers - lo) * inv_cell).to(torch.int32))
+    keys, qc = _grid_cells(x4, query_pts)
     order = torch.argsort(keys, stable=True)
     keys_sorted = keys[order]
-    qc = torch.floor((query_pts - lo) * inv_cell).to(torch.int32)
     r = torch.arange(-1, 2, dtype=torch.int32, device=dev)
     offs = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(27, 3)
     nb_keys = _cell_keys(qc[:, None, :] + offs[None])  # [H, 27]

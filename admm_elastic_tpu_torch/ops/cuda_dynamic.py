@@ -1,21 +1,23 @@
-"""Wrappers of kernel K (a collider's self-collision detection) and kernel L
-(the dynamic rows' face-corner sums), ``csrc/self_collision.cu`` and
-``csrc/dyn_rows.cuh``. Neither has a Pallas original: K replaces the JAX
-package's jnp ``detect_dynamic`` (``admm_elastic_tpu/collision/dynamic.py:196-316``)
-and the merge across colliders of its ``_detect``; L replaces the
-``.at[d_face].add`` scatters of ``constraints.py`` (:146-147, 167-172) by a
-gather with no float atomics.
+"""Wrappers of kernel K (the self-collision detection of every collider in
+one call) and kernel L (the dynamic rows' face-corner sums),
+``csrc/self_collision.cu`` and ``csrc/dyn_rows.cuh``. Neither has a Pallas
+original: K replaces the JAX package's jnp ``detect_dynamic``
+(``admm_elastic_tpu/collision/dynamic.py:196-316``) and the merge across
+colliders of its ``_detect``; L replaces the ``.at[d_face].add`` scatters of
+``constraints.py`` (:146-147, 167-172) by a gather with no float atomics.
 
-``dyn_detect(collider, x, xs, surf, rows, flag)`` detects the query vertices
-surf (at xs = x[surf]) against one collider at the positions x and takes its
-hits into rows = (d_mask, d_face, d_barys, d_normal) where a vertex has none
-yet; a dropped contact (a hash-grid cell's capacity, HIT_CAP) sets the int32
-flag (one element). It returns the rows: on the card the same tensors,
-written in place; on the CPU new ones from the plain version
-(``collision/dynamic.detect_dynamic`` and ``merge``). Above
-``dynamic.BROADPHASE_MIN_TETS`` tets the hash-grid candidates come from the
-plain ``_broad_phase_candidates`` (torch.argsort(stable=True) and
-torch.searchsorted, on the device) and the kernel walks them.
+``dyn_detect(table, x, xs, surf, rows, flag)`` detects the query vertices
+surf (at xs = x[surf]) against every collider of table
+(``dynamic.ColliderTable``) at the positions x and takes their hits into
+rows = (d_mask, d_face, d_barys, d_normal) where a vertex has none yet, the
+first collider's hit per vertex; a dropped contact (a hash-grid cell's
+capacity, HIT_CAP) sets the int32 flag (one element). It returns the rows:
+on the card the same tensors, written in place; on the CPU new ones from the
+plain version (``collision/dynamic.detect_dynamic`` and ``merge``, collider
+by collider). Above ``dynamic.BROADPHASE_MIN_TETS`` tets a collider's
+hash-grid keys and query cells come from the plain ``_grid_cells`` and its
+keys are sorted by torch.sort(stable=True), on the device; the kernel walks
+the sorted keys itself.
 
 ``dyn_gather(hits, base, mode, ck, yd)`` is ``base`` [N, 3] plus every
 vertex's face-corner terms, C^T yd (``constraints.CT``) or diag(C^T C)
@@ -24,8 +26,9 @@ L on CUDA tensors, bit for bit its plain twin ``constraints.gather_plain``.
 
 Dispatch is by the tensors' device; on the card a build or launch failure
 raises. Each wrapper's ``launches`` counts its calls that launch the kernel
-(K is four launches on the stream per call: frames, point in tet, rank,
-nearest face; torch.profiler names its third ``dyn_rank_kernel``).
+(K is four launches on the stream per call, whatever the number of
+colliders: frames, point in tet, rank, nearest face; torch.profiler names
+its third ``dyn_rank_kernel``).
 """
 
 from __future__ import annotations
@@ -70,51 +73,65 @@ def rows_ptrs(name, hits: con.Hits, ck, slot_of, lead):
             hits.d_order, hits.d_start, slot_of]
 
 
-def detect_plain(collider, x, xs, surf, rows, flag):
-    """Kernel K's plain twin: detect_dynamic, merged into rows; the overflow
-    ORed into flag in place. Returns the new rows."""
-    rows, ovf = dyn.merge(rows, dyn.detect_dynamic(collider, x, xs, surf))
-    flag.bitwise_or_(ovf.to(torch.int32))
+def detect_plain(table, x, xs, surf, rows, flag):
+    """Kernel K's plain twin: detect_dynamic of each collider of table in
+    order, merged into rows; the overflows ORed into flag in place. Returns
+    the new rows."""
+    for collider in table.colliders:
+        rows, ovf = dyn.merge(rows, dyn.detect_dynamic(collider, x, xs, surf))
+        flag.bitwise_or_(ovf.to(torch.int32))
     return rows
 
 
-def dyn_detect(collider, x, xs, surf, rows, flag):
-    """Kernel K: collider's hits of the query vertices surf merged into rows
-    (see the module docstring). Returns the rows."""
+def dyn_detect(table, x, xs, surf, rows, flag):
+    """Kernel K: the hits of the query vertices surf against every collider
+    of table merged into rows (see the module docstring). Returns the rows."""
     if x.device.type == "cpu":
-        return detect_plain(collider, x, xs, surf, rows, flag)
+        return detect_plain(table, x, xs, surf, rows, flag)
     dev = x.device
-    sfx = _build.cuda_args("dyn_detect", x, (("rest_verts", collider.rest_verts,
-                                              tuple(collider.rest_verts.shape)),))
+    sfx = _build.cuda_args("dyn_detect", x, (("rest_verts", table.rest_verts,
+                                              tuple(table.rest_verts.shape)),))
     d_mask, d_face, d_barys, d_normal = rows
     h = int(surf.shape[0])
-    t = collider.n_tets
-    f = int(collider.faces.shape[0])
-    _check("dyn_detect: tets", collider.tets, torch.int32, (t, 4), dev)
-    _check("dyn_detect: faces", collider.faces, torch.int32, (f, 3), dev)
+    n_col = len(table.colliders)
+    t = int(table.tets.shape[0])
+    _check("dyn_detect: tets", table.tets, torch.int32, (t, 4), dev)
+    _check("dyn_detect: faces", table.faces, torch.int32, (int(table.faces.shape[0]), 3), dev)
+    _check("dyn_detect: info", table.info, torch.int32, (n_col, len(dyn.ColliderTable.INFO)),
+           dev)
     _check("dyn_detect: surf", surf, torch.int64, (h,), dev)
     _check("dyn_detect: d_mask", d_mask, torch.bool, (h,), dev)
     _check("dyn_detect: d_face", d_face, torch.int64, (h, 3), dev)
     _check("dyn_detect: d_barys", d_barys, x.dtype, (h, 3), dev)
     _check("dyn_detect: d_normal", d_normal, x.dtype, (h, 3), dev)
     _check("dyn_detect: flag", flag, torch.int32, (1,), dev)
-    cand, width = None, 0
-    if t > dyn.BROADPHASE_MIN_TETS:
-        cand, over = dyn._broad_phase_candidates(x[collider.tets.long()], xs, collider.cell_cap)
-        flag.bitwise_or_(torch.any(over).to(torch.int32))
-        cand = cand.to(torch.int32).contiguous()
-        width = int(cand.shape[1])
+    broad_min = int(dyn.BROADPHASE_MIN_TETS)
+    spans = [(table.tet_off[i], table.tet_off[i + 1]) for i in range(n_col)]
+    n_broad = sum(b - a > broad_min for a, b in spans)
+    keys = order = qcell = None
+    if n_broad:
+        keys = torch.empty((t,), dtype=torch.int32, device=dev)
+        order = torch.empty((t,), dtype=torch.int64, device=dev)
+        qcell = torch.empty((n_col, h, 3), dtype=torch.int32, device=dev)
+        for i, (a, b) in enumerate(spans):
+            if b - a > broad_min:
+                k, qc = dyn._grid_cells(x[table.tets[a:b].long()], xs)
+                torch.sort(k, stable=True, out=(keys[a:b], order[a:b]))
+                qcell[i].copy_(qc)
+    dense_max = max((b - a for a, b in spans if b - a <= broad_min), default=0)
     hit_cap = int(dyn.HIT_CAP)
     cap = max(min(h, hit_cap), 1)
     frames = torch.empty((max(t, 1), FRAME), dtype=x.dtype, device=dev)
-    qtet = torch.empty((max(h, 1),), dtype=torch.int32, device=dev)
-    qbary = torch.empty((max(h, 1), 4), dtype=x.dtype, device=dev)
-    hit_list = torch.empty((cap,), dtype=torch.int32, device=dev)
-    count = torch.empty((1,), dtype=torch.int32, device=dev)
-    ptrs = [x, collider.tets, collider.rest_verts, collider.faces, surf, cand, frames, qtet,
-            qbary, hit_list, count, d_mask, d_face, d_barys, d_normal, flag]
+    qtet = torch.empty((max(n_col * h, 1),), dtype=torch.int32, device=dev)
+    qbary = torch.empty((max(n_col * h, 1), 4), dtype=x.dtype, device=dev)
+    listed = torch.empty((max(n_col * h, 1),), dtype=torch.uint8, device=dev)
+    hit_list = torch.empty((n_col * cap,), dtype=torch.int32, device=dev)
+    count = torch.empty((n_col,), dtype=torch.int32, device=dev)
+    ptrs = [x, table.tets, table.rest_verts, table.faces, table.info, surf, keys, order, qcell,
+            frames, qtet, qbary, listed, hit_list, count, d_mask, d_face, d_barys, d_normal, flag]
     ptr_arr = (ctypes.c_uint64 * len(ptrs))(*addresses(ptrs))
-    ints = (ctypes.c_int * 6)(t, f, h, width, hit_cap, int(collider.vert_offset))
+    ints = (ctypes.c_int * 7)(n_col, t, h, hit_cap, min(broad_min, 2 ** 31 - 1), dense_max,
+                              n_broad)
     fn = getattr(_build.library(), f"admm_dyn_detect_{sfx}")
     with torch.cuda.device(dev):
         rc = fn(ptr_arr, ints, torch.cuda.current_stream(dev).cuda_stream)

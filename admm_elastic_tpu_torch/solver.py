@@ -24,7 +24,8 @@ vertices to ``surface_inds``). One timestep (src/Solver.cpp:35-109):
         local:   z, u <- prox(D x' + u)                kernel A (tets), E (cloth)
         detect:  the deepest obstacle hit per surface vertex at x' (not for GS;
                  a mesh obstacle by kernel J) and the first collider's hit
-                 (kernel K; also for GS), the dynamic rows' table by vertex
+                 (kernel K, one call over every collider; also for GS), the
+                 dynamic rows' table by vertex
         global:  b = M x_bar + dt^2 D^T W^2 (z - u)    kernel C (stencil tets)
                  x' = A^-1 b: GEMM or two triangular solves, + pin-row polish
                  (direct); a PCG solve from x' (kernel G); the GS sweeps
@@ -90,6 +91,7 @@ import torch
 
 from admm_elastic_tpu_torch import config as cfg
 from admm_elastic_tpu_torch.collision import constraints as con
+from admm_elastic_tpu_torch.collision import dynamic as dyn
 from admm_elastic_tpu_torch.collision.dynamic import TetMeshCollider
 from admm_elastic_tpu_torch.collision.passive import MESH, check_obstacle, pick_deepest
 from admm_elastic_tpu_torch.config import Settings
@@ -199,13 +201,19 @@ class _Contact:
     surf: torch.Tensor  # i64 [H] the query vertices
     dense: bool  # the query set is every vertex in order
     obstacles: tuple  # the obstacles on the device, in the run dtype
-    colliders: tuple  # the self-collision colliders on the device, in the run dtype
+    # the self-collision colliders on the device, in the run dtype, as one table (kernel K),
+    # None for none
+    table: Optional[dyn.ColliderTable]
     slot_of: Optional[torch.Tensor]  # i32 [N]: each vertex's query slot, -1 for none
     # (None where the query set is dense)
     pin_mask: torch.Tensor  # bool [N] (Gauss-Seidel's pins), rewritten by set_pins
     pin_target: torch.Tensor  # [N, 3]
     empty: con.Hits  # no hit, no dynamic row
     gs_params: tuple  # cuda_gs.obstacle_params(obstacles) for kernel H, else None
+
+    @property
+    def colliders(self) -> tuple:
+        return () if self.table is None else self.table.colliders
 
 
 @dataclasses.dataclass
@@ -325,7 +333,7 @@ class Solver:
         c = self._contact
         if c is not None:
             self._contact = dataclasses.replace(
-                c, colliders=c.colliders + (obj.to(self.device, self._dtype),),
+                c, table=dyn.collider_table(c.colliders + (obj.to(self.device, self._dtype),)),
                 empty=dataclasses.replace(c.empty, may_dyn=True))
         self._graph = None
 
@@ -623,6 +631,7 @@ class Solver:
         mask, target = self._pin_arrays()
         surf_dev = torch.as_tensor(surf, device=dev)
         obstacles = tuple(o.to(dev, dtype) for o in self.obstacles)
+        colliders = tuple(c.to(dev, dtype) for c in self.colliders)
         slot_of = None
         if not dense:
             slots = np.full((n,), -1, dtype=np.int32)
@@ -631,7 +640,7 @@ class Solver:
         return _Contact(
             ck=torch.tensor(float(np.sqrt(max(0.0, ck))), dtype=dtype, device=dev),
             surf=surf_dev, dense=dense, obstacles=obstacles,
-            colliders=tuple(c.to(dev, dtype) for c in self.colliders), slot_of=slot_of,
+            table=dyn.collider_table(colliders) if colliders else None, slot_of=slot_of,
             pin_mask=mask.to(dev), pin_target=target.to(dev),
             empty=con.empty_hits(surf_dev, dtype, dense=dense, may_dyn=bool(self.colliders)),
             gs_params=self._gs_params(obstacles))
@@ -693,7 +702,8 @@ class Solver:
         admm_elastic_tpu/solver.py:91-132): with_passive, the first obstacle
         of least distance, a mesh obstacle through cuda_obstacle.mesh_detect
         (kernel J on the card); the first collider's hit per vertex through
-        cuda_dynamic.dyn_detect (kernel K on the card; the callers list the
+        cuda_dynamic.dyn_detect over the collider table (kernel K on the card,
+        one call whatever the number of colliders; the callers list the
         rows' corners by vertex, constraints.with_table). Overflows go to the
         solver's device flag."""
         c = self._contact
@@ -719,8 +729,7 @@ class Solver:
                     torch.zeros((h, 3), dtype=torch.int64, device=x.device),
                     torch.zeros((h, 3), dtype=x.dtype, device=x.device),
                     torch.zeros((h, 3), dtype=x.dtype, device=x.device))
-            for col in c.colliders:
-                rows = cuda_dynamic.dyn_detect(col, x, xs, c.surf, rows, self._overflow)
+            rows = cuda_dynamic.dyn_detect(c.table, x, xs, c.surf, rows, self._overflow)
             d_mask, d_face, d_barys, d_normal = rows
             hits = dataclasses.replace(hits, d_mask=d_mask, d_face=d_face, d_barys=d_barys,
                                        d_normal=d_normal)
@@ -874,7 +883,8 @@ class Solver:
                        for f in dataclasses.fields(o)
                        if isinstance(getattr(o, f.name), torch.Tensor))
         return ((self.system, self._solve_data) + tuple(self.ext_forces)
-                + self._contact.obstacles + tables + self._contact.colliders)
+                + self._contact.obstacles + tables + self._contact.colliders
+                + ((self._contact.table,) if self._contact.table is not None else ()))
 
     def _graph_key(self) -> tuple:
         s = self.m_settings

@@ -69,15 +69,17 @@ failure:
    67k slab at the golden's steps 1 and 12, compacted as its path runs it
    and dense, the 5k SDF slab, near_lanes=4 overflowing, the deep fallback
    and its overflow; float64 within J_F64_TOL, float32 with every flipped hit
-   within rounding of dx = 0, the overflow flags equal); kernel K (a
-   collider's self-collision detection, merged into the dynamic rows) and
-   kernel L (the rows' C^T and diag(C^T C) as an ordered gather) bit for bit
-   their plain twins, float64 and float32, on the self-collision paths'
-   golden states (two colliders; boxes_gs20's broad phase), tests/
-   test_broadphase.py's folded block dense and broad, and HIT_CAP = 1
-   (kernel_k_checks); H's DYN form against gs.solve with the dynamic rows and
-   G's DYN form against alcg.solve_plain at boxes_gs8's and boxes_alpcg8's
-   first solve from a state with dynamic rows (hdyn_gdyn_checks: float64 in
+   within rounding of dx = 0, the overflow flags equal); kernel K (every
+   collider's self-collision detection in one call, merged into the dynamic
+   rows) and kernel L (the rows' C^T and diag(C^T C) as an ordered gather)
+   bit for bit their plain twins, float64 and float32, on the self-collision
+   paths' golden states (two colliders; boxes_gs20's broad phase), tests/
+   test_broadphase.py's folded block dense and broad, HIT_CAP = 1, the dense
+   tiles' edges and a ragged tet count, overflowing cells, three colliders
+   listing one vertex twice, and a state with no hit (kernel_k_checks);
+   H's DYN form against gs.solve with the dynamic rows and G's DYN form
+   against alcg.solve_plain at boxes_gs8's and boxes_alpcg8's first solve
+   from a state with dynamic rows (hdyn_gdyn_checks: float64 in
    the same sweeps or trips within 1e-10, float32 within 1e-4);
 4. the paths (path_phase, in a process of its own with the graph checks
    below), each built through the normal entry points on cuda (float32
@@ -148,7 +150,8 @@ failure:
    - SELFCOLL_PATHS (selfcoll_path, self-collision: benchmarks/matrix.py's
      two boxes on a floor, each box a collider): boxes_gs8 (H's DYN form),
      boxes_uzawa8 (Uzawa, L in every Schur trip), boxes_alpcg8 (G's DYN
-     form), boxes_gs20 (K's broad phase), K twice an ADMM iteration, held at
+     form), boxes_gs20 (K's broad phase), K once an ADMM iteration (both
+     colliders in one call), held at
      step 1, the golden's first step with a dynamic hit and the last, under
      SELFCOLL_STEP_TOL / SELFCOLL_DISP_TOL, with the dynamic hits, no
      tunnelling between the boxes and each step's collision_overflow;
@@ -168,8 +171,9 @@ failure:
 5. timing (host_timing, on solvers of its own, runs before phase 4 and
    before any profiler window, so that no profiler state can slow the host):
    the beam, cloth_limit40, beam_gather, the PCG and the contact paths
-   through the graph and through the eager loop in turns, ADMM iterations/s over rollouts of at least
-   TARGET_S (1 s; 2 s before the run grew by this slice's paths), the
+   through the graph and through the eager loop in turns, ADMM
+   iterations/s over rollouts of at least TARGET_S (0.5 s; 2 s, then 1 s,
+   before the run grew by later slices' paths), the
    phases of the beam and cloth steps, and each kernel's time against its
    plain version (CUDA events) beside its bound (and D and F at the
    throughput size beside kernel A's rows entry on the same values, in
@@ -292,7 +296,7 @@ DISP_TOL = {"float32": 0.1, "float64": 1e-6}
 # A graph rollout against the eager loop over the same steps, where the two
 # are not bitwise equal: relative to max |x| (see graph_vs_eager).
 GRAPH_EAGER_TOL = 1e-6
-TARGET_S = 1.0  # a timed rollout's least wall time, s
+TARGET_S = 0.5  # a timed rollout's least wall time, s
 DEVICE = "cuda"
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate
 # and float32 rate outside the tensor cores, an FMA counted as two operations.
@@ -328,7 +332,7 @@ REPLACES = {
     # kernel J: a mesh obstacle's narrow phase (SDF and exact)
     "mesh_detect": (_CSRC + "obstacle.cu", "admm_elastic_tpu/collision/passive.py:120,401 "
                     "PassiveMeshSDF / PassiveMeshExact.signed_distance_with_overflow (jnp)"),
-    # kernel K: a collider's self-collision detection; L: the dynamic rows'
+    # kernel K: every collider's self-collision detection; L: the dynamic rows'
     # face-corner sums (a gather in place of .at[d_face].add); H's and G's DYN
     # forms: their solves with the dynamic rows' penalty
     "dyn_detect": (_CSRC + "self_collision.cu", "admm_elastic_tpu/collision/dynamic.py:196 "
@@ -831,6 +835,11 @@ def log(msg):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.log"), "a") as f:
         f.write(msg + "\n")
+
+
+def stamp(t0, label):
+    """Log the seconds since t0 after a phase: where a run's time goes."""
+    log(f"{label}: done {time.perf_counter() - t0:.1f} s from the start")
 
 
 def run_cmd(cmd):
@@ -2283,7 +2292,8 @@ def wrapper_of_symbol(symbol):
         return "pcg_solve_penalty" if args[1] == "true" else "pcg_solve"
     if kernel == "gs_kernel":  # <T, SH, WIDE, MESH, DYN>
         return "gs_solve_dyn" if len(args) > 4 and args[4] == "true" else "gs_solve"
-    # kernel K is four launches a call (self_collision.cu): its rank launch counts it
+    # kernel K is four launches a call, whatever the number of colliders
+    # (self_collision.cu): its rank launch counts it
     plain = dict(tet_dx_kernel="tet_Dx_rows", tri_local_step_kernel="local_step_tri",
                  tri_local_step_stencil_kernel="local_step_tri_stencil",
                  wind_seq_kernel="wind_seq", mesh_detect_kernel="mesh_detect",
@@ -3684,8 +3694,8 @@ def selfcoll_counts(name, iters, s):
     """The launches of each port kernel that a self-collision path's replays
     make in `iters` ADMM iterations (0 for one they must not launch), and the
     kernels that must launch: each box is a family of its own (the local step
-    and the rhs twice an iteration) and a collider of its own (K twice a
-    detection, once per ADMM iteration); L twice a solve (C^T c and diag(C^T
+    and the rhs twice an iteration) and a collider of its own (K once a
+    detection, over both colliders, once per ADMM iteration); L twice a solve (C^T c and diag(C^T
     C)) for GS and AL-PCG, once per A^-1 apply for Uzawa (C^T of y, then of
     each Schur direction), whose direct applies refine once through A_mv (B
     and C per family)."""
@@ -3694,7 +3704,7 @@ def selfcoll_counts(name, iters, s):
     model = "linear"
     counts = {f"local_step_tet_stencil[{model}]": fam * iters,
               f"local_step_tet_hyper[{model}]": 0, "gs_solve": 0, "pcg_solve": 0,
-              "pcg_solve_penalty": 0, "mesh_detect": 0, "dyn_detect": 2 * iters,
+              "pcg_solve_penalty": 0, "mesh_detect": 0, "dyn_detect": iters,
               "gs_solve_dyn": 0, "pcg_solve_dyn": 0}
     kernels = [f"local_step_tet_stencil[{model}]", "tet_rhs_rows", "dyn_detect", "dyn_gather"]
     if ls == 1:
@@ -3837,28 +3847,86 @@ def golden_state_solver(torch, name, step):
     return solver
 
 
-def folded_case(torch, n):
-    """tests/test_broadphase.py's block folded onto itself: (collider, x,
-    surf) in float64 on DEVICE."""
+def folded_case(torch, n, fold=True):
+    """tests/test_broadphase.py's block folded onto itself (at rest where not
+    fold): (colliders, x, surf) in float64 on DEVICE."""
     from admm_elastic_tpu_torch.collision import dynamic as dyn
     from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
     from admm_elastic_tpu_torch.geometry.mesh import surface_vertex_indices
 
     mesh = make_tet_blocks(n, n, n)
     x = mesh.vertices.astype(np.float64).copy()
-    x[:, 0] = np.abs(x[:, 0] - n / 2 - 0.2) * 0.9
+    if fold:
+        x[:, 0] = np.abs(x[:, 0] - n / 2 - 0.2) * 0.9
     col = dyn.make_tet_mesh_collider(mesh.vertices, mesh.tets, mesh.faces, 0)
     return ([col.to(DEVICE, torch.float64)], torch.as_tensor(x, device=DEVICE),
             torch.as_tensor(surface_vertex_indices(mesh.tets), device=DEVICE))
 
 
+def tile_case(torch, drop=0):
+    """Kernel K's dense tiles (float64 tiles of 1,024 tets, float32 of 2,048)
+    at their edges: an 8^3 block (2,560 tets, less the last `drop`) at rest,
+    collider 0, and a 2^3 block, collider 1, whose 27 vertices lie at the
+    centroids of the first block's tets at each tile's first and last index
+    and at the last, and at vertices of the first block whose tets lie on
+    both sides of a tile boundary (the lowest of them is the pick); the
+    query vertices the second block's and the first one's surface. (cols,
+    x, surf) in float64 on DEVICE."""
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+    from admm_elastic_tpu_torch.geometry.mesh import surface_vertex_indices
+
+    big, small = make_tet_blocks(8, 8, 8), make_tet_blocks(2, 2, 2)
+    tets = big.tets[:len(big.tets) - drop]
+    nt, nv = len(tets), len(big.vertices)
+    x_big = big.vertices.astype(np.float64)
+    picks = [0, 31, 32, 1023, 1024, 2047, 2048, nt - 33, nt - 32, nt - 1]
+    pts = [x_big[tets[t]].mean(axis=0) for t in picks]
+    for edge in (1024, 2048):  # vertices with tets on both sides of a boundary
+        lo = set(tets[max(edge - 64, 0):edge].reshape(-1)) & set(tets[edge:edge + 64].reshape(-1))
+        pts += [x_big[v] for v in sorted(lo)[:4]]
+    rng = np.random.default_rng(15)
+    while len(pts) < len(small.vertices):
+        pts.append(x_big[tets[rng.integers(nt)]].mean(axis=0))
+    x = np.concatenate([x_big, np.asarray(pts[:len(small.vertices)])])
+    cols = [dyn.make_tet_mesh_collider(big.vertices, tets, big.faces, 0),
+            dyn.make_tet_mesh_collider(small.vertices, small.tets, small.faces, nv)]
+    surf = np.concatenate([np.arange(nv, nv + len(small.vertices)), surface_vertex_indices(tets)])
+    return ([c.to(DEVICE, torch.float64) for c in cols], torch.as_tensor(x, device=DEVICE),
+            torch.as_tensor(surf, device=DEVICE))
+
+
+def three_case(torch):
+    """Three 4^3 blocks, each a collider, shifted 0.3 apart in x and 0.2 in y,
+    so that a vertex lies in the tets of two others: (cols, x, surf) in
+    float64 on DEVICE, every vertex a query vertex."""
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+
+    m = make_tet_blocks(4, 4, 4)
+    nv = len(m.vertices)
+    x = np.concatenate([m.vertices + np.array([0.3 * i, 0.2 * i, 0.0]) for i in range(3)])
+    cols = [dyn.make_tet_mesh_collider(m.vertices, m.tets, m.faces, i * nv) for i in range(3)]
+    return ([c.to(DEVICE, torch.float64) for c in cols],
+            torch.as_tensor(x.astype(np.float64), device=DEVICE),
+            torch.arange(3 * nv, device=DEVICE))
+
+
 def k_cases(torch):
-    """[(label, colliders, x, surf, limits)] of kernel K's checks, float64:
-    boxes_gs8 at its golden's first-hit step and last step (two colliders,
-    772 query vertices), boxes_gs20 at its first-hit and last steps (the
-    broad phase, 4,804 query vertices), the folded block dense and with the
-    broad phase forced, and with HIT_CAP = 1 (limits: the dynamic module's
-    constants for the case)."""
+    """[(label, colliders, x, surf, limits, expect)] of kernel K's checks,
+    float64: boxes_gs8 at its golden's first-hit step and last step (two
+    colliders, 772 query vertices), boxes_gs20 at its first-hit and last
+    steps (the broad phase, 4,804 query vertices), the folded block dense and
+    with the broad phase forced, and with HIT_CAP = 1; the dense tiles' edges
+    (tile_case) with 2,560 tets and with 2,553 (no multiple of 32 or of a
+    tile); the folded block broad with a cell capacity of 1 and 2 (its cells
+    overflow); three colliders, two of them listing one query vertex
+    (three_case), dense and broad; the block at rest (no hit). limits: the
+    dynamic module's constants for the case; expect: what the plain twin's
+    rows must show (hits: "some", or a count; overflow: 0 or 1; shared: a
+    query listed by two colliders)."""
+    import dataclasses
+
     out = []
     for name in ("boxes_gs8", "boxes_gs20"):
         g = golden(name)
@@ -3867,12 +3935,26 @@ def k_cases(torch):
         for k in [int(v) for v in g["steps"]][1:]:
             out.append((f"{name}@{k}", [col.to(DEVICE, torch.float64) for col in c.colliders],
                         torch.as_tensor(g[f"x{k}"], device=DEVICE, dtype=torch.float64),
-                        c.surf, {}))
+                        c.surf, {}, dict(hits="some")))
+    dense, broad = dict(BROADPHASE_MIN_TETS=10 ** 9), dict(BROADPHASE_MIN_TETS=1)
     cols, x, surf = folded_case(torch, K_CASES_FOLD)
-    out += [(f"folded{K_CASES_FOLD} dense", cols, x, surf, dict(BROADPHASE_MIN_TETS=10 ** 9)),
-            (f"folded{K_CASES_FOLD} broad", cols, x, surf, dict(BROADPHASE_MIN_TETS=1)),
-            (f"folded{K_CASES_FOLD} hit_cap 1", cols, x, surf,
-             dict(BROADPHASE_MIN_TETS=10 ** 9, HIT_CAP=1))]
+    fold = f"folded{K_CASES_FOLD}"
+    out += [(f"{fold} dense", cols, x, surf, dense, dict(hits="some")),
+            (f"{fold} broad", cols, x, surf, broad, dict(hits="some")),
+            (f"{fold} hit_cap 1", cols, x, surf, dict(dense, HIT_CAP=1),
+             dict(hits=1, overflow=1))]
+    for cap in (1, 2):
+        out.append((f"{fold} broad cell_cap {cap}",
+                    [dataclasses.replace(c, cell_cap=cap) for c in cols], x, surf, broad,
+                    dict(overflow=1)))
+    for drop in (0, 7):
+        cols, x, surf = tile_case(torch, drop)
+        out.append((f"tiles {cols[0].n_tets} tets", cols, x, surf, dense, dict(hits="some")))
+    cols, x, surf = three_case(torch)
+    out += [("three colliders dense", cols, x, surf, dense, dict(hits="some", shared=True)),
+            ("three colliders broad", cols, x, surf, broad, dict(hits="some", shared=True))]
+    cols, x, surf = folded_case(torch, K_CASES_FOLD, fold=False)
+    out.append((f"{fold} at rest", cols, x, surf, dense, dict(hits=0, overflow=0)))
     return out
 
 
@@ -3897,21 +3979,31 @@ class dyn_limits:
 
 
 def k_detect(torch, cols, x, surf, plain):
-    """The merged rows and the overflow flag of K (or its plain twin) over
-    the colliders cols at x, from empty rows."""
+    """The merged rows and the overflow flag of K (one call) or its plain
+    twin over the colliders cols (a list, or their dynamic.ColliderTable) at
+    x, from empty rows."""
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
     from admm_elastic_tpu_torch.ops import cuda_dynamic
 
+    table = cols if isinstance(cols, dyn.ColliderTable) else dyn.collider_table(cols)
     h = surf.shape[0]
     rows = (torch.zeros((h,), dtype=torch.bool, device=x.device),
             torch.zeros((h, 3), dtype=torch.int64, device=x.device),
             torch.zeros((h, 3), dtype=x.dtype, device=x.device),
             torch.zeros((h, 3), dtype=x.dtype, device=x.device))
     flag = torch.zeros((1,), dtype=torch.int32, device=x.device)
-    xs = x[surf]
-    for c in cols:
-        rows = (cuda_dynamic.detect_plain if plain else cuda_dynamic.dyn_detect)(
-            c, x, xs, surf, rows, flag)
+    rows = (cuda_dynamic.detect_plain if plain else cuda_dynamic.dyn_detect)(
+        table, x, x[surf], surf, rows, flag)
     return rows, flag
+
+
+def shared_queries(torch, table, x, surf):
+    """The query vertices that two or more colliders of table list (each
+    collider's plain detect_dynamic alone)."""
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
+
+    masks = [dyn.detect_dynamic(c, x, x[surf], surf)["mask"] for c in table.colliders]
+    return int((torch.stack(masks).sum(dim=0) >= 2).sum().item())
 
 
 def rows_hits(torch, rows, surf, n):
@@ -3948,43 +4040,53 @@ def l_pair(torch, hits, n, seed):
 
 
 def kernel_k_checks(torch):
-    """Kernel K (a collider's detection, merged into the rows) and kernel L
-    (the rows' C^T and diag(C^T C) by their table) bit for bit their plain
-    twins on the card, float64 and float32, on k_cases: the paths' states,
-    the folded block dense and broad, HIT_CAP = 1 (its hit overflow set), two
-    colliders and one, query sets wider than a block. Returns (checks, what
-    the timing needs)."""
+    """Kernel K (every collider's detection in one call, merged into the
+    rows) and kernel L (the rows' C^T and diag(C^T C) by their table) bit for
+    bit their plain twins on the card, float64 and float32, on k_cases: the
+    paths' states, the folded block dense and broad, HIT_CAP = 1 (its hit
+    overflow set), the dense tiles' edges, overflowing cells, three colliders
+    and the block at rest, each with its expectation; L where there are rows.
+    Returns (checks, what the timing needs)."""
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
+
     out, timing = {}, {}
-    for label, cols, x64, surf, limits in k_cases(torch):
+    for label, cols, x64, surf, limits, expect in k_cases(torch):
         n = x64.shape[0]
         for dname, dtype in (("f64", torch.float64), ("f32", torch.float32)):
-            cols_t = [c.to(DEVICE, dtype) for c in cols]
+            table = dyn.collider_table([c.to(DEVICE, dtype) for c in cols])
             x = x64.to(dtype)
             with dyn_limits(**limits):
-                rows_k, flag_k = k_detect(torch, cols_t, x, surf, plain=False)
-                rows_p, flag_p = k_detect(torch, cols_t, x, surf, plain=True)
+                rows_k, flag_k = k_detect(torch, table, x, surf, plain=False)
+                rows_p, flag_p = k_detect(torch, table, x, surf, plain=True)
+                shared = shared_queries(torch, table, x, surf) if "shared" in expect else None
             same = all(bool(torch.equal(a, b)) for a, b in zip(rows_k, rows_p))
-            hits = int(rows_k[0].sum().item())
-            need(same and int(flag_k.item()) == int(flag_p.item()),
+            hits, ovf = int(rows_k[0].sum().item()), int(flag_k.item())
+            need(same and ovf == int(flag_p.item()),
                  f"K {label} {dname}: not bit for bit its plain twin (hits {hits} against "
-                 f"{int(rows_p[0].sum().item())}, overflow {int(flag_k.item())} against "
-                 f"{int(flag_p.item())})")
-            need(hits > 0, f"K {label} {dname}: no hit")
-            if "hit_cap 1" in label:
-                need(hits == 1 and int(flag_k.item()) == 1, f"K {label}: HIT_CAP not held")
-            h = rows_hits(torch, rows_k, surf, n)
-            l_err, l_bitwise = l_pair(torch, h, n, seed=hits)
-            need(l_bitwise, f"L {label} {dname}: not bit for bit its plain twin ({l_err:.3e})")
-            out[f"{label} {dname}"] = dict(hits=hits, overflow=int(flag_k.item()),
+                 f"{int(rows_p[0].sum().item())}, overflow {ovf} against {int(flag_p.item())})")
+            want = expect.get("hits")
+            need(want is None or (hits > 0 if want == "some" else hits == want),
+                 f"K {label} {dname}: {hits} hits, expected {want}")
+            need(expect.get("overflow", ovf) == ovf,
+                 f"K {label} {dname}: overflow {ovf}, expected {expect.get('overflow')}")
+            need(shared is None or shared > 0,
+                 f"K {label} {dname}: no query vertex listed by two colliders")
+            l_err, l_bitwise = 0.0, True
+            if hits:
+                h = rows_hits(torch, rows_k, surf, n)
+                l_err, l_bitwise = l_pair(torch, h, n, seed=hits)
+                need(l_bitwise, f"L {label} {dname}: not bit for bit its plain twin ({l_err:.3e})")
+            out[f"{label} {dname}"] = dict(hits=hits, overflow=ovf, shared=shared,
                                            queries=int(surf.shape[0]), colliders=len(cols),
                                            tets=sum(c.n_tets for c in cols), max_abs_err=0.0,
                                            l_max_abs_err=l_err, bitwise=True)
             if dname == "f32" and label.startswith("boxes"):
-                timing[label] = dict(cols=cols_t, x=x, surf=surf, hits=h, n=n,
-                                     limits=limits)
+                timing[label] = dict(table=table, x=x, surf=surf, hits=h, n=n, limits=limits)
         log(f"K and L {label}: bit for bit their plain twins in float64 and float32 "
             f"({out[label + ' f64']['hits']} hits, {int(surf.shape[0])} queries, "
-            f"{len(cols)} collider(s), overflow {out[label + ' f64']['overflow']})")
+            f"{len(cols)} collider(s), overflow {out[label + ' f64']['overflow']}"
+            + ("" if "shared" not in expect else
+               f", {out[label + ' f64']['shared']} listed by two colliders") + ")")
     return out, timing
 
 
@@ -4146,7 +4248,8 @@ def hdyn_gdyn_checks(torch):
             pn = alcg.penalty_vectors(hits, ck, b.shape[0])
             timing["pcg_solve_dyn@boxes_alpcg8"] = dict(
                 data=data, b_hat=b_hat, x0=x0, pn=pn, pen_diag=pen_diag, hits=hits, ck=ck,
-                slot_of=c.slot_of, s=s, trips=kg, max_abs_err=r["max_abs_err"])
+                slot_of=c.slot_of, s=s, trips=kg, max_abs_err=r["max_abs_err"],
+                csr=csr_of(torch, solver, b.dtype))
     r32, r64 = out[f"pcg_solve_dyn@{name} f32"], out[f"pcg_solve_dyn@{name} f64"]
     control = rel_err(got["f32"], got["f64"])  # the plain solve's own float32 gap
     r32["f32_control"] = control
@@ -4162,31 +4265,65 @@ def hdyn_gdyn_checks(torch):
     return out, timing
 
 
+K_KERNELS = ("dyn_frames_kernel", "dyn_query_kernel", "dyn_rank_kernel", "dyn_face_kernel")
+
+
+def k_phase_us(torch, fn, reps):
+    """({K's kernel: device µs a detection}, launches a detection) of fn(),
+    one detection, by torch.profiler over reps detections; a window with
+    records missing (fewer than four a detection) is taken again, three
+    times at most, and then ({}, None): not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = {}, 0
+        for e in prof.events():
+            k = next((k for k in K_KERNELS if k in e.name), None)
+            if e.device_type == DeviceType.CUDA and k is not None:
+                us[k] = us.get(k, 0.0) + e.time_range.elapsed_us() / reps
+                n += 1
+        if n >= len(K_KERNELS) * reps:
+            return us, n / reps
+        log(f"profiler saw {n} of {len(K_KERNELS) * reps} of K's launches"
+            + ("; the window is taken again" if attempt < 2 else "; not measured"))
+    return {}, None
+
+
 def selfcoll_kernel_times(torch, k_timing, hg_timing, gpu):
     """Kernels K, L, H[DYN] and G[DYN] on the card at the paths' shapes:
     each call by queued CUDA events and by torch.profiler (the device time of
-    its kernels, summed over a call), its plain twin's by CUDA events, the
-    bound (K: the pair tests and the face walk at ~40 and ~80 operations, or
-    the bytes of x, the tets and the rest mesh; L: the rows and the table read
-    once and [N, 3] written once; H and G: as h_bytes_ops / pcg_bytes_ops
-    count them), and L's yardstick, index_add_ of the same terms (float
-    atomics; never in the port). Returns {label: entry}."""
+    its kernels, summed over a call; K's split into its four phases, with
+    its launches a detection), its plain twin's by CUDA events, the bound (K:
+    the pair tests and the face walk at ~40 and ~80 operations, or the bytes
+    of x, the tets and the rest mesh; L: the rows and the table read once and
+    [N, 3] written once; H and G: as h_bytes_ops / pcg_bytes_ops count them),
+    and the yardsticks of L, index_add_ of the same terms (float atomics;
+    never in the port), and of G[DYN], torch.sparse.mm of A times its trips.
+    Returns {label: entry}."""
     from admm_elastic_tpu_torch.collision import constraints as con
     from admm_elastic_tpu_torch.collision import dynamic as dyn
     from admm_elastic_tpu_torch.ops import cuda_dynamic, cuda_gs, cuda_pcg
 
     out = {}
     for label, t in k_timing.items():
-        x, surf, cols, hits, n = t["x"], t["surf"], t["cols"], t["hits"], t["n"]
+        x, surf, table, hits, n = t["x"], t["surf"], t["table"], t["hits"], t["n"]
+        cols = table.colliders
         item = x.element_size()
 
         def k_call(t=t):
             with dyn_limits(**t["limits"]):
-                return k_detect(torch, t["cols"], t["x"], t["surf"], plain=False)
+                return k_detect(torch, t["table"], t["x"], t["surf"], plain=False)
 
         def k_plain(t=t):
             with dyn_limits(**t["limits"]):
-                return k_detect(torch, t["cols"], t["x"], t["surf"], plain=True)
+                return k_detect(torch, t["table"], t["x"], t["surf"], plain=True)
 
         h_q = int(surf.shape[0])
         broad = any(c.n_tets > dyn.BROADPHASE_MIN_TETS for c in cols)
@@ -4205,10 +4342,12 @@ def selfcoll_kernel_times(torch, k_timing, hg_timing, gpu):
                   + h_q * (8 + 1 + 24 + 2 * 3 * item))
         k_us = queued_us(torch, [("k", k_call)] * 2, 5)["k"]
         plain_ms = events_ms(torch, k_plain, 3)
-        prof = g_device_us(torch, k_call, 5, kernel="dyn_")
+        phases, per_det = k_phase_us(torch, k_call, 5) if DEVICE == "cuda" else ({}, None)
+        prof = sum(phases.values()) if phases else None
         bound_ms, bound_by = bound_of(nbytes, ops)
         out[f"dyn_detect@{label}"] = dict(
-            ms=k_us * 1e-3, profiler_ms=None if prof is None else prof * 4 * len(cols) * 1e-3,
+            ms=k_us * 1e-3, profiler_ms=None if prof is None else prof * 1e-3,
+            phases_us=phases, launches_per_detection=per_det,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
             operations=ops, library_ms=None, pairs=pairs, hits=n_hits, queries=h_q,
             broad=broad, colliders=len(cols))
@@ -4234,10 +4373,12 @@ def selfcoll_kernel_times(torch, k_timing, hg_timing, gpu):
             ms=l_us * 1e-3, profiler_ms=None if l_prof is None else l_prof * 1e-3,
             plain_ms=l_plain, bound_ms=lb, bound_by=lby, bytes=l_bytes, operations=l_ops,
             library_ms=lib_ms, entries=k_ent, n=n)
-        log(f"time K {label}: {k_us:.1f} us a call (queued), profiler "
-            f"{'not measured' if prof is None else '%.1f us' % (prof * 4 * len(cols))}; "
-            f"plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} us by {bound_by} "
-            f"({pairs} pair tests, {n_hits} hits x {faces // len(cols)} faces) [{gpu}]")
+        log(f"time K {label}: {k_us:.1f} us a detection (queued, with its PyTorch work), "
+            f"profiler {'not measured' if prof is None else '%.1f us' % prof} ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
+            + f"; {per_det} launches a detection); plain {plain_ms * 1e3:.1f} us; bound "
+            f"{bound_ms * 1e3:.3f} us by {bound_by} ({pairs} pair tests, {n_hits} hits x "
+            f"{faces // len(cols)} faces) [{gpu}]")
         log(f"time L {label}: {l_us:.1f} us a launch (queued), profiler "
             f"{'not measured' if l_prof is None else '%.1f us' % l_prof}; plain "
             f"{l_plain * 1e3:.1f} us; index_add_ {lib_ms * 1e3:.1f} us; bound {lb * 1e3:.3f} us "
@@ -4274,17 +4415,21 @@ def selfcoll_kernel_times(torch, k_timing, hg_timing, gpu):
                                  gather=con.dyn_gather_plain)
 
     g_plain_ms = events_ms(torch, g_plain, 1)
+    spmv = events_ms(torch, lambda: torch.sparse.mm(t["csr"], t["b_hat"]), 200)
     nbytes, ops = pcg_bytes_ops(t["data"], t["trips"])
     gb, gby = bound_of(nbytes, ops)
     out["pcg_solve_dyn@boxes_alpcg8"] = dict(ms=g_us * 1e-3, profiler_ms=None if g_prof is None
                                              else g_prof * 1e-3, plain_ms=g_plain_ms,
-                                             bound_ms=gb, bound_by=gby, library_ms=None,
+                                             bound_ms=gb, bound_by=gby,
+                                             library_ms=spmv * t["trips"], library_spmv_ms=spmv,
                                              trips=t["trips"], max_abs_err=t["max_abs_err"])
     for k in [f"gs_solve_dyn@{n}" for n in H_DYN_CASES] + ["pcg_solve_dyn@boxes_alpcg8"]:
         e = out[k]
         prof = "not measured" if e["profiler_ms"] is None else f"{e['profiler_ms'] * 1e3:.1f} us"
+        lib = ("" if e["library_ms"] is None else
+               f"; torch.sparse.mm x trips {e['library_ms'] * 1e3:.1f} us")
         log(f"time {k}: {e['ms'] * 1e3:.1f} us a solve (queued), profiler {prof}; plain "
-            f"{e['plain_ms'] * 1e3:.1f} us; bound {e['bound_ms'] * 1e3:.3f} us by "
+            f"{e['plain_ms'] * 1e3:.1f} us{lib}; bound {e['bound_ms'] * 1e3:.3f} us by "
             f"{e['bound_by']} [{gpu}]")
     return out
 
@@ -5335,7 +5480,7 @@ def rollout_rate(solver, eager=False):
     """ADMM iterations/s over a rollout of at least TARGET_S: run(n), the
     captured step's replays, or with eager the eager loop (_run_eager)."""
     advance = solver._run_eager if eager else solver.run
-    n_steps = 20
+    n_steps = 5
     while True:
         t0 = time.perf_counter()
         advance(n_steps)  # both synchronize before they return
@@ -5984,6 +6129,7 @@ def path_phase(torch, gpu):
     # torch.profiler has dropped one record of their counted window, three
     # times running (PERF.md §7)
     invalidation = invalidation_checks(torch)
+    stamp(t0, "paths: invalidation checks")
     solvers["beam"], paths["beam"] = beam_path(torch, NH)
     for name in CLOTH_SCENES:
         solvers[name], paths[name] = cloth_path(torch, name)
@@ -5993,22 +6139,30 @@ def path_phase(torch, gpu):
         solvers[label], paths[label] = beam_path(torch, model)
     for name in GATHER_SCENES:
         solvers[name], paths[name] = gather_path(torch, name)
+    stamp(t0, "paths: beams, cloth, gather")
     for name in PCG_PATHS:
         solvers[name], paths[name] = pcg_path(torch, name)
+    stamp(t0, "paths: PCG")
     for name in CONTACT_PATHS + MESH_PATHS:
         solvers[name], paths[name] = contact_path(torch, name)
+        stamp(t0, f"paths: {name}")
     for name in AA_PATHS:
         drive = contact_path if variant_of(name)[0] in CONTACT_SCENES else aa_path
         solvers[name], paths[name] = drive(torch, name)
     solvers[WIND_SEQ_PATH], paths[WIND_SEQ_PATH] = cloth_path(torch, WIND_SEQ_PATH)
+    stamp(t0, "paths: Anderson, sequential wind")
     for name in SELFCOLL_PATHS:
         solvers[name], paths[name] = selfcoll_path(torch, name)
-    checks = dict(bench_contact_sanity=bench_contact_sanity(torch), extras=extras_checks(torch),
+        stamp(t0, f"paths: {name}")
+    sanity = bench_contact_sanity(torch)
+    stamp(t0, "paths: bench.py's contact sanity")
+    checks = dict(bench_contact_sanity=sanity, extras=extras_checks(torch),
                   graph=dict(invalidation=invalidation,
                              one_tet_convergence=one_tet_convergence(),
                              one_tet_inversion=one_tet_inversion()))
     log("one tet through the graph: " + json.dumps(
         {k: checks["graph"][k] for k in ("one_tet_convergence", "one_tet_inversion")}))
+    stamp(t0, "paths: extras, one tet")
     for again, order in ((False, list(solvers)), (True, list(reversed(solvers)))):
         for label in order:
             r = rollout_rate(solvers[label])
@@ -6118,22 +6272,30 @@ def main():
         env = environment(torch)
         gpu = env["gpu"]
         built = build()
+        stamp(t_start, "build")
         checks = gather_entry_checks(torch, stencil_entry_checks(torch, kernel_checks(torch)))
         checks = ring_checks(torch, checks)
+        stamp(t_start, "kernels A-F against plain")
         checks["pcg"], pcg_timing = pcg_checks(torch)
         inner_checks, inner_timing = uzawa_inner_checks(torch)
         checks["pcg"].update(inner_checks)
         pcg_timing.update(inner_timing)
+        stamp(t_start, "kernel G against plain")
         checks["gs"], h_timing = h_checks(torch)
         checks["gs_mesh"], h_mesh_timing = h_mesh_checks(torch)
         h_timing.update(h_mesh_timing)
+        stamp(t_start, "kernel H against plain")
         checks["mesh_detect"], j_timing = kernel_j_checks(torch)
         checks["pcg_penalty"], gpen_timing = gpen_checks(torch)
+        stamp(t_start, "kernels J and G's penalty form against plain")
         checks["wind_seq"], i_timing = kernel_i_checks(torch, gpu)
+        stamp(t_start, "kernel I against plain")
         checks["dyn_detect"], k_timing = kernel_k_checks(torch)
         checks["dyn_solves"], hg_timing = hdyn_gdyn_checks(torch)
+        stamp(t_start, "kernels K, L, H[DYN], G[DYN] against plain")
         cases, c_branches, chains, pairs, prox_turns = kernel_cases(torch)
         cases.update(path_shape_cases(torch, checks))
+        stamp(t_start, "the kernels' cases")
         profiles = {}
         if args.kernels_only:
             profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
@@ -6150,13 +6312,16 @@ def main():
         # after some 30 windows the profiler also began to drop events.
         turns, phases, times, by_branch, prox_big = host_timing(torch, gpu, cases, c_branches,
                                                                 prox_turns)
+        stamp(t_start, "host timing")
         variant_rates = variant_turns(torch, gpu)
         wind_forms = wind_form_turns(torch, gpu)
+        stamp(t_start, "variant and wind-form turns")
         env["profiler_warmup_events"] = profiler_warmup(torch)
         g_times = pcg_times(torch, pcg_timing, gpu)
         c_times = contact_kernel_times(torch, h_timing, gpen_timing, gpu)
         j_times = kernel_j_times(torch, j_timing, gpu)
         k_times = selfcoll_kernel_times(torch, k_timing, hg_timing, gpu)
+        stamp(t_start, "kernel times")
         del pcg_timing, h_timing, gpen_timing, j_timing, k_timing, hg_timing
         if args.profile:
             profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
@@ -6184,6 +6349,7 @@ def main():
             paths, rates, graph_checks = saved["paths"], saved["rates"], saved["checks"]
         else:  # a rehearsal off the card: in this process
             paths, rates, graph_checks = path_phase(torch, gpu)
+        stamp(t_start, "the paths")
         checks.update(graph_checks)
         for label, t in turns.items():
             rates[label]["graph_vs_eager"] = t

@@ -10,6 +10,12 @@ the paths' full size). On the card:
 - K and L bit for bit their plain twins (chip_smoke.k_detect, l_pair) on the
   folded block dense, broad and with HIT_CAP = 1, and on the 3x3x3 stacked
   boxes (two colliders) at a state with dynamic hits, float64 and float32;
+- K on the dense tiles' edges (chip_smoke.tile_case, 2,560 and 2,553 tets),
+  overflowing cells, three colliders two of which list one vertex
+  (chip_smoke.three_case, dense and broad) and the block at rest (no hit),
+  bit for bit its twin with the flag equal; four launches a detection
+  whatever the number of colliders, counted on the device; no candidate
+  tensor built on the card (the plain _broad_phase_candidates unreached);
 - the captured rollout of the 3x3x3 stacks under Gauss-Seidel, Uzawa and
   AL-PCG through their first dynamic rows: bitwise equal to the eager loop,
   each step's overflow flag read outside the graph, the kernels launched.
@@ -70,6 +76,68 @@ def test_k_and_l_on_the_folded_block(cuda_device, dtype, limits):
     h = chip_smoke.rows_hits(torch, rows_k, surf, x.shape[0])
     err, bitwise = chip_smoke.l_pair(torch, h, x.shape[0], seed=3)
     assert bitwise, err
+
+
+def _case(name):
+    """(colliders, x, surf, limits, expect) of a named K case (chip_smoke's)."""
+    import dataclasses
+
+    dense, broad = dict(BROADPHASE_MIN_TETS=10 ** 9), dict(BROADPHASE_MIN_TETS=1)
+    if name.startswith("tiles"):
+        return (*chip_smoke.tile_case(torch, 0 if name == "tiles" else 7), dense,
+                dict(hits="some"))
+    if name.startswith("cell_cap"):
+        cols, x, surf = chip_smoke.folded_case(torch, 8)
+        cols = [dataclasses.replace(c, cell_cap=int(name[-1])) for c in cols]
+        return cols, x, surf, broad, dict(overflow=1)
+    if name.startswith("three"):
+        return (*chip_smoke.three_case(torch), broad if name.endswith("broad") else dense,
+                dict(hits="some"))
+    return (*chip_smoke.folded_case(torch, 8, fold=False), dense, dict(hits=0, overflow=0))
+
+
+@pytest.mark.parametrize("name", ["tiles", "tiles_ragged", "cell_cap1", "cell_cap2",
+                                  "three_dense", "three_broad", "at_rest"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_k_on_tiles_overflow_three_colliders_and_no_hit(cuda_device, dtype, name):
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
+
+    cols, x, surf, limits, expect = _case(name)
+    table = dyn.collider_table([c.to("cuda", dtype) for c in cols])
+    x = x.to(dtype)
+    with chip_smoke.dyn_limits(**limits):
+        rows_k, flag_k = chip_smoke.k_detect(torch, table, x, surf, plain=False)
+        rows_p, flag_p = chip_smoke.k_detect(torch, table, x, surf, plain=True)
+    for a, b in zip(rows_k, rows_p):
+        assert torch.equal(a, b)
+    assert int(flag_k.item()) == int(flag_p.item()) == expect.get("overflow", int(flag_p.item()))
+    hits = int(rows_k[0].sum().item())
+    assert hits > 0 if expect.get("hits") == "some" else hits == expect.get("hits", hits)
+
+
+@pytest.mark.parametrize("broad", [False, True], ids=["dense", "broad"])
+def test_k_is_four_launches_whatever_the_colliders(cuda_device, monkeypatch, broad):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
+
+    def no_candidates(*args, **kwargs):
+        raise AssertionError("the card path built the candidate tensor")
+
+    cols, x, surf = chip_smoke.three_case(torch)
+    table = dyn.collider_table(cols)
+    limits = dict(BROADPHASE_MIN_TETS=1 if broad else 10 ** 9)
+    monkeypatch.setattr(dyn, "_broad_phase_candidates", no_candidates)
+    with chip_smoke.dyn_limits(**limits):
+        chip_smoke.k_detect(torch, table, x, surf, plain=False)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            chip_smoke.k_detect(torch, table, x, surf, plain=False)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum(any(k in n for k in chip_smoke.K_KERNELS) for n in names) == 4
+    assert sum("dyn_rank_kernel" in n for n in names) == 1
 
 
 @pytest.mark.parametrize("ls", [1, 2, 4])
