@@ -34,9 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _PRECISIONS = (("f32", "float"), ("f64", "double"))
 # (source, precision suffix or None): stencil.cu, pcg.cu, gs.cu, wind_seq.cu,
-# obstacle.cu and self_collision.cu hold both precisions themselves.
+# obstacle.cu, self_collision.cu and uzawa.cu hold both precisions themselves.
 UNITS = tuple([("stencil.cu", None), ("pcg.cu", None), ("gs.cu", None), ("wind_seq.cu", None),
-               ("obstacle.cu", None), ("self_collision.cu", None)]
+               ("obstacle.cu", None), ("self_collision.cu", None), ("uzawa.cu", None)]
               + [(src, sfx) for src in ("local_step.cu", "prox.cu", "tri_local_step.cu")
                  for sfx, _ in _PRECISIONS])
 
@@ -77,6 +77,9 @@ _SIGNATURES = {
     # ptrs, ints, stream
     "admm_dyn_detect": [_P, _P, _P],
     "admm_dyn_gather": [_P, _P, _P],
+    "admm_uzawa_ct": [_P, _P, _P],
+    # ptrs, ints, tiny, tol2, stream
+    "admm_schur_trip": [_P, _P, _D, _D, _P],
 }
 _PLAIN_SIGNATURES = {  # one function for both precisions
     "admm_empty_launch": [_P],  # stream
@@ -85,6 +88,7 @@ _PLAIN_SIGNATURES = {  # one function for both precisions
     "admm_cluster_capacity": [_I, _I, _I],  # cluster, threads, smem
     "admm_smem_optin": [],
     "admm_mesh_blocks": [_I],  # f64
+    "admm_schur_blocks": [_I],  # f64
 }
 
 

@@ -1,0 +1,217 @@
+"""Wrappers of Uzawa's Schur trip on the card, ``csrc/uzawa.cu``: kernel L's
+full C^T in one launch (``ct_apply``) and kernel M, a trip's update in one
+launch (``schur_trip``). Neither has a Pallas original: together they replace
+the plain PyTorch of a trip of ``solvers/uzawa.py`` (the port of the jnp body
+of ``admm_elastic_tpu/solvers/uzawa.py:41-125``) around its A^-1 apply.
+
+``ct_apply(hits, ck, y, n_verts, slot_of)`` is C^T [y[:H]; y[H:]] -> [N, 3],
+bit for bit ``constraints.Ct_apply`` (its plain twin ``ct_plain``); slot_of
+(i32 [N], each vertex's query slot, -1 for none) is needed on the card where
+the query set is not every vertex.
+
+``schur_trip(hits, ck, q2, x, y, r, d, k, done, tiny, tol2)`` is one trip's
+update from q2 = A^-1 C^T d (``schur_trip_plain``, the twin): q3 = C q2 on
+the active rows, the four dots (``fixed_dot``), alpha and beta, x, y, r and d,
+the trips taken k and the exit flag done, all left as they were where done is
+set. On the card x, y, r, d, k and done are updated in place and returned; on
+the CPU the twin returns new tensors.
+
+``fixed_dot`` sums a * b in the order kernel M does: each product in the
+tensors' dtype, element i to partial i mod PARTS, added in index order from
++0, then a pairwise tree over the PARTS partials (partial t plus partial t +
+512, then + 256, ..., + 1); the partials and the tree in float64, the sum
+rounded to the dtype once. A float32 run's dots are then all but exact, which
+the Schur CG's alpha and beta want; a float64 run's are summed in its own
+type.
+The order depends on the length alone, so the CPU, the card's eager loop,
+its graph and the traced solve compute one sum.
+
+Dispatch is by the tensors' device: CPU tensors take the plain twins, CUDA
+tensors the kernels, and a build or launch failure raises. Each wrapper's
+``launches`` counts its launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from admm_elastic_tpu_torch.collision import constraints as con
+from admm_elastic_tpu_torch.ops import _build
+from admm_elastic_tpu_torch.ops.cuda_dynamic import _check
+from admm_elastic_tpu_torch.ops.cuda_obstacle import BARRIER_INTS, addresses
+
+PARTS = 1024  # csrc/uzawa.cu kParts: the dots' partials, M's threads a block
+
+
+def fixed_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b) as a 0-d tensor, in the fixed order of the module docstring.
+    The zeros that pad the last row of partials change no bit: a partial that
+    starts from +0 is never -0, and x + 0 is x for every other x."""
+    prod = (a * b).reshape(-1)
+    n = prod.numel()
+    acc = torch.zeros((PARTS,), dtype=torch.float64, device=prod.device)
+    rows = -(-n // PARTS)
+    if rows:
+        padded = torch.cat([prod, prod.new_zeros((rows * PARTS - n,))]).reshape(rows, PARTS)
+        for j in range(rows):
+            acc = acc + padded[j].double()
+    while acc.numel() > 1:
+        half = acc.numel() // 2
+        acc = acc[:half] + acc[half:]
+    return acc.to(prod.dtype).reshape(())
+
+
+def ct_plain(hits: con.Hits, ck, y, n_verts: int) -> torch.Tensor:
+    """Kernel L's full C^T twin: constraints.Ct_apply with the plain gather."""
+    h = hits.capacity
+    return con.Ct_apply(hits, ck, y[:h], y[h:], n_verts, gather=con.dyn_gather_plain)
+
+
+def schur_trip_plain(hits: con.Hits, ck, q2, x, y, r, d, k, done, tiny: float, tol2: float):
+    """Kernel M's twin: the trip body of solvers/uzawa.py on q2 = A^-1 C^T d
+    with fixed_dot. Returns the new (x, y, r, d, k, done)."""
+    rp, rd = con.C_apply(hits, ck, q2)
+    q3 = torch.where(torch.cat([hits.p_mask, hits.d_mask]), torch.cat([rp, rd]), 0.0)
+    denom = fixed_dot(d, q3)
+    bad = torch.abs(denom) < tiny
+    safe = torch.where(bad, torch.ones_like(denom), denom)
+    alpha = torch.where(bad, torch.zeros_like(denom), fixed_dot(d, r) / safe)
+    x_n = x - alpha * q2
+    y_n = y + alpha * d
+    r_n = r - alpha * q3
+    small = fixed_dot(r_n, r_n) < tol2
+    beta = torch.where(bad, torch.zeros_like(denom), fixed_dot(r_n, q3) / safe)
+    d_n = r_n - beta * d
+    go = ~done
+    return (torch.where(go, x_n, x), torch.where(go, y_n, y), torch.where(go, r_n, r),
+            torch.where(go, d_n, d), k + go.to(torch.int32), done | bad | small)
+
+
+ROW_FIELDS = ("p_mask", "p_vidx", "p_normal", "d_mask", "d_vidx", "d_face", "d_barys",
+              "d_normal")
+
+
+def contiguous_hits(hits: con.Hits) -> con.Hits:
+    """hits with the fields the kernels read made contiguous (a detection
+    may hand over a view: a Floor's normals are one row expanded), once a
+    solve and not once a launch."""
+    return dataclasses.replace(hits, **{f: getattr(hits, f).contiguous() for f in ROW_FIELDS})
+
+
+def _rows(name, hits: con.Hits, ck, lead, n: int):
+    """The rows as csrc/uzawa.cu rows_of takes them (the slot left null),
+    checked against lead (a CUDA tensor of the run dtype); returns (pointers,
+    suffix)."""
+    h = hits.capacity
+    sfx = _build.cuda_args(name, lead, (("p_normal", hits.p_normal, (h, 3)),
+                                        ("d_barys", hits.d_barys, (h, 3)),
+                                        ("d_normal", hits.d_normal, (h, 3)),
+                                        ("ck", ck.reshape(1), (1,))))
+    dev = lead.device
+    fields = [("p_mask", hits.p_mask, torch.bool, (h,)), ("p_vidx", hits.p_vidx, torch.int64, (h,)),
+              ("d_mask", hits.d_mask, torch.bool, (h,)), ("d_vidx", hits.d_vidx, torch.int64, (h,)),
+              ("d_face", hits.d_face, torch.int64, (h, 3))]
+    if hits.may_dyn:
+        if hits.d_order is None:
+            raise ValueError(f"{name}: dynamic rows without their table (constraints.with_table)")
+        fields += [("d_order", hits.d_order, torch.int64, (3 * h,)),
+                   ("d_start", hits.d_start, torch.int64, (n + 1,))]
+    for field, t, dtype, shape in fields:
+        _check(f"{name}: {field}", t, dtype, shape, dev)
+    order, start = (hits.d_order, hits.d_start) if hits.may_dyn else (None, None)
+    return [hits.p_mask, hits.p_vidx, hits.p_normal, hits.d_mask, hits.d_vidx, hits.d_face,
+            hits.d_barys, hits.d_normal, ck, order, start, None], sfx
+
+
+def ct_apply(hits: con.Hits, ck: torch.Tensor, y: torch.Tensor, n_verts: int,
+             slot_of=None) -> torch.Tensor:
+    """Kernel L: C^T [y[:H]; y[H:]] -> [N, 3] (see the module docstring)."""
+    if y.device.type == "cpu":
+        return ct_plain(hits, ck, y, n_verts)
+    h = hits.capacity
+    _check("ct_apply: y", y, y.dtype, (2 * h,), y.device)
+    ptrs, sfx = _rows("ct_apply", hits, ck, y, n_verts)
+    if hits.dense:
+        if h != n_verts:
+            raise ValueError(f"ct_apply: a dense query set of {h} rows for {n_verts} vertices")
+    elif slot_of is None:
+        raise ValueError("ct_apply: the query set is not every vertex: slot_of is needed")
+    else:
+        _check("ct_apply: slot_of", slot_of, torch.int32, (n_verts,), y.device)
+        ptrs[-1] = slot_of
+    out = torch.empty((n_verts, 3), dtype=y.dtype, device=y.device)
+    ptr_arr = (ctypes.c_uint64 * (len(ptrs) + 2))(*addresses(ptrs + [y, out]))
+    ints = (ctypes.c_int * 3)(n_verts, h, int(hits.may_dyn))
+    fn = getattr(_build.library(), f"admm_uzawa_ct_{sfx}")
+    with torch.cuda.device(y.device):
+        rc = fn(ptr_arr, ints, torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(rc, "ct_apply")
+    ct_apply.launches += 1
+    return out
+
+
+_MAX_BLOCKS: dict = {}  # (device, dtype) -> the most blocks of M's grid at once
+_BARRIERS: dict = {}  # device -> M's grid barrier
+
+
+def max_blocks(device, dtype) -> int:
+    key = (device, dtype)
+    if key not in _MAX_BLOCKS:
+        with torch.cuda.device(device):
+            got = int(_build.library().admm_schur_blocks(int(dtype == torch.float64)))
+        if got <= 0:
+            raise RuntimeError(f"schur_trip: the card holds no block of M's grid (cudaError "
+                               f"{-got})")
+        _MAX_BLOCKS[key] = got
+    return _MAX_BLOCKS[key]
+
+
+def _barrier(device):
+    if device not in _BARRIERS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("schur_trip: call it once on this device before a capture "
+                               "(its grid barrier is allocated on the first call)")
+        _BARRIERS[device] = torch.zeros((BARRIER_INTS,), dtype=torch.int32, device=device)
+    return _BARRIERS[device]
+
+
+def m_blocks(n: int, h: int, most: int) -> int:
+    """M's blocks: a thread a row or an element of x, at most most."""
+    return max(1, min(most, -(-max(2 * h, 3 * n) // PARTS)))
+
+
+def schur_trip(hits: con.Hits, ck: torch.Tensor, q2, x, y, r, d, k, done, tiny: float,
+               tol2: float, lib=None, blocks=None):
+    """Kernel M: one Schur trip's update (see the module docstring). Returns
+    (x, y, r, d, k, done): on the card the tensors handed in, updated in place.
+    lib: a measurement's variant library (_build.variant), else the port's;
+    blocks caps its cooperative grid (the bits do not depend on it)."""
+    if q2.device.type == "cpu":
+        return schur_trip_plain(hits, ck, q2, x, y, r, d, k, done, tiny, tol2)
+    n, h = int(q2.shape[0]), hits.capacity
+    dev = q2.device
+    _build.cuda_args("schur_trip", q2, (("q2", q2, (n, 3)), ("x", x, (n, 3)), ("y", y, (2 * h,)),
+                                        ("r", r, (2 * h,)), ("d", d, (2 * h,))))
+    _check("schur_trip: k", k, torch.int32, (), dev)
+    _check("schur_trip: done", done, torch.bool, (), dev)
+    ptrs, sfx = _rows("schur_trip", hits, ck, q2, n)
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"schur_trip: blocks {blocks} < 1")
+    grid = m_blocks(n, h, min(max_blocks(dev, q2.dtype), blocks or 1 << 30))
+    scratch = torch.empty((4 * 2 * h,), dtype=q2.dtype, device=dev)  # q3, then [3, 2H]
+    ptr_arr = (ctypes.c_uint64 * (len(ptrs) + 10))(*addresses(
+        ptrs + [q2, x, y, r, d, scratch[:2 * h], k, done, scratch[2 * h:], _barrier(dev)]))
+    ints = (ctypes.c_int * 4)(n, h, int(hits.may_dyn), grid)
+    fn = getattr(lib or _build.library(), f"admm_schur_trip_{sfx}")
+    with torch.cuda.device(dev):
+        rc = fn(ptr_arr, ints, float(tiny), float(tol2), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "schur_trip")
+    schur_trip.launches += 1
+    return x, y, r, d, k, done
+
+
+ct_apply.launches = 0
+schur_trip.launches = 0

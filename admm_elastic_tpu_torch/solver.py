@@ -763,7 +763,7 @@ class Solver:
             hits, y, act = self._contact_rows(curr_x, y, n_prev, hits)
             if ls == cfg.UZAWACG:
                 x, y, it = uzawa_mod.solve(self._uzawa_Ainv, hits, c.ck, b, curr_x, y,
-                                           s.uzawa_max_iters, s.uzawa_tol)
+                                           s.uzawa_max_iters, s.uzawa_tol, slot_of=c.slot_of)
                 self._inner += it
             else:
                 x, y = alcg_mod.solve(self._solve_data, hits, c.ck, b, curr_x, y, s.pcg_tol,

@@ -16,11 +16,20 @@ The trips exit on the device: a captured step cannot branch on the host, and
 the installed PyTorch has no conditional graph node, so every one of the
 ``max_iters`` trips is in the graph and is predicated on the device flag
 ``done``. A trip computes as the JAX package's body does and then keeps its
-results only where ``done`` is unset (``torch.where``), so x, y, r and d stay
-bitwise what they were once it is set; an inner PCG solve reads the flag and
-returns its guess without a trip. This is the one mechanism: the eager loop,
-the capture's warm-up step and the CPU run the same trips, and no trip reads
-the flag on the host but the CPU's inner PCG solve.
+results only where ``done`` is unset, so x, y, r and d stay bitwise what they
+were once it is set; an inner PCG solve reads the flag and returns its guess
+without a trip. This is the one mechanism: the eager loop, the capture's
+warm-up step and the CPU run the same trips, and no trip reads the flag on the
+host but the CPU's inner PCG solve.
+
+On the card a trip is three launches (``ops/cuda_uzawa.py``): kernel L's
+C^T d (``ct_apply``), the A^-1 apply and kernel M (``schur_trip``), which
+forms C q2, the dots, alpha and beta and updates x, y, r, d, k and done in
+place, or leaves them where done is set. On the CPU the same wrappers run
+their plain twins. Every dot sums in one fixed order, its partials in
+float64 (``_dot``, ``cuda_uzawa.fixed_dot``), on every device and in the
+traced solve too; it is not the JAX package's order, so x parts from it by
+rounding.
 """
 
 from __future__ import annotations
@@ -29,33 +38,31 @@ import numpy as np
 import torch
 
 from admm_elastic_tpu_torch.collision import constraints as con
+from admm_elastic_tpu_torch.ops import cuda_uzawa
 from admm_elastic_tpu_torch.solvers.pcg import _err_denom, trace_err, traced
 
-
-def _dot(a, b):
-    return torch.sum(a * b)
+_dot = cuda_uzawa.fixed_dot
 
 
-def solve(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters: int, tol):
+def solve(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters: int, tol, slot_of=None):
     """Returns (x, y, iters): iters an int32 tensor on b0's device, the Schur
     trips taken, at least 1 (as the JAX package reports them).
 
     apply_Ainv: (rhs [N, 3], x0 [N, 3] or None, done or None) -> A^-1 rhs; an
       iterative inner starts from x0 (0 where None) and skips its solve where
       the bool tensor done is set.
-    hits: deduped constraint buffers; y: [2H] warm-start multipliers.
+    hits: deduped constraint buffers with their table (constraints.with_table)
+      where dynamic rows may be; y: [2H] warm-start multipliers, not written;
+    slot_of: i32 [N] each vertex's query slot (-1 for none), which kernel L
+      needs on the card where the query set is not every vertex.
     """
     n = b0.shape[0]
     dtype = b0.dtype
-    h = hits.capacity
     dev = b0.device
-
-    def C(x):
-        rp, rd = con.C_apply(hits, ck, x)
-        return torch.cat([rp, rd])
+    hits = cuda_uzawa.contiguous_hits(hits)
 
     def Ct(yv):
-        return con.Ct_apply(hits, ck, yv[:h], yv[h:], n)
+        return cuda_uzawa.ct_apply(hits, ck, yv, n, slot_of)
 
     cp, cd = con.C_rhs(hits, ck)
     c = torch.cat([cp, cd])
@@ -63,9 +70,11 @@ def solve(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters: int, tol):
     # the previous ADMM iterate warm-starts the first apply; the Schur
     # directions start from 0 (INNER_WARM_START is off in the JAX package)
     x = apply_Ainv(b0 - Ct(y), x_guess, None)
-    r = torch.where(active, C(x) - c, 0.0)
-    d = r
-    yv = y
+    r = torch.where(active, torch.cat(con.C_apply(hits, ck, x)) - c, 0.0)
+    # kernel M updates x, y, r and d in place on the card: y is the caller's,
+    # and d starts as r
+    d = r.clone()
+    yv = y.clone()
     # max(tol, 64 eps)^2 in the dtype, formed on the host (exact in it): an
     # absolute bound on |r|^2, as the JAX package's
     fi = np.finfo(np.float32 if dtype == torch.float32 else np.float64)
@@ -76,24 +85,8 @@ def solve(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters: int, tol):
     k = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(int(max_iters)):
         q2 = apply_Ainv(Ct(d), None, done)
-        q3 = torch.where(active, C(q2), 0.0)
-        denom = _dot(d, q3)
-        bad = torch.abs(denom) < tiny
-        safe = torch.where(bad, torch.ones_like(denom), denom)
-        alpha = torch.where(bad, torch.zeros_like(denom), _dot(d, r) / safe)
-        x_n = x - alpha * q2
-        y_n = yv + alpha * d
-        r_n = r - alpha * q3
-        small = _dot(r_n, r_n) < tol2
-        beta = torch.where(bad, torch.zeros_like(denom), _dot(r_n, q3) / safe)
-        d_n = r_n - beta * d
-        go = ~done
-        x = torch.where(go, x_n, x)
-        yv = torch.where(go, y_n, yv)
-        r = torch.where(go, r_n, r)
-        d = torch.where(go, d_n, d)
-        k = k + go.to(torch.int32)
-        done = done | bad | small
+        x, yv, r, d, k, done = cuda_uzawa.schur_trip(hits, ck, q2, x, yv, r, d, k, done, tiny,
+                                                     tol2)
     return x, yv, torch.clamp_min(k, 1)
 
 

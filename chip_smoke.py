@@ -80,7 +80,13 @@ failure:
    H's DYN form against gs.solve with the dynamic rows and G's DYN form
    against alcg.solve_plain at boxes_gs8's and boxes_alpcg8's first solve
    from a state with dynamic rows (hdyn_gdyn_checks: float64 in
-   the same sweeps or trips within 1e-10, float32 within 1e-4);
+   the same sweeps or trips within 1e-10, float32 within 1e-4); Uzawa's
+   Schur trip, kernel L's full C^T and kernel M (the trip's update), on
+   every trip of a solve at boxes_uzawa8's, floor_uzawa5k's and
+   floor_uzawa67k's states (UZAWA_PATHS, uzawa_state), float32 and float64,
+   bit for bit their plain twins, L also the parent's C^T, M on the
+   wrapper's grid and on one block, and uzawa.solve bitwise those trips
+   (schur_trip_checks, trip_pairs);
 4. the paths (path_phase, in a process of its own with the graph checks
    below), each built through the normal entry points on cuda (float32
    unless named, linsolver=0, 10 ADMM iterations, dt 1/24), Solver.run(n)
@@ -149,7 +155,9 @@ failure:
      held to GLOBAL against its chosen form (wind_form_turns);
    - SELFCOLL_PATHS (selfcoll_path, self-collision: benchmarks/matrix.py's
      two boxes on a floor, each box a collider): boxes_gs8 (H's DYN form),
-     boxes_uzawa8 (Uzawa, L in every Schur trip), boxes_alpcg8 (G's DYN
+     boxes_uzawa8 (Uzawa: L's full C^T and M in every Schur trip, as on the
+     floor Uzawa paths; graph and eager bitwise on every Uzawa path),
+     boxes_alpcg8 (G's DYN
      form), boxes_gs20 (K's broad phase), K once an ADMM iteration (both
      colliders in one call), held at
      step 1, the golden's first step with a dynamic hit and the last, under
@@ -187,7 +195,9 @@ failure:
    kernel J per launch on slab_exact_alpcg67k's detections, compacted and
    dense, kernel_j_times; K, L, H[DYN] and G[DYN] at the self-collision
    paths' shapes beside their plain twins, bounds and (L) index_add_,
-   selfcoll_kernel_times; each form of G and H by CUDA
+   selfcoll_kernel_times; L's full C^T and M at the UZAWA_PATHS states by
+   queued CUDA events and torch.profiler, M beside its latency floor, the
+   twins, the bounds, index_add_ beside L (schur_trip_times); each form of G and H by CUDA
    events queued behind a sleep kernel, in turns, beside its latency floor,
    the same solve in a build whose phases do no row work, floor_library):
    the larger of the bytes it
@@ -217,11 +227,13 @@ line but no result line.
 
 The last lines are the GPU line, one JSON line of kernels (a row per TPU
 kernel, and one each for kernel G, its penalty form, kernel H, kernel I and
-kernel J, K, L and the DYN forms of G and H, which replace the JAX package's
-jnp loops of PCG, AL-PCG, Gauss-Seidel, the sequential wind, the mesh
-obstacles' narrow phases, the self-collision detection and the dynamic rows'
-scatters; every row with its launches on this slice's paths (SELFCOLL_PATHS),
-"launches_on_new_paths", and per step;
+kernel J, K, L (its standalone gather, "dyn_gather", and the Schur trip's
+full C^T, "ct_apply"), M ("schur_trip") and the DYN forms of G and H, which
+replace the JAX package's jnp loops of PCG, AL-PCG, Gauss-Seidel, the
+sequential wind, the mesh obstacles' narrow phases, the self-collision
+detection, the dynamic rows' scatters and Uzawa's Schur trip; every row with
+its launches on the self-collision and Uzawa paths (SELFCOLL_PATHS,
+UZAWA_PATHS), "launches_on_new_paths", and per step;
 with an entry per solve and form, "main" the form the wrapper chooses,
 "floor_ms" the latency floor; each row with the numbers of the entry its path
 launches: "launches" those of
@@ -343,6 +355,11 @@ REPLACES = {
                      "(jnp)"),
     "pcg_solve_dyn": (_CSRC + "pcg.cu", "admm_elastic_tpu/solvers/alcg.py:105 solve with dynamic "
                       "rows (jnp)"),
+    # Uzawa's Schur trip: L's full C^T in one launch and M, the trip's update
+    "ct_apply": (_CSRC + "uzawa.cu", "admm_elastic_tpu/solvers/uzawa.py:57 Ct, "
+                 "admm_elastic_tpu/collision/constraints.py:129 Ct_apply (jnp)"),
+    "schur_trip": (_CSRC + "uzawa.cu", "admm_elastic_tpu/solvers/uzawa.py:94 body, the Schur "
+                   "trip's update (jnp)"),
 }
 # The entry of each kernel that an ADMM step launches, where that is not the
 # wrapper the kernel is named after: the local steps' stencil entries, in
@@ -888,18 +905,20 @@ def environment(torch):
 
 # --- phase 2: build ------------------------------------------------------------
 
-# The latency floor of kernels G and H: pcg.cu and gs.cu built with phases
-# and passes that do no row work (csrc/pcg.cu ADMM_G_ANATOMY, csrc/gs.cu
-# ADMM_H_ANATOMY: the barriers, block sums and totals of G, the __syncthreads
-# chain of H, in a fixed number of trips or sweeps); tools/g_h_anatomy.py
-# builds the other variants.
-FLOOR_UNITS = (("pcg.cu", None), ("gs.cu", None), ("wind_seq.cu", None))
-FLOOR_DEFINES = ("-DADMM_G_ANATOMY=1", "-DADMM_H_ANATOMY=1", "-DADMM_I_FLOOR=1")
+# The latency floor of kernels G, H, I and M: pcg.cu, gs.cu, wind_seq.cu and
+# uzawa.cu built with phases and passes that do no row work (csrc/pcg.cu
+# ADMM_G_ANATOMY, csrc/gs.cu ADMM_H_ANATOMY: the barriers, block sums and
+# totals of G, the __syncthreads chain of H, in a fixed number of trips or
+# sweeps; csrc/uzawa.cu ADMM_M_FLOOR: M's launch and its two reductions);
+# tools/g_h_anatomy.py builds the other variants.
+FLOOR_UNITS = (("pcg.cu", None), ("gs.cu", None), ("wind_seq.cu", None), ("uzawa.cu", None))
+FLOOR_DEFINES = ("-DADMM_G_ANATOMY=1", "-DADMM_H_ANATOMY=1", "-DADMM_I_FLOOR=1",
+                 "-DADMM_M_FLOOR=1")
 
 
 def floor_library():
-    """The latency-floor build of G, H and I (FLOOR_DEFINES; kernel I's walk
-    with the loads and stores of v and no arithmetic), loaded."""
+    """The latency-floor build of G, H, I and M (FLOOR_DEFINES; kernel I's
+    walk with the loads and stores of v and no arithmetic), loaded."""
     from admm_elastic_tpu_torch.ops import _build
 
     return _build.variant(FLOOR_UNITS, FLOOR_DEFINES)
@@ -2235,13 +2254,14 @@ def pcg_times(torch, timing, gpu):
 def _wrappers():
     from admm_elastic_tpu_torch.ops import (cuda_dynamic, cuda_gs, cuda_local_step,
                                             cuda_obstacle, cuda_pcg, cuda_prox, cuda_stencil,
-                                            cuda_tri_local_step, cuda_wind)
+                                            cuda_tri_local_step, cuda_uzawa, cuda_wind)
 
     return dict(pcg_solve=cuda_pcg.pcg_solve, pcg_solve_penalty=cuda_pcg.pcg_solve_penalty,
                 pcg_solve_dyn=cuda_pcg.pcg_solve_dyn, gs_solve=cuda_gs.gs_solve,
                 gs_solve_dyn=cuda_gs.gs_solve_dyn, wind_seq=cuda_wind.wind_seq,
                 mesh_detect=cuda_obstacle.mesh_detect, dyn_detect=cuda_dynamic.dyn_detect,
-                dyn_gather=cuda_dynamic.dyn_gather,
+                dyn_gather=cuda_dynamic.dyn_gather, ct_apply=cuda_uzawa.ct_apply,
+                schur_trip=cuda_uzawa.schur_trip,
                 local_step_tet_hyper=cuda_local_step.local_step_tet_hyper,
                 local_step_tet_stencil=cuda_local_step.local_step_tet_stencil,
                 tet_Dx_rows=cuda_stencil.tet_Dx_rows, tet_rhs_rows=cuda_stencil.tet_rhs_rows,
@@ -2271,7 +2291,8 @@ def read_counts(model=None):
 _KERNEL_SYMBOL = re.compile(
     r"\b(tet_prox_kernel|tet_local_step_stencil_kernel|tet_dx_kernel|tet_rhs_tiled_kernel|"
     r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel|pcg_kernel|"
-    r"gs_kernel|wind_seq_kernel|mesh_detect_kernel|dyn_rank_kernel|dyn_gather_kernel)"
+    r"gs_kernel|wind_seq_kernel|mesh_detect_kernel|dyn_rank_kernel|dyn_gather_kernel|"
+    r"uzawa_ct_kernel|schur_trip_grid_kernel)"
     r"<([^>]*)>")
 
 
@@ -2297,7 +2318,8 @@ def wrapper_of_symbol(symbol):
     plain = dict(tet_dx_kernel="tet_Dx_rows", tri_local_step_kernel="local_step_tri",
                  tri_local_step_stencil_kernel="local_step_tri_stencil",
                  wind_seq_kernel="wind_seq", mesh_detect_kernel="mesh_detect",
-                 dyn_rank_kernel="dyn_detect", dyn_gather_kernel="dyn_gather")
+                 dyn_rank_kernel="dyn_detect", dyn_gather_kernel="dyn_gather",
+                 uzawa_ct_kernel="ct_apply", schur_trip_grid_kernel="schur_trip")
     if kernel in plain:
         return plain[kernel]
     model = {i: name for name, i in MODEL_IDS.items()}[int(args[1])]
@@ -3539,7 +3561,7 @@ def contact_counts(name, iters, admm_iters=10):
     mesh = "obstacle" in p and p["ls"] != 1
     counts = {f"local_step_tet_stencil[{model}]": iters, f"local_step_tet_hyper[{model}]": 0,
               "gs_solve": 0, "pcg_solve": 0, "pcg_solve_penalty": 0,
-              "mesh_detect": iters if mesh else 0}
+              "mesh_detect": iters if mesh else 0, "ct_apply": 0, "schur_trip": 0}
     kernels = [f"local_step_tet_stencil[{model}]", "tet_rhs_rows"] + (["mesh_detect"] if mesh else [])
     if p["ls"] == 1:
         counts.update(gs_solve=iters, tet_rhs_rows=iters, tet_Dx_rows=0)
@@ -3553,6 +3575,9 @@ def contact_counts(name, iters, admm_iters=10):
     else:  # Uzawa around the direct solve: each apply refines once through A_mv (B, C)
         counts.update(tet_rhs_rows=(1 + applies) * iters, tet_Dx_rows=applies * iters)
         kernels.append("tet_Dx_rows")
+    if p["ls"] == 2:  # every apply's C^T is kernel L's launch, every trip's update M
+        counts.update(ct_apply=applies * iters, schur_trip=CONTACT_MAX_UZAWA * iters)
+        kernels += ["ct_apply", "schur_trip"]
     return counts, kernels
 
 
@@ -3588,6 +3613,8 @@ def contact_path(torch, name):
                                  step_counts=counts, tols=CONTACT_STEP_TOL[base],
                                  disp_bound=CONTACT_DISP_TOL[base])
     xs = drive_path.xs
+    need(p["ls"] != 2 or res["graph_vs_eager"]["bitwise"],
+         f"{name}: the Uzawa graph rollout is not bitwise the eager loop")
     touching = [contacts(name, xs[k]) for k in compared]
     need(all(t > 0 for t in touching[1:]), f"{name}: no contact after landing: {touching}")
     if p.get("sphere"):
@@ -3695,31 +3722,33 @@ def selfcoll_counts(name, iters, s):
     make in `iters` ADMM iterations (0 for one they must not launch), and the
     kernels that must launch: each box is a family of its own (the local step
     and the rhs twice an iteration) and a collider of its own (K once a
-    detection, over both colliders, once per ADMM iteration); L twice a solve (C^T c and diag(C^T
-    C)) for GS and AL-PCG, once per A^-1 apply for Uzawa (C^T of y, then of
-    each Schur direction), whose direct applies refine once through A_mv (B
-    and C per family)."""
+    detection, over both colliders, once per ADMM iteration); L's standalone
+    gather twice a solve (C^T c and diag(C^T C)) for GS and AL-PCG; for Uzawa
+    L's full C^T once per A^-1 apply (C^T of y, then of each Schur direction)
+    and M once per trip, and no standalone gather; Uzawa's direct applies
+    refine once through A_mv (B and C per family)."""
     ls = SELFCOLL_SCENES[name]["ls"]
     fam = 2
     model = "linear"
     counts = {f"local_step_tet_stencil[{model}]": fam * iters,
               f"local_step_tet_hyper[{model}]": 0, "gs_solve": 0, "pcg_solve": 0,
               "pcg_solve_penalty": 0, "mesh_detect": 0, "dyn_detect": iters,
-              "gs_solve_dyn": 0, "pcg_solve_dyn": 0}
-    kernels = [f"local_step_tet_stencil[{model}]", "tet_rhs_rows", "dyn_detect", "dyn_gather"]
+              "gs_solve_dyn": 0, "pcg_solve_dyn": 0, "ct_apply": 0, "schur_trip": 0}
+    kernels = [f"local_step_tet_stencil[{model}]", "tet_rhs_rows", "dyn_detect"]
     if ls == 1:
         counts.update(gs_solve_dyn=iters, dyn_gather=2 * iters, tet_rhs_rows=fam * iters,
                       tet_Dx_rows=0)
-        kernels.append("gs_solve_dyn")
+        kernels += ["gs_solve_dyn", "dyn_gather"]
     elif ls == 4:
         counts.update(pcg_solve_dyn=iters, dyn_gather=2 * iters, tet_rhs_rows=fam * iters,
                       tet_Dx_rows=0)
-        kernels.append("pcg_solve_dyn")
+        kernels += ["pcg_solve_dyn", "dyn_gather"]
     else:
         applies = 1 + s.uzawa_max_iters
-        counts.update(dyn_gather=applies * iters, tet_rhs_rows=fam * (1 + applies) * iters,
-                      tet_Dx_rows=fam * applies * iters)
-        kernels.append("tet_Dx_rows")
+        counts.update(dyn_gather=0, ct_apply=applies * iters,
+                      schur_trip=s.uzawa_max_iters * iters,
+                      tet_rhs_rows=fam * (1 + applies) * iters, tet_Dx_rows=fam * applies * iters)
+        kernels += ["tet_Dx_rows", "ct_apply", "schur_trip"]
     return counts, kernels
 
 
@@ -3755,6 +3784,8 @@ def selfcoll_path(torch, name):
                                  step_counts=counts, tols=SELFCOLL_STEP_TOL[name],
                                  disp_bound=SELFCOLL_DISP_TOL[name])
     xs = drive_path.xs
+    need(p["ls"] != 2 or res["graph_vs_eager"]["bitwise"],
+         f"{name}: the Uzawa graph rollout is not bitwise the eager loop")
     jh = [int(h) for h in g["hits"]]
     hits = {k: dyn_hits(solver, xs[k]) for k in compared}
     at_golden = {k: dyn_hits(solver, g[f"x{k}"]) for k in compared}
@@ -4296,6 +4327,32 @@ def k_phase_us(torch, fn, reps):
     return {}, None
 
 
+def k_bytes_ops(cols, x, surf, n_hits):
+    """(bytes, operations, pair tests) of a detection by kernel K of the
+    query vertices surf against the colliders cols at x with n_hits hits:
+    x, the tets, the rest meshes and the faces read once and the rows written
+    once; 40 operations a pair test (every query against every tet dense, the
+    broad phase's candidates above BROADPHASE_MIN_TETS) and 80 a face test
+    (each hit against its collider's faces)."""
+    from admm_elastic_tpu_torch.collision import dynamic as dyn
+
+    item = x.element_size()
+    h_q = int(surf.shape[0])
+    pairs = 0
+    for c in cols:
+        if c.n_tets > dyn.BROADPHASE_MIN_TETS:
+            cand, _ = dyn._broad_phase_candidates(x[c.tets.long()], x[surf], c.cell_cap)
+            pairs += int((cand < c.n_tets).sum().item())
+        else:
+            pairs += h_q * c.n_tets
+    faces = sum(int(c.faces.shape[0]) for c in cols)
+    ops = 40 * pairs + 80 * n_hits * faces // len(cols)
+    nbytes = (x.numel() * item + sum(c.tets.numel() * 4 + c.rest_verts.numel() * item
+                                     + c.faces.numel() * 4 for c in cols)
+              + h_q * (8 + 1 + 24 + 2 * 3 * item))
+    return nbytes, ops, pairs
+
+
 def selfcoll_kernel_times(torch, k_timing, hg_timing, gpu):
     """Kernels K, L, H[DYN] and G[DYN] on the card at the paths' shapes:
     each call by queued CUDA events and by torch.profiler (the device time of
@@ -4327,19 +4384,9 @@ def selfcoll_kernel_times(torch, k_timing, hg_timing, gpu):
 
         h_q = int(surf.shape[0])
         broad = any(c.n_tets > dyn.BROADPHASE_MIN_TETS for c in cols)
-        pairs = 0
-        for c in cols:
-            if c.n_tets > dyn.BROADPHASE_MIN_TETS:
-                cand, _ = dyn._broad_phase_candidates(x[c.tets.long()], x[surf], c.cell_cap)
-                pairs += int((cand < c.n_tets).sum().item())
-            else:
-                pairs += h_q * c.n_tets
         n_hits = int(hits.d_mask.sum().item())
         faces = sum(int(c.faces.shape[0]) for c in cols)
-        ops = 40 * pairs + 80 * n_hits * faces // len(cols)
-        nbytes = (x.numel() * item + sum(c.tets.numel() * 4 + c.rest_verts.numel() * item
-                                         + c.faces.numel() * 4 for c in cols)
-                  + h_q * (8 + 1 + 24 + 2 * 3 * item))
+        nbytes, ops, pairs = k_bytes_ops(cols, x, surf, n_hits)
         k_us = queued_us(torch, [("k", k_call)] * 2, 5)["k"]
         plain_ms = events_ms(torch, k_plain, 3)
         phases, per_det = k_phase_us(torch, k_call, 5) if DEVICE == "cuda" else ({}, None)
@@ -4431,6 +4478,254 @@ def selfcoll_kernel_times(torch, k_timing, hg_timing, gpu):
         log(f"time {k}: {e['ms'] * 1e3:.1f} us a solve (queued), profiler {prof}; plain "
             f"{e['plain_ms'] * 1e3:.1f} us{lib}; bound {e['bound_ms'] * 1e3:.3f} us by "
             f"{e['bound_by']} [{gpu}]")
+    return out
+
+
+# --- Uzawa's Schur trip: kernel L's full C^T and kernel M (ROADMAP Queue 2 items 17, 9) ---
+
+# The paths whose Schur trips run L's full C^T and M, and the state each is
+# checked and timed at: the floor paths' landed state (landed_solver), and
+# boxes_uzawa8's golden state at its first step with a dynamic hit.
+UZAWA_PATHS = ("boxes_uzawa8", "floor_uzawa5k", "floor_uzawa67k")
+
+
+def uzawa_state(torch, name):
+    """(solver, b, x0, hits, y) of a Uzawa path's first global solve at its
+    checked state (UZAWA_PATHS; boxes_uzawa8: the golden's held step with its
+    first dynamic hits), float32 on the card: the hits as
+    Solver._contact_rows makes them (deduped, with their table; the kernels'
+    fields contiguous), y = 0."""
+    from admm_elastic_tpu_torch.collision import constraints as con
+
+    if name in SELFCOLL_SCENES:
+        solver = golden_state_solver(torch, name, int(golden(name)["steps"][1]))
+    else:
+        solver = landed_solver(torch, name)
+    b, x0 = first_solve(torch, solver)
+    hits = widened(con.with_table(solver._detect(x0).dedup(), x0.shape[0]), b.dtype)
+    need(bool(hits.p_mask.any()) and (name not in SELFCOLL_SCENES or bool(hits.d_mask.any())),
+         f"{name}: no active row at the checked state")
+    return solver, b, x0, hits, torch.zeros(2 * hits.capacity, dtype=b.dtype, device=b.device)
+
+
+def widened(hits, dtype):
+    """hits with their float fields in dtype, the kernels' fields contiguous
+    (cuda_uzawa.contiguous_hits, as uzawa.solve makes them)."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.ops import cuda_uzawa
+
+    return cuda_uzawa.contiguous_hits(dataclasses.replace(hits, **{
+        f: getattr(hits, f).to(dtype) for f in ("p_normal", "p_point", "d_barys", "d_normal")}))
+
+
+def uzawa_apply(solver, dtype):
+    """The solver's A^-1 apply for Uzawa in dtype: its own (float32), or for
+    float64 inputs the float32 apply on them narrowed, widened back (L and M
+    are held to their twins on whatever q2 the apply gives)."""
+    lo = solver.state.x.dtype
+    if dtype == lo:
+        return solver._uzawa_Ainv
+
+    def apply(rhs, x0, done):
+        return solver._uzawa_Ainv(rhs.to(lo), None if x0 is None else x0.to(lo), done).to(dtype)
+
+    return apply
+
+
+def trip_pairs(torch, label, hits, ck, b, x0, y, max_iters, tol, apply, slot_of):
+    """uzawa.solve's trips with kernels L and M, each launch held on the card
+    to its plain twin on the same inputs: L (ct_apply) torch.equal to ct_plain
+    and to the parent's C^T (constraints.Ct_apply, whose face corners are L's
+    standalone dyn_gather) on y and on every trip's d; M (schur_trip, on
+    copies, on the wrapper's grid and on a grid of one block) torch.equal to
+    schur_trip_plain in all six outputs on every trip, those after the exit
+    included. Then uzawa.solve itself from the same
+    inputs: x, y and the trips bitwise the walk's. Returns (x, a summary)."""
+    from admm_elastic_tpu_torch.collision import constraints as con
+    from admm_elastic_tpu_torch.ops import cuda_uzawa as cu
+    from admm_elastic_tpu_torch.solvers import uzawa
+
+    n, h = b.shape[0], hits.capacity
+    dtype = b.dtype
+
+    def ct(v, what):
+        got = cu.ct_apply(hits, ck, v, n, slot_of)
+        need(bool(torch.equal(got, cu.ct_plain(hits, ck, v, n)))
+             and bool(torch.equal(got, con.Ct_apply(hits, ck, v[:h], v[h:], n))),
+             f"L {label}: C^T of {what} is not bit for bit its twin and the parent's C^T")
+        return got
+
+    x = apply(b - ct(y, "y"), x0, None)
+    active = torch.cat([hits.p_mask, hits.d_mask])
+    r = torch.where(active, torch.cat(con.C_apply(hits, ck, x)) - torch.cat(con.C_rhs(hits, ck)),
+                    0.0)
+    d, yv = r.clone(), y.clone()
+    fi = np.finfo(np.float32 if dtype == torch.float32 else np.float64)
+    tiny = float(fi.tiny)
+    tol_c = max(fi.dtype.type(tol), fi.dtype.type(64) * fi.eps)
+    tol2 = float(tol_c * tol_c)
+    done = torch.zeros((), dtype=torch.bool, device=b.device)
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    for trip in range(int(max_iters)):
+        q2 = apply(ct(d, f"d at trip {trip + 1}"), None, done)
+        state = (x, yv, r, d, k, done)
+        want = cu.schur_trip_plain(hits, ck, q2, *state, tiny, tol2)
+        for blocks in (1, None):  # a grid of one block, then the wrapper's
+            got = cu.schur_trip(hits, ck, q2, *[t.clone() for t in state], tiny, tol2,
+                                blocks=blocks)
+            same = [bool(torch.equal(a, w)) for a, w in zip(got, want)]
+            need(all(same), f"M {label} on {blocks or 'its'} block(s): trip {trip + 1} not bit "
+                 f"for bit its twin (x, y, r, d, k, done equal: {same})")
+        x, yv, r, d, k, done = got
+    xs, ys, ks = uzawa.solve(apply, hits, ck, b, x0, y, max_iters, tol, slot_of=slot_of)
+    need(bool(torch.equal(xs, x)) and bool(torch.equal(ys, yv))
+         and int(ks.item()) == max(int(k.item()), 1),
+         f"{label}: uzawa.solve differs from its trips walked launch by launch")
+    return x, dict(trips=int(k.item()), rows=2 * h, active=int(active.sum().item()),
+                   vertices=n, dense=hits.dense, dynamic=int(hits.d_mask.sum().item()),
+                   bitwise=True)
+
+
+def schur_trip_checks(torch):
+    """Kernels L (the trip's full C^T) and M (the trip's update) bit for bit
+    their plain twins on every trip of a Schur solve at each UZAWA_PATHS
+    state (uzawa_state), float32 and float64 (trip_pairs); L also the
+    parent's C^T. Returns (checks, what the timing needs)."""
+    out, timing = {}, {}
+    for name in UZAWA_PATHS:
+        solver, b, x0, hits, y = uzawa_state(torch, name)
+        s, c = solver.m_settings, solver._contact
+        for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            label = f"{name} {dname}"
+            h = widened(hits, dtype)
+            ck = c.ck.to(dtype)
+            _, res = trip_pairs(torch, label, h, ck, b.to(dtype), x0.to(dtype), y.to(dtype),
+                                s.uzawa_max_iters, s.uzawa_tol, uzawa_apply(solver, dtype),
+                                c.slot_of)
+            out[label] = dict(res, max_abs_err=0.0)
+            log(f"L and M {label}: bit for bit their twins on all {s.uzawa_max_iters} trips "
+                f"({res['trips']} taken, {res['active']} of {res['rows']} rows active, "
+                f"{res['dynamic']} dynamic, {res['vertices']} vertices, "
+                f"{'dense' if res['dense'] else 'slot_of'}); L bit for bit the parent's C^T")
+        timing[name] = dict(solver=solver, b=b, x0=x0, hits=hits, y=y)
+    return out, timing
+
+
+def schur_bytes_ops(hits, n, itemsize, trip):
+    """The bytes L (trip False) or M (trip True) must move and the operations
+    it must do on hits: each input read once, each output written once (M:
+    the rows, q2 and the state x, y, r, d read and written; L: its rows, y,
+    the table and slot_of read, [N, 3] written); the operations of the
+    active rows and of the table's entries that these inputs hold."""
+    h = hits.capacity
+    p_act = int(hits.p_mask.sum().item())
+    d_act = int(hits.d_mask.sum().item())
+    dyn = hits.may_dyn
+    if not trip:
+        entries = int(hits.d_start[-1].item()) if dyn else 0
+        nbytes = (h * (1 + 3 * itemsize) + 2 * h * itemsize + 3 * n * itemsize
+                  + (0 if hits.dense else 4 * n)
+                  + ((h + 3 * h * itemsize) + 3 * h * 8 + (n + 1) * 8 + 3 * h * itemsize
+                     if dyn else 0))
+        ops = 4 * p_act + (7 * d_act + 8 * entries if dyn else 0)
+        return nbytes, ops
+    nbytes = (h * (1 + 8 + 3 * itemsize) + 3 * n * itemsize
+              + (h * (1 + 8 + 24 + 6 * itemsize) if dyn else 0)
+              + 2 * (3 * n + 3 * 2 * h) * itemsize + 4 + 1)
+    ops = 6 * p_act + 24 * d_act + 4 * 2 * (2 * h) + 2 * 3 * n + 3 * 2 * (2 * h)
+    return nbytes, ops
+
+
+def schur_trip_times(torch, timing, gpu):
+    """L and M on the card at each UZAWA_PATHS state, float32: a launch by
+    queued CUDA events (in turns, behind a sleep kernel) and by torch.profiler,
+    M's latency floor (floor_library, ADMM_M_FLOOR: its launch, done read,
+    barrier and reductions, no row), M and its floor each less the queued time of the
+    copies that reset the trip's state before it (M runs on copies of a live
+    trip's state, done unset), the plain twins by CUDA events, the bounds
+    (schur_bytes_ops), and L's yardstick, one index_add_ of the same terms
+    (float atomics; never in the port). Returns {label: entry}."""
+    from admm_elastic_tpu_torch.collision import constraints as con
+    from admm_elastic_tpu_torch.ops import cuda_uzawa as cu
+
+    out = {}
+    floor = floor_library() if DEVICE == "cuda" else None
+    for name, t in timing.items():
+        solver, b, x0, hits, y = t["solver"], t["b"], t["x0"], t["hits"], t["y"]
+        s, c = solver.m_settings, solver._contact
+        n, h, item = b.shape[0], hits.capacity, b.element_size()
+        ck = c.ck
+        fi = np.finfo(np.float32)
+        tol_c = max(fi.dtype.type(s.uzawa_tol), fi.dtype.type(64) * fi.eps)
+        tiny, tol2 = float(fi.tiny), float(tol_c * tol_c)
+        x = solver._uzawa_Ainv(b - cu.ct_apply(hits, ck, y, n, c.slot_of), x0, None)
+        active = torch.cat([hits.p_mask, hits.d_mask])
+        r = torch.where(active, torch.cat(con.C_apply(hits, ck, x))
+                        - torch.cat(con.C_rhs(hits, ck)), 0.0)
+        d = r.clone()
+        done = torch.zeros((), dtype=torch.bool, device=b.device)
+        k = torch.zeros((), dtype=torch.int32, device=b.device)
+        q2 = solver._uzawa_Ainv(cu.ct_apply(hits, ck, d, n, c.slot_of), None, done)
+        state = (x, y, r, d, k, done)
+        copies = [tt.clone() for tt in state]
+
+        def m_call(lib=None):
+            for dst, src in zip(copies, state):
+                dst.copy_(src)
+            return cu.schur_trip(hits, ck, q2, *copies, tiny, tol2, lib=lib)
+
+        def l_call():
+            return cu.ct_apply(hits, ck, d, n, c.slot_of)
+
+        calls = [("l", l_call), ("m", m_call),
+                 ("copy", lambda: [dst.copy_(src) for dst, src in zip(copies, state)])]
+        if floor is not None:
+            calls.append(("m_floor", lambda: m_call(floor)))
+        us = queued_us(torch, calls, 10)
+        m_us = us["m"] - us["copy"]
+        us["m_floor"] = us["m_floor"] - us["copy"] if "m_floor" in us else None
+        on_card = DEVICE == "cuda"
+        l_prof = g_device_us(torch, l_call, 20, kernel="uzawa_ct_kernel") if on_card else None
+        m_prof = g_device_us(torch, m_call, 20, kernel="schur_trip") if on_card else None
+        l_plain = events_ms(torch, lambda: cu.ct_plain(hits, ck, d, n), 5)
+        m_plain = events_ms(torch, lambda: cu.schur_trip_plain(hits, ck, q2, *state, tiny, tol2),
+                            5)
+        # L's yardstick: C^T as one index_add_ of every term (the own rows'
+        # and the face corners') into zeros
+        yp = torch.where(hits.p_mask, d[:h], 0.0)
+        own = (ck * yp)[:, None] * hits.p_normal
+        idx, src = [hits.p_vidx], [own]
+        if hits.may_dyn:
+            yd = torch.where(hits.d_mask, d[h:], 0.0)
+            idx.append(hits.d_vidx)
+            src.append((ck * yd)[:, None] * hits.d_normal)
+            e = hits.d_order[:int(hits.d_start[-1].item())]
+            idx.append(hits.d_face.reshape(-1)[e])
+            src.append(con.corner_values(hits, con.CT, ck, yd).reshape(-1, 3)[e])
+        idx, src = torch.cat(idx), torch.cat(src)
+        zeros = torch.zeros((n, 3), dtype=b.dtype, device=b.device)
+        lib_ms = events_ms(torch, lambda: zeros.clone().index_add_(0, idx, src), 20)
+        for kname, q_us, prof, plain_ms, trip in (("ct_apply", us["l"], l_prof, l_plain, False),
+                                                  ("schur_trip", m_us, m_prof, m_plain, True)):
+            nbytes, ops = schur_bytes_ops(hits, n, item, trip)
+            bound_ms, bound_by = bound_of(nbytes, ops)
+            out[f"{kname}@{name}"] = dict(
+                ms=q_us * 1e-3, profiler_ms=None if prof is None else prof * 1e-3,
+                floor_ms=(us["m_floor"] * 1e-3 if trip and us["m_floor"] else None),
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                operations=ops, library_ms=None if trip else lib_ms, rows=2 * h, vertices=n,
+                **(dict(blocks=cu.m_blocks(n, h, cu.max_blocks(b.device, b.dtype)))
+                   if trip and on_card else {}))
+            e = out[f"{kname}@{name}"]
+            log(f"time {'M' if trip else 'L'} {name}: {q_us:.2f} us a launch (queued), profiler "
+                f"{'not measured' if prof is None else '%.2f us' % prof}"
+                + (f", latency floor {e['floor_ms'] * 1e3:.2f} us" if e["floor_ms"] else "")
+                + f"; plain {plain_ms * 1e3:.1f} us"
+                + ("" if trip else f"; index_add_ {lib_ms * 1e3:.1f} us")
+                + (f"; {e['blocks']} block(s)" if "blocks" in e else "")
+                + f"; bound {bound_ms * 1e3:.3f} us by {bound_by} ({2 * h} rows, {n} vertices) "
+                f"[{gpu}]")
     return out
 
 
@@ -6293,6 +6588,8 @@ def main():
         checks["dyn_detect"], k_timing = kernel_k_checks(torch)
         checks["dyn_solves"], hg_timing = hdyn_gdyn_checks(torch)
         stamp(t_start, "kernels K, L, H[DYN], G[DYN] against plain")
+        checks["schur_trip"], u_timing = schur_trip_checks(torch)
+        stamp(t_start, "kernels L (the trip's C^T) and M against plain")
         cases, c_branches, chains, pairs, prox_turns = kernel_cases(torch)
         cases.update(path_shape_cases(torch, checks))
         stamp(t_start, "the kernels' cases")
@@ -6304,6 +6601,7 @@ def main():
             contact_kernel_times(torch, h_timing, gpen_timing, gpu)
             kernel_j_times(torch, j_timing, gpu)
             selfcoll_kernel_times(torch, k_timing, hg_timing, gpu)
+            schur_trip_times(torch, u_timing, gpu)
             log("kernel I: " + json.dumps(i_timing))
             log(gpu)
             return 0
@@ -6321,8 +6619,9 @@ def main():
         c_times = contact_kernel_times(torch, h_timing, gpen_timing, gpu)
         j_times = kernel_j_times(torch, j_timing, gpu)
         k_times = selfcoll_kernel_times(torch, k_timing, hg_timing, gpu)
+        u_times = schur_trip_times(torch, u_timing, gpu)
         stamp(t_start, "kernel times")
-        del pcg_timing, h_timing, gpen_timing, j_timing, k_timing, hg_timing
+        del pcg_timing, h_timing, gpen_timing, j_timing, k_timing, hg_timing, u_timing
         if args.profile:
             profiles["kernels"] = profile_kernels(torch, cases, c_branches, pairs, prox_turns,
                                                   gpu)
@@ -6541,13 +6840,33 @@ def main():
     kernels.append(selfcoll_row("pcg_solve_dyn", ["boxes_alpcg8"], "boxes_alpcg8",
                                 lambda sh: checks["dyn_solves"][f"pcg_solve_dyn@{sh} f32"][
                                     "max_abs_err"]))
-    # every row's launches on this slice's paths (self-collision) and their
-    # launches per step
+    # L's full C^T and M (Uzawa's Schur trip; no Pallas original): an entry
+    # per UZAWA_PATHS state, each with its path's launches and launches per
+    # step, "main" boxes_uzawa8's; M's with its latency floor
+    for kname in ("ct_apply", "schur_trip"):
+        ents = []
+        for path in UZAWA_PATHS:
+            t = u_times[f"{kname}@{path}"]
+            launches = paths[path]["launches"].get(kname, 0)
+            ents.append(dict(
+                entry=kname, path=path, case=path, main=path == UZAWA_PATHS[0],
+                launches=launches,
+                launches_per_step=launches / int(golden(path)["steps"][-1]),
+                wrapper_calls=paths[path]["wrapper_calls"].get(kname, 0),
+                max_abs_err=checks["schur_trip"][f"{path} f32"]["max_abs_err"],
+                **{f: t[f] for f in ("ms", "profiler_ms", "floor_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "rows", "vertices")}))
+        src, rep_ = REPLACES[kname]
+        kernels.append(dict(ents[0], name=kname, route="cuda", source=src, replaces=rep_,
+                            entries=ents))
+    # every row's launches on the paths of this slice and the one before it
+    # (Uzawa's, self-collision) and their launches per step
+    new_paths = SELFCOLL_PATHS + tuple(p for p in UZAWA_PATHS if p not in SELFCOLL_PATHS)
     for row in kernels:
         names = sorted({e["entry"] for e in row["entries"]})
         row["launches_on_new_paths"] = {
             p: {n: paths[p]["launches"][n] for n in names if paths[p]["launches"].get(n)}
-            for p in SELFCOLL_PATHS}
+            for p in new_paths}
         row["launches_per_step_on_new_paths"] = {
             p: {n: v / int(golden(p)["steps"][-1]) for n, v in launches.items()}
             for p, launches in row["launches_on_new_paths"].items()}
@@ -6557,7 +6876,7 @@ def main():
                        phases_ms=phases, kernel_times=times, rhs_branches_ms=by_branch,
                        prox_throughput_ms=prox_big, pcg_solve_ms=g_times,
                        contact_solve_ms=c_times, wind_seq_ms=i_timing, mesh_detect_ms=j_times,
-                       selfcoll_ms=k_times,
+                       selfcoll_ms=k_times, schur_trip_ms=u_times,
                        variant_rollouts=variant_rates, wind_seq_forms_end_to_end=wind_forms,
                        warp_chains=chains, profiles=profiles,
                        kernels=kernels), f, indent=1)
