@@ -22,8 +22,11 @@ Gauss-Seidel solve (also with the self-collision rows), a mesh obstacle's
 detection, a collider's detection, the self-collision rows' sums and the
 sequential wind, and each timestep replayed as
 one captured CUDA graph) or ``device="cpu"`` (the kernels' plain PyTorch
-versions, stepped eagerly). Everything else raises NotImplementedError
-naming the ROADMAP item that ports it.
+versions, stepped eagerly). The element energies, the demo meshes
+(``geometry/demo_data.py``), the command line (``Settings.parse_args``) and
+rendering (``utils/render.py``) are here too, and the JAX package's six demo
+apps run as ``python -m admm_elastic_tpu_torch.apps.<name>``. Everything else
+raises NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from admm_elastic_tpu_torch.collision.passive import (Floor, PassiveMeshExact, PassiveMeshSDF,

@@ -1,6 +1,6 @@
 """Scene binding: add a whole mesh (nodes, masses, energies) to a Solver.
 
-A port of ``admm_elastic_tpu/binding.py`` ``add_tetmesh`` and ``add_trimesh``
+A port of ``admm_elastic_tpu/binding.py`` ``add_tetmesh``, ``add_trimesh`` and ``GrabbySphere``
 (reference samples/utils/AddMeshes.hpp:97-235): lumped masses, zero-mass
 validation, node append, tet energy family by flag (linear, neo-Hookean, StVK,
 Xu spline). A tet mesh with ``lattice_dims`` (make_tet_blocks) runs as a flat
@@ -90,3 +90,16 @@ def add_trimesh(solver: Solver, mesh: TriangleMesh, lame: Lame | None = None,
             f"\n\ttris: {len(mesh.faces)}\n\t(total) verts: {solver._n_verts}"
         )
     return prev_verts
+
+
+class GrabbySphere:
+    """Radius vertex picker for interactive pinning (AddMeshes.hpp:70-91)."""
+
+    def __init__(self, center, radius: float):
+        self.c = np.asarray(center, dtype=np.float64)
+        self.r = float(radius)
+
+    def get_indices(self, x: np.ndarray) -> list[int]:
+        x = np.asarray(x).reshape(-1, 3)
+        d = np.linalg.norm(x - self.c, axis=-1)
+        return [int(i) for i in np.where(d < self.r)[0]]

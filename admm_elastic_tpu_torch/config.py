@@ -11,7 +11,8 @@ contact solvers: multicolour Gauss-Seidel (``NCMCGS``), Uzawa (``UZAWACG``,
 its inner solve ``uzawa_inner``) and AL-PCG (``ALPCG``), each also with
 Anderson acceleration (``aa_window``) and in the logged (``log_inner``) and
 profiled (``verbose >= 2``) steps. ``unroll_admm`` raises
-``NotImplementedError``.
+``NotImplementedError``. ``parse_args`` and ``help`` are the reference's
+command line (src/Solver.cpp:273-307), as the JAX package reads it.
 
 ``dtype=None`` means float32 here. The JAX package follows
 ``jax_enable_x64`` instead; this package changes no global default.
@@ -74,6 +75,57 @@ class Settings:
     # Iterative-refinement passes after each direct solve (see
     # Solver._refine_eff: unpinned float32 systems take at least one).
     refine_passes: int = 0
+
+    def parse_args(self, argv) -> bool:
+        """Parse CLI flags; returns True if -help was requested.
+
+        Same contract as the reference parser (src/Solver.cpp:273-307).
+        """
+        i = 0
+        args = list(argv)
+        n = len(args)
+        known = ("-dt", "-v", "-it", "-g", "-ls", "-ck")
+        while i < n:
+            a = args[i]
+            if a in ("-help", "--help", "-h"):
+                self.help()
+                return True
+            if a in known:
+                if i + 1 >= n:
+                    # A trailing flag with no value is an input error, not
+                    # something to swallow silently.
+                    raise ValueError(
+                        f"**Settings::parse_args Error: flag {a} needs a value."
+                    )
+                val = args[i + 1]
+                if a == "-dt":
+                    self.timestep_s = float(val)
+                elif a == "-v":
+                    self.verbose = int(val)
+                elif a == "-it":
+                    self.admm_iters = int(val)
+                elif a == "-g":
+                    self.gravity = float(val)
+                elif a == "-ls":
+                    self.linsolver = int(val)
+                elif a == "-ck":
+                    self.constraint_w = float(val)
+                i += 1
+            i += 1
+        return False
+
+    @staticmethod
+    def help():
+        print(
+            "\n==========================================\nArgs:\n"
+            "\t-dt: time step (s)\n"
+            "\t-v: verbosity (higher -> show more)\n"
+            "\t-it: # admm iters\n"
+            "\t-g: gravity (m/s^2)\n"
+            "\t-ls: linear solver (0=direct, 1=NCMCGS, 2=UzawaCG, 3=PCG, 4=AL-PCG contact)\n"
+            "\t-ck: constraint weights (-1 = auto)\n"
+            "=========================================="
+        )
 
 
 _DTYPES = {

@@ -86,6 +86,9 @@ class TetMesh:
     def weighted_masses(self, density: float) -> np.ndarray:
         return lumped_masses_tet(self.vertices, self.tets, density)
 
+    def bounds(self):
+        return self.vertices.min(axis=0), self.vertices.max(axis=0)
+
     def apply_xform(self, M: np.ndarray):
         """Apply a 4x4 homogeneous transform in place."""
         v = self.vertices
@@ -103,6 +106,9 @@ class TriangleMesh:
 
     def weighted_masses(self, density: float) -> np.ndarray:
         return lumped_masses_tri(self.vertices, self.faces, density)
+
+    def bounds(self):
+        return self.vertices.min(axis=0), self.vertices.max(axis=0)
 
     def apply_xform(self, M: np.ndarray):
         v = self.vertices

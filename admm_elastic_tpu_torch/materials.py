@@ -45,6 +45,11 @@ class Lame:
         return self.lam + (2.0 / 3.0) * self.mu
 
 
+def lame(k: float, v: float) -> Lame:
+    """The reference's two-argument constructor Lame(k, v)."""
+    return Lame.from_youngs_poisson(k, v)
+
+
 # Xu et al. 2015 spline materials: Psi(s) = sum_i f(s_i) + sum_{i<j} g(s_i s_j)
 # + h(s1 s2 s3) (src/XuSpline.hpp:48-94). kind is static per element family;
 # x_f, x_g, x_h, mu, lam, kappa are same-shape tensors.

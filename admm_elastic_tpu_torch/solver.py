@@ -350,11 +350,15 @@ class Solver:
             raise ValueError("**Solver::set_pins Error: Bad input.")
 
         new_pins: Dict[int, np.ndarray] = {}
-        x_now = self.x if self.initialized or self._n_verts else None
+        x_now = None
+        if pin_in_place and inds:
+            if not (self.initialized or self._n_verts):
+                raise ValueError("**Solver::set_pins Error: Bad input.")
+            # x is read (on the card a copy to the host) only where the
+            # targets are taken from it, not when the caller gives them
+            x_now = self.x
         for k, idx in enumerate(inds):
             if pin_in_place:
-                if x_now is None:
-                    raise ValueError("**Solver::set_pins Error: Bad input.")
                 new_pins[idx] = np.asarray(x_now[idx], dtype=np.float64)
             else:
                 new_pins[idx] = np.asarray(points[k], dtype=np.float64)

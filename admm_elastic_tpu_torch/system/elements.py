@@ -28,7 +28,8 @@ from admm_elastic_tpu_torch.materials import Lame
 from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_prox, cuda_tri_local_step
 from admm_elastic_tpu_torch.ops import reduction as red
 from admm_elastic_tpu_torch.ops import stencil as stencil_mod
-from admm_elastic_tpu_torch.ops.prox import TET_LINEAR, check_model, prox_pin
+from admm_elastic_tpu_torch.ops.prox import (TET_LINEAR, check_model, energy_tet_hyper,
+                                             energy_tet_linear, energy_tri, prox_pin)
 
 # Selector matrices: rows are vertices, columns are rest-edge coordinates.
 _S_TET = np.array(
@@ -104,6 +105,13 @@ class TetBatch:
             return self.local_step_rows(self.Dx_rows(x), u_rows, n_newton_iters)
         return cuda_local_step.local_step_tet_stencil(x, u_rows, self, n_newton_iters)
 
+    def energy(self, F):
+        """Per-element energies of F [T, 3, 3] (plain PyTorch; 0 on dead lanes)."""
+        if self.model == TET_LINEAR:
+            return energy_tet_linear(F, self.bulk, self.vol)
+        return energy_tet_hyper(F, self.model, self.mu, self.lam, self.kappa, self.bulk,
+                                self.vol)
+
 
 @dataclasses.dataclass(frozen=True)
 class TriBatch:
@@ -164,6 +172,10 @@ class TriBatch:
         if self.stencil is None:
             return self.local_step_rows(self.Dx_rows(x), u_rows)
         return cuda_tri_local_step.local_step_tri_stencil(x, u_rows, self)
+
+    def energy(self, F):
+        """Per-element energies of F [T, 3, 2] (plain PyTorch; 0 on dead lanes)."""
+        return energy_tri(F, self.bulk, self.area)
 
 
 @dataclasses.dataclass(frozen=True)

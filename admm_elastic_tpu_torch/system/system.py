@@ -1,6 +1,6 @@
 """The assembled simulation system and its matrix-free operators.
 
-A port of ``admm_elastic_tpu/system/system.py:58-197``: tet families (any
+A port of ``admm_elastic_tpu/system/system.py:58-253``: tet families (any
 of the six models) and cloth families, each a flat stencil or a gather family
 (``system/elements.py``; the two may be mixed in one system), and pins as
 spring energies. The per-family iterates come in the order tets, tris, pins.
@@ -178,3 +178,42 @@ def A_mv(system: System, x):
     dx = Dx(system, x)
     return system.masses[:, None] * x + system.dt2 * _elastic(
         system, dx, [torch.zeros_like(d) for d in dx])
+
+
+def diag_A(system: System):
+    """diag of the single-component N x N operator A (all 3 components
+    equal): M + dt^2 diag(D^T W^2 D), plain PyTorch (index_add_)."""
+    n = system.n_verts
+
+    def scatter(weight2, Dlocal, inds):
+        d = weight2[:, None] * (Dlocal * Dlocal).sum(dim=-1)
+        out = torch.zeros((n,), dtype=Dlocal.dtype, device=Dlocal.device)
+        return out.index_add_(0, inds.reshape(-1).long(), d.reshape(-1))
+
+    d = system.masses
+    for b in tuple(system.tets) + tuple(system.tris):
+        d = d + system.dt2 * scatter(b.weight * b.weight, b.Dlocal, b.inds)
+    if system.pins is not None:
+        w2 = system.pins.weight ** 2
+        d = d + system.dt2 * torch.zeros_like(d).index_add_(0, system.pins.idx, w2)
+    return d
+
+
+def total_energy(system: System, x):
+    """The sum of the element energies at x [N, 3] (a debugging aid, the
+    reference's EnergyTerm::energy wrappers, src/EnergyTerm.hpp:142-148):
+    each family's D x rows taken to [T, 3, 3] or [T, 3, 2]."""
+    total = torch.zeros((), dtype=x.dtype, device=x.device)
+    for b, dix in zip(tuple(system.tets) + tuple(system.tris), Dx(system, x)):
+        cols = dix.shape[0] // 3
+        total = total + b.energy(dix.T.reshape(-1, 3, cols)).sum()
+    return total
+
+
+def init_state(x, n_constraint_rows: int = 0) -> SimState:
+    """The state at rest at x: v = 0, no multiplier, no active row."""
+    x = torch.as_tensor(x)
+    return SimState(x=x, v=torch.zeros_like(x),
+                    y=torch.zeros((n_constraint_rows,), dtype=x.dtype, device=x.device),
+                    prev_active=torch.zeros((n_constraint_rows,), dtype=torch.bool,
+                                            device=x.device))

@@ -176,6 +176,20 @@ failure:
    cloth_wind40 after a graph run (frozen_checks: field assignments raise,
    the x setter is honored) and the one-tet goldens of
    tests/test_lineartet.py through the graph;
+4b. the demo apps (apps_phase, in a process of its own after the paths):
+   each of APP_RUNS (beams, trianglestrain, bunnyexpand point and rand,
+   signorini with a floor, an SDF slab and an exact slab, torus, boxes)
+   through its admm_elastic_tpu_torch.apps.<name>.main(argv) with the app's
+   default settings and --frames APP_FRAMES (24, past first contact), the
+   wrappers' counts set to 0 just before and read just after (APP_KERNELS
+   each launched; signorini's obstacle as kernel H takes it, APP_MESH_KIND),
+   one graph capture in the run, the trajectory held to the JAX app's golden
+   (APP_STEPS under crossval's bounds, or step 1 and one step from the
+   golden's state at each later held step, APP_ONESTEP; bunnyexpand also in
+   float64, APP_F64) and to the app's invariants (beams' pins on their moving
+   targets, no contact app below APP_FLOOR_BOUND, bunnyexpand finite, its
+   inverted tets beside the golden's), and its ADMM iterations per second on
+   the host's clock;
 5. timing (host_timing, on solvers of its own, runs before phase 4 and
    before any profiler window, so that no profiler state can slow the host):
    the beam, cloth_limit40, beam_gather, the PCG and the contact paths
@@ -197,7 +211,10 @@ failure:
    paths' shapes beside their plain twins, bounds and (L) index_add_,
    selfcoll_kernel_times; L's full C^T and M at the UZAWA_PATHS states by
    queued CUDA events and torch.profiler, M beside its latency floor, the
-   twins, the bounds, index_add_ beside L (schur_trip_times); each form of G and H by CUDA
+   twins, the bounds, index_add_ beside L (schur_trip_times); B and C beside
+   one torch.sparse.mm call with D or D^T W^2 as CSR at the bench beam's and
+   beam_pcg160k's shapes (stencil_library_times, CUDA events: the library_ms
+   of their rows); each form of G and H by CUDA
    events queued behind a sleep kernel, in turns, beside its latency floor,
    the same solve in a build whose phases do no row work, floor_library):
    the larger of the bytes it
@@ -705,6 +722,73 @@ def boxes_scene(name, api, dtype=np.float32, **change):
     kw.update(change)
     need(solver.initialize(api.Settings(**kw)), f"{name}: initialize failed")
     return solver, n_box
+
+
+# The demo apps (ROADMAP Queue 1 item 11b): admm_elastic_tpu_torch.apps.<module>
+# run through main(argv) at the apps' own sizes and default settings, for
+# APP_FRAMES frames, past first contact (the torus reaches the floor near frame
+# 19): run name -> (module, the app's own leading arguments). The goldens
+# (tests/make_torch_golden.py) are the JAX package's apps/<module>.py under
+# the same arguments, float32, on its Jacobi SVD. An app without contact is
+# held at APP_STEPS; a contact app at step 1 and then, at the first step with
+# a vertex within CONTACT_EPS of the floor (or of the slab's top), the first
+# with a dynamic hit and the last, one step from the golden's state before it
+# (APP_ONESTEP).
+APP_FRAMES = 24
+APP_RUNS = {
+    "beams": ("beams", ()),
+    "trianglestrain": ("trianglestrain", ()),
+    "bunnyexpand": ("bunnyexpand", ("point",)),
+    "bunnyexpand_rand": ("bunnyexpand", ("rand",)),
+    "signorini": ("signorini", ()),
+    "signorini_sdf": ("signorini", ("--obstacle", "sdf")),
+    "signorini_exact": ("signorini", ("--obstacle", "exact")),
+    "torus": ("torus", ()),
+    "boxes": ("boxes", ()),
+}
+APP_CONTACT = ("signorini", "signorini_sdf", "signorini_exact", "torus", "boxes")
+APP_STEPS = (1, 8)
+APP_STEPS_TOL = (1e-4, 2e-3)
+APP_FLOOR = -1.0  # the floor's y, and the slab's top, in every contact app
+
+
+def app_held_steps(name, xs, hits=None):
+    """The steps a run of APP_RUNS is held at, from its positions after each
+    step xs[0..] and, with colliders, the dynamic hits of each step's state."""
+    if name not in APP_CONTACT:
+        return list(APP_STEPS)
+    held = {1, len(xs)}
+    touch = [k + 1 for k, x in enumerate(xs) if float(x[:, 1].min()) <= APP_FLOOR + CONTACT_EPS]
+    if touch:
+        held.add(touch[0])
+    if hits:
+        first = [k + 1 for k, h in enumerate(hits) if h > 0]
+        if first:
+            held.add(first[0])
+    return sorted(held)
+
+
+def app_module(name):
+    """The port's app module of a run of APP_RUNS."""
+    import importlib
+
+    return importlib.import_module(f"admm_elastic_tpu_torch.apps.{APP_RUNS[name][0]}")
+
+
+def app_scene(name, device=None, **change):
+    """A run of APP_RUNS built by its app's own builder, on `device` (the
+    card unless named), with its default settings, verbose 0 and the
+    Settings changes `change`: the app's Scene."""
+    mod = app_module(name)
+    s = mod.settings()
+    s.verbose = 0
+    for k, v in change.items():
+        setattr(s, k, v)
+    lead = APP_RUNS[name][1]
+    opt = (mod.split_argv(lead)[0],) if hasattr(mod, "split_argv") else ()
+    scene = mod.build(s, device or DEVICE, *opt)
+    need(scene is not None, f"app {name}: initialize failed")
+    return scene
 
 
 # The Anderson paths and the sequential wind: an earlier path's scene with one
@@ -2275,14 +2359,19 @@ def reset_counts():
         fn.launches = 0
 
 
+def wrapper_counts():
+    """Each kernel wrapper's count of its launches, by the wrapper's name."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
 def read_counts(model=None):
     """The wrappers' counts by kernel name; A and D under the tet model of the
     path. A wrapper counts each call of its launch: in the warm-up step and in
     the capture of a captured step, and in any eager call; a replay of the
     captured step launches its kernels without them."""
     by_model = ("local_step_tet_hyper", "local_step_tet_stencil", "prox_tet_hyper")
-    return {f"{name}[{model}]" if name in by_model else name: fn.launches
-            for name, fn in _wrappers().items()}
+    return {f"{name}[{model}]" if name in by_model else name: n
+            for name, n in wrapper_counts().items()}
 
 
 # The port's kernels as torch.profiler names them ("void (anonymous
@@ -6155,9 +6244,103 @@ def kernel_cases(torch):
 
 def kernel_times(torch, cases):
     """Every kernel against its plain version and its bound. No single PyTorch
-    call computes any of these functions (a batched torch.linalg.svd is not
-    the signed SVD plus the Newton solve), so library_ms is null throughout."""
+    call computes any of these functions but B's and C's (stencil_library_times;
+    a batched torch.linalg.svd is not the signed SVD plus the Newton solve), so
+    library_ms is null here."""
     return {name: measure(torch, *case) for name, case in cases.items()}
+
+
+# The shapes at which kernels B and C are timed beside one torch.sparse.mm call:
+# the bench beam's and beam_pcg160k's lattices.
+LIBRARY_SHAPES = {"beam": (40, 5, 5), "beam_pcg160k": PCG_SCENES["beam_pcg160k"]["dims"]}
+
+
+def stencil_csr(torch, b, n):
+    """D of a stencil family as CSR matrices, float32 on the card: D [3 T, N]
+    (row j * T + t: column j of lane t's deformation gradient, so that D x for
+    x [N, 3] holds F[t, i, j] at [j * T + t, i]) and D^T W^2 [N, 3 T]."""
+    inds = b.inds.cpu().numpy().astype(np.int64)
+    dl = b.Dlocal.double().cpu().numpy()  # [T, 4, 3]
+    w2 = (b.weight.double() ** 2).cpu().numpy()
+    t = inds.shape[0]
+    lane, corner, col = np.meshgrid(np.arange(t), np.arange(4), np.arange(3), indexing="ij")
+    rows = (col * t + lane).ravel()
+    cols = inds[lane, corner].ravel()
+    vals = dl[lane, corner, col].ravel()
+    keep = vals != 0.0  # dead lanes have Dlocal 0
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+
+    def csr(r, c, v, shape):
+        coo = torch.sparse_coo_tensor(np.stack([r, c]), v, shape, dtype=torch.float64)
+        return coo.coalesce().to_sparse_csr().to(device=DEVICE, dtype=torch.float32)
+
+    return (csr(rows, cols, vals, (3 * t, n)),
+            csr(cols, rows, vals * w2[rows % t], (n, 3 * t)))
+
+
+def stencil_library_times(torch, gpu, reps=200):
+    """Kernels B and C against one torch.sparse.mm call that computes the same
+    function on the same inputs (D x with D as CSR; D^T W^2 r with D^T W^2 as
+    CSR and r = z - u formed beforehand, in the rows' [3 T, 3] layout; the
+    layouts are transposes of the kernels' rows), at LIBRARY_SHAPES, float32,
+    CUDA events (kernel, library, library, kernel; at the beam's shape both
+    calls take less device time than the host's enqueue) and queued behind a
+    sleep kernel (queued_us: the device's time): shape -> {"tet_Dx_rows",
+    "tet_rhs_rows"} -> ms, library_ms, queued_us, library_queued_us and the
+    largest gap between the two results relative to the kernel's largest
+    entry."""
+    from admm_elastic_tpu_torch.geometry.factory import make_tet_blocks
+    from admm_elastic_tpu_torch.materials import Lame
+    from admm_elastic_tpu_torch.ops import cuda_stencil
+    from admm_elastic_tpu_torch.system import elements as el
+
+    f32 = torch.float32
+    out = {}
+    rng = np.random.default_rng(9)
+    for shape, dims in LIBRARY_SHAPES.items():
+        mesh = make_tet_blocks(*dims)
+        n = mesh.vertices.shape[0]
+        b = el.build_tet_batch(mesh.vertices, mesh.tets, Lame.soft_rubber(), NH, device=DEVICE,
+                               dtype=f32, lattice_dims=mesh.lattice_dims)
+        x = torch.as_tensor(mesh.vertices + 0.05 * rng.standard_normal(mesh.vertices.shape),
+                            device=DEVICE, dtype=f32)
+        z = cuda_stencil.tet_Dx_rows(x, b)
+        u = torch.as_tensor(0.05 * rng.standard_normal((9, b.n)), device=DEVICE, dtype=f32)
+        d_csr, dtw2_csr = stencil_csr(torch, b, n)
+        t = b.n
+        r = (z - u).reshape(3, 3, t).permute(1, 2, 0).reshape(3 * t, 3).contiguous()
+        # B writes the identity on a dead lane (weight 0), D x 0: compared on
+        # the live lanes
+        live = (b.st_dead == 0).repeat(t // b.st_dead.shape[0]).repeat(3)
+        pairs = {
+            "tet_Dx_rows": (lambda: cuda_stencil.tet_Dx_rows(x, b),
+                            lambda: torch.sparse.mm(d_csr, x),
+                            lambda k: k.reshape(3, 3, t).permute(1, 2, 0).reshape(3 * t, 3)[live],
+                            lambda y: y[live]),
+            "tet_rhs_rows": (lambda: cuda_stencil.tet_rhs_rows(z, u, b, n),
+                             lambda: torch.sparse.mm(dtw2_csr, r), lambda k: k, lambda y: y),
+        }
+        out[shape] = {}
+        for name, (kern, lib, layout, lib_layout) in pairs.items():
+            k1 = events_ms(torch, kern, reps)
+            l1 = events_ms(torch, lib, reps)
+            l2 = events_ms(torch, lib, reps)
+            k2 = events_ms(torch, kern, reps)
+            # the device's own time: the same calls queued behind a sleep kernel
+            q = queued_us(torch, [("kernel", kern), ("library", lib)], 50)
+            want = layout(kern())
+            got = lib_layout(lib())
+            gap = float((got - want).abs().max() / want.abs().max())
+            need(gap < 1e-5, f"{name}@{shape}: torch.sparse.mm parts from the kernel by {gap}")
+            out[shape][name] = dict(ms=min(k1, k2), library_ms=min(l1, l2),
+                                    readings=[k1, l1, l2, k2], queued_us=q["kernel"],
+                                    library_queued_us=q["library"], rel_gap=gap, lanes=t,
+                                    vertices=n, nnz=int(d_csr.values().numel()))
+            log(f"time {name}@{shape}: kernel {min(k1, k2) * 1e3:.1f} us, torch.sparse.mm "
+                f"{min(l1, l2) * 1e3:.1f} us (CUDA events); queued {q['kernel']:.2f} and "
+                f"{q['library']:.2f} us ({t} lanes, {n} vertices; results {gap:.1e} apart) "
+                f"[{gpu}]")
+    return out
 
 
 def in_turns(calls, read):
@@ -6408,6 +6591,306 @@ def step_profiles(torch, gpu):
     return out
 
 
+# The apps' holds against their goldens (tests/make_torch_golden.py, APP_RUNS).
+# beams and trianglestrain: x at APP_STEPS within crossval's 1e-4 and 2e-3 of
+# max |x| (benchmarks/crossval.py:299-302). The contact apps: x at step 1 within
+# APP_FIRST_TOL (SELFCOLL_STEP_TOL's), then each later held step one step
+# (run(1), the captured step) from the golden's state before it within
+# APP_ONESTEP[name][step] of max |x|. Each bound is 3-5 times the larger of the
+# port's one-step gap on the CPU and the golden's one-ulp control at that step
+# (PERF.md §5): signorini (the floor's, the largest of the three obstacles',
+# taken for all three) 1.56e-5 / 1.37e-6 at 8, 1.40e-6 / 1.07e-6 at 24; torus
+# 3.53e-7 / 3.97e-7 at 17, 6.72e-2 / 6.70e-2 at 18 (the first self-contact: 192
+# of Uzawa's 200 trips), 8.87e-8 / 1.77e-7 at 24; boxes 4.44e-6 / 3.64e-6 at 13
+# (the first dynamic hit), 4.29e-6 / 2.56e-6 at 24.
+#
+# bunnyexpand is held so at steps 1 and 8 too, and tightly in float64
+# (APP_F64_TOL). In float32 both packages' neo-Hookean prox leaves a collapsed
+# tet at its inflation eps = 1e-6: at s = 1e-6 the Hessian's diagonal is some
+# 7e22 and its determinant overflows, so every Newton candidate is NaN and is
+# refused (ROADMAP Queue 3 item 17). The collapsed bunny stays some 1e-6 m
+# across (float64: 0.81 m at step 1), and from the second ADMM iteration on a
+# third to four fifths of its tets have their largest singular value within
+# 0.1 % of eps, where the prox's collapse test flips on the last bits. Two
+# roundings of one code part there as far as the port parts from the JAX
+# package: the port's CPU and card runs by 4.61e-4 of max |x| at step 1, each
+# from the JAX package by 5.07e-4 and 4.80e-4. The golden's one-ulp control
+# reads 0 at step 1 (nextafter(0) is a denormal, which XLA's CPU flushes to 0,
+# and a uniform shift is a translation that D x does not see) and 3.74e-4 at 8.
+# The collapse's bound, 2e-3 (crossval's step-8 bound) at both steps, is some 4
+# times those controls. The scramble is chaotic: the golden's one-ulp control
+# moves step 1 by 7.71e-2 and step 8 by 2.64e-2, and its bounds are 4 times
+# those, below the golden's own step (6.87e-1 and 1.57e-1 of max |x|), so a
+# step that left x where it was fails them.
+APP_FIRST_TOL = 1e-4
+_SIGNORINI_ONESTEP = {8: 8e-5, 24: 8e-5}
+APP_ONESTEP = {
+    "bunnyexpand": {1: 2e-3, 8: 2e-3},
+    "bunnyexpand_rand": {1: 0.3, 8: 0.1},
+    "signorini": _SIGNORINI_ONESTEP,
+    "signorini_sdf": _SIGNORINI_ONESTEP,
+    "signorini_exact": _SIGNORINI_ONESTEP,
+    "torus": {17: 2e-6, 18: 0.3, 24: 1e-6},
+    "boxes": {13: 2e-5, 24: 2e-5},
+}
+# bunnyexpand in float64 against the JAX app in float64 on its Jacobi SVD (the
+# golden app_bunnyexpand_f64): the collapse at steps 1 and 8 of its run, and one
+# step of the scramble with 1, 2 and 3 ADMM iterations (-it), golden key ->
+# bound of max |x|. The port reads 5.07e-12 and 4.47e-11 on the collapse on
+# the CPU, 5.21e-12 and 5.00e-11 on the card (the JAX package's one-ulp
+# control at step 8: 2.24e-12), and 7.15e-10, 2.52e-8 and 2.47e-6 on the
+# scramble on the CPU, 5.35e-10, 1.31e-8 and 1.56e-6 on the card (the
+# controls 2.50e-10, 1.23e-8 and 5.97e-7): a float64 rounding grows 30-100
+# times an ADMM iteration in the tangle. The collapse is held to 1e-10, the
+# scramble to some 6 times the CPU's reading.
+APP_F64 = {"bunnyexpand": ("x1", "x8"), "bunnyexpand_rand": ("it1", "it2", "it3")}
+APP_F64_TOL = {"x1": 1e-10, "x8": 1e-10, "it1": 4e-9, "it2": 1.5e-7, "it3": 1.5e-5}
+APP_PIN_TOL = 1e-5  # m: beams' pinned vertices from their moving targets (3.2e-7 on the CPU)
+# No tunnelling: the least y of a contact app's run (bench.py:67). The JAX
+# package's own torus sinks to -1.1773 (ROADMAP Queue 3 item 18); its golden is
+# held one step at a time and the port's run to this bound.
+APP_FLOOR_BOUND = -1.1
+APP_SCRAMBLE_BOUND = 50.0  # |x| below this times the scramble's max |x| (tests/
+# test_inversion_recovery.py:86)
+APP_SLIVERS = 3  # inverted tets beyond the golden's that float32 may flicker
+# (tests/test_inversion_recovery.py:59-61)
+# The kernels each app must launch (their wrappers' counts in its run): A's
+# stencil entry (B's work inside it) and C on the lattices (beams, boxes), A's
+# rows entry on the loaded meshes, E's stencil entry on the sheets, H on
+# signorini (its MESH form on the slabs, which detects inside the sweeps:
+# APP_MESH_KIND), K, L and H[DYN] for boxes, K, L's full C^T and M for the
+# torus's Uzawa.
+APP_KERNELS = {
+    "beams": ("local_step_tet_stencil", "tet_rhs_rows"),
+    "trianglestrain": ("local_step_tri_stencil",),
+    "bunnyexpand": ("local_step_tet_hyper",),
+    "bunnyexpand_rand": ("local_step_tet_hyper",),
+    "signorini": ("local_step_tet_hyper", "gs_solve"),
+    "signorini_sdf": ("local_step_tet_hyper", "gs_solve"),
+    "signorini_exact": ("local_step_tet_hyper", "gs_solve"),
+    "torus": ("local_step_tet_hyper", "dyn_detect", "ct_apply", "schur_trip"),
+    "boxes": ("local_step_tet_stencil", "tet_rhs_rows", "dyn_detect", "gs_solve_dyn",
+              "dyn_gather"),
+}
+# The obstacle of each signorini run, by its class and by the kind kernel H
+# takes it as (cuda_obstacle.MESH_SDF, MESH_EXACT; the floor's 0).
+APP_MESH_KIND = {"signorini": ("Floor", 0), "signorini_sdf": ("PassiveMeshSDF", 2),
+                 "signorini_exact": ("PassiveMeshExact", 3)}
+
+
+def app_main(torch, name, out_path):
+    """main(argv) of one of APP_RUNS with --frames APP_FRAMES --out out_path:
+    (its return code, its standard output, the solver of each Solver capture
+    it made, the host-clock seconds of each Solver.step it called (each ends
+    in a synchronisation), the wrappers' counts of its launches, from 0). Run
+    as a user runs it: the default settings, on the card."""
+    import contextlib
+    import io
+
+    from admm_elastic_tpu_torch.solver import Solver
+
+    module, lead = APP_RUNS[name]
+    captures, step_s = [], []
+    capture, step = Solver._capture, Solver.step
+
+    def counted(self, key):
+        captures.append(self)
+        return capture(self, key)
+
+    def timed(self):
+        t = time.perf_counter()
+        out = step(self)
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    argv = list(lead) + ["--frames", str(APP_FRAMES), "--out", out_path]
+    if DEVICE != "cuda":  # a rehearsal off the card
+        argv.append("--cpu")
+    buf = io.StringIO()
+    Solver._capture, Solver.step = counted, timed
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = app_module(name).main(argv)
+    finally:
+        Solver._capture, Solver.step = capture, step
+    return rc, buf.getvalue(), captures, step_s, wrapper_counts()
+
+
+def app_one_steps(torch, name, g, steps, scene=None):
+    """Each of `steps` one step (run(1)) from the golden's state before it, on
+    `scene` or a new scene of the app's own builder: step -> the gap to the
+    golden's x (of max |x|), its bound and the golden's one-ulp control."""
+    solver = (scene or app_scene(name)).solver
+    dev = solver.device
+    out = {}
+    for k in steps:
+        solver.state = type(solver.state)(**{
+            f: torch.as_tensor(g[f"s{k}_{f}"], device=dev) for f in
+            ("x", "v", "y", "prev_active")})
+        solver.run(1)
+        x = solver.x
+        bound = APP_ONESTEP[name][k]
+        gap = rel_err(x, g[f"x{k}"])
+        out[str(k)] = dict(rel_err=gap, bound=bound, control_rel_err=float(g[f"ctl{k}_gap"]),
+                           finite=bool(np.isfinite(x).all()))
+        need(np.isfinite(x).all() and gap <= bound,
+             f"app {name} step {k}: one step from the golden's state {gap:.3e} of max |x| "
+             f"(bound {bound}; the golden's one-ulp control {float(g[f'ctl{k}_gap']):.3e})")
+    return out
+
+
+def app_f64_holds(torch, name, device=None):
+    """bunnyexpand's tight holds (APP_F64): the app's scene built in float64
+    on `device` (the card unless named) against the JAX app's float64 run
+    (the golden app_bunnyexpand_f64): the collapse's x after steps 1 and 8,
+    or the scramble's x after one step with 1, 2 and 3 ADMM iterations from
+    the golden's scrambled state. Golden key -> the gap of max |x|, its bound
+    and the JAX package's one-ulp control (None at the all-zero state)."""
+    g = golden("app_bunnyexpand_f64")
+    out = {}
+    if name == "bunnyexpand":
+        solver = app_scene(name, device, dtype=np.float64).solver
+        need(not np.any(solver.x), "app bunnyexpand float64: not collapsed to the origin")
+        xs = []
+        for _ in range(8):
+            solver.step()
+            xs.append(solver.x)
+        got = {"x1": xs[0], "x8": xs[7]}
+    else:
+        got = {}
+        for k in (1, 2, 3):
+            solver = app_scene(name, device, dtype=np.float64, admm_iters=k).solver
+            need(np.array_equal(solver.x, g["x0_rand"]),
+                 "app bunnyexpand_rand float64: the scramble is not the golden's")
+            solver.step()
+            got[f"it{k}"] = solver.x
+    for key in APP_F64[name]:
+        gap, bound = rel_err(got[key], g[key]), APP_F64_TOL[key]
+        ctl = float(g[f"ctl_{key}"]) if f"ctl_{key}" in g else None
+        out[key] = dict(rel_err=gap, bound=bound, control_rel_err=ctl)
+        need(np.isfinite(got[key]).all() and gap <= bound,
+             f"app {name} float64 {key}: {gap:.3e} of max |x| off the JAX app (bound {bound}; "
+             f"its one-ulp control {ctl})")
+    return out
+
+
+def app_trajectory_holds(name, xs, g, extra=None, dt=None):
+    """beams and trianglestrain against their goldens: xs (x after steps 1,
+    2, ...) at APP_STEPS within APP_STEPS_TOL, and beams' pins (extra, the
+    scene's; dt its timestep) on their moving targets after every step in
+    xs: (the gap by step, of max |x|; the pins' largest distance from their
+    targets in m, or None)."""
+    held = [int(k) for k in g["steps"]]
+    need(held == list(APP_STEPS), f"app {name}: the golden holds {held}")
+    gaps = {str(k): rel_err(xs[k - 1], g[f"x{k}"]) for k in held}
+    for k, tol in zip(held, APP_STEPS_TOL):
+        need(gaps[str(k)] <= tol,
+             f"app {name} step {k}: {gaps[str(k)]:.3e} of max |x| off the golden (bound {tol})")
+    off = None
+    if name == "beams":
+        from admm_elastic_tpu_torch.apps.beams import pin_targets
+
+        off = max(float(np.abs(x[extra["pins"]] - pin_targets(extra, dt, f + 1)).max())
+                  for f, x in enumerate(xs))
+        need(off <= APP_PIN_TOL, f"app beams: a pin {off} m off its moving target")
+    return gaps, off
+
+
+def app_path(torch, name, gpu):
+    """One of APP_RUNS through its main(argv) on the card (app_main), held to
+    its golden and its invariants: one capture in the run, the app's kernels
+    launched (APP_KERNELS), signorini's obstacle as kernel H takes it
+    (APP_MESH_KIND), x at the held steps (APP_STEPS, APP_FIRST_TOL,
+    APP_ONESTEP), bunnyexpand in float64 (app_f64_holds); beams' pins on their
+    moving targets, a contact app no deeper than APP_FLOOR_BOUND, bunnyexpand
+    finite everywhere with its inverted tets beside the golden's; its ADMM
+    iterations per second on the host's clock, with the first frame (the
+    capture) and without."""
+    g = golden(f"app_{name}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out_path = os.path.join(OUT_DIR, f"app_{name}.npz")
+    t0 = time.perf_counter()
+    rc, printed, captures, step_s, counts = app_main(torch, name, out_path)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in printed.splitlines() if ln.strip()]
+    summary = [ln for ln in lines if "frames in" in ln or "min y" in ln or "inverted" in ln]
+    need(rc == 0, f"app {name}: main returned {rc}")
+    traj = np.load(out_path)["x"]
+    need(traj.shape[0] == APP_FRAMES and traj.shape[1:] == g["x0"].shape,
+         f"app {name}: trajectory of shape {traj.shape}")
+    # one capture on the card; off it (a rehearsal) the steps run eagerly
+    need(len(captures) == (1 if DEVICE == "cuda" else 0),
+         f"app {name}: {len(captures)} graph captures in one run")
+    missing = [k for k in APP_KERNELS[name] if counts.get(k, 0) <= 0]
+    need(not missing, f"app {name}: no launch of {missing} ({counts})")
+    mesh_kind = None
+    if name in APP_MESH_KIND and captures:
+        solver = captures[0]
+        mesh_kind = ([type(o).__name__ for o in solver.obstacles],
+                     list(solver._contact.gs_params[0]))
+        need(mesh_kind == ([APP_MESH_KIND[name][0]], [APP_MESH_KIND[name][1]]),
+             f"app {name}: kernel H took the obstacles {mesh_kind}")
+    held = [int(k) for k in g["steps"]]
+    iters = app_module(name).settings().admm_iters
+    need(len(step_s) == APP_FRAMES, f"app {name}: {len(step_s)} steps")
+    res = dict(argv=list(APP_RUNS[name][1]), frames=APP_FRAMES, held=held,
+               captures=len(captures), obstacle_kinds=mesh_kind,
+               wrapper_counts={k: v for k, v in counts.items() if v}, summary=summary,
+               wall_s=wall, admm_iters=iters, step_s=step_s,
+               admm_iters_per_s=APP_FRAMES * iters / sum(step_s),
+               admm_iters_per_s_after_capture=(APP_FRAMES - 1) * iters / sum(step_s[1:]),
+               first_step_s=step_s[0])
+    need(np.isfinite(traj).all(), f"app {name}: a non-finite position")
+    if name in ("beams", "trianglestrain"):
+        scene = app_scene(name) if name == "beams" else None
+        res["rel_err"], res["pin_off_m"] = app_trajectory_holds(
+            name, traj, g, *((scene.extra, scene.solver.m_settings.timestep_s) if scene else ()))
+    else:
+        first = name in APP_CONTACT
+        if first:
+            res["rel_err"] = {"1": rel_err(traj[0], g["x1"])}
+            need(res["rel_err"]["1"] <= APP_FIRST_TOL,
+                 f"app {name} step 1: {res['rel_err']['1']:.3e} of max |x| off the golden")
+        res["one_step"] = app_one_steps(torch, name, g, held[1:] if first else held)
+    if name in APP_F64:
+        res["f64"] = app_f64_holds(torch, name)
+    if name in APP_CONTACT:
+        res["min_y"], res["jax_min_y"] = float(traj[:, :, 1].min()), float(g["min_y"])
+        need(res["min_y"] > APP_FLOOR_BOUND,
+             f"app {name}: through the floor (least y {res['min_y']}, bound {APP_FLOOR_BOUND})")
+    if APP_RUNS[name][0] == "bunnyexpand":
+        from admm_elastic_tpu_torch.apps.bunnyexpand import inverted
+
+        tets = app_scene(name).extra["tets"]
+        res["inverted"], res["jax_inverted"] = inverted(traj[-1], tets), int(g["inverted"])
+        if name == "bunnyexpand":
+            need(res["inverted"] <= res["jax_inverted"] + APP_SLIVERS,
+                 f"app {name}: {res['inverted']} inverted tets, the golden's {res['jax_inverted']}")
+        else:
+            bound = APP_SCRAMBLE_BOUND * float(np.abs(g["s1_x"]).max())
+            need(float(np.abs(traj).max()) < bound, f"app {name}: |x| beyond {bound}")
+    log(f"app {name}: {' | '.join(summary)}; holds {json.dumps(res.get('rel_err', {}))} "
+        f"{json.dumps(res.get('one_step', {}))} {json.dumps(res.get('f64', {}))}; "
+        f"{res['captures']} capture; "
+        f"{res['admm_iters_per_s']:.1f} ADMM iters/s over its steps, "
+        f"{res['admm_iters_per_s_after_capture']:.1f} after the first (the capture, "
+        f"{res['first_step_s']:.3f} s), host clock [{gpu}]")
+    return res
+
+
+def apps_phase(torch, gpu):
+    """Every run of APP_RUNS (app_path): name -> its result. Run by main in a
+    process of its own (--apps)."""
+    t0 = time.perf_counter()
+    out = {}
+    for name in APP_RUNS:
+        out[name] = app_path(torch, name, gpu)
+        stamp(t0, f"apps: {name}")
+    log(f"the apps' phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def path_phase(torch, gpu):
     """The graph's invalidation checks (counted windows too); every path
     through the graph against its golden, each driven once in one window
@@ -6477,8 +6960,9 @@ def host_timing(torch, gpu, cases, c_branches, prox_turns):
     captured step against the eager loop in turns (graph, eager, eager,
     graph) for the beam, cloth_limit40, beam_gather and the PCG paths; then the phases of
     the beam and cloth steps on the stepped states, each kernel against its
-    plain version, C's two branches in turns, and D and F at the throughput
-    size beside kernel A's rows entry (CUDA events)."""
+    plain version, B and C beside one torch.sparse.mm call
+    (stencil_library_times), C's two branches in turns, and D and F at the
+    throughput size beside kernel A's rows entry (CUDA events)."""
     solvers = {"beam": make_solver(NH)[0], "beam_gather": make_gather_solver("beam_gather")[0]}
     solvers.update({n: make_cloth_solver(n)[0] for n in CLOTH_SCENES})
     solvers.update({n: pcg_scene(n, torch_api())[0] for n in PCG_PATHS})
@@ -6499,6 +6983,7 @@ def host_timing(torch, gpu, cases, c_branches, prox_turns):
     for label, ph in phases.items():
         for k, v in ph.items():
             log(f"phase {label}: {k}: {v * 1e3:.1f} us [{gpu}]")
+    library = stencil_library_times(torch, gpu)
     times = kernel_times(torch, cases)
     for k, v in times.items():
         log(f"time {k}: kernel {v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, "
@@ -6508,7 +6993,7 @@ def host_timing(torch, gpu, cases, c_branches, prox_turns):
     for label, (first, second) in by_branch.items():
         log(f"time tet_rhs_rows {label}: {first * 1e3:.1f}, {second * 1e3:.1f} us "
             f"(CUDA events, in turns) [{gpu}]")
-    return turns, phases, times, by_branch, prox_event_times(torch, gpu, prox_turns)
+    return turns, phases, times, library, by_branch, prox_event_times(torch, gpu, prox_turns)
 
 
 def main():
@@ -6530,6 +7015,7 @@ def main():
                          "torch.profiler (step_profile_*.json in the output directory)")
     ap.add_argument("--step-profiles", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--paths", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--apps", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build, the kernels' checks against plain and their "
                          "device times: the short first run of a changed kernel")
@@ -6560,6 +7046,15 @@ def main():
             return PROFILER_SHORT_RC if isinstance(e, ProfilerShort) else 1
         with open(os.path.join(OUT_DIR, "paths.json"), "w") as f:
             json.dump(dict(paths=paths, rates=rates, checks=graph_checks), f, indent=1)
+        return 0
+    if args.apps:
+        try:
+            apps = apps_phase(torch, environment(torch)["gpu"])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        with open(os.path.join(OUT_DIR, "apps.json"), "w") as f:
+            json.dump(apps, f, indent=1)
         return 0
     if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.log")):
         os.remove(os.path.join(OUT_DIR, "chip_smoke.log"))
@@ -6608,8 +7103,8 @@ def main():
         # What the host's clock times comes before the first profiler window,
         # so that no profiler state left in the process can slow the host;
         # after some 30 windows the profiler also began to drop events.
-        turns, phases, times, by_branch, prox_big = host_timing(torch, gpu, cases, c_branches,
-                                                                prox_turns)
+        turns, phases, times, library, by_branch, prox_big = host_timing(
+            torch, gpu, cases, c_branches, prox_turns)
         stamp(t_start, "host timing")
         variant_rates = variant_turns(torch, gpu)
         wind_forms = wind_form_turns(torch, gpu)
@@ -6649,6 +7144,18 @@ def main():
         else:  # a rehearsal off the card: in this process
             paths, rates, graph_checks = path_phase(torch, gpu)
         stamp(t_start, "the paths")
+        # The six demo apps through their main(argv), in a process of their own
+        # as the paths (apps_phase).
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--apps"],
+                                cwd=HERE, timeout=900).returncode
+            need(rc == 0, f"the apps' process exited with {rc}")
+            with open(os.path.join(OUT_DIR, "apps.json")) as f:
+                apps = json.load(f)
+        else:  # a rehearsal off the card: in this process
+            apps = apps_phase(torch, gpu)
+        stamp(t_start, "the apps")
         checks.update(graph_checks)
         for label, t in turns.items():
             rates[label]["graph_vs_eager"] = t
@@ -6704,6 +7211,11 @@ def main():
             entries.append(entry(f"local_step_tet_hyper[{NH}]@bunny_nh", "bunny_pcg"))
         src, rep = REPLACES[base]
         row = dict(entries[0], name=name, route="cuda", source=src, replaces=rep, entries=entries)
+        if name in library["beam"]:
+            # one torch.sparse.mm call beside B and C at the bench beam's and
+            # beam_pcg160k's shapes (stencil_library_times)
+            row["library_ms"] = library["beam"][name]["library_ms"]
+            row["library_by_shape"] = {shape: t[name] for shape, t in library.items()}
         if base == "tet_Dx_rows":
             # on the ring, B's work runs inside A's ring stencil entry; B alone
             # on the ring's shape, timed
@@ -6870,9 +7382,17 @@ def main():
         row["launches_per_step_on_new_paths"] = {
             p: {n: v / int(golden(p)["steps"][-1]) for n, v in launches.items()}
             for p, launches in row["launches_on_new_paths"].items()}
+    # every row's launches in each app's run (the wrappers' counts: the
+    # captured step's warm-up and capture, and the eager calls)
+    for row in kernels:
+        names = sorted({e["entry"] for e in row["entries"]})
+        row["launches_on_apps"] = {
+            a: {n: r["wrapper_counts"][n] for n in names if r["wrapper_counts"].get(n)}
+            for a, r in apps.items()}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(env=env, build=built, checks=checks, paths=paths, rollouts=rates,
+                       apps=apps,
                        phases_ms=phases, kernel_times=times, rhs_branches_ms=by_branch,
                        prox_throughput_ms=prox_big, pcg_solve_ms=g_times,
                        contact_solve_ms=c_times, wind_seq_ms=i_timing, mesh_detect_ms=j_times,

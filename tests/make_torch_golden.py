@@ -68,7 +68,18 @@ step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD run
 - the variants (chip_smoke.VARIANT_SCENES): beam_aa4, cloth_aa4 and
   floor_alpcg67k_aa4, the beam, cloth_limit40 and floor_alpcg67k with Anderson
   acceleration (aa_window=4), and cloth_wind40_seq, cloth_wind40 with the
-  sequential wind (WindForce(sequential=True)), each stored as its base is.
+  sequential wind (WindForce(sequential=True)), each stored as its base is;
+- the demo apps (chip_smoke.APP_RUNS: app_beams, app_trianglestrain,
+  app_bunnyexpand, app_bunnyexpand_rand, app_signorini, app_signorini_sdf,
+  app_signorini_exact, app_torus, app_boxes): the JAX package's apps/<name>.py
+  main() at its own scene and default settings with run() replaced
+  (jax_app), float32, 24 steps; x after the held steps
+  (chip_smoke.app_held_steps), the least y, each step's inner iterations and
+  dynamic hits, bunnyexpand's last inverted tets, and for every app without a
+  per-frame callback the state before each held step and its one-ulp control;
+  app_bunnyexpand_f64, bunnyexpand's collapse after steps 1 and 8 and its
+  scramble after one step of 1, 2 and 3 ADMM iterations, in float64
+  (app_bunnyexpand_f64).
 
 Run from the repository root (all files, or only the named ones):
 
@@ -90,10 +101,11 @@ from admm_elastic_tpu.forces import make_wind_force  # noqa: E402
 from admm_elastic_tpu.geometry.factory import make_tet_blocks  # noqa: E402
 from admm_elastic_tpu.geometry.io import load_elenode  # noqa: E402
 from admm_elastic_tpu.ops import prox  # noqa: E402
-from chip_smoke import (BEAM_FLAGS, BEAM_MODELS, BUNNY, CLOTH_SCENES,  # noqa: E402
-                        CONTACT_SCENES, GATHER_SCENES, PCG_SCENES, SELFCOLL_SCENES,
-                        VARIANT_SCENES, boxes_scene, bunny_pins, cloth_sheet, contact_scene,
-                        contact_steps, contacts, pcg_scene, renumbered_sheet, variant_of)
+from chip_smoke import (APP_FRAMES, APP_RUNS, BEAM_FLAGS, BEAM_MODELS,  # noqa: E402
+                        BUNNY, CLOTH_SCENES, CONTACT_SCENES, GATHER_SCENES,
+                        PCG_SCENES, SELFCOLL_SCENES, VARIANT_SCENES, app_held_steps,
+                        boxes_scene, bunny_pins, cloth_sheet, contact_scene, contact_steps,
+                        contacts, pcg_scene, renumbered_sheet, variant_of)
 
 DIMS = (40, 5, 5)
 ADMM_ITERS = 10
@@ -121,7 +133,7 @@ def _rollout(solver, steps=STEPS, dtype=np.float32):
 def _save(name, **arrays):
     os.makedirs(DATA, exist_ok=True)
     out = os.path.join(DATA, f"torch_port_golden_{name}.npz")
-    np.savez_compressed(out, admm_iters=ADMM_ITERS, dt=DT, **arrays)
+    np.savez_compressed(out, **{"admm_iters": ADMM_ITERS, "dt": DT, **arrays})
     print(f"wrote {out}")
 
 
@@ -331,6 +343,142 @@ def selfcoll(name):
           **{f"x{k}": xs[k] for k in compare}, **held, **control)
 
 
+def jax_app(name, drive, frames=APP_FRAMES, argv=()):
+    """Run the JAX package's apps/<module>.py main() for one of APP_RUNS with
+    its run() replaced by drive(solver, sim_cb, frames), whose result stands
+    for the trajectory: the app's own scene, settings and callback, stepped
+    as the caller likes. boxes reads its box768 from a directory with none
+    in it, so that it builds the 8^3 block as the port's does. Returns what
+    the app handed to run()."""
+    import importlib
+    import tempfile
+
+    module, lead = APP_RUNS[name]
+    apps = os.path.join(ROOT, "apps")
+    if apps not in sys.path:
+        sys.path.insert(0, apps)
+    mod = importlib.import_module(module)
+    got = {}
+
+    def fake_run(solver, args, sim_cb=None, surfaces=None, floor_y=None):
+        got.update(solver=solver, sim_cb=sim_cb, surfaces=surfaces, floor_y=floor_y)
+        got["traj"] = drive(solver, sim_cb, args.frames)
+        return got["traj"]
+
+    kept = mod.run, getattr(mod, "DATA", None)
+    with tempfile.TemporaryDirectory() as empty:
+        mod.run = fake_run
+        if kept[1] is not None:
+            mod.DATA = empty
+        try:
+            rc = mod.main(list(lead) + ["--frames", str(frames), "-v", "0"] + list(argv))
+        finally:
+            mod.run = kept[0]
+            if kept[1] is not None:
+                mod.DATA = kept[1]
+    if rc:
+        raise SystemExit(f"{name}: the JAX app exited with {rc}")
+    return got
+
+
+def app(name):
+    """One of APP_RUNS: x after each held step (app_held_steps), the least y
+    of the run, the last step's inverted tets and finiteness (bunnyexpand),
+    the inner iterations and the dynamic hits of every step; for an app
+    without a per-frame callback (all but beams), the state before each held
+    step and that step once more from it with x one ulp up (as selfcoll)."""
+    import dataclasses
+
+    rec = {"xs": [], "states": [], "hits": [], "inner": []}
+
+    def drive(solver, sim_cb, frames):
+        for f in range(frames):
+            if sim_cb is not None:
+                sim_cb(f)
+            rec["states"].append(solver.state)
+            solver.step()
+            rec["xs"].append(np.asarray(solver.x, np.float32))
+            rec["inner"].append(solver.runtime_data().inner_iters)
+            if solver.colliders:
+                rec["hits"].append(dynamic_hits(solver, solver.state.x))
+        return np.stack(rec["xs"])
+
+    got = jax_app(name, drive)
+    solver, xs = got["solver"], rec["xs"]
+    held = app_held_steps(name, xs, rec["hits"])
+    out = {f"x{k}": xs[k - 1] for k in held}
+    if got["sim_cb"] is None:  # a held step from the state before it needs no callback
+        for k in held:
+            st = rec["states"][k - 1]
+            out.update({f"s{k}_{f}": np.asarray(getattr(st, f)) for f in
+                        ("x", "v", "y", "prev_active")})
+            xu = np.asarray(st.x)
+            solver.state = dataclasses.replace(st, x=jax.numpy.asarray(
+                np.nextafter(xu, np.inf, dtype=xu.dtype)))
+            solver.step()
+            xc = np.asarray(solver.x, np.float32)
+            out[f"ctl{k}_gap"] = float(np.abs(xc - xs[k - 1]).max() / np.abs(xs[k - 1]).max())
+            print(f"{name} step {k} from the state before with x one ulp off: "
+                  f"{out[f'ctl{k}_gap']:.3e} of max |x|")
+    if APP_RUNS[name][0] == "bunnyexpand":
+        from admm_elastic_tpu.geometry.mesh import tet_volumes
+
+        vols = tet_volumes(xs[-1].astype(np.float64), np.asarray(solver.system.tets[0].inds))
+        out["inverted"] = int(((vols <= 0) | ~np.isfinite(vols)).sum())
+    s = solver.m_settings
+    _save(f"app_{name}", steps=np.asarray(held), n_steps=len(xs), admm_iters=s.admm_iters,
+          dt=s.timestep_s, linsolver=s.linsolver, x0=np.asarray(rec["states"][0].x, np.float32),
+          min_y=float(min(x[:, 1].min() for x in xs)), inner=np.asarray(rec["inner"]),
+          hits=np.asarray(rec["hits"]), finite=bool(np.isfinite(xs[-1]).all()), **out)
+
+
+def app_bunnyexpand_f64():
+    """bunnyexpand in float64 (chip_smoke.APP_F64): x after steps 1 and 8 of
+    the collapse (x1, x8); the scramble (x0_rand) and x after one step of it
+    with 1, 2 and 3 ADMM iterations (it1-it3, the app's -it); each but x1 with
+    its one-ulp control (ctl_<key>: that step once more from the state before
+    it with x one ulp up; at the all-zero state before x1 one ulp up is a
+    denormal, which XLA's CPU flushes to 0)."""
+    import dataclasses
+
+    def one_ulp_gap(solver, state, want):
+        xu = np.asarray(state.x)
+        solver.state = dataclasses.replace(state, x=jax.numpy.asarray(
+            np.nextafter(xu, np.inf, dtype=xu.dtype)))
+        solver.step()
+        return float(np.abs(np.asarray(solver.x) - want).max() / np.abs(want).max())
+
+    states, xs = [], []
+
+    def collapse(solver, sim_cb, frames):
+        for _ in range(frames):
+            states.append(solver.state)
+            solver.step()
+            xs.append(np.asarray(solver.x))
+        return np.stack(xs)
+
+    solver = jax_app("bunnyexpand", collapse, frames=8)["solver"]
+    out = {"x1": xs[0], "x8": xs[7], "ctl_x8": one_ulp_gap(solver, states[7], xs[7])}
+    for k in (1, 2, 3):
+        got = {}
+
+        def scramble(solver, sim_cb, frames):
+            got["state"] = solver.state
+            solver.step()
+            got["x"] = np.asarray(solver.x)
+            return got["x"][None]
+
+        solver = jax_app("bunnyexpand_rand", scramble, frames=1, argv=("-it", str(k)))["solver"]
+        out["x0_rand"] = np.asarray(got["state"].x)
+        out[f"it{k}"] = got["x"]
+        out[f"ctl_it{k}"] = one_ulp_gap(solver, got["state"], got["x"])
+    for key, v in out.items():
+        if key.startswith("ctl"):
+            print(f"bunnyexpand float64 {key[4:]}: the one-ulp control {v:.3e} of max |x|")
+    assert all(v.dtype == np.float64 for k, v in out.items() if not k.startswith("ctl"))
+    _save("app_bunnyexpand_f64", **out)
+
+
 def main(argv):
     prox.set_svd_impl("jacobi")
     writers = {"beam": lambda: beam("neohookean"),
@@ -341,6 +489,8 @@ def main(argv):
     writers.update({n: (lambda n=n: pcg(n)) for n in PCG_SCENES})
     writers.update({n: (lambda n=n: contact(n)) for n in CONTACT_SCENES})
     writers.update({n: (lambda n=n: selfcoll(n)) for n in SELFCOLL_SCENES})
+    writers.update({f"app_{n}": (lambda n=n: app(n)) for n in APP_RUNS})
+    writers["app_bunnyexpand_f64"] = app_bunnyexpand_f64
     variants = {"beam": lambda n: beam("neohookean", name=n), "cloth_limit40": cloth,
                 "cloth_wind40": cloth, "floor_alpcg67k": contact}
     writers.update({n: (lambda n=n, base=base: variants[base](n))
@@ -351,6 +501,8 @@ def main(argv):
             raise SystemExit(f"unknown golden {n!r}; one of {sorted(writers)}")
 
     def f64(n):
+        if n == "app_bunnyexpand_f64":
+            return True
         n = variant_of(n)[0]
         return any("dtype" in scenes.get(n, {})
                    for scenes in (GATHER_SCENES, PCG_SCENES, CONTACT_SCENES))
