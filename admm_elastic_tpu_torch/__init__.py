@@ -25,8 +25,10 @@ one captured CUDA graph) or ``device="cpu"`` (the kernels' plain PyTorch
 versions, stepped eagerly). The element energies, the demo meshes
 (``geometry/demo_data.py``), the command line (``Settings.parse_args``) and
 rendering (``utils/render.py``) are here too, and the JAX package's six demo
-apps run as ``python -m admm_elastic_tpu_torch.apps.<name>``. Everything else
-raises NotImplementedError naming the ROADMAP item that ports it.
+apps run as ``python -m admm_elastic_tpu_torch.apps.<name>``; scenario batches
+(S scenes of one mesh, each with its own stiffness scale and gravity, stepped
+together) through ``parallel/batch.py``. Everything else raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from admm_elastic_tpu_torch.collision.passive import (Floor, PassiveMeshExact, PassiveMeshSDF,

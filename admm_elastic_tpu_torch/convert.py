@@ -38,7 +38,10 @@ PassiveMeshExact's ``tri_abc``, ``nrm``, ``face_table``, ``face_count``,
 fields; the kind named by ``kind``); ``collider_from_numpy`` a
 TetMeshCollider's ``tets``, ``rest_verts``, ``faces``, ``vert_offset`` and
 ``cell_cap``; ``state_from_numpy`` takes the state's ``y`` and ``prev_active``
-where the scene has contact rows (size 0 where they are None).
+where the scene has contact rows (size 0 where they are None);
+``scenario_batch_from_numpy`` a ScenarioBatch's ``x``, ``v``, ``y``,
+``prev_active``, ``stiffness_scale``, ``gravity`` and ``overflow`` (a JAX
+batch, jittered by jax.random, carried over as it is).
 """
 
 from __future__ import annotations
@@ -236,3 +239,15 @@ def wind_force_from_numpy(d: dict, *, device, dtype: torch.dtype) -> WindForce:
     return _wind_force(d["tris"], d["direction"], d.get("color_tris"), d.get("color_mask"),
                        device=device, dtype=dtype, alpha_n=float(d.get("alpha_n", 1000.0)),
                        sequential=bool(d.get("sequential", False)))
+
+
+def scenario_batch_from_numpy(d: dict, *, device, dtype: torch.dtype):
+    """A parallel/batch.ScenarioBatch from a dict of its fields' arrays."""
+    from admm_elastic_tpu_torch.parallel.batch import ScenarioBatch
+
+    return ScenarioBatch(
+        x=_f(d["x"], device, dtype), v=_f(d["v"], device, dtype), y=_f(d["y"], device, dtype),
+        prev_active=torch.as_tensor(np.array(d["prev_active"], dtype=bool), device=device),
+        stiffness_scale=_f(d["stiffness_scale"], device, dtype),
+        gravity=_f(d["gravity"], device, dtype),
+        overflow=torch.as_tensor(np.array(d["overflow"], dtype=bool), device=device))

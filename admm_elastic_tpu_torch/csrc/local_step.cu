@@ -66,6 +66,18 @@
 // values neither of which is a product the compiler could contract: the two
 // entries give the same bits.
 //
+// Scenes (scenario batching, admm_elastic_tpu_torch/parallel/batch.py, where
+// the JAX package vmaps the step over a batch and the Pallas kernel with it):
+// both entries have a scene form over S scenes of one mesh, with rows
+// [S, 9, T] (the stencil entry's x [S, N, 3]), one thread a lane of S * T,
+// lane l of scene l / T and element l % T. Each scene has its stiffness scale
+// s (scale [S]), and the lane's material is the scene's: mu s, lam s, kappa s
+// and k = lam s + (2/3) (mu s), each product and the sum rounded on its own
+// (__fmul_rn / __fadd_rn), as parallel/batch._scale_system forms the scaled
+// arrays and TetBatch their bulk; nvcc may not contract the bulk into one
+// rounding. Scene i's z and u' are then, bit for bit, the single-scene
+// entry's on scene i's scaled parameters.
+//
 // Built once per precision (-DADMM_REAL=float -DADMM_SFX=f32, or double /
 // f64), without --use_fast_math (it flushes denormals and approximates log,
 // sqrt and division); FMA contraction stays on, which the stated float32
@@ -115,6 +127,88 @@ int launch_stencil(const T* x, const T* dl, const T* par, const T* dead, const T
   return static_cast<int>(cudaGetLastError());
 }
 
+// The lane's material in a scene of scale s (see the header): unread by the
+// linear model.
+template <typename T, int MODEL>
+__device__ __forceinline__ Mat<T> scaled_mat(const T* __restrict__ mu, const T* __restrict__ lam,
+                                             const T* __restrict__ kappa, int t, T s) {
+  Mat<T> m = {T(0), T(0), T(0), T(0)};
+  if constexpr (MODEL != LINEAR) {
+    m.mu = mul_rn(mu[t], s);
+    m.lam = mul_rn(lam[t], s);
+    m.kappa = mul_rn(kappa[t], s);
+    m.k = add_rn(m.lam, mul_rn(T(2.0 / 3.0), m.mu));
+  }
+  return m;
+}
+
+// The rows entry over S scenes: dix, u, z, uo [S, 9, n].
+template <typename T, int MODEL>
+__global__ void __launch_bounds__(64) tet_local_step_scenes_kernel(
+    const T* __restrict__ dix, const T* __restrict__ u, const T* __restrict__ mu,
+    const T* __restrict__ lam, const T* __restrict__ kappa, const T* __restrict__ scale,
+    T* __restrict__ z, T* __restrict__ uo, int n, int scenes, int n_iters, int sweeps) {
+  const int64_t l = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= (int64_t)scenes * n) return;
+  const int sc = static_cast<int>(l / n), t = static_cast<int>(l - (int64_t)sc * n);
+  const int64_t off = (int64_t)sc * 9 * n;
+  T v[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) v[i] = dix[off + (int64_t)i * n + t] + u[off + (int64_t)i * n + t];
+  const Mat<T> m = scaled_mat<T, MODEL>(mu, lam, kappa, t, scale[sc]);
+  tet_lane_prox_mat<T, MODEL, true>(v, m, z + off, uo + off, n, t, n_iters, sweeps);
+}
+
+// The stencil entry over S scenes: x [S, n_verts, 3], u, z, uo [S, 9, n].
+template <typename T, int MODEL>
+__global__ void __launch_bounds__(64, 1) tet_local_step_stencil_scenes_kernel(
+    const T* __restrict__ x, const T* __restrict__ dl, const T* __restrict__ par,
+    const T* __restrict__ dead, const T* __restrict__ u, const T* __restrict__ mu,
+    const T* __restrict__ lam, const T* __restrict__ kappa, const T* __restrict__ scale,
+    T* __restrict__ z, T* __restrict__ uo, int base, int n_vblock, int cells, int n, int n_verts,
+    int scenes, int n_iters, int sweeps, const __grid_constant__ Geom g) {
+  const int64_t l = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= (int64_t)scenes * n) return;
+  const int sc = static_cast<int>(l / n), t = static_cast<int>(l - (int64_t)sc * n);
+  const int s = t / cells, p = t - s * cells;
+  const int64_t off = (int64_t)sc * 9 * n;
+  T v[9];
+  tet_dx_lane(x + (int64_t)sc * n_verts * 3, dl, par, dead, base, n_vblock, cells, s, p, g, v);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) v[i] = v[i] + u[off + (int64_t)i * n + t];
+  const Mat<T> m = scaled_mat<T, MODEL>(mu, lam, kappa, t, scale[sc]);
+  tet_lane_prox_mat<T, MODEL, true>(v, m, z + off, uo + off, n, t, n_iters, sweeps);
+}
+
+template <typename T, int MODEL>
+int launch_scenes(const T* dix, const T* u, const T* mu, const T* lam, const T* kappa,
+                  const T* scale, T* z, T* uo, int n, int scenes, int n_iters, int sweeps,
+                  void* stream) {
+  const int64_t lanes = (int64_t)scenes * n;
+  if (lanes <= 0) return 0;
+  const int block = 64;
+  tet_local_step_scenes_kernel<T, MODEL>
+      <<<(unsigned)((lanes + block - 1) / block), block, 0, static_cast<cudaStream_t>(stream)>>>(
+          dix, u, mu, lam, kappa, scale, z, uo, n, scenes, n_iters, sweeps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int MODEL>
+int launch_stencil_scenes(const T* x, const T* dl, const T* par, const T* dead, const T* u,
+                          const T* mu, const T* lam, const T* kappa, const T* scale, T* z, T* uo,
+                          int base, int n_vblock, int cells, int n_verts, int scenes, int n_iters,
+                          int sweeps, const Geom& g, void* stream) {
+  const int n = 5 * cells;
+  const int64_t lanes = (int64_t)scenes * n;
+  if (lanes <= 0) return 0;
+  const int block = 64;
+  tet_local_step_stencil_scenes_kernel<T, MODEL>
+      <<<(unsigned)((lanes + block - 1) / block), block, 0, static_cast<cudaStream_t>(stream)>>>(
+          x, dl, par, dead, u, mu, lam, kappa, scale, z, uo, base, n_vblock, cells, n, n_verts,
+          scenes, n_iters, sweeps, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define ADMM_CAT2(a, b) a##_##b
@@ -153,3 +247,43 @@ extern "C" int ADMM_CAT(admm_local_step_stencil, ADMM_SFX)(
   }
 #undef ADMM_STENCIL_CASE
 }
+
+#define ADMM_MODEL_SWITCH(CALL)              \
+  switch (model) {                           \
+    case NH: return CALL(NH);                \
+    case STVK: return CALL(STVK);            \
+    case SPLINE_NH: return CALL(SPLINE_NH);  \
+    case SPLINE_STVK: return CALL(SPLINE_STVK);  \
+    case SPLINE_COROT: return CALL(SPLINE_COROT);  \
+    case LINEAR: return CALL(LINEAR);        \
+    default: return static_cast<int>(cudaErrorInvalidValue);  \
+  }
+
+// The rows entry over S scenes (see the header): dix, u, z, uo [S, 9, n];
+// mu, lam, kappa [n]; scale [S].
+extern "C" int ADMM_CAT(admm_local_step_scenes, ADMM_SFX)(
+    const ADMM_REAL* dix, const ADMM_REAL* u, const ADMM_REAL* mu, const ADMM_REAL* lam,
+    const ADMM_REAL* kappa, const ADMM_REAL* scale, ADMM_REAL* z, ADMM_REAL* uo, int n,
+    int scenes, int model, int n_iters, int sweeps, void* stream) {
+#define ADMM_ROWS_SCENES(M)                                                                 \
+  launch_scenes<ADMM_REAL, M>(dix, u, mu, lam, kappa, scale, z, uo, n, scenes, n_iters, sweeps, \
+                              stream)
+  ADMM_MODEL_SWITCH(ADMM_ROWS_SCENES)
+#undef ADMM_ROWS_SCENES
+}
+
+// The stencil entry over S scenes: x [S, n_verts, 3], u, z, uo [S, 9, 5 cells].
+extern "C" int ADMM_CAT(admm_local_step_stencil_scenes, ADMM_SFX)(
+    const ADMM_REAL* x, const ADMM_REAL* dl, const ADMM_REAL* par, const ADMM_REAL* dead,
+    const ADMM_REAL* u, const ADMM_REAL* mu, const ADMM_REAL* lam, const ADMM_REAL* kappa,
+    const ADMM_REAL* scale, ADMM_REAL* z, ADMM_REAL* uo, int base, int n_vblock, int cells,
+    int n_verts, int scenes, const int* geom, int model, int n_iters, int sweeps, void* stream) {
+  if (cells <= 0) return 0;
+  const Geom g = make_geom(geom);
+#define ADMM_STENCIL_SCENES(M)                                                                 \
+  launch_stencil_scenes<ADMM_REAL, M>(x, dl, par, dead, u, mu, lam, kappa, scale, z, uo, base,  \
+                                      n_vblock, cells, n_verts, scenes, n_iters, sweeps, g, stream)
+  ADMM_MODEL_SWITCH(ADMM_STENCIL_SCENES)
+#undef ADMM_STENCIL_SCENES
+}
+#undef ADMM_MODEL_SWITCH

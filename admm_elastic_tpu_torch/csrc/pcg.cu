@@ -114,6 +114,22 @@
 // starts, the solve takes no trip and returns x0. Uzawa's Schur trips, all
 // in the captured step and predicated on that flag, skip their inner solve
 // by it (solvers/uzawa.py).
+//
+// Scenes (scenario batching, admm_elastic_tpu_torch/parallel/batch.py, in
+// place of jax.vmap of the loop over a batch, admm_elastic_tpu/parallel/
+// batch.py:191-227): one launch solves S independent systems A(s_i) x_i = b_i
+// of one mesh, each scene with its own stiffness scale s_i (scale [S]) and its
+// own exit. The CLUSTER form runs one cluster a scene, S clusters in one
+// launch: cluster i reads b, x0, the penalty rows and its diagonal and Jacobi
+// inverse (diag and inv_d [S, N], formed by the wrapper as the plain version
+// forms them: mass + pin + s_i stiffness, the pins unscaled) at scene i's
+// offset, scales every band and rest-ELL value by s_i in a register as a
+// rounded product (s_i val) before its fused multiply-add, and adds its trips
+// to trips[i]. So scene i's x and trips are, bit for bit, those of the
+// single-scene solve on the PCGData scaled by s_i, whatever the batch holds. The
+// GRID form takes one scene a launch (the wrapper loops). The scene form is an
+// instantiation of its own (SCN); a single-scene launch (no scale) runs the
+// instantiations that were there before, with no multiply and no offset.
 
 #include <cfloat>
 #include <cooperative_groups.h>
@@ -178,12 +194,13 @@ struct Args {
   const T* pn;             // [N, 3] banded order: the penalty normals (PEN)
   const T* inv3;           // [N, 3] banded order: 1 / (diag + pn^2) per component (PEN)
   const unsigned char* done;  // null, or: skip the solve where set
+  const T* scale;          // [S] the scenes' stiffness scales, or null (1)
   T* vec[kVecs];           // GRID: scratch [N, 3] each (enum Vec); CLUSTER: unused
   T* RC;                   // scratch [n_coarse, 3] each
   T* EC;
   T* parts;                // GRID: scratch [kSlots, n_chunks]
   Barrier* bar;            // GRID: zero before the first launch; left zero by every launch
-  int* trips;              // null, or += the trips of this solve
+  int* trips;              // null, or += the trips of this solve ([S]: scene i's at i)
   int n, n_chunks, k_rest, n_bands, circular, k_agg, n_coarse, max_iters;
   int shift;               // CLUSTER: log2 of the vertices (threads) of a block
   T tol, omega;
@@ -195,6 +212,82 @@ struct Args {
   const int64_t* iperm;
   T* RD;
 };
+
+// The block's scene: its cluster (CLUSTER), or the launch's one scene (GRID);
+// the block's rank in it and the blocks it has.
+template <bool CL>
+__device__ __forceinline__ int scene_of() {
+  if constexpr (CL)
+    return static_cast<int>(blockIdx.x / cg::this_cluster().num_blocks());
+  else
+    return 0;
+}
+template <bool CL>
+__device__ __forceinline__ int blk() {
+  if constexpr (CL)
+    return static_cast<int>(cg::this_cluster().block_rank());
+  else
+    return static_cast<int>(blockIdx.x);
+}
+template <bool CL>
+__device__ __forceinline__ int nblk() {
+  if constexpr (CL)
+    return static_cast<int>(cg::this_cluster().num_blocks());
+  else
+    return static_cast<int>(gridDim.x);
+}
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// One scene's inputs and outputs. A single-scene launch (SCN false) reads the
+// launch's own, as before scenes existed, and scales nothing; the scene form
+// (SCN) holds the launch's pointers offset to its block's scene and that
+// scene's scale s, by which scaled() multiplies a band or rest-ELL value (a
+// rounded product, before the fused multiply-add it feeds).
+template <typename T, bool SCN> struct Sc;
+template <typename T>
+struct Sc<T, false> {
+  const Args<T>& a;
+  __device__ __forceinline__ const T* b() const { return a.b; }
+  __device__ __forceinline__ const T* x0() const { return a.x0; }
+  __device__ __forceinline__ T* x_out() const { return a.x_out; }
+  __device__ __forceinline__ const T* diag() const { return a.diag; }
+  __device__ __forceinline__ const T* inv_d() const { return a.inv_d; }
+  __device__ __forceinline__ const T* pn() const { return a.pn; }
+  __device__ __forceinline__ const T* inv3() const { return a.inv3; }
+  __device__ __forceinline__ int* trips() const { return a.trips; }
+  __device__ __forceinline__ T scaled(T v) const { return v; }
+};
+template <typename T>
+struct Sc<T, true> {
+  const T *b_, *x0_, *diag_, *inv_d_, *pn_, *inv3_;
+  T* x_out_;
+  int* trips_;
+  T s;
+  __device__ __forceinline__ const T* b() const { return b_; }
+  __device__ __forceinline__ const T* x0() const { return x0_; }
+  __device__ __forceinline__ T* x_out() const { return x_out_; }
+  __device__ __forceinline__ const T* diag() const { return diag_; }
+  __device__ __forceinline__ const T* inv_d() const { return inv_d_; }
+  __device__ __forceinline__ const T* pn() const { return pn_; }
+  __device__ __forceinline__ const T* inv3() const { return inv3_; }
+  __device__ __forceinline__ int* trips() const { return trips_; }
+  __device__ __forceinline__ T scaled(T v) const { return mul_rn(s, v); }
+};
+
+template <typename T, bool SCN, bool CL>
+__device__ __forceinline__ Sc<T, SCN> scene_args(const Args<T>& a) {
+  if constexpr (!SCN) {
+    return Sc<T, false>{a};
+  } else {
+    const int i = scene_of<CL>();
+    const int64_t v3 = (int64_t)i * a.n * 3, v1 = (int64_t)i * a.n;
+    return Sc<T, true>{a.b + v3, a.x0 + v3, a.diag + v1, a.inv_d + v1,
+                       a.pn ? a.pn + v3 : nullptr, a.inv3 ? a.inv3 + v3 : nullptr,
+                       a.x_out + v3, a.trips ? a.trips + i : nullptr, a.scale[i]};
+  }
+}
 
 // Where the solve's vectors and partial sums live, and how a thread reaches
 // a vertex's: global buffers (GRID), or the cluster's shared memory, vertex
@@ -409,8 +502,9 @@ __device__ __forceinline__ void dyn_rows(const Args<T>& a, const V& v) {
 // PEN, + pn_j (pn_j . v_j); with DYN, + the dynamic rows' C^T of RD. The bands'
 // loads are issued kNb at a time, before their sums, which stay in band order;
 // the rest-ELL's in the parent's loop, in column order.
-template <typename T, bool PEN, typename V, bool DYN = false>
-__device__ __forceinline__ void spmv(const Args<T>& a, const V& v, int j, T out[3]) {
+template <typename T, bool PEN, typename V, bool DYN = false, typename S>
+__device__ __forceinline__ void spmv(const Args<T>& a, const S& sc, const V& v, int j,
+                                     T out[3]) {
   const int n = a.n;
   T acc0 = T(0), acc1 = T(0), acc2 = T(0);
   for (int d0 = 0; d0 < a.n_bands; d0 += kNb) {
@@ -427,7 +521,7 @@ __device__ __forceinline__ void spmv(const Args<T>& a, const V& v, int j, T out[
         else
           ok[i] = q >= 0 && q < n;
         if (ok[i]) {
-          bd[i] = __ldg(a.bands + (int64_t)d * n + j);
+          bd[i] = sc.scaled(__ldg(a.bands + (int64_t)d * n + j));
           v.load3(q, x[i]);
         }
       }
@@ -444,14 +538,14 @@ __device__ __forceinline__ void spmv(const Args<T>& a, const V& v, int j, T out[
 #pragma unroll 4
   for (int k = 0; k < a.k_rest; ++k) {
     const int64_t e = (int64_t)k * n + j;
-    const T val = __ldg(a.rest_vals + e);
+    const T val = sc.scaled(__ldg(a.rest_vals + e));
     T x[3];
     v.load3(__ldg(a.rest_cols + e), x);
     acc0 += val * x[0];
     acc1 += val * x[1];
     acc2 += val * x[2];
   }
-  const T dj = __ldg(a.diag + j);
+  const T dj = __ldg(sc.diag() + j);
   T xj[3];
   v.load3(j, xj);
   out[0] = dj * xj[0] + acc0;
@@ -459,7 +553,8 @@ __device__ __forceinline__ void spmv(const Args<T>& a, const V& v, int j, T out[
   out[2] = dj * xj[2] + acc2;
   if constexpr (PEN) {
     const int64_t vj = (int64_t)j * 3;
-    const T p0 = __ldg(a.pn + vj), p1 = __ldg(a.pn + vj + 1), p2 = __ldg(a.pn + vj + 2);
+    const T* pn = sc.pn();
+    const T p0 = __ldg(pn + vj), p1 = __ldg(pn + vj + 1), p2 = __ldg(pn + vj + 2);
     const T cx = p0 * xj[0] + p1 * xj[1] + p2 * xj[2];
     out[0] += p0 * cx;
     out[1] += p1 * cx;
@@ -481,13 +576,13 @@ __device__ __forceinline__ void spmv(const Args<T>& a, const V& v, int j, T out[
 
 // The Jacobi inverse of vertex j per component: 1 / diag, or with PEN the
 // wrapper's 1 / (diag + pn^2).
-template <typename T, bool PEN>
-__device__ __forceinline__ void inv_of(const Args<T>& a, int j, T id[3]) {
+template <typename T, bool PEN, typename S>
+__device__ __forceinline__ void inv_of(const S& sc, int j, T id[3]) {
   if constexpr (PEN) {
 #pragma unroll
-    for (int r = 0; r < 3; ++r) id[r] = __ldg(a.inv3 + j * 3 + r);
+    for (int r = 0; r < 3; ++r) id[r] = __ldg(sc.inv3() + j * 3 + r);
   } else {
-    const T d = __ldg(a.inv_d + j);
+    const T d = __ldg(sc.inv_d() + j);
 #pragma unroll
     for (int r = 0; r < 3; ++r) id[r] = d;
   }
@@ -496,8 +591,8 @@ __device__ __forceinline__ void inv_of(const Args<T>& a, int j, T id[3]) {
 // The chunks of this thread's group: a GRID block walks chunk b, b + grid,
 // ...; a CLUSTER block holds its span's chunks at once, one pass.
 #define FOR_CHUNKS(c, j)                                                                \
-  for (int c##0 = blockIdx.x * (blockDim.x / kGroup); c##0 < a.n_chunks;                \
-       c##0 += gridDim.x * (blockDim.x / kGroup))                                       \
+  for (int c##0 = blk<CL>() * (blockDim.x / kGroup); c##0 < a.n_chunks;                 \
+       c##0 += nblk<CL>() * (blockDim.x / kGroup))                                      \
     for (int c = c##0 + static_cast<int>(threadIdx.x / kGroup),                         \
              j = c * kGroup + static_cast<int>(threadIdx.x % kGroup), c##_once = 1;     \
          c##_once; c##_once = 0)
@@ -505,8 +600,8 @@ __device__ __forceinline__ void inv_of(const Args<T>& a, int j, T id[3]) {
 // The two-grid V-cycle after z = omega d^-1 r is in V_Z (and a barrier): the
 // coarse correction and the second smoothing leave M^-1 r in V_ZS and the
 // partials of r.z and r.r in their slots, then a barrier.
-template <typename T, bool PEN, bool CL>
-__device__ void two_grid(const Args<T>& a, const Mem<T, CL>& m, T* sm) {
+template <typename T, bool PEN, bool CL, typename S>
+__device__ void two_grid(const Args<T>& a, const S& sc, const Mem<T, CL>& m, T* sm) {
   const int n = a.n;
   const T omega = a.omega;
   T* const R = m.base(V_R);
@@ -516,7 +611,7 @@ __device__ void two_grid(const Args<T>& a, const Mem<T, CL>& m, T* sm) {
   FOR_CHUNKS(c, j) {  // res = r - A z
     if (kRows && j < n) {
       T az[3];
-      spmv<T, PEN>(a, Vx<T, CL>{m, Z}, j, az);
+      spmv<T, PEN>(a, sc, Vx<T, CL>{m, Z}, j, az);
 #pragma unroll
       for (int r = 0; r < 3; ++r) m.st(RES, j, r, m.own(R, j, r) - az[r]);
     }
@@ -525,7 +620,7 @@ __device__ void two_grid(const Args<T>& a, const Mem<T, CL>& m, T* sm) {
   // rc = P^T res, in table order: a warp per coarse row, its lanes load the
   // row's entries together, lane 0's order sums them
   const int lane = threadIdx.x & 31;
-  const int wid = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, nw = (gridDim.x * blockDim.x) >> 5;
+  const int wid = (blk<CL>() * blockDim.x + threadIdx.x) >> 5, nw = (nblk<CL>() * blockDim.x) >> 5;
   for (int c = wid; kRows && c < a.n_coarse; c += nw) {
     T acc[3] = {T(0), T(0), T(0)};
     for (int e0 = 0; e0 < a.k_agg; e0 += 32) {
@@ -586,8 +681,8 @@ __device__ void two_grid(const Args<T>& a, const Mem<T, CL>& m, T* sm) {
     T v[2] = {T(0), T(0)};
     if (kRows && j < n) {
       T az[3], id[3], zj[3];
-      spmv<T, PEN>(a, z2, j, az);
-      inv_of<T, PEN>(a, j, id);
+      spmv<T, PEN>(a, sc, z2, j, az);
+      inv_of<T, PEN>(sc, j, id);
       z2.load3(j, zj);
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
@@ -605,10 +700,11 @@ __device__ void two_grid(const Args<T>& a, const Mem<T, CL>& m, T* sm) {
 }
 
 // GRID: two blocks an SM, so that the resident grid reaches 264 chunks
-template <typename T, bool PEN, bool CL, bool DYN>
+template <typename T, bool PEN, bool CL, bool DYN, bool SCN = false>
 __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
     pcg_kernel(const __grid_constant__ Args<T> a) {
   static_assert(PEN || !DYN, "DYN is a penalty form");
+  static_assert(!(DYN && SCN), "the scene form has no DYN");
   __shared__ T sm[kMaxWarps * 3];
   __shared__ T smt[kGroupWarps * 3];
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -619,7 +715,8 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
   m.g = a.vec;
   m.shift = a.shift;
   m.n_chunks = a.n_chunks;
-  m.rank = blockIdx.x;
+  m.rank = blk<CL>();
+  const auto sc = scene_args<T, SCN, CL>(a);
   if constexpr (CL) {
     m.sm = reinterpret_cast<T*>(dyn);
     m.parts = m.sm + ((size_t)kVecs << a.shift) * 3;
@@ -638,7 +735,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
     FOR_CHUNKS(c, j) {
       if (kRows && j < n)
 #pragma unroll
-        for (int r = 0; r < 3; ++r) a.x_out[j * 3 + r] = a.x0[j * 3 + r];
+        for (int r = 0; r < 3; ++r) sc.x_out()[j * 3 + r] = sc.x0()[j * 3 + r];
     }
     return;
   }
@@ -649,7 +746,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
     FOR_CHUNKS(c, j) {
       if (kRows && j < n)
 #pragma unroll
-        for (int r = 0; r < 3; ++r) m.st(X, j, r, a.x0[a.perm[j] * 3 + r]);
+        for (int r = 0; r < 3; ++r) m.st(X, j, r, sc.x0()[a.perm[j] * 3 + r]);
     }
     phase_sync<CL>(a.bar);
   }
@@ -657,7 +754,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
     if (a.perm)
       dyn_rows(a, Vx<T, CL>{m, X});
     else
-      dyn_rows(a, In<T>{a.x0});
+      dyn_rows(a, In<T>{sc.x0()});
     phase_sync<CL>(a.bar);
   }
   {
@@ -668,16 +765,16 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
         const int64_t src = a.perm ? a.perm[j] : j;
         T ax[3], id[3];
         if (a.perm) {
-          spmv<T, PEN, Vx<T, CL>, DYN>(a, Vx<T, CL>{m, X}, j, ax);
+          spmv<T, PEN, Vx<T, CL>, DYN>(a, sc, Vx<T, CL>{m, X}, j, ax);
         } else {
-          spmv<T, PEN, In<T>, DYN>(a, In<T>{a.x0}, j, ax);
+          spmv<T, PEN, In<T>, DYN>(a, sc, In<T>{sc.x0()}, j, ax);
 #pragma unroll
-          for (int r = 0; r < 3; ++r) m.st(X, j, r, a.x0[j * 3 + r]);
+          for (int r = 0; r < 3; ++r) m.st(X, j, r, sc.x0()[j * 3 + r]);
         }
-        inv_of<T, PEN>(a, j, id);
+        inv_of<T, PEN>(sc, j, id);
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
-          const T bj = a.b[src * 3 + r];
+          const T bj = sc.b()[src * 3 + r];
           const T rr = bj - ax[r];
           m.st(R, j, r, rr);
           if (two) {
@@ -695,7 +792,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
     }
     phase_sync<CL>(a.bar);
   }
-  if (two) two_grid<T, PEN, CL>(a, m, sm);
+  if (two) two_grid<T, PEN, CL>(a, sc, m, sm);
   T* const zfin = two ? m.base(V_ZS) : Z;  // M^-1 r, which the apply reads
   T t0[3];
   {
@@ -723,7 +820,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
         T v[1] = {T(0)};
         if (kRows && j < n) {
           T ap[3], pj[3];
-          spmv<T, PEN, PVec<T, CL>, DYN>(a, pv, j, ap);
+          spmv<T, PEN, PVec<T, CL>, DYN>(a, sc, pv, j, ap);
           pv.load3(j, pj);
 #pragma unroll
           for (int r = 0; r < 3; ++r) {
@@ -749,7 +846,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
         T v[2] = {T(0), T(0)};
         if (kRows && j < n) {
           T id[3];
-          inv_of<T, PEN>(a, j, id);
+          inv_of<T, PEN>(sc, j, id);
 #pragma unroll
           for (int r = 0; r < 3; ++r) {
             const T p = m.own(p_new, j, r);  // this thread's own, from the phase above
@@ -770,7 +867,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
       }
     }
     phase_sync<CL>(a.bar);
-    if (two) two_grid<T, PEN, CL>(a, m, sm);
+    if (two) two_grid<T, PEN, CL>(a, sc, m, sm);
     T t[2];
     {
       const int slots[2] = {S_RZ, S_RR};
@@ -788,10 +885,10 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
     if (kRows && j < n) {
       const int64_t dst = a.perm ? a.perm[j] : j;
 #pragma unroll
-      for (int r = 0; r < 3; ++r) a.x_out[dst * 3 + r] = m.own(X, j, r);
+      for (int r = 0; r < 3; ++r) sc.x_out()[dst * 3 + r] = m.own(X, j, r);
     }
   }
-  if (a.trips != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *a.trips += k;
+  if (sc.trips() != nullptr && m.rank == 0 && threadIdx.x == 0) *sc.trips() += k;
   if constexpr (CL) cg::this_cluster().sync();  // no block leaves while another reads its memory
 }
 
@@ -799,7 +896,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
 
 // The resident grid of the GRID form: as many blocks as can be resident at
 // once.
-template <typename T, bool PEN, bool DYN>
+template <typename T, bool PEN, bool DYN, bool SCN = false>
 int resident_blocks(int* resident) {
   static int cached = 0;  // per precision and form, for the current device
   if (cached == 0) {
@@ -807,8 +904,8 @@ int resident_blocks(int* resident) {
     cudaError_t rc = cudaGetDevice(&dev);
     if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_kernel<T, PEN, false, DYN>,
-                                                         kGroup, 0);
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pcg_kernel<T, PEN, false, DYN, SCN>, kGroup, 0);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     cached = per_sm * sms;
@@ -827,10 +924,11 @@ __global__ void cluster_barrier_kernel(int iters) {
   for (int i = 0; i < iters; ++i) cg::this_cluster().sync();
 }
 
+// clusters of `cluster` blocks, `clusters` of them in the grid
 cudaLaunchConfig_t cluster_config(int cluster, int threads, int smem, cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
+                                  cudaLaunchAttribute* attr, int clusters = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
+  cfg.gridDim = dim3(cluster * clusters);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -867,15 +965,16 @@ int cluster_smem(int shift) {
   return static_cast<int>((((size_t)kVecs << shift) * 3 + kSlots * (1 << (shift - 8))) * sizeof(T));
 }
 
-template <typename T, bool PEN, bool DYN>
-cudaError_t launch_cluster(const Args<T>& a, int cluster, cudaStream_t stream) {
+template <typename T, bool PEN, bool DYN, bool SCN = false>
+cudaError_t launch_cluster(const Args<T>& a, int cluster, int scenes, cudaStream_t stream) {
   static int granted = -1;  // per precision and form
   const int smem = cluster_smem<T>(a.shift);
-  cudaError_t rc = allow_cluster(pcg_kernel<T, PEN, true, DYN>, smem, &granted);
+  cudaError_t rc = allow_cluster(pcg_kernel<T, PEN, true, DYN, SCN>, smem, &granted);
   if (rc != cudaSuccess) return rc;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(cluster, 1 << a.shift, smem, stream, &attr);
-  return cudaLaunchKernelEx(&cfg, pcg_kernel<T, PEN, true, DYN>, a);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(cluster, 1 << a.shift, smem, stream, &attr, scenes);
+  return cudaLaunchKernelEx(&cfg, pcg_kernel<T, PEN, true, DYN, SCN>, a);
 }
 
 // ptrs: b, x0, x_out, perm, diag, inv_d, bands, rest_cols, rest_vals, agg,
@@ -883,10 +982,12 @@ cudaError_t launch_cluster(const Args<T>& a, int cluster, cudaStream_t stream) {
 // trips, pn, inv3, done (null where absent; pn and inv3 both or neither: the
 // penalty form), then the DYN form's (null without dynamic rows): mask, vidx,
 // face, barys, normal, ck, order, start, slot (null: the query set is every
-// vertex), iperm (null: no permutation), RD; ints: n, k_rest, n_bands, circular, k_agg, n_coarse,
-// max_iters, grid cap (GRID, 0: the resident grid; tools/g_h_anatomy.py),
-// form (0 GRID, 1 CLUSTER), cluster blocks, log2 of a cluster block's
-// threads, the dynamic rows' H; offs: the band offsets.
+// vertex), iperm (null: no permutation), RD, then scale ([S] or null); ints: n, k_rest, n_bands,
+// circular, k_agg, n_coarse, max_iters, grid cap (GRID, 0: the resident grid;
+// tools/g_h_anatomy.py), form (0 GRID, 1 CLUSTER), cluster blocks, log2 of a
+// cluster block's threads, the dynamic rows' H, the scenes S (CLUSTER; 1 for
+// GRID); offs: the band offsets. With S scenes b, x0, x_out, pn and inv3 are
+// [S, N, 3], diag and inv_d [S, N], trips [S].
 template <typename T>
 int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, double omega,
            void* stream) {
@@ -925,7 +1026,9 @@ int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, d
   a.dyn.slot = reinterpret_cast<const int*>(ptrs[36]);
   a.iperm = reinterpret_cast<const int64_t*>(ptrs[37]);
   a.RD = reinterpret_cast<T*>(ptrs[38]);
+  a.scale = reinterpret_cast<const T*>(ptrs[39]);
   a.dyn.h = ints[11];
+  const int scenes = ints[12];
   const bool dyn = a.dyn.mask != nullptr;
   if (dyn && (a.pn == nullptr || a.agg != nullptr || a.RD == nullptr || a.dyn.ck == nullptr ||
               a.dyn.order == nullptr || a.dyn.start == nullptr ||
@@ -942,7 +1045,12 @@ int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, d
   a.shift = ints[10];
   a.tol = T(tol);
   a.omega = T(omega);
-  if (a.n <= 0) return 0;
+  if (a.n <= 0 || scenes == 0) return 0;
+  // the scene form: scale given (one scene a launch in GRID, any number in CLUSTER)
+  const bool scn = a.scale != nullptr;
+  if (scenes < 0 || (scenes > 1 && (ints[8] != 1 || !scn)) ||
+      (scn && (dyn || a.done != nullptr || a.agg != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_bands < 0 || a.n_bands > kMaxBands) return static_cast<int>(cudaErrorInvalidValue);
   for (int d = 0; d < kMaxBands; ++d) a.offs[d] = d < a.n_bands ? offs[d] : 0;
   a.n_chunks = (a.n + kGroup - 1) / kGroup;
@@ -953,20 +1061,27 @@ int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, d
     if (a.shift < 8 || (1 << a.shift) > kClusterThreads || cluster < 1 ||
         cluster > kMaxCluster || ((int64_t)cluster << a.shift) < a.n)
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(dyn ? launch_cluster<T, true, true>(a, cluster, s)
-                            : pen ? launch_cluster<T, true, false>(a, cluster, s)
-                                  : launch_cluster<T, false, false>(a, cluster, s));
+    if (scn)
+      return static_cast<int>(pen ? launch_cluster<T, true, false, true>(a, cluster, scenes, s)
+                                  : launch_cluster<T, false, false, true>(a, cluster, scenes, s));
+    return static_cast<int>(dyn ? launch_cluster<T, true, true>(a, cluster, scenes, s)
+                            : pen ? launch_cluster<T, true, false>(a, cluster, scenes, s)
+                                  : launch_cluster<T, false, false>(a, cluster, scenes, s));
   }
   a.shift = 0;
   int grid = 0;
-  const int rc = dyn   ? resident_blocks<T, true, true>(&grid)
+  const int rc = scn   ? (pen ? resident_blocks<T, true, false, true>(&grid)
+                              : resident_blocks<T, false, false, true>(&grid))
+                 : dyn ? resident_blocks<T, true, true>(&grid)
                  : pen ? resident_blocks<T, true, false>(&grid)
                        : resident_blocks<T, false, false>(&grid);
   if (rc != 0) return rc;
   if (a.n_chunks < grid) grid = a.n_chunks;
   if (cap > 0 && cap < grid) grid = cap;  // a smaller grid (tools/g_h_anatomy.py)
   void* params[] = {&a};
-  void* fn = dyn   ? reinterpret_cast<void*>(pcg_kernel<T, true, false, true>)
+  void* fn = scn   ? (pen ? reinterpret_cast<void*>(pcg_kernel<T, true, false, false, true>)
+                          : reinterpret_cast<void*>(pcg_kernel<T, false, false, false, true>))
+             : dyn ? reinterpret_cast<void*>(pcg_kernel<T, true, false, true>)
              : pen ? reinterpret_cast<void*>(pcg_kernel<T, true, false, false>)
                    : reinterpret_cast<void*>(pcg_kernel<T, false, false, false>);
   return static_cast<int>(cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kGroup), params, 0, s));

@@ -475,18 +475,16 @@ __device__ void prox_linear(const T* f, int sweeps, T* z) {
 // z is [n, 3, 3] row-major and uo is not touched. Every entry that has a
 // lane's v ends here: the rows and [T,3,3] entries below, and the entry of
 // local_step.cu that computes D x itself.
+// tet_lane_prox_mat takes the lane's material m (unread by the linear model);
+// tet_lane_prox reads it at t.
 template <typename T, int MODEL, bool ROWS>
-__device__ __forceinline__ void tet_lane_prox(const T* v, const T* __restrict__ mu,
-                                              const T* __restrict__ lam,
-                                              const T* __restrict__ kappa,
-                                              const T* __restrict__ k, T* __restrict__ z,
-                                              T* __restrict__ uo, int n, int t, int n_iters,
-                                              int sweeps) {
+__device__ __forceinline__ void tet_lane_prox_mat(const T* v, const Mat<T>& m,
+                                                  T* __restrict__ z, T* __restrict__ uo, int n,
+                                                  int t, int n_iters, int sweeps) {
   T zz[9];
   if constexpr (MODEL == LINEAR) {
     prox_linear(v, sweeps, zz);
   } else {
-    const Mat<T> m = {mu[t], lam[t], kappa[t], k[t]};
     prox_hyper<T, MODEL>(v, m, n_iters, sweeps, zz);
   }
 #pragma unroll
@@ -498,6 +496,18 @@ __device__ __forceinline__ void tet_lane_prox(const T* v, const T* __restrict__ 
       z[(int64_t)9 * t + i] = zz[i];
     }
   }
+}
+
+template <typename T, int MODEL, bool ROWS>
+__device__ __forceinline__ void tet_lane_prox(const T* v, const T* __restrict__ mu,
+                                              const T* __restrict__ lam,
+                                              const T* __restrict__ kappa,
+                                              const T* __restrict__ k, T* __restrict__ z,
+                                              T* __restrict__ uo, int n, int t, int n_iters,
+                                              int sweeps) {
+  Mat<T> m = {T(0), T(0), T(0), T(0)};
+  if constexpr (MODEL != LINEAR) m = {mu[t], lam[t], kappa[t], k[t]};
+  tet_lane_prox_mat<T, MODEL, ROWS>(v, m, z, uo, n, t, n_iters, sweeps);
 }
 
 // One thread per lane t < n. ROWS: in, u, z, uo are SoA rows [9, n] (thread t

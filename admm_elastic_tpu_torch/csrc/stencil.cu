@@ -69,6 +69,14 @@
 //   warps are resident.
 // On an H100 at the bench size, f32, the tiled branch takes 2.8 us of device
 // time at a tile of 32, the wide branch 17.8, an empty launch 0.9.
+//
+// C has a scene form (scenario batching, admm_elastic_tpu_torch/parallel/
+// batch.py): S scenes of one lattice, z and u [S, 9, T], out [S, N, 3], the
+// scenes on the grid's y axis. Scene i's weight is w sqrt(s_i) (sq [S] holds
+// the square roots, taken by the wrapper) and its W^2 that weight squared,
+// (w sqrt(s_i)) (w sqrt(s_i)), each product rounded on its own, as the plain
+// version forms it from parallel/batch._scale_system's weights; so scene i's
+// rows are, bit for bit, the single-scene kernel's on its scaled weights.
 
 #include "stencil_body.cuh"
 
@@ -103,12 +111,14 @@ __global__ void __launch_bounds__(64) tet_dx_kernel(
 }
 
 // g = w^2 (z - u) of tet (slot s, cell p), 19 independent loads.
-template <typename T>
+template <typename T, bool SCN>
 __device__ __forceinline__ void rhs_g(const T* __restrict__ z, const T* __restrict__ u,
-                                      const T* __restrict__ w, int cells, int s, int p, T g[9]) {
+                                      const T* __restrict__ w, const T* __restrict__ sq,
+                                      int cells, int s, int p, T g[9]) {
   const int64_t row = (int64_t)5 * cells;
   const int64_t t = (int64_t)s * cells + p;
-  const T wt = w[t];
+  T wt = w[t];
+  if constexpr (SCN) wt = mul_rn(wt, *sq);
   T zz[9], uu[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
@@ -150,12 +160,21 @@ constexpr int kRhsMaxBlock = 640;
 // (q0 - halo): 60 rows of contributions sm[(sj * 3 + r) * width + col], one
 // row of parities par[p], then the tile's 8 corner-id sums acc[(cid * tile +
 // vertex) * 3 + r].
-template <typename T>
+// SCN: the scene form (see the header), an instantiation of its own.
+template <typename T, bool SCN>
 __global__ void __launch_bounds__(kRhsMaxBlock) tet_rhs_tiled_kernel(
     const T* __restrict__ z, const T* __restrict__ u, const T* __restrict__ w,
-    const T* __restrict__ dl, const T* __restrict__ par, T* __restrict__ out, int n_verts,
-    int base, int n_vblock, int cells, int tile, int halo, Match m) {
+    const T* __restrict__ sq, const T* __restrict__ dl, const T* __restrict__ par,
+    T* __restrict__ out, int n_verts, int base, int n_vblock, int cells, int tile, int halo,
+    Match m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (SCN) {  // scene blockIdx.y
+    const int64_t rows = (int64_t)blockIdx.y * 45 * cells;
+    z += rows;
+    u += rows;
+    out += (int64_t)blockIdx.y * n_verts * 3;
+    sq += blockIdx.y;
+  }
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int width = tile + halo;
   T* sm_par = sm + 60 * width;
@@ -174,7 +193,7 @@ __global__ void __launch_bounds__(kRhsMaxBlock) tet_rhs_tiled_kernel(
 #pragma unroll
     for (int k = 0; k < 12; ++k) d[k] = dl[((int64_t)s * 12 + k) * cells + p];
     if (s == 0) sm_par[col] = par[p];
-    rhs_g(z, u, w, cells, s, p, g);
+    rhs_g<T, SCN>(z, u, w, sq, cells, s, p, g);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       T c[3];
@@ -232,11 +251,18 @@ __global__ void __launch_bounds__(kRhsMaxBlock) tet_rhs_tiled_kernel(
 }
 
 // Wide branch: a thread per output vertex, every operand from global memory.
-template <typename T>
+template <typename T, bool SCN>
 __global__ void __launch_bounds__(64) tet_rhs_wide_kernel(
     const T* __restrict__ z, const T* __restrict__ u, const T* __restrict__ w,
-    const T* __restrict__ dl, const T* __restrict__ par, T* __restrict__ out, int n_verts,
-    int base, int n_vblock, int cells, Match m) {
+    const T* __restrict__ sq, const T* __restrict__ dl, const T* __restrict__ par,
+    T* __restrict__ out, int n_verts, int base, int n_vblock, int cells, Match m) {
+  if constexpr (SCN) {  // scene blockIdx.y
+    const int64_t rows = (int64_t)blockIdx.y * 45 * cells;
+    z += rows;
+    u += rows;
+    out += (int64_t)blockIdx.y * n_verts * 3;
+    sq += blockIdx.y;
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_verts) return;
   const int q = i - base;
@@ -258,7 +284,7 @@ __global__ void __launch_bounds__(64) tet_rhs_wide_kernel(
         const T* d = dl + (int64_t)sj * 3 * cells + p;
         const T d0 = d[0], d1 = d[cells], d2 = d[(int64_t)2 * cells];
         T g[9], c[3];
-        rhs_g(z, u, w, cells, sj >> 2, p, g);
+        rhs_g<T, SCN>(z, u, w, sq, cells, sj >> 2, p, g);
         rhs_corner(g, d0, d1, d2, c);
 #pragma unroll
         for (int r = 0; r < 3; ++r) acc[r] = rhs_add(e == e0, acc[r], kind, pr, inv, c[r]);
@@ -301,32 +327,34 @@ int launch_dx(const T* x, const T* dl, const T* par, const T* dead, T* out, int 
 // memory has to be granted to the kernel first: once per precision and
 // size, so that a launch captured into a CUDA graph (after an uncaptured
 // one of the same size) sets no attribute.
-template <typename T>
+// SCN: the scene form, sq the scenes' [S] square roots of their scales
+template <typename T, bool SCN = false>
 int launch_rhs(const T* z, const T* u, const T* w, const T* dl, const T* par, T* out,
                int n_verts, int base, int n_vblock, int cells, const int* match, int tile,
-               int halo, void* stream) {
-  if (n_verts <= 0) return 0;
+               int halo, void* stream, const T* sq = nullptr, int scenes = 1) {
+  if (n_verts <= 0 || scenes <= 0) return 0;
+  if (scenes > 65535 || (SCN && sq == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const Match m = make_match(match);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tile == 0) {
     const int block = 64;
-    tet_rhs_wide_kernel<T><<<(n_verts + block - 1) / block, block, 0, st>>>(
-        z, u, w, dl, par, out, n_verts, base, n_vblock, cells, m);
+    tet_rhs_wide_kernel<T, SCN><<<dim3((n_verts + block - 1) / block, scenes), block, 0, st>>>(
+        z, u, w, sq, dl, par, out, n_verts, base, n_vblock, cells, m);
     return static_cast<int>(cudaGetLastError());
   }
   if (tile < 0 || tile > 256 || halo < 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = ((size_t)61 * (tile + halo) + 24 * tile) * sizeof(T);
-  static size_t granted = 48 * 1024;  // one per precision
+  static size_t granted = 48 * 1024;  // one per precision and form
   if (bytes > granted) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        tet_rhs_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        tet_rhs_tiled_kernel<T, SCN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     granted = bytes;
   }
   const int items = 5 * (tile + halo);
   const int block = items < kRhsMaxBlock ? (items + 31) / 32 * 32 : kRhsMaxBlock;
-  tet_rhs_tiled_kernel<T><<<(n_verts + tile - 1) / tile, block, bytes, st>>>(
-      z, u, w, dl, par, out, n_verts, base, n_vblock, cells, tile, halo, m);
+  tet_rhs_tiled_kernel<T, SCN><<<dim3((n_verts + tile - 1) / tile, scenes), block, bytes, st>>>(
+      z, u, w, sq, dl, par, out, n_verts, base, n_vblock, cells, tile, halo, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -364,6 +392,25 @@ extern "C" int admm_tet_rhs_f64(const double* z, const double* u, const double* 
                                 const int* match, int tile, int halo, void* stream) {
   return launch_rhs<double>(z, u, w, dl, par, out, n_verts, base, n_vblock, cells, match, tile,
                             halo, stream);
+}
+
+// The scene form: z, u [scenes, 9, 5 cells], out [scenes, n_verts, 3], sq [scenes].
+extern "C" int admm_tet_rhs_scenes_f32(const float* z, const float* u, const float* w,
+                                       const float* sq, const float* dl, const float* par,
+                                       float* out, int n_verts, int base, int n_vblock,
+                                       int cells, int scenes, const int* match, int tile,
+                                       int halo, void* stream) {
+  return launch_rhs<float, true>(z, u, w, dl, par, out, n_verts, base, n_vblock, cells, match,
+                                 tile, halo, stream, sq, scenes);
+}
+
+extern "C" int admm_tet_rhs_scenes_f64(const double* z, const double* u, const double* w,
+                                       const double* sq, const double* dl, const double* par,
+                                       double* out, int n_verts, int base, int n_vblock,
+                                       int cells, int scenes, const int* match, int tile,
+                                       int halo, void* stream) {
+  return launch_rhs<double, true>(z, u, w, dl, par, out, n_verts, base, n_vblock, cells, match,
+                                  tile, halo, stream, sq, scenes);
 }
 
 extern "C" int admm_empty_launch(void* stream) {

@@ -40,6 +40,13 @@
 // D x (about ten small PyTorch launches an iteration: pad, stack, product,
 // adds, a permuting copy) and its rows in global memory out of the step.
 //
+// Scenes (scenario batching, admm_elastic_tpu_torch/parallel/batch.py): the
+// stencil entry has a scene form over S scenes of one sheet, x [S, N, 3] and
+// rows [S, 6, T], one thread a lane of S * T, lane l of scene l / T and
+// element l % T. No per-scene parameter enters the cloth prox, so scene i's z
+// and u' are the single-scene entry's on scene i's x; a batch of gather
+// families runs the rows entry as it is, on the S * T lanes.
+//
 // Built once per precision (-DADMM_REAL=float -DADMM_SFX=f32, or double /
 // f64), without --use_fast_math.
 
@@ -195,6 +202,45 @@ __global__ void __launch_bounds__(64) tri_local_step_stencil_kernel(
 
 #define ADMM_CAT2(a, b) a##_##b
 #define ADMM_CAT(a, b) ADMM_CAT2(a, b)
+
+namespace {
+
+// The stencil entry over S scenes: x [S, n_verts, 3], u, z, uo [S, 6, n].
+template <typename T>
+__global__ void __launch_bounds__(64) tri_local_step_stencil_scenes_kernel(
+    const T* __restrict__ x, const T* __restrict__ dl, const T* __restrict__ dead,
+    const T* __restrict__ u, const T* __restrict__ limit_min, const T* __restrict__ limit_max,
+    T* __restrict__ z, T* __restrict__ uo, int base, int cells, int n, int n_verts, int scenes,
+    const __grid_constant__ TriGeom g) {
+  const int64_t l = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= (int64_t)scenes * n) return;
+  const int sc = static_cast<int>(l / n), t = static_cast<int>(l - (int64_t)sc * n);
+  const int s = t / cells, p = t - s * cells;
+  const int64_t off = (int64_t)sc * 6 * n;
+  T v[6];
+  tri_dx_lane(x + (int64_t)sc * n_verts * 3, dl, dead, base, cells, s, p, g, v);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) v[i] = v[i] + u[off + (int64_t)i * n + t];
+  tri_lane_step(v, limit_min, limit_max, z + off, uo + off, n, t);
+}
+
+}  // namespace
+
+extern "C" int ADMM_CAT(admm_tri_local_step_stencil_scenes, ADMM_SFX)(
+    const ADMM_REAL* x, const ADMM_REAL* dl, const ADMM_REAL* dead, const ADMM_REAL* u,
+    const ADMM_REAL* limit_min, const ADMM_REAL* limit_max, ADMM_REAL* z, ADMM_REAL* uo,
+    int base, int cells, int n_slots, int n_verts, int scenes, const int* geom, void* stream) {
+  if (cells <= 0 || scenes <= 0) return 0;
+  if (n_slots < 1 || n_slots > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = n_slots * cells;
+  const int64_t lanes = (int64_t)scenes * n;
+  const int block = 64;
+  tri_local_step_stencil_scenes_kernel<ADMM_REAL>
+      <<<(unsigned)((lanes + block - 1) / block), block, 0, static_cast<cudaStream_t>(stream)>>>(
+          x, dl, dead, u, limit_min, limit_max, z, uo, base, cells, n, n_verts, scenes,
+          make_tri_geom(geom));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int ADMM_CAT(admm_tri_local_step, ADMM_SFX)(
     const ADMM_REAL* dix, const ADMM_REAL* u, const ADMM_REAL* limit_min,

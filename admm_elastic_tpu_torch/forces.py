@@ -39,7 +39,8 @@ from admm_elastic_tpu_torch.ops import cuda_wind
 
 
 class ExplicitForce:
-    """Interface: project(dt, x, v, m) -> new v."""
+    """Interface: project(dt, x, v, m) -> new v (x, v [N, 3]; the batched
+    and coloured wind also [S, N, 3], a scenario batch's scenes at once)."""
 
     def project(self, dt, x, v, m):
         raise NotImplementedError
@@ -97,22 +98,26 @@ class WindForce(ExplicitForce):
         if self.sequential:
             return cuda_wind.wind_seq(self.tris, self.direction, self.alpha_n, dt, x, v,
                                       self.schedule)
+        lead = v.shape[:-2]  # a scenario batch's scene axis, or none
+
+        def kicks(force):  # [..., L, 3] -> [..., 3 L, 3]
+            return force[..., None, :].expand(force.shape[:-1] + (3, 3)).reshape(lead + (-1, 3))
+
         if self.vert_slots is None:
             for tri in self.color_verts:  # [L_c, 3], vertex-disjoint
-                force = self._tri_force(dt, x[tri], v[tri])
+                force = self._tri_force(dt, x[..., tri, :], v[..., tri, :])
                 flat = tri.reshape(-1)
-                kick = force[:, None, :].expand(-1, 3, -1).reshape(-1, 3)
-                v = v.index_copy(0, flat, v[flat] + kick)
+                v = v.index_copy(-2, flat, v[..., flat, :] + kicks(force))
             return v
-        force = self._tri_force(dt, x[self.tris], v[self.tris])  # [W, 3]
+        force = self._tri_force(dt, x[..., self.tris, :], v[..., self.tris, :])  # [..., W, 3]
         # The same force goes to all three nodes (src/ExplicitForce.cpp:95-102).
-        kick = force[:, None, :].expand(-1, 3, -1).reshape(-1, 3)
-        kick = torch.cat([kick, kick.new_zeros((1, 3))], dim=0)
+        kick = kicks(force)
+        kick = torch.cat([kick, kick.new_zeros(lead + (1, 3))], dim=-2)
         rows = self.vert_slots.shape[0]
-        out = v[:rows]
+        out = v[..., :rows, :]
         for k in range(self.vert_slots.shape[1]):
-            out = out + kick[self.vert_slots[:, k]]
-        return torch.cat([out, v[rows:]], dim=0)
+            out = out + kick[..., self.vert_slots[:, k], :]
+        return torch.cat([out, v[..., rows:, :]], dim=-2)
 
 
 def _color_triangles(tris: np.ndarray):

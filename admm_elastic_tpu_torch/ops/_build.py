@@ -52,6 +52,11 @@ _SIGNATURES = {
     # x, dl, par, dead, u, mu, lam, kappa, k, z, uo, base, n_vblock, cells, geom, model,
     # n_iters, sweeps, stream
     "admm_local_step_stencil": [_P] * 11 + [_I, _I, _I, _P, _I, _I, _I, _P],
+    # dix, u, mu, lam, kappa, scale, z, uo, n, scenes, model, n_iters, sweeps, stream
+    "admm_local_step_scenes": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
+    # x, dl, par, dead, u, mu, lam, kappa, scale, z, uo, base, n_vblock, cells, n_verts,
+    # scenes, geom, model, n_iters, sweeps, stream
+    "admm_local_step_stencil_scenes": [_P] * 11 + [_I] * 5 + [_P, _I, _I, _I, _P],
     # zi, mu, lam, kappa, k, out, n, model, n_iters, sweeps, stream
     "admm_prox_tet_hyper": [_P] * 6 + [_I, _I, _I, _I, _P],
     # zi, out, n, sweeps, stream
@@ -60,10 +65,16 @@ _SIGNATURES = {
     "admm_tri_local_step": [_P] * 6 + [_I, _P],
     # x, dl, dead, u, limit_min, limit_max, z, uo, base, cells, n_slots, geom, stream
     "admm_tri_local_step_stencil": [_P] * 8 + [_I, _I, _I, _P, _P],
+    # x, dl, dead, u, limit_min, limit_max, z, uo, base, cells, n_slots, n_verts, scenes,
+    # geom, stream
+    "admm_tri_local_step_stencil_scenes": [_P] * 8 + [_I] * 5 + [_P, _P],
     # x, dl, par, dead, out, base, n_vblock, cells, geom, stream
     "admm_tet_dx": [_P] * 5 + [_I, _I, _I, _P, _P],
     # z, u, w, dl, par, out, n_verts, base, n_vblock, cells, match, tile, halo, stream
     "admm_tet_rhs": [_P] * 6 + [_I, _I, _I, _I, _P, _I, _I, _P],
+    # z, u, w, sq, dl, par, out, n_verts, base, n_vblock, cells, scenes, match, tile, halo,
+    # stream
+    "admm_tet_rhs_scenes": [_P] * 7 + [_I] * 5 + [_P, _I, _I, _P],
     # ptrs, ints, offs, tol, omega, stream
     "admm_pcg_solve": [_P, _P, _P, _D, _D, _P],
     # n

@@ -30,6 +30,21 @@ the vectors in global memory, for any N. ``g_form`` chooses, by N, the dtype
 and the card's cluster and shared-memory budget; a caller may ask for one
 (``form=``), and a form that cannot take the shape raises.
 
+Scenes (scenario batching, ``parallel/batch.py``, in place of ``jax.vmap`` of
+the loop): ``pcg_solve_scenes(data, b, x0, tol, max_iters, trips, scale)``
+solves S systems A(s_i) x_i = b_i of one mesh (b, x0 [S, N, 3]; scale and
+trips [S]), each scene with its own exit, and ``pcg_solve_penalty_scenes``
+likewise in the penalty form (pn, pen_diag [S, N, 3]). Where ``g_form``
+chooses the CLUSTER form, that is one launch, one cluster a scene; where it
+chooses GRID (more than 11 blocks' worth of vertices, or a rest-ELL), one
+launch of the GRID form a scene, S launches in turn, each on scene i's
+inputs. Either way scene i's x and trips are, bit for bit, the single-scene
+solve's on ``scaled(data, s_i)``. Jacobi only: a two-grid PCGData raises
+ValueError. ``scaled_diag(data, scale)`` forms the scenes' diagonals and
+Jacobi inverses once (the batched step does so once a step). Their plain
+twins are ``solvers/pcg.solve_T_scenes`` and
+``solvers/alcg.penalty_solve_scenes``.
+
 The kernel works in the banded vertex order: where ``data`` carries an RCM
 permutation, ``plan_of`` keeps the diagonal, its inverse and the two-grid
 tables in that order (built once per ``PCGData`` on the device, before any
@@ -317,17 +332,114 @@ def _launch(data, b, x0, tol, max_iters, trips, penalty, done, lib=None, grid=0,
     out = torch.empty_like(b)
     ptrs = ([b, x0, out, plan.perm, plan.diag, plan.inv_d, plan.bands, plan.rest_cols,
              plan.rest_vals, plan.agg, plan.agg_gather, plan.coarse_inv] + list(plan.scratch)
-            + [plan.barrier, trips, pn, inv3, done] + dyn_ptrs)
+            + [plan.barrier, trips, pn, inv3, done] + dyn_ptrs + [None])
     ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[_ptr(t) for t in ptrs])
     kind, blocks, shift = form_of(data, b.dtype, form)
-    ints = (ctypes.c_int * 12)(*plan.ints, int(max_iters), int(grid), FORMS.index(kind), blocks,
-                               shift, h)
+    ints = (ctypes.c_int * 13)(*plan.ints, int(max_iters), int(grid), FORMS.index(kind), blocks,
+                               shift, h, 1)
     fn = getattr(lib or _build.library(), f"admm_pcg_solve_{sfx}")
     with torch.cuda.device(b.device):
         rc = fn(ptr_arr, ints, plan.offs, float(tol), OMEGA,
                 torch.cuda.current_stream(b.device).cuda_stream)
     _build.check(rc, "pcg_solve" if penalty is None else
                  "pcg_solve_penalty" if dyn is None else "pcg_solve_dyn")
+    return out
+
+
+def scaled(data: pcg_mod.PCGData, s) -> pcg_mod.PCGData:
+    """data scaled by one scene's stiffness scale s (a number or a 0-d
+    tensor): the ELL, the stiffness diagonal and the bands times s, the pins
+    not (the JAX package's batched step, admm_elastic_tpu/parallel/
+    batch.py:196-204)."""
+    return dataclasses.replace(
+        data, ell_vals=data.ell_vals * s, diag_stiff=data.diag_stiff * s,
+        bands=None if data.bands is None else data.bands * s)
+
+
+def scaled_diag(data: pcg_mod.PCGData, scale: torch.Tensor) -> tuple:
+    """The S scenes' diagonals mass + pin + s_i stiffness and their Jacobi
+    inverses ([S, N] each) in kernel G's banded order, as plan_of forms a
+    single scene's."""
+    diag = data.diag(scale)
+    inv_d = 1.0 / diag
+    if data.perm is not None:
+        diag, inv_d = diag[:, data.perm], inv_d[:, data.perm]
+    return diag.contiguous(), inv_d.contiguous()
+
+
+def pcg_solve_scenes(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, tol: float,
+                     max_iters: int, trips: torch.Tensor, scale: torch.Tensor,
+                     diag: Optional[tuple] = None, form: Optional[str] = None) -> torch.Tensor:
+    """S scenes' solves A(s_i) x_i = b_i from x0_i (b, x0 [S, N, 3]), each to
+    its own exit; scene i's trips added to trips[i] (int32 [S]). diag:
+    scaled_diag(data, scale), formed here where None. form: as pcg_solve's
+    (None: g_form's choice)."""
+    if b.device.type == "cpu":
+        x, k = pcg_mod.solve_T_scenes(lambda xT: data.apply_T(xT, scale),
+                                      data.precondition_T(scale), b, x0, tol, max_iters)
+        trips += k
+        return x
+    return _launch_scenes(pcg_solve_scenes, data, b, x0, tol, max_iters, trips, scale, diag,
+                          None, form)
+
+
+def pcg_solve_penalty_scenes(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor,
+                             tol: float, max_iters: int, trips: torch.Tensor,
+                             scale: torch.Tensor, pn: torch.Tensor, pen_diag: torch.Tensor,
+                             diag: Optional[tuple] = None,
+                             form: Optional[str] = None) -> torch.Tensor:
+    """pcg_solve_scenes on A(s_i) + pn_i pn_i^T with the Jacobi inverse
+    1 / (diag_i + pen_diag_i) per component (pn, pen_diag [S, N, 3])."""
+    if b.device.type == "cpu":
+        from admm_elastic_tpu_torch.solvers.alcg import penalty_solve_scenes
+
+        x, k = penalty_solve_scenes(data, pn, pen_diag, b, x0, tol, max_iters, scale)
+        trips += k
+        return x
+    return _launch_scenes(pcg_solve_penalty_scenes, data, b, x0, tol, max_iters, trips, scale,
+                          diag, (pn, pen_diag), form)
+
+
+def _launch_scenes(wrapper, data, b, x0, tol, max_iters, trips, scale, diag, penalty, form):
+    """Kernel G over S scenes: one CLUSTER launch, or one GRID launch a scene;
+    each launch adds one to wrapper.launches."""
+    if data.agg is not None:
+        raise ValueError(f"{wrapper.__name__}: the scene form takes the Jacobi preconditioner")
+    s_cnt, n = b.shape[0], data.n
+    fields = [("b", b, (s_cnt, n, 3)), ("x0", x0, (s_cnt, n, 3)),
+              ("scale", scale, (s_cnt,)), ("diag_mass", data.diag_mass, (n,))]
+    if penalty is not None:
+        fields += [("pn", penalty[0], (s_cnt, n, 3)), ("pen_diag", penalty[1], (s_cnt, n, 3))]
+    sfx = _build.cuda_args(wrapper.__name__, b, fields)
+    if trips.device != b.device or trips.dtype != torch.int32 or tuple(trips.shape) != (s_cnt,):
+        raise ValueError(f"{wrapper.__name__}: trips must be int32 [S] on b's device")
+    plan = plan_of(data)
+    diag_s, inv_s = scaled_diag(data, scale) if diag is None else diag
+    pn = inv3 = None
+    if penalty is not None:
+        pn, pen_diag = penalty
+        if plan.perm is not None:
+            pn, pen_diag = pn[:, plan.perm], pen_diag[:, plan.perm]
+        inv3 = (1.0 / (diag_s[:, :, None] + pen_diag)).contiguous()
+        pn = pn.contiguous()
+    out = torch.empty_like(b)
+    kind, blocks, shift = form_of(data, b.dtype, form)
+    fn = getattr(_build.library(), f"admm_pcg_solve_{sfx}")
+    stream = torch.cuda.current_stream(b.device).cuda_stream
+    # one launch of S clusters, or S launches of the grid, each on scene i's slices
+    launches = [slice(0, s_cnt)] if kind == "cluster" else [slice(i, i + 1) for i in range(s_cnt)]
+    for sl in launches:
+        ptrs = ([b[sl], x0[sl], out[sl], plan.perm, diag_s[sl], inv_s[sl], plan.bands,
+                 plan.rest_cols, plan.rest_vals, None, None, None] + list(plan.scratch)
+                + [plan.barrier, trips[sl], None if pn is None else pn[sl],
+                   None if inv3 is None else inv3[sl], None] + [None] * 11 + [scale[sl]])
+        ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[_ptr(t) for t in ptrs])
+        ints = (ctypes.c_int * 13)(*plan.ints, int(max_iters), 0, FORMS.index(kind), blocks,
+                                   shift, 0, sl.stop - sl.start)
+        with torch.cuda.device(b.device):
+            rc = fn(ptr_arr, ints, plan.offs, float(tol), OMEGA, stream)
+        _build.check(rc, wrapper.__name__)
+        wrapper.launches += 1
     return out
 
 
@@ -349,3 +461,5 @@ def blocks_of(data: pcg_mod.PCGData, dtype: torch.dtype, form: Optional[str] = N
 pcg_solve.launches = 0
 pcg_solve_penalty.launches = 0
 pcg_solve_dyn.launches = 0
+pcg_solve_scenes.launches = 0
+pcg_solve_penalty_scenes.launches = 0

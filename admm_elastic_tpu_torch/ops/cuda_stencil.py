@@ -12,6 +12,12 @@ a block per tile of ``RHS_TILE`` vertices with the contributions of the cells
 that feed it staged in shared memory, and "wide", a thread per vertex reading
 global memory, for cross-sections whose halo does not fit. ``rhs_plan``
 chooses between them from the shapes alone.
+
+``tet_rhs_rows_scenes`` is C's scene form (scenario batching,
+``parallel/batch.py``): S scenes of one lattice in one launch, z and u
+[S, 9, T], each scene's weight w sqrt(s) (sq [S] the square roots of the
+scales), bit for bit the single-scene kernel on that scene's scaled weights.
+Its plain version runs ``tet_rhs_rows_plain`` scene by scene.
 """
 
 from __future__ import annotations
@@ -139,6 +145,37 @@ def tet_rhs_rows(z: torch.Tensor, u: torch.Tensor, b, n_verts: int,
     return out
 
 
+def tet_rhs_rows_scenes(z: torch.Tensor, u: torch.Tensor, b, n_verts: int, sq: torch.Tensor,
+                        branch: str | None = None, tile: int | None = None) -> torch.Tensor:
+    """D^T W^2 (z - u) of S scenes, W = w sqrt(s): z, u [S, 9, 5*cells], sq
+    [S] -> [S, N, 3]."""
+    import dataclasses
+
+    base, cells, n_vblock, halo, _, match = geom_of(b.stencil)
+    _, tile, _ = rhs_plan_of(b, z.element_size(), branch, tile)
+    s_cnt = z.shape[0]
+    if z.device.type == "cpu":
+        return torch.stack([
+            stencil_mod.tet_rhs_rows_plain(z[i], u[i], dataclasses.replace(
+                b, weight=b.weight * sq[i]), n_verts) for i in range(s_cnt)])
+    t = 5 * cells
+    sfx = _build.cuda_args("tet_rhs_rows_scenes", z, (
+        ("z", z, (s_cnt, 9, t)), ("u", u, (s_cnt, 9, t)), ("weight", b.weight, (t,)),
+        ("sq", sq, (s_cnt,)), ("st_dl", b.st_dl, (5, 4, 3, cells)),
+        ("st_par", b.st_par, (cells,))))
+    if base + n_vblock > n_verts:
+        raise ValueError("tet_rhs_rows_scenes: family vertex block lies outside n_verts")
+    out = z.new_empty((s_cnt, n_verts, 3))
+    fn = getattr(_build.library(), f"admm_tet_rhs_scenes_{sfx}")
+    with torch.cuda.device(z.device):
+        rc = fn(z.data_ptr(), u.data_ptr(), b.weight.data_ptr(), sq.data_ptr(),
+                b.st_dl.data_ptr(), b.st_par.data_ptr(), out.data_ptr(), n_verts, base, n_vblock,
+                cells, s_cnt, match, tile, halo, torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(rc, "tet_rhs_rows_scenes")
+    tet_rhs_rows_scenes.launches += 1
+    return out
+
+
 def empty_launch(device) -> None:
     """Launch the kernel that does nothing, through the same route as the
     others: its device time is the floor under any launch on the card."""
@@ -149,3 +186,4 @@ def empty_launch(device) -> None:
 
 tet_Dx_rows.launches = 0
 tet_rhs_rows.launches = 0
+tet_rhs_rows_scenes.launches = 0

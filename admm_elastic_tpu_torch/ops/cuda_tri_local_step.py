@@ -13,6 +13,12 @@ Dispatch is by the tensors' device: CPU tensors take the plain versions
 entry); CUDA tensors launch the kernel, and a build or launch failure raises.
 ``local_step_tri.launches`` and ``local_step_tri_stencil.launches`` count
 kernel launches.
+
+Scenes (scenario batching, ``parallel/batch.py``): no per-scene parameter
+enters the cloth prox, so ``local_step_tri_over_scenes`` runs the rows entry
+as it is on S scenes' rows [S, 6, T] laid out as S * T lanes, and
+``local_step_tri_stencil_scenes`` is the stencil entry's scene form: S scenes
+of one sheet in one launch, x [S, N, 3].
 """
 
 from __future__ import annotations
@@ -81,5 +87,46 @@ def local_step_tri_stencil(x, u, b):
     return z, uo
 
 
+def local_step_tri_over_scenes(dix, u, limit_min, limit_max, step=local_step_tri):
+    """``step`` (the rows entry, or its plain version) on S scenes' rows
+    dix, u [S, 6, T] with limits [T], as one call on the S * T lanes
+    [6, S * T]. Returns (z, u') [S, 6, T]."""
+    s_cnt, _, t = dix.shape
+
+    def lanes(a):  # [S, 6, T] -> [6, S * T]
+        return a.permute(1, 0, 2).reshape(6, s_cnt * t)
+
+    z, uo = step(lanes(dix), lanes(u), limit_min.repeat(s_cnt), limit_max.repeat(s_cnt))
+    return tuple(a.reshape(6, s_cnt, t).permute(1, 0, 2).contiguous() for a in (z, uo))
+
+
+def local_step_tri_stencil_scenes(x, u, b):
+    """The stencil entry over S scenes: x [S, N, 3], u [S, 6, slots*cells]."""
+    base, cells, slots, geom = tri_geom_of(b.stencil)
+    s_cnt, n_verts = x.shape[0], x.shape[1]
+    if base + cells > n_verts:
+        raise ValueError("local_step_tri_stencil_scenes: family vertex block lies outside x")
+    if x.device.type == "cpu":
+        dix = torch.stack([stencil_mod.tri_Dx_rows(xs, b) for xs in x])
+        return local_step_tri_over_scenes(dix, u, b.limit_min, b.limit_max)
+    n = slots * cells
+    sfx = _build.cuda_args("local_step_tri_stencil_scenes", x, (
+        ("x", x, (s_cnt, n_verts, 3)), ("st_dl", b.st_dl, (slots, 3, 2, cells)),
+        ("st_dead", b.st_dead, (cells,)), ("u", u, (s_cnt, 6, n)),
+        ("limit_min", b.limit_min, (n,)), ("limit_max", b.limit_max, (n,))))
+    fn = getattr(_build.library(), f"admm_tri_local_step_stencil_scenes_{sfx}")
+    z = torch.empty_like(u)
+    uo = torch.empty_like(u)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), b.st_dl.data_ptr(), b.st_dead.data_ptr(), u.data_ptr(),
+                b.limit_min.data_ptr(), b.limit_max.data_ptr(), z.data_ptr(), uo.data_ptr(),
+                base, cells, slots, n_verts, s_cnt, geom,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "local_step_tri_stencil_scenes")
+    local_step_tri_stencil_scenes.launches += 1
+    return z, uo
+
+
 local_step_tri.launches = 0
 local_step_tri_stencil.launches = 0
+local_step_tri_stencil_scenes.launches = 0

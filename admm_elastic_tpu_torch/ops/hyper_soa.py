@@ -236,6 +236,30 @@ def local_step_plain(dix, u, mu, lam, kappa, k, n_iters: int = 8,
     return z, v - z
 
 
+def scaled_params(mu, lam, kappa, scale):
+    """The material of S scenes of stiffness scale [S] ([S, T] each): mu s,
+    lam s, kappa s and the bulk lam s + (2/3) (mu s), as
+    parallel/batch._scale_system and TetBatch form them."""
+    s = scale[:, None]
+    mu_s, lam_s = mu[None, :] * s, lam[None, :] * s
+    return mu_s, lam_s, kappa[None, :] * s, lam_s + (2.0 / 3.0) * mu_s
+
+
+def local_step_scenes_plain(dix, u, mu, lam, kappa, scale, n_iters: int = 8,
+                            model: str = TET_NEOHOOKEAN):
+    """local_step_plain over S scenes (plain version of kernel A's scene
+    form): rows [S, 9, T], mu / lam / kappa [T], scale [S], each scene on
+    its scaled material (scaled_params). Returns (z, u') [S, 9, T]."""
+    s_cnt, _, t = dix.shape
+
+    def lanes(a):  # [S, 9, T] -> [9, S * T]
+        return a.permute(1, 0, 2).reshape(9, s_cnt * t)
+
+    params = [p.reshape(-1) for p in scaled_params(mu, lam, kappa, scale)]
+    z, uo = local_step_plain(lanes(dix), lanes(u), *params, n_iters=n_iters, model=model)
+    return tuple(a.reshape(9, s_cnt, t).permute(1, 0, 2).contiguous() for a in (z, uo))
+
+
 def prox_plain(zi, model: str, mu, lam, kappa, k, n_iters: int = 8):
     """Tet prox on [T, 3, 3] (plain version of kernels D and F)."""
     f = tuple(zi[:, r, c] for r in range(3) for c in range(3))

@@ -14,6 +14,13 @@ verified lattice or regular sheet keeps its elements as they come
 D^T is a gather and a sum over the table's width: no scatter-add and no
 float atomics, so a rollout is bitwise repeatable on every device. Pin
 indices are unique, so the pins' D^T is an indexed copy into zeros.
+
+Every function also takes a leading scene axis (x [S, N, 3], rows [S, r, T],
+contributions [S, T * arity, 3]), as ``jax.vmap`` gives the JAX package's
+scenario batches (``parallel/batch.py``); the scenes share the mesh. There
+``dt_gather_scenes`` sums a vertex's entries one table column at a time, in
+column order, so that a scene's sum does not depend on how many scenes the
+batch holds.
 """
 
 from __future__ import annotations
@@ -45,53 +52,71 @@ def build_gather_table(inds: np.ndarray, n_verts: int) -> np.ndarray:
 
 
 def dt_gather(contrib: torch.Tensor, gather_idx: torch.Tensor) -> torch.Tensor:
-    """Per-vertex sum of per-corner contributions: [T*arity, 3] -> [N, 3]."""
+    """Per-vertex sum of per-corner contributions: [T*arity, 3] -> [N, 3]
+    ([S, ...] with a scene axis)."""
+    if contrib.ndim == 3:
+        return dt_gather_scenes(contrib, gather_idx)
     flat = torch.cat([contrib, contrib.new_zeros((1, contrib.shape[1]))], dim=0)
     return torch.sum(flat[gather_idx], dim=1)
 
 
+def dt_gather_scenes(contrib: torch.Tensor, gather_idx: torch.Tensor) -> torch.Tensor:
+    """dt_gather over a leading scene axis, [S, T*arity, 3] -> [S, N, 3]: the
+    table's columns added in order, ((c0 + c1) + c2) + ..."""
+    flat = torch.cat([contrib, contrib.new_zeros((contrib.shape[0], 1, contrib.shape[2]))],
+                     dim=1)
+    out = flat[:, gather_idx[:, 0]]
+    for k in range(1, gather_idx.shape[1]):
+        out = out + flat[:, gather_idx[:, k]]
+    return out
+
+
 def tet_Dx_rows(x: torch.Tensor, inds: torch.Tensor, Dlocal: torch.Tensor) -> torch.Tensor:
-    """D x of a tet family as rows [9, T] (row-major F entries)."""
-    x4 = x[inds]  # [T, 4, 3]
-    rows = [sum(x4[:, j, r] * Dlocal[:, j, c] for j in range(4))
+    """D x of a tet family as rows [9, T] (row-major F entries); x [S, N, 3]
+    gives [S, 9, T]."""
+    x4 = x[..., inds, :]  # [..., T, 4, 3]
+    rows = [sum(x4[..., j, r] * Dlocal[:, j, c] for j in range(4))
             for r in range(3) for c in range(3)]
-    return torch.stack(rows, dim=0)
+    return torch.stack(rows, dim=-2)
 
 
 def tet_Dt_rows(G_rows: torch.Tensor, Dlocal: torch.Tensor,
                 gather_idx: torch.Tensor) -> torch.Tensor:
     """D^T G of a tet family from rows [9, T] into [N, 3] (N = rows of the
-    gather table)."""
+    gather table); rows [S, 9, T] give [S, N, 3]."""
     # contrib[t, j, r] = sum_c G[r, c][t] * Dlocal[t, j, c], j-major like inds
     contrib = torch.stack(
-        [sum(G_rows[3 * r + c] * Dlocal[:, j, c] for c in range(3))
-         for j in range(4) for r in range(3)], dim=1).reshape(-1, 3)
-    return dt_gather(contrib, gather_idx)
+        [sum(G_rows[..., 3 * r + c, :] * Dlocal[:, j, c] for c in range(3))
+         for j in range(4) for r in range(3)], dim=-1)
+    return dt_gather(contrib.reshape(G_rows.shape[:-2] + (-1, 3)), gather_idx)
 
 
 def tri_Dx_rows(x: torch.Tensor, inds: torch.Tensor, Dlocal: torch.Tensor) -> torch.Tensor:
-    """D x of a triangle family as rows [6, T] (row-major 3x2 entries)."""
-    x3 = x[inds]  # [T, 3, 3]
-    rows = [sum(x3[:, j, r] * Dlocal[:, j, c] for j in range(3))
+    """D x of a triangle family as rows [6, T] (row-major 3x2 entries); x
+    [S, N, 3] gives [S, 6, T]."""
+    x3 = x[..., inds, :]  # [..., T, 3, 3]
+    rows = [sum(x3[..., j, r] * Dlocal[:, j, c] for j in range(3))
             for r in range(3) for c in range(2)]
-    return torch.stack(rows, dim=0)
+    return torch.stack(rows, dim=-2)
 
 
 def tri_Dt_rows(G_rows: torch.Tensor, Dlocal: torch.Tensor,
                 gather_idx: torch.Tensor) -> torch.Tensor:
-    """D^T G of a triangle family from rows [6, T] into [N, 3]."""
+    """D^T G of a triangle family from rows [6, T] into [N, 3] ([S, ...] with
+    a scene axis)."""
     contrib = torch.stack(
-        [sum(G_rows[2 * r + c] * Dlocal[:, j, c] for c in range(2))
-         for j in range(3) for r in range(3)], dim=1).reshape(-1, 3)
-    return dt_gather(contrib, gather_idx)
+        [sum(G_rows[..., 2 * r + c, :] * Dlocal[:, j, c] for c in range(2))
+         for j in range(3) for r in range(3)], dim=-1)
+    return dt_gather(contrib.reshape(G_rows.shape[:-2] + (-1, 3)), gather_idx)
 
 
 def pin_Dx(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """[P, 3] positions of the pinned vertices."""
-    return x[idx]
+    """[P, 3] positions of the pinned vertices ([S, P, 3] of x [S, N, 3])."""
+    return x[..., idx, :]
 
 
 def pin_Dt(G: torch.Tensor, idx: torch.Tensor, n_verts: int) -> torch.Tensor:
-    """[P, 3] -> [N, 3], each row written once at its pinned vertex."""
-    out = G.new_zeros((n_verts, 3))
-    return out.index_copy_(0, idx, G)
+    """[P, 3] -> [N, 3], each row written once at its pinned vertex ([S, ...]
+    with a scene axis)."""
+    out = G.new_zeros(G.shape[:-2] + (n_verts, 3))
+    return out.index_copy_(out.ndim - 2, idx, G)

@@ -402,29 +402,35 @@ def tri_Dx_rows(x: torch.Tensor, b) -> torch.Tensor:
 
 
 def tri_Dt_rows(G_rows: torch.Tensor, b, n_verts: int) -> torch.Tensor:
-    """Flat-stencil D^T G from SoA rows [6, T_cap] -> [N, 3].
+    """Flat-stencil D^T G from SoA rows [6, T_cap] -> [N, 3], or over a
+    leading scene axis [S, 6, T_cap] -> [S, N, 3] (scenario batches: the
+    same ops on every scene at once, so each scene's sum is the one it has
+    alone).
 
     The jnp code's order: per (slot, corner) the column sum (c0 + c1), the
     corner accumulators filled slot by slot and corner by corner, then the
     four shifted blocks added in `offs` order. Pads and adds only."""
     base, cells, offs, pats = _tri_geom(b.stencil)
-    s_cnt = len(pats)
+    n_slots = len(pats)
     maxd = max(offs)
-    g = G_rows.reshape(3, 2, s_cnt, cells).permute(2, 0, 1, 3)  # [S, r, c, cells]
-    terms = g[:, None] * b.st_dl[:, :, None, :, :]  # [S, j, r, c, cells]
-    contrib = terms[:, :, :, 0] + terms[:, :, :, 1]  # [S, j, r, cells]
+    lead = G_rows.shape[:-2]
+    # [..., slot, r, c, cells]
+    g = G_rows.reshape(lead + (3, 2, n_slots, cells)).movedim(-2, -4)
+    terms = g.unsqueeze(-4) * b.st_dl[:, :, None, :, :]  # [..., slot, j, r, c, cells]
+    contrib = terms[..., 0, :] + terms[..., 1, :]  # [..., slot, j, r, cells]
     acc = [None] * 4
-    for s in range(s_cnt):
+    for s in range(n_slots):
         for j in range(3):
             cid = pats[s][j]
-            acc[cid] = contrib[s, j] if acc[cid] is None else acc[cid] + contrib[s, j]
+            c = contrib[..., s, j, :, :]
+            acc[cid] = c if acc[cid] is None else acc[cid] + c
     out = None
     for cid, d in enumerate(offs):
         if acc[cid] is None:
             continue
         blk = torch.nn.functional.pad(acc[cid], (d, maxd - d))
         out = blk if out is None else out + blk
-    outT = out[:, :cells].T
+    outT = out[..., :cells].transpose(-1, -2)
     if base == 0 and cells == n_verts:
         return outT
     return torch.nn.functional.pad(outT, (0, 0, base, n_verts - base - cells))

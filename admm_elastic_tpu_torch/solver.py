@@ -656,6 +656,23 @@ class Solver:
             return None
         return cuda_gs.obstacle_params(obstacles)
 
+    # -- what the batched step reads (parallel/batch.py) ------------------------
+
+    @property
+    def _surf_inds_dev(self) -> torch.Tensor:
+        """The collision query set on the device (i64 [H])."""
+        return self._contact.surf
+
+    @property
+    def _surf_dense(self) -> bool:
+        """Whether the query set is every vertex in order."""
+        return self._contact.dense
+
+    @property
+    def _ck(self) -> torch.Tensor:
+        """sqrt of the constraint weight, 0-d in the run dtype."""
+        return self._contact.ck
+
     # -- stepping --------------------------------------------------------------
 
     @property

@@ -25,6 +25,13 @@ C x first and then each vertex's face-corner sum in table order
 raises). ``solve_plain`` is the JAX forms on any device, the twin the card's
 checks hold G to, and ``penalty_solve`` / ``penalty_solve_dyn`` G's own forms
 as plain PyTorch.
+
+``solve_scenes`` is one AL pass of S scenes of one mesh (scenario batching,
+``parallel/batch.py``), the passive rows only: hits with a leading scene axis
+(``scene_hits``), ck, the stiffness scale and the trips per scene [S], and
+G's penalty scene form (``ops/cuda_pcg.pcg_solve_penalty_scenes``; on the CPU
+its plain twin ``penalty_solve_scenes``) on A(s) + pn pn^T with pn scattered
+to [S, N, 3] where the query set is not every vertex.
 """
 
 from __future__ import annotations
@@ -179,3 +186,64 @@ def solve_traced(pcg_data, hits: con.Hits, ck, b, x0, y, n_iters: int, x_star=No
     x, tr = pcg_mod.solve_traced(A_hat, _penalty_precond(pcg_data, A_hat, pen_diag), b_hat, x0,
                                  n_iters, x_star=x_star, err_denom=err_denom)
     return x, _ascent(hits, ck, x, c, y, active), tr
+
+
+# --- S scenes of one mesh (scenario batching) ------------------------------------
+
+
+def penalty_solve_scenes(data, pn, pen_diag, b, x0, tol, max_iters: int, scale):
+    """penalty_solve over S scenes, Jacobi only (the plain version of kernel
+    G's penalty scene form): pn, pen_diag, b, x0 [S, N, 3], scale [S], each
+    scene to its own exit (pcg.solve_T_scenes). Returns (x, trips [S])."""
+    pnT = pn.transpose(1, 2)
+
+    def A_hat_T(xT):
+        cx = pnT[:, 0] * xT[:, 0] + pnT[:, 1] * xT[:, 1] + pnT[:, 2] * xT[:, 2]
+        return data.apply_T(xT, scale) + pnT * cx[:, None, :]
+
+    inv_dT = 1.0 / (data.diag(scale)[:, None, :] + pen_diag.transpose(1, 2))
+    return pcg_mod.solve_T_scenes(A_hat_T, lambda r: inv_dT * r, b, x0, tol, max_iters)
+
+
+def scene_hits(mask, normal, point, surf, dense: bool) -> con.Hits:
+    """The passive hits of S scenes at the query vertices surf [H]: mask
+    [S, H], normal and point [S, H, 3]; no dynamic row."""
+    no = torch.zeros_like(mask)
+    z3 = torch.zeros_like(normal)
+    return con.Hits(p_mask=mask, p_vidx=surf, p_normal=normal, p_point=point, d_mask=no,
+                    d_vidx=surf, d_face=torch.zeros(mask.shape + (3,), dtype=torch.int64,
+                                                    device=mask.device),
+                    d_barys=z3, d_normal=z3,
+                    overflow=torch.zeros((mask.shape[0],), dtype=torch.bool, device=mask.device),
+                    dense=dense, may_dyn=False)
+
+
+def _scatter_scenes(rows, vidx, n_verts: int):
+    """rows [S, H, 3] placed at the unique vertex ids vidx of a zero [S, N, 3]."""
+    out = rows.new_zeros((rows.shape[0], n_verts, 3))
+    return out.index_copy(1, vidx, rows)
+
+
+def solve_scenes(pcg_data, hits: con.Hits, ck, b, x0, y, tol, max_iters: int, trips, scale,
+                 diag=None):
+    """One AL pass of S scenes (passive rows): hits from scene_hits, ck and
+    scale [S], b and x0 [S, N, 3], y [S, 2H]; the scenes' PCG trips added to
+    trips (int32 [S]); diag: cuda_pcg.scaled_diag(pcg_data, scale) on the
+    card (formed there where None). Returns (x, y)."""
+    n, h = b.shape[1], hits.p_mask.shape[1]
+    cks = ck[:, None]
+    mask, normal = hits.p_mask, hits.p_normal
+    cp = torch.where(mask, cks * con._dot3(normal, hits.p_point), 0.0)
+    c = torch.cat([cp, torch.zeros_like(cp)], dim=1)
+    cy = c - y
+    p_part = (cks * torch.where(mask, cy[:, :h], 0.0))[..., None] * normal
+    coef_p = torch.where(mask[..., None], (ck * ck)[:, None, None] * normal ** 2, 0.0)
+    pn = torch.where(mask, cks, 0.0)[..., None] * normal
+    if not hits.dense:
+        p_part, coef_p, pn = (_scatter_scenes(a, hits.p_vidx, n) for a in (p_part, coef_p, pn))
+    x = cuda_pcg.pcg_solve_penalty_scenes(pcg_data, b + p_part, x0, tol, max_iters, trips,
+                                          scale, pn, coef_p, diag=diag)
+    xp = x if hits.dense else x[:, hits.p_vidx]
+    rp = torch.where(mask, cks * con._dot3(normal, xp), 0.0)
+    active = torch.cat([mask, hits.d_mask], dim=1)
+    return x, torch.where(active, y + (torch.cat([rp, torch.zeros_like(rp)], dim=1) - c), 0.0)

@@ -17,9 +17,13 @@ The operator: A = diag(masses + pins + stiffness) + off-diagonal stiffness,
 the off-diagonal as constant bands in a banded vertex order (``ops/spmv.py``,
 with an RCM permutation where the native order is not banded, and circular
 bands on a ring) plus a thin rest-ELL, or as one ELL table
-(``spmv_format="ell"``). The per-scene stiffness ``scale`` of the JAX
-package belongs to scenario batching, not ported yet: every function takes
-``scale=None`` only.
+(``spmv_format="ell"``). The operator's functions take the JAX package's
+stiffness ``scale`` (scenario batching, ``parallel/batch.py``): a number, or a
+per-scene tensor [S] broadcast over a leading scene axis of the vectors; it
+scales the stiffness diagonal, the bands and the ELL, never the pins'
+diagonal (a scaled pin diagonal would settle pinned vertices near
+target / scale). ``solve_T_scenes`` is ``solve_T`` over that scene axis with
+each scene's own exit, the plain twin of kernel G's batched form.
 """
 
 from __future__ import annotations
@@ -33,11 +37,12 @@ import torch
 from admm_elastic_tpu_torch.ops import reduction as red
 
 
-def _no_scale(scale) -> None:
-    if scale is not None:
-        raise NotImplementedError(
-            "PCGData: a stiffness scale belongs to scenario batching, which is not "
-            "ported yet (ROADMAP Queue 1 item 12)")
+def _per_scene(scale, ndim: int):
+    """scale as a factor of an array of ndim dimensions: a per-scene tensor
+    [S] shaped [S, 1, ..., 1] (a leading scene axis), a number as it is."""
+    if isinstance(scale, torch.Tensor) and scale.ndim == 1:
+        return scale.reshape((-1,) + (1,) * (ndim - 1))
+    return scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,14 +74,15 @@ class PCGData:
         return self.diag_mass.shape[0]
 
     def diag(self, scale=None):
-        _no_scale(scale)
-        return self.diag_mass + self.diag_pin + self.diag_stiff
+        """[N], or [S, N] for a per-scene scale."""
+        d = self.diag_stiff if scale is None else _per_scene(scale, 2) * self.diag_stiff
+        return self.diag_mass + self.diag_pin + d
 
     def precondition(self, scale=None, omega: float = 0.7):
-        """M^-1 apply on [N, k]: Jacobi, or with the coarse level attached a
-        symmetric two-grid V-cycle (damped-Jacobi smooth, coarse correction,
-        damped-Jacobi smooth)."""
-        inv_d = (1.0 / self.diag(scale))[:, None]
+        """M^-1 apply on [N, k] (or [S, N, k]): Jacobi, or with the coarse
+        level attached a symmetric two-grid V-cycle (damped-Jacobi smooth,
+        coarse correction, damped-Jacobi smooth)."""
+        inv_d = (1.0 / self.diag(scale))[..., None]
         if self.agg is None:
             return lambda r: inv_d * r
 
@@ -85,7 +91,7 @@ class PCGData:
             res = r - self.apply(z, scale)
             rc = red.dt_gather(res, self.agg_gather)  # P^T res
             ec = torch.matmul(self.coarse_inv, rc)  # full FP32 (see _check_fp32)
-            z = z + ec[self.agg]
+            z = z + ec[..., self.agg, :]
             z = z + omega * inv_d * (r - self.apply(z, scale))
             return z
 
@@ -93,52 +99,52 @@ class PCGData:
         return apply_m
 
     def apply(self, x, scale=None):
-        """A x for x [N, k]."""
+        """A x for x [N, k] (or [S, N, k] with a per-scene scale)."""
         off = self.off_apply(x, scale)
-        return self.diag(scale)[:, None] * x + off
+        return self.diag(scale)[..., None] * x + off
 
     def precondition_T(self, scale=None, omega: float = 0.7):
-        """M^-1 apply on lane-major [k, N] vectors; the two-grid V-cycle keeps
-        its [N, k] form behind transposes."""
+        """M^-1 apply on lane-major [k, N] (or [S, k, N]) vectors; the two-grid
+        V-cycle keeps its [N, k] form behind transposes."""
         if self.agg is None:
-            inv_d = (1.0 / self.diag(scale))[None, :]
+            inv_d = (1.0 / self.diag(scale))[..., None, :]
             return lambda rT: inv_d * rT
         m = self.precondition(scale, omega)
-        return lambda rT: m(rT.T).T
+        return lambda rT: m(rT.transpose(-1, -2)).transpose(-1, -2)
 
     def apply_T(self, xT, scale=None):
-        """A x for lane-major xT [k, N]: bands without a permutation or rest
-        directly, the other forms through apply."""
+        """A x for lane-major xT [k, N] (or [S, k, N]): bands without a
+        permutation or rest directly, the other forms through apply."""
         if self.bands is not None and self.perm is None and not self.ell_cols.shape[1]:
             off = self._banded_T(xT, scale)
-            return self.diag(scale)[None, :] * xT + off
-        return self.apply(xT.T, scale).T
+            return self.diag(scale)[..., None, :] * xT + off
+        return self.apply(xT.transpose(-1, -2), scale).transpose(-1, -2)
 
     def _banded_T(self, xT, scale=None):
-        _no_scale(scale)
+        bands = self.bands if scale is None else _per_scene(scale, 3) * self.bands
         lo = max(-min(self.band_offsets), 0)
         hi = max(max(self.band_offsets), 0)
-        n = xT.shape[1]
+        n = xT.shape[-1]
         if self.band_circular:
-            # x[(i + o) mod N] = xp[:, i + lo + o]
-            xp = torch.cat([xT[:, n - lo:], xT, xT[:, :hi]], dim=1)
+            # x[(i + o) mod N] = xp[..., i + lo + o]
+            xp = torch.cat([xT[..., n - lo:], xT, xT[..., :hi]], dim=-1)
         else:
             xp = torch.nn.functional.pad(xT, (lo, hi))
         acc = torch.zeros_like(xT)
         for i, o in enumerate(self.band_offsets):
-            acc = acc + self.bands[i][None, :] * xp[:, lo + o:lo + o + n]
+            acc = acc + bands[..., i, None, :] * xp[..., lo + o:lo + o + n]
         return acc
 
     def off_apply(self, x, scale=None):
         """Off-diagonal apply: bands (+ the rest-ELL), or the ELL alone."""
-        _no_scale(scale)
+        vals = self.ell_vals if scale is None else _per_scene(scale, 3) * self.ell_vals
         if self.bands is None:
-            return torch.sum(self.ell_vals[:, :, None] * x[self.ell_cols], dim=1)
-        xb = x if self.perm is None else x[self.perm]
-        off = self._banded_T(xb.T).T
+            return torch.sum(vals[..., None] * x[..., self.ell_cols, :], dim=-2)
+        xb = x if self.perm is None else x[..., self.perm, :]
+        off = self._banded_T(xb.transpose(-1, -2), scale).transpose(-1, -2)
         if self.ell_cols.shape[1]:
-            off = off + torch.sum(self.ell_vals[:, :, None] * xb[self.ell_cols], dim=1)
-        return off if self.perm is None else off[self.iperm]
+            off = off + torch.sum(vals[..., None] * xb[..., self.ell_cols, :], dim=-2)
+        return off if self.perm is None else off[..., self.iperm, :]
 
 
 def _check_fp32(t: torch.Tensor) -> None:
@@ -285,6 +291,50 @@ def solve_T(A_mv_T, precond_T, b, x0, tol, max_iters: int):
     precondition_T); b, x0 and the returned x are [N, k]."""
     xT, k = _cg(A_mv_T, precond_T, b.T, x0.T, tol, int(max_iters))
     return xT.T.contiguous(), k
+
+
+def solve_T_scenes(A_mv_T, precond_T, b, x0, tol, max_iters: int):
+    """solve_T over a leading scene axis, each scene exiting on its own: b
+    and x0 [S, N, k], A_mv_T and precond_T on [S, k, N]. A scene that is done
+    keeps its carry (x, r, p, r.z, its trips) while the others go on: what
+    jax.vmap of the JAX package's while_loop gives, a select on the batched
+    predicate. The loop stops on the host once every scene is done or at
+    max_iters. Returns (x [S, N, k], trips i32 [S]). The plain twin of kernel
+    G's batched form (ops/cuda_pcg.pcg_solve_scenes)."""
+    tiny = torch.finfo(b.dtype).tiny
+
+    def dot(a, c):
+        return torch.sum(a * c, dim=(1, 2))
+
+    def keep(live, new, old):
+        return torch.where(live.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+    bT = b.transpose(1, 2)
+    x = x0.transpose(1, 2)
+    tol2 = _tolerance(b, tol, dot(bT, bT))
+    r = bT - A_mv_T(x)
+    p = precond_T(r)
+    rz = dot(r, p)
+    done = dot(r, r) < tol2
+    trips = torch.zeros((b.shape[0],), dtype=torch.int32, device=b.device)
+    for _ in range(int(max_iters)):
+        if bool(done.all()):
+            break
+        live = ~done
+        Ap = A_mv_T(p)
+        denom = dot(p, Ap)
+        alpha = rz / torch.where(denom.abs() < tiny, torch.ones_like(denom), denom)
+        x_new = x + alpha[:, None, None] * p
+        r_new = r - alpha[:, None, None] * Ap
+        z = precond_T(r_new)
+        rz_new = dot(r_new, z)
+        beta = rz_new / torch.where(rz.abs() < tiny, torch.ones_like(rz), rz)
+        p_new = z + beta[:, None, None] * p
+        x, r, p = keep(live, x_new, x), keep(live, r_new, r), keep(live, p_new, p)
+        rz = keep(live, rz_new, rz)
+        trips = trips + live.to(torch.int32)
+        done = torch.where(live, dot(r, r) < tol2, done)
+    return x.transpose(1, 2).contiguous(), trips
 
 
 def _err_denom(x_star, x0, err_denom):

@@ -268,9 +268,10 @@ def build_tet_batch(verts: np.ndarray, tets: np.ndarray, lame: Lame, model: str,
 
 
 def build_tri_batch(verts: np.ndarray, tris: np.ndarray, lame: Lame, *, device,
-                    dtype: torch.dtype, vertex_offset: int = 0) -> TriBatch:
+                    dtype: torch.dtype, vertex_offset: int = 0,
+                    detect_stencil: bool = True) -> TriBatch:
     """Build a TriBatch from rest vertices [V,3] and triangles [T,3]: a flat
-    stencil where the list is a regular sheet, else a
+    stencil where the list is a regular sheet (and detect_stencil), else a
     gather family of the triangles as given. Validates strain limits and rest
     orientation (src/TriEnergyTerm.cpp:29-51)."""
     if lame.limit_min > 1.0:
@@ -295,7 +296,8 @@ def build_tri_batch(verts: np.ndarray, tris: np.ndarray, lame: Lame, *, device,
     rest_inv = np.linalg.inv(rest2d)
     Dlocal = np.einsum("jk,tkc->tjc", _S_TRI, rest_inv)  # [T, 3, 2]
     weight = np.sqrt(lame.bulk_modulus() * area)
-    stencil = stencil_mod.verify_tri_grid(tris, base=vertex_offset, n_local_verts=len(verts))
+    stencil = (stencil_mod.verify_tri_grid(tris, base=vertex_offset, n_local_verts=len(verts))
+               if detect_stencil else None)
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)

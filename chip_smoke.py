@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--profile] [--kernels-only]
+    python3 chip_smoke.py [--profile] [--kernels-only] [--batch]
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA. JAX is not needed: the reference trajectories come
@@ -190,6 +190,23 @@ failure:
    targets, no contact app below APP_FLOOR_BOUND, bunnyexpand finite, its
    inverted tets beside the golden's), and its ADMM iterations per second on
    the host's clock;
+4c. the scenario batches (batch_phase, in a process of its own after the
+   apps; alone with --batch): the scene forms of A, C, E and G on the batch
+   paths' inputs, scene by scene bitwise the single-scene kernels on each
+   scene's scaled inputs (G also its trips) and within the single-scene
+   bounds of their plain twins (batch_kernel_cases: the bench beam's sweep at
+   BATCH_BEAM_S = 1,024 scenes, crossval's batched scene landed on its floor,
+   the cloth sheet, the 20x20x20 lattice, float32 and float64); the four
+   BATCH_SCENES paths through make_batched_step (graph replays, the wrappers'
+   counts from 0 over the first call) against their goldens (BATCH_STEP_TOL),
+   the graph bitwise the eager loop, overflow clear, the beam's pinned face
+   within BATCH_PIN_TOL and its 8 golden scenes bitwise an 8-scene batch's,
+   crossval's scene above BATCH_FLOOR_BOUND (batch_path); the total ADMM
+   iterations/s of the beam's and the cloth sheet's sweeps at BATCH_CURVE
+   sizes, with device ops, busy time and idle share at 8 and 1,024 scenes
+   (batch_curve); each scene form's
+   time per launch beside its twin, its bound and a library call
+   (batch_kernel_times);
 5. timing (host_timing, on solvers of its own, runs before phase 4 and
    before any profiler window, so that no profiler state can slow the host):
    the beam, cloth_limit40, beam_gather, the PCG and the contact paths
@@ -248,7 +265,9 @@ kernel J, K, L (its standalone gather, "dyn_gather", and the Schur trip's
 full C^T, "ct_apply"), M ("schur_trip") and the DYN forms of G and H, which
 replace the JAX package's jnp loops of PCG, AL-PCG, Gauss-Seidel, the
 sequential wind, the mesh obstacles' narrow phases, the self-collision
-detection, the dynamic rows' scatters and Uzawa's Schur trip; every row with
+detection, the dynamic rows' scatters and Uzawa's Schur trip, and one for
+each scene form of A (rows and stencil entries), C, E and G (plain and
+penalty) with an entry per batch path it was timed on; every row with
 its launches on the self-collision and Uzawa paths (SELFCOLL_PATHS,
 UZAWA_PATHS), "launches_on_new_paths", and per step;
 with an entry per solve and form, "main" the form the wrapper chooses,
@@ -796,6 +815,87 @@ def app_scene(name, device=None, **change):
 # Anderson window is the JAX package's measured one (admm_elastic_tpu/
 # config.py:86-99, tests/test_anderson.py:53-91); "sequential" is the wind's
 # order (WindForce(sequential=True)), any other key a Settings field.
+# Scenario batches (admm_elastic_tpu_torch/parallel/batch.py, ROADMAP Queue 1
+# item 12): golden name -> scene and sweep, built by batch_scene in either
+# package. batch_beam_sweep8 is benchmarks/scaling.py's sweep (:36-47: the
+# 40x5x5 neo-Hookean bench beam, soft rubber, -x face pinned, linsolver 3,
+# Jacobi, pcg_max_iters 40, pcg_tol 1e-6, 10 ADMM iterations, dt 1/24) with
+# 8 scenes of distinct scale and gravity; its stencil is 34.9 % padding, so
+# the batch runs it as a gather family (_debloat_for_throughput). The card
+# runs it at BATCH_BEAM_S scenes with these 8 at BATCH_BEAM_AT. batched_contact_alpcg is
+# crossval's batched scene (benchmarks/crossval.py:76,183-203: the 6x3x3
+# linear beam on Floor(y=-1), AL-PCG, crossval's settings, 4 scenes),
+# also in float64. batch_cloth_sweep4 is the cloth-limit-40 sheet under PCG
+# (4.8 % padding: it keeps its stencil, kernel E's stencil entry);
+# batch_lattice_stencil a 20x20x20 neo-Hookean lattice (9,261 vertices, 9.4 %
+# padding: kernel A's stencil entry and C, and G's GRID form a scene at a time).
+BATCH_SWEEP = dict(linsolver=3, pcg_precond="jacobi", pcg_max_iters=40, pcg_tol=1e-6)
+BATCH_SCENES = {
+    "batch_beam_sweep8": dict(mesh="beam", dims=(40, 5, 5), flag="NEOHOOKEAN",
+                              settings=BATCH_SWEEP,
+                              scales=(0.25, 0.5, 1.0, 2.0, 4.0, 1.0, 1.0, 0.5),
+                              gravity=(-9.8,) * 5 + (-5.0, -15.0, -15.0)),
+    "batched_contact_alpcg": dict(mesh="floor", dims=(6, 3, 3), flag="LINEAR",
+                                  settings=dict(linsolver=4), scales=(0.5, 1.0, 2.0, 4.0),
+                                  gravity=(-9.8, -9.8, -5.0, -15.0)),
+    "batched_contact_alpcg_f64": dict(mesh="floor", dims=(6, 3, 3), flag="LINEAR",
+                                      settings=dict(linsolver=4), scales=(0.5, 1.0, 2.0, 4.0),
+                                      gravity=(-9.8, -9.8, -5.0, -15.0), dtype=np.float64),
+    "batch_cloth_sweep4": dict(mesh="sheet", nx=40, ny=40, limits=(0.95, 1.05),
+                               settings=BATCH_SWEEP, scales=(0.5, 1.0, 2.0, 4.0),
+                               gravity=(-9.8,) * 4),
+    "batch_lattice_stencil": dict(mesh="beam", dims=(20, 20, 20), flag="NEOHOOKEAN",
+                                  settings=BATCH_SWEEP, scales=(0.5, 2.0), gravity=(-9.8, -9.8)),
+}
+BATCH_STEPS = (1, 8)  # the steps each batch golden holds
+# Each golden's bounds after 1 and 8 steps, relative to max |x|: crossval's
+# (1e-4, 2e-3; crossval.py:256-302), but for the strain-limited sheet, whose
+# float32 trajectory the port on the CPU holds to 5.2e-7 and 2.5e-3 (float64:
+# 4.1e-12 after 8 steps, so rounding, not a fault) and which takes crossval's
+# bound of its chaotic scenes, 1e-2; the float64 scene at 1e-8 (the CPU:
+# 1.5e-13 after 20 steps). The port on the CPU (tests/test_torch_batch_paths.py):
+# beam 1.0e-5 / 4.9e-5, crossval's scene 0 / 7.0e-8, lattice 1.8e-5 / 1.7e-4.
+BATCH_STEP_TOL = {"batch_beam_sweep8": (1e-4, 2e-3), "batched_contact_alpcg": (1e-4, 2e-3),
+                  "batched_contact_alpcg_f64": (1e-8, 1e-8),
+                  "batch_cloth_sweep4": (1e-4, 1e-2), "batch_lattice_stencil": (1e-4, 2e-3)}
+# The beam's pinned face after 8 steps, from its target: the JAX package's own
+# run drifts up to 8.2e-5 at the sweep's PCG tolerance of 1e-6 in float32 (a
+# scaled pin diagonal would put it near target / scale: O(1)); the JAX test's
+# 1e-6 holds at its own settings (tests/test_torch_batch.py).
+BATCH_PIN_TOL = 2e-4
+BATCH_BEAM_S = 1024
+BATCH_FLOOR_BOUND = -1.1  # crossval's batched scene: no vertex below (no tunnelling)
+
+
+def batch_scene(name, api, dtype=None):
+    """One of BATCH_SCENES through the normal entry points of a package whose
+    API `api` holds (as pcg_scene's, with Floor and asarray), in dtype where
+    given (else the scene's): (the initialized solver, the scales [S], the
+    gravities [S])."""
+    p = BATCH_SCENES[name]
+    solver = api.Solver()
+    if p["mesh"] == "sheet":
+        verts, tris, masses, pins = cloth_sheet(p["nx"], p["ny"])
+        solver.add_nodes(verts, masses)
+        lame = api.Lame.from_youngs_poisson(10000000, 0.399)
+        lame.limit_min, lame.limit_max = p["limits"]
+        solver.add_tri_energies(verts, tris, lame)
+        solver.set_pins([int(i) for i in pins])
+    else:
+        mesh = api.make_tet_blocks(*p["dims"])
+        mesh.flags = api.binding.NOSELFCOLLISION | getattr(api.binding, p["flag"])
+        api.binding.add_tetmesh(solver, mesh, api.Lame.soft_rubber(), verbose=False)
+        if p["mesh"] == "floor":
+            solver.add_obstacle(api.Floor(y=api.asarray(-1.0)))
+        else:
+            solver.set_pins([int(i) for i in np.where(mesh.vertices[:, 0] < 1e-9)[0]])
+    st = api.Settings(verbose=0, admm_iters=10, gravity=-9.8, timestep_s=1.0 / 24.0,
+                      dtype=dtype or p.get("dtype", np.float32), direct_mode="inv",
+                      **p["settings"])
+    need(solver.initialize(st), f"{name}: initialize failed")
+    return solver, np.asarray(p["scales"], np.float64), np.asarray(p["gravity"], np.float64)
+
+
 AA_WINDOW = 4
 VARIANT_SCENES = {
     "beam_aa4": ("beam", dict(aa_window=AA_WINDOW)),
@@ -1954,6 +2054,32 @@ def pcg_bytes_ops(data, trips):
     return setup_bytes + trips * trip_bytes, mat_ops + trips * trip_ops
 
 
+def pcg_scenes_bytes_ops(data, trips, penalty=False):
+    """The bytes and operations of kernel G's scene form: S solves on one
+    shared operator, scene i for trips[i] trips. The shared operator (the
+    bands, the rest-ELL and diag_mass) is read once at setup and once per
+    trip of the longest-running scene: the scenes may walk it together. Per
+    scene, per trip of its own: its scaled diagonal and Jacobi inverse, the
+    [N, 3] vectors as pcg_bytes_ops counts them and, in the penalty form, its
+    rows pn and pen_diag [N, 3]; at setup b, x0, one apply and x written
+    back, with its diagonal. Operations as pcg_bytes_ops counts them, per
+    scene for its own trips, and in the penalty form pn (pn . p) per trip."""
+    n = data.n
+    isz = data.diag_mass.element_size()
+    nb = len(data.band_offsets)
+    kr = data.ell_cols.shape[1]
+    shared = nb * n * isz + n * kr * (isz + 4) + n * isz
+    vec = 3 * n * isz
+    diag = 2 * n * isz
+    trip_bytes = diag + 12 * vec + (2 * vec if penalty else 0)
+    mat_ops = 2 * 3 * n * (nb + kr + 1)
+    trip_ops = mat_ops + 3 * n * (2 + 4 + 2 + 2 + 2) + (3 * n * 4 if penalty else 0)
+    trips = [int(k) for k in trips]
+    n_bytes = shared * (1 + max(trips)) + sum(diag + 4 * vec + k * trip_bytes for k in trips)
+    ops = sum(mat_ops + k * trip_ops for k in trips)
+    return n_bytes, ops
+
+
 def csr_of(torch, solver, dtype):
     """A (single component: the diagonal and every off-diagonal entry) as a
     CSR tensor on the card: the yardstick of a library SpMV."""
@@ -2351,7 +2477,14 @@ def _wrappers():
                 tet_Dx_rows=cuda_stencil.tet_Dx_rows, tet_rhs_rows=cuda_stencil.tet_rhs_rows,
                 prox_tet_hyper=cuda_prox.prox_tet_hyper, prox_tet_linear=cuda_prox.prox_tet_linear,
                 local_step_tri=cuda_tri_local_step.local_step_tri,
-                local_step_tri_stencil=cuda_tri_local_step.local_step_tri_stencil)
+                local_step_tri_stencil=cuda_tri_local_step.local_step_tri_stencil,
+                # the scene forms (scenario batching)
+                local_step_tet_hyper_scenes=cuda_local_step.local_step_tet_hyper_scenes,
+                local_step_tet_stencil_scenes=cuda_local_step.local_step_tet_stencil_scenes,
+                local_step_tri_stencil_scenes=cuda_tri_local_step.local_step_tri_stencil_scenes,
+                tet_rhs_rows_scenes=cuda_stencil.tet_rhs_rows_scenes,
+                pcg_solve_scenes=cuda_pcg.pcg_solve_scenes,
+                pcg_solve_penalty_scenes=cuda_pcg.pcg_solve_penalty_scenes)
 
 
 def reset_counts():
@@ -2379,6 +2512,8 @@ def read_counts(model=None):
 # template arguments.
 _KERNEL_SYMBOL = re.compile(
     r"\b(tet_prox_kernel|tet_local_step_stencil_kernel|tet_dx_kernel|tet_rhs_tiled_kernel|"
+    r"tet_local_step_scenes_kernel|tet_local_step_stencil_scenes_kernel|"
+    r"tri_local_step_stencil_scenes_kernel|"
     r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel|pcg_kernel|"
     r"gs_kernel|wind_seq_kernel|mesh_detect_kernel|dyn_rank_kernel|dyn_gather_kernel|"
     r"uzawa_ct_kernel|schur_trip_grid_kernel)"
@@ -2394,12 +2529,14 @@ def wrapper_of_symbol(symbol):
     if m is None:
         return None
     kernel, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
-    if kernel.startswith("tet_rhs"):
-        return "tet_rhs_rows"
-    if kernel == "pcg_kernel":  # <T, PEN, CL, DYN>: the penalty form where PEN, DYN's
+    scenes = len(args) > 1 and args[-1] == "true"  # C's and G's scene forms (SCN last)
+    if kernel.startswith("tet_rhs"):  # <T, SCN>
+        return "tet_rhs_rows_scenes" if scenes else "tet_rhs_rows"
+    if kernel == "pcg_kernel":  # <T, PEN, CL, DYN, SCN>: the penalty form where PEN, DYN's
         if len(args) > 3 and args[3] == "true":
             return "pcg_solve_dyn"
-        return "pcg_solve_penalty" if args[1] == "true" else "pcg_solve"
+        name = "pcg_solve_penalty" if args[1] == "true" else "pcg_solve"
+        return f"{name}_scenes" if len(args) > 4 and scenes else name
     if kernel == "gs_kernel":  # <T, SH, WIDE, MESH, DYN>
         return "gs_solve_dyn" if len(args) > 4 and args[4] == "true" else "gs_solve"
     # kernel K is four launches a call, whatever the number of colliders
@@ -2408,10 +2545,15 @@ def wrapper_of_symbol(symbol):
                  tri_local_step_stencil_kernel="local_step_tri_stencil",
                  wind_seq_kernel="wind_seq", mesh_detect_kernel="mesh_detect",
                  dyn_rank_kernel="dyn_detect", dyn_gather_kernel="dyn_gather",
-                 uzawa_ct_kernel="ct_apply", schur_trip_grid_kernel="schur_trip")
+                 uzawa_ct_kernel="ct_apply", schur_trip_grid_kernel="schur_trip",
+                 tri_local_step_stencil_scenes_kernel="local_step_tri_stencil_scenes")
     if kernel in plain:
         return plain[kernel]
     model = {i: name for name, i in MODEL_IDS.items()}[int(args[1])]
+    if kernel == "tet_local_step_scenes_kernel":
+        return f"local_step_tet_hyper_scenes[{model}]"
+    if kernel == "tet_local_step_stencil_scenes_kernel":
+        return f"local_step_tet_stencil_scenes[{model}]"
     if kernel == "tet_local_step_stencil_kernel":
         return f"local_step_tet_stencil[{model}]"
     if args[2] == "true":  # ROWS: the local step's rows entry
@@ -6879,6 +7021,600 @@ def app_path(torch, name, gpu):
     return res
 
 
+# --- scenario batching (parallel/batch.py; ROADMAP Queue 1 item 12) -----------------
+
+# the golden scenes' place in the 1,024-scene sweep
+BATCH_BEAM_AT = tuple(range(0, BATCH_BEAM_S, BATCH_BEAM_S // 8))
+BATCH_CURVE = (1, 8, 64, 256, 1024)  # the scaling curve's batch sizes
+BATCH_LANDED = 12  # steps after which crossval's batched scene rests on the floor
+# The scene forms' wrappers: kernel name -> the ops module that holds it
+BATCH_KERNELS = {
+    "local_step_tet_hyper_scenes": "cuda_local_step",
+    "local_step_tet_stencil_scenes": "cuda_local_step",
+    "local_step_tri_stencil_scenes": "cuda_tri_local_step",
+    "tet_rhs_rows_scenes": "cuda_stencil",
+    "pcg_solve_scenes": "cuda_pcg",
+    "pcg_solve_penalty_scenes": "cuda_pcg",
+}
+# which batch path launches each: its launches in the kernels line are that
+# path's (the wrappers' counts of the warm-up and the capture of its graph)
+BATCH_KERNEL_PATH = {
+    "local_step_tet_hyper_scenes": "beam_sweep1024",
+    "pcg_solve_scenes": "beam_sweep1024",
+    "pcg_solve_penalty_scenes": "batched_contact_alpcg",
+    "local_step_tri_stencil_scenes": "batch_cloth_sweep4",
+    "local_step_tet_stencil_scenes": "batch_lattice_stencil",
+    "tet_rhs_rows_scenes": "batch_lattice_stencil",
+}
+
+
+def batch_sweep(name, n):
+    """(scales, gravity) of n scenes of a BATCH_CURVE sweep: the beam's
+    (beam_sweep), or the sheet's scales spread geometrically over 0.5-4 at
+    gravity -9.8, batch_cloth_sweep4's four first where they fit."""
+    if name == "batch_beam_sweep8":
+        return beam_sweep(n)
+    g = BATCH_SCENES[name]
+    scales, gravity = np.geomspace(0.5, 4.0, n), np.full(n, -9.8)
+    k = min(n, len(g["scales"]))
+    scales[:k], gravity[:k] = np.asarray(g["scales"])[:k], np.asarray(g["gravity"])[:k]
+    return scales, gravity
+
+
+def beam_sweep(n):
+    """The 1,024-scene sweep of the bench beam (or n scenes): scales spread
+    geometrically over 0.25-4, gravity -9.8, batch_beam_sweep8's eight pairs
+    at BATCH_BEAM_AT (where they fit)."""
+    g = BATCH_SCENES["batch_beam_sweep8"]
+    scales, gravity = np.geomspace(0.25, 4.0, n), np.full(n, -9.8)
+    at = batch_at(n)
+    scales[list(at)] = np.asarray(g["scales"])[:len(at)]
+    gravity[list(at)] = np.asarray(g["gravity"])[:len(at)]
+    return scales, gravity
+
+
+def batch_at(n):
+    return BATCH_BEAM_AT if n == BATCH_BEAM_S else tuple(range(min(n, 8)))
+
+
+def batch_setup(torch, name, n=None, dtype=None, device=None, donate=False):
+    """(solver, step, batch) of a BATCH_SCENES scene on the card (unless a
+    device is named): the golden's sweep, or n scenes of batch_sweep; dtype
+    overrides the scene's."""
+    from admm_elastic_tpu_torch.parallel import batch as pb
+
+    solver, scales, gravity = batch_scene(name, torch_api(device), dtype)
+    if n is not None:
+        scales, gravity = batch_sweep(name, n)
+    step = pb.make_batched_step(solver, mesh=None, donate=donate)
+    batch = pb.make_scenario_batch(solver, len(scales), stiffness_scale=scales, gravity=gravity)
+    return solver, step, batch
+
+
+class record_first:
+    """Within it, the first call's arguments of each named scene wrapper
+    (BATCH_KERNELS) are kept in .args[name]; the calls go through."""
+
+    def __init__(self, names):
+        self.names, self.args, self.saved = names, {}, {}
+
+    def __enter__(self):
+        import importlib
+
+        for name in self.names:
+            mod = importlib.import_module(f"admm_elastic_tpu_torch.ops.{BATCH_KERNELS[name]}")
+            fn = getattr(mod, name)
+            self.saved[name] = (mod, fn)
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                self.args.setdefault(_name, (a, kw))
+                return _fn(*a, **kw)
+
+            wrapped.launches = 0  # what the wrapper counts while it is replaced
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, fn) in self.saved.items():
+            fn.launches += getattr(mod, name).launches
+            setattr(mod, name, fn)
+
+
+def scene_bitwise(torch, label, got, single):
+    """got ([S, ...] tensors, a tuple of them, or with trips) scene by scene
+    against single(i): torch.equal each."""
+    got = got if isinstance(got, tuple) else (got,)
+    for i in range(got[0].shape[0]):
+        want = single(i)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, w in zip(got, want):
+            need(bool(torch.equal(a[i], w)), f"{label}: scene {i} differs from the single-scene "
+                 f"kernel ({float((a[i].double() - w.double()).abs().max().item()):.3e})")
+
+
+def batch_kernel_cases(torch, res, timing, label, name, n=None, dtype=None, steps=0):
+    """The scene forms that a batch of `name` launches, each on the inputs of
+    its first call in an eager step after `steps` steps, held bitwise, scene
+    by scene, to the single-scene kernel on that scene's scaled inputs
+    (A, C: the scaled material and weights; G: cuda_pcg.scaled), and G to its
+    plain twin (solve_T_scenes / penalty_solve_scenes) within G's bounds."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_pcg, cuda_stencil,
+                                            cuda_tri_local_step)
+    from admm_elastic_tpu_torch.ops.hyper_soa import scaled_params
+    from admm_elastic_tpu_torch.solvers import alcg, pcg
+
+    solver, step, batch = batch_setup(torch, name, n, dtype)
+    for _ in range(steps):
+        batch = step.eager(batch)
+    with record_first(list(BATCH_KERNELS)) as rec:
+        step.eager(batch)
+    dname = "f64" if batch.x.dtype == torch.float64 else "f32"
+    for kname, (args, kw) in rec.args.items():
+        key = f"{kname}@{label} {dname}"
+        s_cnt = batch.n_scenes
+        if kname == "local_step_tet_hyper_scenes":
+            dix, u, mu, lam, kappa, scale = args[:6]
+            model, iters = kw.get("model"), kw.get("n_iters")
+            got = cuda_local_step.local_step_tet_hyper_scenes(*args, **kw)
+            p = scaled_params(mu, lam, kappa, scale)
+            scene_bitwise(torch, key, got, lambda i: cuda_local_step.local_step_tet_hyper(
+                dix[i], u[i], *(a[i] for a in p), n_iters=iters, model=model))
+            twin = cuda_local_step.local_step_scenes_plain(*args, **kw)
+        elif kname == "local_step_tet_stencil_scenes":
+            x, u, b, scale = args[:4]
+            got = cuda_local_step.local_step_tet_stencil_scenes(*args, **kw)
+            p = scaled_params(b.mu, b.lam, b.kappa, scale)
+            scene_bitwise(torch, key, got, lambda i: cuda_local_step.local_step_tet_stencil(
+                x[i], u[i], dataclasses.replace(b, mu=p[0][i], lam=p[1][i], kappa=p[2][i],
+                                                bulk=p[3][i]), *args[4:]))
+            from admm_elastic_tpu_torch.ops import stencil as st
+
+            twin = cuda_local_step.local_step_scenes_plain(
+                torch.stack([st.tet_Dx_rows_plain(xs, b) for xs in x]), u, b.mu, b.lam, b.kappa,
+                scale, *args[4:], model=b.model)
+        elif kname == "local_step_tri_stencil_scenes":
+            x, u, b = args
+            got = cuda_tri_local_step.local_step_tri_stencil_scenes(*args)
+            scene_bitwise(torch, key, got,
+                          lambda i: cuda_tri_local_step.local_step_tri_stencil(x[i], u[i], b))
+            from admm_elastic_tpu_torch.ops import stencil as st
+            from admm_elastic_tpu_torch.ops.soa import local_step_tri_plain
+
+            twin = cuda_tri_local_step.local_step_tri_over_scenes(
+                torch.stack([st.tri_Dx_rows(xs, b) for xs in x]), u, b.limit_min, b.limit_max,
+                step=local_step_tri_plain)
+        elif kname == "tet_rhs_rows_scenes":
+            z, u, b, n_verts, sq = args[:5]
+            got = cuda_stencil.tet_rhs_rows_scenes(*args, **kw)
+            scene_bitwise(torch, key, got, lambda i: cuda_stencil.tet_rhs_rows(
+                z[i], u[i], dataclasses.replace(b, weight=b.weight * sq[i]), n_verts))
+            from admm_elastic_tpu_torch.ops import stencil as st
+
+            twin = (torch.stack([st.tet_rhs_rows_plain(z[i], u[i], dataclasses.replace(
+                b, weight=b.weight * sq[i]), n_verts) for i in range(s_cnt)]),)
+        else:  # kernel G, plain or penalty
+            data, b_, x0, tol, max_iters, trips, scale = args[:7]
+            pen = kname == "pcg_solve_penalty_scenes"
+            t = torch.zeros((s_cnt,), dtype=torch.int32, device=DEVICE)
+            call = (cuda_pcg.pcg_solve_penalty_scenes if pen else cuda_pcg.pcg_solve_scenes)
+            got = call(data, b_, x0, tol, max_iters, t, scale, *args[7:], **kw)
+            singles = []
+
+            def single(i):
+                ti = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+                d = cuda_pcg.scaled(data, scale[i])
+                if pen:
+                    x = cuda_pcg.pcg_solve_penalty(d, b_[i], x0[i], tol, max_iters, ti,
+                                                   args[7][i], args[8][i])
+                else:
+                    x = cuda_pcg.pcg_solve(d, b_[i], x0[i], tol, max_iters, ti)
+                singles.append(int(ti.item()))
+                return x
+
+            scene_bitwise(torch, key, got, single)
+            need(t.cpu().tolist() == singles, f"{key}: trips {t.cpu().tolist()} against the "
+                 f"single-scene solves' {singles}")
+            if pen:
+                xp, kp = alcg.penalty_solve_scenes(data, args[7], args[8], b_, x0, tol,
+                                                   max_iters, scale)
+            else:
+                xp, kp = pcg.solve_T_scenes(lambda xT: data.apply_T(xT, scale),
+                                            data.precondition_T(scale), b_, x0, tol, max_iters)
+            errs = [rel_err(got[i].double().cpu().numpy(), xp[i].double().cpu().numpy())
+                    for i in range(s_cnt)]
+            kg, kp = t.cpu().numpy(), kp.cpu().numpy()
+            bound = PCG_F64_TOL if dname == "f64" else PCG_F32_TOL
+            ok_trips = (np.array_equal(kg, kp) if dname == "f64" else
+                        bool((np.abs(kg - kp) <= np.maximum(2, PCG_F32_TRIPS * kp)).all()))
+            need(max(errs) <= bound and ok_trips,
+                 f"{key}: against the plain twin {max(errs):.3e} (bound {bound}), trips "
+                 f"{kg.tolist()[:16]} against {kp.tolist()[:16]}")
+            form = g_blocks(data, b_.dtype)
+            res[key] = dict(bitwise_per_scene=True, trips_equal=True, scenes=s_cnt,
+                            form=form[0], blocks=form[1], threads=form[2],
+                            trips_max=int(kg.max()), trips_mean=float(kg.mean()),
+                            twin_rel_err=max(errs), twin_bound=bound,
+                            max_abs_err=float((got - xp).abs().max().item()))
+            timing[key] = dict(data=data, args=args, kw=kw, trips=kg, pen=pen, solver=solver,
+                               scenes=s_cnt)
+            log(f"{key}: bitwise per scene to the single-scene G on scaled data "
+                f"({form[0]}, trips max {int(kg.max())} mean {kg.mean():.1f}), "
+                f"{max(errs):.3e} against the twin")
+            continue
+        kind = ("C" if kname == "tet_rhs_rows_scenes" else
+                "E" if kname.startswith("local_step_tri") else "A")
+        got = got if isinstance(got, tuple) else (got,)
+        err = twin_err(torch, key, got, twin, kind)
+        res[key] = dict(bitwise_per_scene=True, scenes=s_cnt, max_abs_err=err)
+        timing[key] = dict(args=args, kw=kw, scenes=s_cnt, name=kname)
+        log(f"{key}: bitwise per scene to the single-scene kernel ({s_cnt} scenes)")
+    return solver, step, batch
+
+
+def twin_err(torch, label, got, twin, kind):
+    """max |kernel - plain twin| over the outputs, held to the bounds of the
+    single-scene checks: A per lane to LANE_TOL's stress bound (float64 1e-8),
+    E absolute and C relative to max(1, max |plain|) to F32_TOL_STENCIL
+    (float64 F64_TOL)."""
+    f64 = got[0].dtype == torch.float64
+    err = max(float((a.double() - w.double()).abs().max().item()) for a, w in zip(got, twin))
+    scale = max(1.0, max(float(w.abs().max().item()) for w in twin)) if kind == "C" else 1.0
+    bound = ((LANE_TOL[("f64", "stress")] if f64 else LANE_TOL[("f32", "stress")])
+             if kind == "A" else (F64_TOL if f64 else F32_TOL_STENCIL) * scale)
+    need(err <= bound, f"{label}: {err:.3e} from the plain twin (bound {bound:.3e})")
+    return err
+
+
+def batch_kernel_checks(torch):
+    """Every scene form on the batch paths' inputs (batch_kernel_cases): the
+    beam sweep at S = 1,024 in float32 and float64 (A's rows entry, G's
+    CLUSTER form), crossval's batched scene landed on the floor (G's penalty
+    form, float32 and float64), the cloth sheet (E's entries, G), the
+    20x20x20 lattice (A's stencil entry, C, G's GRID form a scene at a time,
+    float32 and float64). Returns (results, timing inputs)."""
+    res, timing = {}, {}
+    for label, name, n, dtype, steps in (
+            ("beam_sweep1024", "batch_beam_sweep8", BATCH_BEAM_S, None, 1),
+            ("beam_sweep1024", "batch_beam_sweep8", BATCH_BEAM_S, np.float64, 1),
+            ("batched_contact_alpcg", "batched_contact_alpcg", None, None, BATCH_LANDED),
+            ("batched_contact_alpcg", "batched_contact_alpcg", None, np.float64, BATCH_LANDED),
+            ("batch_cloth_sweep4", "batch_cloth_sweep4", None, None, 1),
+            ("batch_lattice_stencil", "batch_lattice_stencil", None, None, 1),
+            ("batch_lattice_stencil", "batch_lattice_stencil", None, np.float64, 1)):
+        batch_kernel_cases(torch, res, timing, label, name, n, dtype, steps)
+    return res, timing
+
+
+def batch_path(torch, label, name, n=None):
+    """A batch through its entry points (make_batched_step, graph replays)
+    against its golden: the wrappers' counts from 0 around the first call
+    (warm-up and capture); the golden's scenes at steps 1 and 8 within
+    BATCH_STEP_TOL of max |x| (the float64 scene at 1e-10 of it), every scene
+    finite, overflow clear; the graph rollout bitwise the eager loop; for the
+    beam the pinned face at its target to 1e-6 after 8 steps and the 8 scenes
+    bitwise those of an 8-scene batch; for crossval's scene no vertex below
+    BATCH_FLOOR_BOUND."""
+    from admm_elastic_tpu_torch.parallel import batch as pb
+
+    g = golden(name)
+    t0 = time.perf_counter()
+    solver, step, batch = batch_setup(torch, name, n)
+    at = list(batch_at(batch.n_scenes)) if n else list(range(batch.n_scenes))
+    eager = batch
+    reset_counts()
+    xs = {}
+    for k in range(1, max(BATCH_STEPS) + 1):
+        batch = step(batch)
+        if k == 1:
+            counts = {kname: v for kname, v in wrapper_counts().items() if v}
+        if k in BATCH_STEPS:
+            xs[k] = batch.x.clone()
+    for k in range(1, max(BATCH_STEPS) + 1):
+        eager = step.eager(eager)
+        if k in BATCH_STEPS:
+            need(bool(torch.equal(xs[k], eager.x)),
+                 f"{label}: the graph's step {k} differs from the eager loop's")
+    out = dict(scenes=batch.n_scenes, launches=counts, graph_vs_eager_bitwise=True)
+    for k, bound in zip(BATCH_STEPS, BATCH_STEP_TOL[name]):
+        x = xs[k][at].double().cpu().numpy()
+        need(np.isfinite(xs[k].double().cpu().numpy()).all(), f"{label}: non-finite at step {k}")
+        err = rel_err(x, g[f"x{k}"].astype(np.float64))
+        out[f"step{k}_rel_err"], out[f"step{k}_bound"] = err, bound
+        need(err <= bound, f"{label}: step {k} {err:.3e} from the golden (bound {bound})")
+    need(not bool(batch.overflow.any()), f"{label}: overflow set")
+    x8 = xs[max(BATCH_STEPS)].double().cpu().numpy()
+    if name == "batch_beam_sweep8":
+        pins = np.where(solver.x[:, 0] < 1e-9)[0]
+        drift = float(np.abs(x8[:, pins] - solver.x[pins][None]).max())
+        out["pin_drift"] = drift
+        need(drift <= BATCH_PIN_TOL, f"{label}: pinned face {drift:.3e} from its target")
+        if batch.n_scenes > 8:  # an 8-scene batch of the same 8 scenes, bitwise
+            step8 = pb.make_batched_step(solver, mesh=None, donate=False)
+            b8 = pb.make_scenario_batch(solver, 8, stiffness_scale=g["scales"],
+                                        gravity=g["gravity"])
+            for _ in range(max(BATCH_STEPS)):
+                b8 = step8(b8)
+            need(bool(torch.equal(b8.x, xs[max(BATCH_STEPS)][at])),
+                 f"{label}: the 8 scenes differ from an 8-scene batch's")
+            out["s8_bitwise"] = True
+    if name.startswith("batched_contact"):
+        out["min_y"] = float(x8[..., 1].min())
+        need(out["min_y"] > BATCH_FLOOR_BOUND, f"{label}: a vertex at y = {out['min_y']}")
+    out["trips_last_step"] = step.trips.cpu().tolist()[:16]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{label}: {json.dumps({k: v for k, v in out.items() if k != 'launches'})}")
+    log(f"{label}: launches {json.dumps(counts)}")
+    return solver, step, out
+
+
+def batch_rate(torch, step, batch, iters):
+    """Total ADMM iterations/s of graph replays over a rollout of at least
+    TARGET_S (S x admm_iters x steps / s)."""
+    batch = step(batch)
+    torch.cuda.synchronize()
+    n_steps = 2
+    while True:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            batch = step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if wall >= TARGET_S:
+            break
+        n_steps = max(n_steps + 1, int(n_steps * max(2.0, 1.2 * TARGET_S / wall)))
+    need(bool(torch.isfinite(batch.x).all()), "non-finite batch after the timed rollout")
+    total = batch.n_scenes * iters * n_steps
+    return dict(scenes=batch.n_scenes, steps=n_steps, wall_s=wall,
+                admm_iters_per_s=total / wall, step_ms=wall / n_steps * 1e3)
+
+
+def batch_profile(torch, step, batch, iters, n_steps=5):
+    """torch.profiler over n_steps graph replays of a batch, as profile_step
+    reads a path: device ops, busy and wall µs per ADMM iteration, the idle
+    share 1 - busy / wall (wall over the window, synchronised at its end)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in ev)
+    k = n_steps * iters
+    return dict(ops_per_iter=len(ev) / k, busy_us_per_iter=busy_us / k,
+                wall_us_per_iter=wall_us / k, window_idle_share=1.0 - busy_us / wall_us)
+
+
+def batch_curve(torch, gpu):
+    """The beam's and the cloth sheet's sweeps: total ADMM iterations/s at
+    each BATCH_CURVE size (a batch of its own, donated, through graph
+    replays), and at S = 8 and 1,024 the device ops and busy time per ADMM
+    iteration (torch.profiler, 5 steps, after a warm-up window that sets
+    CUPTI up) and the idle share 1 - busy / wall over that window, beside
+    rollout_idle_share: 1 - busy / the timed rollout's wall per ADMM
+    iteration."""
+    profiler_warmup(torch)
+    out = {}
+    for name in ("batch_beam_sweep8", "batch_cloth_sweep4"):
+        out[name] = {}
+        for n in BATCH_CURVE:
+            solver, step, batch = batch_setup(torch, name, n, donate=True)
+            iters = solver.m_settings.admm_iters
+            r = batch_rate(torch, step, batch, iters)
+            if n in (8, BATCH_BEAM_S) and DEVICE == "cuda":
+                r.update(batch_profile(torch, step, batch, iters))
+                r["idle_share"] = r["window_idle_share"]
+                r["rollout_idle_share"] = (1.0 - r["busy_us_per_iter"]
+                                           / (r["step_ms"] * 1e3 / iters))
+            out[name][n] = r
+            log(f"batch curve {name} S={n}: {r['admm_iters_per_s']:.1f} ADMM iters/s in all, "
+                f"{r['step_ms']:.3f} ms/step"
+                + (f", {r['ops_per_iter']:.1f} device ops and {r['busy_us_per_iter']:.1f} us "
+                   f"busy an ADMM iteration, idle {r['idle_share']:.3f} (by the rollout's wall "
+                   f"{r['rollout_idle_share']:.3f})" if "ops_per_iter" in r else "")
+                + f" [{gpu}]")
+            del solver, step, batch
+            torch.cuda.empty_cache()
+    return out
+
+
+def batch_kernel_times(torch, timing, gpu):
+    """Each scene form's time per launch at its path's S (CUDA events) beside
+    its plain twin on the card, its bound for all S scenes (bytes and
+    operations, bound_of; G's by pcg_scenes_bytes_ops, the shared operator
+    once per trip of the longest-running scene) and a library call:
+    torch.sparse.mm of A as CSR on
+    every scene's right-hand side as columns, times the mean trips, for G;
+    one torch.sparse.mm of D^T W^2 as CSR on every scene's rows for C."""
+    import importlib
+
+    from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_pcg, cuda_tri_local_step
+    from admm_elastic_tpu_torch.ops.hyper_soa import scaled_params
+    from admm_elastic_tpu_torch.ops.prox import TET_LINEAR
+    from admm_elastic_tpu_torch.ops.hyper_soa import prox_tet_hyper_tuple
+    from admm_elastic_tpu_torch.solvers import alcg, pcg
+
+    out = {}
+    for key, t in timing.items():
+        kname = key.partition("@")[0]
+        if key.endswith("f64"):
+            continue
+        if kname.startswith("pcg_solve"):
+            data, args, kw = t["data"], t["args"], t["kw"]
+            b_, x0, tol, its, scale = args[1], args[2], args[3], args[4], args[6]
+            trips = torch.zeros_like(args[5])
+            diag = cuda_pcg.scaled_diag(data, scale)
+            if t["pen"]:
+                def kern():
+                    return cuda_pcg.pcg_solve_penalty_scenes(data, b_, x0, tol, its, trips, scale,
+                                                             args[7], args[8], diag=diag)
+
+                def plain():
+                    return alcg.penalty_solve_scenes(data, args[7], args[8], b_, x0, tol, its,
+                                                     scale)
+            else:
+                def kern():
+                    return cuda_pcg.pcg_solve_scenes(data, b_, x0, tol, its, trips, scale,
+                                                     diag=diag)
+
+                def plain():
+                    return pcg.solve_T_scenes(lambda xT: data.apply_T(xT, scale),
+                                              data.precondition_T(scale), b_, x0, tol, its)
+            n_bytes, ops = pcg_scenes_bytes_ops(data, t["trips"], t["pen"])
+            a = csr_of(torch, t["solver"], b_.dtype)
+            rhs = b_.permute(1, 0, 2).reshape(data.n, -1).contiguous()
+            lib = events_ms(torch, lambda: torch.sparse.mm(a, rhs), 20) * float(t["trips"].mean())
+            ms = min(events_ms(torch, kern, 5), events_ms(torch, kern, 5))
+            plain_ms = events_ms(torch, plain, 1)
+            bound_ms, bound_by = bound_of(n_bytes, ops)
+            out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=lib, bytes=n_bytes, operations=ops, scenes=t["scenes"],
+                            trips_max=int(t["trips"].max()),
+                            trips_mean=float(t["trips"].mean()),
+                            launches_per_call=1 if g_blocks(data, b_.dtype)[0] == "cluster"
+                            else t["scenes"])
+        else:
+            args, kw = t["args"], t["kw"]
+            fn = getattr(importlib.import_module(
+                f"admm_elastic_tpu_torch.ops.{BATCH_KERNELS[kname]}"), kname)
+            ops = None
+            if kname == "local_step_tet_hyper_scenes":
+                dix, u, mu, lam, kappa, scale = args[:6]
+                model = kw.get("model")
+                trips = {}
+                lanes = (dix + u).permute(1, 0, 2).reshape(9, -1)
+                p = [a.reshape(-1) for a in scaled_params(mu, lam, kappa, scale)]
+                if model != TET_LINEAR:
+                    prox_tet_hyper_tuple(tuple(lanes), model, *p, trips=trips)
+                ops = tet_operations(model, lanes.shape[1], True, trips)
+                plain = lambda: cuda_local_step.local_step_scenes_plain(*args, **kw)  # noqa: E731
+                reads = [dix, u, mu, lam, kappa, scale]
+            elif kname == "local_step_tet_stencil_scenes":
+                from admm_elastic_tpu_torch.ops import stencil as st
+
+                x, u, b, scale = args[:4]
+                trips = {}
+                dix = torch.stack([st.tet_Dx_rows_plain(xs, b) for xs in x])
+                lanes = (dix + u).permute(1, 0, 2).reshape(9, -1)
+                p = [a.reshape(-1) for a in scaled_params(b.mu, b.lam, b.kappa, scale)]
+                if b.model != TET_LINEAR:
+                    prox_tet_hyper_tuple(tuple(lanes), b.model, *p, trips=trips)
+                ops = tet_operations(b.model, lanes.shape[1], True, trips)
+                plain = lambda x=x, u=u, b=b, scale=scale: cuda_local_step.local_step_scenes_plain(  # noqa: E731,E501
+                    torch.stack([st.tet_Dx_rows_plain(xs, b) for xs in x]), u, b.mu, b.lam,
+                    b.kappa, scale, *args[4:], model=b.model)
+                reads = [x, b.st_dl, b.st_par, b.st_dead, u, b.mu, b.lam, b.kappa, scale]
+            elif kname == "local_step_tri_stencil_scenes":
+                from admm_elastic_tpu_torch.ops import stencil as st
+                from admm_elastic_tpu_torch.ops.soa import local_step_tri_plain
+
+                x, u, b = args
+                plain = lambda x=x, u=u, b=b: cuda_tri_local_step.local_step_tri_over_scenes(  # noqa: E731,E501
+                    torch.stack([st.tri_Dx_rows(xs, b) for xs in x]), u, b.limit_min,
+                    b.limit_max, step=local_step_tri_plain)
+                reads = [x, b.st_dl, b.st_dead, u, b.limit_min, b.limit_max]
+            else:  # C
+                import dataclasses
+
+                from admm_elastic_tpu_torch.ops import stencil as st
+
+                z, u, b, n_verts, sq = args[:5]
+                plain = lambda z=z, u=u, b=b, n=n_verts, sq=sq: torch.stack([  # noqa: E731
+                    st.tet_rhs_rows_plain(z[i], u[i], dataclasses.replace(
+                        b, weight=b.weight * sq[i]), n) for i in range(z.shape[0])])
+                reads = [z, u, b.weight, sq, b.st_dl, b.st_par]
+            # the tet scene forms' operations counted by tet_operations, E's and
+            # C's as their plain twins do them (plain_flops)
+            m = measure(torch, lambda fn=fn, args=args, kw=kw: fn(*args, **kw), plain, reads,
+                        50, 1, operations=ops)
+            if kname == "tet_rhs_rows_scenes":
+                m["library_ms"] = batch_c_library(torch, args)
+            out[key] = m
+        out[key]["scenes"] = t["scenes"]
+        log(f"time {key}: kernel {out[key]['ms'] * 1e3:.1f} us, plain "
+            f"{out[key]['plain_ms'] * 1e3:.1f} us, bound {out[key]['bound_ms'] * 1e3:.3f} us by "
+            f"{out[key]['bound_by']}, library "
+            + (f"{out[key]['library_ms'] * 1e3:.1f} us" if out[key]["library_ms"] else "none")
+            + f" [{gpu}]")
+    return out
+
+
+def batch_c_library(torch, args):
+    """One torch.sparse.mm of D^T W^2 (the family's, unscaled) as CSR on
+    every scene's rows z - u as columns (stencil_csr's layout): the library
+    yardstick of C's scene form."""
+    z, u, b, n_verts = args[:4]
+    s_cnt, t = z.shape[0], z.shape[2]
+    w2d = stencil_csr(torch, b, n_verts)[1]
+    g = (z - u).reshape(s_cnt, 3, 3, t).permute(2, 3, 0, 1).reshape(3 * t, 3 * s_cnt)
+    g = g.to(torch.float32).contiguous()
+    return events_ms(torch, lambda: torch.sparse.mm(w2d, g), 20)
+
+
+def batch_rows(batch):
+    """The kernels line's rows of the scene forms (batch_phase's results): a
+    row per kernel, an entry per batch path whose inputs it was timed on (at
+    that path's S); "main" where that path launches it, with the path's
+    launches (the wrappers' counts of the warm-up and the capture of its
+    graph: each call of a CLUSTER form or of a scene form of A, C, E is one
+    launch for all scenes, the GRID form one launch a scene)."""
+    scene_src = {"local_step_tet_hyper_scenes": "local_step_tet_hyper",
+                 "local_step_tet_stencil_scenes": "local_step_tet_hyper",
+                 "local_step_tri_stencil_scenes": "local_step_tri",
+                 "tet_rhs_rows_scenes": "tet_rhs_rows", "pcg_solve_scenes": "pcg_solve",
+                 "pcg_solve_penalty_scenes": "pcg_solve_penalty"}
+    rows = []
+    for kname, base in scene_src.items():
+        keys = [k for k in batch["times"] if k.partition("@")[0] == kname]
+        ents = []
+        for key in keys:
+            entry = key.partition("@")[0]
+            path = key.partition("@")[2].rpartition(" ")[0]
+            launches = batch["paths"].get(path, {}).get("launches", {}).get(entry, 0)
+            t, c = batch["times"][key], batch["checks"][key]
+            ents.append(dict(
+                entry=entry, path=path if launches else None, case=key, main=launches > 0,
+                launches=launches, scenes=t["scenes"], max_abs_err=c["max_abs_err"],
+                **{f: t.get(f) for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                         "trips_max", "trips_mean", "launches_per_call")},
+                **{f: c[f] for f in ("form", "blocks", "threads") if f in c}))
+        ents.sort(key=lambda e: (not e["main"], e["path"] != BATCH_KERNEL_PATH.get(kname),
+                                 e["case"]))
+        src, rep = REPLACES[base]
+        rows.append(dict(ents[0], name=kname, route="cuda", source=src, replaces=rep,
+                         entries=ents))
+    return rows
+
+
+def batch_phase(torch, gpu):
+    """The scenario batches: the scene forms' checks, the four batch paths
+    against their goldens, the scaling curve, the scene forms' times.
+    Returns its results (main writes them into the kernels line)."""
+    t0 = time.perf_counter()
+    checks, timing = batch_kernel_checks(torch)
+    stamp(t0, "batch: scene forms against single-scene kernels and twins")
+    paths = {}
+    for label, name, n in (("beam_sweep1024", "batch_beam_sweep8", BATCH_BEAM_S),
+                           ("batched_contact_alpcg", "batched_contact_alpcg", None),
+                           ("batched_contact_alpcg_f64", "batched_contact_alpcg_f64", None),
+                           ("batch_cloth_sweep4", "batch_cloth_sweep4", None),
+                           ("batch_lattice_stencil", "batch_lattice_stencil", None)):
+        _, _, paths[label] = batch_path(torch, label, name, n)
+        stamp(t0, f"batch: {label}")
+    curve = batch_curve(torch, gpu)
+    stamp(t0, "batch: scaling curve")
+    times = batch_kernel_times(torch, timing, gpu)
+    stamp(t0, "batch: kernel times")
+    log(f"the batch phase: {time.perf_counter() - t0:.1f} s")
+    return dict(checks=checks, paths=paths, curve=curve, times=times)
+
+
 def apps_phase(torch, gpu):
     """Every run of APP_RUNS (app_path): name -> its result. Run by main in a
     process of its own (--apps)."""
@@ -7016,6 +7752,8 @@ def main():
     ap.add_argument("--step-profiles", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--paths", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--apps", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--batch", action="store_true",
+                    help="run the scenario batches' phase alone (it builds the kernels)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build, the kernels' checks against plain and their "
                          "device times: the short first run of a changed kernel")
@@ -7055,6 +7793,16 @@ def main():
             return 1
         with open(os.path.join(OUT_DIR, "apps.json"), "w") as f:
             json.dump(apps, f, indent=1)
+        return 0
+    if args.batch:
+        try:
+            out = batch_phase(torch, environment(torch)["gpu"])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "batch.json"), "w") as f:
+            json.dump(out, f, indent=1, default=str)
         return 0
     if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.log")):
         os.remove(os.path.join(OUT_DIR, "chip_smoke.log"))
@@ -7156,6 +7904,17 @@ def main():
         else:  # a rehearsal off the card: in this process
             apps = apps_phase(torch, gpu)
         stamp(t_start, "the apps")
+        # The scenario batches (batch_phase), in a process of their own as the apps.
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--batch"],
+                                cwd=HERE, timeout=900).returncode
+            need(rc == 0, f"the batch process exited with {rc}")
+            with open(os.path.join(OUT_DIR, "batch.json")) as f:
+                batch = json.load(f)
+        else:  # a rehearsal off the card: in this process
+            batch = json.loads(json.dumps(batch_phase(torch, gpu), default=str))
+        stamp(t_start, "the batches")
         checks.update(graph_checks)
         for label, t in turns.items():
             rates[label]["graph_vs_eager"] = t
@@ -7382,6 +8141,7 @@ def main():
         row["launches_per_step_on_new_paths"] = {
             p: {n: v / int(golden(p)["steps"][-1]) for n, v in launches.items()}
             for p, launches in row["launches_on_new_paths"].items()}
+    kernels += batch_rows(batch)
     # every row's launches in each app's run (the wrappers' counts: the
     # captured step's warm-up and capture, and the eager calls)
     for row in kernels:
@@ -7396,7 +8156,7 @@ def main():
                        phases_ms=phases, kernel_times=times, rhs_branches_ms=by_branch,
                        prox_throughput_ms=prox_big, pcg_solve_ms=g_times,
                        contact_solve_ms=c_times, wind_seq_ms=i_timing, mesh_detect_ms=j_times,
-                       selfcoll_ms=k_times, schur_trip_ms=u_times,
+                       selfcoll_ms=k_times, schur_trip_ms=u_times, batch=batch,
                        variant_rollouts=variant_rates, wind_seq_forms_end_to_end=wind_forms,
                        warp_chains=chains, profiles=profiles,
                        kernels=kernels), f, indent=1)

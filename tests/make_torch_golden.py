@@ -69,6 +69,18 @@ step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD run
   floor_alpcg67k_aa4, the beam, cloth_limit40 and floor_alpcg67k with Anderson
   acceleration (aa_window=4), and cloth_wind40_seq, cloth_wind40 with the
   sequential wind (WindForce(sequential=True)), each stored as its base is;
+- the scenario batches (chip_smoke.BATCH_SCENES, built by
+  chip_smoke.batch_scene with this package's API and stepped by its
+  parallel.batch.make_batched_step, mesh None): batch_beam_sweep8
+  (benchmarks/scaling.py:36-47's beam sweep, 8 scenes, stiffness_scale 0.25,
+  0.5, 1, 2, 4, 1, 1, 0.5 and gravity -9.8 x5, -5, -15, -15), batched_contact_alpcg
+  (crossval's batched scene, benchmarks/crossval.py:183-203: 4 scenes,
+  scales 0.5, 1, 2, 4, gravity -9.8, -9.8, -5, -15), in float32 and float64
+  (batched_contact_alpcg_f64), batch_cloth_sweep4 (the cloth-limit-40 sheet
+  under PCG, scales 0.5, 1, 2, 4) and batch_lattice_stencil (a 20x20x20
+  neo-Hookean lattice, scales 0.5 and 2); each holds every scene's x after
+  steps 1 and 8, the sweep (``scales``, ``gravity``) and the batch's
+  overflow flags after step 8;
 - the demo apps (chip_smoke.APP_RUNS: app_beams, app_trianglestrain,
   app_bunnyexpand, app_bunnyexpand_rand, app_signorini, app_signorini_sdf,
   app_signorini_exact, app_torus, app_boxes): the JAX package's apps/<name>.py
@@ -101,10 +113,10 @@ from admm_elastic_tpu.forces import make_wind_force  # noqa: E402
 from admm_elastic_tpu.geometry.factory import make_tet_blocks  # noqa: E402
 from admm_elastic_tpu.geometry.io import load_elenode  # noqa: E402
 from admm_elastic_tpu.ops import prox  # noqa: E402
-from chip_smoke import (APP_FRAMES, APP_RUNS, BEAM_FLAGS, BEAM_MODELS,  # noqa: E402
-                        BUNNY, CLOTH_SCENES, CONTACT_SCENES, GATHER_SCENES,
+from chip_smoke import (APP_FRAMES, APP_RUNS, BATCH_SCENES, BATCH_STEPS,  # noqa: E402
+                        BEAM_FLAGS, BEAM_MODELS, BUNNY, CLOTH_SCENES, CONTACT_SCENES, GATHER_SCENES,
                         PCG_SCENES, SELFCOLL_SCENES, VARIANT_SCENES, app_held_steps,
-                        boxes_scene, bunny_pins, cloth_sheet, contact_scene, contact_steps,
+                        batch_scene, boxes_scene, bunny_pins, cloth_sheet, contact_scene, contact_steps,
                         contacts, pcg_scene, renumbered_sheet, variant_of)
 
 DIMS = (40, 5, 5)
@@ -479,6 +491,21 @@ def app_bunnyexpand_f64():
     _save("app_bunnyexpand_f64", **out)
 
 
+def batch(name):
+    from admm_elastic_tpu.parallel.batch import make_batched_step, make_scenario_batch
+
+    dtype = BATCH_SCENES[name].get("dtype", np.float32)
+    solver, scales, gravity = batch_scene(name, jax_api())
+    step = make_batched_step(solver, mesh=None, donate=False)
+    b = make_scenario_batch(solver, len(scales), stiffness_scale=scales, gravity=gravity)
+    traj = {"steps": np.asarray(BATCH_STEPS)}
+    for k in range(1, max(BATCH_STEPS) + 1):
+        b = step(b)
+        if k in BATCH_STEPS:
+            traj[f"x{k}"] = np.asarray(b.x, dtype)
+    _save(name, scales=scales, gravity=gravity, overflow=np.asarray(b.overflow), **traj)
+
+
 def main(argv):
     prox.set_svd_impl("jacobi")
     writers = {"beam": lambda: beam("neohookean"),
@@ -491,6 +518,7 @@ def main(argv):
     writers.update({n: (lambda n=n: selfcoll(n)) for n in SELFCOLL_SCENES})
     writers.update({f"app_{n}": (lambda n=n: app(n)) for n in APP_RUNS})
     writers["app_bunnyexpand_f64"] = app_bunnyexpand_f64
+    writers.update({n: (lambda n=n: batch(n)) for n in BATCH_SCENES})
     variants = {"beam": lambda n: beam("neohookean", name=n), "cloth_limit40": cloth,
                 "cloth_wind40": cloth, "floor_alpcg67k": contact}
     writers.update({n: (lambda n=n, base=base: variants[base](n))
@@ -505,7 +533,7 @@ def main(argv):
             return True
         n = variant_of(n)[0]
         return any("dtype" in scenes.get(n, {})
-                   for scenes in (GATHER_SCENES, PCG_SCENES, CONTACT_SCENES))
+                   for scenes in (GATHER_SCENES, PCG_SCENES, CONTACT_SCENES, BATCH_SCENES))
 
     # float64 scenes last: jax_enable_x64 stays on once set
     for n in sorted(names, key=f64):

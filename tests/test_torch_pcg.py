@@ -155,13 +155,18 @@ def test_operators_match_the_jax_package(small, jax_small, name, precond, fmt, d
         assert np.abs(a.numpy() - b).max() <= tol * np.abs(b).max()
 
 
-def test_scale_and_unknown_options_raise(small):
+def test_scale_and_unknown_options_raise(small, jax_small):
+    """A stiffness scale (scenario batching) scales the operator as the JAX
+    package's diag(scale) and apply(scale) do; unknown options raise."""
     system = small["beam_pcg"].system
     data = tpcg.prepare(system, torch.float64)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        data.diag(scale=2.0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        data.apply(torch.zeros((data.n, 3), dtype=torch.float64), scale=2.0)
+    want = jpcg.prepare(jax_small["beam_pcg"].system, jnp.float64)
+    x = np.random.default_rng(8).standard_normal((data.n, 3))
+    for got, ref in ((data.diag(scale=2.0), want.diag(scale=2.0)),
+                     (data.apply(torch.as_tensor(x), scale=2.0),
+                      want.apply(jnp.asarray(x), scale=2.0))):
+        ref = np.asarray(ref)
+        assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
     with pytest.raises(ValueError, match="spmv_format"):
         tpcg.prepare(system, torch.float64, spmv_format="dia")
     with pytest.raises(ValueError, match="preconditioner"):

@@ -99,6 +99,21 @@ def test_plain_prox_is_the_rows_entry_with_zero_u(model, dtype, values):
     ("void (anonymous namespace)::tet_local_step_stencil_kernel<float, 1>(float const*, ...)",
      "local_step_tet_stencil[stvk]"),
     ("void at::native::elementwise_kernel<128, 4>(int, ...)", None),
+    # the scene forms of scenario batching (parallel/batch.py)
+    ("void (anonymous namespace)::tet_local_step_scenes_kernel<float, 0>(float const*, ...)",
+     "local_step_tet_hyper_scenes[neohookean]"),
+    ("void (anonymous namespace)::tet_local_step_stencil_scenes_kernel<double, 5>(...)",
+     "local_step_tet_stencil_scenes[linear]"),
+    ("void (anonymous namespace)::tri_local_step_stencil_scenes_kernel<float>(...)",
+     "local_step_tri_stencil_scenes"),
+    ("void (anonymous namespace)::tet_rhs_tiled_kernel<float, true>(...)", "tet_rhs_rows_scenes"),
+    ("void (anonymous namespace)::tet_rhs_wide_kernel<double, false>(...)", "tet_rhs_rows"),
+    ("void (anonymous namespace)::pcg_kernel<float, false, true, false, true>(...)",
+     "pcg_solve_scenes"),
+    ("void (anonymous namespace)::pcg_kernel<float, true, false, false, true>(...)",
+     "pcg_solve_penalty_scenes"),
+    ("void (anonymous namespace)::pcg_kernel<float, false, true, false, false>(...)",
+     "pcg_solve"),
 ])
 def test_profiler_names_of_the_prox_kernels(symbol, name):
     assert chip_smoke.wrapper_of_symbol(symbol) == name
