@@ -67,6 +67,15 @@ def _unit(n: torch.Tensor) -> torch.Tensor:
     return n / torch.clamp_min(torch.sqrt(dot3(n, n)), 1e-30)[..., None]
 
 
+def _each_scene(fn, x):
+    """fn(x[i]) of each scene of x [S, V, 3], its outputs stacked: a scene's
+    compaction, fallback and overflow its own, as jax.vmap of the JAX
+    package's method gives them (flattening the scenes together would pick
+    the first K lanes of the whole batch)."""
+    outs = [fn(x[i]) for i in range(x.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
 def _first_k(mask: torch.Tensor, k: int) -> torch.Tensor:
     """The lanes of jax.lax.top_k(mask, k) on a 0/1 mask: the set lanes in
     lane order, then the others in lane order, k in all."""
@@ -181,7 +190,12 @@ class PassiveMeshSDF:
         base = (i0[:, 0] * gy + i0[:, 1]) * gz + i0[:, 2]
         return base, f
 
-    def signed_distance_with_overflow(self, x):
+    def signed_distance_with_overflow(self, x, scenes: bool = False):
+        """signed_distance plus the overflow flag (a 0-d bool): more near
+        lanes than near_lanes. scenes: x [S, V, 3] is S scenes, each
+        compacted on its own; the flag is then [S]."""
+        if scenes:
+            return _each_scene(self.signed_distance_with_overflow, x)
         dtype = x.dtype
         lead = x.shape[:-1]
         p = x.reshape(-1, 3)
@@ -337,9 +351,13 @@ class PassiveMeshExact:
         cid = (ci[:, 0] * self.dims[1] + ci[:, 1]) * self.dims[2] + ci[:, 2]
         return cid, in_grid
 
-    def signed_distance_with_overflow(self, x):
+    def signed_distance_with_overflow(self, x, scenes: bool = False):
         """signed_distance plus the overflow flag (a 0-d bool): more near
-        lanes than near_lanes, or more deep lanes than fallback_lanes."""
+        lanes than near_lanes, or more deep lanes than fallback_lanes.
+        scenes: x [S, V, 3] is S scenes, each compacted and served by the
+        fallback on its own; the flag is then [S]."""
+        if scenes:
+            return _each_scene(self.signed_distance_with_overflow, x)
         dtype = x.dtype
         lead = x.shape[:-1]
         p = x.reshape(-1, 3)
@@ -611,11 +629,13 @@ def pick_deepest(found):
     return torch.take_along_dim(dx, best[None, ...], dim=0)[0], pick(1), pick(2)
 
 
-def detect_passive(obstacles, xs):
+def detect_passive(obstacles, xs, scenes: bool = False):
     """The deepest passive hit per query point across all obstacles, in their
     plain versions. Returns (dx, point, normal, hit_mask, overflow): overflow
-    is the OR over the mesh obstacles' fixed-capacity stages."""
-    ovf = torch.zeros((), dtype=torch.bool, device=xs.device)
+    is the OR over the mesh obstacles' fixed-capacity stages. scenes: xs
+    [S, H, 3] is S scenes, each mesh obstacle's stages per scene, and the
+    overflow [S]."""
+    ovf = torch.zeros(xs.shape[:1] if scenes else (), dtype=torch.bool, device=xs.device)
     if not obstacles:
         z3 = torch.zeros(xs.shape, dtype=xs.dtype, device=xs.device)
         big = torch.full(xs.shape[:-1], torch.finfo(xs.dtype).max, dtype=xs.dtype,
@@ -624,7 +644,7 @@ def detect_passive(obstacles, xs):
     found = []
     for obs in obstacles:
         if isinstance(obs, MESH):
-            d, p, n, o = obs.signed_distance_with_overflow(xs)
+            d, p, n, o = obs.signed_distance_with_overflow(xs, scenes=scenes)
             ovf = ovf | o
         else:
             d, p, n = obs.signed_distance(xs)

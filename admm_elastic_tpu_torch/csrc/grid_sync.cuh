@@ -1,5 +1,6 @@
 // The grid-wide barrier of the kernels launched cooperatively: kernel G's
-// GRID form (pcg.cu) and kernel J (obstacle.cu). The barrier lives in global
+// GRID form (pcg.cu), kernel J (obstacle.cu) and kernel M (uzawa.cu); in the
+// scene forms of J and M, a team's barrier over the blocks that share a scene. The barrier lives in global
 // memory, zeroed before its first use; every launch leaves its count at 0,
 // and its generation may hold any value, since a block reads it before it
 // arrives. Integer atomics only: no float atomic, no order that changes a
@@ -17,6 +18,15 @@ struct Barrier {
   unsigned pad[31];
   unsigned gen;    // barriers completed
 };
+
+// A scene form's teams (kernels J and M) each wait on a barrier of their
+// own: an array of them, kBarrierInts ints apart (the wrappers' BARRIER_INTS).
+constexpr int kBarrierInts = 64;
+static_assert(sizeof(Barrier) <= kBarrierInts * sizeof(int), "a barrier's slot");
+
+__device__ __forceinline__ Barrier* team_barrier(Barrier* base, int team) {
+  return reinterpret_cast<Barrier*>(reinterpret_cast<int*>(base) + kBarrierInts * team);
+}
 
 // Every block arrives, then leaves together; the last to arrive resets the
 // count and opens the next generation. Memory order (PTX, device scope): the

@@ -42,6 +42,16 @@
 // 0's thread 0, after the last barrier; a captured step never reads it). No
 // atomic touches a result: it is the same bits every run, on any grid.
 //
+// The scene form (mesh_detect_scenes_kernel; scenario batching, the JAX
+// package's vmap of the narrow phase): S scenes' query lanes in one
+// cooperative launch of teams of blocks, each team with a barrier of its own
+// (grid_sync.cuh team_barrier) and its own scratch, taking scenes t, t +
+// teams, ... in turn by the same detect as the single launch. The near lanes
+// and the deep fallback are ranked within a scene and the overflow is a
+// scene's, so each scene is bit for bit the single-scene launch on its
+// lanes, whatever S; a team barrier ends each scene before its scratch is
+// used again.
+//
 // What bounds it: latency. The bytes are a few MB at most (the lanes and the
 // outputs once, the tables from L2); the operations a few MFLOP (some 70 a
 // candidate triangle). On one block (one SM, a thread walking its lane's
@@ -63,9 +73,9 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
+// One detection's lanes, outputs and scratch (a scene's, in the scene form).
 template <typename T>
-struct JArgs {
-  Mesh<T> o;
+struct JView {
   const T* x;            // [V, 3] query lanes
   T* dx;                 // [V] out
   T* point;              // [V, 3] out
@@ -83,6 +93,12 @@ struct JArgs {
 };
 
 template <typename T>
+struct JArgs {
+  Mesh<T> o;
+  JView<T> a;
+};
+
+template <typename T>
 __device__ __forceinline__ void load3(const T* x, int lane, T p[3]) {
 #pragma unroll
   for (int r = 0; r < 3; ++r) p[r] = x[static_cast<int64_t>(lane) * 3 + r];
@@ -95,7 +111,7 @@ __device__ __forceinline__ void store3(T* x, int lane, const T p[3]) {
 }
 
 template <typename T>
-__device__ __forceinline__ void no_hit(const JArgs<T>& a, int lane) {
+__device__ __forceinline__ void no_hit(const JView<T>& a, int lane) {
   const T z[3] = {T(0), T(0), T(0)};
   a.dx[lane] = T(kBig);
   store3(a.point, lane, z);
@@ -131,12 +147,14 @@ __device__ __forceinline__ void blocks_before(const int* counts, int b, int nb, 
   __syncthreads();
 }
 
+// One detection on the blocks 0..nb-1 of a team (the grid, or in the scene
+// form the team that holds the scene), b this block's rank in it; sm: kWarps
+// ints of shared memory.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) mesh_detect_kernel(const __grid_constant__ JArgs<T> a) {
+__device__ __forceinline__ void detect(const Mesh<T>& o, const JView<T>& a, int b, int nb,
+                                       int* sm) {
   using O = Op<T>;
-  __shared__ int sm[kWarps];
-  const Mesh<T>& o = a.o;
-  const int tid = threadIdx.x, b = blockIdx.x, nb = gridDim.x, V = a.v, K = o.near_lanes;
+  const int tid = threadIdx.x, V = a.v, K = o.near_lanes;
   const bool compact = K > 0 && K < V;
   const bool sdf = o.kind == MESH_SDF;
 
@@ -276,28 +294,74 @@ __global__ void __launch_bounds__(kThreads) mesh_detect_kernel(const __grid_cons
   if (b == 0 && tid == 0 && (near_ovf || need_total > served)) *a.overflow = 1;
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads) mesh_detect_kernel(const __grid_constant__ JArgs<T> a) {
+  __shared__ int sm[kWarps];
+  detect(a.o, a.a, blockIdx.x, gridDim.x, sm);
+}
+
+// The scene form: S scenes' detections in one cooperative launch of teams x
+// bps blocks. Team t (blocks t bps .. t bps + bps - 1, its barrier
+// team_barrier(bar, t)) takes scenes t, t + teams, ... in turn, each as
+// detect on its bps blocks: scene s's lanes x [S, V, 3] and outputs (dx,
+// mask [S, V], point, normal [S, V, 3], overflow [S]) at scene s's offset,
+// the team's scratch (list, need, rank [teams, V], counts [teams, 2 bps],
+// fb_list [teams, max(k_fb, 1)]). The near lanes and the fallback's are
+// ranked within the scene, and a detection's bits do not depend on the
+// blocks that make it, so scene s is bit for bit the single-scene launch on
+// its lanes. A barrier ends each scene, before the team's scratch is used
+// again. Any S runs on a grid the card holds at once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    mesh_detect_scenes_kernel(const __grid_constant__ JArgs<T> a, const int scenes,
+                              const int teams, const int bps, const int k_fb) {
+  __shared__ int sm[kWarps];
+  const int team = blockIdx.x / bps, rank = blockIdx.x % bps;
+  const int64_t v = a.a.v;
+  JView<T> c = a.a;
+  c.bar = team_barrier(a.a.bar, team);
+  c.list += team * v;
+  c.need += team * v;
+  c.rank += team * v;
+  c.counts += team * 2 * bps;
+  c.fb_list += team * (int64_t)k_fb;
+  for (int64_t s = team; s < scenes; s += teams) {
+    JView<T> e = c;
+    e.x += s * v * 3;
+    e.dx += s * v;
+    e.point += s * v * 3;
+    e.normal += s * v * 3;
+    e.mask += s * v;
+    e.overflow += s;
+    detect(a.o, e, rank, bps, sm);
+    grid_sync(c.bar, bps);  // the team's scratch is free again
+  }
+}
+
 // The most blocks a launch takes: one a SM, where the card holds one (minus
 // a CUDA error code on failure). Two an SM, as many as it holds, took 23.1
 // against 21.5 us on the 67k path's detection (PERF.md).
-template <typename T>
-int max_blocks() {
+template <typename K>
+int max_blocks(K fn) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_detect_kernel<T>, kThreads,
-                                                       0);
+  if (rc == cudaSuccess) rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
   if (rc != cudaSuccess) return -static_cast<int>(rc);
   return per_sm > 0 ? sms : 0;
 }
 
 // ptrs: kMeshPtrs of the obstacle, then x, dx, point, normal, mask, overflow,
 // list, need, rank, counts, fb_list, barrier; ints: kMeshInts of the
-// obstacle, then V and the grid (its blocks, at most max_blocks()).
+// obstacle, then V, the grid (its blocks, at most max_blocks()), the scenes
+// S (-1: one detection) and the teams (the scene form: grid = teams x bps,
+// every per-scene tensor [S, ...], the scratch a team's, the barrier an
+// array of teams barriers).
 template <typename T>
 int launch(const uint64_t* ptrs, const int* ints, double capture_cells, void* stream) {
-  JArgs<T> a;
-  a.o = mesh_from<T>(ints, ptrs, capture_cells);
+  JArgs<T> args;
+  args.o = mesh_from<T>(ints, ptrs, capture_cells);
+  JView<T>& a = args.a;
   const uint64_t* q = ptrs + kMeshPtrs;
   a.x = reinterpret_cast<const T*>(q[0]);
   a.dx = reinterpret_cast<T*>(q[1]);
@@ -313,13 +377,26 @@ int launch(const uint64_t* ptrs, const int* ints, double capture_cells, void* st
   a.bar = reinterpret_cast<Barrier*>(q[11]);
   a.v = ints[kMeshInts];
   const int grid = ints[kMeshInts + 1];
-  if (a.v <= 0) return 0;
-  if (a.o.kind != MESH_SDF && a.o.kind != MESH_EXACT) return static_cast<int>(cudaErrorInvalidValue);
+  const int scenes = ints[kMeshInts + 2], teams = ints[kMeshInts + 3];
+  if (a.v <= 0 || scenes == 0) return 0;
+  const int kind = args.o.kind;
+  if (kind != MESH_SDF && kind != MESH_EXACT) return static_cast<int>(cudaErrorInvalidValue);
   if (grid < 1 || a.bar == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  void* params[] = {&a};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (scenes < 0) {  // one detection
+    void* params[] = {&args};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(mesh_detect_kernel<T>), dim3(grid), dim3(kThreads), params, 0,
+        st));
+  }
+  // the scene form: grid = teams x bps
+  if (teams < 1 || grid % teams != 0) return static_cast<int>(cudaErrorInvalidValue);
+  int n_scenes = scenes, n_teams = teams, bps = grid / teams;
+  int k_fb = args.o.fallback_lanes > 1 ? args.o.fallback_lanes : 1;
+  void* params[] = {&args, &n_scenes, &n_teams, &bps, &k_fb};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(mesh_detect_kernel<T>), dim3(grid), dim3(kThreads), params, 0,
-      static_cast<cudaStream_t>(stream)));
+      reinterpret_cast<void*>(mesh_detect_scenes_kernel<T>), dim3(grid), dim3(kThreads), params,
+      0, st));
 }
 
 }  // namespace
@@ -337,5 +414,10 @@ extern "C" int admm_mesh_detect_f64(const uint64_t* ptrs, const int* ints, doubl
 // The most blocks kernel J's cooperative grid takes, in float32 (f64 = 0) or
 // float64.
 extern "C" int admm_mesh_blocks(int f64) {
-  return f64 ? max_blocks<double>() : max_blocks<float>();
+  return f64 ? max_blocks(mesh_detect_kernel<double>) : max_blocks(mesh_detect_kernel<float>);
+}
+// The same for the scene form.
+extern "C" int admm_mesh_scene_blocks(int f64) {
+  return f64 ? max_blocks(mesh_detect_scenes_kernel<double>)
+             : max_blocks(mesh_detect_scenes_kernel<float>);
 }

@@ -110,10 +110,13 @@
 // for the two-grid preconditioner. Its plain twin is
 // admm_elastic_tpu_torch/solvers/alcg.py penalty_solve_dyn.
 //
-// done (null, or a flag on the device): where it is set when the kernel
-// starts, the solve takes no trip and returns x0. Uzawa's Schur trips, all
-// in the captured step and predicated on that flag, skip their inner solve
-// by it (solvers/uzawa.py).
+// done (null, or a flag on the device; in the scene form a flag a scene,
+// done[i] read by scene i's blocks): where it is set when the kernel starts,
+// the solve (the scene's) takes no trip and returns x0. Uzawa's Schur trips,
+// all in the captured step and predicated on that flag, skip their inner
+// solve by it (solvers/uzawa.py; in a batch solve_scenes, each scene on its
+// own flag, as jax.vmap of the JAX package's while_loop freezes a finished
+// scene).
 //
 // Scenes (scenario batching, admm_elastic_tpu_torch/parallel/batch.py, in
 // place of jax.vmap of the loop over a batch, admm_elastic_tpu/parallel/
@@ -193,7 +196,7 @@ struct Args {
   const T* coarse_inv;     // [n_coarse, n_coarse]
   const T* pn;             // [N, 3] banded order: the penalty normals (PEN)
   const T* inv3;           // [N, 3] banded order: 1 / (diag + pn^2) per component (PEN)
-  const unsigned char* done;  // null, or: skip the solve where set
+  const unsigned char* done;  // null, or: skip the solve where set ([S]: scene i's at i)
   const T* scale;          // [S] the scenes' stiffness scales, or null (1)
   T* vec[kVecs];           // GRID: scratch [N, 3] each (enum Vec); CLUSTER: unused
   T* RC;                   // scratch [n_coarse, 3] each
@@ -257,6 +260,7 @@ struct Sc<T, false> {
   __device__ __forceinline__ const T* pn() const { return a.pn; }
   __device__ __forceinline__ const T* inv3() const { return a.inv3; }
   __device__ __forceinline__ int* trips() const { return a.trips; }
+  __device__ __forceinline__ const unsigned char* done() const { return a.done; }
   __device__ __forceinline__ T scaled(T v) const { return v; }
 };
 template <typename T>
@@ -264,6 +268,7 @@ struct Sc<T, true> {
   const T *b_, *x0_, *diag_, *inv_d_, *pn_, *inv3_;
   T* x_out_;
   int* trips_;
+  const unsigned char* done_;
   T s;
   __device__ __forceinline__ const T* b() const { return b_; }
   __device__ __forceinline__ const T* x0() const { return x0_; }
@@ -273,6 +278,7 @@ struct Sc<T, true> {
   __device__ __forceinline__ const T* pn() const { return pn_; }
   __device__ __forceinline__ const T* inv3() const { return inv3_; }
   __device__ __forceinline__ int* trips() const { return trips_; }
+  __device__ __forceinline__ const unsigned char* done() const { return done_; }
   __device__ __forceinline__ T scaled(T v) const { return mul_rn(s, v); }
 };
 
@@ -285,7 +291,8 @@ __device__ __forceinline__ Sc<T, SCN> scene_args(const Args<T>& a) {
     const int64_t v3 = (int64_t)i * a.n * 3, v1 = (int64_t)i * a.n;
     return Sc<T, true>{a.b + v3, a.x0 + v3, a.diag + v1, a.inv_d + v1,
                        a.pn ? a.pn + v3 : nullptr, a.inv3 ? a.inv3 + v3 : nullptr,
-                       a.x_out + v3, a.trips ? a.trips + i : nullptr, a.scale[i]};
+                       a.x_out + v3, a.trips ? a.trips + i : nullptr,
+                       a.done ? a.done + i : nullptr, a.scale[i]};
   }
 }
 
@@ -731,7 +738,7 @@ __global__ void __launch_bounds__(CL ? kClusterThreads : kGroup, CL ? 1 : 2)
   T* const Z = m.base(V_Z);
   T* const AP = m.base(V_AP);
 
-  if (a.done != nullptr && *a.done) {  // no solve: x = x0, no trip
+  if (sc.done() != nullptr && *sc.done()) {  // no solve: x = x0, no trip
     FOR_CHUNKS(c, j) {
       if (kRows && j < n)
 #pragma unroll
@@ -1049,7 +1056,7 @@ int launch(const uint64_t* ptrs, const int* ints, const int* offs, double tol, d
   // the scene form: scale given (one scene a launch in GRID, any number in CLUSTER)
   const bool scn = a.scale != nullptr;
   if (scenes < 0 || (scenes > 1 && (ints[8] != 1 || !scn)) ||
-      (scn && (dyn || a.done != nullptr || a.agg != nullptr)))
+      (scn && (dyn || a.agg != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_bands < 0 || a.n_bands > kMaxBands) return static_cast<int>(cudaErrorInvalidValue);
   for (int d = 0; d < kMaxBands; ++d) a.offs[d] = d < a.n_bands ? offs[d] : 0;

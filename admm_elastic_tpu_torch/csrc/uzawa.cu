@@ -43,6 +43,21 @@
 // there against this form's 13.8, and 8.5-8.7 against 9.0-9.2 on the smaller
 // paths; it was measured and dropped (PERF.md §6).
 //
+// Scene forms (scenario batching, admm_elastic_tpu_torch/parallel/batch.py;
+// jax.vmap of the JAX package's Uzawa solve, admm_elastic_tpu/parallel/
+// batch.py:191-227): S scenes' passive rows (mask [S, H], normal [S, H, 3])
+// on one query set (vidx / slot shared) and their per-scene state. L's
+// (uzawa_ct_scenes_kernel) puts the scene on the grid's y and runs ct_vertex
+// at the scene's offset. M's (schur_trip_scenes_kernel) is one cooperative
+// launch of teams of blocks, each team with a barrier of its own
+// (grid_sync.cuh team_barrier) taking scenes t, t + teams, ... in turn by
+// trip_body, so any S runs on a grid the card holds at once; each scene's
+// scratch is its own, so no team waits between scenes. A trip's sums do not
+// depend on the blocks that make them, so each scene of either form is bit
+// for bit the single-scene launch on its tensors, and a scene's done freezes
+// that scene alone. Dynamic rows in a batch are not ported (ROADMAP Queue 1
+// item 12b).
+//
 // ADMM_M_FLOOR=1 (a measurement's build, chip_smoke.floor_library) is M's
 // latency floor: the launch, the done read, the barrier and the block
 // reductions, of zeros, with no row and no state read or written (one scratch
@@ -90,11 +105,11 @@ struct CtArgs {
   int n, may_dyn;
 };
 
+// Vertex v of C^T [yp; yd]: its passive row's term, its dynamic row's, then
+// its face corners' in table order.
 template <typename T>
-__global__ void __launch_bounds__(kCtThreads) uzawa_ct_kernel(const __grid_constant__ CtArgs<T> a) {
+__device__ __forceinline__ void ct_vertex(const CtArgs<T>& a, int v) {
   using O = DynOp<T>;
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= a.n) return;
   const T ck = *a.d.ck;
   const int h = a.d.h;
   T acc[3] = {T(0), T(0), T(0)};
@@ -116,6 +131,30 @@ __global__ void __launch_bounds__(kCtThreads) uzawa_ct_kernel(const __grid_const
   }
 #pragma unroll
   for (int k = 0; k < 3; ++k) a.out[(int64_t)v * 3 + k] = acc[k];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCtThreads) uzawa_ct_kernel(const __grid_constant__ CtArgs<T> a) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v < a.n) ct_vertex(a, v);
+}
+
+// L's scene form: scene s = blockIdx.y of S, its passive rows (mask [S, H],
+// normal [S, H, 3]) on the shared query set (vidx / slot), y [S, 2H] and out
+// [S, N, 3] at scene s's offset; the vertex's sum is ct_vertex's, so scene s
+// is bit for bit the single-scene launch on its rows. Passive rows only.
+template <typename T>
+__global__ void __launch_bounds__(kCtThreads)
+    uzawa_ct_scenes_kernel(const __grid_constant__ CtArgs<T> a) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= a.n) return;
+  const int64_t s = blockIdx.y, h = a.d.h;
+  CtArgs<T> c = a;
+  c.p.mask += s * h;
+  c.p.normal += s * h * 3;
+  c.y += s * 2 * h;
+  c.out += s * a.n * 3;
+  ct_vertex(c, v);
 }
 
 // --- M: the trip's update ------------------------------------------------------
@@ -212,14 +251,16 @@ __device__ __forceinline__ void partials2(const T* p0, const T* p1, int m, Acc& 
 // the partials' order: the same sums and alpha, beta in every block, with no
 // second barrier and no third to hand them out. Then each thread writes its
 // own rows of y, r, d and x; no block reads them after the barrier.
+//
+// trip_body is one trip on the blocks 0..nb-1 of a team (the grid, or in the
+// scene form the team that holds the scene), b this block's rank in it, bar
+// the team's barrier.
 template <typename T>
-__global__ void __launch_bounds__(kParts)
-    schur_trip_grid_kernel(const __grid_constant__ TripArgs<T> a) {
+__device__ __forceinline__ void trip_body(const TripArgs<T>& a, unsigned b, unsigned nb,
+                                          Barrier* bar, Acc (*red)[kParts]) {
   using O = DynOp<T>;
-  __shared__ Acc red[2][kParts];
   if (*a.done) return;  // read by every block before the barrier, written after it
-  const unsigned nb = gridDim.x;
-  const int g = blockIdx.x * kParts + threadIdx.x;
+  const int g = b * kParts + threadIdx.x;
   const int stride = static_cast<int>(nb) * kParts;
   const int m = 2 * a.d.h;
   const T ck = *a.d.ck;
@@ -236,7 +277,7 @@ __global__ void __launch_bounds__(kParts)
     p1[i] = O::mul(di, ri);
   }
 #endif
-  grid_sync(a.bar, nb);
+  grid_sync(bar, nb);
   const int mm = ADMM_M_FLOOR ? 0 : m;
   Acc s0, s1;
   T denom, dr;
@@ -277,13 +318,58 @@ __global__ void __launch_bounds__(kParts)
 }
 
 template <typename T>
-int grid_blocks() {
+__global__ void __launch_bounds__(kParts)
+    schur_trip_grid_kernel(const __grid_constant__ TripArgs<T> a) {
+  __shared__ Acc red[2][kParts];
+  trip_body(a, blockIdx.x, gridDim.x, a.bar, red);
+}
+
+// M's scene form: S scenes' trips in one cooperative launch of teams x bps
+// blocks. Team t (blocks t bps .. t bps + bps - 1, its own barrier bar + t)
+// takes scenes t, t + teams, ... in turn, each as trip_body on its bps
+// blocks: scene s's rows (mask [S, H], normal [S, H, 3]; the query set
+// shared), q2 and x [S, N, 3], y, r, d [S, 2H], k and done [S] and its
+// scratch (q3 [S, 2H], products [S, 3, 2H]) at scene s's offset. A trip's
+// sums do not depend on the blocks that take it, so scene s is bit for bit
+// the single-scene launch on its tensors, and its done freezes it alone. Any
+// S runs on a grid the card holds at once. Passive rows only.
+struct SceneTeams {
+  int scenes, teams, bps;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kParts)
+    schur_trip_scenes_kernel(const __grid_constant__ TripArgs<T> a,
+                             const __grid_constant__ SceneTeams st) {
+  __shared__ Acc red[2][kParts];
+  const int team = blockIdx.x / st.bps, rank = blockIdx.x % st.bps;
+  Barrier* bar = team_barrier(a.bar, team);
+  const int64_t h2 = 2 * (int64_t)a.d.h, n3 = 3 * (int64_t)a.n;
+  for (int64_t s = team; s < st.scenes; s += st.teams) {
+    TripArgs<T> c = a;
+    c.p.mask += s * a.d.h;
+    c.p.normal += s * a.d.h * 3;
+    c.q2 += s * n3;
+    c.x += s * n3;
+    c.y += s * h2;
+    c.r += s * h2;
+    c.dir += s * h2;
+    c.q3 += s * h2;
+    c.prod += s * 3 * h2;
+    c.k += s;
+    c.done += s;
+    trip_body(c, rank, st.bps, bar, red);
+  }
+}
+
+// The blocks of kernel fn (of kParts threads) the card holds at once (minus
+// a CUDA error code on failure).
+template <typename K>
+int grid_blocks(K fn) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, schur_trip_grid_kernel<T>, kParts,
-                                                       0);
+  if (rc == cudaSuccess) rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kParts, 0);
   if (rc != cudaSuccess) return -static_cast<int>(rc);
   return per_sm * sms;
 }
@@ -325,6 +411,24 @@ int ct(const uint64_t* p, const int* ints, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ptrs: the rows (rows_of), y [S, 2H], out [S, N, 3]; ints: n, h, S (passive
+// rows: mask and normal [S, H]).
+template <typename T>
+int ct_scenes(const uint64_t* p, const int* ints, void* stream) {
+  CtArgs<T> a;
+  rows_of(p, ints[1], a.p, a.d);
+  a.y = reinterpret_cast<const T*>(p[kRowPtrs]);
+  a.out = reinterpret_cast<T*>(p[kRowPtrs + 1]);
+  a.n = ints[0];
+  a.may_dyn = 0;
+  const int scenes = ints[2];
+  if (a.n <= 0 || scenes <= 0) return 0;
+  if (scenes > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  uzawa_ct_scenes_kernel<T><<<dim3((a.n + kCtThreads - 1) / kCtThreads, scenes), kCtThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ptrs: the rows (rows_of; slot unread), q2, x, y, r, d, q3, k, done, prod,
 // barrier; ints: n, h, may_dyn, blocks (the grid, at most admm_schur_blocks).
 template <typename T>
@@ -354,7 +458,55 @@ int trip(const uint64_t* p, const int* ints, double tiny, double tol2, void* str
       static_cast<cudaStream_t>(stream)));
 }
 
+// The scene form: ptrs as trip's with every per-scene tensor [S, ...] and
+// the barrier an array of teams barriers (kBarrierInts ints each); ints: n,
+// h, S, teams, bps (teams x bps blocks, at most admm_schur_blocks). Passive
+// rows only.
+template <typename T>
+int trip_scenes(const uint64_t* p, const int* ints, double tiny, double tol2, void* stream) {
+  TripArgs<T> a;
+  rows_of(p, ints[1], a.p, a.d);
+  a.q2 = reinterpret_cast<const T*>(p[kRowPtrs]);
+  a.x = reinterpret_cast<T*>(p[kRowPtrs + 1]);
+  a.y = reinterpret_cast<T*>(p[kRowPtrs + 2]);
+  a.r = reinterpret_cast<T*>(p[kRowPtrs + 3]);
+  a.dir = reinterpret_cast<T*>(p[kRowPtrs + 4]);
+  a.q3 = reinterpret_cast<T*>(p[kRowPtrs + 5]);
+  a.k = reinterpret_cast<int*>(p[kRowPtrs + 6]);
+  a.done = reinterpret_cast<unsigned char*>(p[kRowPtrs + 7]);
+  a.prod = reinterpret_cast<T*>(p[kRowPtrs + 8]);
+  a.bar = reinterpret_cast<Barrier*>(p[kRowPtrs + 9]);
+  a.tiny = static_cast<T>(tiny);
+  a.tol2 = static_cast<T>(tol2);
+  a.n = ints[0];
+  a.may_dyn = 0;
+  SceneTeams st{ints[2], ints[3], ints[4]};
+  if (st.scenes == 0) return 0;
+  if (a.n < 0 || a.d.h < 0 || st.scenes < 0 || st.teams < 1 || st.bps < 1 ||
+      a.prod == nullptr || a.bar == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* params[] = {&a, &st};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(schur_trip_scenes_kernel<T>), dim3(st.teams * st.bps), dim3(kParts),
+      params, 0, static_cast<cudaStream_t>(stream)));
+}
+
 }  // namespace
+
+extern "C" int admm_uzawa_ct_scenes_f32(const uint64_t* p, const int* ints, void* stream) {
+  return ct_scenes<float>(p, ints, stream);
+}
+extern "C" int admm_uzawa_ct_scenes_f64(const uint64_t* p, const int* ints, void* stream) {
+  return ct_scenes<double>(p, ints, stream);
+}
+extern "C" int admm_schur_trip_scenes_f32(const uint64_t* p, const int* ints, double tiny,
+                                          double tol2, void* stream) {
+  return trip_scenes<float>(p, ints, tiny, tol2, stream);
+}
+extern "C" int admm_schur_trip_scenes_f64(const uint64_t* p, const int* ints, double tiny,
+                                          double tol2, void* stream) {
+  return trip_scenes<double>(p, ints, tiny, tol2, stream);
+}
 
 extern "C" int admm_uzawa_ct_f32(const uint64_t* p, const int* ints, void* stream) {
   return ct<float>(p, ints, stream);
@@ -373,5 +525,11 @@ extern "C" int admm_schur_trip_f64(const uint64_t* p, const int* ints, double ti
 // The most blocks M's grid takes at once, in float32 (f64 = 0) or
 // float64 (a negative CUDA error where the query fails).
 extern "C" int admm_schur_blocks(int f64) {
-  return f64 ? grid_blocks<double>() : grid_blocks<float>();
+  return f64 ? grid_blocks(schur_trip_grid_kernel<double>)
+             : grid_blocks(schur_trip_grid_kernel<float>);
+}
+// The same for M's scene form.
+extern "C" int admm_schur_scene_blocks(int f64) {
+  return f64 ? grid_blocks(schur_trip_scenes_kernel<double>)
+             : grid_blocks(schur_trip_scenes_kernel<float>);
 }

@@ -89,8 +89,10 @@ _SIGNATURES = {
     "admm_dyn_detect": [_P, _P, _P],
     "admm_dyn_gather": [_P, _P, _P],
     "admm_uzawa_ct": [_P, _P, _P],
+    "admm_uzawa_ct_scenes": [_P, _P, _P],
     # ptrs, ints, tiny, tol2, stream
     "admm_schur_trip": [_P, _P, _D, _D, _P],
+    "admm_schur_trip_scenes": [_P, _P, _D, _D, _P],
 }
 _PLAIN_SIGNATURES = {  # one function for both precisions
     "admm_empty_launch": [_P],  # stream
@@ -100,6 +102,8 @@ _PLAIN_SIGNATURES = {  # one function for both precisions
     "admm_smem_optin": [],
     "admm_mesh_blocks": [_I],  # f64
     "admm_schur_blocks": [_I],  # f64
+    "admm_mesh_scene_blocks": [_I],  # f64
+    "admm_schur_scene_blocks": [_I],  # f64
 }
 
 

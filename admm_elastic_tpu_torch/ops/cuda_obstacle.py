@@ -21,6 +21,15 @@ solver's warm-up step makes it); each launch leaves it as it found it.
 ``blocks`` caps the grid, for measurements and tests; it changes no bit of
 the result.
 
+``mesh_detect_scenes(obs, x, overflow)`` is J's scene form
+(scenario batching, ``parallel/batch.py``): x [S, V, 3], outputs [S, V, ...]
+and overflow int32 [S], each scene compacted and served by the deep fallback
+on its own, scene i bit for bit ``mesh_detect`` on x[i]; one cooperative
+launch of teams of blocks (``cuda_uzawa.scene_teams``: a team a scene up to
+the blocks the card holds at once, each team on its own barrier taking its
+scenes in turn, its scratch its own), so any S runs. Its twin is the
+obstacle's ``signed_distance_with_overflow(x, scenes=True)``.
+
 ``mesh_desc`` describes a mesh obstacle to kernel J and to kernel H's sweeps
 (``ops/cuda_gs.py``): its sizes and the device addresses of its tables, read
 without a synchronisation, so a captured step passes the same addresses the
@@ -167,7 +176,7 @@ def _launch(obs, x, overflow, blocks=None):
              scratch[3 * v:3 * v + 2 * grid], scratch[3 * v + 2 * grid:]]
     ptr_arr = (ctypes.c_uint64 * (MESH_PTRS + 12))(*addresses(
         ptrs + [x, dx, point, normal, mask, overflow] + lists + [_barrier(x.device)]))
-    int_arr = (ctypes.c_int * (MESH_INTS + 2))(*ints, v, grid)
+    int_arr = (ctypes.c_int * (MESH_INTS + 4))(*ints, v, grid, -1, 0)
     fn = getattr(_build.library(), f"admm_mesh_detect_{sfx}")
     with torch.cuda.device(x.device):
         rc = fn(ptr_arr, int_arr, capture, torch.cuda.current_stream(x.device).cuda_stream)
@@ -175,4 +184,78 @@ def _launch(obs, x, overflow, blocks=None):
     return dx, point, normal, mask
 
 
+def mesh_detect_scenes(obs, x: torch.Tensor, overflow: torch.Tensor):
+    """Kernel J's scene form: (dx [S, V], point, normal [S, V, 3], mask
+    [S, V]) of mesh obstacle obs at S scenes' query lanes x [S, V, 3], each
+    scene compacted and served by the fallback on its own, its overflow set in
+    overflow[i] (int32 [S]); one cooperative launch of teams of blocks
+    (cuda_uzawa.scene_teams), scene i bit for bit
+    mesh_detect on x[i]. Twin: the obstacle's signed_distance_with_overflow(x,
+    scenes=True)."""
+    if x.device.type == "cpu":
+        dx, point, normal, ovf = obs.signed_distance_with_overflow(x, scenes=True)
+        overflow |= ovf.to(overflow.dtype)
+        return dx, point, normal, dx < 0.0
+    from admm_elastic_tpu_torch.ops.cuda_uzawa import scene_teams
+
+    s_cnt, v = int(x.shape[0]), int(x.shape[1])
+    sfx = _build.cuda_args("mesh_detect_scenes", x, (("x", x, (s_cnt, v, 3)),))
+    _check("overflow", overflow, x.device, torch.int32, (s_cnt,))
+    ints, ptrs, capture = mesh_desc(obs, x.device, x.dtype)
+    most = scene_max_blocks(x.device, x.dtype)
+    teams, bps = scene_teams(s_cnt, j_grid(v, most), most)
+    dx = torch.empty((s_cnt, v), dtype=x.dtype, device=x.device)
+    point = torch.empty_like(x)
+    normal = torch.empty_like(x)
+    mask = torch.empty((s_cnt, v), dtype=torch.bool, device=x.device)
+    k_fb = max(getattr(obs, "fallback_lanes", 0), 1)
+    lists = [torch.empty((teams, v), dtype=torch.int32, device=x.device) for _ in range(3)]
+    lists += [torch.empty((teams, 2 * bps), dtype=torch.int32, device=x.device),
+              torch.empty((teams, k_fb), dtype=torch.int32, device=x.device)]
+    ptr_arr = (ctypes.c_uint64 * (MESH_PTRS + 12))(*addresses(
+        ptrs + [x, dx, point, normal, mask, overflow] + lists
+        + [_scene_barriers(x.device)[:teams * BARRIER_INTS]]))
+    int_arr = (ctypes.c_int * (MESH_INTS + 4))(*ints, v, teams * bps, s_cnt, teams)
+    fn = getattr(_build.library(), f"admm_mesh_detect_{sfx}")
+    with torch.cuda.device(x.device):
+        rc = fn(ptr_arr, int_arr, capture, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "mesh_detect_scenes")
+    mesh_detect_scenes.launches += 1
+    return dx, point, normal, mask
+
+
+_SCENE_BLOCKS: dict = {}  # (device, dtype) -> the most blocks of J's scene form at once
+_SCENE_BARRIERS: dict = {}  # device -> J's scene form's team barriers
+
+
+def scene_max_blocks(device, dtype) -> int:
+    """The most blocks of kernel J's scene form a launch takes: one a SM
+    (read once)."""
+    key = (device, dtype)
+    if key not in _SCENE_BLOCKS:
+        with torch.cuda.device(device):
+            n = int(_build.library().admm_mesh_scene_blocks(int(dtype == torch.float64)))
+        if n <= 0:
+            raise RuntimeError(f"mesh_detect_scenes: the card holds no block of kernel J's scene "
+                               f"form (cudaError {-n})")
+        _SCENE_BLOCKS[key] = n
+    return _SCENE_BLOCKS[key]
+
+
+def _scene_barriers(device):
+    """J's scene form's team barriers, as many as its grid can have teams:
+    one zeroed buffer a device, allocated on the first call, outside any
+    capture; each launch leaves it as it found it."""
+    if device not in _SCENE_BARRIERS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("mesh_detect_scenes: call it once on this device before a "
+                               "capture (its team barriers are allocated on the first call)")
+        most = max(scene_max_blocks(device, torch.float32),
+                   scene_max_blocks(device, torch.float64))
+        _SCENE_BARRIERS[device] = torch.zeros((most * BARRIER_INTS,), dtype=torch.int32,
+                                              device=device)
+    return _SCENE_BARRIERS[device]
+
+
 mesh_detect.launches = 0
+mesh_detect_scenes.launches = 0

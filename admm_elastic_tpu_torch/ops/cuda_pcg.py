@@ -39,8 +39,10 @@ chooses the CLUSTER form, that is one launch, one cluster a scene; where it
 chooses GRID (more than 11 blocks' worth of vertices, or a rest-ELL), one
 launch of the GRID form a scene, S launches in turn, each on scene i's
 inputs. Either way scene i's x and trips are, bit for bit, the single-scene
-solve's on ``scaled(data, s_i)``. Jacobi only: a two-grid PCGData raises
-ValueError. ``scaled_diag(data, scale)`` forms the scenes' diagonals and
+solve's on ``scaled(data, s_i)``. ``pcg_solve_scenes(..., done=)`` takes a
+bool flag a scene (Uzawa's predicated inner solve in a batch): a scene whose
+flag is set takes no trip and returns its x0, as the single-scene solve with
+its done. Jacobi only: a two-grid PCGData raises ValueError. ``scaled_diag(data, scale)`` forms the scenes' diagonals and
 Jacobi inverses once (the batched step does so once a step). Their plain
 twins are ``solvers/pcg.solve_T_scenes`` and
 ``solvers/alcg.penalty_solve_scenes``.
@@ -368,19 +370,23 @@ def scaled_diag(data: pcg_mod.PCGData, scale: torch.Tensor) -> tuple:
 
 
 def pcg_solve_scenes(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor, tol: float,
-                     max_iters: int, trips: torch.Tensor, scale: torch.Tensor,
-                     diag: Optional[tuple] = None, form: Optional[str] = None) -> torch.Tensor:
+                     max_iters: int, trips: Optional[torch.Tensor], scale: torch.Tensor,
+                     diag: Optional[tuple] = None, form: Optional[str] = None,
+                     done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """S scenes' solves A(s_i) x_i = b_i from x0_i (b, x0 [S, N, 3]), each to
-    its own exit; scene i's trips added to trips[i] (int32 [S]). diag:
-    scaled_diag(data, scale), formed here where None. form: as pcg_solve's
-    (None: g_form's choice)."""
+    its own exit; scene i's trips added to trips[i] (int32 [S], or None: not
+    counted). diag: scaled_diag(data, scale), formed here where None. form: as
+    pcg_solve's (None: g_form's choice). done (bool [S] or None): a scene
+    whose flag is set takes no trip and returns its x0."""
     if b.device.type == "cpu":
         x, k = pcg_mod.solve_T_scenes(lambda xT: data.apply_T(xT, scale),
-                                      data.precondition_T(scale), b, x0, tol, max_iters)
-        trips += k
+                                      data.precondition_T(scale), b, x0, tol, max_iters,
+                                      done=done)
+        if trips is not None:
+            trips += k
         return x
     return _launch_scenes(pcg_solve_scenes, data, b, x0, tol, max_iters, trips, scale, diag,
-                          None, form)
+                          None, form, done)
 
 
 def pcg_solve_penalty_scenes(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.Tensor,
@@ -400,9 +406,10 @@ def pcg_solve_penalty_scenes(data: pcg_mod.PCGData, b: torch.Tensor, x0: torch.T
                           diag, (pn, pen_diag), form)
 
 
-def _launch_scenes(wrapper, data, b, x0, tol, max_iters, trips, scale, diag, penalty, form):
+def _launch_scenes(wrapper, data, b, x0, tol, max_iters, trips, scale, diag, penalty, form,
+                   done=None):
     """Kernel G over S scenes: one CLUSTER launch, or one GRID launch a scene;
-    each launch adds one to wrapper.launches."""
+    each launch adds one to wrapper.launches. done: None, or bool [S]."""
     if data.agg is not None:
         raise ValueError(f"{wrapper.__name__}: the scene form takes the Jacobi preconditioner")
     s_cnt, n = b.shape[0], data.n
@@ -411,8 +418,12 @@ def _launch_scenes(wrapper, data, b, x0, tol, max_iters, trips, scale, diag, pen
     if penalty is not None:
         fields += [("pn", penalty[0], (s_cnt, n, 3)), ("pen_diag", penalty[1], (s_cnt, n, 3))]
     sfx = _build.cuda_args(wrapper.__name__, b, fields)
-    if trips.device != b.device or trips.dtype != torch.int32 or tuple(trips.shape) != (s_cnt,):
+    if trips is not None and (trips.device != b.device or trips.dtype != torch.int32
+                              or tuple(trips.shape) != (s_cnt,)):
         raise ValueError(f"{wrapper.__name__}: trips must be int32 [S] on b's device")
+    if done is not None and (done.device != b.device or done.dtype != torch.bool
+                             or tuple(done.shape) != (s_cnt,) or not done.is_contiguous()):
+        raise ValueError(f"{wrapper.__name__}: done must be a contiguous bool [S] on b's device")
     plan = plan_of(data)
     diag_s, inv_s = scaled_diag(data, scale) if diag is None else diag
     pn = inv3 = None
@@ -431,8 +442,9 @@ def _launch_scenes(wrapper, data, b, x0, tol, max_iters, trips, scale, diag, pen
     for sl in launches:
         ptrs = ([b[sl], x0[sl], out[sl], plan.perm, diag_s[sl], inv_s[sl], plan.bands,
                  plan.rest_cols, plan.rest_vals, None, None, None] + list(plan.scratch)
-                + [plan.barrier, trips[sl], None if pn is None else pn[sl],
-                   None if inv3 is None else inv3[sl], None] + [None] * 11 + [scale[sl]])
+                + [plan.barrier, None if trips is None else trips[sl],
+                   None if pn is None else pn[sl], None if inv3 is None else inv3[sl],
+                   None if done is None else done[sl]] + [None] * 11 + [scale[sl]])
         ptr_arr = (ctypes.c_uint64 * len(ptrs))(*[_ptr(t) for t in ptrs])
         ints = (ctypes.c_int * 13)(*plan.ints, int(max_iters), 0, FORMS.index(kind), blocks,
                                    shift, 0, sl.stop - sl.start)

@@ -13,7 +13,13 @@ mesh; on one card the scene axis lives in the kernels instead:
 - the global solve is kernel G's scene form: one thread-block cluster a scene,
   every scene to its own exit (one GRID launch a scene where one cluster
   cannot hold the mesh), A(s) = M + pins + s (D^T W^2 D), the pins unscaled,
-  with AL-PCG's penalty rows per scene (ck s^(1/4)) for ``linsolver=4``.
+  with AL-PCG's penalty rows per scene (ck s^(1/4)) for ``linsolver=4``;
+- Uzawa (``linsolver=2``, ck unscaled) runs every scene's Schur CG to its own
+  exit: kernel L's scene form for C^T d, G's scene form as the A^-1 apply to
+  uzawa_inner_tol (a scene whose ``done`` is set takes no inner trip), and
+  M's scene form for the trip's update (``solvers/uzawa.solve_scenes``);
+- a mesh obstacle's detection is kernel J's scene form: each scene's near
+  lanes and deep fallback compacted on their own, its overflow its own.
 
 Per-scene material sweeps reuse one topology: the ADMM weights scale as
 w' = w sqrt(stiffness_scale) (w^2 = k V, src/TetEnergyTerm.cpp:47), so a
@@ -31,10 +37,9 @@ launch raises.
 
 A batched or coloured wind acts on every scene at once in plain PyTorch. What needs
 another kernel family with a scene axis, or more than one card, raises
-NotImplementedError naming ROADMAP Queue 1 item 12b: Uzawa
-(``linsolver=2``), mesh obstacles, colliders, the sequential wind, the
-two-grid preconditioner with ``uses_sweep=False``, and a mesh of more than
-one device.
+NotImplementedError naming ROADMAP Queue 1 item 12b: colliders, the
+sequential wind, the two-grid preconditioner with ``uses_sweep=False``, and a
+mesh of more than one device.
 """
 
 from __future__ import annotations
@@ -48,11 +53,13 @@ import torch
 
 from admm_elastic_tpu_torch import config as cfg
 from admm_elastic_tpu_torch.collision.passive import MESH, pick_deepest
-from admm_elastic_tpu_torch.ops import cuda_local_step, cuda_pcg, cuda_stencil, cuda_tri_local_step
+from admm_elastic_tpu_torch.ops import (cuda_local_step, cuda_obstacle, cuda_pcg, cuda_stencil,
+                                        cuda_tri_local_step)
 from admm_elastic_tpu_torch.ops import reduction as red
 from admm_elastic_tpu_torch.ops import stencil as stencil_mod
 from admm_elastic_tpu_torch.solvers import alcg as alcg_mod
 from admm_elastic_tpu_torch.solvers import pcg as pcg_mod
+from admm_elastic_tpu_torch.solvers import uzawa as uzawa_mod
 from admm_elastic_tpu_torch.system import elements as el
 from admm_elastic_tpu_torch.system import system as sysm
 
@@ -79,10 +86,13 @@ class SimMesh:
 
 def make_sim_mesh(n_scene: Optional[int] = None, n_shard: int = 1, devices=None) -> SimMesh:
     """Build a (scene, shard) device mesh (defaults: all devices on scene):
-    the CUDA devices, or the CPU where there is none."""
+    the CUDA devices, and RuntimeError where there is none (a CPU mesh is
+    asked for by naming its devices)."""
     if devices is None:
-        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                   or [torch.device("cpu")])
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError("make_sim_mesh: no CUDA device; pass devices= to build a mesh "
+                               "of other devices")
     devices = np.asarray(list(devices), dtype=object)
     if n_scene is None:
         n_scene = len(devices) // n_shard
@@ -201,7 +211,8 @@ class BatchedStep:
     """ScenarioBatch -> ScenarioBatch, one timestep of every scene (see the
     module docstring). ``eager(batch)`` runs the step op by op on any device:
     on the card what the graph is held to. ``trips`` [S] holds each scene's
-    CG trips of the last step (int32, on the device)."""
+    CG trips of the last step (Uzawa: its Schur trips; int32, on the
+    device)."""
 
     def __init__(self, solver, system, pcg: pcg_mod.PCGData, ls: int, donate: bool):
         s = solver.m_settings
@@ -216,6 +227,8 @@ class BatchedStep:
         self.prox_iters = s.prox_newton_iters
         self.tol = s.pcg_tol
         self.max_iters = s.pcg_max_iters
+        self.uzawa = (s.uzawa_max_iters, s.uzawa_tol, s.uzawa_inner_tol, s.uzawa_inner_iters)
+        self.slot_of = c.slot_of
         self.forces = tuple(solver.ext_forces)
         self.ck = solver._ck
         self.obstacles = c.obstacles
@@ -282,10 +295,48 @@ class BatchedStep:
 
     def _detect(self, x):
         """The passive hits of every scene at x [S, N, 3]: the first obstacle
-        of least distance at each query vertex."""
+        of least distance at each query vertex, a mesh obstacle through
+        kernel J's scene form; each scene's overflow in the hits."""
         xs = x if self.dense else x[:, self.surf]
-        dx, point, normal = pick_deepest([o.signed_distance(xs) for o in self.obstacles])
-        return alcg_mod.scene_hits(dx < 0.0, normal, point, self.surf, self.dense)
+        found, mask, ovf = [], None, None
+        for o in self.obstacles:
+            if isinstance(o, MESH):
+                if ovf is None:
+                    ovf = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+                dx, point, normal, mask = cuda_obstacle.mesh_detect_scenes(o, xs.contiguous(), ovf)
+                found.append((dx, point, normal))
+            else:
+                found.append(o.signed_distance(xs))
+        dx, point, normal = pick_deepest(found)
+        if len(found) > 1 or mask is None:
+            mask = dx < 0.0
+        return alcg_mod.scene_hits(mask, normal, point, self.surf, self.dense,
+                                   overflow=None if ovf is None else ovf != 0)
+
+    def _uzawa(self, hits, b, x, y, n_prev, scale, diag, trips):
+        """One Uzawa solve of every scene (solvers/uzawa.solve_scenes): the
+        hits deduped, y kept per scene where its active set is the last
+        solve's, the A^-1 apply G's scene form to uzawa_inner_tol from x
+        first and from 0 after, a done scene skipping it; each scene's Schur
+        trips added to trips. Returns (x, y, the active rows)."""
+        max_iters, tol, inner_tol, inner_iters = self.uzawa
+
+        def ainv(rhs, x0, done):
+            return cuda_pcg.pcg_solve_scenes(self.pcg, rhs,
+                                             torch.zeros_like(rhs) if x0 is None else x0,
+                                             inner_tol, inner_iters, None, scale, diag=diag,
+                                             done=done)
+
+        if hits is None:  # no query vertex or obstacle: one inner solve (the JAX one trip)
+            trips += 1
+            return ainv(b, x, None), y, n_prev
+        hits = hits.dedup()
+        act = torch.cat([hits.p_mask, hits.d_mask], dim=1)
+        y = torch.where(torch.all(act == n_prev, dim=1)[:, None], y, torch.zeros_like(y))
+        x, y, k = uzawa_mod.solve_scenes(ainv, hits, self.ck, b, x, y, max_iters, tol,
+                                         self.slot_of)
+        trips += k
+        return x, y, act
 
     def core(self, x0, v0, y, n_prev, scale, gravity, trips):
         """One step of every scene: (x, v, y, prev_active, overflow [S])."""
@@ -310,8 +361,14 @@ class BatchedStep:
         x = x_bar
         for _ in range(self.admm_iters):
             z, u = self._local(x, z, u, scale)
-            hits = self._detect(x) if self.ls == cfg.ALPCG and self.surf.shape[0] else None
+            hits = (self._detect(x) if self.ls != cfg.PCG and self.surf.shape[0]
+                    and self.obstacles else None)
             b = self._rhs(M_xbar, z, u, sq)
+            if self.ls == cfg.UZAWACG:
+                x, y, n_prev = self._uzawa(hits, b, x, y, n_prev, scale, diag, trips)
+                if hits is not None:
+                    overflow = overflow | hits.overflow
+                continue
             if self.ls == cfg.PCG or hits is None:
                 x = cuda_pcg.pcg_solve_scenes(self.pcg, b, x, self.tol, self.max_iters, trips,
                                               scale, diag=diag)
@@ -401,9 +458,13 @@ def make_batched_step(solver, mesh: Optional[SimMesh] = None, donate: bool = Tru
     """Build the batched step over a ScenarioBatch of the solver's scene.
 
     Runs the solver's configured global mode (or an explicit ``linsolver``
-    override) on the PCG operator: PCG (ls=3) or AL-PCG hard contact (ls=4).
-    The dense and GS modes (ls=0/1) have no per-scene-scalable operator and
-    raise ValueError; Uzawa (ls=2) raises NotImplementedError (item 12b).
+    override) on the PCG operator: PCG (ls=3), AL-PCG hard contact (ls=4) or
+    Uzawa with the sparse inner (ls=2, whatever ``uzawa_inner`` says, as the
+    JAX package's batch), with any of Floor, Sphere, PassiveMeshSDF and
+    PassiveMeshExact. The dense and GS modes (ls=0/1) have no
+    per-scene-scalable operator and raise ValueError; colliders, the
+    sequential wind, two-grid with ``uses_sweep=False`` and a mesh of several
+    devices raise NotImplementedError (item 12b).
     A swept batch takes the Jacobi preconditioner, whose diagonal follows
     each scene's scale (a two-grid coarse inverse is built for one operator):
     with ``uses_sweep`` and a two-grid solver it warns and switches.
@@ -416,13 +477,9 @@ def make_batched_step(solver, mesh: Optional[SimMesh] = None, donate: bool = Tru
             f"make_batched_step supports linsolver 3 (PCG), 4 (AL-PCG) and "
             f"2 (Uzawa, sparse inner); got {ls}. Re-initialize with one of "
             f"those or pass linsolver= explicitly.")
-    if ls == cfg.UZAWACG:
-        raise _deferred("Uzawa (linsolver=2, kernels L and M with a scene axis)")
     if mesh is not None and (mesh.devices.size != 1
                              or torch.device(mesh.devices.flat[0]) != solver.device):
         raise _deferred(f"a mesh of {mesh.devices.size} devices {dict(mesh.shape)}")
-    if any(isinstance(o, MESH) for o in solver.obstacles):
-        raise _deferred("a mesh obstacle (kernel J per scene)")
     if solver.colliders:
         raise _deferred("self-collision (kernels K and L per scene)")
     if any(getattr(f, "sequential", False) for f in solver.ext_forces):

@@ -205,17 +205,18 @@ def penalty_solve_scenes(data, pn, pen_diag, b, x0, tol, max_iters: int, scale):
     return pcg_mod.solve_T_scenes(A_hat_T, lambda r: inv_dT * r, b, x0, tol, max_iters)
 
 
-def scene_hits(mask, normal, point, surf, dense: bool) -> con.Hits:
+def scene_hits(mask, normal, point, surf, dense: bool, overflow=None) -> con.Hits:
     """The passive hits of S scenes at the query vertices surf [H]: mask
-    [S, H], normal and point [S, H, 3]; no dynamic row."""
+    [S, H], normal and point [S, H, 3]; no dynamic row; overflow bool [S]
+    (each scene's mesh obstacles' fixed-capacity stages; None: clear)."""
     no = torch.zeros_like(mask)
     z3 = torch.zeros_like(normal)
+    if overflow is None:
+        overflow = torch.zeros((mask.shape[0],), dtype=torch.bool, device=mask.device)
     return con.Hits(p_mask=mask, p_vidx=surf, p_normal=normal, p_point=point, d_mask=no,
                     d_vidx=surf, d_face=torch.zeros(mask.shape + (3,), dtype=torch.int64,
                                                     device=mask.device),
-                    d_barys=z3, d_normal=z3,
-                    overflow=torch.zeros((mask.shape[0],), dtype=torch.bool, device=mask.device),
-                    dense=dense, may_dyn=False)
+                    d_barys=z3, d_normal=z3, overflow=overflow, dense=dense, may_dyn=False)
 
 
 def _scatter_scenes(rows, vidx, n_verts: int):

@@ -293,14 +293,16 @@ def solve_T(A_mv_T, precond_T, b, x0, tol, max_iters: int):
     return xT.T.contiguous(), k
 
 
-def solve_T_scenes(A_mv_T, precond_T, b, x0, tol, max_iters: int):
+def solve_T_scenes(A_mv_T, precond_T, b, x0, tol, max_iters: int, done=None):
     """solve_T over a leading scene axis, each scene exiting on its own: b
     and x0 [S, N, k], A_mv_T and precond_T on [S, k, N]. A scene that is done
     keeps its carry (x, r, p, r.z, its trips) while the others go on: what
     jax.vmap of the JAX package's while_loop gives, a select on the batched
-    predicate. The loop stops on the host once every scene is done or at
-    max_iters. Returns (x [S, N, k], trips i32 [S]). The plain twin of kernel
-    G's batched form (ops/cuda_pcg.pcg_solve_scenes)."""
+    predicate. done (bool [S] or None): a scene whose flag is set takes no
+    trip and returns its x0 (Uzawa's predicated inner solve). The loop stops
+    on the host once every scene is done or at max_iters. Returns (x [S, N,
+    k], trips i32 [S]). The plain twin of kernel G's batched form
+    (ops/cuda_pcg.pcg_solve_scenes)."""
     tiny = torch.finfo(b.dtype).tiny
 
     def dot(a, c):
@@ -315,7 +317,7 @@ def solve_T_scenes(A_mv_T, precond_T, b, x0, tol, max_iters: int):
     r = bT - A_mv_T(x)
     p = precond_T(r)
     rz = dot(r, p)
-    done = dot(r, r) < tol2
+    done = dot(r, r) < tol2 if done is None else (dot(r, r) < tol2) | done
     trips = torch.zeros((b.shape[0],), dtype=torch.int32, device=b.device)
     for _ in range(int(max_iters)):
         if bool(done.all()):

@@ -30,6 +30,14 @@ their plain twins. Every dot sums in one fixed order, its partials in
 float64 (``_dot``, ``cuda_uzawa.fixed_dot``), on every device and in the
 traced solve too; it is not the JAX package's order, so x parts from it by
 rounding.
+
+``solve_scenes`` is solve over S scenes of one mesh (scenario batching,
+``parallel/batch.py``): the passive rows of ``alcg.scene_hits``, each scene
+its own Schur CG and exit (done [S]), L's and M's scene forms
+(``cuda_uzawa.ct_apply_scenes``, ``schur_trip_scenes``) around an A^-1 apply
+that skips a done scene (G's scene form with done); scene i computes what
+solve computes on its tensors, bit for bit. On the CPU its loop stops once
+every scene is done (the trips after change nothing).
 """
 
 from __future__ import annotations
@@ -42,6 +50,15 @@ from admm_elastic_tpu_torch.ops import cuda_uzawa
 from admm_elastic_tpu_torch.solvers.pcg import _err_denom, trace_err, traced
 
 _dot = cuda_uzawa.fixed_dot
+
+
+def _limits(dtype, tol):
+    """(the dtype's tiny, max(tol, 64 eps)^2 in the dtype), formed on the host
+    (exact in it): the trip's bad denominator and an absolute bound on |r|^2,
+    as the JAX package's."""
+    fi = np.finfo(np.float32 if dtype == torch.float32 else np.float64)
+    tol_c = max(fi.dtype.type(tol), fi.dtype.type(64) * fi.eps)
+    return float(fi.tiny), float(tol_c * tol_c)
 
 
 def solve(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters: int, tol, slot_of=None):
@@ -75,18 +92,54 @@ def solve(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters: int, tol, s
     # and d starts as r
     d = r.clone()
     yv = y.clone()
-    # max(tol, 64 eps)^2 in the dtype, formed on the host (exact in it): an
-    # absolute bound on |r|^2, as the JAX package's
-    fi = np.finfo(np.float32 if dtype == torch.float32 else np.float64)
-    tiny = float(fi.tiny)
-    tol_c = max(fi.dtype.type(tol), fi.dtype.type(64) * fi.eps)
-    tol2 = float(tol_c * tol_c)
+    tiny, tol2 = _limits(dtype, tol)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     k = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(int(max_iters)):
         q2 = apply_Ainv(Ct(d), None, done)
         x, yv, r, d, k, done = cuda_uzawa.schur_trip(hits, ck, q2, x, yv, r, d, k, done, tiny,
                                                      tol2)
+    return x, yv, torch.clamp_min(k, 1)
+
+
+def solve_scenes(apply_Ainv, hits: con.Hits, ck, b0, x_guess, y, max_iters: int, tol,
+                 slot_of=None):
+    """solve over S scenes of one mesh (scenario batching, parallel/batch.py;
+    jax.vmap of the JAX package's solve): hits of alcg.scene_hits (the passive
+    rows [S, H], the query set shared), b0 and x_guess [S, N, 3], y [S, 2H];
+    every scene runs its own Schur CG, to its own exit (done [S]), and
+    returns (x, y, iters [S] int32, each at least 1). apply_Ainv: (rhs [S, N,
+    3], x0 or None, done [S] or None) -> [S, N, 3], a scene whose done is set
+    taking no inner trip. On the card L's and M's scene forms
+    (cuda_uzawa.ct_apply_scenes, schur_trip_scenes); on the CPU their twins.
+    Scene i computes what solve computes on scene i's tensors, bit for bit."""
+    s_cnt, n = b0.shape[0], b0.shape[1]
+    dtype = b0.dtype
+    dev = b0.device
+    hits = cuda_uzawa.contiguous_hits(hits)
+
+    def Ct(yv):
+        return cuda_uzawa.ct_apply_scenes(hits, ck, yv, n, slot_of)
+
+    mask, normal = hits.p_mask, hits.p_normal
+    cp = torch.where(mask, ck * con._dot3(normal, hits.p_point), 0.0)
+    c = torch.cat([cp, torch.zeros_like(cp)], dim=1)
+    active = torch.cat([mask, hits.d_mask], dim=1)
+    x = apply_Ainv(b0 - Ct(y), x_guess, None)
+    xp = x if hits.dense else x[:, hits.p_vidx]
+    rp = torch.where(mask, ck * con._dot3(normal, xp), 0.0)
+    r = torch.where(active, torch.cat([rp, torch.zeros_like(rp)], dim=1) - c, 0.0)
+    d = r.clone()
+    yv = y.clone()
+    tiny, tol2 = _limits(dtype, tol)
+    done = torch.zeros((s_cnt,), dtype=torch.bool, device=dev)
+    k = torch.zeros((s_cnt,), dtype=torch.int32, device=dev)
+    for _ in range(int(max_iters)):
+        if dev.type == "cpu" and bool(done.all()):  # the rest change nothing: the CPU skips them
+            break
+        q2 = apply_Ainv(Ct(d), None, done)
+        x, yv, r, d, k, done = cuda_uzawa.schur_trip_scenes(hits, ck, q2, x, yv, r, d, k, done,
+                                                            tiny, tol2)
     return x, yv, torch.clamp_min(k, 1)
 
 

@@ -206,7 +206,19 @@ failure:
    sizes, with device ops, busy time and idle share at 8 and 1,024 scenes
    (batch_curve); each scene form's
    time per launch beside its twin, its bound and a library call
-   (batch_kernel_times);
+   (batch_kernel_times); the Uzawa and mesh-obstacle batches
+   (BATCH_WIDE: batch_floor_uzawa5k, batch_slab_exact_alpcg5k at full width;
+   batched_contact_uzawa in f32 and f64, batch_exactmesh_alpcg): L's, M's
+   and J's scene forms and G's per-scene done on their inputs past landing,
+   each bitwise its plain twin and scene by scene the single-scene kernel
+   (lmj_case, g_done_case), also at S = 1, 4, 64 and one scene more than the
+   card holds blocks of the form (scene_size_checks); their paths against
+   the goldens (the later held steps of BATCH_WIDE one step from the
+   golden's stored batch, beside the JAX package's one-ulp control), overflow
+   scene by scene the golden's, no vertex below BATCH_FLOOR_BOUND (or the
+   JAX package's own least y, batch_floor_bound); their 4 golden scenes in a
+   batch of 64 bitwise the same scenes alone (batch_alone_bitwise); their
+   curves at S = 1, 8, 64;
 5. timing (host_timing, on solvers of its own, runs before phase 4 and
    before any profiler window, so that no profiler state can slow the host):
    the beam, cloth_limit40, beam_gather, the PCG and the contact paths
@@ -847,7 +859,55 @@ BATCH_SCENES = {
     "batch_lattice_stencil": dict(mesh="beam", dims=(20, 20, 20), flag="NEOHOOKEAN",
                                   settings=BATCH_SWEEP, scales=(0.5, 2.0), gravity=(-9.8, -9.8)),
 }
-BATCH_STEPS = (1, 8)  # the steps each batch golden holds
+# Uzawa and mesh obstacles in a batch (ROADMAP Queue 1 item 12b, first part):
+# batch_floor_uzawa5k is floor_uzawa5k's body, floor and settings
+# (benchmarks/matrix.py:28-51: Uzawa, 10 trips, inner tol 1e-5, 60 inner
+# trips) and batch_slab_exact_alpcg5k the bench beam over slab_exact_gs5k's
+# exact slab under AL-PCG (pcg_max_iters 120, as slab_exact_alpcg67k), each at
+# full width with four scenes of scale and gravity, 20 steps held at 1, 12 and
+# 20 as CONTACT_COMPARE (the later held steps one step from the golden's
+# stored state: "onestep"); batched_contact_uzawa is crossval's batched scene
+# under Uzawa (also in float64); batch_exactmesh_alpcg the scene of
+# tests/test_parallel.py:224-270 (the 3x2x2 linear body above the 4x2x4
+# exact slab, near_lanes 24, scales 0.5, 1, 2, 30 steps; float64, the JAX
+# test's dtype under its x64).
+BATCH_CONTACT_SWEEP = dict(scales=(0.5, 1.0, 2.0, 4.0), gravity=(-9.8, -9.8, -5.0, -15.0))
+EXACTMESH_BATCH_SLAB = dict(kind="exact", slab=CROSSVAL_SLAB, bake=dict(cells=24, near_lanes=24))
+BATCH_SCENES.update({
+    "batch_floor_uzawa5k": dict(mesh="contact", contact="floor_uzawa5k", steps=(1, 12, 20),
+                                onestep=True, **BATCH_CONTACT_SWEEP),
+    "batch_slab_exact_alpcg5k": dict(mesh="contact", contact="slab_exact_gs5k",
+                                     change=dict(linsolver=4, pcg_max_iters=120),
+                                     steps=(1, 12, 20), onestep=True, **BATCH_CONTACT_SWEEP),
+    "batched_contact_uzawa": dict(mesh="floor", dims=(6, 3, 3), flag="LINEAR",
+                                  settings=dict(linsolver=2), **BATCH_CONTACT_SWEEP),
+    "batched_contact_uzawa_f64": dict(mesh="floor", dims=(6, 3, 3), flag="LINEAR",
+                                      settings=dict(linsolver=2), dtype=np.float64,
+                                      **BATCH_CONTACT_SWEEP),
+    "batch_exactmesh_alpcg": dict(mesh="exactmesh", dims=(3, 2, 2), flag="LINEAR",
+                                  settings=dict(linsolver=4), scales=(0.5, 1.0, 2.0),
+                                  gravity=(-9.8,) * 3, steps=(1, 8, 30), dtype=np.float64),
+    # the same slab with near_lanes 4 and the body 0.1 m above it, the middle
+    # scene held there (gravity 0): the others' compaction overflows, its not
+    "batch_exactmesh_alpcg4": dict(mesh="exactmesh", dims=(3, 2, 2), flag="LINEAR",
+                                   settings=dict(linsolver=4), near_lanes=4, lift=0.1,
+                                   scales=(1.0, 1.0, 2.0), gravity=(-9.8, 0.0, -15.0),
+                                   steps=(1, 4), dtype=np.float64),
+    # Uzawa over the same slab (L, M, G's done and J in one batch), the body
+    # 0.1 m above it, landed by step 3; float32
+    "batch_exactmesh_uzawa": dict(mesh="exactmesh", dims=(3, 2, 2), flag="LINEAR",
+                                  settings=dict(linsolver=2), lift=0.1, scales=(0.5, 1.0, 2.0),
+                                  gravity=(-15.0,) * 3, steps=(1, 5)),
+})
+# the full-width Uzawa and mesh-obstacle scenes, whose held steps after
+# the first are one step from the golden's stored state
+BATCH_WIDE = ("batch_floor_uzawa5k", "batch_slab_exact_alpcg5k")
+BATCH_STEPS = (1, 8)  # the steps each batch golden holds (a scene's "steps" where given)
+
+
+def batch_steps(name):
+    return BATCH_SCENES[name].get("steps", BATCH_STEPS)
+
 # Each golden's bounds after 1 and 8 steps, relative to max |x|: crossval's
 # (1e-4, 2e-3; crossval.py:256-302), but for the strain-limited sheet, whose
 # float32 trajectory the port on the CPU holds to 5.2e-7 and 2.5e-3 (float64:
@@ -857,7 +917,15 @@ BATCH_STEPS = (1, 8)  # the steps each batch golden holds
 # beam 1.0e-5 / 4.9e-5, crossval's scene 0 / 7.0e-8, lattice 1.8e-5 / 1.7e-4.
 BATCH_STEP_TOL = {"batch_beam_sweep8": (1e-4, 2e-3), "batched_contact_alpcg": (1e-4, 2e-3),
                   "batched_contact_alpcg_f64": (1e-8, 1e-8),
-                  "batch_cloth_sweep4": (1e-4, 1e-2), "batch_lattice_stencil": (1e-4, 2e-3)}
+                  "batch_cloth_sweep4": (1e-4, 1e-2), "batch_lattice_stencil": (1e-4, 2e-3),
+                  # the Uzawa and mesh-obstacle batches: crossval's bounds at every held step
+                  "batch_floor_uzawa5k": (1e-4, 2e-3, 2e-3),
+                  "batch_slab_exact_alpcg5k": (1e-4, 2e-3, 2e-3),
+                  "batched_contact_uzawa": (1e-4, 2e-3),
+                  "batched_contact_uzawa_f64": (1e-4, 2e-3),
+                  "batch_exactmesh_alpcg": (1e-4, 2e-3, 2e-3),
+                  "batch_exactmesh_alpcg4": (1e-4, 2e-3),
+                  "batch_exactmesh_uzawa": (1e-4, 2e-3)}
 # The beam's pinned face after 8 steps, from its target: the JAX package's own
 # run drifts up to 8.2e-5 at the sweep's PCG tolerance of 1e-6 in float32 (a
 # scaled pin diagonal would put it near target / scale: O(1)); the JAX test's
@@ -865,6 +933,7 @@ BATCH_STEP_TOL = {"batch_beam_sweep8": (1e-4, 2e-3), "batched_contact_alpcg": (1
 BATCH_PIN_TOL = 2e-4
 BATCH_BEAM_S = 1024
 BATCH_FLOOR_BOUND = -1.1  # crossval's batched scene: no vertex below (no tunnelling)
+BATCH_FLOOR_SLACK = 1e-3  # below the JAX package's own least y, where that is lower
 
 
 def batch_scene(name, api, dtype=None):
@@ -873,6 +942,10 @@ def batch_scene(name, api, dtype=None):
     given (else the scene's): (the initialized solver, the scales [S], the
     gravities [S])."""
     p = BATCH_SCENES[name]
+    if p["mesh"] == "contact":
+        solver = contact_scene(p["contact"], api, **p.get("change", {}),
+                               **({"dtype": dtype} if dtype else {}))
+        return solver, np.asarray(p["scales"], np.float64), np.asarray(p["gravity"], np.float64)
     solver = api.Solver()
     if p["mesh"] == "sheet":
         verts, tris, masses, pins = cloth_sheet(p["nx"], p["ny"])
@@ -882,10 +955,17 @@ def batch_scene(name, api, dtype=None):
         solver.add_tri_energies(verts, tris, lame)
         solver.set_pins([int(i) for i in pins])
     else:
-        mesh = api.make_tet_blocks(*p["dims"])
+        exact = p["mesh"] == "exactmesh"  # the body above the slab (test_parallel.py:238-248)
+        mesh = api.make_tet_blocks(*p["dims"], **({"cell": 0.4} if exact else {}))
         mesh.flags = api.binding.NOSELFCOLLISION | getattr(api.binding, p["flag"])
+        if exact:
+            mesh.apply_xform(api.make_xform(trans=(0.4, p.get("lift", 0.6), 0.4)))
         api.binding.add_tetmesh(solver, mesh, api.Lame.soft_rubber(), verbose=False)
-        if p["mesh"] == "floor":
+        if exact:
+            slab = dict(EXACTMESH_BATCH_SLAB, bake=dict(
+                EXACTMESH_BATCH_SLAB["bake"], near_lanes=p.get("near_lanes", 24)))
+            solver.add_obstacle(mesh_obstacle(slab, api))
+        elif p["mesh"] == "floor":
             solver.add_obstacle(api.Floor(y=api.asarray(-1.0)))
         else:
             solver.set_pins([int(i) for i in np.where(mesh.vertices[:, 0] < 1e-9)[0]])
@@ -2484,7 +2564,10 @@ def _wrappers():
                 local_step_tri_stencil_scenes=cuda_tri_local_step.local_step_tri_stencil_scenes,
                 tet_rhs_rows_scenes=cuda_stencil.tet_rhs_rows_scenes,
                 pcg_solve_scenes=cuda_pcg.pcg_solve_scenes,
-                pcg_solve_penalty_scenes=cuda_pcg.pcg_solve_penalty_scenes)
+                pcg_solve_penalty_scenes=cuda_pcg.pcg_solve_penalty_scenes,
+                ct_apply_scenes=cuda_uzawa.ct_apply_scenes,
+                schur_trip_scenes=cuda_uzawa.schur_trip_scenes,
+                mesh_detect_scenes=cuda_obstacle.mesh_detect_scenes)
 
 
 def reset_counts():
@@ -2516,7 +2599,8 @@ _KERNEL_SYMBOL = re.compile(
     r"tri_local_step_stencil_scenes_kernel|"
     r"tet_rhs_wide_kernel|tri_local_step_kernel|tri_local_step_stencil_kernel|pcg_kernel|"
     r"gs_kernel|wind_seq_kernel|mesh_detect_kernel|dyn_rank_kernel|dyn_gather_kernel|"
-    r"uzawa_ct_kernel|schur_trip_grid_kernel)"
+    r"uzawa_ct_kernel|schur_trip_grid_kernel|uzawa_ct_scenes_kernel|schur_trip_scenes_kernel|"
+    r"mesh_detect_scenes_kernel)"
     r"<([^>]*)>")
 
 
@@ -2546,6 +2630,9 @@ def wrapper_of_symbol(symbol):
                  wind_seq_kernel="wind_seq", mesh_detect_kernel="mesh_detect",
                  dyn_rank_kernel="dyn_detect", dyn_gather_kernel="dyn_gather",
                  uzawa_ct_kernel="ct_apply", schur_trip_grid_kernel="schur_trip",
+                 uzawa_ct_scenes_kernel="ct_apply_scenes",
+                 schur_trip_scenes_kernel="schur_trip_scenes",
+                 mesh_detect_scenes_kernel="mesh_detect_scenes",
                  tri_local_step_stencil_scenes_kernel="local_step_tri_stencil_scenes")
     if kernel in plain:
         return plain[kernel]
@@ -7027,6 +7114,8 @@ def app_path(torch, name, gpu):
 BATCH_BEAM_AT = tuple(range(0, BATCH_BEAM_S, BATCH_BEAM_S // 8))
 BATCH_CURVE = (1, 8, 64, 256, 1024)  # the scaling curve's batch sizes
 BATCH_LANDED = 12  # steps after which crossval's batched scene rests on the floor
+BATCH_WIDE_LANDED = 12  # steps after which BATCH_WIDE's beams rest on floor and slab
+BATCH_WIDE_CURVE = (1, 8, 64)  # the full-width batches' sizes (batch_curve)
 # The scene forms' wrappers: kernel name -> the ops module that holds it
 BATCH_KERNELS = {
     "local_step_tet_hyper_scenes": "cuda_local_step",
@@ -7035,6 +7124,9 @@ BATCH_KERNELS = {
     "tet_rhs_rows_scenes": "cuda_stencil",
     "pcg_solve_scenes": "cuda_pcg",
     "pcg_solve_penalty_scenes": "cuda_pcg",
+    "ct_apply_scenes": "cuda_uzawa",
+    "schur_trip_scenes": "cuda_uzawa",
+    "mesh_detect_scenes": "cuda_obstacle",
 }
 # which batch path launches each: its launches in the kernels line are that
 # path's (the wrappers' counts of the warm-up and the capture of its graph)
@@ -7045,7 +7137,13 @@ BATCH_KERNEL_PATH = {
     "local_step_tri_stencil_scenes": "batch_cloth_sweep4",
     "local_step_tet_stencil_scenes": "batch_lattice_stencil",
     "tet_rhs_rows_scenes": "batch_lattice_stencil",
+    "ct_apply_scenes": "batch_floor_uzawa5k",
+    "schur_trip_scenes": "batch_floor_uzawa5k",
+    "mesh_detect_scenes": "batch_slab_exact_alpcg5k",
 }
+# Which call of a scene form batch_kernel_cases holds (0: the first): L's
+# third (a trip's C^T d; the first is C^T y, y often 0)
+BATCH_CALL = {"ct_apply_scenes": 2}
 
 
 def batch_sweep(name, n):
@@ -7091,12 +7189,19 @@ def batch_setup(torch, name, n=None, dtype=None, device=None, donate=False):
     return solver, step, batch
 
 
+def keep(v):
+    """v, a tensor cloned (record_first)."""
+    return v.clone() if hasattr(v, "clone") and hasattr(v, "data_ptr") else v
+
+
 class record_first:
-    """Within it, the first call's arguments of each named scene wrapper
-    (BATCH_KERNELS) are kept in .args[name]; the calls go through."""
+    """Within it, the arguments of one call of each named scene wrapper
+    (BATCH_KERNELS; the first, or BATCH_CALL's) are kept in .args[name],
+    their tensors cloned before the call (M updates its own in place); the
+    calls go through."""
 
     def __init__(self, names):
-        self.names, self.args, self.saved = names, {}, {}
+        self.names, self.args, self.saved, self.calls = names, {}, {}, {}
 
     def __enter__(self):
         import importlib
@@ -7107,7 +7212,11 @@ class record_first:
             self.saved[name] = (mod, fn)
 
             def wrapped(*a, _fn=fn, _name=name, **kw):
-                self.args.setdefault(_name, (a, kw))
+                seen = self.calls.get(_name, 0)
+                self.calls[_name] = seen + 1
+                if seen == BATCH_CALL.get(_name, 0):
+                    self.args[_name] = (tuple(keep(v) for v in a),
+                                        {k: keep(v) for k, v in kw.items()})
                 return _fn(*a, **kw)
 
             wrapped.launches = 0  # what the wrapper counts while it is replaced
@@ -7185,6 +7294,9 @@ def batch_kernel_cases(torch, res, timing, label, name, n=None, dtype=None, step
             twin = cuda_tri_local_step.local_step_tri_over_scenes(
                 torch.stack([st.tri_Dx_rows(xs, b) for xs in x]), u, b.limit_min, b.limit_max,
                 step=local_step_tri_plain)
+        elif kname in LMJ_SCENES:
+            lmj_case(torch, res, timing, key, kname, args, kw)
+            continue
         elif kname == "tet_rhs_rows_scenes":
             z, u, b, n_verts, sq = args[:5]
             got = cuda_stencil.tet_rhs_rows_scenes(*args, **kw)
@@ -7201,27 +7313,33 @@ def batch_kernel_cases(torch, res, timing, label, name, n=None, dtype=None, step
             call = (cuda_pcg.pcg_solve_penalty_scenes if pen else cuda_pcg.pcg_solve_scenes)
             got = call(data, b_, x0, tol, max_iters, t, scale, *args[7:], **kw)
             singles = []
+            dn = kw.get("done")  # Uzawa's inner solves
 
-            def single(i):
+            def single(i, dn=dn):
                 ti = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
                 d = cuda_pcg.scaled(data, scale[i])
                 if pen:
                     x = cuda_pcg.pcg_solve_penalty(d, b_[i], x0[i], tol, max_iters, ti,
                                                    args[7][i], args[8][i])
                 else:
-                    x = cuda_pcg.pcg_solve(d, b_[i], x0[i], tol, max_iters, ti)
+                    x = cuda_pcg.pcg_solve(d, b_[i], x0[i], tol, max_iters, ti,
+                                           done=None if dn is None else dn[i:i + 1])
                 singles.append(int(ti.item()))
                 return x
 
             scene_bitwise(torch, key, got, single)
             need(t.cpu().tolist() == singles, f"{key}: trips {t.cpu().tolist()} against the "
                  f"single-scene solves' {singles}")
+            if not pen and solver.m_settings.linsolver == 2:
+                g_done_case(torch, res, f"pcg_solve_scenes[done]@{label} {dname}", data, b_, x0,
+                            tol, max_iters, scale, single)
             if pen:
                 xp, kp = alcg.penalty_solve_scenes(data, args[7], args[8], b_, x0, tol,
                                                    max_iters, scale)
             else:
                 xp, kp = pcg.solve_T_scenes(lambda xT: data.apply_T(xT, scale),
-                                            data.precondition_T(scale), b_, x0, tol, max_iters)
+                                            data.precondition_T(scale), b_, x0, tol, max_iters,
+                                            done=dn)
             errs = [rel_err(got[i].double().cpu().numpy(), xp[i].double().cpu().numpy())
                     for i in range(s_cnt)]
             kg, kp = t.cpu().numpy(), kp.cpu().numpy()
@@ -7253,6 +7371,159 @@ def batch_kernel_cases(torch, res, timing, label, name, n=None, dtype=None, step
     return solver, step, batch
 
 
+LMJ_SCENES = ("ct_apply_scenes", "schur_trip_scenes", "mesh_detect_scenes")
+
+
+def lmj_case(torch, res, timing, key, kname, args, kw):
+    """L's, M's or J's scene form on a call's inputs (args, kw), held bitwise
+    to its plain twin (ct_plain_scenes, schur_trip_plain_scenes, the mesh
+    obstacle's signed_distance_with_overflow(scenes=True) with its overflow)
+    and, scene by scene, to the single-scene kernel on that scene's tensors
+    (cuda_uzawa.scene_of's rows; J's overflow too)."""
+    from admm_elastic_tpu_torch.ops import cuda_obstacle as co
+    from admm_elastic_tpu_torch.ops import cuda_uzawa as cu
+
+    if kname == "ct_apply_scenes":
+        hits, ck, y, n = args[:4]
+        slot_of = args[4] if len(args) > 4 else kw.get("slot_of")
+        got = (cu.ct_apply_scenes(hits, ck, y, n, slot_of),)
+        scene_bitwise(torch, key, got, lambda i: cu.ct_apply(cu.scene_of(hits, i), ck, y[i], n,
+                                                             slot_of))
+        twin = (cu.ct_plain_scenes(hits, ck, y, n),)
+    elif kname == "schur_trip_scenes":
+        hits, ck, state, (tiny, tol2) = args[0], args[1], args[2:9], args[9:11]
+        got = cu.schur_trip_scenes(hits, ck, *(t.clone() for t in state), tiny, tol2)
+        scene_bitwise(torch, key, got, lambda i: cu.schur_trip(
+            cu.scene_of(hits, i), ck, *(t[i].clone() for t in state), tiny, tol2))
+        twin = cu.schur_trip_plain_scenes(hits, ck, *state, tiny, tol2)
+    else:
+        obs, x = args[:2]
+        ovf = torch.zeros_like(args[2])
+        got = co.mesh_detect_scenes(obs, x, ovf)
+
+        def single(i):
+            o1 = torch.zeros((1,), dtype=torch.int32, device=x.device)
+            out = co.mesh_detect(obs, x[i].contiguous(), o1)
+            need(int(o1.item()) == int(ovf[i].item()), f"{key}: scene {i}'s overflow "
+                 f"{int(ovf[i].item())} against the single-scene kernel's {int(o1.item())}")
+            return out
+
+        scene_bitwise(torch, key, got, single)
+        dp, pp, np_, op = obs.signed_distance_with_overflow(x, scenes=True)
+        twin = (dp, pp, np_, dp < 0.0)
+        need(bool(torch.equal(op, ovf != 0)), f"{key}: overflow {ovf.tolist()} against the "
+             f"twin's {op.tolist()}")
+    for a, w in zip(got, twin):
+        need(bool(torch.equal(a, w)), f"{key}: differs from its plain twin "
+             f"({float((a.double() - w.double()).abs().max().item()):.3e})")
+    s_cnt = int(got[0].shape[0])
+    res[key] = dict(bitwise_per_scene=True, bitwise_twin=True, scenes=s_cnt, max_abs_err=0.0)
+    if kname == "mesh_detect_scenes":
+        res[key]["overflow"] = ovf.tolist()
+    timing[key] = dict(args=args, kw=kw, scenes=s_cnt, name=kname)
+    log(f"{key}: bitwise per scene to the single-scene kernel and to the plain twin "
+        f"({s_cnt} scenes)")
+
+
+def g_done_case(torch, res, key, data, b_, x0, tol, max_iters, scale, single):
+    """G's scene form with a done flag a scene (Uzawa's predicated inner
+    solve), every other scene's set: a set scene returns its x0 bit for bit
+    and takes no trip, the others are bitwise the single-scene solve with
+    its own done (single(i, dn))."""
+    from admm_elastic_tpu_torch.ops import cuda_pcg
+    from admm_elastic_tpu_torch.solvers import pcg
+
+    s_cnt = b_.shape[0]
+    dn = torch.arange(s_cnt, device=b_.device) % 2 == 1
+    t = torch.zeros((s_cnt,), dtype=torch.int32, device=b_.device)
+    got = cuda_pcg.pcg_solve_scenes(data, b_, x0, tol, max_iters, t, scale, done=dn)
+    need(bool(torch.equal(got[dn], x0[dn])) and not bool(t[dn].any()),
+         f"{key}: a done scene moved or took a trip")
+    scene_bitwise(torch, key, got, lambda i: single(i, dn))
+    xp, kp = pcg.solve_T_scenes(lambda xT: data.apply_T(xT, scale), data.precondition_T(scale),
+                                b_, x0, tol, max_iters, done=dn)
+    need(bool(torch.equal(xp[dn], x0[dn])) and bool(torch.equal(kp[dn], t[dn])),
+         f"{key}: the twin's done scenes differ")
+    res[key] = dict(bitwise_per_scene=True, scenes=s_cnt, done=dn.tolist(),
+                    trips=t.tolist(), max_abs_err=float((got - xp).abs().max().item()))
+    log(f"{key}: done scenes keep x0 with no trip, the others bitwise the single-scene G "
+        f"(trips {t.tolist()[:8]})")
+
+
+def tiled_scenes(torch, t, s_cnt, scale_step):
+    """A scene tensor [S0, ...] tiled to s_cnt scenes, scene j from scene
+    j mod S0, scaled by 1 + j scale_step where it is floating (so that no two
+    scenes are alike)."""
+    idx = torch.arange(s_cnt, device=t.device) % t.shape[0]
+    out = t[idx].clone()
+    if out.is_floating_point() and scale_step:
+        f = 1.0 + scale_step * torch.arange(s_cnt, device=t.device, dtype=out.dtype)
+        out = out * f.reshape((-1,) + (1,) * (out.ndim - 1))
+    return out
+
+
+def scene_size_checks(torch, res, timing):
+    """L's, M's and J's scene forms and G's done at S = 1, 4, 64 and at one
+    more scene than the card holds blocks of M's (J's) scene form at once
+    (each team then takes two scenes), on the wide paths' recorded inputs
+    tiled to S scenes (tiled_scenes; M with every fifth scene done, J's near
+    lanes cut to a quarter of the query set, so that the scenes compact
+    differently and some overflow): each bitwise its twin and, scene by
+    scene, its single-scene kernel (lmj_case)."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.ops import cuda_obstacle as co
+    from admm_elastic_tpu_torch.ops import cuda_uzawa as cu
+
+    from admm_elastic_tpu_torch.ops import cuda_pcg
+
+    for key, t in list(timing.items()):
+        kname, path = key.partition("@")[0], key.partition("@")[2]
+        if path.rpartition(" ")[0] not in BATCH_WIDE:
+            continue
+        args, kw = t["args"], t["kw"]
+        if kname == "pcg_solve_scenes" and t["solver"].m_settings.linsolver == 2:
+            data, b_, x0, tol, its, _, scale = args[:7]
+            for s_cnt in (1, 64):
+                bb, xx = (tiled_scenes(torch, a, s_cnt, 1.0 / 64) for a in (b_, x0))
+                ss = tiled_scenes(torch, scale, s_cnt, 0.0)
+
+                def single(i, dn, bb=bb, xx=xx, ss=ss):
+                    ti = torch.zeros((1,), dtype=torch.int32, device=bb.device)
+                    return cuda_pcg.pcg_solve(cuda_pcg.scaled(data, ss[i]), bb[i], xx[i], tol,
+                                              its, ti, done=dn[i:i + 1])
+
+                g_done_case(torch, res, f"pcg_solve_scenes[done]@{path} S={s_cnt}", data, bb,
+                            xx, tol, its, ss, single)
+            continue
+        if kname not in LMJ_SCENES:
+            continue
+        x_lead = args[1] if kname == "mesh_detect_scenes" else args[2]
+        most = (co.scene_max_blocks(x_lead.device, x_lead.dtype) if kname == "mesh_detect_scenes"
+                else cu.scene_max_blocks(x_lead.device, x_lead.dtype))
+        for s_cnt in (1, 4, 64, most + 1):
+            if kname == "mesh_detect_scenes":
+                obs = args[0]
+                obs = dataclasses.replace(obs, near_lanes=max(1, args[1].shape[1] // 4))
+                x = tiled_scenes(torch, args[1], s_cnt, 0.0)
+                x[:, :, 1] -= 0.002 * torch.arange(s_cnt, device=x.device, dtype=x.dtype)[:, None]
+                new = (obs, x, torch.zeros((s_cnt,), dtype=torch.int32, device=x.device))
+            else:
+                hits = args[0]
+                rows = {f: tiled_scenes(torch, getattr(hits, f), s_cnt, 0.0)
+                        for f in ("p_mask", "p_normal", "p_point", "d_mask", "d_face",
+                                  "d_barys", "d_normal", "overflow")}
+                hits = dataclasses.replace(hits, **rows)
+                if kname == "ct_apply_scenes":
+                    new = (hits, args[1], tiled_scenes(torch, args[2], s_cnt, 1.0 / 64),
+                           *args[3:])
+                else:
+                    state = [tiled_scenes(torch, a, s_cnt, 1.0 / 64) for a in args[2:9]]
+                    state[6] = torch.arange(s_cnt, device=state[6].device) % 5 == 4
+                    new = (hits, args[1], *state, *args[9:])
+            lmj_case(torch, res, {}, f"{key} S={s_cnt}", kname, new, kw)
+
+
 def twin_err(torch, label, got, twin, kind):
     """max |kernel - plain twin| over the outputs, held to the bounds of the
     single-scene checks: A per lane to LANE_TOL's stress bound (float64 1e-8),
@@ -7282,49 +7553,80 @@ def batch_kernel_checks(torch):
             ("batched_contact_alpcg", "batched_contact_alpcg", None, np.float64, BATCH_LANDED),
             ("batch_cloth_sweep4", "batch_cloth_sweep4", None, None, 1),
             ("batch_lattice_stencil", "batch_lattice_stencil", None, None, 1),
-            ("batch_lattice_stencil", "batch_lattice_stencil", None, np.float64, 1)):
+            ("batch_lattice_stencil", "batch_lattice_stencil", None, np.float64, 1),
+            # L, M and G's done on Uzawa's batches, J on the exact
+            # slabs', past landing
+            ("batch_floor_uzawa5k", "batch_floor_uzawa5k", None, None, BATCH_WIDE_LANDED),
+            ("batch_floor_uzawa5k", "batch_floor_uzawa5k", None, np.float64, BATCH_WIDE_LANDED),
+            ("batch_slab_exact_alpcg5k", "batch_slab_exact_alpcg5k", None, None,
+             BATCH_WIDE_LANDED),
+            ("batch_slab_exact_alpcg5k", "batch_slab_exact_alpcg5k", None, np.float64,
+             BATCH_WIDE_LANDED),
+            ("batched_contact_uzawa", "batched_contact_uzawa", None, None, BATCH_LANDED),
+            ("batch_exactmesh_alpcg", "batch_exactmesh_alpcg", None, None, 8),
+            ("batch_exactmesh_uzawa", "batch_exactmesh_uzawa", None, None, 5)):
         batch_kernel_cases(torch, res, timing, label, name, n, dtype, steps)
+    scene_size_checks(torch, res, timing)
     return res, timing
 
 
 def batch_path(torch, label, name, n=None):
     """A batch through its entry points (make_batched_step, graph replays)
     against its golden: the wrappers' counts from 0 around the first call
-    (warm-up and capture); the golden's scenes at steps 1 and 8 within
-    BATCH_STEP_TOL of max |x| (the float64 scene at 1e-10 of it), every scene
-    finite, overflow clear; the graph rollout bitwise the eager loop; for the
-    beam the pinned face at its target to 1e-6 after 8 steps and the 8 scenes
-    bitwise those of an 8-scene batch; for crossval's scene no vertex below
+    (warm-up and capture); the golden's scenes at its held steps within
+    BATCH_STEP_TOL of max |x| (a scene of BATCH_WIDE at each held step after
+    the first one step from the golden's stored batch, beside the JAX
+    package's own one-ulp control); every scene finite, overflow scene by
+    scene the golden's; the graph rollout bitwise the eager loop; for the beam
+    the pinned face at its target after 8 steps and the 8 scenes bitwise those
+    of an 8-scene batch; for a contact scene no vertex below
     BATCH_FLOOR_BOUND."""
     from admm_elastic_tpu_torch.parallel import batch as pb
 
     g = golden(name)
+    steps = batch_steps(name)
+    onestep = BATCH_SCENES[name].get("onestep", False)
     t0 = time.perf_counter()
     solver, step, batch = batch_setup(torch, name, n)
     at = list(batch_at(batch.n_scenes)) if n else list(range(batch.n_scenes))
     eager = batch
     reset_counts()
-    xs = {}
-    for k in range(1, max(BATCH_STEPS) + 1):
+    xs, ovfs, min_y = {}, {}, np.inf
+    for k in range(1, max(steps) + 1):
         batch = step(batch)
         if k == 1:
             counts = {kname: v for kname, v in wrapper_counts().items() if v}
-        if k in BATCH_STEPS:
-            xs[k] = batch.x.clone()
-    for k in range(1, max(BATCH_STEPS) + 1):
+        if k in steps:
+            xs[k], ovfs[k] = batch.x.clone(), batch.overflow.clone()
+        min_y = min(min_y, float(batch.x[..., 1].min().item()))
+    for k in range(1, max(steps) + 1):
         eager = step.eager(eager)
-        if k in BATCH_STEPS:
+        if k in steps:
             need(bool(torch.equal(xs[k], eager.x)),
                  f"{label}: the graph's step {k} differs from the eager loop's")
     out = dict(scenes=batch.n_scenes, launches=counts, graph_vs_eager_bitwise=True)
-    for k, bound in zip(BATCH_STEPS, BATCH_STEP_TOL[name]):
-        x = xs[k][at].double().cpu().numpy()
+    for i, (k, bound) in enumerate(zip(steps, BATCH_STEP_TOL[name])):
         need(np.isfinite(xs[k].double().cpu().numpy()).all(), f"{label}: non-finite at step {k}")
-        err = rel_err(x, g[f"x{k}"].astype(np.float64))
+        x, ovf = xs[k][at], ovfs[k][at]
+        if onestep and i > 0:  # one step from the golden's batch before step k
+            dtype = batch.x.dtype
+            start = pb.ScenarioBatch(
+                **{f: torch.as_tensor(g[f"s{k}_{f}"]).to(DEVICE)
+                   for f in ("x", "v", "y", "prev_active", "overflow")},
+                stiffness_scale=torch.as_tensor(g["scales"], dtype=dtype, device=DEVICE),
+                gravity=torch.as_tensor(g["gravity"], dtype=dtype, device=DEVICE))
+            one = step(start)
+            out[f"step{k}_rollout_rel_err"] = rel_err(x.double().cpu().numpy(),
+                                                      g[f"x{k}"].astype(np.float64))
+            x, ovf = one.x, one.overflow
+            out[f"step{k}_jax_one_ulp_control"] = float(g[f"ctl{k}_gap"])
+        err = rel_err(x.double().cpu().numpy(), g[f"x{k}"].astype(np.float64))
         out[f"step{k}_rel_err"], out[f"step{k}_bound"] = err, bound
         need(err <= bound, f"{label}: step {k} {err:.3e} from the golden (bound {bound})")
-    need(not bool(batch.overflow.any()), f"{label}: overflow set")
-    x8 = xs[max(BATCH_STEPS)].double().cpu().numpy()
+        want = g[f"ovf{k}"] if f"ovf{k}" in g else np.zeros(len(at), bool)
+        need(np.array_equal(ovf.cpu().numpy(), want),
+             f"{label}: overflow {ovf.cpu().tolist()} at step {k}, the golden's {want.tolist()}")
+    x8 = xs[max(steps)].double().cpu().numpy()
     if name == "batch_beam_sweep8":
         pins = np.where(solver.x[:, 0] < 1e-9)[0]
         drift = float(np.abs(x8[:, pins] - solver.x[pins][None]).max())
@@ -7334,19 +7636,54 @@ def batch_path(torch, label, name, n=None):
             step8 = pb.make_batched_step(solver, mesh=None, donate=False)
             b8 = pb.make_scenario_batch(solver, 8, stiffness_scale=g["scales"],
                                         gravity=g["gravity"])
-            for _ in range(max(BATCH_STEPS)):
+            for _ in range(max(steps)):
                 b8 = step8(b8)
-            need(bool(torch.equal(b8.x, xs[max(BATCH_STEPS)][at])),
+            need(bool(torch.equal(b8.x, xs[max(steps)][at])),
                  f"{label}: the 8 scenes differ from an 8-scene batch's")
             out["s8_bitwise"] = True
-    if name.startswith("batched_contact"):
-        out["min_y"] = float(x8[..., 1].min())
-        need(out["min_y"] > BATCH_FLOOR_BOUND, f"{label}: a vertex at y = {out['min_y']}")
+    if solver.obstacles:
+        out["min_y"], out["floor_bound"] = min_y, batch_floor_bound(g)
+        need(min_y > out["floor_bound"], f"{label}: a vertex at y = {min_y} (bound "
+             f"{out['floor_bound']})")
     out["trips_last_step"] = step.trips.cpu().tolist()[:16]
     out["seconds"] = time.perf_counter() - t0
     log(f"{label}: {json.dumps({k: v for k, v in out.items() if k != 'launches'})}")
     log(f"{label}: launches {json.dumps(counts)}")
     return solver, step, out
+
+
+def batch_floor_bound(g):
+    """The least y a contact batch may reach: BATCH_FLOOR_BOUND, or where the
+    JAX package's own rollout goes lower (its golden's min_y over the held
+    run), that less BATCH_FLOOR_SLACK: batch_slab_exact_alpcg5k's softest
+    scene (scale 0.5, AL-PCG's one pass an ADMM iteration) sinks to -1.11689
+    in the JAX package at step 12, and the port with it."""
+    if "min_y" not in g:
+        return BATCH_FLOOR_BOUND
+    return min(BATCH_FLOOR_BOUND, float(g["min_y"].min()) - BATCH_FLOOR_SLACK)
+
+
+def batch_alone_bitwise(torch, name, n, steps):
+    """The golden's scenes of a BATCH_WIDE scene in a batch of n (batch_sweep:
+    they lead it) after `steps` graph steps, bitwise the same scenes batched
+    alone."""
+    from admm_elastic_tpu_torch.parallel import batch as pb
+
+    t0 = time.perf_counter()
+    solver, step, big = batch_setup(torch, name, n)
+    g = BATCH_SCENES[name]
+    alone = pb.make_scenario_batch(solver, len(g["scales"]), stiffness_scale=g["scales"],
+                                   gravity=g["gravity"])
+    step_alone = pb.make_batched_step(solver, mesh=None, donate=False)
+    for _ in range(steps):
+        big, alone = step(big), step_alone(alone)
+    k = alone.n_scenes
+    same = bool(torch.equal(big.x[:k], alone.x)) and bool(torch.equal(big.y[:k], alone.y))
+    need(same, f"{name}: its {k} scenes in a batch of {n} differ from the same scenes alone "
+         f"after {steps} steps")
+    log(f"{name}: its {k} scenes in a batch of {n} bitwise the same scenes alone after {steps} "
+        f"steps ({time.perf_counter() - t0:.1f} s)")
+    return dict(scenes=n, alone=k, steps=steps, bitwise=True)
 
 
 def batch_rate(torch, step, batch, iters):
@@ -7393,21 +7730,23 @@ def batch_profile(torch, step, batch, iters, n_steps=5):
 
 def batch_curve(torch, gpu):
     """The beam's and the cloth sheet's sweeps: total ADMM iterations/s at
-    each BATCH_CURVE size (a batch of its own, donated, through graph
-    replays), and at S = 8 and 1,024 the device ops and busy time per ADMM
+    each BATCH_CURVE size (BATCH_WIDE's at BATCH_WIDE_CURVE's; a batch of its
+    own, donated, through graph replays), and at S = 8 and the largest the
+    device ops and busy time per ADMM
     iteration (torch.profiler, 5 steps, after a warm-up window that sets
     CUPTI up) and the idle share 1 - busy / wall over that window, beside
     rollout_idle_share: 1 - busy / the timed rollout's wall per ADMM
     iteration."""
     profiler_warmup(torch)
     out = {}
-    for name in ("batch_beam_sweep8", "batch_cloth_sweep4"):
+    for name in ("batch_beam_sweep8", "batch_cloth_sweep4") + BATCH_WIDE:
         out[name] = {}
-        for n in BATCH_CURVE:
+        sizes = BATCH_WIDE_CURVE if name in BATCH_WIDE else BATCH_CURVE
+        for n in sizes:
             solver, step, batch = batch_setup(torch, name, n, donate=True)
             iters = solver.m_settings.admm_iters
             r = batch_rate(torch, step, batch, iters)
-            if n in (8, BATCH_BEAM_S) and DEVICE == "cuda":
+            if n in (8, sizes[-1]) and DEVICE == "cuda":
                 r.update(batch_profile(torch, step, batch, iters))
                 r["idle_share"] = r["window_idle_share"]
                 r["rollout_idle_share"] = (1.0 - r["busy_us_per_iter"]
@@ -7445,10 +7784,12 @@ def batch_kernel_times(torch, timing, gpu):
         kname = key.partition("@")[0]
         if key.endswith("f64"):
             continue
-        if kname.startswith("pcg_solve"):
+        if kname in LMJ_SCENES:
+            out[key] = lmj_times(torch, kname, t["args"], t["kw"])
+        elif kname.startswith("pcg_solve"):
             data, args, kw = t["data"], t["args"], t["kw"]
             b_, x0, tol, its, scale = args[1], args[2], args[3], args[4], args[6]
-            trips = torch.zeros_like(args[5])
+            trips = torch.zeros((b_.shape[0],), dtype=torch.int32, device=b_.device)
             diag = cuda_pcg.scaled_diag(data, scale)
             if t["pen"]:
                 def kern():
@@ -7545,6 +7886,60 @@ def batch_kernel_times(torch, timing, gpu):
     return out
 
 
+def lmj_times(torch, kname, args, kw):
+    """L's, M's or J's scene form on a batch path's inputs: the device time a
+    launch, queued behind a sleep kernel (queued_us; CUDA events around each
+    call beside it, which at these sizes read the host's enqueue), the plain
+    twin's by CUDA events; the bound for all S scenes (the sum of
+    each scene's schur_bytes_ops or mesh_bytes_ops); L's library yardstick one
+    index_add_ of every scene's terms into zeros [S N, 3] (float atomics; never
+    in the port; queued too, with the zeros' copy), none for M and J. M runs on copies of the trip's state with
+    tiny and tol^2 at 0, so that no launch finds its scene done."""
+    from admm_elastic_tpu_torch.ops import cuda_obstacle as co
+    from admm_elastic_tpu_torch.ops import cuda_uzawa as cu
+
+    lib = None
+    if kname == "mesh_detect_scenes":
+        obs, x = args[:2]
+        ovf = torch.zeros_like(args[2])
+        kern = lambda: co.mesh_detect_scenes(obs, x, ovf)  # noqa: E731
+        plain = lambda: obs.signed_distance_with_overflow(x, scenes=True)  # noqa: E731
+        per = [mesh_bytes_ops(torch, obs, x[i], x.element_size()) for i in range(x.shape[0])]
+        s_cnt = x.shape[0]
+    else:
+        hits, ck = args[:2]
+        s_cnt = hits.p_mask.shape[0]
+        if kname == "ct_apply_scenes":
+            y, n = args[2], args[3]
+            slot_of = args[4] if len(args) > 4 else kw.get("slot_of")
+            kern = lambda: cu.ct_apply_scenes(hits, ck, y, n, slot_of)  # noqa: E731
+            plain = lambda: cu.ct_plain_scenes(hits, ck, y, n)  # noqa: E731
+            h = hits.p_mask.shape[1]
+            src = ((ck * torch.where(hits.p_mask, y[:, :h], 0.0))[..., None]
+                   * hits.p_normal).reshape(-1, 3)
+            vid = hits.p_vidx if not hits.dense else torch.arange(h, device=y.device)
+            idx = (vid[None, :] + n * torch.arange(s_cnt, device=y.device)[:, None]).reshape(-1)
+            zeros = torch.zeros((s_cnt * n, 3), dtype=y.dtype, device=y.device)
+            lib = queued_us(torch, [("lib", lambda: zeros.clone().index_add_(0, idx, src))],
+                            20)["lib"] * 1e-3
+            item, trip = y.element_size(), False
+        else:
+            q2, state = args[2], [a.clone() for a in args[3:9]]
+            n = q2.shape[1]
+            kern = lambda: cu.schur_trip_scenes(hits, ck, q2, *state, 0.0, 0.0)  # noqa: E731
+            plain = lambda: cu.schur_trip_plain_scenes(hits, ck, *args[2:11])  # noqa: E731
+            item, trip = q2.element_size(), True
+        per = [schur_bytes_ops(cu.scene_of(hits, i), n, item, trip) for i in range(s_cnt)]
+    nbytes, ops = sum(p[0] for p in per), sum(p[1] for p in per)
+    p1, k1, k2, p2 = (events_ms(torch, plain, 2), events_ms(torch, kern, 20),
+                      events_ms(torch, kern, 20), events_ms(torch, plain, 2))
+    queued = queued_us(torch, [("kernel", kern)], 20)["kernel"] * 1e-3
+    bound_ms, bound_by = bound_of(nbytes, ops)
+    return dict(ms=queued, events_ms=min(k1, k2), plain_ms=min(p1, p2),
+                readings=[p1, k1, k2, p2], bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                bytes=nbytes, operations=ops, scenes=s_cnt)
+
+
 def batch_c_library(torch, args):
     """One torch.sparse.mm of D^T W^2 (the family's, unscaled) as CSR on
     every scene's rows z - u as columns (stencil_csr's layout): the library
@@ -7568,7 +7963,9 @@ def batch_rows(batch):
                  "local_step_tet_stencil_scenes": "local_step_tet_hyper",
                  "local_step_tri_stencil_scenes": "local_step_tri",
                  "tet_rhs_rows_scenes": "tet_rhs_rows", "pcg_solve_scenes": "pcg_solve",
-                 "pcg_solve_penalty_scenes": "pcg_solve_penalty"}
+                 "pcg_solve_penalty_scenes": "pcg_solve_penalty",
+                 "ct_apply_scenes": "ct_apply", "schur_trip_scenes": "schur_trip",
+                 "mesh_detect_scenes": "mesh_detect"}
     rows = []
     for kname, base in scene_src.items():
         keys = [k for k in batch["times"] if k.partition("@")[0] == kname]
@@ -7600,19 +7997,26 @@ def batch_phase(torch, gpu):
     checks, timing = batch_kernel_checks(torch)
     stamp(t0, "batch: scene forms against single-scene kernels and twins")
     paths = {}
-    for label, name, n in (("beam_sweep1024", "batch_beam_sweep8", BATCH_BEAM_S),
-                           ("batched_contact_alpcg", "batched_contact_alpcg", None),
-                           ("batched_contact_alpcg_f64", "batched_contact_alpcg_f64", None),
-                           ("batch_cloth_sweep4", "batch_cloth_sweep4", None),
-                           ("batch_lattice_stencil", "batch_lattice_stencil", None)):
+    runs = (("beam_sweep1024", "batch_beam_sweep8", BATCH_BEAM_S),
+            ("batched_contact_alpcg", "batched_contact_alpcg", None),
+            ("batched_contact_alpcg_f64", "batched_contact_alpcg_f64", None),
+            ("batch_cloth_sweep4", "batch_cloth_sweep4", None),
+            ("batch_lattice_stencil", "batch_lattice_stencil", None)) + tuple(
+        (name, name, None) for name in BATCH_WIDE + (
+            "batched_contact_uzawa", "batched_contact_uzawa_f64", "batch_exactmesh_alpcg",
+            "batch_exactmesh_alpcg4", "batch_exactmesh_uzawa"))
+    for label, name, n in runs:
         _, _, paths[label] = batch_path(torch, label, name, n)
         stamp(t0, f"batch: {label}")
+    alone = {name: batch_alone_bitwise(torch, name, BATCH_WIDE_CURVE[-1], BATCH_WIDE_LANDED)
+             for name in BATCH_WIDE}
+    stamp(t0, "batch: the golden scenes of 64 alone")
     curve = batch_curve(torch, gpu)
     stamp(t0, "batch: scaling curve")
     times = batch_kernel_times(torch, timing, gpu)
     stamp(t0, "batch: kernel times")
     log(f"the batch phase: {time.perf_counter() - t0:.1f} s")
-    return dict(checks=checks, paths=paths, curve=curve, times=times)
+    return dict(checks=checks, paths=paths, alone=alone, curve=curve, times=times)
 
 
 def apps_phase(torch, gpu):

@@ -80,7 +80,17 @@ step, dt = 1/24; positions after steps 1 and 8 (beam_free: 1 and 2). The SVD run
   under PCG, scales 0.5, 1, 2, 4) and batch_lattice_stencil (a 20x20x20
   neo-Hookean lattice, scales 0.5 and 2); each holds every scene's x after
   steps 1 and 8, the sweep (``scales``, ``gravity``) and the batch's
-  overflow flags after step 8;
+  overflow flags after step 8; batch_floor_uzawa5k (floor_uzawa5k's
+  beam, floor and Uzawa settings) and batch_slab_exact_alpcg5k (the bench beam
+  over slab_exact_gs5k's exact slab, AL-PCG), four scenes at scales 0.5, 1, 2,
+  4 and gravity -9.8, -9.8, -5, -15, held at steps 1, 12 and 20, each with the
+  batch before each held step after the first (``s{k}_x``, ``_v``, ``_y``,
+  ``_prev_active``, ``_overflow``) and that step's one-ulp control gap
+  (``ctl{k}_gap``); batched_contact_uzawa (crossval's scene under Uzawa, also
+  batched_contact_uzawa_f64) and batch_exactmesh_alpcg (tests/
+  test_parallel.py:224-270's scene, float64, held at 1, 8 and 30); every new
+  scene with the overflow flags after each held step (``ovf{k}``); every batch
+  with each scene's least y over its rollout (``min_y``);
 - the demo apps (chip_smoke.APP_RUNS: app_beams, app_trianglestrain,
   app_bunnyexpand, app_bunnyexpand_rand, app_signorini, app_signorini_sdf,
   app_signorini_exact, app_torus, app_boxes): the JAX package's apps/<name>.py
@@ -113,7 +123,7 @@ from admm_elastic_tpu.forces import make_wind_force  # noqa: E402
 from admm_elastic_tpu.geometry.factory import make_tet_blocks  # noqa: E402
 from admm_elastic_tpu.geometry.io import load_elenode  # noqa: E402
 from admm_elastic_tpu.ops import prox  # noqa: E402
-from chip_smoke import (APP_FRAMES, APP_RUNS, BATCH_SCENES, BATCH_STEPS,  # noqa: E402
+from chip_smoke import (APP_FRAMES, APP_RUNS, BATCH_SCENES, batch_steps,  # noqa: E402
                         BEAM_FLAGS, BEAM_MODELS, BUNNY, CLOTH_SCENES, CONTACT_SCENES, GATHER_SCENES,
                         PCG_SCENES, SELFCOLL_SCENES, VARIANT_SCENES, app_held_steps,
                         batch_scene, boxes_scene, bunny_pins, cloth_sheet, contact_scene, contact_steps,
@@ -492,18 +502,44 @@ def app_bunnyexpand_f64():
 
 
 def batch(name):
+    import dataclasses
+
+    import jax.numpy as jnp
+
     from admm_elastic_tpu.parallel.batch import make_batched_step, make_scenario_batch
 
-    dtype = BATCH_SCENES[name].get("dtype", np.float32)
+    p = BATCH_SCENES[name]
+    dtype = p.get("dtype", np.float32)
     solver, scales, gravity = batch_scene(name, jax_api())
     step = make_batched_step(solver, mesh=None, donate=False)
     b = make_scenario_batch(solver, len(scales), stiffness_scale=scales, gravity=gravity)
-    traj = {"steps": np.asarray(BATCH_STEPS)}
-    for k in range(1, max(BATCH_STEPS) + 1):
+    steps = batch_steps(name)
+    traj = {"steps": np.asarray(steps)}
+    states = {}
+    min_y = np.full(len(scales), np.inf)
+    for k in range(1, max(steps) + 1):
+        if p.get("onestep"):
+            states[k] = b
         b = step(b)
-        if k in BATCH_STEPS:
+        min_y = np.minimum(min_y, np.asarray(b.x, np.float64)[..., 1].min(axis=1))
+        if k in steps:
             traj[f"x{k}"] = np.asarray(b.x, dtype)
-    _save(name, scales=scales, gravity=gravity, overflow=np.asarray(b.overflow), **traj)
+            traj[f"ovf{k}"] = np.asarray(b.overflow)
+    # each held step after the first once more from the batch before it, with
+    # x one ulp up: how far the package parts from itself in one step
+    for k in (steps[1:] if p.get("onestep") else ()):
+        st = states[k]
+        traj.update({f"s{k}_{f}": np.asarray(getattr(st, f))
+                     for f in ("x", "v", "y", "prev_active", "overflow")})
+        xu = np.asarray(st.x)
+        ctl = step(dataclasses.replace(st, x=jnp.asarray(np.nextafter(xu, np.inf, dtype=xu.dtype))))
+        xk = traj[f"x{k}"].astype(np.float64)
+        traj[f"ctl{k}_gap"] = float(np.abs(np.asarray(ctl.x, np.float64) - xk).max()
+                                    / np.abs(xk).max())
+        print(f"{name} step {k} from the batch before with x one ulp up: "
+              f"{traj[f'ctl{k}_gap']:.3e} of max |x|")
+    _save(name, scales=scales, gravity=gravity, overflow=np.asarray(b.overflow), min_y=min_y,
+          **traj)
 
 
 def main(argv):

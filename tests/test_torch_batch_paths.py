@@ -3,9 +3,14 @@ the JAX package: crossval's batched_contact_alpcg (benchmarks/crossval.py:
 183-203, 4 scenes, AL-PCG on the floor) over 8 steps, float64 tight against
 the live JAX run and float32 at crossval's bounds; the batch goldens of the
 card's paths (chip_smoke.BATCH_SCENES: the beam sweep, crossval's scene in
-both precisions, the cloth sheet) at chip_smoke.BATCH_STEP_TOL, and a planted
-fault that the sheet's bound catches; _debloat_for_throughput's choice in both
-packages on the four golden meshes.
+both precisions, the cloth sheet; the exact slab of tests/test_parallel.py
+under AL-PCG to step 8) at chip_smoke.BATCH_STEP_TOL, each scene's overflow
+the golden's; the full-width Uzawa and exact-slab batches
+(chip_smoke.BATCH_WIDE) at step 1 and one step from the golden's stored batch
+before step 12; a planted fault that the sheet's bound catches;
+_debloat_for_throughput's choice in both packages on the four golden meshes.
+(crossval's batched scene under Uzawa is held to its goldens beside the live
+JAX run in tests/test_torch_batch_contact.py.)
 """
 
 import numpy as np
@@ -77,18 +82,47 @@ def test_crossval_batched_contact_alpcg_against_the_live_jax_run(dtype):
 
 
 @pytest.mark.parametrize("name", ["batch_beam_sweep8", "batched_contact_alpcg",
-                                  "batched_contact_alpcg_f64", "batch_cloth_sweep4"])
+                                  "batched_contact_alpcg_f64", "batch_cloth_sweep4",
+                                  "batch_exactmesh_alpcg"])
 def test_batch_golden(name):
     """The port's CPU batch against the golden the card's path is held to,
-    at the card's bounds (chip_smoke.BATCH_STEP_TOL)."""
+    at the card's bounds (chip_smoke.BATCH_STEP_TOL), up to step 8 (the card
+    holds batch_exactmesh_alpcg's step 30 too)."""
     g = chip_smoke.golden(name)
-    xs, batch = _port_rollout(name)
-    for k, bound in zip(chip_smoke.BATCH_STEPS, chip_smoke.BATCH_STEP_TOL[name]):
+    steps = [k for k in chip_smoke.batch_steps(name) if k <= max(chip_smoke.BATCH_STEPS)]
+    xs, batch = _port_rollout(name, steps)
+    for k, bound in zip(steps, chip_smoke.BATCH_STEP_TOL[name]):
         assert np.isfinite(xs[k]).all()
         err = _rel(xs[k], g[f"x{k}"].astype(np.float64))
         assert err <= bound, (k, err, bound)
     assert not bool(batch.overflow.any()) and not g["overflow"].any()
     np.testing.assert_array_equal(g["scales"], chip_smoke.BATCH_SCENES[name]["scales"])
+
+
+# The full-width batches on the CPU (one thread): step 1 from the start and one
+# step from the golden's batch before step 12, against the golden; measured
+# batch_floor_uzawa5k 1.8e-5 and 1.647e-3 (its one-ulp control 1.647e-3: the
+# landing is a discrete event), batch_slab_exact_alpcg5k 3.2e-6 and 2.5e-6.
+@pytest.mark.parametrize("name", chip_smoke.BATCH_WIDE)
+def test_wide_batch_golden_step_1_and_one_step_at_12(name):
+    g = chip_smoke.golden(name)
+    tol = dict(zip(chip_smoke.batch_steps(name), chip_smoke.BATCH_STEP_TOL[name]))
+    xs, batch = _port_rollout(name, (1,))
+    assert _rel(xs[1], g["x1"].astype(np.float64)) <= tol[1]
+    np.testing.assert_array_equal(batch.overflow.numpy(), g["ovf1"])
+    solver, scales, gravity = chip_smoke.batch_scene(name, chip_smoke.torch_api("cpu"))
+    step = tb.make_batched_step(solver, mesh=None, donate=False)
+    dtype = batch.x.dtype
+    start = tb.ScenarioBatch(
+        **{f: torch.as_tensor(g[f"s12_{f}"]) for f in ("x", "v", "y", "prev_active", "overflow")},
+        stiffness_scale=torch.as_tensor(scales, dtype=dtype),
+        gravity=torch.as_tensor(gravity, dtype=dtype))
+    out = step(start)
+    err = _rel(out.x.double().numpy(), g["x12"].astype(np.float64))
+    assert err <= tol[12], (err, float(g["ctl12_gap"]))
+    np.testing.assert_array_equal(out.overflow.numpy(), g["ovf12"])
+    if solver.m_settings.linsolver == 2:  # a Schur trip at least an ADMM iteration
+        assert (step.trips.numpy() >= solver.m_settings.admm_iters).all()
 
 
 def test_the_sheet_bound_catches_a_planted_fault():

@@ -1,5 +1,5 @@
-"""Scenario batching on a CUDA card: the scene forms of kernels A, C, E and
-G (parallel/batch.py). This file imports no JAX:
+"""Scenario batching on a CUDA card: the scene forms of kernels A, C, E, G,
+L, M and J (parallel/batch.py). This file imports no JAX:
 
     python -m pytest --noconftest -q tests/test_torch_cuda_batch.py
 
@@ -17,6 +17,15 @@ and the batch paths at full size, in its batch phase). On the card:
   (chip_smoke.batch_path): graph replays bitwise the eager loop, overflow
   clear, the beam's pins at their targets and its 8 scenes bitwise an 8-scene
   batch's;
+- L's, M's and J's scene forms and G's per-scene done on the Uzawa and
+  exact-slab batches (full width and crossval's size, past landing), each
+  bitwise its plain twin and, scene by scene, the single-scene kernel, and at
+  S = 1, 4, 64 and one scene more than the card holds blocks of the form at
+  once (chip_smoke.scene_size_checks: a team then takes two scenes);
+- the Uzawa and mesh-obstacle batch paths against their goldens (held steps,
+  one step from the golden's batch where the landing is chaotic, overflow
+  per scene), and the full-width scenes in a batch of 64 bitwise the same
+  scenes alone;
 - donate: the step writes into the donated batch; the refusals.
 """
 
@@ -102,3 +111,48 @@ def test_scene_forms_refuse_what_they_cannot_take(cuda_device):
                                   batch.stiffness_scale[:1])
     with pytest.raises(ValueError, match="f32|dtype|float"):
         step(chip_smoke.batch_setup(torch, "batch_cloth_sweep4", dtype=np.float64)[2])
+
+
+UZAWA_MESH_CASES = [
+    ("batch_floor_uzawa5k", "batch_floor_uzawa5k", None, chip_smoke.BATCH_WIDE_LANDED),
+    ("batch_slab_exact_alpcg5k", "batch_slab_exact_alpcg5k", None,
+     chip_smoke.BATCH_WIDE_LANDED),
+    ("batched_contact_uzawa", "batched_contact_uzawa", None, chip_smoke.BATCH_LANDED),
+    ("batch_exactmesh_alpcg", "batch_exactmesh_alpcg", None, 8),
+    ("batch_exactmesh_uzawa", "batch_exactmesh_uzawa", None, 5)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("label,name,n,steps", UZAWA_MESH_CASES)
+def test_uzawa_and_mesh_scene_forms_bitwise(cuda_device, label, name, n, steps, dtype):
+    res, timing = {}, {}
+    chip_smoke.batch_kernel_cases(torch, res, timing, label, name, n, dtype, steps)
+    assert all(r["bitwise_per_scene"] for r in res.values())
+    kinds = {k.partition("@")[0] for k in res}
+    p = chip_smoke.BATCH_SCENES[name]
+    uzawa = {"ct_apply_scenes", "schur_trip_scenes", "pcg_solve_scenes", "pcg_solve_scenes[done]"}
+    ls = (p["settings"]["linsolver"] if "settings" in p else
+          p.get("change", {}).get("linsolver", chip_smoke.CONTACT_SCENES[p["contact"]]["ls"]))
+    want = ((uzawa if ls == 2 else {"pcg_solve_penalty_scenes"})
+            | ({"mesh_detect_scenes"} if p["mesh"] == "exactmesh" or "obstacle" in
+               chip_smoke.CONTACT_SCENES.get(p.get("contact"), {}) else set()))
+    assert want <= kinds, kinds
+    if name in chip_smoke.BATCH_WIDE:
+        chip_smoke.scene_size_checks(torch, res, timing)
+        sizes = {k.rpartition("S=")[2] for k in res if "S=" in k}
+        assert {"1", "4", "64"} <= sizes
+
+
+@pytest.mark.parametrize("name", chip_smoke.BATCH_WIDE + (
+    "batched_contact_uzawa", "batched_contact_uzawa_f64", "batch_exactmesh_alpcg",
+    "batch_exactmesh_alpcg4", "batch_exactmesh_uzawa"))
+def test_uzawa_and_mesh_batch_paths(cuda_device, name):
+    _, step, out = chip_smoke.batch_path(torch, name, name)
+    assert out["graph_vs_eager_bitwise"]
+    assert out["launches"]
+
+
+@pytest.mark.parametrize("name", chip_smoke.BATCH_WIDE)
+def test_wide_scenes_in_a_batch_of_64_are_the_scenes_alone(cuda_device, name):
+    assert chip_smoke.batch_alone_bitwise(torch, name, 64, chip_smoke.BATCH_WIDE_LANDED)[
+        "bitwise"]
